@@ -1,0 +1,129 @@
+"""Ragged batch packing (copy of
+``deepspeed_tpu/inference/v2/ragged/ragged_wrapper.py``).
+
+Token ids and per-sequence metadata are packed into arrays padded to
+bucketed sizes and shipped to the device as ONE int32 transfer per forward
+(``RaggedBatch.packed``). Buckets bound the set of shapes the forward sees.
+Padding tokens carry ``seq_idx 0, pos 0, valid False``; padding sequence
+rows carry an all-zero block table.
+"""
+
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+
+
+def next_bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"{n} exceeds the largest bucket {buckets[-1]}")
+
+
+@dataclass
+class RaggedBatch:
+    """Finalized, padded batch: everything the device forward needs."""
+
+    token_ids: np.ndarray  # [T_pad] int32
+    token_seq_idx: np.ndarray  # [T_pad] int32, batch row of each token
+    token_pos: np.ndarray  # [T_pad] int32, absolute position in its sequence
+    token_valid: np.ndarray  # [T_pad] bool
+    block_tables: np.ndarray  # [S_pad, max_blocks] int32
+    last_token_idx: np.ndarray  # [S_pad] int32, flat index of each seq's last token
+    n_tokens: int
+    n_seqs: int
+
+    def packed(self) -> np.ndarray:
+        """All descriptor arrays as ONE int32 vector:
+        [T ids][T seq_idx][T pos][T valid][S*max_blocks tables][S last_idx]."""
+        return np.concatenate([
+            self.token_ids, self.token_seq_idx, self.token_pos,
+            self.token_valid.astype(np.int32), self.block_tables.reshape(-1),
+            self.last_token_idx,
+        ]).astype(np.int32)
+
+
+def unpack_descriptors(packed, t_bucket: int, s_bucket: int, max_blocks: int):
+    """Inverse of ``RaggedBatch.packed()`` (views of ``packed``). Returns
+    (token_ids, seq_idx, pos, valid, block_tables, last_idx)."""
+    T, S = t_bucket, s_bucket
+    token_ids = packed[0:T]
+    seq_idx = packed[T:2 * T]
+    pos = packed[2 * T:3 * T]
+    valid = packed[3 * T:4 * T] != 0
+    tables = packed[4 * T:4 * T + S * max_blocks].reshape(S, max_blocks)
+    last_idx = packed[4 * T + S * max_blocks:4 * T + S * max_blocks + S]
+    return token_ids, seq_idx, pos, valid, tables, last_idx
+
+
+class RaggedBatchWrapper:
+
+    def __init__(self, max_ragged_batch_size: int = 768, max_ragged_sequence_count: int = 128,
+                 max_blocks_per_seq: int = 32, block_size: int = 64,
+                 token_buckets=None, seq_buckets=None):
+        self.max_tokens = max_ragged_batch_size
+        self.max_seqs = max_ragged_sequence_count
+        self.max_blocks_per_seq = max_blocks_per_seq
+        self.block_size = block_size
+        self.token_buckets = token_buckets or _pow2_buckets(max_ragged_batch_size)
+        self.seq_buckets = seq_buckets or _pow2_buckets(max_ragged_sequence_count)
+        self.clear()
+
+    def clear(self):
+        self._tokens: List[np.ndarray] = []
+        self._descs = []
+
+    def insert_sequence(self, desc, tokens: np.ndarray) -> None:
+        """Queue ``tokens`` (1-D int array) of sequence ``desc`` for this forward."""
+        tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
+        if len(self._descs) >= self.max_seqs:
+            raise ValueError(f"batch already holds {self.max_seqs} sequences")
+        if self.current_tokens + tokens.size > self.max_tokens:
+            raise ValueError(f"token budget exceeded: {self.current_tokens}+{tokens.size} > {self.max_tokens}")
+        self._tokens.append(tokens)
+        self._descs.append(desc)
+
+    @property
+    def current_tokens(self) -> int:
+        return int(sum(t.size for t in self._tokens))
+
+    def finalize(self) -> RaggedBatch:
+        """Pack into bucket-padded arrays."""
+        n_seqs = len(self._descs)
+        n_tokens = self.current_tokens
+        if n_seqs == 0:
+            raise ValueError("empty ragged batch")
+        T = next_bucket(n_tokens, self.token_buckets)
+        S = next_bucket(n_seqs, self.seq_buckets)
+
+        token_ids = np.zeros(T, np.int32)
+        seq_idx = np.zeros(T, np.int32)
+        pos = np.zeros(T, np.int32)
+        valid = np.zeros(T, bool)
+        tables = np.zeros((S, self.max_blocks_per_seq), np.int32)
+        last_idx = np.zeros(S, np.int32)
+
+        cur = 0
+        for i, (desc, toks) in enumerate(zip(self._descs, self._tokens)):
+            n = toks.size
+            token_ids[cur:cur + n] = toks
+            seq_idx[cur:cur + n] = i
+            pos[cur:cur + n] = desc.seen_tokens + np.arange(n)
+            valid[cur:cur + n] = True
+            tables[i] = desc.block_table(self.max_blocks_per_seq)
+            last_idx[i] = cur + n - 1
+            cur += n
+
+        return RaggedBatch(token_ids=token_ids, token_seq_idx=seq_idx, token_pos=pos, token_valid=valid,
+                           block_tables=tables, last_token_idx=last_idx, n_tokens=n_tokens,
+                           n_seqs=n_seqs)
+
+
+def _pow2_buckets(max_n: int):
+    out, b = [], 8
+    while b < max_n:
+        out.append(b)
+        b *= 2
+    out.append(max_n)
+    return out

@@ -1,0 +1,323 @@
+"""Paged (blocked) attention over a flat KV pool: the serving data plane's
+attention, for PyTorch on an NVIDIA H100.
+
+Counterpart of ``deepspeed_tpu/ops/pallas/paged_attention.py``. Query token
+``t`` belongs to sequence ``seq_idx[t]`` at absolute position ``pos[t]`` and
+attends every cached position ``<= pos[t]`` of that sequence (and, with a
+``window``, only those in ``(pos[t] - window, pos[t]]``); the sequence's KV
+lives in the pool blocks its block-table row lists. Prefill chunks and
+decode steps of many sequences mix in one call.
+
+- :func:`paged_attention_reference` is the plain PyTorch version (a gather
+  of each sequence's context): the CPU path and the numerics oracle.
+- :func:`paged_decode` and :func:`paged_prefill` wrap the hand-written CUDA
+  kernels of ``csrc/paged_attention.cu``. On a CPU tensor they return the
+  plain version; on a CUDA tensor they launch their kernel or raise.
+- :func:`paged_attention` dispatches between them with the shape heuristics
+  of the TPU package (no kernel-config registry, no environment overrides).
+
+``launch_counts`` counts kernel launches per path; nothing else adds to it.
+"""
+
+import ctypes
+import math
+
+import torch
+
+from ._build import build_kernel
+
+MASK_VALUE = -1e30
+
+# launches of each kernel path since the last reset_launch_counts()
+launch_counts = {"paged_decode": 0, "paged_decode_split": 0, "paged_prefill": 0}
+
+_built = None
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def kernel_build():
+    """Build (first call) and return the kernel library: ``.lib`` is the
+    loaded handle, ``.seconds`` nvcc's wall time, ``.ptxas`` its report."""
+    global _built
+    if _built is None:
+        built = build_kernel("paged_attention")
+        lib = built.lib
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ds_paged_decode.argtypes = [vp] * 5 + [ll] + [vp] * 8 + [i] * 9 + [vp]
+        lib.ds_paged_decode.restype = i
+        lib.ds_paged_prefill.argtypes = [vp] * 5 + [ll] + [vp] * 9 + [i] * 10 + [vp]
+        lib.ds_paged_prefill.restype = i
+        lib.ds_cuda_error_string.argtypes = [i]
+        lib.ds_cuda_error_string.restype = ctypes.c_char_p
+        lib.ds_paged_smem_bytes.argtypes = [i, i, i]
+        lib.ds_paged_smem_bytes.restype = ll
+        _built = built
+    return _built
+
+
+# ---------------------------------------------------------------------------
+# dispatch heuristics (deepspeed_tpu/ops/pallas/paged_attention.py:43-125,
+# defaults only)
+# ---------------------------------------------------------------------------
+
+def resolve_q_tile(T: int, S: int) -> int:
+    """Tile only batches with real multi-token chunks: a pure-decode batch
+    has one token per sequence, where a tile buys no KV amortisation."""
+    return 8 if (T >= 64 and T >= 2 * max(S, 1)) else 1
+
+
+def resolve_kv_splits(T: int, S: int, max_blocks: int, q_tile: int = 1) -> int:
+    """Split-K only decode-shaped batches (per-token grid, T <= 2S) whose
+    tables hold at least 8 blocks."""
+    if q_tile > 1 or max_blocks < 8 or T > 2 * max(S, 1):
+        return 1
+    return max(1, min(min(8, max(1, max_blocks // 4)), max_blocks))
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int, window=None,
+                    alibi=None, k_scale=None, v_scale=None):
+    """q: [T, nq, d]; k_pool/v_pool: [pool_len, nkv, d] (may include a
+    trailing scratch slot that no table references); block_tables:
+    [S, max_blocks] int32; seq_idx/pos: [T] int32. ``k_scale``/``v_scale``
+    [nkv, >= pool_len] fp32 select int8 pools. Same-sequence tokens must be
+    contiguous (the ragged batch layout): a prefill-shaped batch takes the
+    q-tiled kernel. Returns [T, nq, d] in q's dtype."""
+    T = q.shape[0]
+    S, max_blocks = block_tables.shape
+    q_tile = resolve_q_tile(T, S)
+    if q_tile > 1:
+        return paged_prefill(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size,
+                             window=window, alibi=alibi, k_scale=k_scale, v_scale=v_scale,
+                             q_tile=q_tile)
+    return paged_decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, window=window,
+                        alibi=alibi, k_scale=k_scale, v_scale=v_scale,
+                        kv_splits=resolve_kv_splits(T, S, max_blocks))
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def paged_attention_reference(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int,
+                              window=None, alibi=None, k_scale=None, v_scale=None):
+    """Gather-based plain version of ``paged_attention`` (the TPU package's
+    ``paged_attention_reference``, :202-244): fp32 scores, masked entries at
+    -1e30, softmax over each sequence's whole table capacity."""
+    T, nq, d = q.shape
+    nkv = k_pool.shape[1]
+    g = nq // nkv
+    S, max_blocks = block_tables.shape
+    C = max_blocks * block_size
+    dev = q.device
+    block_tables = block_tables.long()
+    seq_idx = seq_idx.long()
+    pos = pos.long()
+    ctx_slots = (block_tables[:, :, None] * block_size
+                 + torch.arange(block_size, device=dev)[None, None, :]).reshape(S, C)
+    ctxk = k_pool[ctx_slots].float()  # [S, C, nkv, d]
+    ctxv = v_pool[ctx_slots].float()
+    if k_scale is not None:
+        ctxk = ctxk * k_scale.t()[ctx_slots][..., None]
+        ctxv = ctxv * v_scale.t()[ctx_slots][..., None]
+    qr = (q.float() / math.sqrt(d)).reshape(T, nkv, g, d)
+    s = torch.einsum("tngd,tcnd->tngc", qr, ctxk[seq_idx])
+    cpos = torch.arange(C, device=dev)
+    if alibi is not None:
+        rel = cpos[None, :].float() - pos[:, None].float()
+        slopes = torch.as_tensor(alibi, dtype=torch.float32, device=dev).reshape(nkv, g)
+        s = s + slopes[None, :, :, None] * rel[:, None, None, :]
+    vis = cpos[None, :] <= pos[:, None]
+    if window is not None:
+        vis = vis & (pos[:, None] - cpos[None, :] < int(window))
+    s = torch.where(vis[:, None, None, :], s, torch.full_like(s, MASK_VALUE))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("tngc,tcnd->tngd", p, ctxv[seq_idx])
+    return out.reshape(T, nq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# prefill tiles
+# ---------------------------------------------------------------------------
+
+def prefill_tiles(seq_idx, pos, q_tile: int, n_seqs: int):
+    """Tile descriptors of the q-tiled prefill: each run of contiguous
+    same-sequence tokens is cut into tiles of at most ``q_tile`` tokens, so a
+    tile never crosses a sequence. Torch ops on ``seq_idx``'s device (no
+    host sync). ``n_tiles`` is the static bound ceil(T/q_tile) + n_seqs + 1
+    (the TPU kernel's): interior cuts, one ragged tail per run and the pad
+    run. Returns int32 ``(tile_start, tile_len, tile_seq, tile_max,
+    tile_min)`` of length n_tiles; unused tiles have length 0."""
+    T = seq_idx.shape[0]
+    dev = seq_idx.device
+    n_tiles = -(-T // q_tile) + n_seqs + 1
+    seq_idx = seq_idx.to(torch.int32)
+    pos = pos.to(torch.int32)
+    tok = torch.arange(T, dtype=torch.int64, device=dev)
+    newrun = torch.ones(T, dtype=torch.bool, device=dev)
+    newrun[1:] = seq_idx[1:] != seq_idx[:-1]
+    run_start = torch.cummax(torch.where(newrun, tok, torch.zeros_like(tok)), dim=0).values
+    within = tok - run_start
+    tile_id = torch.cumsum((within % q_tile == 0).to(torch.int64), dim=0) - 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    tile_len = torch.zeros(n_tiles, **i32).index_add_(0, tile_id, torch.ones(T, **i32))
+    tile_start = torch.zeros(n_tiles, **i32).scatter_reduce_(
+        0, tile_id, tok.to(torch.int32), reduce="amin", include_self=False)
+    tile_seq = torch.zeros(n_tiles, **i32).scatter_reduce_(
+        0, tile_id, seq_idx, reduce="amax", include_self=False)
+    tile_max = torch.full((n_tiles, ), -1, **i32).scatter_reduce_(
+        0, tile_id, pos, reduce="amax", include_self=True)
+    tile_min = torch.full((n_tiles, ), 2**30, **i32).scatter_reduce_(
+        0, tile_id, pos, reduce="amin", include_self=True)
+    return tile_start, tile_len, tile_seq, tile_max, tile_min
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_common(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, k_scale, v_scale,
+                  alibi):
+    if q.dtype != torch.bfloat16 or q.dim() != 3 or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous [T, nq, d] bfloat16 tensor, got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    T, nq, d = q.shape
+    if d not in (64, 128):
+        raise ValueError(f"head_dim {d} unsupported: the kernels are built for 64 and 128")
+    if k_pool.dim() != 3 or k_pool.shape != v_pool.shape or k_pool.shape[2] != d:
+        raise ValueError(f"pools must be [pool_len, nkv, {d}], got {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)}")
+    nkv = k_pool.shape[1]
+    if nq % nkv:
+        raise ValueError(f"nq={nq} is not a multiple of nkv={nkv}")
+    if k_pool.dtype != v_pool.dtype or k_pool.dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError(f"pools must both be bfloat16 or int8, got {k_pool.dtype}/{v_pool.dtype}")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("pools must be contiguous")
+    quant = k_pool.dtype == torch.int8
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 pools need k_scale and v_scale; bfloat16 pools take none")
+    if not 1 <= block_size <= 128:
+        raise ValueError(f"block_size {block_size} unsupported (1..128)")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool), ("q", q)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must lie on q's CUDA device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if quant:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if (sc.dtype != torch.float32 or sc.dim() != 2 or sc.shape[0] != nkv
+                    or sc.stride(1) != 1 or sc.shape[1] < k_pool.shape[0]
+                    or sc.device != q.device):
+                raise ValueError(f"{name} must be fp32 [nkv, >= pool_len] with unit lane "
+                                 f"stride on q's device, got {sc.dtype} {tuple(sc.shape)}")
+        if k_scale.stride(0) != v_scale.stride(0):
+            raise ValueError("k_scale and v_scale must share one row stride")
+    if block_tables.dim() != 2 or seq_idx.shape != (T, ) or pos.shape != (T, ):
+        raise ValueError("block_tables must be [S, max_blocks], seq_idx and pos [T]")
+    for name, t in (("block_tables", block_tables), ("seq_idx", seq_idx), ("pos", pos)):
+        if t.device != q.device:
+            raise ValueError(f"{name} must lie on q's CUDA device, got {t.device}")
+    if alibi is not None:
+        if not torch.is_tensor(alibi):
+            alibi = torch.as_tensor(alibi, dtype=torch.float32)
+        alibi = alibi.to(device=q.device, dtype=torch.float32).contiguous()
+        if alibi.shape != (nq, ):
+            raise ValueError(f"alibi slopes must be [nq={nq}], got {tuple(alibi.shape)}")
+    return T, nq, d, nkv, quant, alibi
+
+
+def _i32(t):
+    return t.to(torch.int32).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_if(rc: int, name: str) -> None:
+    if rc:
+        msg = kernel_build().lib.ds_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
+
+
+def _window(window) -> int:
+    return 0 if window is None else int(window)
+
+
+def paged_decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int, window=None,
+                 alibi=None, k_scale=None, v_scale=None, kv_splits: int = 1):
+    """Per-token paged attention (one CTA per token, kv head and KV split).
+    ``kv_splits > 1`` is the flash-decode split: fp32 partials per split,
+    merged here with the log-sum-exp combine. CPU tensors take the plain
+    version."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, block_tables, seq_idx, pos,
+                                         block_size, window=window, alibi=alibi,
+                                         k_scale=k_scale, v_scale=v_scale)
+    T, nq, d, nkv, quant, alibi = _check_common(q, k_pool, v_pool, block_tables, seq_idx, pos,
+                                                block_size, k_scale, v_scale, alibi)
+    S, max_blocks = block_tables.shape
+    kv_splits = max(1, min(int(kv_splits), max_blocks))
+    if nq // nkv > 8:
+        raise ValueError(f"paged_decode supports up to 8 query heads per kv head, got {nq // nkv}")
+    tables, seq_idx, pos = _i32(block_tables), _i32(seq_idx), _i32(pos)
+    lib = kernel_build().lib
+    out = torch.empty_like(q)
+    acc = m = l = None
+    if kv_splits > 1:
+        acc = torch.empty((kv_splits, T, nq, d), dtype=torch.float32, device=q.device)
+        m = torch.empty((kv_splits, T, nq), dtype=torch.float32, device=q.device)
+        l = torch.empty((kv_splits, T, nq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.ds_paged_decode(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        k_scale.stride(0) if quant else 0, tables.data_ptr(), seq_idx.data_ptr(), pos.data_ptr(),
+        _ptr(alibi), out.data_ptr(), _ptr(acc), _ptr(m), _ptr(l), T, nq, nkv, d, block_size,
+        max_blocks, _window(window), kv_splits, int(quant), stream)
+    _raise_if(rc, "paged_decode")
+    if kv_splits == 1:
+        launch_counts["paged_decode"] += 1
+        return out
+    launch_counts["paged_decode_split"] += 1
+    # log-sum-exp merge over splits (the TPU kernel's :700-703)
+    m_star = m.amax(dim=0, keepdim=True)
+    w = torch.exp(m - m_star)  # dead splits: exp(-1e30 - m*) == 0
+    num = (acc * w[..., None]).sum(dim=0)
+    den = (l * w).sum(dim=0).clamp_min(1e-30)
+    return (num / den[..., None]).to(q.dtype)
+
+
+def paged_prefill(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int, window=None,
+                  alibi=None, k_scale=None, v_scale=None, q_tile: int = 8):
+    """Q-tiled paged attention: one CTA per (tile of up to ``q_tile``
+    contiguous same-sequence tokens, kv head), so each KV block is read once
+    per tile. Reads q and writes the output in token order. CPU tensors
+    take the plain version."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, block_tables, seq_idx, pos,
+                                         block_size, window=window, alibi=alibi,
+                                         k_scale=k_scale, v_scale=v_scale)
+    T, nq, d, nkv, quant, alibi = _check_common(q, k_pool, v_pool, block_tables, seq_idx, pos,
+                                                block_size, k_scale, v_scale, alibi)
+    S, max_blocks = block_tables.shape
+    q_tile = int(q_tile)
+    if q_tile < 1 or q_tile * (nq // nkv) > 64:
+        raise ValueError(f"paged_prefill needs 1 <= q_tile * (nq/nkv) <= 64, got q_tile={q_tile} "
+                         f"with {nq // nkv} query heads per kv head")
+    tiles = prefill_tiles(seq_idx, pos, q_tile, S)
+    tables, pos = _i32(block_tables), _i32(pos)
+    lib = kernel_build().lib
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.ds_paged_prefill(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        k_scale.stride(0) if quant else 0, tables.data_ptr(), pos.data_ptr(),
+        *[t.data_ptr() for t in tiles], _ptr(alibi), out.data_ptr(), tiles[0].shape[0], T, nq,
+        nkv, d, block_size, max_blocks, _window(window), q_tile, int(quant), stream)
+    _raise_if(rc, "paged_prefill")
+    launch_counts["paged_prefill"] += 1
+    return out

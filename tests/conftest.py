@@ -30,6 +30,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running; excluded from tier-1 (-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the PyTorch port's kernels); skips without one")
 
 
 def pytest_addoption(parser):

@@ -1,0 +1,212 @@
+"""PyTorch port: paged attention.
+
+The port's plain version (``deepspeed_tpu_torch.ops.paged_attention``) is
+held against the JAX package's gather oracle and its Pallas kernels run in
+interpret mode (per-token, q-tiled and KV-split grids) on the same inputs,
+made from a seed with numpy, in fp32 at rtol 2e-4 / atol 2e-5 (the JAX
+package's own tolerance for these kernels). The prefill tile descriptors,
+the dispatch heuristics and the CPU behaviour of the kernel wrappers are
+checked here; the CUDA kernels themselves only run on a card (``gpu``
+marker), where ``chip_smoke.py`` also holds them against the plain version.
+"""
+
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.autotuning.kernel_config import set_kernel_config_path
+from deepspeed_tpu.models.transformer import alibi_slopes as jax_alibi_slopes
+from deepspeed_tpu.ops.pallas import paged_attention as jpa
+from deepspeed_tpu_torch.models.transformer import alibi_slopes
+from deepspeed_tpu_torch.ops import paged_attention as tpa
+
+RTOL, ATOL = 2e-4, 2e-5
+CASES = ["plain", "int8", "alibi", "window", "window_alibi", "int8_window", "gqa"]
+
+
+@pytest.fixture(autouse=True)
+def _fresh_registry():
+    set_kernel_config_path(None)
+    yield
+    set_kernel_config_path(None)
+
+
+def _setup(case, batch, d=32, bs=16, n_seqs=3, blocks_per_seq=4):
+    rng = np.random.default_rng(zlib.crc32(f"{case}/{batch}".encode()))
+    nkv, g = (2, 4) if case == "gqa" else (2, 2)
+    nq = nkv * g
+    pool = bs * blocks_per_seq * n_seqs
+    kf = rng.normal(size=(pool, nkv, d)).astype(np.float32)
+    vf = rng.normal(size=(pool, nkv, d)).astype(np.float32)
+    tables = rng.permutation(n_seqs * blocks_per_seq).astype(np.int32).reshape(n_seqs,
+                                                                               blocks_per_seq)
+    kw = {}
+    if case.startswith("int8"):
+        ks = np.ascontiguousarray((np.abs(kf).max(axis=2) / 127.0).T, np.float32)  # [nkv, pool]
+        vs = np.ascontiguousarray((np.abs(vf).max(axis=2) / 127.0).T, np.float32)
+        kf = np.round(kf / ks.T[:, :, None]).clip(-127, 127).astype(np.int8)
+        vf = np.round(vf / vs.T[:, :, None]).clip(-127, 127).astype(np.int8)
+        kw = dict(k_scale=ks, v_scale=vs)
+    if "alibi" in case:
+        kw["alibi"] = alibi_slopes(nq)
+    if "window" in case:
+        kw["window"] = 17
+    if batch == "mixed":
+        # a 13-token prefill chunk, a 6-token chunk mid-context, one decode
+        # token, then the pad run (seq 0, pos 0) that ragged batches carry
+        seq_idx = np.asarray([0] * 13 + [1] * 6 + [2] + [0] * 4, np.int32)
+        pos = np.asarray(list(range(20, 33)) + list(range(bs, bs + 6)) + [3 * bs + 5] + [0] * 4,
+                         np.int32)
+    else:
+        # decode: one token per sequence at varied depths, plus the pad run
+        seq_idx = np.asarray([0, 1, 2, 0, 0], np.int32)
+        pos = np.asarray([blocks_per_seq * bs - 1, bs + 3, 2 * bs + 7, 0, 0], np.int32)
+    q = rng.normal(size=(seq_idx.size, nq, d)).astype(np.float32)
+    return dict(q=q, k=kf, v=vf, tables=tables, seq_idx=seq_idx, pos=pos, bs=bs, kw=kw)
+
+
+def _torch_ref(s):
+    kw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in s["kw"].items()}
+    out = tpa.paged_attention_reference(
+        torch.from_numpy(s["q"]), torch.from_numpy(s["k"]), torch.from_numpy(s["v"]),
+        torch.from_numpy(s["tables"]), torch.from_numpy(s["seq_idx"]), torch.from_numpy(s["pos"]),
+        s["bs"], **kw)
+    return out.numpy()
+
+
+def _jax_kw(s, pallas=False):
+    kw = {}
+    for k, v in s["kw"].items():
+        if k == "alibi":
+            kw[k] = tuple(np.asarray(jax_alibi_slopes(len(v))).tolist()) if pallas else v
+        elif k == "window":
+            kw[k] = v
+        else:
+            kw[k] = jnp.asarray(v)
+    return kw
+
+
+@pytest.mark.parametrize("batch", ["mixed", "decode"])
+@pytest.mark.parametrize("case", CASES)
+def test_reference_matches_jax_oracle_and_pallas_grids(case, batch):
+    """One input set, four JAX answers (gather oracle; per-token, q-tiled
+    and KV-split Pallas grids in interpret mode) and the port's plain
+    version: all agree."""
+    s = _setup(case, batch)
+    ours = _torch_ref(s)
+    args = (jnp.asarray(s["q"]), jnp.asarray(s["k"]), jnp.asarray(s["v"]), jnp.asarray(s["tables"]),
+            jnp.asarray(s["seq_idx"]), jnp.asarray(s["pos"]))
+    ref = jpa.paged_attention_reference(*args, s["bs"], **_jax_kw(s))
+    np.testing.assert_allclose(ours, np.asarray(ref), rtol=RTOL, atol=ATOL)
+    for q_tile, kv_splits in ((1, 1), (4, 1), (1, 4)):
+        out = jpa._pallas_paged(*args, block_size=s["bs"], interpret=True, q_tile=q_tile,
+                                kv_splits=kv_splits, **_jax_kw(s, pallas=True))
+        np.testing.assert_allclose(ours, np.asarray(out), rtol=RTOL, atol=ATOL,
+                                   err_msg=f"q_tile={q_tile} kv_splits={kv_splits}")
+
+
+@pytest.mark.parametrize("case", ["plain", "int8_window"])
+def test_wrappers_take_the_plain_version_on_cpu(case):
+    """On CPU tensors every wrapper (and the dispatch) returns the plain
+    version and launches nothing."""
+    s = _setup(case, "mixed")
+    ours = _torch_ref(s)
+    kw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in s["kw"].items()}
+    args = (torch.from_numpy(s["q"]), torch.from_numpy(s["k"]), torch.from_numpy(s["v"]),
+            torch.from_numpy(s["tables"]), torch.from_numpy(s["seq_idx"]),
+            torch.from_numpy(s["pos"]), s["bs"])
+    tpa.reset_launch_counts()
+    outs = [tpa.paged_decode(*args, kv_splits=1, **kw), tpa.paged_decode(*args, kv_splits=4, **kw),
+            tpa.paged_prefill(*args, q_tile=4, **kw), tpa.paged_attention(*args, **kw)]
+    for out in outs:
+        np.testing.assert_array_equal(out.numpy(), ours)
+    assert all(v == 0 for v in tpa.launch_counts.values())
+
+
+def _random_runs(rng, n_seqs, T):
+    """A ragged batch layout: contiguous runs of sequence rows (each row at
+    most once), then the pad run of seq 0."""
+    lens = rng.integers(1, 40, size=n_seqs)
+    seq_idx, pos = [], []
+    for s, n in enumerate(lens):
+        start = int(rng.integers(0, 100))
+        seq_idx += [s] * int(n)
+        pos += list(range(start, start + int(n)))
+    pad = T - len(seq_idx)
+    return (np.asarray(seq_idx + [0] * pad, np.int32), np.asarray(pos + [0] * pad, np.int32))
+
+
+@pytest.mark.parametrize("q_tile", [1, 4, 8])
+def test_prefill_tiles_never_cross_a_sequence(q_tile):
+    """Every token lands in exactly one tile; a tile holds at most q_tile
+    consecutive tokens of one run (so of one sequence); the tile's seq and
+    position bounds are its tokens'."""
+    rng = np.random.default_rng(q_tile)
+    for trial in range(20):
+        n_seqs = int(rng.integers(1, 6))
+        seq_idx, pos = _random_runs(rng, n_seqs, T=n_seqs * 40 + int(rng.integers(0, 9)))
+        start, length, seq, tmax, tmin = (t.numpy() for t in tpa.prefill_tiles(
+            torch.from_numpy(seq_idx), torch.from_numpy(pos), q_tile, n_seqs))
+        assert start.shape[0] == -(-seq_idx.size // q_tile) + n_seqs + 1
+        covered = np.zeros(seq_idx.size, int)
+        for i in np.nonzero(length)[0]:
+            toks = np.arange(start[i], start[i] + length[i])
+            assert length[i] <= q_tile
+            assert (seq_idx[toks] == seq[i]).all(), f"tile {i} crosses a sequence"
+            assert tmax[i] == pos[toks].max() and tmin[i] == pos[toks].min()
+            if toks[0] > 0:  # a tile starts at a run start or q_tile past the previous tile
+                assert seq_idx[toks[0] - 1] != seq[i] or length[i - 1] == q_tile
+            covered[toks] += 1
+        assert (covered == 1).all()
+
+
+def test_dispatch_heuristics_match_jax_defaults():
+    for T in (1, 8, 32, 63, 64, 128, 512, 768):
+        for S in (1, 4, 8, 32, 64):
+            assert tpa.resolve_q_tile(T, S) == jpa._resolve_q_tile(T, S), (T, S)
+            for mb in (1, 4, 7, 8, 16, 32, 64):
+                for qt in (1, 8):
+                    assert (tpa.resolve_kv_splits(T, S, mb, qt)
+                            == jpa._resolve_kv_splits(T, S, mb, q_tile=qt)), (T, S, mb, qt)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_version_on_card():
+    """On the card: each kernel path against the plain version, bf16 and
+    int8 pools, at head_dim 64 and 128. Tolerance, per element: 2 bf16 ulps
+    at |plain| plus 2^-14. Both compute in fp32 throughout and round once to
+    bf16, so their fp32 results differ only by summation order (~1e-6 of the
+    terms' size) and round to bf16 numbers at most one ulp apart, two across
+    a power of two; the floor covers near-zero outputs whose ulp is smaller
+    than the summation-order difference."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for case in CASES:
+        for d in (64, 128):
+            s = _setup(case, "mixed", d=d)
+            kw = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
+                  for k, v in s["kw"].items()}
+            q = torch.from_numpy(s["q"]).to(dev, torch.bfloat16)
+            if case.startswith("int8"):
+                k, v = torch.from_numpy(s["k"]).to(dev), torch.from_numpy(s["v"]).to(dev)
+            else:
+                k = torch.from_numpy(s["k"]).to(dev, torch.bfloat16)
+                v = torch.from_numpy(s["v"]).to(dev, torch.bfloat16)
+            args = (q, k, v, torch.from_numpy(s["tables"]).to(dev),
+                    torch.from_numpy(s["seq_idx"]).to(dev), torch.from_numpy(s["pos"]).to(dev),
+                    s["bs"])
+            ref = tpa.paged_attention_reference(*args, **kw).float()
+            for out in (tpa.paged_decode(*args, kv_splits=1, **kw),
+                        tpa.paged_decode(*args, kv_splits=3, **kw),
+                        tpa.paged_prefill(*args, q_tile=4, **kw)):
+                torch.cuda.synchronize()
+                err = (out.float() - ref).abs()
+                ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
+                assert bool((err <= 2 * ulp + 2.0**-14).all()), (case, d, err.max().item())
+    # descriptors left on the host would hand the kernel host pointers
+    with pytest.raises(ValueError, match="block_tables"):
+        tpa.paged_decode(args[0], args[1], args[2], args[3].cpu(), *args[4:], **kw)
