@@ -1,44 +1,80 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases build,kernels,train_kernels,e2e,train]
 
-Phases, each of which must pass (exit code 1 otherwise):
+With no arguments every phase runs, in this order; each must pass (exit
+code 1 otherwise):
 
-1. build: compile the hand-written CUDA kernels of
-   ``deepspeed_tpu_torch/ops/csrc`` with nvcc for sm_90a, print nvcc's wall
-   time and the ``-Xptxas -v`` registers / shared memory / spills per kernel.
-2. kernels: hold every kernel path (``paged_decode`` with kv_splits 1 and 8,
-   ``paged_prefill``) against the plain PyTorch version on the card, bf16
-   and int8 pools, GQA 32/8, head_dim 128, block 64, plus window / ALiBi /
-   head_dim 64 cases at small sizes. Tolerance, per output element:
-   |kernel - plain| <= 2 ulp(plain) + 2^-14, with ulp the spacing of
-   bfloat16 numbers at |plain|. Both compute in fp32 throughout (the kernel
-   on CUDA cores, the plain version in fp32 einsums; no bf16 intermediate)
-   and round once to bf16 at the end, so their fp32 results differ only by
-   summation order, about 1e-6 of the terms' size. Values that close round
-   to bf16 numbers at most one ulp apart (two where a power of two lies
-   between them); the 2^-14 floor covers the summation-order difference
-   where an output is near zero and its ulp is smaller than that. At the
-   main path's shapes (decode of 32 sequences x 1024 context, a 512-token
-   prefill chunk) time the kernel (CUDA events over many warmed launches),
-   the plain version, and ``F.scaled_dot_product_attention`` on the same
-   context pre-gathered contiguous (a yardstick only: it excludes the
-   gather), beside the least time the card could take (bytes / 3.35 TB/s or
-   FLOPs / 989 TFLOP/s, whichever is larger).
-3. e2e: Mistral-7B at full width and depth (32 layers), random weights from
+1. build: compile the three hand-written CUDA sources of
+   ``deepspeed_tpu_torch/ops/csrc`` with nvcc for sm_90a, one nvcc per
+   source, all started together; print each nvcc's wall time and the
+   ``-Xptxas -v`` registers / shared memory / spills per kernel.
+2. kernels: hold every paged-attention path (``paged_decode`` with
+   kv_splits 1 and 8, ``paged_prefill``) against the plain PyTorch version
+   on the card, bf16 and int8 pools, GQA 32/8, head_dim 128, block 64, plus
+   window / ALiBi / head_dim 64 cases at small sizes. Tolerance, per output
+   element: |kernel - plain| <= 2 ulp(plain) + 2^-14, with ulp the spacing
+   of bfloat16 numbers at |plain|. Both compute in fp32 throughout (the
+   kernel on CUDA cores, the plain version in fp32 einsums; no bf16
+   intermediate) and round once to bf16 at the end, so their fp32 results
+   differ only by summation order, about 1e-6 of the terms' size. Values
+   that close round to bf16 numbers at most one ulp apart (two where a
+   power of two lies between them); the 2^-14 floor covers the
+   summation-order difference where an output is near zero and its ulp is
+   smaller than that. At the main path's shapes (decode of 32 sequences x
+   1024 context, a 512-token prefill chunk) time the kernel (CUDA events
+   over many warmed launches), the plain version, and
+   ``F.scaled_dot_product_attention`` on the same context pre-gathered
+   contiguous (a yardstick only: it excludes the gather), beside the least
+   time the card could take (bytes / 3.35 TB/s or FLOPs / 989 TFLOP/s,
+   whichever is larger).
+3. train_kernels: hold the training kernels against their plain versions.
+   Flash attention (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) on
+   a small matrix (S 1 / 100 / 128 / 257, head_dim 64 / 128, GQA groups 1
+   and 4, causal and not, window 48, ALiBi with power-of-two and other head
+   counts, bf16 and a few float16 cases) and at the training shapes (B 1, S 4096, 32/8 heads, d 128,
+   bf16, causal, window 4096): out, lse, dq, dk, dv. The backward kernels
+   and their plain version take the same inputs (the kernel forward's out
+   and lse). Tolerance per element: bf16 outputs 2 ulp(plain) + max(2^-14,
+   2^-12 * rms(plain)), the floor scaled to the tensor's size because a
+   gradient element is a long sum (up to 4 x 4096 terms) that may cancel
+   to far below its terms, where the fp32 summation order alone moves it
+   by ~1e-6 of the terms (2^-12 leaves a wide margin); lse (fp32, never
+   rounded) 2^-14 * (1 + |plain|). Fused AdamW (``fused_adam``) on 2.58e8
+   fp32 elements over leaves of odd sizes (one at an unaligned address),
+   gate 1 within 1e-6 * |plain| (both do the same IEEE-rounded fp32
+   operations in the same order, so they should agree exactly) and gate 0
+   bit-identical to the input. Times (CUDA events) against the bound, the
+   plain version and a library call: ``F.scaled_dot_product_attention``
+   forward, and its autograd backward for the two backward kernels
+   together; ``torch.optim.AdamW(fused=True)`` on the same tensors.
+4. e2e: Mistral-7B at full width and depth (32 layers), random weights from
    a seeded generator, served through ``DynamicSplitFuseScheduler`` over
    ``InferenceEngineV2``: requests chosen so that every kernel path runs,
    with launch counts reset just before and read just after; then one
    prefill's last-token logits through the kernels against the same
    forward through ``dense_blocked_attention`` (relative L2 error).
+5. train: the serving engine is freed first. Mistral-7B at full width with
+   its depth cut 32 -> 8 for memory, fp32 masters from a seeded generator,
+   trained through ``deepspeed_tpu_torch.initialize`` -> ``train_batch``
+   (bf16 compute, AdamW through the fused kernel, clipping 1.0, WarmupLR,
+   2 microbatches of 1 x 4096 tokens): one warm step, then 4 timed steps
+   with the training kernels' launch counts reset just before and read just
+   after; losses finite and falling, step time, tokens/s, peak memory, a
+   profiled step (device busy vs wall, top device ops), the fused AdamW
+   timed at the full parameter set; then one forward and backward at seq
+   1024 through the kernels against the same through the plain attention
+   on the same weights (loss and whole-gradient relative L2 error).
 
 It prints the card (name and power limit) and, on the line before the last,
 ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It exits non-zero, printing no result, without a CUDA card or without the
-rest of the repository beside it.
+rest of the repository beside it. ``--phases`` runs a subset and prints
+no result lines.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -51,6 +87,7 @@ sys.path.insert(0, HERE)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12  # fp32 peak outside the tensor cores, NVIDIA data sheet
 TOL_ULPS, TOL_FLOOR = 2, 2.0**-14
 LOGITS_REL_L2_TOL = 5e-2
 SOURCE = "deepspeed_tpu_torch/ops/csrc/paged_attention.cu"
@@ -60,6 +97,32 @@ KERNELS = {  # name -> (TPU kernel it replaces)
     "paged_decode_split": f"{TPU_SRC}:550",
     "paged_prefill": f"{TPU_SRC}:394",
 }
+FLASH_SRC = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
+TPU_FLASH = "deepspeed_tpu/ops/pallas/flash_attention.py"
+TRAIN_KERNELS = {  # name -> (source, TPU kernel it replaces)
+    "flash_fwd": (FLASH_SRC, f"{TPU_FLASH}:237"),
+    "flash_bwd_dkdv": (FLASH_SRC, f"{TPU_FLASH}:414"),
+    "flash_bwd_dq": (FLASH_SRC, f"{TPU_FLASH}:483"),
+    "fused_adam": ("deepspeed_tpu_torch/ops/csrc/fused_adam.cu",
+                   "deepspeed_tpu/ops/pallas/fused_adam.py:47"),
+}
+GRAD_FLOOR_RMS = 2.0**-12  # flash tolerance floor, as a fraction of rms(plain)
+ADAM_RTOL = 1e-6
+# the training phase (Mistral-7B width, depth cut for memory)
+TRAIN_LAYERS, TRAIN_SEQ, CHECK_SEQ, TIMED_STEPS = 8, 4096, 1024, 4
+TRAIN_DS_CONFIG = {
+    "train_batch_size": 2, "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+    # WarmupLR's warmup_max_lr defaults to 1e-3 and would override the
+    # optimizer's lr; named here so the schedule warms up to 1e-4
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_num_steps": 2, "warmup_max_lr": 1e-4}},
+    "gradient_clipping": 1.0, "bf16": {"enabled": True}, "zero_optimization": {"stage": 0},
+    "tpu": {"pallas_fused_adam": "always"}, "steps_per_print": 1000,
+}
+# kernels vs plain attention on the same weights at seq 1024: the two
+# attention outputs differ in the last bf16 bit, and later bf16 roundings
+# through 8 layers (forward and backward) amplify that
+LOSS_REL_TOL, GRAD_REL_L2_TOL = 2e-3, 5e-2
 
 
 def log(msg):
@@ -82,8 +145,8 @@ def time_ms(fn, iters=50, warmup=5):
     return e0.elapsed_time(e1) / iters
 
 
-def bound_ms(n_bytes, flops):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+def bound_ms(n_bytes, flops, peak_flops=BF16_FLOPS_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -91,26 +154,40 @@ def bound_ms(n_bytes, flops):
 # phase 1: build
 # ---------------------------------------------------------------------------
 
-def phase_build():
-    from deepspeed_tpu_torch.ops import paged_attention as pa
-
-    t0 = time.perf_counter()
-    built = pa.kernel_build()
-    log(f"[build] kernels ready in {time.perf_counter() - t0:.2f}s")
-    log(f"[build] paged_attention: nvcc {built.seconds:.2f}s -> "
-        f"{os.path.relpath(built.path, HERE)}")
+def _log_ptxas(report):
     name = None
-    for line in built.ptxas.splitlines():
+    for line in report.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif "Used" in line and "registers" in line and name:
             log(f"[build]   {name}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line and name:
             log(f"[build]   {name}: {line.strip()}")
-    smem = built.lib.ds_paged_smem_bytes
+
+
+def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    mods = {"paged_attention": pa, "flash_attention": fa, "fused_adam": fad}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, all at once
+        built = dict(zip(mods, ex.map(lambda m: m.kernel_build(), mods.values())))
+    log(f"[build] kernels ready in {time.perf_counter() - t0:.2f}s ({len(built)} sources "
+        f"built in parallel)")
+    for stem, b in built.items():
+        log(f"[build] {stem}: nvcc {b.seconds:.2f}s -> {os.path.relpath(b.path, HERE)}")
+        _log_ptxas(b.ptxas)
+    smem = built["paged_attention"].lib.ds_paged_smem_bytes
     log(f"[build] dynamic shared memory per CTA at the main path's shapes (d 128, block 64): "
         f"decode (rows = g = 4) {smem(4, 128, 64)} B, prefill (rows = q_tile 8 x g 4) "
         f"{smem(32, 128, 64)} B")
+    fsm = built["flash_attention"].lib.ds_flash_smem_bytes
+    log(f"[build] flash attention dynamic shared memory per CTA (d 128): forward {fsm(0, 128)} "
+        f"B, dk/dv {fsm(1, 128)} B, dq {fsm(2, 128)} B")
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +370,7 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------------------
-# phase 3: Mistral-7B served end to end
+# phase 4: Mistral-7B served end to end
 # ---------------------------------------------------------------------------
 
 def phase_e2e():
@@ -445,7 +522,411 @@ def profile_decode(engine, rng, n_seqs=8, steps=4, repeats=5):
         log(f"[e2e]   {us / steps / 1e3:8.3f} ms/step  {name[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _flash_err(out, ref, lse=False):
+    """(max |out - ref|, the largest error as a fraction of its element's
+    tolerance) for the flash attention outputs (see the module docstring)."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    if lse:
+        tol = 2.0**-14 * (1.0 + ref.abs())
+    else:
+        floor = max(TOL_FLOOR, GRAD_FLOOR_RMS * float(ref.pow(2).mean().sqrt()))
+        tol = TOL_ULPS * bf16_ulp(ref) + floor
+    return float(err.max()), float((err / tol).max())
+
+
+def _flash_case(seed, B, S, nq, nkv, d, dtype=None):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = dtype or torch.bfloat16
+    mk = lambda n: torch.randn(B, S, n, d, generator=gen, device="cuda").to(dtype)
+    return mk(nq), mk(nkv), mk(nkv), mk(nq)  # q, k, v, dout
+
+
+def _flash_all(fa, q, k, v, do, causal, window, slopes):
+    """Kernels: (out, lse, dq, dk, dv); the backward on the forward's own
+    out and lse."""
+    out, lse = fa.flash_fwd(q, k, v, causal, window, slopes)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, out, lse, do, causal, window, slopes)
+    dq = fa.flash_bwd_dq(q, k, v, out, lse, do, causal, window, slopes)
+    return out, lse, dq, dk, dv
+
+
+def _causal_pairs(S, window):
+    """(query, key) pairs a causal window of ``window`` keys leaves visible."""
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def phase_train_kernels():
+    """Returns {kernel name: measurement dict} for the four training kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    failures = []
+    worst = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
+    worst_frac = [0.0, ""]
+    owner = {"out": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd_dq",
+             "dk": "flash_bwd_dkdv", "dv": "flash_bwd_dkdv"}
+
+    def check_flash(tag, got, causal, window, slopes, q, k, v, do):
+        r_out, r_lse = fa.flash_attention_reference(q, k, v, causal, window, slopes)
+        r_dq, r_dk, r_dv = fa.flash_attention_reference_bwd(q, k, v, got[0], got[1], do, causal,
+                                                            window, slopes)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, r in zip(("out", "lse", "dq", "dk", "dv"), got,
+                              (r_out, r_lse, r_dq, r_dk, r_dv)):
+            e, frac = _flash_err(a, r, lse=name == "lse")
+            errs[name] = e
+            if frac > worst_frac[0]:
+                worst_frac[:] = [frac, f"{name} {tag}"]
+            if name != "lse":
+                worst[owner[name]] = max(worst[owner[name]], e)
+            if not frac <= 1.0:
+                failures.append(f"{name} {tag}: max_abs_err {e:.3e}, {frac:.2f}x its tolerance")
+        return errs
+
+    # small sizes: ragged S, both head dims, GQA groups 1 and 4, causal and
+    # not, a window, ALiBi with power-of-two and other head counts
+    n_cases = 0
+    for S in (1, 100, 128, 257):
+        for d in (64, 128):
+            for nq, nkv, pow2 in ((4, 4, True), (8, 2, True), (6, 6, False), (12, 3, False)):
+                modes = ([(False, None, False), (True, None, False), (True, 48, False),
+                          (True, None, True), (False, None, True)] if pow2 else
+                         [(True, 48, False), (True, None, True), (True, 48, True)])
+                for causal, window, alibi in modes:
+                    q, k, v, do = _flash_case(S * 7 + d + nq, 2, S, nq, nkv, d)
+                    slopes = (torch.as_tensor(alibi_slopes(nq), device="cuda") if alibi
+                              else None)
+                    got = _flash_all(fa, q, k, v, do, causal, window, slopes)
+                    check_flash(f"S={S} d={d} heads={nq}/{nkv} causal={causal} window={window} "
+                                f"alibi={alibi}", got, causal, window, slopes, q, k, v, do)
+                    n_cases += 1
+    # float16 inputs (an fp16 ds_config's compute dtype): the kernels' other
+    # instantiation, held to the same (bf16-ulp) tolerance
+    for S in (100, 257):
+        for d in (64, 128):
+            q, k, v, do = _flash_case(S + d, 2, S, 8, 2, d, torch.float16)
+            got = _flash_all(fa, q, k, v, do, True, 48, None)
+            check_flash(f"fp16 S={S} d={d} heads=8/2 causal=True window=48", got, True, 48, None,
+                        q, k, v, do)
+            n_cases += 1
+    log(f"[train_kernels] flash small-size matrix ({n_cases} cases x out, lse, dq, dk, dv): "
+        f"{'all within tolerance' if not failures else failures}; max_abs_err {worst}")
+
+    # the training shapes: Mistral-7B attention over one 4096-token sequence
+    B, S, nq, nkv, d, W = 1, TRAIN_SEQ, 32, 8, 128, 4096
+    q, k, v, do = _flash_case(11, B, S, nq, nkv, d)
+    got = _flash_all(fa, q, k, v, do, True, W, None)
+    errs = check_flash(f"main B={B} S={S} heads={nq}/{nkv} d={d} window={W}", got, True, W, None,
+                       q, k, v, do)
+    out, lse = got[0], got[1]
+    res = {}
+    ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, True, W, None), iters=5, warmup=1),
+          "flash_bwd_dkdv": time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, out, lse, do, True, W),
+                                    iters=5, warmup=1),
+          "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(q, k, v, out, lse, do, True, W),
+                                  iters=5, warmup=1)}
+    plain = {"flash_fwd": time_ms(lambda: fa.flash_attention_reference(q, k, v, True, W),
+                                  iters=3, warmup=1)}
+    plain["flash_bwd_dkdv"] = plain["flash_bwd_dq"] = time_ms(
+        lambda: fa.flash_attention_reference_bwd(q, k, v, out, lse, do, True, W), iters=3,
+        warmup=1)
+    # library yardstick: SDPA on [B, n, S, d] (kv heads repeated to nq),
+    # forward, and its autograd backward for the two backward kernels
+    g = nq // nkv
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    vt = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    dot = do.transpose(1, 2).contiguous()
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                      iters=10, warmup=2)
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dot, retain_graph=True),
+                      iters=10, warmup=2)
+    del o_lib, qt, kt, vt, dot
+    pairs = _causal_pairs(S, W)
+    el = 2  # bf16
+    io_q = B * S * nq * d * el  # q, out, dout, dq: each this size
+    io_kv = B * S * nkv * d * el  # k, v, dk, dv
+    lse_b = B * nq * S * 4
+    spec = {"flash_fwd": (io_q + 2 * io_kv + io_q + lse_b, 4 * B * nq * d * pairs, lib_fwd),
+            "flash_bwd_dkdv": (3 * io_q + 2 * io_kv + lse_b + 2 * io_kv,
+                               4 * 2 * B * nq * d * pairs, lib_bwd),
+            "flash_bwd_dq": (3 * io_q + 2 * io_kv + lse_b + io_q, 3 * 2 * B * nq * d * pairs,
+                             lib_bwd)}
+    for name, (n_bytes, flops, lib) in spec.items():
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        res[name] = dict(err=worst[name], ms=ms[name], plain_ms=plain[name], bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib)
+        log(f"[train_kernels] {name} B={B} S={S} heads={nq}/{nkv} d={d} causal window={W}: "
+            f"{ms[name]:.3f} ms, plain {plain[name]:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{flops / 1e9:.1f} GFLOP), sdpa {'forward' if name == 'flash_fwd' else 'backward'} "
+            f"{lib:.4f} ms")
+    log(f"[train_kernels] main-shape max_abs_err: { {k_: f'{e_:.3e}' for k_, e_ in errs.items()} }")
+    log(f"[train_kernels] flash: largest error over all cases {worst_frac[0]:.3f} of its "
+        f"tolerance ({worst_frac[1]})")
+    del q, k, v, do, got, out, lse
+    if failures:
+        raise RuntimeError("flash kernels disagree with the plain version: "
+                           + "; ".join(failures[:10]))
+    res["fused_adam"] = _check_fused_adam()
+    return res
+
+
+def _adam_set(sizes, seed, unaligned=()):
+    """fp32 params / moments / grads of the given sizes from a seeded
+    generator; the leaves in ``unaligned`` sit one element past an aligned
+    address (no 16-byte vector access)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sets = {"p": [], "m": [], "v": [], "g": []}
+    for i, n in enumerate(sizes):
+        off = 1 if i in unaligned else 0
+        for key, fill in (("p", "randn"), ("m", "randn"), ("v", "rand"), ("g", "randn")):
+            buf = getattr(torch, fill)(n + off, generator=gen, device="cuda")
+            if key == "m":
+                buf.mul_(1e-2)
+            if key == "v":
+                buf.mul_(1e-4)
+            sets[key].append(buf[off:])
+    return sets
+
+
+def _check_fused_adam():
+    import torch
+
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.1)
+    sizes = [1, 7, 127, 1000003, 14336 * 4096 + 1, 4096 * 4096 - 3, 32000 * 4096 + 5,
+             33554431, 4096 * 4096]
+    n = sum(sizes)
+    a = _adam_set(sizes, 5, unaligned=(3, ))
+    b = {k: [t.clone() for t in v] for k, v in a.items()}
+    gs = torch.full((), 0.37, device="cuda")
+    lr = torch.full((), 1e-4, device="cuda")
+    kw = dict(lr_t=lr, step=torch.full((), 3, dtype=torch.int32, device="cuda"), grad_scale=gs,
+              **hyper)
+    fad.fused_adam_apply(a["p"], a["m"], a["v"], a["g"], gate=torch.ones((), device="cuda"), **kw)
+    fad.fused_adam_reference(b["p"], b["m"], b["v"], b["g"], gate=1.0, **kw)
+    torch.cuda.synchronize()
+    err, frac = 0.0, 0.0
+    for key in ("p", "m", "v"):
+        for x, y in zip(a[key], b[key]):
+            d = (x - y).abs()
+            err = max(err, float(d.max()))
+            frac = max(frac, float((d / (ADAM_RTOL * y.abs()).clamp_min(1e-30)).max()))
+    n_exact = sum(int(torch.equal(x, y)) for key in ("p", "m", "v") for x, y in zip(a[key], b[key]))
+    # bf16 gradients on the small leaves
+    c = {k: [t.clone() for t in v[:4]] for k, v in b.items()}
+    d16 = {k: [t.clone() for t in v[:4]] for k, v in b.items()}
+    g16 = [t.to(torch.bfloat16) for t in c["g"]]
+    fad.fused_adam_apply(c["p"], c["m"], c["v"], g16, gate=1.0, **kw)
+    fad.fused_adam_reference(d16["p"], d16["m"], d16["v"], g16, gate=1.0, **kw)
+    for key in ("p", "m", "v"):
+        for x, y in zip(c[key], d16[key]):
+            dd = (x - y).abs()
+            err = max(err, float(dd.max()))
+            frac = max(frac, float((dd / (ADAM_RTOL * y.abs()).clamp_min(1e-30)).max()))
+    # gate 0 (an overflow step, NaN gradients): nothing is written
+    before = {k: [t.clone() for t in a[k]] for k in ("p", "m", "v")}
+    nan_g = [torch.full_like(t, float("nan")) for t in a["g"][:4]] + a["g"][4:]
+    fad.fused_adam_apply(a["p"], a["m"], a["v"], nan_g, gate=torch.zeros((), device="cuda"),
+                         **kw)
+    torch.cuda.synchronize()
+    gate0_ok = all(torch.equal(x, y) for k in ("p", "m", "v") for x, y in zip(a[k], before[k]))
+    del before, nan_g, c, d16, g16
+    log(f"[train_kernels] fused_adam on {n:,} fp32 elements in {len(sizes)} leaves (sizes "
+        f"{sizes}; leaf 3 unaligned): gate 1 max_abs_err {err:.3e} ({frac:.3f} of its tolerance "
+        f"{ADAM_RTOL} x |plain|; {n_exact} of {3 * len(sizes)} tensors bit-identical), bf16 grads "
+        f"included; gate 0 leaves p/m/v bit-identical: {gate0_ok}")
+    if not (frac <= 1.0 and gate0_ok):
+        raise RuntimeError(f"fused_adam disagrees with the plain version (err {err:.3e}, "
+                           f"{frac:.2f}x tolerance, gate-0 untouched: {gate0_ok})")
+    one = torch.ones((), device="cuda")
+    ms = time_ms(lambda: fad.fused_adam_apply(a["p"], a["m"], a["v"], a["g"], gate=one, **kw),
+                 iters=20, warmup=3)
+    plain = time_ms(lambda: fad.fused_adam_reference(b["p"], b["m"], b["v"], b["g"], gate=one,
+                                                     **kw), iters=3, warmup=1)
+    del b
+    ps = [torch.nn.Parameter(t) for t in a["p"]]
+    for p_, g_ in zip(ps, a["g"]):
+        p_.grad = g_
+    lib = torch.optim.AdamW(ps, lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1,
+                            fused=True)
+    lib_ms = time_ms(lib.step, iters=20, warmup=3)
+    del lib, ps, a
+    b_ms, b_by = bound_ms(28 * n, 20 * n, FP32_FLOPS_PER_S)
+    log(f"[train_kernels] fused_adam {n:,} elements: {ms:.3f} ms, plain {plain:.3f} ms, bound "
+        f"{b_ms:.3f} ms ({b_by}: 28 B/element), torch.optim.AdamW(fused=True) {lib_ms:.3f} ms")
+    return dict(err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: Mistral-7B width trained through initialize -> train_batch
+# ---------------------------------------------------------------------------
+
+def _device_ms_by_name(prof):
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by_name
+
+
+def phase_train():
+    """Returns (launches on the main path, the full-set fused Adam timing)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] device memory in use before the model: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (the serving engine is freed)")
+    t0 = time.perf_counter()
+    cfg = mistral_config("7b", num_layers=TRAIN_LAYERS)
+    model = TransformerLM(cfg, trainable=True, seed=0)
+    engine, optimizer, _, _ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_DS_CONFIG)
+    params = engine._params
+    n_params = sum(p.numel() for p in params)
+    torch.cuda.synchronize()
+    log(f"[train] Mistral-7B width: hidden {cfg.hidden_size}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, head_dim {cfg.head_dim}, intermediate {cfg.intermediate_size}, "
+        f"vocab {cfg.vocab_size}, window {cfg.sliding_window}; depth cut 32 -> {TRAIN_LAYERS} "
+        f"for memory (32 layers: 7.24e9 params x 16 B of fp32 params, grads, m, v = 116 GB); "
+        f"{n_params / 1e9:.3f}B fp32 master params ({16 * n_params / 1e9:.1f} GB with grads and "
+        f"moments); optimizer {type(optimizer).__name__}; built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    gas = engine.gradient_accumulation_steps()
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                       (engine.train_batch_size(), TRAIN_SEQ)).astype(np.int32)}
+    tokens = batch["input_ids"].size
+    ts = time.perf_counter()
+    losses = [engine.train_batch(batch)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - ts
+    fa.reset_launch_counts()
+    fad.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED_STEPS):
+        ts = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+    launches = {**fa.launch_counts, **fad.launch_counts}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    med = float(np.median(times))
+    lrs = [float(engine.lr_schedule_fn(i)) for i in range(TIMED_STEPS + 1)]
+    log(f"[train] {gas} microbatches x {TRAIN_SEQ} tokens = {tokens} tokens/step; losses "
+        f"(warm step, then {TIMED_STEPS} timed; lr per step {lrs}): "
+        f"{[round(x, 5) for x in losses]}")
+    log(f"[train] step time median {1e3 * med:.1f} ms (range {1e3 * min(times):.1f}-"
+        f"{1e3 * max(times):.1f}; warm step {1e3 * warm_s:.1f} ms): {tokens / med:.1f} tokens/s; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    n_attn = TRAIN_LAYERS * gas * TIMED_STEPS
+    log(f"[train] kernel launches on the main path: {launches} (expected flash {n_attn} each = "
+        f"{TRAIN_LAYERS} layers x {gas} microbatches x {TIMED_STEPS} steps; fused_adam "
+        f"{TIMED_STEPS})")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"losses not finite and falling: {losses}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the main path: {missing}")
+
+    # one profiled step: device busy vs wall, top device ops
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+    by_name = _device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    log(f"[train] profiled step: wall {1e3 * wall:.1f} ms ({1e3 * med:.1f} unprofiled median), "
+        f"device busy {busy:.1f} ms: device idle {100 * (1 - busy / (1e3 * med)):.1f}% of the "
+        f"unprofiled step, {100 * (1 - busy / (1e3 * wall)):.1f}% of the profiled one")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[train]   {t:9.2f} ms  {100 * t / busy:5.1f}%  {name[:90]}")
+
+    # the fused AdamW at the full parameter set (lr 0: the params stay put)
+    mu, nu, step = engine.adam_state()
+    grads = [p.grad for p in params]
+    one = torch.ones((), device="cuda")
+    full_ms = time_ms(lambda: fad.fused_adam_apply(
+        params, mu, nu, grads, lr_t=0.0, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.1,
+        step=step + 1, grad_scale=one, gate=one), iters=3, warmup=1)
+    full_bound, _ = bound_ms(28 * n_params, 20 * n_params, FP32_FLOPS_PER_S)
+    log(f"[train] fused_adam at the full parameter set ({n_params:,} elements, "
+        f"{28 * n_params / 1e9:.1f} GB moved): {full_ms:.2f} ms, bound {full_bound:.2f} ms")
+    full = dict(ms=full_ms, bound_ms=full_bound, elements=n_params)
+    del mu, nu, grads
+
+    # kernels vs the plain attention on the same weights at seq 1024
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CHECK_SEQ)).astype(np.int64))
+    ids = ids.cuda()
+
+    def loss_and_grads(impl):
+        cfg.attention_impl = impl
+        for p in params:
+            p.grad = None
+        loss = model.loss({"input_ids": ids})
+        loss.backward()
+        return loss.item(), [p.grad for p in params]
+
+    l_k, g_k = loss_and_grads("flash")
+    l_r, g_r = loss_and_grads("reference")
+    cfg.attention_impl = "auto"
+    num = sum(float((a.float() - b.float()).pow(2).sum()) for a, b in zip(g_k, g_r))
+    den = sum(float(b.float().pow(2).sum()) for b in g_r)
+    g_rel = (num / den)**0.5
+    l_rel = abs(l_k - l_r) / abs(l_r)
+    log(f"[train] seq {CHECK_SEQ} forward+backward, kernels vs plain attention on the same "
+        f"weights: loss {l_k:.6f} vs {l_r:.6f} (relative {l_rel:.3e}, tolerance {LOSS_REL_TOL}); "
+        f"whole-gradient relative L2 {g_rel:.3e} (tolerance {GRAD_REL_L2_TOL})")
+    if not (np.isfinite(l_k) and l_rel <= LOSS_REL_TOL and g_rel <= GRAD_REL_L2_TOL):
+        raise RuntimeError("kernel path disagrees with the plain attention")
+    del engine, optimizer, model, params, g_k, g_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, full
+
+
+PHASES = ("build", "kernels", "train_kernels", "e2e", "train")
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {PHASES} (default: all; a subset prints no "
+                         f"result lines)")
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
     try:
         import torch
     except ImportError:
@@ -466,17 +947,17 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"{torch.cuda.device_count()} visible")
+        f"{torch.cuda.device_count()} visible; {smi}")
+    fns = {"build": phase_build, "kernels": phase_kernels, "train_kernels": phase_train_kernels,
+           "e2e": phase_e2e, "train": phase_train}
     failed = []
-    measured, launches = {}, {}
-    for name, fn in (("build", phase_build), ("kernels", phase_kernels), ("e2e", phase_e2e)):
+    out = {}
+    for name in PHASES:
+        if name not in phases:
+            continue
         t0 = time.perf_counter()
         try:
-            out = fn()
-            if name == "kernels":
-                measured = out
-            elif name == "e2e":
-                launches = out
+            out[name] = fns[name]()
             log(f"[{name}] ok in {time.perf_counter() - t0:.1f}s")
         except Exception:  # noqa: BLE001 -- report every phase, fail at the end
             failed.append(name)
@@ -487,12 +968,23 @@ def main():
     log(f"[done] {time.perf_counter() - t_all:.1f}s total; failed phases: {failed or 'none'}")
     if failed:
         return 1
+    if tuple(phases) != PHASES:
+        return 0
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
-                "launches": int(launches[name]), "max_abs_err": m["err"], "ms": m["ms"],
-                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                "library_ms": m["library_ms"],
-                "int8": {k: m["int8"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-                | {"max_abs_err": m["int8"]["err"]}} for name, m in measured.items()]
+                "launches": int(out["e2e"][name]), "max_abs_err": m["err"],
+                **{k: m[k] for k in keys},
+                "int8": {k: m["int8"][k] for k in keys[:4]} | {"max_abs_err": m["int8"]["err"]}}
+               for name, m in out["kernels"].items()]
+    launches, adam_full = out["train"]
+    for name, m in out["train_kernels"].items():
+        src, replaces = TRAIN_KERNELS[name]
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": int(launches[name]), "max_abs_err": m["err"],
+                 **{k: m[k] for k in keys}}
+        if name == "fused_adam":
+            entry["full_set"] = adam_full
+        kernels.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

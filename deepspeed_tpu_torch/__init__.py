@@ -1,0 +1,88 @@
+"""deepspeed_tpu_torch: the PyTorch/CUDA port of ``deepspeed_tpu``.
+
+Public surface of the training slice, as ``deepspeed_tpu/__init__.py:35-127``:
+``initialize`` returns ``(engine, optimizer, dataloader, lr_scheduler)``;
+``add_config_arguments`` adds the DeepSpeed CLI flags. The "model" is an
+``nn.Module`` with ``loss(batch)`` (``models.TransformerLM(...,
+trainable=True)``), or a bare ``loss_fn(params, batch)`` paired with
+``model_parameters``. The serving slice lives in ``inference.v2``.
+"""
+
+__version__ = "0.1.0"
+
+from torch import nn
+
+from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError
+from .runtime.engine import DeepSpeedEngine
+
+
+def initialize(args=None,
+               model=None,
+               optimizer=None,
+               model_parameters=None,
+               training_data=None,
+               lr_scheduler=None,
+               dist_init_required=None,
+               collate_fn=None,
+               config=None,
+               config_params=None):
+    """Build the training engine (``deepspeed.initialize``'s signature).
+
+    - ``model``: an ``nn.Module`` with ``loss(batch) -> scalar`` whose
+      trainable parameters are the masters; or a callable
+      ``(params, batch) -> loss`` with ``model_parameters`` (a dict or list
+      of tensors) as its initial parameters.
+    - ``config``: a dict or the path of a DeepSpeed JSON config.
+    - ``optimizer``: a ``torch.optim.Optimizer`` over the model's parameters
+      (default: the config's ``optimizer`` block).
+    """
+    assert model is not None, "deepspeed_tpu_torch.initialize: model is required"
+    if config is None:
+        config = config_params
+    if config is None and args is not None and getattr(args, "deepspeed_config", None):
+        config = args.deepspeed_config
+    assert config is not None, "DeepSpeed requires --deepspeed_config to specify configuration file"
+    ds_config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
+    if not isinstance(model, nn.Module) and callable(model):
+        model = _FunctionalModel(model, model_parameters)
+    engine = DeepSpeedEngine(model=model, config=ds_config, optimizer=optimizer,
+                             lr_scheduler=lr_scheduler, training_data=training_data,
+                             collate_fn=collate_fn)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
+
+
+class _FunctionalModel(nn.Module):
+    """Adapter: a bare ``loss_fn(params, batch)`` and its initial parameters
+    (a dict or list of tensors, registered as trainable parameters) -> the
+    model protocol (``loss(batch)``)."""
+
+    def __init__(self, loss_fn, init_params):
+        super().__init__()
+        assert init_params is not None, "pass model_parameters with a bare loss function"
+        self._loss_fn = loss_fn
+        if isinstance(init_params, dict):
+            self.params = nn.ParameterDict({k: nn.Parameter(v) for k, v in init_params.items()})
+        else:
+            self.params = nn.ParameterList([nn.Parameter(v) for v in init_params])
+
+    def loss(self, batch):
+        params = dict(self.params) if isinstance(self.params, nn.ParameterDict) else list(self.params)
+        return self._loss_fn(params, batch)
+
+
+def add_config_arguments(parser):
+    """``deepspeed.add_config_arguments``: the DeepSpeed CLI flags."""
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag for user code, no impact on DS itself)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="DeepSpeed json configuration file.")
+    group.add_argument("--deepscale", default=False, action="store_true",
+                       help="Deprecated, use --deepspeed")
+    group.add_argument("--deepscale_config", default=None, type=str,
+                       help="Deprecated, use --deepspeed_config")
+    return parser
+
+
+__all__ = ["DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine", "add_config_arguments",
+           "initialize"]

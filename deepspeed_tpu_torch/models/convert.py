@@ -5,9 +5,15 @@ The TPU package's parameter tree and the port's share names and layout
 name-for-name copy plus a dtype cast: matrix weights (and embeddings) take
 the serving ``dtype``, norm scales and biases stay fp32. The TPU side hands
 its tree over as numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``.
+
+The trainable model keeps one tensor per layer (``per_layer=True``: blocks
+become a list of L dicts); :func:`params_to_numpy` stacks them back. The
+optimizer state moves the same way: ``mu`` and ``nu`` are parameter-shaped
+trees, ``step`` the count of applied updates (:func:`optimizer_state_from_numpy`,
+:func:`optimizer_state_to_numpy`).
 """
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -22,10 +28,11 @@ def _takes_serving_dtype(group: str, name: str) -> bool:
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig, device=None,
-                    dtype=None) -> Dict[str, Dict[str, torch.Tensor]]:
+                    dtype=None, per_layer: bool = False) -> Dict[str, Any]:
     """numpy parameter tree (TPU package layout) -> the port's tensors on
     ``device`` (default CUDA), matrix weights in ``dtype`` (default
-    ``cfg.dtype``)."""
+    ``cfg.dtype``; fp32 for training masters). ``per_layer``: blocks as a
+    list of per-layer dicts (the trainable model's layout)."""
     device = resolve_device(device)
     dtype = cfg.dtype if dtype is None else dtype
     out = {}
@@ -35,10 +42,74 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig, device=No
             t = torch.from_numpy(np.array(arr, dtype=np.float32))  # a writable copy
             dt = dtype if _takes_serving_dtype(group, name) else torch.float32
             out[group][name] = t.to(device=device, dtype=dt)
+    if per_layer:
+        blocks = out["blocks"]
+        out["blocks"] = [{name: t[l].clone() for name, t in blocks.items()}
+                         for l in range(cfg.num_layers)]
     return out
 
 
-def params_to_numpy(params: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, Dict[str, np.ndarray]]:
-    """The port's parameter tree -> fp32 numpy arrays in the same layout."""
-    return {group: {name: t.detach().float().cpu().numpy() for name, t in leaves.items()}
-            for group, leaves in params.items()}
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's parameter tree (stacked or per-layer blocks) -> fp32 numpy
+    arrays in the TPU package's stacked layout."""
+    def np32(t):
+        return t.detach().float().cpu().numpy()
+
+    out = {}
+    for group, leaves in params.items():
+        if isinstance(leaves, (list, tuple)):
+            out[group] = {name: np.stack([np32(layer[name]) for layer in leaves])
+                          for name in leaves[0]}
+        else:
+            out[group] = {name: np32(t) for name, t in leaves.items()}
+    return out
+
+
+def tree_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
+    """The tensors of a port tree in the trainable model's parameter order
+    (groups in order; per-layer blocks layer by layer)."""
+    flat = []
+    for leaves in params.values():
+        for d in (leaves if isinstance(leaves, (list, tuple)) else [leaves]):
+            flat.extend(d.values())
+    return flat
+
+
+def optimizer_state_from_numpy(engine, state: Dict[str, Any]) -> None:
+    """Load ``{"step", "mu", "nu"}`` (numpy; ``mu``/``nu`` parameter-shaped
+    trees in the TPU package's layout, e.g. the JAX engine's
+    ``FusedAdamState`` or ``ScaleByAdamState``) into ``engine``'s Adam(W)
+    state: the fused kernel's ``FusedAdamState`` or the optax-equivalent
+    optimizer's. ``engine.module`` is a trainable ``TransformerLM``."""
+    cfg = engine.module.config
+    dev = engine.device
+    mu = tree_leaves(params_from_jax(state["mu"], cfg, dev, torch.float32, per_layer=True))
+    nu = tree_leaves(params_from_jax(state["nu"], cfg, dev, torch.float32, per_layer=True))
+    mu_dst, nu_dst, step_dst = engine.adam_state()
+    if len(mu) != len(mu_dst):
+        raise ValueError(f"state has {len(mu)} leaves, the engine {len(mu_dst)}")
+    with torch.no_grad():
+        for dst, src in zip(mu_dst + nu_dst, mu + nu):
+            if dst.shape != src.shape:
+                raise ValueError(f"state leaf {tuple(src.shape)} != {tuple(dst.shape)}")
+            dst.copy_(src)
+        step_dst.fill_(int(np.asarray(state["step"])))
+
+
+def optimizer_state_to_numpy(engine) -> Dict[str, Any]:
+    """``engine``'s Adam(W) state as ``{"step", "mu", "nu"}`` numpy, the
+    moments in the TPU package's stacked tree layout."""
+    mu, nu, step = engine.adam_state()
+    like = engine.module.params()
+
+    def tree(flat):
+        it = iter(flat)
+        out = {}
+        for group, leaves in like.items():
+            if isinstance(leaves, (list, tuple)):
+                out[group] = [{name: next(it) for name in layer} for layer in leaves]
+            else:
+                out[group] = {name: next(it) for name in leaves}
+        return params_to_numpy(out)
+
+    return {"step": np.int32(int(step)), "mu": tree(mu), "nu": tree(nu)}

@@ -1,17 +1,25 @@
 """Decoder-only transformer for the PyTorch port: config, parameters and the
 shared numerics (norm, rotary, ALiBi slopes, MLP activation).
 
-Counterpart of ``deepspeed_tpu/models/transformer.py:39-335``. Parameters
-keep the TPU package's names and stacked ``[L, ...]`` block layout, with
-weights stored ``[in, out]``, so a parameter tree moves between the two
-packages name for name (``models/convert.py``). This slice serves the model
-(``inference/v2``); training, the v1 KV-cache path, MoE and block-sparse
-attention are not ported yet and a config that asks for them is refused.
+Counterpart of ``deepspeed_tpu/models/transformer.py``. Parameters keep the
+TPU package's names, with weights stored ``[in, out]``, so a parameter tree
+moves between the two packages name for name (``models/convert.py``). The
+serving model keeps the stacked ``[L, ...]`` block layout
+(``inference/v2``). The trainable model (``TransformerLM(...,
+trainable=True)``) holds fp32 masters with one parameter per layer and
+weight: in eager autograd, a select ``w[l]`` of a stacked tensor would write
+a full-size zero gradient of the whole stack for every layer.
+
+The training half (``forward``, ``loss_fn``, ``_chunked_ce_loss``) casts each
+weight to ``cfg.dtype`` where it is used, as the TPU package does, so the
+gradients land in fp32. The v1 KV-cache path, remat, sequence parallelism,
+dropout, MoE and block-sparse attention are not ported yet; a config that
+asks for them is refused.
 """
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,8 +53,16 @@ class TransformerConfig:
     rotary_dim: Optional[int] = None  # partial rotary; None = full head_dim
     embed_layernorm: bool = False
     dtype: Any = torch.bfloat16  # compute dtype
+    # sequence-chunked cross entropy: the [B, loss_chunk, V] logits of one
+    # chunk at a time (recomputed in the backward); None = full logits
+    loss_chunk: Optional[int] = None
+    attention_impl: str = "auto"  # 'auto' (flash on CUDA) | 'reference' | 'flash'
     # sliding-window attention (Mistral): query at i sees keys in (i-window, i]
     sliding_window: Optional[int] = None
+    # not ported yet; a config that sets them is refused
+    remat: bool = False
+    sequence_parallel: bool = False
+    dropout: float = 0.0
     sparse_attention: Optional[dict] = None
     moe_num_experts: int = 0
 
@@ -76,10 +92,17 @@ class TransformerConfig:
 
 def _refuse_unported(cfg: TransformerConfig) -> None:
     if cfg.moe_num_experts > 0:
-        raise NotImplementedError("MoE is not ported to the PyTorch package yet")
+        raise NotImplementedError("MoE (moe_num_experts) is not ported to the PyTorch package yet")
     if cfg.sparse_attention is not None:
-        raise NotImplementedError("block-sparse attention is not ported to the PyTorch "
-                                  "package yet")
+        raise NotImplementedError("block-sparse attention (sparse_attention) is not ported to "
+                                  "the PyTorch package yet")
+    for name, off in (("remat", False), ("sequence_parallel", False), ("dropout", 0.0)):
+        if getattr(cfg, name) != off:
+            raise NotImplementedError(f"TransformerConfig.{name} is not ported to the PyTorch "
+                                      f"package yet")
+    if cfg.attention_impl not in ("auto", "reference", "flash"):
+        raise ValueError(f"attention_impl must be 'auto', 'reference' or 'flash', got "
+                         f"{cfg.attention_impl!r}")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -97,12 +120,13 @@ def resolve_device(device=None) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None,
-                dtype=None) -> Dict[str, Any]:
+                dtype=None, per_layer: bool = False) -> Dict[str, Any]:
     """Random parameters from ``generator`` (on ``device``), in the TPU
     package's names and stacked ``[L, ...]`` layout with the same scales.
     Matrix weights are stored in ``dtype`` (default ``cfg.dtype``), norm
     scales and biases in fp32. Drawn one layer at a time, so a full-size
-    model never holds an fp32 copy of a stacked weight."""
+    model never holds an fp32 copy of a stacked weight. ``per_layer``: the
+    trainable layout, ``blocks`` a list of L per-layer dicts (same draws)."""
     _refuse_unported(cfg)
     device = resolve_device(device)
     dtype = cfg.dtype if dtype is None else dtype
@@ -111,6 +135,9 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None,
     f32 = dict(dtype=torch.float32, device=device)
 
     def dense(shape, fan_in, extra=1.0):
+        if per_layer:
+            return [torch.randn(shape, generator=generator, **f32)
+                    .mul_(1.0 / (math.sqrt(fan_in) * extra)).to(dtype) for _ in range(L)]
         out = torch.empty((L, *shape), dtype=dtype, device=device)
         for l in range(L):
             w = torch.randn(shape, generator=generator, **f32)
@@ -144,6 +171,9 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None,
         blocks["b_up"] = torch.zeros((L, Fi), **f32)
         blocks["b_down"] = torch.zeros((L, H), **f32)
 
+    if per_layer:
+        blocks = [{name: (t[l] if isinstance(t, list) else t[l].clone())
+                   for name, t in blocks.items()} for l in range(L)]
     emb = torch.randn((cfg.vocab_size, H), generator=generator, **f32).mul_(0.02)
     params = {
         "embed": {"embedding": emb.to(dtype)},
@@ -239,30 +269,270 @@ def mlp_activation(cfg: TransformerConfig, up, gate=None):
 # Model
 # ---------------------------------------------------------------------------
 
+def reference_attention(q, k, v, causal=True, window=None, alibi=None):
+    """fp32 einsum attention (``transformer.py:298``), differentiable by
+    autograd. ``window``: query i sees keys in (i - window, i]. ``alibi``:
+    per-head slopes [nq]; adds ``slope * (k_pos - q_pos)``."""
+    B, S, nq, d = q.shape
+    nkv = k.shape[2]
+    group = nq // nkv
+    qf = (q.float() / math.sqrt(d)).reshape(B, S, nkv, group, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
+    pos = torch.arange(S, device=q.device)
+    if alibi is not None:
+        rel = (pos[None, :] - pos[:, None]).float()
+        slopes = torch.as_tensor(alibi, dtype=torch.float32, device=q.device)
+        scores = scores + slopes.reshape(nkv, group)[:, :, None, None] * rel
+    if causal:
+        mask = pos[None, :] <= pos[:, None]
+        if window is not None:
+            mask = mask & (pos[:, None] - pos[None, :] < int(window))
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return ctx.reshape(B, S, nq, d).to(q.dtype)
+
+
+def _attention(cfg: TransformerConfig, q, k, v):
+    """``attention_impl`` 'auto' takes the flash kernels on CUDA tensors and
+    the einsum reference elsewhere (``transformer.py:371``)."""
+    impl = cfg.attention_impl
+    if impl == "auto":
+        impl = "flash" if q.is_cuda else "reference"
+    alibi = cfg.positions == "alibi"
+    if impl == "flash":
+        from ..ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=True, window=cfg.sliding_window, alibi=alibi)
+    return reference_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                               alibi=alibi_slopes(cfg.num_heads) if alibi else None)
+
+
+def _attn_branch(cfg: TransformerConfig, layer, h, sin, cos):
+    """Attention sub-block on pre-normed input ``h`` [B, S, H]."""
+    dt = cfg.dtype
+    B, S, H = h.shape
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = h @ layer["wq"].to(dt)
+    k = h @ layer["wk"].to(dt)
+    v = h @ layer["wv"].to(dt)
+    if cfg.qkv_bias_enabled:
+        q = q + layer["bq"].to(dt)
+        k = k + layer["bk"].to(dt)
+        v = v + layer["bv"].to(dt)
+    q = q.reshape(B, S, nq, d)
+    k = k.reshape(B, S, nkv, d)
+    v = v.reshape(B, S, nkv, d)
+    if cfg.positions == "rotary":
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+    ctx = _attention(cfg, q, k, v).reshape(B, S, nq * d)
+    out = ctx @ layer["wo"].to(dt)
+    if cfg.use_bias:
+        out = out + layer["bo"].to(dt)
+    return out
+
+
+def _mlp_branch(cfg: TransformerConfig, layer, h):
+    """Dense MLP sub-block on pre-normed input ``h``."""
+    dt = cfg.dtype
+    up = h @ layer["w_up"].to(dt)
+    if cfg.use_bias:
+        up = up + layer["b_up"].to(dt)
+    if cfg.mlp == "swiglu":
+        act = mlp_activation(cfg, up, h @ layer["w_gate"].to(dt))
+    else:
+        act = mlp_activation(cfg, up)
+    down = act @ layer["w_down"].to(dt)
+    if cfg.use_bias:
+        down = down + layer["b_down"].to(dt)
+    return down
+
+
+def _block(cfg: TransformerConfig, x, layer, sin, cos):
+    """One transformer block on this layer's weights (``transformer.py:534``;
+    ``parallel_residual``: attention and MLP read the same input)."""
+    h1 = _norm(x, layer["ln1_scale"], layer.get("ln1_bias"), cfg.norm, cfg.norm_eps)
+    attn_out = _attn_branch(cfg, layer, h1, sin, cos)
+    if cfg.parallel_residual:
+        h2 = h1 if cfg.shared_ln else _norm(x, layer["ln2_scale"], layer.get("ln2_bias"),
+                                            cfg.norm, cfg.norm_eps)
+        return x + attn_out + _mlp_branch(cfg, layer, h2)
+    x = x + attn_out
+    h2 = _norm(x, layer["ln2_scale"], layer.get("ln2_bias"), cfg.norm, cfg.norm_eps)
+    return x + _mlp_branch(cfg, layer, h2)
+
+
+def layers(blocks: Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]], n: int):
+    """Per-layer weight dicts of a stacked ``{name: [L, ...]}`` tree or of a
+    per-layer list."""
+    if isinstance(blocks, (list, tuple)):
+        return list(blocks)
+    return [{name: t[l] for name, t in blocks.items()} for l in range(n)]
+
+
+def forward_hidden(cfg: TransformerConfig, params, input_ids):
+    """Token ids [B, S] -> final-norm hidden [B, S, H] (the plain layer loop
+    of ``transformer.py:645``)."""
+    dt = cfg.dtype
+    B, S = input_ids.shape
+    x = params["embed"]["embedding"].to(dt)[input_ids]
+    if cfg.positions == "learned":
+        x = x + params["pos_embed"]["embedding"].to(dt)[:S][None]
+    if cfg.embed_layernorm:
+        en = params["embed_norm"]
+        x = _norm(x, en["scale"], en.get("bias"), cfg.norm, cfg.norm_eps)
+    sin = cos = None
+    if cfg.positions == "rotary":
+        sin, cos = rope_table(cfg, torch.arange(S, device=input_ids.device))
+    for layer in layers(params["blocks"], cfg.num_layers):
+        x = _block(cfg, x, layer, sin, cos)
+    fn = params["final_norm"]
+    return _norm(x, fn["scale"], fn.get("bias"), cfg.norm, cfg.norm_eps)
+
+
+def _unembed(cfg: TransformerConfig, params, x):
+    """Final hidden [..., H] -> vocabulary logits [..., V] in fp32."""
+    dt = cfg.dtype
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["embedding"].to(dt).t()
+    else:
+        logits = x @ params["lm_head"]["kernel"].to(dt)
+        if "bias" in params["lm_head"]:
+            logits = logits + params["lm_head"]["bias"].to(logits.dtype)
+    return logits.float()
+
+
+def forward(cfg: TransformerConfig, params, input_ids):
+    """Token ids [B, S] -> logits [B, S, V] (fp32)."""
+    return _unembed(cfg, params, forward_hidden(cfg, params, input_ids))
+
+
+def _ce_aux(batch, input_ids):
+    """The CE targets of a batch: its 'labels', else the shifted input, plus
+    an optional 'loss_mask'."""
+    aux = {}
+    if isinstance(batch, dict) and "labels" in batch:
+        aux["labels"] = batch["labels"]
+    else:
+        aux["shift_ids"] = input_ids
+    if isinstance(batch, dict) and "loss_mask" in batch:
+        aux["loss_mask"] = batch["loss_mask"]
+    return aux
+
+
+def _ce_loss(logits, aux):
+    """Next-token cross entropy (masked mean with a 'loss_mask')."""
+    if "labels" in aux:
+        shift_logits, labels = logits, aux["labels"]
+    else:
+        shift_logits, labels = logits[..., :-1, :], aux["shift_ids"][..., 1:]
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    token_ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if "loss_mask" in aux:
+        mask = aux["loss_mask"][..., :token_ll.shape[-1]].float()
+        return -(token_ll * mask).sum() / mask.sum().clamp_min(1.0)
+    return -token_ll.mean()
+
+
+def _chunked_ce_loss(cfg: TransformerConfig, params, h, aux, chunk: int):
+    """Sequence-chunked CE over final hidden ``h`` [B, S, H]: each chunk's
+    [B, chunk, V] logits are recomputed in the backward
+    (``torch.utils.checkpoint``), so at most one chunk's logits is alive.
+    The same masked-mean semantics as :func:`_ce_loss`."""
+    from torch.utils.checkpoint import checkpoint
+
+    if "labels" in aux:
+        h_eff, labels = h, aux["labels"]
+    else:
+        h_eff, labels = h[:, :-1], aux["shift_ids"][..., 1:]
+    B, Sp, H = h_eff.shape
+    mask = aux.get("loss_mask")
+    mask = torch.ones((B, Sp), dtype=torch.float32, device=h.device) if mask is None else \
+        mask[..., :Sp].float()
+    labels = labels.long()
+
+    def chunk_ll(h_c, l_c, m_c):
+        logp = torch.log_softmax(_unembed(cfg, params, h_c), dim=-1)
+        return (torch.gather(logp, -1, l_c[..., None])[..., 0] * m_c).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, Sp, chunk):
+        sl = slice(s0, s0 + chunk)
+        total = total + checkpoint(chunk_ll, h_eff[:, sl], labels[:, sl], mask[:, sl],
+                                   use_reentrant=False)
+    return -total / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(cfg: TransformerConfig, params, batch):
+    """Next-token cross entropy. ``batch``: a dict with 'input_ids' [B, S]
+    and optional 'labels' and 'loss_mask', or the ids tensor itself.
+    ``cfg.loss_chunk`` routes through the sequence-chunked CE."""
+    input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
+    aux = _ce_aux(batch, input_ids)
+    if cfg.loss_chunk and input_ids.shape[1] > cfg.loss_chunk:
+        h = forward_hidden(cfg, params, input_ids)
+        return _chunked_ce_loss(cfg, params, h, aux, int(cfg.loss_chunk))
+    return _ce_loss(forward(cfg, params, input_ids), aux)
+
+
 class TransformerLM(nn.Module):
-    """Holds a config and its parameter tree (nested ``nn.ParameterDict``s,
-    no gradients: this slice serves). ``params`` defaults to
-    :func:`init_params` from ``torch.Generator(device).manual_seed(seed)``."""
+    """Holds a config and its parameter tree. ``params`` defaults to
+    :func:`init_params` from ``torch.Generator(device).manual_seed(seed)``.
+
+    Serving (the default): nested ``nn.ParameterDict``s in the stacked
+    layout, no gradients. ``trainable=True``: fp32 masters with
+    ``requires_grad``, ``blocks`` an ``nn.ModuleList`` of per-layer
+    ``nn.ParameterDict``s (``params`` must then be in the per-layer layout,
+    see ``convert.params_from_jax(per_layer=True)``); :meth:`loss` is the
+    training objective the engine differentiates."""
 
     def __init__(self, config: TransformerConfig, params: Optional[Dict[str, Any]] = None, *,
-                 device=None, seed: int = 0, dtype=None):
+                 device=None, seed: int = 0, dtype=None, trainable: bool = False):
         super().__init__()
         _refuse_unported(config)
         self.config = config
+        self.trainable = trainable
         if params is None:
             dev = resolve_device(device)
             gen = torch.Generator(device=dev).manual_seed(seed)
-            params = init_params(config, gen, dev, dtype)
-        self.tree = nn.ModuleDict({
-            group: nn.ParameterDict({name: nn.Parameter(t, requires_grad=False)
+            params = init_params(config, gen, dev, torch.float32 if trainable else dtype,
+                                 per_layer=trainable)
+        if trainable:
+            if not isinstance(params["blocks"], (list, tuple)):
+                raise ValueError("a trainable TransformerLM takes per-layer blocks "
+                                 "(convert.params_from_jax(..., per_layer=True))")
+            for group, leaves in params.items():
+                for t in (leaves.values() if group != "blocks" else
+                          [t for layer in leaves for t in layer.values()]):
+                    if t.dtype != torch.float32:
+                        raise ValueError("a trainable TransformerLM holds fp32 masters")
+
+        def pdict(leaves):
+            return nn.ParameterDict({name: nn.Parameter(t, requires_grad=trainable)
                                      for name, t in leaves.items()})
+
+        self.tree = nn.ModuleDict({
+            group: (nn.ModuleList([pdict(layer) for layer in leaves]) if group == "blocks"
+                    and trainable else pdict(leaves))
             for group, leaves in params.items()
         })
 
-    def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        """The parameter tree as plain nested dicts of tensors (no copies)."""
-        return {group: {name: p.data for name, p in leaves.items()}
-                for group, leaves in self.tree.items()}
+    def params(self) -> Dict[str, Any]:
+        """The parameter tree as plain nested dicts of tensors (no copies):
+        the serving model's detached data; the trainable model's parameters
+        themselves (so autograd reaches them), blocks as a per-layer list."""
+        def leaves(d):
+            return {name: (p if self.trainable else p.data) for name, p in d.items()}
+
+        return {group: ([leaves(layer) for layer in mod] if isinstance(mod, nn.ModuleList)
+                        else leaves(mod)) for group, mod in self.tree.items()}
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.tree.parameters())
+
+    def loss(self, batch):
+        return loss_fn(self.config, self.params(), batch)
+
+    def forward(self, input_ids):
+        return forward(self.config, self.params(), input_ids)

@@ -1,0 +1,377 @@
+"""DeepSpeedEngine for the PyTorch port: the training slice.
+
+Counterpart of ``deepspeed_tpu/runtime/engine.py`` for the path
+``initialize`` -> ``train_batch``, with the JAX formulas kept:
+
+- ``train_batch`` splits the batch gas-major (``engine.py:1245``), runs one
+  forward and backward per microbatch on ``loss * loss_scale``, sums the
+  gradients into the fp32 ``.grad`` of the fp32 masters and divides the sum
+  by gas (``_scan_microbatch_grads``, ``engine.py:811``: the same order).
+- ``_apply_update`` (``engine.py:742``): un-scale, overflow detection on the
+  gradient global norm, optax's ``clip_by_global_norm``, the optimizer
+  update, all gated on the device by the finiteness flag.
+- ``_apply_update_pallas`` (``engine.py:778``, ``tpu.pallas_fused_adam:
+  "always"``): one fused AdamW kernel launch with the loss un-scaling and
+  the clip coefficient ``min(1, clip / (gnorm + 1e-6))`` folded into its
+  gradient scale and the overflow skip into its gate.
+- the dynamic loss scale (``_advance_loss_scale``, ``engine.py:729``).
+
+Nothing inside ``train_batch`` reads a device value back to the host, except
+the fp16-only overflow count (``engine.py:1405``) and the loss logged at
+``steps_per_print`` boundaries. The state (step, loss scale, good steps,
+the optimizer's counter and moments) lives on the device.
+
+Runs at data-parallel world size 1; ZeRO stages 0-3 partition over that one
+rank and change nothing, as in the JAX package on one device. A larger
+world, ``forward``/``backward``/``step``, offload, 1-bit optimizers,
+pipelines and the prefetching loader are not ported yet.
+"""
+
+import logging
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .config import DeepSpeedConfig
+from .constants import ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER
+from .dataloader import DeepSpeedDataLoader
+from .lr_schedules import LRScheduler, get_lr_schedule_fn
+from .optimizers import Adam, build_optimizer
+from .utils import clip_by_global_norm_, global_norm
+
+logger = logging.getLogger("deepspeed_tpu_torch")
+
+
+def _world_size() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+class DeepSpeedEngine:
+
+    def __init__(self, model, config: DeepSpeedConfig, optimizer=None, lr_scheduler=None,
+                 training_data=None, collate_fn=None):
+        self.module = model
+        self.config = config
+        self.client_optimizer = optimizer
+        self.training_dataloader = None
+        self.global_steps = 0
+        self.global_samples = 0
+        self.micro_steps = 0
+        self.skipped_steps = 0
+        self._step_metrics = {}
+
+        world = _world_size()
+        if world > 1:
+            raise NotImplementedError(f"data-parallel world size {world}: the PyTorch port trains "
+                                      f"at world size 1 until its ZeRO slice (torch.distributed "
+                                      f"with NCCL) lands")
+        self.dp_world_size = 1
+        config.resolve_batch_config(self.dp_world_size)
+
+        # --- precision policy (the model's config.dtype sets the compute
+        #     dtype; this is the engine's view of it, as in the JAX engine) ---
+        self.compute_dtype = (torch.bfloat16 if config.bfloat16_enabled else
+                              (torch.float16 if config.fp16_enabled else torch.float32))
+        self.fp16_enabled = config.fp16_enabled
+        self.bfloat16_enabled = config.bfloat16_enabled
+        self.dynamic_loss_scale = self.fp16_enabled and config.loss_scale == 0
+
+        self._params = [p for p in model.parameters() if p.requires_grad]
+        if not self._params:
+            raise ValueError("the model has no trainable parameters (a TransformerLM trains "
+                             "with trainable=True)")
+        self.device = self._params[0].device
+
+        # --- optimizer chain ---
+        self.lr_schedule_fn, self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        self.optimizer = self._configure_optimizer(optimizer)
+        self._pallas_adam = self._configure_pallas_adam(optimizer)
+        self.state = self._init_state()
+
+        if training_data is not None:
+            self.training_dataloader = self.deepspeed_io(training_data, collate_fn=collate_fn)
+        logger.info(f"DeepSpeedEngine ready: zero_stage={config.zero_optimization_stage} "
+                    f"dtype={self.compute_dtype} device={self.device} "
+                    f"micro_bsz={config.train_micro_batch_size_per_gpu} "
+                    f"gas={config.gradient_accumulation_steps} "
+                    f"fused_adam={self._pallas_adam is not None}")
+
+    # ------------------------------------------------------------------
+    # configuration
+    # ------------------------------------------------------------------
+    def _configure_lr_scheduler(self, client_scheduler):
+        """Client scheduler wins (a ``step -> lr`` callable or an
+        ``LRScheduler``), else the config's (``engine.py:494``)."""
+        if client_scheduler is not None:
+            if callable(client_scheduler) and not isinstance(client_scheduler, LRScheduler):
+                return client_scheduler, LRScheduler(client_scheduler)
+            return client_scheduler.schedule_fn, client_scheduler
+        name = self.config.scheduler_name
+        if name is not None:
+            base_lr = (self.config.optimizer_params or {}).get("lr", 1e-3)
+            fn = get_lr_schedule_fn(name, self.config.scheduler_params or {}, base_lr=base_lr)
+            return fn, LRScheduler(fn)
+        return None, None
+
+    def _configure_optimizer(self, client_optimizer):
+        """A client ``torch.optim.Optimizer``, or the config's (``engine.py:507``);
+        clipping is the engine's, in front of it."""
+        if client_optimizer is not None:
+            return client_optimizer
+        params = dict(self.config.optimizer_params or {})
+        lr = self.lr_schedule_fn if self.lr_schedule_fn is not None else params.get("lr", 1e-3)
+        return build_optimizer(self.config.optimizer_name, self._params, params, lr=lr)
+
+    def _configure_pallas_adam(self, client_optimizer):
+        """Engage the fused AdamW kernel (``engine.py:545``) when the config
+        maps to Adam/AdamW on fp32 masters and ``tpu.pallas_fused_adam`` is
+        ``"always"`` (``"auto"`` resolves to off, as in the JAX package).
+        On engage, ``self.optimizer`` becomes the ``FusedAdam`` that holds
+        ``FusedAdamState``. Returns the kernel's hyperparameters or None."""
+        mode = self.config.tpu_config.pallas_fused_adam
+        if mode == "never" or client_optimizer is not None:
+            return None
+        name = (self.config.optimizer_name or ADAMW_OPTIMIZER).lower()
+        if name not in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER):
+            return None
+        params = dict(self.config.optimizer_params or {})
+        adam_w = name == ADAMW_OPTIMIZER or params.get("adam_w_mode", True)
+        wd = params.get("weight_decay", 0.0)
+        if not adam_w and wd:
+            return None  # plain-Adam weight decay (grad += wd * p) is not fused
+        if mode == "auto":
+            return None
+        if any(p.dtype != torch.float32 for p in self._params):
+            return None  # the kernel reads and writes fp32 state
+        from ..ops.adam.fused_adam import FusedAdam
+
+        betas = tuple(params.get("betas", (0.9, 0.999)))
+        lr = self.lr_schedule_fn if self.lr_schedule_fn is not None else params.get("lr", 1e-3)
+        self.optimizer = FusedAdam(self._params, lr=lr, betas=betas, eps=params.get("eps", 1e-8),
+                                   weight_decay=wd)
+        logger.info("fused Adam step engaged (single-pass multi-tensor update, gated)")
+        return {"b1": betas[0], "b2": betas[1], "eps": params.get("eps", 1e-8), "wd": wd,
+                "lr": params.get("lr", 1e-3)}
+
+    def _init_state(self):
+        """The engine's scalars on the device (``engine.py:621``); params
+        are the model's, the moments the optimizer's."""
+        dev = self.device
+        if self.fp16_enabled and self.config.loss_scale:
+            scale = float(self.config.loss_scale)
+        else:
+            scale = float(self.config.initial_dynamic_scale) if self.fp16_enabled else 1.0
+        self._n_params = sum(p.numel() for p in self._params)
+        logger.info(f"training {self._n_params / 1e6:.2f}M parameters on {dev}")
+        return {
+            "step": torch.zeros((), dtype=torch.int32, device=dev),
+            "loss_scale": torch.full((), scale, dtype=torch.float32, device=dev),
+            "good_steps": torch.zeros((), dtype=torch.int32, device=dev),
+        }
+
+    def adam_state(self):
+        """(mu list, nu list, update counter) of the Adam(W) state, in the
+        order of the model's trainable parameters."""
+        if self._pallas_adam is not None:
+            st = self.optimizer.fused_state
+            return st.mu, st.nu, st.step
+        if isinstance(self.optimizer, Adam):
+            opt = self.optimizer
+            return ([opt._init_state(p, "mu") for p in self._params],
+                    [opt._init_state(p, "nu") for p in self._params], opt.count)
+        raise TypeError(f"{type(self.optimizer).__name__} holds no Adam state")
+
+    # ------------------------------------------------------------------
+    # the step
+    # ------------------------------------------------------------------
+    def _loss_fn(self, batch):
+        out = self.module.loss(batch) if hasattr(self.module, "loss") else self.module(batch)
+        return out[0] if isinstance(out, tuple) else out
+
+    def _microbatch_grads(self, batch, loss_scale):
+        """One microbatch forward and backward of ``loss * loss_scale``; the
+        gradients add into ``.grad`` (``engine.py:717``)."""
+        loss = self._loss_fn(batch)
+        (loss * loss_scale).backward()
+        return loss.detach()
+
+    def _scan_microbatch_grads(self, batches, loss_scale, gas: int):
+        """Sum the microbatches' gradients into zeroed fp32 ``.grad`` buffers
+        (kept across steps, so their addresses stay fixed), then divide by
+        gas. Returns (grads, per-microbatch losses)."""
+        grads = [p.grad for p in self._params if p.grad is not None]
+        if grads:
+            torch._foreach_zero_(grads)
+        losses = [self._microbatch_grads({k: v[i] for k, v in batches.items()}, loss_scale)
+                  for i in range(gas)]
+        for p in self._params:
+            if p.grad is None:  # a parameter the loss does not reach
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self._params]
+        torch._foreach_div_(grads, float(gas))
+        return grads, torch.stack(losses)
+
+    def _advance_loss_scale(self, finite):
+        """Dynamic loss-scale state machine, on the device."""
+        st = self.state
+        if self.fp16_enabled and self.dynamic_loss_scale:
+            args = self.config.dynamic_loss_scale_args
+            window, min_scale = args["scale_window"], args["min_scale"]
+            good = torch.where(finite, st["good_steps"] + 1, torch.zeros_like(st["good_steps"]))
+            scale = torch.where(finite,
+                                torch.where(good >= window, st["loss_scale"] * 2.0,
+                                            st["loss_scale"]),
+                                torch.clamp_min(st["loss_scale"] * 0.5, min_scale))
+            st["good_steps"] = torch.where(good >= window, torch.zeros_like(good), good)
+            st["loss_scale"] = scale
+
+    def _apply_update(self, grads, gnorm_scaled):
+        """Un-scale, detect overflow, clip, update: gated on the device by
+        the finiteness of the gradient norm. Returns the finiteness flag."""
+        if self._pallas_adam is not None:
+            return self._apply_update_pallas(grads, gnorm_scaled)
+        st = self.state
+        if self.fp16_enabled:
+            torch._foreach_mul_(grads, 1.0 / st["loss_scale"])
+            gnorm = global_norm(grads)
+        else:  # the loss scale is 1: the gradients are already un-scaled
+            gnorm = gnorm_scaled
+        finite = torch.isfinite(gnorm)
+        clip = self.config.gradient_clipping
+        if clip and clip > 0:
+            clip_by_global_norm_(grads, float(clip), gnorm)
+        if self.client_optimizer is None:
+            self.optimizer.step(gate=finite)
+        elif not self.fp16_enabled or bool(finite):
+            # a client torch.optim optimizer takes no device gate: only fp16
+            # (which reads the flag on the host anyway) can overflow-skip it
+            self.optimizer.step()
+        return finite
+
+    def _apply_update_pallas(self, grads, gnorm_scaled):
+        """Single-pass gated AdamW (``engine.py:778``): loss un-scaling and
+        the clip coefficient fold into one gradient factor, the overflow
+        skip is the kernel's gate."""
+        pa = self._pallas_adam
+        inv_scale = 1.0 / self.state["loss_scale"]
+        gnorm = gnorm_scaled * inv_scale
+        finite = torch.isfinite(gnorm)
+        clip = float(self.config.gradient_clipping or 0.0)
+        coef = torch.clamp(clip / (gnorm + 1e-6), max=1.0) if clip > 0 else 1.0
+        count = self.optimizer.fused_state.step
+        lr_t = self.lr_schedule_fn(count) if self.lr_schedule_fn is not None else pa["lr"]
+        self.optimizer.apply(grads, lr_t=lr_t, grad_scale=inv_scale * coef, gate=finite)
+        return finite
+
+    def _finalize_step(self, grads, mean_loss):
+        """Apply the update, advance the scalars, build the step metrics
+        (``engine.py:1201``)."""
+        st = self.state
+        gnorm_scaled = global_norm(grads)
+        lr = (self.lr_schedule_fn(st["step"]) if self.lr_schedule_fn is not None else
+              (self.config.optimizer_params or {}).get("lr", 0.0))
+        finite = self._apply_update(grads, gnorm_scaled)
+        self._advance_loss_scale(finite)
+        st["step"] = st["step"] + finite.to(torch.int32)
+        return {"loss": mean_loss, "grad_norm": gnorm_scaled, "overflow": ~finite, "lr": lr}
+
+    def _to_device(self, x):
+        t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            # pinned + non_blocking: a pageable copy would wait for the
+            # device's queue, serialising host and device at every step
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _host_prepare_batch(self, batch=None, mbs=None):
+        """``(gas, micro, ...)`` batch dict: ``mbs`` (``gas`` microbatches)
+        stacked, or a whole ``gas * micro``-row batch split gas-major."""
+        gas = self.config.gradient_accumulation_steps
+
+        def as_dict(b):
+            return b if isinstance(b, dict) else {"input_ids": b}
+
+        if mbs is not None:
+            mbs = [as_dict(mb) for mb in mbs]
+            return {k: np.stack([np.asarray(mb[k]) for mb in mbs]) if not torch.is_tensor(mbs[0][k])
+                    else torch.stack([mb[k] for mb in mbs]) for k in mbs[0]}
+        return {k: v.reshape(gas, -1, *v.shape[1:]) if torch.is_tensor(v) else
+                np.asarray(v).reshape(gas, -1, *np.shape(v)[1:]) for k, v in as_dict(batch).items()}
+
+    def train_batch(self, batch=None, data_iter=None):
+        """One full training step (all microbatches and the optimizer
+        update). ``batch``: a dict (or the ids array) with leading dim
+        ``gas * micro``; or ``data_iter`` yielding ``gas`` microbatches.
+        Returns the mean loss as a device tensor (no host read)."""
+        gas = self.config.gradient_accumulation_steps
+        if batch is None:
+            assert data_iter is not None, "train_batch needs a batch or a data_iter"
+            host = self._host_prepare_batch(mbs=[next(data_iter) for _ in range(gas)])
+        else:
+            host = self._host_prepare_batch(batch=batch)
+        placed = {k: self._to_device(v) for k, v in host.items()}
+        grads, losses = self._scan_microbatch_grads(placed, self.state["loss_scale"], gas)
+        metrics = self._finalize_step(grads, losses.mean())
+        self.global_steps += 1
+        self.micro_steps += gas
+        self.global_samples += self.train_batch_size()
+        if self.fp16_enabled and bool(metrics["overflow"]):
+            self.skipped_steps += 1
+        self._record_metrics(metrics)
+        return metrics["loss"]
+
+    def _record_metrics(self, metrics):
+        self._step_metrics = dict(metrics)
+        if self.global_steps % self.config.steps_per_print == 0:
+            logger.info(f"step={self.global_steps} loss={float(metrics['loss']):.4f} "
+                        f"lr={float(metrics['lr']):.3e} gnorm={float(metrics['grad_norm']):.3f}")
+
+    # ------------------------------------------------------------------
+    # not ported yet
+    # ------------------------------------------------------------------
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError("the eager forward/backward/step API is not ported to the "
+                                  "PyTorch package yet; use train_batch")
+
+    __call__ = forward
+    backward = step = forward
+
+    # ------------------------------------------------------------------
+    # introspection (reference engine getters)
+    # ------------------------------------------------------------------
+    def get_global_grad_norm(self):
+        return self._step_metrics.get("grad_norm")
+
+    def get_lr(self):
+        if self.lr_schedule_fn is not None:
+            return [float(self.lr_schedule_fn(int(self.state["step"])))]
+        return [float((self.config.optimizer_params or {}).get("lr", 0.0))]
+
+    @property
+    def loss_scale(self):
+        return float(self.state["loss_scale"])
+
+    def train_batch_size(self):
+        return self.config.train_batch_size
+
+    def train_micro_batch_size_per_gpu(self):
+        return self.config.train_micro_batch_size_per_gpu
+
+    def gradient_accumulation_steps(self):
+        return self.config.gradient_accumulation_steps
+
+    def zero_optimization_stage(self):
+        return self.config.zero_optimization_stage
+
+    def get_batch_info(self):
+        return (self.train_batch_size(), self.train_micro_batch_size_per_gpu(),
+                self.gradient_accumulation_steps())
+
+    def deepspeed_io(self, dataset, batch_size: Optional[int] = None, collate_fn=None):
+        """A ``DeepSpeedDataLoader`` of microbatches (the ``data_iter``
+        contract of ``train_batch``)."""
+        return DeepSpeedDataLoader(dataset,
+                                   batch_size=batch_size or self.config.train_micro_batch_size_per_gpu,
+                                   collate_fn=collate_fn, drop_last=self.config.dataloader_drop_last)

@@ -1,0 +1,265 @@
+"""PyTorch port, training slice: ``initialize`` -> ``train_batch`` against
+the JAX engine.
+
+Both engines start from the JAX engine's initial parameters (moved with
+``params_from_jax(per_layer=True)``) on a tiny Mistral (2 layers, hidden 64,
+GQA 4/2, window 16, fp32, reference attention), and take the same batches
+(numpy, from a seed). Losses agree at rtol 2e-5 and final parameters at
+rtol 2e-4 / atol 2e-6 (the tolerances of ``tests/test_fused_adam.py``:
+fp32 sums in another order), with the optax-equivalent optimizer
+(``pallas_fused_adam: "never"``) and with the fused Adam path
+(``"always"``: the kernel's plain version on the CPU, the Pallas kernel in
+interpret mode on the JAX side). Also: the chunked CE, ``labels`` /
+``loss_mask`` batches, the fp16 loss-scale state machine with an injected
+overflow, a mid-run resume from the JAX engine's optimizer state, and the
+config's refusals.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu
+import deepspeed_tpu_torch
+from deepspeed_tpu.models import TransformerLM as JaxLM
+from deepspeed_tpu.models import mistral_config as jax_mistral_config
+from deepspeed_tpu.parallel.mesh import single_device_mesh
+from deepspeed_tpu_torch.models import (TransformerLM, mistral_config, params_from_jax,
+                                        params_to_numpy)
+from deepspeed_tpu_torch.models.convert import optimizer_state_from_numpy, tree_leaves
+
+TINY = dict(num_layers=2, hidden_size=64, num_heads=4, num_kv_heads=2, intermediate_size=128,
+            vocab_size=256, max_seq_len=256, sliding_window=16)
+
+
+def _ds_config(mode, **over):
+    cfg = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": 4,
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+           "scheduler": {"type": "WarmupLR", "params": {"warmup_num_steps": 2,
+                                                        "warmup_max_lr": 1e-4,
+                                                        "warmup_type": "linear"}},
+           "gradient_clipping": 1.0, "steps_per_print": 100,
+           "tpu": {"pallas_fused_adam": mode}}
+    cfg.update(over)
+    return cfg
+
+
+def _engines(mode, loss_chunk=None, **over):
+    jcfg = jax_mistral_config("tiny", dtype=jnp.float32, attention_impl="reference",
+                              loss_chunk=loss_chunk, **TINY)
+    je, _, _, _ = deepspeed_tpu.initialize(model=JaxLM(jcfg), config=_ds_config(mode, **over),
+                                           mesh=single_device_mesh())
+    npp = jax.tree.map(np.asarray, je.state["params"])
+    tcfg = mistral_config("tiny", dtype=torch.float32, attention_impl="reference",
+                          loss_chunk=loss_chunk, **TINY)
+    model = TransformerLM(tcfg, params_from_jax(npp, tcfg, device="cpu", dtype=torch.float32,
+                                                per_layer=True), trainable=True)
+    te, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=_ds_config(mode, **over))
+    return je, te
+
+
+def _batch(seed, extra=False, seq=24):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 256, size=(8, seq)).astype(np.int32)
+    if not extra:
+        return {"input_ids": ids}
+    return {"input_ids": ids, "labels": rng.integers(0, 256, size=(8, seq)).astype(np.int32),
+            "loss_mask": (rng.random((8, seq)) > 0.3).astype(np.float32)}
+
+
+def _assert_params_close(je, te):
+    ours = params_to_numpy(te.module.params())
+    ref = jax.tree.map(np.asarray, je.state["params"])
+    for group in ref:
+        for name in ref[group]:
+            np.testing.assert_allclose(ours[group][name], ref[group][name], rtol=2e-4, atol=2e-6,
+                                       err_msg=f"{group}/{name}")
+
+
+@pytest.mark.parametrize("mode", ["never", "always"])
+def test_train_batch_matches_jax_engine(mode):
+    je, te = _engines(mode)
+    assert (te._pallas_adam is not None) == (mode == "always")
+    assert (je._pallas_adam is not None) == (mode == "always")
+    for step in range(3):
+        b = _batch(step)
+        lj = float(je.train_batch(b))
+        lt = float(te.train_batch(b))
+        np.testing.assert_allclose(lt, lj, rtol=2e-5)
+    _assert_params_close(je, te)
+    assert te.global_steps == 3 and int(te.state["step"]) == int(je.state["step"]) == 3
+    np.testing.assert_allclose(te.get_lr(), je.get_lr(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("loss_chunk,extra", [(8, False), (None, True), (8, True)])
+def test_chunked_ce_and_labels_mask_match_jax_engine(loss_chunk, extra):
+    je, te = _engines("never", loss_chunk=loss_chunk)
+    for step in range(2):
+        b = _batch(10 + step, extra=extra)
+        np.testing.assert_allclose(float(te.train_batch(b)), float(je.train_batch(b)), rtol=2e-5)
+    _assert_params_close(je, te)
+
+
+def test_chunked_ce_equals_full_ce():
+    tcfg = mistral_config("tiny", dtype=torch.float32, attention_impl="reference", **TINY)
+    model = TransformerLM(tcfg, device="cpu", trainable=True)
+    b = {k: torch.from_numpy(v) for k, v in _batch(3, extra=True, seq=21).items()}
+    for extra in (False, True):
+        batch = b if extra else {"input_ids": b["input_ids"]}
+        full = model.loss(batch)
+        g_full = torch.autograd.grad(full, list(model.parameters()))
+        tcfg.loss_chunk = 8
+        chunked = model.loss(batch)
+        g_chunk = torch.autograd.grad(chunked, list(model.parameters()))
+        tcfg.loss_chunk = None
+        np.testing.assert_allclose(chunked.item(), full.item(), rtol=1e-6)
+        for a, c in zip(g_chunk, g_full):
+            np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-5, atol=1e-7)
+
+
+def test_resume_from_jax_optimizer_state():
+    """Two JAX steps, then both engines continue from the same mid-run
+    params and fused-Adam state (numpy carrier both ways)."""
+    je, te = _engines("always")
+    for step in range(2):
+        je.train_batch(_batch(20 + step))
+    npp = jax.tree.map(np.asarray, je.state["params"])
+    cfg = te.module.config
+    with torch.no_grad():
+        for dst, src in zip(te._params, tree_leaves(
+                params_from_jax(npp, cfg, device="cpu", dtype=torch.float32, per_layer=True))):
+            dst.copy_(src)
+    opt = je.state["opt_state"]
+    optimizer_state_from_numpy(te, {"step": np.asarray(opt.step),
+                                    "mu": jax.tree.map(np.asarray, opt.mu),
+                                    "nu": jax.tree.map(np.asarray, opt.nu)})
+    te.state["step"].fill_(int(je.state["step"]))
+    b = _batch(22)
+    np.testing.assert_allclose(float(te.train_batch(b)), float(je.train_batch(b)), rtol=2e-5)
+    _assert_params_close(je, te)
+
+
+def _quadratic_jax(params, batch):
+    return jnp.mean((batch["x"] @ params["w"]) ** 2)
+
+
+def _quadratic_torch(params, batch):
+    return torch.mean((batch["x"] @ params["w"]) ** 2)
+
+
+def test_fp16_overflow_skips_step_and_halves_scale():
+    """Dynamic loss scale: an inf in one batch makes every gradient
+    non-finite; the step is skipped (params and step unchanged), the scale
+    halves, and good steps double it after the window, as in the JAX
+    engine."""
+    cfg = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-2}},
+           "fp16": {"enabled": True, "initial_scale_power": 4, "loss_scale_window": 2},
+           "steps_per_print": 100}
+    w0 = np.random.default_rng(0).normal(size=(3, 2)).astype(np.float32)
+    je, _, _, _ = deepspeed_tpu.initialize(model=_quadratic_jax,
+                                           model_parameters={"w": jnp.asarray(w0)},
+                                           config=cfg, mesh=single_device_mesh())
+    te, _, _, _ = deepspeed_tpu_torch.initialize(model=_quadratic_torch,
+                                                 model_parameters={"w": torch.from_numpy(w0.copy())},
+                                                 config=cfg)
+    rng = np.random.default_rng(1)
+    scales, steps = [], []
+    for i in range(6):
+        x = rng.normal(size=(4, 3)).astype(np.float32)
+        if i in (1, 4):
+            x[0, 0] = np.inf
+        lj = je.train_batch({"x": x})
+        lt = te.train_batch({"x": x})
+        if np.isfinite(float(lj)):
+            np.testing.assert_allclose(float(lt), float(lj), rtol=2e-5)
+        scales.append((te.loss_scale, float(je.state["loss_scale"])))
+        steps.append((int(te.state["step"]), int(je.state["step"])))
+    assert [a for a, _ in scales] == [b for _, b in scales]
+    assert [a for a, _ in steps] == [b for _, b in steps]
+    assert scales[1][0] == 8.0 and steps[1][0] == 1  # the overflow halved 16 and skipped
+    assert te.skipped_steps == je.skipped_steps == 2
+    np.testing.assert_allclose(te.module.params["w"].detach().numpy(),
+                               np.asarray(je.state["params"]["w"]), rtol=2e-4, atol=2e-6)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("activation_checkpointing", {"partition_activations": True}),
+    ("pipeline", {"stages": 2}),
+    ("progressive_layer_drop", {"enabled": True}),
+    ("zero_optimization", {"stage": 2, "offload_optimizer": {"device": "cpu"}}),
+    ("zero_optimization", {"stage": 3, "zero_hpz_partition_size": 2}),
+    ("tpu", {"donate_buffers": True}),
+    ("fp16", {"enabled": True, "auto_cast": True}),
+])
+def test_unported_config_keys_raise_and_name_the_key(key, value):
+    name = next(iter(value)) if key in ("zero_optimization", "tpu", "fp16") else key
+    if key == "zero_optimization":
+        name = [k for k in value if k != "stage"][0]
+    with pytest.raises((NotImplementedError, deepspeed_tpu_torch.DeepSpeedConfigError),
+                       match=name if key != "fp16" else "auto_cast"):
+        deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 2, key: value})
+
+
+def test_unported_optimizers_and_model_fields_raise():
+    tcfg = mistral_config("tiny", dtype=torch.float32, **TINY)
+    model = TransformerLM(tcfg, device="cpu", trainable=True)
+    for name in ("Lamb", "Lion", "OneBitAdam"):
+        with pytest.raises(NotImplementedError, match=name.lower()):
+            deepspeed_tpu_torch.initialize(model=model, config={
+                "train_batch_size": 2, "optimizer": {"type": name, "params": {}}})
+    for field, value in (("remat", True), ("sequence_parallel", True), ("dropout", 0.1),
+                         ("moe_num_experts", 4)):
+        with pytest.raises(NotImplementedError, match=field):
+            TransformerLM(mistral_config("tiny", dtype=torch.float32, **dict(TINY, **{field: value})),
+                          device="cpu", trainable=True)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config={"train_batch_size": 2})
+    for fn in (engine.forward, engine.backward, engine.step):
+        with pytest.raises(NotImplementedError):
+            fn()
+
+
+def test_world_size_above_one_raises(monkeypatch):
+    from deepspeed_tpu_torch.runtime import engine as eng
+
+    monkeypatch.setattr(eng, "_world_size", lambda: 2)
+    model = TransformerLM(mistral_config("tiny", dtype=torch.float32, **TINY), device="cpu",
+                          trainable=True)
+    with pytest.raises(NotImplementedError, match="world size 2"):
+        deepspeed_tpu_torch.initialize(model=model, config={"train_batch_size": 2})
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_zero_stages_at_world_size_one_train_alike(stage):
+    """Every stage partitions over one rank: the same trajectory as stage 0."""
+    tcfg = mistral_config("tiny", dtype=torch.float32, attention_impl="reference", **TINY)
+    losses = []
+    for st in (0, stage):
+        model = TransformerLM(tcfg, device="cpu", trainable=True, seed=5)
+        e, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=model, config=_ds_config("never", zero_optimization={"stage": st}))
+        losses.append([float(e.train_batch(_batch(30 + i))) for i in range(2)])
+    assert losses[0] == losses[1]
+    assert e.zero_optimization_stage() == stage
+
+
+def test_dataloader_and_data_iter():
+    """``training_data`` builds a loader of microbatches; ``train_batch
+    (data_iter=...)`` takes gas of them, the same as one stacked batch."""
+    tcfg = mistral_config("tiny", dtype=torch.float32, attention_impl="reference", **TINY)
+    data = [{"input_ids": np.random.default_rng(i).integers(0, 256, 16).astype(np.int32)}
+            for i in range(16)]
+    m1 = TransformerLM(tcfg, device="cpu", trainable=True, seed=1)
+    e1, _, loader, _ = deepspeed_tpu_torch.initialize(model=m1, config=_ds_config("never"),
+                                                      training_data=data)
+    assert len(loader) == 8
+    mbs = list(iter(loader))[:4]
+    l1 = float(e1.train_batch(data_iter=iter(mbs)))
+    m2 = TransformerLM(tcfg, device="cpu", trainable=True, seed=1)
+    e2, _, _, _ = deepspeed_tpu_torch.initialize(model=m2, config=_ds_config("never"))
+    l2 = float(e2.train_batch({"input_ids": np.concatenate([mb["input_ids"] for mb in mbs])}))
+    assert l1 == l2

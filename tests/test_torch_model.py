@@ -2,9 +2,11 @@
 
 Inputs are made from a seed with numpy and fed to both packages in fp32:
 rotary, norms, MLP activations, ALiBi slopes, the ``params_from_jax`` round
-trip, and ``ragged_forward`` (logits and updated KV pools: fp32, bf16 and
-int8 pools with scales) on a tiny Mistral with GQA and a sliding window. The last test scans the port's sources: it imports
-neither ``jax`` nor the JAX package.
+trip (stacked serving weights, per-layer fp32 training masters and the
+Adam state), and ``ragged_forward`` (logits and updated KV pools: fp32, bf16
+and int8 pools with scales) on a tiny Mistral with GQA and a sliding window.
+The last test scans the port's sources: it imports neither ``jax`` nor the
+JAX package.
 """
 
 import ast
@@ -22,9 +24,12 @@ from deepspeed_tpu.models import mistral_config as jax_mistral_config
 from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.inference.v2.model_implementations.flat_model import ragged_forward
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import (TransformerLM, init_params, mistral_config,
                                         params_from_jax, params_to_numpy)
 from deepspeed_tpu_torch.models import transformer as tt
+from deepspeed_tpu_torch.models.convert import (optimizer_state_from_numpy,
+                                                optimizer_state_to_numpy)
 
 REPO = os.path.join(os.path.dirname(__file__), os.pardir)
 TINY = dict(num_layers=2, hidden_size=64, num_heads=4, num_kv_heads=2, intermediate_size=128,
@@ -103,6 +108,58 @@ def test_params_from_jax_round_trip_and_layout():
     drawn = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     assert {g: {n: tuple(t.shape) for n, t in leaves.items()} for g, leaves in drawn.items()} == \
         {g: {n: a.shape for n, a in leaves.items()} for g, leaves in npp.items()}
+
+
+def test_trainable_masters_round_trip_exactly():
+    """numpy -> fp32 masters of a trainable TransformerLM (one parameter per
+    layer and weight) -> numpy is exact, and the per-layer draws of
+    init_params equal the stacked ones."""
+    jcfg, tcfg = _cfgs()
+    npp = _jax_params(jcfg, seed=7)
+    model = TransformerLM(tcfg, params_from_jax(npp, tcfg, device="cpu", dtype=torch.float32,
+                                                per_layer=True), trainable=True)
+    params = list(model.parameters())
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in params)
+    n_block = len(npp["blocks"])
+    assert len(params) == tcfg.num_layers * n_block + sum(
+        len(v) for g, v in npp.items() if g != "blocks")
+    back = params_to_numpy(model.params())
+    for group in npp:
+        for name in npp[group]:
+            np.testing.assert_array_equal(back[group][name], npp[group][name])
+    stacked = init_params(tcfg, torch.Generator().manual_seed(1), device="cpu",
+                          dtype=torch.float32)
+    per_layer = init_params(tcfg, torch.Generator().manual_seed(1), device="cpu",
+                            dtype=torch.float32, per_layer=True)
+    for name, t in stacked["blocks"].items():
+        assert torch.equal(t, torch.stack([layer[name] for layer in per_layer["blocks"]]))
+
+
+@pytest.mark.parametrize("mode", ["never", "always"])
+def test_optimizer_state_round_trip_exactly(mode):
+    """numpy mu / nu / step -> the engine's Adam state (``FusedAdamState``
+    with the fused kernel, the optax-equivalent optimizer's otherwise) ->
+    numpy is exact."""
+    _, tcfg = _cfgs()
+    model = TransformerLM(tcfg, device="cpu", trainable=True)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_batch_size": 2, "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+        "tpu": {"pallas_fused_adam": mode}})
+    assert (engine._pallas_adam is not None) == (mode == "always")
+    like = params_to_numpy(model.params())
+    rng = np.random.default_rng(8)
+    state = {"step": np.int32(7),
+             "mu": {g: {n: rng.normal(size=a.shape).astype(np.float32) for n, a in v.items()}
+                    for g, v in like.items()},
+             "nu": {g: {n: rng.random(size=a.shape).astype(np.float32) for n, a in v.items()}
+                    for g, v in like.items()}}
+    optimizer_state_from_numpy(engine, state)
+    back = optimizer_state_to_numpy(engine)
+    assert int(back["step"]) == 7 and int(engine.adam_state()[2]) == 7
+    for key in ("mu", "nu"):
+        for group in like:
+            for name in like[group]:
+                np.testing.assert_array_equal(back[key][group][name], state[key][group][name])
 
 
 def test_unported_model_features_are_refused():
