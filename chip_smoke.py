@@ -1,11 +1,12 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases build,kernels,train_kernels,e2e,train]
+    python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,e2e,train,moe_train]
+    python3 chip_smoke.py --mutant
 
 With no arguments every phase runs, in this order; each must pass (exit
 code 1 otherwise):
 
-1. build: compile the three hand-written CUDA sources of
+1. build: compile the four hand-written CUDA sources of
    ``deepspeed_tpu_torch/ops/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together; print each nvcc's wall time and the
    ``-Xptxas -v`` registers / shared memory / spills per kernel.
@@ -48,13 +49,30 @@ code 1 otherwise):
    plain version and a library call: ``F.scaled_dot_product_attention``
    forward, and its autograd backward for the two backward kernels
    together; ``torch.optim.AdamW(fused=True)`` on the same tensors.
-4. e2e: Mistral-7B at full width and depth (32 layers), random weights from
+4. moe_kernels: hold the grouped matmul kernels (``gmm``, with and without
+   ``trans_b``, and ``tgmm``) against their plain versions on small cases
+   (bf16 and fp16, K and N off the tiles and off multiples of 8, an expert
+   owning only a zero padding block, a single expert, 256-row blocks, the
+   main path's widths) and at the main path's shapes (Mixtral-8x7B's expert
+   FFN over 4096 tokens routed top-2 by the port's dispatcher: 8192 rows,
+   T_pad 9216, K / N 4096 / 14336 and back). Tolerance: gmm as flash (2
+   ulp(plain) + max(2^-14, 2^-12 rms(plain))); tgmm, fp32 and never
+   rounded, within 2^-16 sqrt(rows summed into out[e]) rms(plain[e]) per
+   expert: the fp32 summation order moves a sum of n terms by ~2^-24
+   sqrt(n) of its size, and one lost 128-row block moves it by
+   sqrt(128 / n) of its size, far above. Times against the bound (counted
+   over the routed rows), the plain version and a library yardstick
+   (``torch._grouped_mm`` where it takes the layout, else a loop of E
+   ``torch.mm``). Then the serving modules at Mixtral width,
+   ``grouped_gemm_moe`` against ``top_k_gated_moe`` (relative L2 1e-2) on
+   a 512-token chunk and an 8-token decode batch.
+5. e2e: Mistral-7B at full width and depth (32 layers), random weights from
    a seeded generator, served through ``DynamicSplitFuseScheduler`` over
    ``InferenceEngineV2``: requests chosen so that every kernel path runs,
    with launch counts reset just before and read just after; then one
    prefill's last-token logits through the kernels against the same
    forward through ``dense_blocked_attention`` (relative L2 error).
-5. train: the serving engine is freed first. Mistral-7B at full width with
+6. train: the serving engine is freed first. Mistral-7B at full width with
    its depth cut 32 -> 8 for memory, fp32 masters from a seeded generator,
    trained through ``deepspeed_tpu_torch.initialize`` -> ``train_batch``
    (bf16 compute, AdamW through the fused kernel, clipping 1.0, WarmupLR,
@@ -65,6 +83,22 @@ code 1 otherwise):
    timed at the full parameter set; then one forward and backward at seq
    1024 through the kernels against the same through the plain attention
    on the same weights (loss and whole-gradient relative L2 error).
+7. moe_train: the earlier engines freed, Mixtral-8x7B's widths (8 experts,
+   top-2, the grouped path, capacity factor 1.25, rope_theta 1e6, no
+   window) with the depth cut 32 -> 2 for memory, trained as in ``train``
+   (the engine's seeded generator drives the gating's draws): losses finite
+   and falling, step time, tokens/s, peak memory, launches (exactly 24
+   gmm, 12 tgmm, 4 of each flash kernel and 1 fused Adam per step), a
+   profiled step; then at seq 1024 the grouped kernels against the plain
+   grouped path, on the last layer's MoE FFN with one input (identical
+   routing; relative L2 1e-2) and on the whole model (loss 2e-3, gradient
+   1.5e-1: the last layer's gate sees inputs that differ in the last bf16
+   bit, and the tokens it routes differently, printed, move whole tokens'
+   contributions between experts).
+
+``--mutant`` copies the package into ``build/mutant``, makes the grouped
+matmul kernels drop one row block's products, runs ``--phases
+build,moe_kernels`` there and passes when that run fails.
 
 It prints the card (name and power limit) and, on the line before the last,
 ``{"kernels": [...]}``; the last line is
@@ -75,6 +109,7 @@ no result lines.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -123,6 +158,29 @@ TRAIN_DS_CONFIG = {
 # attention outputs differ in the last bf16 bit, and later bf16 roundings
 # through 8 layers (forward and backward) amplify that
 LOSS_REL_TOL, GRAD_REL_L2_TOL = 2e-3, 5e-2
+GMM_SRC = "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu"
+TPU_GMM = "deepspeed_tpu/ops/pallas/grouped_matmul.py"
+MOE_KERNELS = {"gmm": (GMM_SRC, f"{TPU_GMM}:85"), "tgmm": (GMM_SRC, f"{TPU_GMM}:148")}
+# the MoE training phase: Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1
+# config.json: hidden 4096, intermediate 14336, 32/8 heads, vocab 32000, 8
+# experts, top-2, rope_theta 1e6, no sliding window), depth cut 32 -> 2
+MOE_LAYERS = 2
+MOE_CONFIG = dict(sliding_window=None, rope_theta=1e6, moe_num_experts=8, moe_top_k=2,
+                  moe_impl="grouped", num_layers=MOE_LAYERS)
+# tgmm's fp32 sums: a floor of 2^-16 * sqrt(rows summed) * rms(plain[e])
+TGMM_FLOOR = 2.0**-16
+# the serving modules at Mixtral width: relative L2 of grouped vs dense
+MOE_SERVE_REL_L2_TOL = 1e-2
+# one MoE layer at seq 1024, kernels vs the plain grouped path on one input
+# (identical routing): bf16 roundings of up / gate / activation / down at the
+# same places from fp32 sums in another order, each differing in the last
+# bit at most
+MOE_LAYER_REL_L2_TOL = 1e-2
+# the whole MoE model at seq 1024: the last layer's gate sees inputs that
+# differ in the last bf16 bit, and a token whose top-2 margin is below that
+# changes experts (and the capacity ranks behind it), so whole tokens'
+# contributions move between experts' gradients
+MOE_GRAD_REL_L2_TOL = 1.5e-1
 
 
 def log(msg):
@@ -170,9 +228,10 @@ def phase_build():
 
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import fused_adam as fad
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
-    mods = {"paged_attention": pa, "flash_attention": fa, "fused_adam": fad}
+    mods = {"paged_attention": pa, "flash_attention": fa, "fused_adam": fad, "grouped_matmul": gm}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, all at once
         built = dict(zip(mods, ex.map(lambda m: m.kernel_build(), mods.values())))
@@ -774,6 +833,203 @@ def _check_fused_adam():
 
 
 # ---------------------------------------------------------------------------
+# phase: the MoE kernels (grouped matmul) against their plain versions
+# ---------------------------------------------------------------------------
+
+def _tgmm_err(out, ref, be, bt):
+    """tgmm (fp32, never rounded): per expert e, |out - ref| <= 2^-16 *
+    sqrt(rows summed into out[e]) * rms(ref[e]) (+ 2^-30 for an expert with
+    no rows, whose plain output is exactly 0)."""
+    import torch
+
+    rows = torch.bincount(be.long(), minlength=ref.shape[0]).float() * bt
+    rms = ref.pow(2).mean(dim=(1, 2)).sqrt()
+    tol = (TGMM_FLOOR * rows.sqrt() * rms + 2.0**-30)[:, None, None]
+    err = (out - ref).abs()
+    return float(err.max()), float((err / tol).max())
+
+
+def _library_grouped(kind, a, b, be, bt, E):
+    """A library yardstick for the same groups: ``torch._grouped_mm`` where
+    this torch has it and takes these layouts, else a loop of E
+    ``torch.mm`` calls (bf16 out). Returns (name, fn)."""
+    import torch
+
+    counts = torch.bincount(be.long(), minlength=E) * bt
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    bounds = [0] + ends.tolist()
+    grouped = getattr(torch, "_grouped_mm", None)
+    cands = []
+    if grouped is not None:
+        if kind == "gmm":
+            b_cm = b.transpose(1, 2).contiguous().transpose(1, 2)  # column-major [E, K, N]
+            cands = [lambda: grouped(a, b, offs=ends), lambda: grouped(a, b_cm, offs=ends)]
+        else:
+            cands = [lambda: grouped(a.t(), b, offs=ends, out_dtype=torch.float32),
+                     lambda: grouped(a.t().contiguous(), b, offs=ends, out_dtype=torch.float32)]
+    for fn in cands:
+        try:
+            fn()
+            torch.cuda.synchronize()
+            return "torch._grouped_mm", fn
+        except Exception:  # noqa: BLE001 -- a yardstick only: try the next layout
+            continue
+    if kind == "gmm":
+        return "loop of torch.mm over the experts", lambda: [
+            torch.mm(a[bounds[e]:bounds[e + 1]], b[e]) for e in range(E)]
+    return "loop of torch.mm over the experts", lambda: [
+        torch.mm(a[bounds[e]:bounds[e + 1]].t(), b[bounds[e]:bounds[e + 1]]) for e in range(E)]
+
+
+def phase_moe_kernels():
+    """Returns {kernel name: measurement dict} for gmm and tgmm."""
+    import torch
+
+    from deepspeed_tpu_torch.inference.v2.modules import (ConfigBundle, DSMoEConfig,
+                                                          DSMoERegistry)
+    from deepspeed_tpu_torch.moe.grouped import block_align_dispatch
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' fp32 products
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    failures = []
+    worst = {"gmm": [0.0, 0.0, ""], "tgmm": [0.0, 0.0, ""]}  # max err, max fraction, case
+
+    def record(name, tag, e, frac):
+        w = worst[name]
+        w[0] = max(w[0], e)
+        if frac > w[1]:
+            w[1], w[2] = frac, tag
+        if not frac <= 1.0:
+            failures.append(f"{name} {tag}: max_abs_err {e:.3e}, {frac:.2f}x its tolerance")
+
+    def check_all(tag, lhs, rhs, dy, be, bt, E):
+        out = gm.gmm(lhs, rhs, be, bt)
+        dx = gm.gmm(dy, rhs, be, bt, trans_b=True)
+        dw = gm.tgmm(lhs, dy, be, E, bt)
+        refs = (gm.gmm_plain(lhs, rhs, be, bt), gm.gmm_plain(dy, rhs, be, bt, trans_b=True),
+                gm.tgmm_plain(lhs, dy, be, E, bt))
+        torch.cuda.synchronize()
+        # gmm rounds like the flash outputs: the flash tolerance
+        record("gmm", f"{tag} forward", *_flash_err(out, refs[0]))
+        record("gmm", f"{tag} trans_b", *_flash_err(dx, refs[1]))
+        record("tgmm", tag, *_tgmm_err(dw, refs[2], be, bt))
+
+    # small cases: (T, K, N, E, block table, dtype, bt, zero rows)
+    cases = [
+        (512, 200, 136, 3, [0, 0, 1, 2], torch.bfloat16, 128, None),  # K, N off the tiles
+        (512, 200, 136, 3, [0, 0, 1, 2], torch.float16, 128, None),
+        (384, 37, 45, 2, [0, 1, 1], torch.bfloat16, 128, None),  # widths not multiples of 8
+        (768, 96, 256, 4, [0, 0, 1, 2, 3, 3], torch.bfloat16, 128, 2),  # expert 1: padding only
+        (384, 128, 128, 1, [0, 0, 0], torch.bfloat16, 128, None),  # a single expert
+        (1024, 160, 200, 2, [0, 1, 1, 1], torch.float16, 256, None),  # 256-row blocks
+        (256, 4096, 14336, 2, [0, 1], torch.bfloat16, 128, None),  # the main path's widths
+    ]
+    for T, K, N, E, be_list, dt, bt, zero_block in cases:
+        be = torch.tensor(be_list, dtype=torch.int32, device=dev)
+        lhs = torch.randn(T, K, generator=gen, device=dev).to(dt)
+        dy = torch.randn(T, N, generator=gen, device=dev).to(dt)
+        if zero_block is not None:  # the padding block of an expert with no tokens
+            lhs[zero_block * bt:(zero_block + 1) * bt] = 0
+            dy[zero_block * bt:(zero_block + 1) * bt] = 0
+        rhs = (torch.randn(E, K, N, generator=gen, device=dev) / K**0.5).to(dt)
+        check_all(f"T={T} K={K} N={N} E={E} bt={bt} {str(dt)[6:]} table={be_list}", lhs, rhs,
+                  dy, be, bt, E)
+    log(f"[moe_kernels] small-size matrix ({len(cases)} cases x gmm, gmm trans_b, tgmm): "
+        f"{'all within tolerance' if not failures else failures}; largest errors: gmm "
+        f"{worst['gmm'][0]:.3e} ({worst['gmm'][1]:.3f} of tolerance), tgmm {worst['tgmm'][0]:.3e} "
+        f"({worst['tgmm'][1]:.3f})")
+
+    # the main path's shapes: Mixtral-8x7B's expert FFN over 4096 tokens,
+    # top-2 routed (8192 rows), dispatched by the port's own dispatcher
+    S, H, Fd, E, k, bt = 4096, 4096, 14336, 8, 2, 128
+    x = torch.randn(S, H, generator=gen, device=dev).to(torch.bfloat16)
+    logits = torch.randn(S, E, generator=gen, device=dev)
+    top_w, top_idx = torch.softmax(logits, -1).topk(k, dim=-1)
+    tok, _, dest, be, T_pad = block_align_dispatch(None, k, bt, top_idx=top_idx, top_w=top_w,
+                                                   num_experts=E)
+    x_sorted = x.new_zeros((T_pad, H)).index_copy(0, dest, x[tok])
+    wi = (torch.randn(E, H, Fd, generator=gen, device=dev) / H**0.5).to(torch.bfloat16)
+    wo = (torch.randn(E, Fd, H, generator=gen, device=dev) / Fd**0.5).to(torch.bfloat16)
+    mid = torch.randn(T_pad, Fd, generator=gen, device=dev).to(torch.bfloat16)
+    mid[(x_sorted == 0).all(dim=1)] = 0  # padding rows stay zero, as after the activation
+    rows = S * k
+    del x
+    check_all(f"main T_pad={T_pad}", x_sorted, wi, mid, be, bt, E)
+    check_all(f"main-down T_pad={T_pad}", mid, wo, x_sorted, be, bt, E)
+    calls = {  # name -> (kernel fn, plain fn, library kind and operands, flops, bytes)
+        "gmm up (K 4096, N 14336)": (
+            lambda: gm.gmm(x_sorted, wi, be, bt), lambda: gm.gmm_plain(x_sorted, wi, be, bt),
+            ("gmm", x_sorted, wi), 2 * rows * H * Fd, 2 * (rows * H + E * H * Fd + rows * Fd)),
+        "gmm down (K 14336, N 4096)": (
+            lambda: gm.gmm(mid, wo, be, bt), lambda: gm.gmm_plain(mid, wo, be, bt),
+            ("gmm", mid, wo), 2 * rows * H * Fd, 2 * (rows * Fd + E * H * Fd + rows * H)),
+        "gmm dx trans_b (K 14336, N 4096)": (
+            lambda: gm.gmm(mid, wi, be, bt, trans_b=True),
+            lambda: gm.gmm_plain(mid, wi, be, bt, trans_b=True),
+            ("gmm", mid, wi.transpose(1, 2)), 2 * rows * H * Fd,
+            2 * (rows * Fd + E * H * Fd + rows * H)),
+        "tgmm dw (K 4096, N 14336)": (
+            lambda: gm.tgmm(x_sorted, mid, be, E, bt), lambda: gm.tgmm_plain(x_sorted, mid, be, E,
+                                                                           bt),
+            ("tgmm", x_sorted, mid), 2 * rows * H * Fd, 2 * (rows * H + rows * Fd) + 4 * E * H * Fd),
+    }
+    meas = {}
+    for name, (fn, plain_fn, (kind, a, b), flops, n_bytes) in calls.items():
+        ms = time_ms(fn, iters=10, warmup=2)
+        plain = time_ms(plain_fn, iters=2, warmup=1)
+        lib_name, lib_fn = _library_grouped(kind, a, b, be, bt, E)
+        lib_ms = time_ms(lib_fn, iters=10, warmup=2)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        meas[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          library=lib_name, t_pad=T_pad, routed_rows=rows)
+        log(f"[moe_kernels] {name}, {rows} routed rows (T_pad {T_pad}, bt {bt}): {ms:.3f} ms, "
+            f"plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP, "
+            f"{n_bytes / 1e9:.3f} GB), {lib_name} {lib_ms:.3f} ms; "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+    del mid
+
+    # the serving modules at Mixtral width: grouped_gemm_moe vs
+    # top_k_gated_moe (dense dispatch, plain products), a 512-token chunk
+    # and an 8-token decode batch
+    wg = (torch.randn(E, H, Fd, generator=gen, device=dev) / H**0.5).to(torch.bfloat16)
+    gate_w = (torch.randn(H, E, generator=gen, device=dev) / H**0.5).to(torch.bfloat16)
+    mods = {name: DSMoERegistry.instantiate_config(ConfigBundle(name=name, config=DSMoEConfig(
+        n_experts=E, top_k=k, activation="swiglu", dtype=torch.bfloat16)))
+        for name in ("grouped_gemm_moe", "top_k_gated_moe")}
+    serve = {}
+    for T in (512, 8):
+        xs = torch.randn(T, H, generator=gen, device=dev).to(torch.bfloat16)
+        before = gm.launch_counts["gmm"]
+        got = mods["grouped_gemm_moe"](xs, gate_w, wi, wg, wo)
+        n_launch = gm.launch_counts["gmm"] - before
+        ref = mods["top_k_gated_moe"](xs, gate_w, wi, wg, wo)
+        torch.cuda.synchronize()
+        rel = float((got.float() - ref.float()).norm() / ref.float().norm())
+        ms = time_ms(lambda: mods["grouped_gemm_moe"](xs, gate_w, wi, wg, wo), iters=10, warmup=2)
+        dense_ms = time_ms(lambda: mods["top_k_gated_moe"](xs, gate_w, wi, wg, wo), iters=10,
+                           warmup=2)
+        serve[T] = dict(rel_l2=rel, ms=ms, dense_ms=dense_ms, gmm_launches=n_launch)
+        log(f"[moe_kernels] serving module, {T} tokens: grouped_gemm_moe vs top_k_gated_moe "
+            f"relative L2 {rel:.3e} (tolerance {MOE_SERVE_REL_L2_TOL}: both round up, gate, "
+            f"activation and down to bf16 at the same places, from fp32 sums in another order); "
+            f"{ms:.3f} ms vs {dense_ms:.3f} ms; gmm launches per call {n_launch}")
+        if not (got.shape == (T, H) and rel <= MOE_SERVE_REL_L2_TOL and n_launch == 3):
+            failures.append(f"serving module T={T}: rel L2 {rel:.3e}, gmm launches {n_launch}")
+    del wi, wo, wg, x_sorted
+    log(f"[moe_kernels] largest errors over all cases: gmm {worst['gmm'][1]:.3f} of its "
+        f"tolerance ({worst['gmm'][2]}), tgmm {worst['tgmm'][1]:.3f} ({worst['tgmm'][2]})")
+    if failures:
+        raise RuntimeError("grouped matmul kernels disagree: " + "; ".join(failures[:12]))
+    up = meas["gmm up (K 4096, N 14336)"]
+    res = {"gmm": dict(err=worst["gmm"][0], **up, calls=meas),
+           "tgmm": dict(err=worst["tgmm"][0], **meas["tgmm dw (K 4096, N 14336)"])}
+    res["gmm"]["serving_module"] = serve
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 5: Mistral-7B width trained through initialize -> train_batch
 # ---------------------------------------------------------------------------
 
@@ -914,7 +1170,243 @@ def phase_train():
     return launches, full
 
 
-PHASES = ("build", "kernels", "train_kernels", "e2e", "train")
+# ---------------------------------------------------------------------------
+# phase: a Mixtral-8x7B-width MoE trained through initialize -> train_batch
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_grouped_matmul(gm):
+    """The plain grouped path: within the block, ``gm.gmm`` / ``gm.tgmm``
+    (which ``grouped_matmul``'s forward and backward call) are the plain
+    versions, on any device."""
+    saved = gm.gmm, gm.tgmm
+    gm.gmm, gm.tgmm = gm.gmm_plain, gm.tgmm_plain
+    try:
+        yield
+    finally:
+        gm.gmm, gm.tgmm = saved
+
+
+def phase_moe_train():
+    """Returns the launches on the main path (gmm, tgmm, flash, fused Adam)
+    and the step's measurements."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe_train] device memory in use before the model: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (earlier engines freed)")
+    t0 = time.perf_counter()
+    cfg = mistral_config("7b", **MOE_CONFIG)
+    model = TransformerLM(cfg, trainable=True, seed=0)
+    engine, optimizer, _, _ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_DS_CONFIG)
+    params = engine._params
+    n_params = sum(p.numel() for p in params)
+    n_expert = sum(p.numel() for layer in model.params()["blocks"] for name, p in layer.items()
+                   if name.startswith("moe_w"))
+    torch.cuda.synchronize()
+    log(f"[moe_train] Mixtral-8x7B width: hidden {cfg.hidden_size}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, intermediate {cfg.intermediate_size}, vocab {cfg.vocab_size}, "
+        f"{cfg.moe_num_experts} experts top-{cfg.moe_top_k} ({cfg.moe_impl}), capacity factor "
+        f"{cfg.moe_capacity_factor}, rope_theta {cfg.rope_theta}, window {cfg.sliding_window}; "
+        f"depth cut 32 -> {MOE_LAYERS} for memory (32 layers: 46.7e9 params x 16 B = 747 GB); "
+        f"{n_params / 1e9:.3f}B fp32 master params ({n_expert / 1e9:.3f}B in experts; "
+        f"{16 * n_params / 1e9:.1f} GB with grads and moments); optimizer "
+        f"{type(optimizer).__name__}; engine generator on {engine.generator.device}; built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    gas = engine.gradient_accumulation_steps()
+    rng = np.random.default_rng(1)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                       (engine.train_batch_size(), TRAIN_SEQ)).astype(np.int32)}
+    tokens = batch["input_ids"].size
+    ts = time.perf_counter()
+    losses = [engine.train_batch(batch)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - ts
+    for mod in (fa, fad, gm):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED_STEPS):
+        ts = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+    launches = {**gm.launch_counts, **fa.launch_counts, **fad.launch_counts}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    med = float(np.median(times))
+    per_mb = MOE_LAYERS * gas
+    expected = {"gmm": 6 * per_mb * TIMED_STEPS, "tgmm": 3 * per_mb * TIMED_STEPS,
+                "flash_fwd": per_mb * TIMED_STEPS, "flash_bwd_dkdv": per_mb * TIMED_STEPS,
+                "flash_bwd_dq": per_mb * TIMED_STEPS, "fused_adam": TIMED_STEPS}
+    log(f"[moe_train] {gas} microbatches x {TRAIN_SEQ} tokens = {tokens} tokens/step; losses "
+        f"(warm step, then {TIMED_STEPS} timed): {[round(x, 5) for x in losses]}")
+    log(f"[moe_train] step time median {1e3 * med:.1f} ms (range {1e3 * min(times):.1f}-"
+        f"{1e3 * max(times):.1f}; warm step {1e3 * warm_s:.1f} ms): {tokens / med:.1f} tokens/s; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"[moe_train] kernel launches on the main path over {TIMED_STEPS} steps: {launches} "
+        f"(expected {expected}: per step {MOE_LAYERS} layers x {gas} microbatches x (3 forward + "
+        f"3 dx) gmm, x 3 dw tgmm, x 1 of each flash kernel; 1 fused Adam)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"losses not finite and falling: {losses}")
+    if launches != expected:
+        raise RuntimeError(f"kernel launches {launches} != expected {expected}")
+
+    # one profiled step: device busy vs wall, top device ops
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+    by_name = _device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    idle = 1 - busy / (1e3 * med)
+    log(f"[moe_train] profiled step: wall {1e3 * wall:.1f} ms ({1e3 * med:.1f} unprofiled "
+        f"median), device busy {busy:.1f} ms: device idle {100 * idle:.1f}% of the unprofiled "
+        f"step, {100 * (1 - busy / (1e3 * wall)):.1f}% of the profiled one")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[moe_train]   {t:9.2f} ms  {100 * t / busy:5.1f}%  {name[:90]}")
+    del prof
+
+    # the grouped kernels vs the plain grouped path on the same weights at
+    # seq 1024 (flash attention on both sides): (a) the last layer's MoE FFN
+    # on one input, so both route alike; (b) the whole model, where the last
+    # layer's gate sees inputs that differ in the last bf16 bit
+    from deepspeed_tpu_torch.models import transformer as tr
+
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CHECK_SEQ)).astype(np.int64)).cuda()
+    tree = model.params()
+    last = tree["blocks"][-1]
+    moe_names = ("gate_wg", "moe_wi", "moe_wg", "moe_wo")
+
+    def gate_input():
+        """The last layer's MoE input and its top-2 expert sets."""
+        with torch.no_grad():
+            x = tree["embed"]["embedding"].to(cfg.dtype)[ids]
+            sin, cos = tr.rope_table(cfg, torch.arange(CHECK_SEQ, device=ids.device))
+            for layer in tree["blocks"][:-1]:
+                x, _ = tr._block(cfg, x, layer, sin, cos)
+            x = x + tr._attn_branch(cfg, last, tr._norm(x, last["ln1_scale"], None, cfg.norm,
+                                                        cfg.norm_eps), sin, cos)
+            h = tr._norm(x, last["ln2_scale"], None, cfg.norm, cfg.norm_eps)
+            logits = h.float()[0] @ last["gate_wg"].float()
+        return h, logits.topk(cfg.moe_top_k, dim=-1).indices.sort(dim=-1).values
+
+    h_k, sel_k = gate_input()
+    with plain_grouped_matmul(gm):
+        _, sel_r = gate_input()
+    flips = int((sel_k != sel_r).any(dim=-1).sum())
+    dy = torch.randn(h_k.shape, generator=torch.Generator(device=h_k.device).manual_seed(5),
+                     device=h_k.device)
+
+    def layer_grads():
+        h = h_k.detach().clone().requires_grad_()
+        y, _ = tr._moe_mlp(cfg, last, h)
+        grads = torch.autograd.grad((y.float() * dy).sum(), [h] + [last[n] for n in moe_names])
+        return [y.detach()] + list(grads)
+
+    def layer_grads_plain():
+        with plain_grouped_matmul(gm):
+            return layer_grads()
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    lay = [rel_l2(a, b) for a, b in zip(layer_grads(), layer_grads_plain())]
+    log(f"[moe_train] seq {CHECK_SEQ}, the last layer's MoE FFN on one input (identical routing), "
+        f"kernels vs the plain grouped path, relative L2 (tolerance {MOE_LAYER_REL_L2_TOL}): "
+        f"y {lay[0]:.3e}, dh {lay[1]:.3e}, "
+        + ", ".join(f"d{n} {e:.3e}" for n, e in zip(moe_names, lay[2:])))
+
+    def loss_and_grads():
+        for p in params:
+            p.grad = None
+        loss = model.loss({"input_ids": ids})
+        loss.backward()
+        return loss.item(), [p.grad for p in params]
+
+    l_k, g_k = loss_and_grads()
+    with plain_grouped_matmul(gm):
+        l_r, g_r = loss_and_grads()
+    num = sum(float((a.float() - b.float()).pow(2).sum()) for a, b in zip(g_k, g_r))
+    den = sum(float(b.float().pow(2).sum()) for b in g_r)
+    g_rel = (num / den)**0.5
+    l_rel = abs(l_k - l_r) / abs(l_r)
+    log(f"[moe_train] seq {CHECK_SEQ} whole model forward+backward, grouped kernels vs the plain "
+        f"grouped path on the same weights: loss {l_k:.6f} vs {l_r:.6f} (relative {l_rel:.3e}, "
+        f"tolerance {LOSS_REL_TOL}); whole-gradient relative L2 {g_rel:.3e} (tolerance "
+        f"{MOE_GRAD_REL_L2_TOL}); the last layer's gate picks other experts for {flips} of "
+        f"{CHECK_SEQ} tokens (its inputs differ in the last bf16 bit)")
+    if not (max(lay) <= MOE_LAYER_REL_L2_TOL and np.isfinite(l_k) and l_rel <= LOSS_REL_TOL
+            and g_rel <= MOE_GRAD_REL_L2_TOL):
+        raise RuntimeError("grouped kernel path disagrees with the plain grouped path")
+    step = dict(step_ms=1e3 * med, tokens_per_s=tokens / med, peak_gib=peak / 2**30,
+                idle_share=idle, losses=losses, layer_rel_l2=max(lay), loss_rel=l_rel,
+                grad_rel_l2=g_rel, routing_flips=flips)
+    del engine, optimizer, model, params, g_k, g_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, step
+
+
+# the mutant check: a copy of the grouped matmul kernels that drops one row
+# block's contribution (gmm: the second 128-row tile's products; tgmm: each
+# expert's first row block) must fail the moe_kernels phase by far
+GMM_MUTATIONS = (
+    ("  // the pipeline's shared memory is free now",
+     "  if (m_tile == 1) zero_acc(acc);\n  // the pipeline's shared memory is free now"),
+    ("const int r_begin = first * bt, r_end = lo * bt;",
+     "const int r_begin = (first + (lo > first ? 1 : 0)) * bt, r_end = lo * bt;"),
+)
+
+
+def run_mutant():
+    """Copy the package and this script into build/mutant, apply
+    ``GMM_MUTATIONS`` to the copy's grouped_matmul.cu, run ``--phases
+    build,moe_kernels`` there, and pass when that run fails. Returns an
+    exit code."""
+    import shutil
+
+    dst = os.path.join(HERE, "build", "mutant")
+    shutil.rmtree(dst, ignore_errors=True)
+    os.makedirs(dst)
+    shutil.copytree(os.path.join(HERE, "deepspeed_tpu_torch"),
+                    os.path.join(dst, "deepspeed_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.abspath(__file__), dst)
+    cu = os.path.join(dst, GMM_SRC)
+    text = open(cu).read()
+    for old, new in GMM_MUTATIONS:
+        if text.count(old) != 1:
+            log(f"[mutant] cannot apply the mutation at {old!r}")
+            return 1
+        text = text.replace(old, new)
+    with open(cu, "w") as f:
+        f.write(text)
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "build,moe_kernels"],
+                          cwd=dst, capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        if line.startswith("[moe_kernels]") or "disagree" in line:
+            log(f"[mutant] {line[:4000]}")
+    caught = proc.returncode != 0 and "grouped matmul kernels disagree" in proc.stdout
+    log(f"[mutant] the mutated kernels' run exited {proc.returncode}: "
+        f"{'caught, as it must be' if caught else 'NOT caught'}")
+    return 0 if caught else 1
+
+
+PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "e2e", "train", "moe_train")
 
 
 def main():
@@ -922,6 +1414,8 @@ def main():
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES} (default: all; a subset prints no "
                          f"result lines)")
+    ap.add_argument("--mutant", action="store_true",
+                    help="run the grouped matmul mutant check alone (it must be caught)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -942,6 +1436,8 @@ def main():
         print(f"chip_smoke: the deepspeed_tpu_torch package is not beside this script ({e})",
               file=sys.stderr)
         return 2
+    if args.mutant:
+        return run_mutant()
     t_all = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -949,7 +1445,8 @@ def main():
     log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.device_count()} visible; {smi}")
     fns = {"build": phase_build, "kernels": phase_kernels, "train_kernels": phase_train_kernels,
-           "e2e": phase_e2e, "train": phase_train}
+           "moe_kernels": phase_moe_kernels, "e2e": phase_e2e, "train": phase_train,
+           "moe_train": phase_moe_train}
     failed = []
     out = {}
     for name in PHASES:
@@ -985,6 +1482,15 @@ def main():
         if name == "fused_adam":
             entry["full_set"] = adam_full
         kernels.append(entry)
+    moe_launches, moe_step = out["moe_train"]
+    for name, m in out["moe_kernels"].items():
+        src, replaces = MOE_KERNELS[name]
+        extra = {k: m[k] for k in ("library", "t_pad", "routed_rows", "calls", "serving_module")
+                 if k in m}
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": int(moe_launches[name]), "max_abs_err": m["err"],
+                        **{k: m[k] for k in keys}, **extra})
+    kernels[-1]["moe_train_step"] = moe_step
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

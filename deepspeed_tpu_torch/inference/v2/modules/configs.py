@@ -54,3 +54,12 @@ class DSNormConfig(DSModuleConfig):
     norm: str = "rmsnorm"  # 'rmsnorm' | 'layernorm'
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
+
+
+@dataclass
+class DSMoEConfig(DSModuleConfig):
+    """Token-level top-k routed expert MLP."""
+    n_experts: int = 1
+    top_k: int = 1
+    activation: str = "swiglu"
+    dtype: Any = torch.bfloat16

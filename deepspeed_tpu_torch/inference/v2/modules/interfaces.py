@@ -1,14 +1,13 @@
 """Functionality interfaces and their registries (counterpart of
-``deepspeed_tpu/inference/v2/modules/interfaces.py``; the MoE interface is
-not ported in this slice). Each interface fixes the call signature its
+``deepspeed_tpu/inference/v2/modules/interfaces.py``). Each interface fixes the call signature its
 implementations honor, so the ragged forward swaps implementations without
 re-plumbing."""
 
 from abc import abstractmethod
 from typing import Type
 
-from .configs import (DSEmbeddingsConfig, DSLinearConfig, DSNormConfig, DSSelfAttentionConfig,
-                      DSUnembedConfig)
+from .configs import (DSEmbeddingsConfig, DSLinearConfig, DSMoEConfig, DSNormConfig,
+                      DSSelfAttentionConfig, DSUnembedConfig)
 from .ds_module import DSModuleBase, DSModuleConfig
 from .module_registry import DSModuleRegistryBase
 
@@ -117,3 +116,27 @@ class DSPreNormRegistry(DSModuleRegistryBase):
     @staticmethod
     def associated_class():
         return DSPreNormBase
+
+
+class DSMoEBase(DSModuleBase):
+    """``__call__(x, gate_w, expert_up, expert_gate, expert_down)`` -> [T, H]:
+    a token-level top-k routed expert MLP (x [T, H], gate_w [H, E],
+    expert_up/expert_gate [E, H, F] with expert_gate None for a non-GLU
+    MLP, expert_down [E, F, H]). No engine calls it yet: the ragged forward
+    runs dense MLPs, as the TPU package's does."""
+
+    @staticmethod
+    def config_class() -> Type[DSModuleConfig]:
+        return DSMoEConfig
+
+    @abstractmethod
+    def __call__(self, x, gate_w, expert_up, expert_gate, expert_down):
+        ...
+
+
+class DSMoERegistry(DSModuleRegistryBase):
+    registry = {}
+
+    @staticmethod
+    def associated_class():
+        return DSMoEBase

@@ -2,15 +2,16 @@
 
 The TPU package's parameter tree and the port's share names and layout
 (stacked ``[L, ...]`` blocks, weights ``[in, out]``), so conversion is a
-name-for-name copy plus a dtype cast: matrix weights (and embeddings) take
-the serving ``dtype``, norm scales and biases stay fp32. The TPU side hands
+name-for-name copy plus a dtype cast: matrix weights (and embeddings, and
+the MoE experts ``moe_wi``/``moe_wg``/``moe_wo``) take the serving
+``dtype``; norm scales, biases and the MoE gate ``gate_wg`` stay fp32. The TPU side hands
 its tree over as numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``.
 
 The trainable model keeps one tensor per layer (``per_layer=True``: blocks
 become a list of L dicts); :func:`params_to_numpy` stacks them back. The
 optimizer state moves the same way: ``mu`` and ``nu`` are parameter-shaped
 trees, ``step`` the count of applied updates (:func:`optimizer_state_from_numpy`,
-:func:`optimizer_state_to_numpy`).
+:func:`optimizer_state_to_numpy`), matched to the model's leaves by name.
 """
 
 from typing import Any, Dict, List
@@ -75,24 +76,42 @@ def tree_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
     return flat
 
 
+def _leaves_like(np_tree: Dict[str, Any], like: Dict[str, Any]) -> List[np.ndarray]:
+    """The arrays of a numpy tree in the TPU package's stacked layout, in the
+    order of the port tree ``like`` (matched by name, so the two trees may
+    list their leaves in different orders)."""
+    names = {g: (list(v[0]) if isinstance(v, (list, tuple)) else list(v)) for g, v in like.items()}
+    have = {g: sorted(v) for g, v in np_tree.items()}
+    if have != {g: sorted(v) for g, v in names.items()}:
+        raise ValueError(f"state tree {have} does not name the model's leaves "
+                         f"{ {g: sorted(v) for g, v in names.items()} }")
+    flat = []
+    for group, leaves in like.items():
+        if isinstance(leaves, (list, tuple)):
+            for l, layer in enumerate(leaves):
+                flat.extend(np.asarray(np_tree[group][name])[l] for name in layer)
+        else:
+            flat.extend(np.asarray(np_tree[group][name]) for name in leaves)
+    return flat
+
+
 def optimizer_state_from_numpy(engine, state: Dict[str, Any]) -> None:
     """Load ``{"step", "mu", "nu"}`` (numpy; ``mu``/``nu`` parameter-shaped
     trees in the TPU package's layout, e.g. the JAX engine's
     ``FusedAdamState`` or ``ScaleByAdamState``) into ``engine``'s Adam(W)
     state: the fused kernel's ``FusedAdamState`` or the optax-equivalent
-    optimizer's. ``engine.module`` is a trainable ``TransformerLM``."""
-    cfg = engine.module.config
-    dev = engine.device
-    mu = tree_leaves(params_from_jax(state["mu"], cfg, dev, torch.float32, per_layer=True))
-    nu = tree_leaves(params_from_jax(state["nu"], cfg, dev, torch.float32, per_layer=True))
+    optimizer's. ``engine.module`` is a trainable ``TransformerLM``; leaves
+    are matched to its parameters by name."""
+    like = engine.module.params()
     mu_dst, nu_dst, step_dst = engine.adam_state()
+    mu, nu = _leaves_like(state["mu"], like), _leaves_like(state["nu"], like)
     if len(mu) != len(mu_dst):
         raise ValueError(f"state has {len(mu)} leaves, the engine {len(mu_dst)}")
     with torch.no_grad():
         for dst, src in zip(mu_dst + nu_dst, mu + nu):
-            if dst.shape != src.shape:
-                raise ValueError(f"state leaf {tuple(src.shape)} != {tuple(dst.shape)}")
-            dst.copy_(src)
+            if tuple(dst.shape) != src.shape:
+                raise ValueError(f"state leaf {src.shape} != {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
         step_dst.fill_(int(np.asarray(state["step"])))
 
 

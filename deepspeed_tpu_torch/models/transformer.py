@@ -12,9 +12,13 @@ a full-size zero gradient of the whole stack for every layer.
 
 The training half (``forward``, ``loss_fn``, ``_chunked_ce_loss``) casts each
 weight to ``cfg.dtype`` where it is used, as the TPU package does, so the
-gradients land in fp32. The v1 KV-cache path, remat, sequence parallelism,
-dropout, MoE and block-sparse attention are not ported yet; a config that
-asks for them is refused.
+gradients land in fp32. Mixture-of-experts blocks (``moe_num_experts``)
+train on the per-layer model, with both ``moe_impl``s: ``"grouped"`` through
+the grouped matmul kernels, ``"einsum"`` through the one-hot dispatch as
+plain products; the gating draws from an explicit ``torch.Generator``
+(``loss(batch, generator=...)``). The v1 KV-cache path, remat, sequence
+parallelism, dropout, block-sparse attention and MoE serving are not ported
+yet; a config that asks for them is refused.
 """
 
 import math
@@ -26,9 +30,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..moe.grouped import grouped_moe_ffn
+from ..moe.sharded_moe import multiplicative_jitter, top1gating, top2gating
+
 # the weights matrix products read: stored in the serving dtype. Norm scales
 # and biases stay fp32 (the norm runs in fp32 with its fp32 scale).
-MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "w_up", "w_down", "w_gate")
+MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "w_up", "w_down", "w_gate", "moe_wi", "moe_wg",
+                  "moe_wo")
 
 
 @dataclass
@@ -59,14 +67,23 @@ class TransformerConfig:
     attention_impl: str = "auto"  # 'auto' (flash on CUDA) | 'reference' | 'flash'
     # sliding-window attention (Mistral): query at i sees keys in (i-window, i]
     sliding_window: Optional[int] = None
+    # mixture of experts (0 = dense); the TPU package's fields and defaults
+    moe_num_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_min_capacity: int = 4
+    moe_aux_loss_coef: float = 0.01
+    moe_noisy_gate_policy: Optional[str] = None
+    moe_impl: str = "einsum"  # 'einsum' (one-hot dispatch) | 'grouped' (grouped matmul)
     # not ported yet; a config that sets them is refused
     remat: bool = False
     sequence_parallel: bool = False
     dropout: float = 0.0
     sparse_attention: Optional[dict] = None
-    moe_num_experts: int = 0
 
     def __post_init__(self):
+        if self.moe_impl not in ("einsum", "grouped"):
+            raise ValueError(f"moe_impl must be 'einsum' or 'grouped', got {self.moe_impl!r}")
         if self.intermediate_size is None:
             if self.mlp == "swiglu":
                 self.intermediate_size = int(8 * self.hidden_size / 3 / 128 + 1) * 128
@@ -90,9 +107,17 @@ class TransformerConfig:
         return self.hidden_size // self.num_heads
 
 
-def _refuse_unported(cfg: TransformerConfig) -> None:
+def refuse_moe_serving(cfg: TransformerConfig) -> None:
+    """The serving layout (stacked weights, ``inference/v2``) runs dense
+    MLPs only."""
     if cfg.moe_num_experts > 0:
-        raise NotImplementedError("MoE (moe_num_experts) is not ported to the PyTorch package yet")
+        raise NotImplementedError(
+            "MoE (moe_num_experts) is not served: the serving layout and inference.v2's ragged "
+            "forward run dense MLPs only, as the JAX v2 engine's flat model does; MoE trains on "
+            "the per-layer model (TransformerLM(..., trainable=True))")
+
+
+def _refuse_unported(cfg: TransformerConfig) -> None:
     if cfg.sparse_attention is not None:
         raise NotImplementedError("block-sparse attention (sparse_attention) is not ported to "
                                   "the PyTorch package yet")
@@ -134,7 +159,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None,
     nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     f32 = dict(dtype=torch.float32, device=device)
 
-    def dense(shape, fan_in, extra=1.0):
+    def dense(shape, fan_in, extra=1.0, dtype=dtype):
         if per_layer:
             return [torch.randn(shape, generator=generator, **f32)
                     .mul_(1.0 / (math.sqrt(fan_in) * extra)).to(dtype) for _ in range(L)]
@@ -151,11 +176,19 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None,
         "wv": dense((H, nkv * d), H),
         "wo": dense((nq * d, H), nq * d, math.sqrt(2 * L)),
         "ln2_scale": torch.ones((L, H), **f32),
-        "w_up": dense((H, Fi), H),
-        "w_down": dense((Fi, H), Fi, math.sqrt(2 * L)),
     }
-    if cfg.mlp == "swiglu":
-        blocks["w_gate"] = dense((H, Fi), H)
+    if cfg.moe_num_experts > 0:  # transformer.py:167-173
+        E = cfg.moe_num_experts
+        blocks["gate_wg"] = dense((H, E), H, dtype=torch.float32)  # the gate runs in fp32
+        blocks["moe_wi"] = dense((E, H, Fi), H)
+        blocks["moe_wo"] = dense((E, Fi, H), Fi, math.sqrt(2 * L))
+        if cfg.mlp == "swiglu":
+            blocks["moe_wg"] = dense((E, H, Fi), H)
+    else:
+        blocks["w_up"] = dense((H, Fi), H)
+        blocks["w_down"] = dense((Fi, H), Fi, math.sqrt(2 * L))
+        if cfg.mlp == "swiglu":
+            blocks["w_gate"] = dense((H, Fi), H)
     if cfg.parallel_residual and cfg.shared_ln:
         del blocks["ln2_scale"]
     if cfg.norm == "layernorm":
@@ -333,8 +366,11 @@ def _attn_branch(cfg: TransformerConfig, layer, h, sin, cos):
     return out
 
 
-def _mlp_branch(cfg: TransformerConfig, layer, h):
-    """Dense MLP sub-block on pre-normed input ``h``."""
+def _mlp_branch(cfg: TransformerConfig, layer, h, generator=None):
+    """MLP (dense or MoE) sub-block on pre-normed input ``h``. Returns (out,
+    the MoE layer's aux loss or None)."""
+    if cfg.moe_num_experts > 0:
+        return _moe_mlp(cfg, layer, h, generator)
     dt = cfg.dtype
     up = h @ layer["w_up"].to(dt)
     if cfg.use_bias:
@@ -346,21 +382,65 @@ def _mlp_branch(cfg: TransformerConfig, layer, h):
     down = act @ layer["w_down"].to(dt)
     if cfg.use_bias:
         down = down + layer["b_down"].to(dt)
-    return down
+    return down, None
 
 
-def _block(cfg: TransformerConfig, x, layer, sin, cos):
+def _moe_mlp(cfg: TransformerConfig, layer, h, generator=None):
+    """MoE FFN (``transformer.py:557``): top-k capacity gating per batch row
+    (the TPU package's ``vmap`` over rows: each row's capacity counts that
+    row's tokens), then the grouped matmul path or the one-hot einsum path.
+    Returns (out [B, S, H], the rows' mean l_aux)."""
+    dt = cfg.dtype
+    B, S, H = h.shape
+    E = cfg.moe_num_experts
+    gate_in = h.float()
+    if cfg.moe_noisy_gate_policy == "Jitter" and generator is not None:
+        gate_in = multiplicative_jitter(gate_in, generator)
+    logits = torch.einsum("bsh,he->bse", gate_in, layer["gate_wg"].float())
+
+    def gate_row(lg):
+        if cfg.moe_top_k == 1:
+            return top1gating(lg, cfg.moe_capacity_factor, cfg.moe_min_capacity,
+                              noisy_gate_policy=cfg.moe_noisy_gate_policy, generator=generator,
+                              use_rts=generator is not None)[:3]
+        return top2gating(lg, cfg.moe_capacity_factor, cfg.moe_min_capacity,
+                          generator=generator)[:3]
+
+    rows = [gate_row(logits[b]) for b in range(B)]
+    l_aux = torch.stack([r[0] for r in rows]).mean()
+    combine = torch.stack([r[1] for r in rows])  # [B, S, E, C]
+    if cfg.moe_impl == "grouped":
+        w_se = combine.sum(dim=3).reshape(B * S, E).to(dt)
+        y = grouped_moe_ffn(h.reshape(B * S, H), w_se, layer["moe_wi"], layer["moe_wo"],
+                            top_k=cfg.moe_top_k,
+                            wg=layer.get("moe_wg") if cfg.mlp == "swiglu" else None,
+                            activation=lambda up, gate: mlp_activation(cfg, up, gate))
+        return y.reshape(B, S, H), l_aux
+    dispatch = torch.stack([r[2] for r in rows])
+    dispatched = torch.einsum("bsec,bsm->becm", dispatch.to(dt), h)
+    up = torch.einsum("becm,emf->becf", dispatched, layer["moe_wi"].to(dt))
+    gate = (torch.einsum("becm,emf->becf", dispatched, layer["moe_wg"].to(dt))
+            if cfg.mlp == "swiglu" else None)
+    hmid = mlp_activation(cfg, up, gate)
+    expert_out = torch.einsum("becf,efm->becm", hmid, layer["moe_wo"].to(dt))
+    return torch.einsum("bsec,becm->bsm", combine.to(dt), expert_out), l_aux
+
+
+def _block(cfg: TransformerConfig, x, layer, sin, cos, generator=None):
     """One transformer block on this layer's weights (``transformer.py:534``;
-    ``parallel_residual``: attention and MLP read the same input)."""
+    ``parallel_residual``: attention and MLP read the same input). Returns
+    (x, the MoE aux loss or None)."""
     h1 = _norm(x, layer["ln1_scale"], layer.get("ln1_bias"), cfg.norm, cfg.norm_eps)
     attn_out = _attn_branch(cfg, layer, h1, sin, cos)
     if cfg.parallel_residual:
         h2 = h1 if cfg.shared_ln else _norm(x, layer["ln2_scale"], layer.get("ln2_bias"),
                                             cfg.norm, cfg.norm_eps)
-        return x + attn_out + _mlp_branch(cfg, layer, h2)
+        mlp_out, aux = _mlp_branch(cfg, layer, h2, generator)
+        return x + attn_out + mlp_out, aux
     x = x + attn_out
     h2 = _norm(x, layer["ln2_scale"], layer.get("ln2_bias"), cfg.norm, cfg.norm_eps)
-    return x + _mlp_branch(cfg, layer, h2)
+    mlp_out, aux = _mlp_branch(cfg, layer, h2, generator)
+    return x + mlp_out, aux
 
 
 def layers(blocks: Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]], n: int):
@@ -371,9 +451,11 @@ def layers(blocks: Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]
     return [{name: t[l] for name, t in blocks.items()} for l in range(n)]
 
 
-def forward_hidden(cfg: TransformerConfig, params, input_ids):
-    """Token ids [B, S] -> final-norm hidden [B, S, H] (the plain layer loop
-    of ``transformer.py:645``)."""
+def forward_hidden(cfg: TransformerConfig, params, input_ids, generator=None):
+    """Token ids [B, S] -> (final-norm hidden [B, S, H], the MoE aux loss
+    summed over layers; 0 for a dense model): the plain layer loop of
+    ``transformer.py:645``. ``generator`` feeds the gating's draws (None:
+    deterministic routing)."""
     dt = cfg.dtype
     B, S = input_ids.shape
     x = params["embed"]["embedding"].to(dt)[input_ids]
@@ -385,10 +467,14 @@ def forward_hidden(cfg: TransformerConfig, params, input_ids):
     sin = cos = None
     if cfg.positions == "rotary":
         sin, cos = rope_table(cfg, torch.arange(S, device=input_ids.device))
+    auxs = []
     for layer in layers(params["blocks"], cfg.num_layers):
-        x = _block(cfg, x, layer, sin, cos)
+        x, aux = _block(cfg, x, layer, sin, cos, generator)
+        if aux is not None:
+            auxs.append(aux)
     fn = params["final_norm"]
-    return _norm(x, fn["scale"], fn.get("bias"), cfg.norm, cfg.norm_eps)
+    moe_aux = torch.stack(auxs).sum() if auxs else torch.zeros((), device=x.device)
+    return _norm(x, fn["scale"], fn.get("bias"), cfg.norm, cfg.norm_eps), moe_aux
 
 
 def _unembed(cfg: TransformerConfig, params, x):
@@ -403,9 +489,15 @@ def _unembed(cfg: TransformerConfig, params, x):
     return logits.float()
 
 
+def forward_with_aux(cfg: TransformerConfig, params, input_ids, generator=None):
+    """Token ids [B, S] -> (logits [B, S, V] fp32, the MoE aux loss)."""
+    x, moe_aux = forward_hidden(cfg, params, input_ids, generator)
+    return _unembed(cfg, params, x), moe_aux
+
+
 def forward(cfg: TransformerConfig, params, input_ids):
     """Token ids [B, S] -> logits [B, S, V] (fp32)."""
-    return _unembed(cfg, params, forward_hidden(cfg, params, input_ids))
+    return forward_with_aux(cfg, params, input_ids)[0]
 
 
 def _ce_aux(batch, input_ids):
@@ -464,16 +556,23 @@ def _chunked_ce_loss(cfg: TransformerConfig, params, h, aux, chunk: int):
     return -total / mask.sum().clamp_min(1.0)
 
 
-def loss_fn(cfg: TransformerConfig, params, batch):
-    """Next-token cross entropy. ``batch``: a dict with 'input_ids' [B, S]
-    and optional 'labels' and 'loss_mask', or the ids tensor itself.
-    ``cfg.loss_chunk`` routes through the sequence-chunked CE."""
+def loss_fn(cfg: TransformerConfig, params, batch, generator=None):
+    """Next-token cross entropy, plus ``moe_aux_loss_coef`` times the MoE
+    aux loss (``transformer.py:1025-1040``). ``batch``: a dict with
+    'input_ids' [B, S] and optional 'labels' and 'loss_mask', or the ids
+    tensor itself. ``cfg.loss_chunk`` routes through the sequence-chunked
+    CE. ``generator``: the gating's randomness (None: no draws)."""
     input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
     aux = _ce_aux(batch, input_ids)
     if cfg.loss_chunk and input_ids.shape[1] > cfg.loss_chunk:
-        h = forward_hidden(cfg, params, input_ids)
-        return _chunked_ce_loss(cfg, params, h, aux, int(cfg.loss_chunk))
-    return _ce_loss(forward(cfg, params, input_ids), aux)
+        h, moe_aux = forward_hidden(cfg, params, input_ids, generator)
+        ce = _chunked_ce_loss(cfg, params, h, aux, int(cfg.loss_chunk))
+    else:
+        logits, moe_aux = forward_with_aux(cfg, params, input_ids, generator)
+        ce = _ce_loss(logits, aux)
+    if cfg.moe_num_experts > 0:
+        return ce + cfg.moe_aux_loss_coef * moe_aux
+    return ce
 
 
 class TransformerLM(nn.Module):
@@ -491,6 +590,8 @@ class TransformerLM(nn.Module):
                  device=None, seed: int = 0, dtype=None, trainable: bool = False):
         super().__init__()
         _refuse_unported(config)
+        if not trainable:
+            refuse_moe_serving(config)
         self.config = config
         self.trainable = trainable
         if params is None:
@@ -531,8 +632,8 @@ class TransformerLM(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.tree.parameters())
 
-    def loss(self, batch):
-        return loss_fn(self.config, self.params(), batch)
+    def loss(self, batch, generator=None):
+        return loss_fn(self.config, self.params(), batch, generator)
 
     def forward(self, input_ids):
         return forward(self.config, self.params(), input_ids)

@@ -16,6 +16,11 @@ Counterpart of ``deepspeed_tpu/runtime/engine.py`` for the path
   gradient scale and the overflow skip into its gate.
 - the dynamic loss scale (``_advance_loss_scale``, ``engine.py:729``).
 
+A model whose ``loss`` takes a ``generator`` (a MoE ``TransformerLM``) gets
+the engine's ``torch.Generator``, on the model's device and seeded from the
+engine's seed: the counterpart of the step rng the JAX engine splits per
+microbatch (``engine.py:818``, ``:1360``). Its draws stay on the device.
+
 Nothing inside ``train_batch`` reads a device value back to the host, except
 the fp16-only overflow count (``engine.py:1405``) and the loss logged at
 ``steps_per_print`` boundaries. The state (step, loss scale, good steps,
@@ -27,6 +32,7 @@ world, ``forward``/``backward``/``step``, offload, 1-bit optimizers,
 pipelines and the prefetching loader are not ported yet.
 """
 
+import inspect
 import logging
 from typing import Optional
 
@@ -51,7 +57,7 @@ def _world_size() -> int:
 class DeepSpeedEngine:
 
     def __init__(self, model, config: DeepSpeedConfig, optimizer=None, lr_scheduler=None,
-                 training_data=None, collate_fn=None):
+                 training_data=None, collate_fn=None, seed: int = 42):
         self.module = model
         self.config = config
         self.client_optimizer = optimizer
@@ -83,6 +89,11 @@ class DeepSpeedEngine:
             raise ValueError("the model has no trainable parameters (a TransformerLM trains "
                              "with trainable=True)")
         self.device = self._params[0].device
+        # the gating's randomness (MoE): drawn on the device, in order, one
+        # microbatch after another
+        self._loss_takes_generator = (hasattr(model, "loss") and "generator" in
+                                      inspect.signature(model.loss).parameters)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         # --- optimizer chain ---
         self.lr_schedule_fn, self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
@@ -187,7 +198,12 @@ class DeepSpeedEngine:
     # the step
     # ------------------------------------------------------------------
     def _loss_fn(self, batch):
-        out = self.module.loss(batch) if hasattr(self.module, "loss") else self.module(batch)
+        if self._loss_takes_generator:
+            out = self.module.loss(batch, generator=self.generator)
+        elif hasattr(self.module, "loss"):
+            out = self.module.loss(batch)
+        else:
+            out = self.module(batch)
         return out[0] if isinstance(out, tuple) else out
 
     def _microbatch_grads(self, batch, loss_scale):

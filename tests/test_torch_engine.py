@@ -212,8 +212,7 @@ def test_unported_optimizers_and_model_fields_raise():
         with pytest.raises(NotImplementedError, match=name.lower()):
             deepspeed_tpu_torch.initialize(model=model, config={
                 "train_batch_size": 2, "optimizer": {"type": name, "params": {}}})
-    for field, value in (("remat", True), ("sequence_parallel", True), ("dropout", 0.1),
-                         ("moe_num_experts", 4)):
+    for field, value in (("remat", True), ("sequence_parallel", True), ("dropout", 0.1)):
         with pytest.raises(NotImplementedError, match=field):
             TransformerLM(mistral_config("tiny", dtype=torch.float32, **dict(TINY, **{field: value})),
                           device="cpu", trainable=True)

@@ -89,10 +89,15 @@ def test_alibi_slopes_match_jax(n):
     np.testing.assert_array_equal(tt.alibi_slopes(n), jt.alibi_slopes(n))
 
 
-def test_params_from_jax_round_trip_and_layout():
+MOE = dict(moe_num_experts=4, moe_top_k=2)
+
+
+@pytest.mark.parametrize("moe", [False, True])
+def test_params_from_jax_round_trip_and_layout(moe):
     """Name-for-name copy: the round trip is exact in fp32; in bf16 only
-    matrix weights change dtype, and init_params draws the same tree."""
-    jcfg, tcfg = _cfgs()
+    matrix weights change dtype (the MoE experts too, not the fp32 gate),
+    and init_params draws the same tree."""
+    jcfg, tcfg = _cfgs(**(MOE if moe else {}))
     npp = _jax_params(jcfg)
     back = params_to_numpy(params_from_jax(npp, tcfg, device="cpu"))
     assert back.keys() == npp.keys()
@@ -105,16 +110,20 @@ def test_params_from_jax_round_trip_and_layout():
     assert bf["embed"]["embedding"].dtype == torch.bfloat16
     assert bf["blocks"]["ln1_scale"].dtype == torch.float32
     assert bf["final_norm"]["scale"].dtype == torch.float32
+    if moe:
+        assert {bf["blocks"][n].dtype for n in ("moe_wi", "moe_wg", "moe_wo")} == {torch.bfloat16}
+        assert bf["blocks"]["gate_wg"].dtype == torch.float32
     drawn = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     assert {g: {n: tuple(t.shape) for n, t in leaves.items()} for g, leaves in drawn.items()} == \
         {g: {n: a.shape for n, a in leaves.items()} for g, leaves in npp.items()}
 
 
-def test_trainable_masters_round_trip_exactly():
+@pytest.mark.parametrize("moe", [False, True])
+def test_trainable_masters_round_trip_exactly(moe):
     """numpy -> fp32 masters of a trainable TransformerLM (one parameter per
     layer and weight) -> numpy is exact, and the per-layer draws of
     init_params equal the stacked ones."""
-    jcfg, tcfg = _cfgs()
+    jcfg, tcfg = _cfgs(**(MOE if moe else {}))
     npp = _jax_params(jcfg, seed=7)
     model = TransformerLM(tcfg, params_from_jax(npp, tcfg, device="cpu", dtype=torch.float32,
                                                 per_layer=True), trainable=True)
@@ -135,12 +144,14 @@ def test_trainable_masters_round_trip_exactly():
         assert torch.equal(t, torch.stack([layer[name] for layer in per_layer["blocks"]]))
 
 
-@pytest.mark.parametrize("mode", ["never", "always"])
-def test_optimizer_state_round_trip_exactly(mode):
+@pytest.mark.parametrize("mode,moe", [("never", False), ("always", False), ("never", True),
+                                      ("always", True)])
+def test_optimizer_state_round_trip_exactly(mode, moe):
     """numpy mu / nu / step -> the engine's Adam state (``FusedAdamState``
     with the fused kernel, the optax-equivalent optimizer's otherwise) ->
-    numpy is exact."""
-    _, tcfg = _cfgs()
+    numpy is exact; leaves are matched by name (the state tree lists them
+    in reverse order here)."""
+    _, tcfg = _cfgs(**(MOE if moe else {}))
     model = TransformerLM(tcfg, device="cpu", trainable=True)
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config={
         "train_batch_size": 2, "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
@@ -149,10 +160,10 @@ def test_optimizer_state_round_trip_exactly(mode):
     like = params_to_numpy(model.params())
     rng = np.random.default_rng(8)
     state = {"step": np.int32(7),
-             "mu": {g: {n: rng.normal(size=a.shape).astype(np.float32) for n, a in v.items()}
-                    for g, v in like.items()},
-             "nu": {g: {n: rng.random(size=a.shape).astype(np.float32) for n, a in v.items()}
-                    for g, v in like.items()}}
+             "mu": {g: {n: rng.normal(size=a.shape).astype(np.float32)
+                        for n, a in reversed(v.items())} for g, v in like.items()},
+             "nu": {g: {n: rng.random(size=a.shape).astype(np.float32)
+                        for n, a in reversed(v.items())} for g, v in like.items()}}
     optimizer_state_from_numpy(engine, state)
     back = optimizer_state_to_numpy(engine)
     assert int(back["step"]) == 7 and int(engine.adam_state()[2]) == 7
@@ -163,8 +174,17 @@ def test_optimizer_state_round_trip_exactly(mode):
 
 
 def test_unported_model_features_are_refused():
-    with pytest.raises(NotImplementedError):
+    """MoE is refused by the serving layout and the serving engine (the JAX
+    v2 engine's flat model runs dense MLPs only, too); it trains on the
+    per-layer model."""
+    with pytest.raises(NotImplementedError, match="JAX v2 engine"):
         TransformerLM(mistral_config("tiny", moe_num_experts=4, **TINY), device="cpu")
+    trainable = TransformerLM(mistral_config("tiny", moe_num_experts=4, **TINY), device="cpu",
+                              trainable=True)
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+
+    with pytest.raises(NotImplementedError, match="dense MLPs"):
+        InferenceEngineV2(trainable, device="cpu")
     with pytest.raises(NotImplementedError):
         TransformerLM(mistral_config("tiny", sparse_attention={"mode": "fixed"}, **TINY),
                       device="cpu")
