@@ -1,12 +1,13 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,e2e,train,moe_train]
+    python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
+                                    train,moe_train,sparse_train]
     python3 chip_smoke.py --mutant
 
 With no arguments every phase runs, in this order; each must pass (exit
 code 1 otherwise):
 
-1. build: compile the four hand-written CUDA sources of
+1. build: compile the five hand-written CUDA sources of
    ``deepspeed_tpu_torch/ops/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together; print each nvcc's wall time and the
    ``-Xptxas -v`` registers / shared memory / spills per kernel.
@@ -66,13 +67,27 @@ code 1 otherwise):
    ``torch.mm``). Then the serving modules at Mixtral width,
    ``grouped_gemm_moe`` against ``top_k_gated_moe`` (relative L2 1e-2) on
    a 512-token chunk and an 8-token decode batch.
-5. e2e: Mistral-7B at full width and depth (32 layers), random weights from
+5. sparse_kernels: hold ``block_sparse_fwd`` against the plain gathered
+   version on the same inputs (q, k, v read through the model's [B, S, n,
+   d] strides): small cases over block 16 / 32 / 64 / 128, head_dim 32 / 64
+   / 128, bf16 / fp16 / fp32, causal and not, rpe, key-padding and attn
+   masks in 'add' and 'mul' modes, per-head layouts, empty rows (zeros) and
+   a fully padded sample (zeros); then the main path's shape (B 1, 32
+   heads, L 4096, d 128, the slice's 'fixed' layout, bf16, causal). The
+   flash tolerance: both sides sum in fp32 and round once. Times (CUDA
+   events) against the bound (bytes of q, k, v and out, or 4 d FLOPs per
+   visible (q, k) pair of this layout), the plain version and
+   ``F.scaled_dot_product_attention`` with the layout and causality as a
+   boolean mask; the backward's time and transient peak (the gathered
+   recompute). The largest error as a fraction of its tolerance is printed
+   as ``worst_error_fraction``.
+6. e2e: Mistral-7B at full width and depth (32 layers), random weights from
    a seeded generator, served through ``DynamicSplitFuseScheduler`` over
    ``InferenceEngineV2``: requests chosen so that every kernel path runs,
    with launch counts reset just before and read just after; then one
    prefill's last-token logits through the kernels against the same
    forward through ``dense_blocked_attention`` (relative L2 error).
-6. train: the serving engine is freed first. Mistral-7B at full width with
+7. train: the serving engine is freed first. Mistral-7B at full width with
    its depth cut 32 -> 8 for memory, fp32 masters from a seeded generator,
    trained through ``deepspeed_tpu_torch.initialize`` -> ``train_batch``
    (bf16 compute, AdamW through the fused kernel, clipping 1.0, WarmupLR,
@@ -83,7 +98,7 @@ code 1 otherwise):
    timed at the full parameter set; then one forward and backward at seq
    1024 through the kernels against the same through the plain attention
    on the same weights (loss and whole-gradient relative L2 error).
-7. moe_train: the earlier engines freed, Mixtral-8x7B's widths (8 experts,
+8. moe_train: the earlier engines freed, Mixtral-8x7B's widths (8 experts,
    top-2, the grouped path, capacity factor 1.25, rope_theta 1e6, no
    window) with the depth cut 32 -> 2 for memory, trained as in ``train``
    (the engine's seeded generator drives the gating's draws): losses finite
@@ -95,10 +110,20 @@ code 1 otherwise):
    1.5e-1: the last layer's gate sees inputs that differ in the last bf16
    bit, and the tokens it routes differently, printed, move whole tokens'
    contributions between experts).
+9. sparse_train: the earlier engines freed, Llama-2-7B's widths with the
+   depth cut 32 -> 8 and the ds_config's ``sparse_attention`` block (the
+   documented 'fixed' layout, unidirectional), trained as in ``train``:
+   losses finite and falling, step time, tokens/s, peak memory, launches
+   (exactly 16 ``block_sparse_fwd`` per step, no flash, 1 fused Adam), a
+   profiled step; then at seq 1024 the whole model through the kernel
+   against the same through the plain forward (loss 2e-3, gradient 5e-2).
 
-``--mutant`` copies the package into ``build/mutant``, makes the grouped
-matmul kernels drop one row block's products, runs ``--phases
-build,moe_kernels`` there and passes when that run fails.
+``--mutant`` copies the package into ``build/mutant/<name>`` once per
+mutant: the grouped matmul kernels dropping one row block's products
+(``--phases build,moe_kernels`` there must fail) and the block-sparse
+kernel skipping each row's last valid LUT column (``--phases
+build,sparse_kernels`` must fail by more than 100x its tolerance, printed).
+It passes when every mutant is caught.
 
 It prints the card (name and power limit) and, on the line before the last,
 ``{"kernels": [...]}``; the last line is
@@ -171,6 +196,19 @@ MOE_CONFIG = dict(sliding_window=None, rope_theta=1e6, moe_num_experts=8, moe_to
 TGMM_FLOOR = 2.0**-16
 # the serving modules at Mixtral width: relative L2 of grouped vs dense
 MOE_SERVE_REL_L2_TOL = 1e-2
+BSA_SRC = "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu"
+SPARSE_KERNELS = {"block_sparse_fwd": (BSA_SRC,
+                                       "deepspeed_tpu/ops/pallas/block_sparse_attention.py:196")}
+# the block-sparse training phase: Llama-2-7B's widths (meta-llama/Llama-2-7b-hf
+# config.json: hidden 4096, intermediate 11008, 32/32 heads, vocab 32000,
+# RMSNorm 1e-5, rope 1e4, untied), depth cut 32 -> 8, and the sparse-attention
+# block of DeepSpeed's documented ds_config (docs/_pages/config-json.md,
+# "Sparse Attention") with "unidirectional" for a causal LM
+SPARSE_LAYERS = 8
+SPARSE_SA = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
+             "num_local_blocks": 4, "num_global_blocks": 1, "horizontal_global_attention": False,
+             "num_different_global_patterns": 4, "attention": "unidirectional"}
+SPARSE_DS_CONFIG = dict(TRAIN_DS_CONFIG, sparse_attention=SPARSE_SA)
 # one MoE layer at seq 1024, kernels vs the plain grouped path on one input
 # (identical routing): bf16 roundings of up / gate / activation / down at the
 # same places from fp32 sums in another order, each differing in the last
@@ -226,12 +264,14 @@ def _log_ptxas(report):
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import fused_adam as fad
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
-    mods = {"paged_attention": pa, "flash_attention": fa, "fused_adam": fad, "grouped_matmul": gm}
+    mods = {"paged_attention": pa, "flash_attention": fa, "fused_adam": fad, "grouped_matmul": gm,
+            "block_sparse_attention": bsa}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, all at once
         built = dict(zip(mods, ex.map(lambda m: m.kernel_build(), mods.values())))
@@ -247,6 +287,9 @@ def phase_build():
     fsm = built["flash_attention"].lib.ds_flash_smem_bytes
     log(f"[build] flash attention dynamic shared memory per CTA (d 128): forward {fsm(0, 128)} "
         f"B, dk/dv {fsm(1, 128)} B, dq {fsm(2, 128)} B")
+    bsm = built["block_sparse_attention"].lib.ds_block_sparse_smem_bytes
+    log(f"[build] block-sparse forward dynamic shared memory per CTA: d 128 {bsm(128)} B, "
+        f"d 64 {bsm(64)} B")
 
 
 # ---------------------------------------------------------------------------
@@ -1361,52 +1404,411 @@ def phase_moe_train():
     return launches, step
 
 
-# the mutant check: a copy of the grouped matmul kernels that drops one row
-# block's contribution (gmm: the second 128-row tile's products; tgmm: each
-# expert's first row block) must fail the moe_kernels phase by far
+# ---------------------------------------------------------------------------
+# phase: block-sparse attention, the kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _sparse_layout(kind, H, L, block):
+    """A (H, nb, nb) int8 layout of the port's sparsity configs."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    if kind == "slice":  # the slice's ds_config block, at this block size
+        return sa.build_sparsity_config(dict(SPARSE_SA, block=block), H).make_layout(L)
+    if kind == "bigbird":
+        return sa.BigBirdSparsityConfig(H, block, different_layout_per_head=True,
+                                        num_random_blocks=2, seed=3).make_layout(L)
+    if kind == "longformer":
+        return sa.BSLongformerSparsityConfig(H, block, num_sliding_window_blocks=3,
+                                             global_block_indices=[0, 2]).make_layout(L)
+    if kind == "variable":
+        return sa.VariableSparsityConfig(H, block, different_layout_per_head=True,
+                                         num_random_blocks=1, local_window_blocks=[2, 3],
+                                         global_block_indices=[1], attention="unidirectional",
+                                         seed=5).make_layout(L)
+    if kind == "local":
+        return sa.LocalSlidingWindowSparsityConfig(H, block).make_layout(L)
+    layout = sa.FixedSparsityConfig(H, block, num_local_blocks=2).make_layout(L)
+    layout[:, 1::3] = 0  # every third block row empty: those rows must write zeros
+    return np.ascontiguousarray(layout)
+
+
+def _visible_pairs(layout, block, causal):
+    """(query, key) pairs a layout leaves visible (causal: key <= query):
+    the work this layout's data needs."""
+    import numpy as np
+
+    H, nb, _ = layout.shape
+    diff = np.arange(nb)[:, None] - np.arange(nb)[None, :]  # row - column
+    per = (np.where(diff > 0, block * block, np.where(diff == 0, block * (block + 1) // 2, 0))
+           if causal else np.full((nb, nb), block * block))
+    return int((layout.astype(np.int64) * per[None]).sum())
+
+
+def _sparse_inputs(seed, B, H, L, d, dtype, rpe=False, kp=None, am=None, causal=False):
+    """q, k, v as [B, H, L, d] views of [B, L, H, d] buffers (the model's
+    strides), dout, and the mask arguments, from a seeded generator."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda: (torch.randn(B, L, H, d, generator=gen, device="cuda")  # noqa: E731
+                  .to(dtype).transpose(1, 2))
+    q, k, v, do = mk(), mk(), mk(), mk()
+    kw = dict(causal=causal)
+    if rpe:
+        kw["rpe"] = torch.randn(L, L, generator=gen, device="cuda")
+    for name, shape, mode in (("key_padding_mask", (B, L), kp), ("attn_mask", (L, L), am)):
+        if mode == "mul":
+            kw[name] = (torch.rand(shape, generator=gen, device="cuda") > 0.2).float()
+        elif mode == "add":
+            kw[name] = torch.randn(shape, generator=gen, device="cuda")
+        if mode is not None:
+            kw[f"{name}_mode"] = mode
+    if kp == "mul":
+        kw["key_padding_mask"][-1] = 0.0  # a fully padded sample: every row masked, zeros
+    return q, k, v, do, kw
+
+
+def phase_sparse_kernels():
+    """Returns {"block_sparse_fwd": measurement dict}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    failures = []
+    worst = [0.0, 0.0, ""]  # max_abs_err, largest fraction of the tolerance, its case
+
+    def check(tag, q, k, v, layout, block, kw):
+        lut, nvalid = (torch.as_tensor(x, device="cuda") for x in bsa.make_layout_lut(layout))
+        out = bsa.block_sparse_fwd(q, k, v, lut, nvalid, block, **kw)
+        ref = bsa.block_sparse_attention_gathered(q, k, v, lut, nvalid, block, **kw)
+        torch.cuda.synchronize()
+        e, frac = _flash_err(out, ref)
+        worst[0] = max(worst[0], e)
+        if frac > worst[1]:
+            worst[1:] = [frac, tag]
+        if not frac <= 1.0:
+            failures.append(f"{tag}: max_abs_err {e:.3e}, {frac:.2f}x its tolerance")
+        if not bool(torch.isfinite(out).all()):
+            failures.append(f"{tag}: non-finite output")
+        return out, ref, lut, nvalid
+
+    # small shapes: every block size, head_dim 32 / 64 / 128, the three
+    # dtypes, rpe, both mask modes, per-head layouts, empty rows, a fully
+    # padded sample
+    cases = [  # (layout, B, H, L, d, block, dtype, causal, rpe, kp, am)
+        ("slice", 2, 4, 512, 128, 16, torch.bfloat16, True, False, None, None),
+        ("slice", 2, 4, 512, 64, 32, torch.bfloat16, True, True, "mul", "mul"),
+        ("bigbird", 2, 4, 512, 64, 32, torch.bfloat16, False, True, "mul", "add"),
+        ("longformer", 2, 2, 512, 64, 64, torch.float16, False, False, "add", "add"),
+        ("bigbird", 1, 2, 512, 128, 128, torch.float32, False, True, None, "mul"),
+        ("variable", 2, 4, 256, 128, 32, torch.bfloat16, True, False, "add", None),
+        ("empty_rows", 1, 2, 384, 64, 16, torch.bfloat16, False, False, None, None),
+        ("empty_rows", 2, 2, 384, 128, 16, torch.float32, True, True, "mul", None),
+        ("local", 1, 4, 256, 32, 16, torch.bfloat16, True, False, None, "mul"),
+        ("slice", 1, 2, 256, 32, 64, torch.float16, True, True, "add", "add"),
+    ]
+    for i, (kind, B, H, L, d, block, dtype, causal, rpe, kp, am) in enumerate(cases):
+        q, k, v, _, kw = _sparse_inputs(100 + i, B, H, L, d, dtype, rpe, kp, am, causal)
+        layout = _sparse_layout(kind, H, L, block)
+        tag = (f"{kind} B={B} H={H} L={L} d={d} block={block} {str(dtype)[6:]} causal={causal} "
+               f"rpe={rpe} kp={kp} am={am}")
+        out, _, _, nvalid = check(tag, q, k, v, layout, block, kw)
+        if kind == "empty_rows":  # rows with nvalid 0 write zeros
+            rows = (nvalid == 0).repeat_interleave(block, dim=1)  # [H, L]
+            if float(out.float().abs()[:, rows].max()) != 0.0:
+                failures.append(f"{tag}: an empty row is not zero")
+        if kp == "mul" and float(out[-1].float().abs().max()) != 0.0:
+            failures.append(f"{tag}: the fully padded sample is not zero")
+    log(f"[sparse_kernels] small-shape matrix ({len(cases)} cases): "
+        f"{'all within tolerance' if not failures else failures}; max_abs_err {worst[0]:.3e}")
+
+    # the main path's shape: one sample of the slice's model, its layout
+    B, H, L, d, block = 1, 32, TRAIN_SEQ, 128, SPARSE_SA["block"]
+    q, k, v, do, kw = _sparse_inputs(7, B, H, L, d, torch.bfloat16, causal=True)
+    layout = _sparse_layout("slice", H, L, block)
+    out, ref, lut, nvalid = check(f"main B={B} H={H} L={L} d={d} block={block} bf16 causal",
+                                  q, k, v, layout, block, kw)
+    main_err = float((out.float() - ref.float()).abs().max())
+    del out, ref
+    ms = time_ms(lambda: bsa.block_sparse_fwd(q, k, v, lut, nvalid, block, causal=True),
+                 iters=20, warmup=3)
+    plain = time_ms(lambda: bsa.block_sparse_attention_gathered(q, k, v, lut, nvalid, block,
+                                                                causal=True), iters=3, warmup=1)
+    # library yardstick: SDPA with the layout and causality expanded to a
+    # boolean [1, H, L, L] mask (it computes every score of the full matrix)
+    lay = torch.as_tensor(layout, device="cuda").bool()
+    mask = (lay.repeat_interleave(block, dim=1).repeat_interleave(block, dim=2)
+            & torch.ones(L, L, dtype=torch.bool, device="cuda").tril())[None]
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask), iters=5,
+                  warmup=2)
+    lib_err = float((F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask).float()
+                     - bsa.block_sparse_fwd(q, k, v, lut, nvalid, block, causal=True).float())
+                    .abs().max())
+    del mask, qc, kc, vc
+    # the backward (the gathered form's recompute, plain torch ops, as the
+    # JAX package computes it outside any kernel): time and transient peak
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    o = bsa.block_sparse_attention(qg, kg, vg, layout, block, causal=True, lut=lut,
+                                   nvalid=nvalid)
+    bwd = lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
+    bwd()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bwd()
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated() - base
+    bwd_ms = time_ms(bwd, iters=3, warmup=1)
+    del o, qg, kg, vg
+    pairs = _visible_pairs(layout, block, causal=True)
+    counts = layout.sum(-1)
+    n_bytes = 4 * B * H * L * d * 2  # q, k, v read once, out written once, bf16
+    flops = 4 * B * d * pairs  # q.k and p.v over the visible pairs
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    log(f"[sparse_kernels] layout at L={L}: {H} heads x {L // block} block rows, "
+        f"{len(np.unique(layout, axis=0))} distinct head layouts, densest row A={counts.max()}, "
+        f"mean {counts.mean():.2f} blocks; {pairs:,} visible (q, k) pairs = "
+        f"{pairs / (H * L * L):.4f} of the full and {pairs / (H * L * (L + 1) / 2):.4f} of the "
+        f"causal score matrix")
+    log(f"[sparse_kernels] block_sparse_fwd B={B} H={H} L={L} d={d} block={block} bf16 causal "
+        f"(the model's strides): {ms:.4f} ms, plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), sdpa with the layout as a boolean "
+        f"mask {lib:.4f} ms (max |sdpa - kernel| {lib_err:.3e}); main-shape max_abs_err "
+        f"{main_err:.3e}")
+    log(f"[sparse_kernels] backward (gathered recompute over chunks of heads): {bwd_ms:.3f} ms, "
+        f"transient peak {bwd_peak / 2**30:.2f} GiB")
+    log(f"[sparse_kernels] largest error over all cases {worst[1]:.3f} of its tolerance "
+        f"({worst[2]})")
+    log(f"[sparse_kernels] worst_error_fraction={worst[1]:.6g}")
+    if failures:
+        raise RuntimeError("block-sparse kernel disagrees with the plain version: "
+                           + "; ".join(failures[:10]))
+    return {"block_sparse_fwd": dict(
+        err=worst[0], ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        library="F.scaled_dot_product_attention with the layout as a boolean mask",
+        visible_pairs=pairs, densest_row=int(counts.max()), backward_ms=bwd_ms,
+        backward_peak_gib=bwd_peak / 2**30)}
+
+
+# ---------------------------------------------------------------------------
+# phase: a Llama-2-7B-width model with block-sparse attention trained through
+# initialize -> train_batch
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_block_sparse(bsa):
+    """The plain forward: within the block, ``bsa.block_sparse_fwd`` (which
+    the autograd function's forward calls) is the gathered form, on any
+    device. The backward is the same either way."""
+    saved = bsa.block_sparse_fwd
+    bsa.block_sparse_fwd = (lambda q, k, v, lut, nvalid, block, **kw:
+                            bsa.block_sparse_attention_gathered(q, k, v, lut, nvalid, block, **kw))
+    try:
+        yield
+    finally:
+        bsa.block_sparse_fwd = saved
+
+
+def phase_sparse_train():
+    """Returns the launches on the main path (block-sparse, flash, fused
+    Adam) and the step's measurements."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, llama2_config
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[sparse_train] device memory in use before the model: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (earlier engines freed)")
+    t0 = time.perf_counter()
+    cfg = llama2_config("7b", num_layers=SPARSE_LAYERS, sparse_attention=SPARSE_SA)
+    model = TransformerLM(cfg, trainable=True, seed=0)
+    engine, optimizer, _, _ = deepspeed_tpu_torch.initialize(model=model, config=SPARSE_DS_CONFIG)
+    params = engine._params
+    n_params = sum(p.numel() for p in params)
+    torch.cuda.synchronize()
+    if engine.sparse_attention_config() != SPARSE_SA:
+        raise RuntimeError(f"sparse_attention_config() {engine.sparse_attention_config()} != "
+                           f"the ds_config's {SPARSE_SA}")
+    log(f"[sparse_train] Llama-2-7B width: hidden {cfg.hidden_size}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, head_dim {cfg.head_dim}, intermediate {cfg.intermediate_size}, "
+        f"vocab {cfg.vocab_size}, rope_theta {cfg.rope_theta}; sparse_attention {SPARSE_SA}; "
+        f"depth cut 32 -> {SPARSE_LAYERS} for memory (32 layers: 6.74e9 params x 16 B = 108 GB); "
+        f"{n_params / 1e9:.3f}B fp32 master params ({16 * n_params / 1e9:.1f} GB with grads and "
+        f"moments); optimizer {type(optimizer).__name__}; built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    gas = engine.gradient_accumulation_steps()
+    rng = np.random.default_rng(2)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                       (engine.train_batch_size(), TRAIN_SEQ)).astype(np.int32)}
+    tokens = batch["input_ids"].size
+    ts = time.perf_counter()
+    losses = [engine.train_batch(batch)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - ts
+    for mod in (bsa, fa, fad):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED_STEPS):
+        ts = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+    launches = {**bsa.launch_counts, **fa.launch_counts, **fad.launch_counts}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    med = float(np.median(times))
+    expected = {"block_sparse_fwd": SPARSE_LAYERS * gas * TIMED_STEPS, "flash_fwd": 0,
+                "flash_bwd_dkdv": 0, "flash_bwd_dq": 0, "fused_adam": TIMED_STEPS}
+    log(f"[sparse_train] {gas} microbatches x {TRAIN_SEQ} tokens = {tokens} tokens/step; losses "
+        f"(warm step, then {TIMED_STEPS} timed): {[round(x, 5) for x in losses]}")
+    log(f"[sparse_train] step time median {1e3 * med:.1f} ms (range {1e3 * min(times):.1f}-"
+        f"{1e3 * max(times):.1f}; warm step {1e3 * warm_s:.1f} ms): {tokens / med:.1f} tokens/s; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"[sparse_train] kernel launches on the main path over {TIMED_STEPS} steps: {launches} "
+        f"(expected {expected}: per step {SPARSE_LAYERS} layers x {gas} microbatches block-sparse "
+        f"forwards, no flash, 1 fused Adam)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"losses not finite and falling: {losses}")
+    if launches != expected:
+        raise RuntimeError(f"kernel launches {launches} != expected {expected}")
+
+    # one profiled step: device busy vs wall, top device ops
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+    by_name = _device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    idle = 1 - busy / (1e3 * med)
+    log(f"[sparse_train] profiled step: wall {1e3 * wall:.1f} ms ({1e3 * med:.1f} unprofiled "
+        f"median), device busy {busy:.1f} ms: device idle {100 * idle:.1f}% of the unprofiled "
+        f"step, {100 * (1 - busy / (1e3 * wall)):.1f}% of the profiled one")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    for name, t in top:
+        log(f"[sparse_train]   {t:9.2f} ms  {100 * t / busy:5.1f}%  {name[:90]}")
+    del prof
+
+    # the kernel vs the plain forward on the same weights at seq 1024 (the
+    # backward is the gathered recompute on both sides)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CHECK_SEQ)).astype(np.int64)).cuda()
+
+    def loss_and_grads():
+        for p in params:
+            p.grad = None
+        loss = model.loss({"input_ids": ids})
+        loss.backward()
+        return loss.item(), [p.grad for p in params]
+
+    l_k, g_k = loss_and_grads()
+    with plain_block_sparse(bsa):
+        l_r, g_r = loss_and_grads()
+    num = sum(float((a.float() - b.float()).pow(2).sum()) for a, b in zip(g_k, g_r))
+    den = sum(float(b.float().pow(2).sum()) for b in g_r)
+    g_rel = (num / den)**0.5
+    l_rel = abs(l_k - l_r) / abs(l_r)
+    log(f"[sparse_train] seq {CHECK_SEQ} forward+backward, the kernel vs the plain forward on the "
+        f"same weights: loss {l_k:.6f} vs {l_r:.6f} (relative {l_rel:.3e}, tolerance "
+        f"{LOSS_REL_TOL}); whole-gradient relative L2 {g_rel:.3e} (tolerance {GRAD_REL_L2_TOL})")
+    if not (np.isfinite(l_k) and l_rel <= LOSS_REL_TOL and g_rel <= GRAD_REL_L2_TOL):
+        raise RuntimeError("block-sparse kernel path disagrees with the plain forward")
+    step = dict(step_ms=1e3 * med, tokens_per_s=tokens / med, peak_gib=peak / 2**30,
+                idle_share=idle, losses=losses, loss_rel=l_rel, grad_rel_l2=g_rel,
+                top_device_ops=[(n[:60], round(t, 3)) for n, t in top[:5]])
+    del engine, optimizer, model, params, g_k, g_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, step
+
+
+# the mutant checks. Grouped matmul: a copy that drops one row block's
+# contribution (gmm: the second 128-row tile's products; tgmm: each expert's
+# first row block) must fail the moe_kernels phase by far. Block-sparse: a
+# copy whose kernel skips the last valid LUT column of every row must fail
+# the sparse_kernels phase by more than MUTANT_MIN_FACTOR x its tolerance.
 GMM_MUTATIONS = (
     ("  // the pipeline's shared memory is free now",
      "  if (m_tile == 1) zero_acc(acc);\n  // the pipeline's shared memory is free now"),
     ("const int r_begin = first * bt, r_end = lo * bt;",
      "const int r_begin = (first + (lo > first ? 1 : 0)) * bt, r_end = lo * bt;"),
 )
+BSA_MUTATIONS = (
+    ("const int n_keys = nv * a.block;", "const int n_keys = (nv > 0 ? nv - 1 : 0) * a.block;"),
+)
+MUTANT_MIN_FACTOR = 100.0
+MUTANTS = {  # name -> (source, mutations, phase, the phase's failure text)
+    "grouped_matmul": (GMM_SRC, GMM_MUTATIONS, "moe_kernels", "grouped matmul kernels disagree"),
+    "block_sparse": (BSA_SRC, BSA_MUTATIONS, "sparse_kernels",
+                     "block-sparse kernel disagrees"),
+}
 
 
-def run_mutant():
-    """Copy the package and this script into build/mutant, apply
-    ``GMM_MUTATIONS`` to the copy's grouped_matmul.cu, run ``--phases
-    build,moe_kernels`` there, and pass when that run fails. Returns an
-    exit code."""
+def _run_one_mutant(name):
+    """Copy the package and this script into build/mutant/<name>, apply the
+    mutations to the copy's source, run ``--phases build,<phase>`` there,
+    and return whether that run failed as it must."""
+    import re
     import shutil
 
-    dst = os.path.join(HERE, "build", "mutant")
+    src, mutations, phase, failure = MUTANTS[name]
+    dst = os.path.join(HERE, "build", "mutant", name)
     shutil.rmtree(dst, ignore_errors=True)
     os.makedirs(dst)
     shutil.copytree(os.path.join(HERE, "deepspeed_tpu_torch"),
                     os.path.join(dst, "deepspeed_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.abspath(__file__), dst)
-    cu = os.path.join(dst, GMM_SRC)
+    cu = os.path.join(dst, src)
     text = open(cu).read()
-    for old, new in GMM_MUTATIONS:
+    for old, new in mutations:
         if text.count(old) != 1:
-            log(f"[mutant] cannot apply the mutation at {old!r}")
-            return 1
+            log(f"[mutant] {name}: cannot apply the mutation at {old!r}")
+            return False
         text = text.replace(old, new)
     with open(cu, "w") as f:
         f.write(text)
-    proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "build,moe_kernels"],
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", f"build,{phase}"],
                           cwd=dst, capture_output=True, text=True, timeout=900)
     for line in proc.stdout.splitlines():
-        if line.startswith("[moe_kernels]") or "disagree" in line:
-            log(f"[mutant] {line[:4000]}")
-    caught = proc.returncode != 0 and "grouped matmul kernels disagree" in proc.stdout
-    log(f"[mutant] the mutated kernels' run exited {proc.returncode}: "
+        if line.startswith(f"[{phase}]") or "disagree" in line:
+            log(f"[mutant] {name}: {line[:4000]}")
+    caught = proc.returncode != 0 and failure in proc.stdout
+    found = re.findall(r"worst_error_fraction=([0-9.eE+-]+)", proc.stdout)
+    if phase == "sparse_kernels":
+        factor = float(found[-1]) if found else 0.0
+        log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
+            f"{MUTANT_MIN_FACTOR:.0f}x)")
+        caught = caught and factor > MUTANT_MIN_FACTOR
+    log(f"[mutant] {name}: the mutated kernels' run exited {proc.returncode}: "
         f"{'caught, as it must be' if caught else 'NOT caught'}")
-    return 0 if caught else 1
+    return caught
 
 
-PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "e2e", "train", "moe_train")
+def run_mutant():
+    """Every mutant of ``MUTANTS`` must be caught. Returns an exit code."""
+    results = {name: _run_one_mutant(name) for name in MUTANTS}
+    return 0 if all(results.values()) else 1
+
+
+PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
+          "moe_train", "sparse_train")
 
 
 def main():
@@ -1415,7 +1817,8 @@ def main():
                     help=f"comma-separated subset of {PHASES} (default: all; a subset prints no "
                          f"result lines)")
     ap.add_argument("--mutant", action="store_true",
-                    help="run the grouped matmul mutant check alone (it must be caught)")
+                    help="run the mutant checks alone (grouped matmul and block-sparse: each must "
+                         "be caught)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -1445,8 +1848,9 @@ def main():
     log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.device_count()} visible; {smi}")
     fns = {"build": phase_build, "kernels": phase_kernels, "train_kernels": phase_train_kernels,
-           "moe_kernels": phase_moe_kernels, "e2e": phase_e2e, "train": phase_train,
-           "moe_train": phase_moe_train}
+           "moe_kernels": phase_moe_kernels, "sparse_kernels": phase_sparse_kernels,
+           "e2e": phase_e2e, "train": phase_train, "moe_train": phase_moe_train,
+           "sparse_train": phase_sparse_train}
     failed = []
     out = {}
     for name in PHASES:
@@ -1491,6 +1895,14 @@ def main():
                         "launches": int(moe_launches[name]), "max_abs_err": m["err"],
                         **{k: m[k] for k in keys}, **extra})
     kernels[-1]["moe_train_step"] = moe_step
+    sparse_launches, sparse_step = out["sparse_train"]
+    for name, m in out["sparse_kernels"].items():
+        src, replaces = SPARSE_KERNELS[name]
+        extra = {k: m[k] for k in ("library", "visible_pairs", "densest_row", "backward_ms",
+                                   "backward_peak_gib")}
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": int(sparse_launches[name]), "max_abs_err": m["err"],
+                        **{k: m[k] for k in keys}, **extra, "sparse_train_step": sparse_step})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

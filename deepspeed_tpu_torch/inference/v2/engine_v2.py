@@ -19,7 +19,7 @@ from typing import Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ...models.transformer import refuse_moe_serving, resolve_device
+from ...models.transformer import refuse_moe_serving, refuse_sparse_serving, resolve_device
 from .config_v2 import RaggedInferenceEngineConfig
 from .model_implementations.flat_model import ragged_forward
 from .modules.heuristics import build_modules
@@ -48,6 +48,7 @@ class InferenceEngineV2:
         self.model_config = model.config
         mc, ic = self.model_config, self.config
         refuse_moe_serving(mc)
+        refuse_sparse_serving(mc)
         if getattr(ic.speculative, "enabled", False):
             raise NotImplementedError("speculative decoding is not ported to the PyTorch "
                                       "package yet; set speculative.mode='off'")

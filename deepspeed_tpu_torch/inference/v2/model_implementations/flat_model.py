@@ -13,7 +13,8 @@ from typing import Any, Dict
 
 import torch
 
-from ....models.transformer import TransformerConfig, apply_rope, mlp_activation, rope_table
+from ....models.transformer import (TransformerConfig, apply_rope, mlp_activation,
+                                   refuse_sparse_serving, rope_table)
 
 
 def ragged_forward(cfg: TransformerConfig, block_size: int, params: Dict[str, Any], token_ids,
@@ -30,6 +31,7 @@ def ragged_forward(cfg: TransformerConfig, block_size: int, params: Dict[str, An
     (token, kv head) with scale max(absmax / 127, 1e-8) and round-half-even
     before the append.
     """
+    refuse_sparse_serving(cfg)
     if modules is None:
         from ..config_v2 import RaggedInferenceEngineConfig
         from ..modules.heuristics import build_modules

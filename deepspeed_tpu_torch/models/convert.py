@@ -7,6 +7,9 @@ the MoE experts ``moe_wi``/``moe_wg``/``moe_wo``) take the serving
 ``dtype``; norm scales, biases and the MoE gate ``gate_wg`` stay fp32. The TPU side hands
 its tree over as numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``.
 
+``load_sparse_attention_params`` carries a ``BertSparseSelfAttention``'s
+``query``/``key``/``value`` projections across the same way.
+
 The trainable model keeps one tensor per layer (``per_layer=True``: blocks
 become a list of L dicts); :func:`params_to_numpy` stacks them back. The
 optimizer state moves the same way: ``mu`` and ``nu`` are parameter-shaped
@@ -48,6 +51,25 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig, device=No
         out["blocks"] = [{name: t[l].clone() for name, t in blocks.items()}
                          for l in range(cfg.num_layers)]
     return out
+
+
+def load_sparse_attention_params(module, np_params: Dict[str, Any]) -> None:
+    """Copy a ``BertSparseSelfAttention`` parameter tree in numpy (the JAX
+    module's ``init``: ``{"query" | "key" | "value": {"kernel" [in, out],
+    "bias"}}``) into the port's module of that class, name for name, on its
+    device. Sparse attention adds no weights to ``TransformerLM``, so the
+    model's own tree is unchanged."""
+    mod_names = {n: sorted(getattr(module, n)) for n in ("query", "key", "value")}
+    if {n: sorted(np_params.get(n, {})) for n in mod_names} != mod_names:
+        raise ValueError(f"tree {sorted(np_params)} does not name the module's "
+                         f"parameters {mod_names}")
+    with torch.no_grad():
+        for name in mod_names:
+            for leaf, p in getattr(module, name).items():
+                src = np.asarray(np_params[name][leaf], dtype=np.float32)
+                if src.shape != tuple(p.shape):
+                    raise ValueError(f"{name}/{leaf}: {src.shape} != {tuple(p.shape)}")
+                p.copy_(torch.from_numpy(src.copy()))
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:

@@ -16,12 +16,15 @@ gradients land in fp32. Mixture-of-experts blocks (``moe_num_experts``)
 train on the per-layer model, with both ``moe_impl``s: ``"grouped"`` through
 the grouped matmul kernels, ``"einsum"`` through the one-hot dispatch as
 plain products; the gating draws from an explicit ``torch.Generator``
-(``loss(batch, generator=...)``). The v1 KV-cache path, remat, sequence
-parallelism, dropout, block-sparse attention and MoE serving are not ported
-yet; a config that asks for them is refused.
+(``loss(batch, generator=...)``). ``sparse_attention`` (the ds_config's
+block, MHA only) sends every layer's training attention through the
+block-sparse kernel (``ops/block_sparse_attention.py``). The v1 KV-cache
+path, remat, sequence parallelism and dropout are not ported yet; a config
+that asks for them is refused. MoE and block-sparse models are not served.
 """
 
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -75,11 +78,13 @@ class TransformerConfig:
     moe_aux_loss_coef: float = 0.01
     moe_noisy_gate_policy: Optional[str] = None
     moe_impl: str = "einsum"  # 'einsum' (one-hot dispatch) | 'grouped' (grouped matmul)
+    # block-sparse attention: the ds_config 'sparse_attention' dict (mode +
+    # per-mode keys, reference config.py:289). None = dense attention.
+    sparse_attention: Optional[dict] = None
     # not ported yet; a config that sets them is refused
     remat: bool = False
     sequence_parallel: bool = False
     dropout: float = 0.0
-    sparse_attention: Optional[dict] = None
 
     def __post_init__(self):
         if self.moe_impl not in ("einsum", "grouped"):
@@ -91,6 +96,14 @@ class TransformerConfig:
                 self.intermediate_size = 4 * self.hidden_size
         if self.num_kv_heads is None:
             self.num_kv_heads = self.num_heads
+        if self.sparse_attention is not None:  # transformer.py:126-133
+            if self.sliding_window is not None or self.positions == "alibi":
+                raise NotImplementedError("sparse_attention does not compose with sliding_window "
+                                          "or alibi (express the window via the layout instead)")
+            if self.num_kv_heads != self.num_heads:
+                raise NotImplementedError(
+                    "sparse_attention requires num_kv_heads == num_heads (MHA) — reject at "
+                    "config time rather than deep inside the first forward")
         if self.hidden_size % self.num_heads:
             raise ValueError(f"hidden_size {self.hidden_size} is not a multiple of num_heads "
                              f"{self.num_heads}")
@@ -117,10 +130,16 @@ def refuse_moe_serving(cfg: TransformerConfig) -> None:
             "the per-layer model (TransformerLM(..., trainable=True))")
 
 
-def _refuse_unported(cfg: TransformerConfig) -> None:
+def refuse_sparse_serving(cfg: TransformerConfig) -> None:
+    """Serving a sparse-trained model with dense paged attention would use a
+    distribution the model never saw: refused, as the JAX package refuses it
+    (``transformer.py:859-864``, ``flat_model.py:84-88``)."""
     if cfg.sparse_attention is not None:
-        raise NotImplementedError("block-sparse attention (sparse_attention) is not ported to "
-                                  "the PyTorch package yet")
+        raise NotImplementedError("sparse_attention serving is not implemented on the ragged "
+                                  "plane; unset sparse_attention for inference")
+
+
+def _refuse_unported(cfg: TransformerConfig) -> None:
     for name, off in (("remat", False), ("sequence_parallel", False), ("dropout", 0.0)):
         if getattr(cfg, name) != off:
             raise NotImplementedError(f"TransformerConfig.{name} is not ported to the PyTorch "
@@ -326,9 +345,53 @@ def reference_attention(q, k, v, causal=True, window=None, alibi=None):
     return ctx.reshape(B, S, nq, d).to(q.dtype)
 
 
+_SPARSE_LAYOUT_CACHE = {}
+
+
+def _sparse_layout(cfg: TransformerConfig, nq: int, S: int, device):
+    """(block, causal, layout, lut, nvalid) of the config's sparsity layout
+    at ``S``, the LUT as int32 tensors on ``device``: built and copied there
+    once per (config, heads, S, device)."""
+    key = (repr(sorted(cfg.sparse_attention.items())), nq, S, str(device))
+    if key not in _SPARSE_LAYOUT_CACHE:
+        from ..ops.sparse_attention import build_sparsity_config, make_layout_lut
+
+        sc = build_sparsity_config(cfg.sparse_attention, nq)
+        layout = sc.make_layout(S)
+        causal = getattr(sc, "attention", "bidirectional") == "unidirectional"
+        if not causal:
+            warnings.warn("sparse_attention layout is BIDIRECTIONAL: next-token training would "
+                          "see future tokens. Set attention='unidirectional' in the sparsity "
+                          "config unless this is an encoder-style objective.")
+        lut, nvalid = make_layout_lut(layout)
+        _SPARSE_LAYOUT_CACHE[key] = (sc.block, causal, layout,
+                                     torch.as_tensor(lut, device=device),
+                                     torch.as_tensor(nvalid, device=device))
+    return _SPARSE_LAYOUT_CACHE[key]
+
+
+def _sparse_attention(cfg: TransformerConfig, q, k, v):
+    """Block-sparse training attention configured by the ds_config's
+    ``sparse_attention`` block (``transformer.py:337-368``); causality
+    follows the layout's ``attention`` type. The [B, S, n, d] tensors go to
+    the kernel as [B, n, S, d] views (read through their strides), and its
+    output comes back as a view of a [B, S, n, d] buffer."""
+    B, S, nq, d = q.shape
+    assert k.shape[2] == nq, "MHA enforced at config time (TransformerConfig.__post_init__)"
+    block, causal, layout, lut, nvalid = _sparse_layout(cfg, nq, S, q.device)
+    from ..ops.block_sparse_attention import block_sparse_attention
+
+    ctx = block_sparse_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 layout, block, causal=causal, lut=lut, nvalid=nvalid)
+    return ctx.transpose(1, 2)
+
+
 def _attention(cfg: TransformerConfig, q, k, v):
-    """``attention_impl`` 'auto' takes the flash kernels on CUDA tensors and
+    """``sparse_attention`` takes the block-sparse path; else
+    ``attention_impl`` 'auto' takes the flash kernels on CUDA tensors and
     the einsum reference elsewhere (``transformer.py:371``)."""
+    if cfg.sparse_attention is not None:
+        return _sparse_attention(cfg, q, k, v)
     impl = cfg.attention_impl
     if impl == "auto":
         impl = "flash" if q.is_cuda else "reference"

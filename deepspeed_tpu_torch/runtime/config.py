@@ -5,8 +5,10 @@ training slice uses: the batch triad and its resolution
 (``train_batch = micro_batch x gas x dp_world``), ``optimizer``,
 ``scheduler``, ``fp16`` (with the dynamic loss-scale arguments), ``bf16``,
 ``gradient_clipping``, ``zero_optimization``, ``steps_per_print``,
-``dataloader_drop_last`` and ``tpu.pallas_fused_adam``. The port accepts the
-same JSON; a key for something not ported raises and names the key.
+``dataloader_drop_last``, ``tpu.pallas_fused_adam``, ``sparse_attention``
+(kept raw, as the JAX package keeps it) and ``sparse_gradients`` (a logged
+no-op). The port accepts the same JSON; a key for something not ported
+raises and names the key.
 """
 
 import copy
@@ -19,7 +21,8 @@ from .config_utils import DeepSpeedConfigError, dict_raise_error_on_duplicate_ke
 from .constants import (BFLOAT16, BFLOAT16_OLD, DATALOADER_DROP_LAST, DATALOADER_DROP_LAST_DEFAULT,
                         FP16, GRADIENT_ACCUMULATION_STEPS, GRADIENT_CLIPPING,
                         GRADIENT_CLIPPING_DEFAULT, OPTIMIZER, OPTIMIZER_PARAMS, SCHEDULER,
-                        SCHEDULER_PARAMS, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT, TPU,
+                        SCHEDULER_PARAMS, SPARSE_ATTENTION, SPARSE_GRADIENTS,
+                        SPARSE_GRADIENTS_DEFAULT, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT, TPU,
                         TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, TYPE, ZERO_OPTIMIZATION)
 from .zero.config import DeepSpeedZeroConfig
 
@@ -27,7 +30,8 @@ __all__ = ["DeepSpeedConfig", "DeepSpeedConfigError"]
 
 _SUPPORTED_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, GRADIENT_ACCUMULATION_STEPS,
                    OPTIMIZER, SCHEDULER, FP16, BFLOAT16, BFLOAT16_OLD, GRADIENT_CLIPPING,
-                   ZERO_OPTIMIZATION, STEPS_PER_PRINT, DATALOADER_DROP_LAST, TPU}
+                   ZERO_OPTIMIZATION, STEPS_PER_PRINT, DATALOADER_DROP_LAST, TPU, SPARSE_ATTENTION,
+                   SPARSE_GRADIENTS}
 
 
 @dataclass
@@ -132,6 +136,10 @@ class DeepSpeedConfig:
         self.steps_per_print = pd.get(STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT)
         self.dataloader_drop_last = pd.get(DATALOADER_DROP_LAST, DATALOADER_DROP_LAST_DEFAULT)
         self.tpu_config = from_dict(TPUConfig, pd.get(TPU, {}), TPU)
+        self.sparse_gradients_enabled = pd.get(SPARSE_GRADIENTS, SPARSE_GRADIENTS_DEFAULT)
+        # the raw block (config.py:313-316): the model takes it through
+        # TransformerConfig.sparse_attention, build_sparsity_config validates it
+        self.sparse_attention = pd.get(SPARSE_ATTENTION)
 
         # --- batch triad (resolved against the data-parallel size later) ---
         self.train_batch_size = pd.get(TRAIN_BATCH_SIZE)

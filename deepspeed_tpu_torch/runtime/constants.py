@@ -89,6 +89,10 @@ GRADIENT_PREDIVIDE_FACTOR_DEFAULT = 1.0
 SPARSE_GRADIENTS = "sparse_gradients"
 SPARSE_GRADIENTS_DEFAULT = False
 
+# block-sparse attention (reference config.py:289 get_sparse_attention): the
+# raw block, turned into a SparsityConfig by ops.sparse_attention
+SPARSE_ATTENTION = "sparse_attention"
+
 STEPS_PER_PRINT = "steps_per_print"
 STEPS_PER_PRINT_DEFAULT = 10
 

@@ -101,6 +101,12 @@ class DeepSpeedEngine:
         self._pallas_adam = self._configure_pallas_adam(optimizer)
         self.state = self._init_state()
 
+        if config.sparse_gradients_enabled:
+            # accepted for config compatibility (engine.py:381-385): the
+            # embedding gradient is a dense scatter-add on the device, with
+            # no sparse-gradient path to switch on
+            logger.info("sparse_gradients: no-op (embedding gradients are dense scatter-adds on "
+                        "the device); flag accepted for config compatibility")
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data, collate_fn=collate_fn)
         logger.info(f"DeepSpeedEngine ready: zero_stage={config.zero_optimization_stage} "
@@ -380,6 +386,11 @@ class DeepSpeedEngine:
 
     def zero_optimization_stage(self):
         return self.config.zero_optimization_stage
+
+    def sparse_attention_config(self):
+        """The raw ``sparse_attention`` config block (feed to
+        ``ops.sparse_attention.build_sparsity_config``; ``engine.py:1752``)."""
+        return self.config.sparse_attention
 
     def get_batch_info(self):
         return (self.train_batch_size(), self.train_micro_batch_size_per_gpu(),

@@ -24,10 +24,11 @@ import torch
 import deepspeed_tpu
 import deepspeed_tpu_torch
 from deepspeed_tpu.models import TransformerLM as JaxLM
+from deepspeed_tpu.models import llama2_config as jax_llama2_config
 from deepspeed_tpu.models import mistral_config as jax_mistral_config
 from deepspeed_tpu.parallel.mesh import single_device_mesh
-from deepspeed_tpu_torch.models import (TransformerLM, mistral_config, params_from_jax,
-                                        params_to_numpy)
+from deepspeed_tpu_torch.models import (TransformerLM, llama2_config, mistral_config,
+                                        params_from_jax, params_to_numpy)
 from deepspeed_tpu_torch.models.convert import optimizer_state_from_numpy, tree_leaves
 
 TINY = dict(num_layers=2, hidden_size=64, num_heads=4, num_kv_heads=2, intermediate_size=128,
@@ -262,3 +263,53 @@ def test_dataloader_and_data_iter():
     e2, _, _, _ = deepspeed_tpu_torch.initialize(model=m2, config=_ds_config("never"))
     l2 = float(e2.train_batch({"input_ids": np.concatenate([mb["input_ids"] for mb in mbs])}))
     assert l1 == l2
+
+
+# the slice's ds_config shape at a tiny size: a unidirectional 'fixed' layout
+# with per-head global patterns, on a tiny MHA Llama (block-sparse attention
+# needs num_kv_heads == num_heads)
+SPARSE_TINY = dict(num_layers=2, hidden_size=64, num_heads=4, num_kv_heads=4,
+                   intermediate_size=128, vocab_size=256, max_seq_len=64)
+SPARSE_SA = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
+             "num_local_blocks": 2, "num_global_blocks": 1, "horizontal_global_attention": False,
+             "num_different_global_patterns": 2, "attention": "unidirectional"}
+
+
+@pytest.mark.parametrize("mode", ["never", "always"])
+def test_sparse_train_batch_matches_jax_engine(mode):
+    """Three block-sparse ``train_batch`` steps (seq 64: 4 block rows) against
+    the JAX engine, with the dense test's tolerances; the model takes the
+    layout through ``TransformerConfig.sparse_attention``, the engine hands
+    the ds_config's block back from ``sparse_attention_config()``."""
+    over = dict(sparse_attention=SPARSE_SA, sparse_gradients=True)
+    jcfg = jax_llama2_config("tiny", dtype=jnp.float32, attention_impl="reference",
+                             sparse_attention=SPARSE_SA, **SPARSE_TINY)
+    je, _, _, _ = deepspeed_tpu.initialize(model=JaxLM(jcfg), config=_ds_config(mode, **over),
+                                           mesh=single_device_mesh())
+    npp = jax.tree.map(np.asarray, je.state["params"])
+    tcfg = llama2_config("tiny", dtype=torch.float32, sparse_attention=SPARSE_SA, **SPARSE_TINY)
+    model = TransformerLM(tcfg, params_from_jax(npp, tcfg, device="cpu", dtype=torch.float32,
+                                                per_layer=True), trainable=True)
+    te, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=_ds_config(mode, **over))
+    assert te.sparse_attention_config() == je.sparse_attention_config() == SPARSE_SA
+    assert te.config.sparse_gradients_enabled and je.config.sparse_gradients_enabled
+    for step in range(3):
+        b = _batch(40 + step, seq=64)
+        np.testing.assert_allclose(float(te.train_batch(b)), float(je.train_batch(b)), rtol=2e-5)
+    _assert_params_close(je, te)
+
+
+def test_sparse_attention_config_round_trips_and_is_raw():
+    """The block is kept as given (validated where the model builds its
+    layout), ``sparse_gradients`` is accepted, and absent both are off."""
+    sa = {"mode": "bigbird", "block": 32, "num_random_blocks": 2, "seed": 5}
+    cfg = deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 2, "sparse_attention": sa,
+                                               "sparse_gradients": True})
+    assert cfg.sparse_attention == sa and cfg.sparse_attention is not sa
+    assert cfg.sparse_gradients_enabled is True
+    plain = deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 2})
+    assert plain.sparse_attention is None and plain.sparse_gradients_enabled is False
+    model = TransformerLM(mistral_config("tiny", dtype=torch.float32, **TINY), device="cpu",
+                          trainable=True)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config={"train_batch_size": 2})
+    assert engine.sparse_attention_config() is None

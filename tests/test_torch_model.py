@@ -10,6 +10,7 @@ JAX package.
 """
 
 import ast
+import dataclasses
 import os
 
 import jax
@@ -20,13 +21,14 @@ import torch
 
 from deepspeed_tpu.inference.v2.model_implementations.flat_model import \
     ragged_forward as jax_ragged_forward
+from deepspeed_tpu.models import llama2_config as jax_llama2_config
 from deepspeed_tpu.models import mistral_config as jax_mistral_config
 from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.inference.v2.model_implementations.flat_model import ragged_forward
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch.models import (TransformerLM, init_params, mistral_config,
-                                        params_from_jax, params_to_numpy)
+from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama2_config,
+                                        mistral_config, params_from_jax, params_to_numpy)
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.convert import (optimizer_state_from_numpy,
                                                 optimizer_state_to_numpy)
@@ -176,7 +178,8 @@ def test_optimizer_state_round_trip_exactly(mode, moe):
 def test_unported_model_features_are_refused():
     """MoE is refused by the serving layout and the serving engine (the JAX
     v2 engine's flat model runs dense MLPs only, too); it trains on the
-    per-layer model."""
+    per-layer model. A block-sparse model trains, and serving it is refused
+    by the engine and the ragged forward, as the JAX package refuses it."""
     with pytest.raises(NotImplementedError, match="JAX v2 engine"):
         TransformerLM(mistral_config("tiny", moe_num_experts=4, **TINY), device="cpu")
     trainable = TransformerLM(mistral_config("tiny", moe_num_experts=4, **TINY), device="cpu",
@@ -185,9 +188,89 @@ def test_unported_model_features_are_refused():
 
     with pytest.raises(NotImplementedError, match="dense MLPs"):
         InferenceEngineV2(trainable, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TransformerLM(mistral_config("tiny", sparse_attention={"mode": "fixed"}, **TINY),
-                      device="cpu")
+    sparse_cfg = llama2_config("tiny", sparse_attention=dict(SPARSE, attention="unidirectional"),
+                               **SPARSE_TINY)
+    sparse = TransformerLM(sparse_cfg, device="cpu", trainable=True)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 97, (1, 64)))
+    assert torch.isfinite(sparse.loss({"input_ids": ids}))
+    with pytest.raises(NotImplementedError, match="sparse_attention serving"):
+        InferenceEngineV2(TransformerLM(sparse_cfg, device="cpu"), device="cpu")
+    with pytest.raises(NotImplementedError, match="sparse_attention serving"):
+        ragged_forward(sparse_cfg, 8, sparse.params(), *([None] * 8))
+
+
+# a tiny MHA Llama with a genuinely sparse unidirectional layout at seq 64:
+# 4 block rows of 16, local windows of 2 blocks plus one global block per
+# window, a different global pattern for each pair of heads
+SPARSE_TINY = dict(num_layers=2, hidden_size=64, num_heads=4, num_kv_heads=4,
+                   intermediate_size=128, vocab_size=97, max_seq_len=64)
+SPARSE = {"mode": "fixed", "block": 16, "different_layout_per_head": True, "num_local_blocks": 2,
+          "num_global_blocks": 1, "num_different_global_patterns": 2,
+          "attention": "unidirectional"}
+
+
+def _sparse_cfgs(sparse=SPARSE):
+    kw = dict(SPARSE_TINY, sparse_attention=sparse)
+    return (jax_llama2_config("tiny", dtype=jnp.float32, attention_impl="reference", **kw),
+            llama2_config("tiny", dtype=torch.float32, **kw))
+
+
+def test_sparse_model_logits_loss_and_every_gradient_match_jax():
+    """fp32: the port's block-sparse model (the plain forward on the CPU,
+    the gathered recompute in the backward) against JAX ``forward`` and
+    ``jax.grad(loss_fn)`` on shared weights, rtol 2e-4 / atol 2e-5."""
+    jcfg, tcfg = _sparse_cfgs()
+    npp = _jax_params(jcfg, seed=4)
+    model = TransformerLM(tcfg, params_from_jax(npp, tcfg, device="cpu", dtype=torch.float32,
+                                                per_layer=True), trainable=True)
+    ids = np.random.default_rng(5).integers(0, 97, size=(2, 64)).astype(np.int32)
+    logits = model(torch.from_numpy(ids))
+    ref = np.asarray(jt.forward(jcfg, jax.tree.map(jnp.asarray, npp), jnp.asarray(ids)))
+    np.testing.assert_allclose(logits.detach().numpy(), ref, rtol=2e-4, atol=2e-5)
+    dense = np.asarray(jt.forward(dataclasses.replace(jcfg, sparse_attention=None),
+                                  jax.tree.map(jnp.asarray, npp), jnp.asarray(ids)))
+    assert not np.allclose(ref, dense, atol=1e-2)  # the layout really drops keys
+    loss = model.loss({"input_ids": torch.from_numpy(ids)})
+    loss.backward()
+    j_loss, j_grads = jax.value_and_grad(
+        lambda p: jt.loss_fn(jcfg, p, {"input_ids": jnp.asarray(ids)}))(
+            jax.tree.map(jnp.asarray, npp))
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=2e-5)
+    grads = params_to_numpy({g: ([{n: p.grad for n, p in layer.items()} for layer in leaves]
+                                 if isinstance(leaves, list) else
+                                 {n: p.grad for n, p in leaves.items()})
+                             for g, leaves in model.params().items()})
+    for group, leaves in jax.tree.map(np.asarray, j_grads).items():
+        for name, g in leaves.items():
+            np.testing.assert_allclose(grads[group][name], g, rtol=2e-4, atol=2e-5,
+                                       err_msg=f"{group}/{name}")
+
+
+def test_all_visible_sparse_layout_equals_dense_causal():
+    """A unidirectional 'fixed' layout whose local window covers every block
+    row is the dense causal model."""
+    jcfg, tcfg = _sparse_cfgs({"mode": "fixed", "block": 16, "num_local_blocks": 4,
+                               "attention": "unidirectional"})
+    npp = _jax_params(jcfg, seed=6)
+    params = params_from_jax(npp, tcfg, device="cpu", dtype=torch.float32)
+    ids = torch.from_numpy(np.random.default_rng(7).integers(0, 97, size=(2, 64)))
+    full = tt.forward(tcfg, params, ids)
+    dense = tt.forward(dataclasses.replace(tcfg, sparse_attention=None,
+                                           attention_impl="reference"), params, ids)
+    np.testing.assert_allclose(full.numpy(), dense.numpy(), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(sliding_window=32), "sliding_window"),
+    (dict(positions="alibi"), "alibi"),
+    (dict(num_kv_heads=2), "num_kv_heads == num_heads"),
+])
+def test_sparse_attention_config_checks_raise_as_jax(over, match):
+    kw = dict(SPARSE_TINY, sparse_attention=SPARSE)
+    kw.update(over)
+    for make in (jax_llama2_config, llama2_config):
+        with pytest.raises(NotImplementedError, match=match):
+            make("tiny", **kw)
 
 
 def _ragged_case(rng, cfg_t, bs, nb, max_blocks):
