@@ -1,13 +1,13 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
-                                    train,moe_train,sparse_train]
+                                    train,moe_train,sparse_train,evo_kernels,evo_path]
     python3 chip_smoke.py --mutant
 
 With no arguments every phase runs, in this order; each must pass (exit
 code 1 otherwise):
 
-1. build: compile the five hand-written CUDA sources of
+1. build: compile the six hand-written CUDA sources of
    ``deepspeed_tpu_torch/ops/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together; print each nvcc's wall time and the
    ``-Xptxas -v`` registers / shared memory / spills per kernel.
@@ -118,12 +118,52 @@ code 1 otherwise):
    profiled step; then at seq 1024 the whole model through the kernel
    against the same through the plain forward (loss 2e-3, gradient 5e-2).
 
+10. evo_kernels: hold the Evoformer kernels (``evo_fwd``, ``evo_bwd_dq``,
+   ``evo_bwd_dkdv`` with the mask bias's ``db1`` summed inside it, and
+   ``evo_bwd_db2``) against their plain versions on the same inputs (the
+   backward on the kernel forward's out and lse): out, lse, dq, dk, dv,
+   db1, db2 over 26 small cases (each bias present or absent, G 1 and 2,
+   R 1 / 64 / 100 / 130 / 200 / 257, head_dim 32 / 64 / 128, bf16 / fp32 /
+   fp16, and OpenFold's 1e9 mask with a fully masked row, whose output and
+   lse are checked for finiteness only and whose dout is 0, as the model
+   masks it) and at the main shape (MSA row attention with the pair bias:
+   N 512, R 384, 8 heads, d 32, bf16). Tolerance per element: bf16 / fp16
+   outputs the flash rule; fp32 outputs 2^-16 |plain| + 2^-14 rms(plain)
+   (both sum in fp32 in another order and never round to a narrower type);
+   lse 2^-14 (1 + |plain|); the fp32 bias sums (db1 over h x R terms, db2
+   over the group's n_seq rows) as tgmm's, 2^-16 sqrt(terms) rms(plain);
+   each gradient also gets 2^-18 of the same sum over its terms' absolute
+   values, since where a gradient cancels to far below its terms (R 1:
+   ds = dp - delta is rounding alone on both sides) only that scale says
+   what summation order may move.
+   Times (CUDA events) against the bound, the plain version and a library
+   yardstick: ``F.scaled_dot_product_attention`` with bias1 + bias2
+   materialised as a bf16 float mask, forward, and its backward with the
+   mask's gradient for the backward kernels together; db1's time is that
+   of the dk/dv launch that sums it (with what the sum adds beside it).
+   ``worst_error_fraction`` is printed.
+11. evo_path: one Evoformer block's four attention calls (MSA row attention
+   with the pair bias, MSA column attention, triangle attention around the
+   starting and the ending node) at AlphaFold-2's fine-tuning crop (N_res
+   384, N_clust 512) with OpenFold's heads (8 x 32 for the MSA, 4 x 32 for
+   the pair), bf16 inputs, fp32 biases, OpenFold's 1e9 mask bias padding
+   the last 10% of residues and four MSA rows; forward and backward through
+   ``DS4Sci_EvoformerAttention``, with the module also loaded through
+   ``get_accelerator().create_op_builder("EvoformerAttnBuilder")``: a warm
+   block, then three timed blocks with the launch counts reset just before
+   and read just after (4 fwd, 4 dq, 4 dk/dv with 4 db1 and 3 db2 per
+   block), the median block time and peak memory, a profiled block; then
+   the block through the plain versions: every output finite, and the
+   output (off the fully masked rows) and all five cotangents of each call
+   within relative L2 1e-2 of the plain path's.
+
 ``--mutant`` copies the package into ``build/mutant/<name>`` once per
 mutant: the grouped matmul kernels dropping one row block's products
-(``--phases build,moe_kernels`` there must fail) and the block-sparse
-kernel skipping each row's last valid LUT column (``--phases
-build,sparse_kernels`` must fail by more than 100x its tolerance, printed).
-It passes when every mutant is caught.
+(``--phases build,moe_kernels`` there must fail), the block-sparse kernel
+skipping each row's last valid LUT column (``--phases build,sparse_kernels``
+must fail by more than 100x its tolerance, printed) and the Evoformer db2
+kernel skipping each group's last row (``--phases build,evo_kernels``, the
+same). It passes when every mutant is caught.
 
 It prints the card (name and power limit) and, on the line before the last,
 ``{"kernels": [...]}``; the last line is
@@ -209,6 +249,33 @@ SPARSE_SA = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
              "num_local_blocks": 4, "num_global_blocks": 1, "horizontal_global_attention": False,
              "num_different_global_patterns": 4, "attention": "unidirectional"}
 SPARSE_DS_CONFIG = dict(TRAIN_DS_CONFIG, sparse_attention=SPARSE_SA)
+EVO_SRC = "deepspeed_tpu_torch/ops/csrc/evoformer_attention.cu"
+TPU_EVO = "deepspeed_tpu/ops/pallas/evoformer_attention.py"
+EVO_KERNELS = {  # name -> the TPU kernel it replaces (db1 is summed inside the dk/dv kernel)
+    "evo_fwd": f"{TPU_EVO}:113", "evo_bwd_dq": f"{TPU_EVO}:231",
+    "evo_bwd_dkdv": f"{TPU_EVO}:265", "evo_bwd_db1": f"{TPU_EVO}:346",
+    "evo_bwd_db2": f"{TPU_EVO}:306"}
+# the Evoformer path: AlphaFold-2's fine-tuning crop (AF2 supplementary
+# information, Table 4: N_res 384, N_clust 512) with OpenFold's Evoformer
+# heads (c_hidden_msa_att 32 x 8 heads, c_hidden_pair_att 32 x 4 heads);
+# (name, n_seq, n_res, heads, pair bias) of one block's four calls
+EVO_RES, EVO_SEQ, EVO_D = 384, 512, 32
+EVO_CALLS = (("msa_row", EVO_SEQ, EVO_RES, 8, True),  # AF2 Alg. 7, with the pair bias
+             ("msa_col", EVO_RES, EVO_SEQ, 8, False),  # Alg. 8
+             ("tri_start", EVO_RES, EVO_RES, 4, True),  # Alg. 13
+             ("tri_end", EVO_RES, EVO_RES, 4, True))  # Alg. 14, the transposed pair
+EVO_MASK_INF = 1e9  # OpenFold's mask bias: inf * (mask - 1) with inf 1e9
+EVO_ITERS = 3
+# fp32 outputs: both sides sum in fp32 in another order and never round to
+# a narrower type
+EVO_FP32_REL, EVO_FP32_RMS = 2.0**-16, 2.0**-14
+# every gradient also gets 2^-18 of its sum over absolute terms: summing n
+# terms in another order moves the result by at most ~n 2^-24 of that sum
+EVO_ABS_TERMS = 2.0**-18
+# the whole path, kernels vs plain: the two outputs differ in the last bf16
+# bit at some elements, and each backward reads its own output (delta =
+# rowsum(dO * O))
+EVO_PATH_REL_L2_TOL = 1e-2
 # one MoE layer at seq 1024, kernels vs the plain grouped path on one input
 # (identical routing): bf16 roundings of up / gate / activation / down at the
 # same places from fp32 sums in another order, each differing in the last
@@ -265,13 +332,14 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import evoformer_attention as tev
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import fused_adam as fad
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
     mods = {"paged_attention": pa, "flash_attention": fa, "fused_adam": fad, "grouped_matmul": gm,
-            "block_sparse_attention": bsa}
+            "block_sparse_attention": bsa, "evoformer_attention": tev}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, all at once
         built = dict(zip(mods, ex.map(lambda m: m.kernel_build(), mods.values())))
@@ -290,6 +358,9 @@ def phase_build():
     bsm = built["block_sparse_attention"].lib.ds_block_sparse_smem_bytes
     log(f"[build] block-sparse forward dynamic shared memory per CTA: d 128 {bsm(128)} B, "
         f"d 64 {bsm(64)} B")
+    esm = built["evoformer_attention"].lib.ds_evo_smem_bytes
+    log(f"[build] Evoformer dynamic shared memory per CTA (d 32): forward {esm(0, 32)} B, dq "
+        f"{esm(1, 32)} B, dk/dv {esm(2, 32)} B, db2 {esm(3, 32)} B")
 
 
 # ---------------------------------------------------------------------------
@@ -1738,6 +1809,398 @@ def phase_sparse_train():
     return launches, step
 
 
+# ---------------------------------------------------------------------------
+# phase: the Evoformer attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _evo_err(got, ref, kind, terms=None):
+    """(max |got - ref|, the largest error as a fraction of its tolerance)
+    for the Evoformer outputs (see the module docstring): ``"low"`` bf16 /
+    fp16 outputs, ``"fp32"`` fp32 outputs, ``"lse"``, or a number of terms
+    for the fp32 bias sums. ``terms``: the same sum over the absolute values
+    of its terms (:func:`_evo_abs_terms`), for the gradients."""
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    if not err.numel():
+        return 0.0, 0.0
+    rms = float(ref.pow(2).mean().sqrt())
+    if kind == "lse":
+        tol = 2.0**-14 * (1.0 + ref.abs())
+    elif kind == "low":
+        tol = TOL_ULPS * bf16_ulp(ref) + max(TOL_FLOOR, GRAD_FLOOR_RMS * rms)
+    elif kind == "fp32":
+        tol = EVO_FP32_REL * ref.abs() + EVO_FP32_RMS * rms + 2.0**-30
+    else:
+        tol = TGMM_FLOOR * float(kind)**0.5 * rms + 2.0**-30
+    if terms is not None:
+        tol = tol + EVO_ABS_TERMS * terms
+    return float(err.max()), float((err / tol).max())
+
+
+def _evo_abs_terms(tev, q, k, v, b1, b2, out, lse, do):
+    """(dq, dk, dv, db1, db2) summed over the absolute values of their
+    terms, with ds taken as p (|dO| . |v| + rowsum |dO * O|): the scale that
+    rounding in another order works on. It bounds the error where a
+    gradient cancels to far below its terms (R 1: p = 1 and dp = delta, so
+    ds is rounding alone on both sides)."""
+    import torch
+
+    N, R, h, d = q.shape
+    scale = 1.0 / d**0.5
+    s = tev._add_biases(scale * torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()), b1, b2)
+    p = torch.exp(s - lse[..., None])
+    ado, av = do.float().abs(), v.float().abs()
+    adelta = (ado * out.float().abs()).sum(-1).permute(0, 2, 1)[..., None]
+    a = p * (torch.einsum("nqhd,nkhd->nhqk", ado, av) + adelta)
+    db2 = a.reshape(b2.shape[0], N // b2.shape[0], h, R, R).sum(1) if b2 is not None else None
+    return (scale * torch.einsum("nhqk,nkhd->nqhd", a, k.float().abs()),
+            scale * torch.einsum("nhqk,nqhd->nkhd", a, q.float().abs()),
+            torch.einsum("nhqk,nqhd->nkhd", p, ado), a.sum(dim=(1, 2)), db2)
+
+
+def _evo_case(seed, N, G, R, h, d, dtype, with_b1, with_b2, openfold=False):
+    """q, k, v, dout [N, R, h, d] and the biases from a seeded generator;
+    ``openfold``: bias1 = 1e9 (mask - 1) with the last residues padded and
+    row 1 fully masked, where dout is 0 (the model masks those outputs)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    q, k, v, do = (mk(N, R, h, d).to(dtype) for _ in range(4))
+    b1 = 2 * mk(N, R) if with_b1 else None
+    b2 = mk(G, h, R, R) if with_b2 else None
+    masked = None
+    if openfold:
+        mask = torch.ones(N, R, device="cuda")
+        mask[:, R - R // 10:] = 0.0
+        mask[1] = 0.0
+        b1 = EVO_MASK_INF * (mask - 1.0)
+        masked = mask.sum(-1) == 0  # [N] rows whose every key is masked
+        do[masked] = 0
+    return q, k, v, do, b1, b2, masked
+
+
+def _evo_all(tev, q, k, v, do, b1, b2, db1=True):
+    """Kernels: (out, lse, dq, dk, dv, db1, db2); the backward on the
+    forward's own out and lse."""
+    out, lse = tev.evo_fwd(q, k, v, b1, b2)
+    dq = tev.evo_bwd_dq(q, k, v, b1, b2, out, lse, do)
+    dk, dv, g1 = tev.evo_bwd_dkdv(q, k, v, b1, b2, out, lse, do, db1=db1)
+    g2 = tev.evo_bwd_db2(q, k, v, b1, b2, out, lse, do) if b2 is not None else None
+    return out, lse, dq, dk, dv, g1, g2
+
+
+def _evo_bytes_flops(N, G, R, h, d):
+    """{kernel: (bytes each input read once and each output written once,
+    FLOPs at 2 per multiply-add)} for one bf16 call with both biases."""
+    T = N * R * h * d * 2  # q, k, v, out, dout, dq, dk, dv: each this size
+    pairs = N * h * R * R
+    bias = N * R * 4 + G * h * R * R * 4
+    lse = N * h * R * 4
+    return {"evo_fwd": (4 * T + bias + lse, 4 * d * pairs),
+            "evo_bwd_dq": (6 * T + bias + lse, 6 * d * pairs),
+            "evo_bwd_dkdv": (7 * T + bias + lse, 8 * d * pairs),
+            "evo_bwd_db1": (5 * T + bias + lse + N * R * 4, 4 * d * pairs),
+            "evo_bwd_db2": (5 * T + bias + lse + G * h * R * R * 4, 4 * d * pairs)}
+
+
+def phase_evo_kernels():
+    """Returns {kernel name: measurement dict} for the Evoformer kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import evoformer_attention as tev
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    failures = []
+    worst = {name: 0.0 for name in EVO_KERNELS}
+    worst_frac = [0.0, ""]
+    owner = {"out": "evo_fwd", "lse": "evo_fwd", "dq": "evo_bwd_dq", "dk": "evo_bwd_dkdv",
+             "dv": "evo_bwd_dkdv", "db1": "evo_bwd_db1", "db2": "evo_bwd_db2"}
+
+    def check(tag, got, q, k, v, do, b1, b2, masked=None):
+        out, lse = got[0], got[1]
+        r_out, r_lse = tev.evo_attention_reference(q, k, v, b1, b2)
+        ref = (r_out, r_lse, *tev.evo_attention_reference_bwd(q, k, v, b1, b2, out, lse, do))
+        terms = (None, None, *_evo_abs_terms(tev, q, k, v, b1, b2, out, lse, do))
+        torch.cuda.synchronize()
+        N, R, h, _ = q.shape
+        low = "low" if q.dtype != torch.float32 else "fp32"
+        kinds = {"out": low, "lse": "lse", "dq": low, "dk": low, "dv": low, "db1": h * R,
+                 "db2": N // (b2.shape[0] if b2 is not None else 1)}
+        errs = {}
+        for name, a, r, t in zip(owner, got, ref, terms):
+            if a is None:
+                continue
+            if name in ("out", "lse") and masked is not None:  # fully masked rows: finite
+                if not bool(torch.isfinite(a[masked]).all()):
+                    failures.append(f"{name} {tag}: non-finite on a fully masked row")
+                a, r = a[~masked], r[~masked]
+            e, frac = _evo_err(a, r, kinds[name], t)
+            errs[name] = e
+            worst[owner[name]] = max(worst[owner[name]], e)
+            if frac > worst_frac[0]:
+                worst_frac[:] = [frac, f"{name} {tag}"]
+            if not frac <= 1.0:
+                failures.append(f"{name} {tag}: max_abs_err {e:.3e}, {frac:.2f}x its tolerance")
+        return errs
+
+    # small cases: each bias present or absent, G 1 and 2, ragged R, every
+    # head dim, bf16 / fp32 / fp16, and OpenFold's mask with a fully masked row
+    dtypes = (torch.bfloat16, torch.float32, torch.float16)
+    n_cases = 0
+    for (R, d) in ((1, 32), (64, 32), (100, 32), (130, 64), (200, 128), (257, 32)):
+        for with_b1, with_b2 in ((True, True), (True, False), (False, True), (False, False)):
+            G = 1 + n_cases % 2
+            dtype = dtypes[n_cases % 3]
+            q, k, v, do, b1, b2, _ = _evo_case(200 + n_cases, 4, G, R, 2 + 2 * (n_cases % 2), d,
+                                               dtype, with_b1, with_b2)
+            got = _evo_all(tev, q, k, v, do, b1, b2)
+            check(f"N=4 G={G} R={R} h={q.shape[2]} d={d} {str(dtype)[6:]} b1={with_b1} "
+                  f"b2={with_b2}", got, q, k, v, do, b1, b2)
+            n_cases += 1
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, b1, b2, masked = _evo_case(300 + n_cases, 6, 2, 160, 4, 32, dtype, True,
+                                                True, openfold=True)
+        got = _evo_all(tev, q, k, v, do, b1, b2)
+        check(f"openfold N=6 G=2 R=160 h=4 d=32 {str(dtype)[6:]}", got, q, k, v, do, b1, b2,
+              masked)
+        n_cases += 1
+    log(f"[evo_kernels] small-case matrix ({n_cases} cases x out, lse, dq, dk, dv, db1, db2): "
+        f"{'all within tolerance' if not failures else failures[:5]}; max_abs_err "
+        f"{ {k_: f'{e_:.3e}' for k_, e_ in worst.items()} }")
+
+    # the main shape: MSA row attention with the pair bias at AlphaFold's
+    # fine-tuning crop (the path's largest call with both biases)
+    name0, n_seq, R, h, _ = EVO_CALLS[0]
+    N, G, d = n_seq, 1, EVO_D
+    q, k, v, do, b1, b2, _ = _evo_case(17, N, G, R, h, d, torch.bfloat16, True, True)
+    got = _evo_all(tev, q, k, v, do, b1, b2)
+    errs = check(f"main {name0} N={N} R={R} h={h} d={d} bf16", got, q, k, v, do, b1, b2)
+    out, lse = got[0], got[1]
+    del got
+    ms = {"evo_fwd": time_ms(lambda: tev.evo_fwd(q, k, v, b1, b2), iters=10, warmup=2),
+          "evo_bwd_dq": time_ms(lambda: tev.evo_bwd_dq(q, k, v, b1, b2, out, lse, do), iters=10,
+                                warmup=2),
+          "evo_bwd_dkdv": time_ms(lambda: tev.evo_bwd_dkdv(q, k, v, b1, b2, out, lse, do,
+                                                           db1=False), iters=10, warmup=2),
+          "evo_bwd_db2": time_ms(lambda: tev.evo_bwd_db2(q, k, v, b1, b2, out, lse, do),
+                                 iters=10, warmup=2)}
+    dkdv_db1 = time_ms(lambda: tev.evo_bwd_dkdv(q, k, v, b1, b2, out, lse, do), iters=10,
+                       warmup=2)
+    # db1 is summed inside the dk/dv kernel: its time is that launch's
+    ms["evo_bwd_db1"] = dkdv_db1
+    plain_fwd = time_ms(lambda: tev.evo_attention_reference(q, k, v, b1, b2), iters=3, warmup=1)
+    plain_bwd = time_ms(lambda: tev.evo_attention_reference_bwd(q, k, v, b1, b2, out, lse, do),
+                        iters=3, warmup=1)
+    # library yardstick: SDPA on [N, h, R, d] with bias1 + bias2 materialised
+    # as a bf16 float mask [N, h, R, R]; the backward with the mask's gradient
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    mask = (b2.expand(N, h, R, R) + b1[:, None, None, :]).to(torch.bfloat16).requires_grad_()
+    dot = do.transpose(1, 2).contiguous()
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                      iters=10, warmup=2)
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_err = float((o_lib.detach().transpose(1, 2).float() - out.float()).abs().max())
+    try:
+        lib_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt, mask), dot,
+                                                      retain_graph=True), iters=10, warmup=2)
+        lib_note = "SDPA backward with the mask's gradient"
+    except RuntimeError as e:  # a yardstick only: say what this torch computes
+        lib_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dot,
+                                                      retain_graph=True), iters=10, warmup=2)
+        lib_note = f"SDPA backward without the mask's gradient ({str(e)[:120]})"
+    del o_lib, qt, kt, vt, mask, dot
+    spec = _evo_bytes_flops(N, G, R, h, d)
+    lib = {"evo_fwd": lib_fwd}
+    res = {}
+    for name in EVO_KERNELS:
+        n_bytes, flops = spec[name]
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        res[name] = dict(err=worst[name], ms=ms[name], plain_ms=plain_fwd if name == "evo_fwd"
+                         else plain_bwd, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib.get(name, lib_bwd),
+                         library=("SDPA forward, bias1 + bias2 as a bf16 float mask"
+                                  if name == "evo_fwd" else lib_note + " (all five kernels' "
+                                  "work together)"))
+        log(f"[evo_kernels] {name} {name0} N={N} R={R} h={h} d={d} bf16: {ms[name]:.4f} ms, "
+            f"plain {res[name]['plain_ms']:.3f} ms ({'forward' if name == 'evo_fwd' else 'whole backward'}), "
+            f"bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), "
+            f"library {res[name]['library_ms']:.4f} ms")
+    adds = dkdv_db1 - ms["evo_bwd_dkdv"]
+    res["evo_bwd_db1"]["db1_adds_ms"] = res["evo_bwd_dkdv"]["db1_adds_ms"] = adds
+    log(f"[evo_kernels] dk/dv with the db1 sum {dkdv_db1:.4f} ms, without {ms['evo_bwd_dkdv']:.4f} "
+        f"ms: db1 adds {adds:.4f} ms; library: SDPA forward {lib_fwd:.4f} ms "
+        f"(max |sdpa - kernel| {lib_err:.3e}), {lib_note} {lib_bwd:.4f} ms")
+    log(f"[evo_kernels] main-shape max_abs_err: { {k_: f'{e_:.3e}' for k_, e_ in errs.items()} }")
+    log(f"[evo_kernels] largest error over all cases {worst_frac[0]:.3f} of its tolerance "
+        f"({worst_frac[1]})")
+    log(f"[evo_kernels] worst_error_fraction={worst_frac[0]:.6g}")
+    if failures:
+        raise RuntimeError("Evoformer kernels disagree with the plain version: "
+                           + "; ".join(failures[:10]))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase: one Evoformer block's four attention calls, forward and backward,
+# through DS4Sci_EvoformerAttention
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_evoformer(tev):
+    """Within the block, the Evoformer Function's kernel wrappers are the
+    plain versions, on any device."""
+    names = ("evo_fwd", "evo_bwd_dq", "evo_bwd_dkdv", "evo_bwd_db2")
+    saved = {n: getattr(tev, n) for n in names}
+    tev.evo_fwd = tev.evo_attention_reference
+    tev.evo_bwd_dq = lambda *a: tev.evo_attention_reference_bwd(*a)[0]
+    tev.evo_bwd_dkdv = lambda *a: tev.evo_attention_reference_bwd(*a)[1:4]
+    tev.evo_bwd_db2 = lambda *a: tev.evo_attention_reference_bwd(*a)[4]
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(tev, n, fn)
+
+
+def _evo_block_inputs(seed):
+    """The four calls' inputs: bf16 q/k/v and dout, fp32 biases (both
+    trainable), the MSA mask padding the last 10% of residues and a few MSA
+    rows (from a seeded generator), OpenFold's mask bias 1e9 (mask - 1)
+    and dout 0 on the fully masked rows."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    S, R = EVO_SEQ, EVO_RES
+    msa_mask = torch.ones(S, R, device="cuda")
+    msa_mask[:, R - R // 10:] = 0.0
+    msa_mask[torch.randperm(S, generator=gen, device="cuda")[:4]] = 0.0
+    res_mask = msa_mask.amax(0)
+    pair_mask = res_mask[:, None] * res_mask[None, :]
+    masks = {"msa_row": msa_mask, "msa_col": msa_mask.t(), "tri_start": pair_mask,
+             "tri_end": pair_mask.t()}
+    calls = []
+    for name, n_seq, r, h, pair in EVO_CALLS:
+        mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+        q, k, v, do = (mk(1, n_seq, r, h, EVO_D).to(torch.bfloat16) for _ in range(4))
+        m = masks[name].contiguous()
+        b1 = (EVO_MASK_INF * (m - 1.0))[None, :, None, None, :].contiguous()
+        b2 = mk(1, 1, h, r, r) if pair else None
+        full = m.sum(-1) == 0  # [n_seq] rows whose every key is masked
+        do[:, full] = 0
+        calls.append((name, [q, k, v], [b for b in (b1, b2) if b is not None], do, full))
+    return calls
+
+
+def _evo_block(ds4sci, calls):
+    """One block's four calls, forward and backward; returns the outputs
+    and every gradient (q, k, v, then the biases) of each call."""
+    res = []
+    for _, qkv, biases, do, _ in calls:
+        leaves = [t.detach().requires_grad_() for t in qkv + biases]
+        out = ds4sci(*leaves[:3], leaves[3:])
+        out.backward(do)
+        res.append((out.detach(), [t.grad for t in leaves]))
+    return res
+
+
+def phase_evo_path():
+    """Returns the launches on the path and the block's measurements."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.ops import evoformer_attention as tev
+    from deepspeed_tpu_torch.ops.evoformer_attn import DS4Sci_EvoformerAttention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    acc = get_accelerator()
+    mod = acc.create_op_builder("EvoformerAttnBuilder").load()
+    if mod is not tev or acc.device_name() != "cuda":
+        raise RuntimeError(f"EvoformerAttnBuilder loaded {mod} on {acc.device_name()}, not the "
+                           f"port's evoformer_attention module on cuda")
+    calls = _evo_block_inputs(23)
+    log(f"[evo_path] AlphaFold-2 fine-tuning crop (N_res {EVO_RES}, N_clust {EVO_SEQ}), "
+        f"OpenFold's Evoformer heads: " + "; ".join(
+            f"{n} q/k/v {list(qkv[0].shape)} biases {[list(b.shape) for b in bs]}, "
+            f"{int(full.sum())} fully masked rows" for n, qkv, bs, _, full in calls))
+    log(f"[evo_path] EvoformerAttnBuilder -> {mod.__name__} via {type(acc).__name__}")
+    _evo_block(DS4Sci_EvoformerAttention, calls)  # warm
+    torch.cuda.synchronize()
+    tev.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(EVO_ITERS):
+        ts = time.perf_counter()
+        kern = _evo_block(DS4Sci_EvoformerAttention, calls)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+    launches = dict(tev.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    n_pair = sum(1 for c in EVO_CALLS if c[4])
+    expected = {"evo_fwd": 4 * EVO_ITERS, "evo_bwd_dq": 4 * EVO_ITERS,
+                "evo_bwd_dkdv": 4 * EVO_ITERS, "evo_bwd_db1": 4 * EVO_ITERS,
+                "evo_bwd_db2": n_pair * EVO_ITERS}
+    med = float(np.median(times))
+    log(f"[evo_path] block forward + backward (4 calls) median {1e3 * med:.2f} ms (range "
+        f"{1e3 * min(times):.2f}-{1e3 * max(times):.2f}); peak memory {peak / 2**30:.2f} GiB "
+        f"({(peak - base) / 2**30:.2f} GiB above the inputs)")
+    log(f"[evo_path] kernel launches over {EVO_ITERS} blocks: {launches} (expected {expected})")
+    if launches != expected:
+        raise RuntimeError(f"kernel launches {launches} != expected {expected}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        _evo_block(DS4Sci_EvoformerAttention, calls)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+    by_name = _device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    log(f"[evo_path] profiled block: wall {1e3 * wall:.2f} ms, device busy {busy:.2f} ms: idle "
+        f"{100 * (1 - busy / (1e3 * wall)):.1f}%")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    for name, t in top:
+        log(f"[evo_path]   {t:9.3f} ms  {100 * t / busy:5.1f}%  {name[:90]}")
+    del prof
+
+    # the same block through the plain versions: output (finite on fully
+    # masked rows) and every gradient, relative L2
+    with plain_evoformer(tev):
+        plain = _evo_block(DS4Sci_EvoformerAttention, calls)
+    torch.cuda.synchronize()
+    worst_rel, failures = 0.0, []
+    for (name, _, biases, _, full), (o_k, g_k), (o_r, g_r) in zip(calls, kern, plain):
+        if not bool(torch.isfinite(o_k).all()):
+            failures.append(f"{name}: non-finite output")
+        pairs = [("out", o_k[:, ~full], o_r[:, ~full])] + list(zip(
+            ("dq", "dk", "dv", "dbias1", "dbias2"), g_k, g_r))
+        rels = {}
+        for gname, a, b in pairs:
+            rel = float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+            rels[gname] = rel
+            worst_rel = max(worst_rel, rel)
+            if not rel <= EVO_PATH_REL_L2_TOL:
+                failures.append(f"{name} {gname}: relative L2 {rel:.3e}")
+        log(f"[evo_path] {name}, kernels vs plain: relative L2 "
+            f"{ {k_: f'{v_:.2e}' for k_, v_ in rels.items()} }")
+    log(f"[evo_path] largest relative L2 {worst_rel:.3e} (tolerance {EVO_PATH_REL_L2_TOL})")
+    if failures:
+        raise RuntimeError("Evoformer path disagrees with the plain path: " + "; ".join(failures))
+    block = dict(block_ms=1e3 * med, peak_gib=peak / 2**30, device_busy_ms=busy,
+                 worst_rel_l2=worst_rel, top_device_ops=[(n[:60], round(t, 3)) for n, t in top[:5]])
+    del calls, kern, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, block
+
+
 # the mutant checks. Grouped matmul: a copy that drops one row block's
 # contribution (gmm: the second 128-row tile's products; tgmm: each expert's
 # first row block) must fail the moe_kernels phase by far. Block-sparse: a
@@ -1752,11 +2215,15 @@ GMM_MUTATIONS = (
 BSA_MUTATIONS = (
     ("const int n_keys = nv * a.block;", "const int n_keys = (nv > 0 ? nv - 1 : 0) * a.block;"),
 )
+EVO_MUTATIONS = (  # db2 skips each group's last row
+    ("for (int nn = 0; nn < a.n_seq; ++nn) {", "for (int nn = 0; nn < a.n_seq - 1; ++nn) {"),
+)
 MUTANT_MIN_FACTOR = 100.0
 MUTANTS = {  # name -> (source, mutations, phase, the phase's failure text)
     "grouped_matmul": (GMM_SRC, GMM_MUTATIONS, "moe_kernels", "grouped matmul kernels disagree"),
     "block_sparse": (BSA_SRC, BSA_MUTATIONS, "sparse_kernels",
                      "block-sparse kernel disagrees"),
+    "evoformer": (EVO_SRC, EVO_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
 }
 
 
@@ -1791,7 +2258,7 @@ def _run_one_mutant(name):
             log(f"[mutant] {name}: {line[:4000]}")
     caught = proc.returncode != 0 and failure in proc.stdout
     found = re.findall(r"worst_error_fraction=([0-9.eE+-]+)", proc.stdout)
-    if phase == "sparse_kernels":
+    if phase in ("sparse_kernels", "evo_kernels"):
         factor = float(found[-1]) if found else 0.0
         log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
             f"{MUTANT_MIN_FACTOR:.0f}x)")
@@ -1808,7 +2275,7 @@ def run_mutant():
 
 
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
-          "moe_train", "sparse_train")
+          "moe_train", "sparse_train", "evo_kernels", "evo_path")
 
 
 def main():
@@ -1817,8 +2284,8 @@ def main():
                     help=f"comma-separated subset of {PHASES} (default: all; a subset prints no "
                          f"result lines)")
     ap.add_argument("--mutant", action="store_true",
-                    help="run the mutant checks alone (grouped matmul and block-sparse: each must "
-                         "be caught)")
+                    help="run the mutant checks alone (grouped matmul, block-sparse, Evoformer: "
+                         "each must be caught)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -1850,7 +2317,8 @@ def main():
     fns = {"build": phase_build, "kernels": phase_kernels, "train_kernels": phase_train_kernels,
            "moe_kernels": phase_moe_kernels, "sparse_kernels": phase_sparse_kernels,
            "e2e": phase_e2e, "train": phase_train, "moe_train": phase_moe_train,
-           "sparse_train": phase_sparse_train}
+           "sparse_train": phase_sparse_train, "evo_kernels": phase_evo_kernels,
+           "evo_path": phase_evo_path}
     failed = []
     out = {}
     for name in PHASES:
@@ -1903,6 +2371,15 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": int(sparse_launches[name]), "max_abs_err": m["err"],
                         **{k: m[k] for k in keys}, **extra, "sparse_train_step": sparse_step})
+    evo_launches, evo_block = out["evo_path"]
+    for name, m in out["evo_kernels"].items():
+        extra = {k: m[k] for k in ("library", "db1_adds_ms") if k in m}
+        if name == "evo_bwd_db1":
+            extra["kernel"] = "ds_evo_bwd_dkdv (the db1 sum folded into the dk/dv kernel)"
+        kernels.append({"name": name, "route": "cuda", "source": EVO_SRC,
+                        "replaces": EVO_KERNELS[name], "launches": int(evo_launches[name]),
+                        "max_abs_err": m["err"], **{k: m[k] for k in keys}, **extra})
+    kernels[-1]["evo_block"] = evo_block
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

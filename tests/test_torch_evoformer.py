@@ -1,0 +1,375 @@
+"""PyTorch port: Evoformer attention (DS4Sci_EvoformerAttention) against the
+JAX package.
+
+The same numpy inputs (fp32, from a seed) go through both packages on the
+CPU:
+
+- the port's plain forward (out, lse) and plain backward (dq; dk / dv with
+  db1; db2) against the JAX package's Pallas kernels in interpret mode,
+  ``_evo_fwd_impl`` / ``_evo_bwd_impl(..., interpret=True)`` called
+  directly with 128-wide tiles at R 128 and R 256 (grids of several
+  blocks), on the same ``out`` / ``lse``;
+- the port's ``autograd.Function`` (``evo_flash``) and public
+  ``evoformer_attention`` on CPU tensors (the Function over the plain
+  versions) against ``jax.vjp`` of the JAX package's, for the output and
+  all five cotangents: mask and pair bias, mask only, pair only, none;
+  leading dims (2,); an OpenFold mask bias (1e9 * (mask - 1)) with a fully
+  masked MSA row; a bias given in bf16; the non-AlphaFold layout through
+  the chunked path with seq_chunk 0 and 2; R 96 and 200, which the TPU's
+  lane rule keeps off its kernel (the JAX side then takes its jnp path).
+
+Tolerances are the JAX package's own (``tests/test_aux_components.py``):
+3e-5 for the forward, 5e-5 for the gradients (fp32 sums in another order).
+A bias gradient returned in bf16 is the same fp32 sum rounded once on each
+side: the fp32 sums agree within the gradient tolerance and the rounding
+adds at most one bf16 ulp, so those are held to rtol 2^-7, atol 5e-5.
+
+On a fully masked row (every key at -1e9) all scores equal -1e9 in fp32
+and the output is an average that keeps no digits of q . k: it is compared
+for finiteness only. The model masks those outputs downstream, so the
+upstream gradient there is 0, as it is in these tests, which makes every
+cotangent well-conditioned and compared in full.
+
+The CUDA kernels run only on a card (``gpu`` marker).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops import evoformer_attn as jea
+from deepspeed_tpu.ops.pallas import evoformer_attention as jev
+from deepspeed_tpu_torch.ops import evoformer_attention as tev
+from deepspeed_tpu_torch.ops import evoformer_attn as tea
+
+FWD_TOL = dict(rtol=3e-5, atol=3e-5)
+GRAD_TOL = dict(rtol=5e-5, atol=5e-5)
+NAMES = ("dq", "dk", "dv", "dbias1", "dbias2")
+
+
+def _qkv(rng, shape):
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(4)]  # q, k, v, dout
+
+
+def _t(*xs):
+    return [None if x is None else torch.from_numpy(np.array(x, np.float32)) for x in xs]
+
+
+def _j(*xs):
+    return [None if x is None else jnp.asarray(x) for x in xs]
+
+
+def _assert_counts_zero():
+    assert all(n == 0 for n in tev.launch_counts.values()), tev.launch_counts
+
+
+# ---------------------------------------------------------------------------
+# the plain versions against the Pallas kernels in interpret mode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("R", [128, 256])
+def test_plain_versions_match_pallas_interpret(R):
+    rng = np.random.default_rng(R)
+    N, G, h, d = 4, 2, 2, 32
+    q, k, v, do = _qkv(rng, (N, R, h, d))
+    b1 = (2 * rng.normal(size=(N, R))).astype(np.float32)
+    b2 = rng.normal(size=(G, h, R, R)).astype(np.float32)
+    out_j, lse_j = jev._evo_fwd_impl(128, 128, True, *_j(q, k, v, b1, b2))
+    out_t, lse_t = tev.evo_attention_reference(*_t(q, k, v, b1, b2))
+    assert lse_t.shape == (N, h, R) and lse_t.dtype == torch.float32
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **FWD_TOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), **FWD_TOL)
+
+    # each plain backward on the same out / lse as the Pallas backward
+    out_n, lse_n = np.asarray(out_j), np.asarray(lse_j)
+    ref = jev._evo_bwd_impl(128, 128, True, *_j(q, k, v, b1, b2, out_n, lse_n, do))
+    ops = _t(q, k, v, b1, b2, out_n, lse_n, do)
+    dq = tev.evo_bwd_dq(*ops)
+    dk, dv, db1 = tev.evo_bwd_dkdv(*ops)
+    db2 = tev.evo_bwd_db2(*ops)
+    for name, a, b in zip(NAMES, (dq, dk, dv, db1, db2), ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **GRAD_TOL)
+    assert db1.shape == (N, R) and db2.shape == (G, h, R, R)
+    _assert_counts_zero()
+
+
+@pytest.mark.parametrize("biases", ["both", "mask", "pair", "none"])
+def test_evo_flash_function_matches_jax_vjp(biases):
+    """The port's autograd.Function against jax.vjp of the JAX ``evo_flash``
+    (Pallas in interpret mode): out and every present cotangent; an
+    absent bias gets None and its pass is skipped."""
+    rng = np.random.default_rng(3)
+    N, G, R, h, d = 4, 2, 128, 2, 32
+    q, k, v, do = _qkv(rng, (N, R, h, d))
+    b1 = (2 * rng.normal(size=(N, R))).astype(np.float32) if biases in ("both", "mask") else None
+    b2 = (rng.normal(size=(G, h, R, R)).astype(np.float32) if biases in ("both", "pair")
+          else None)
+    present = [x for x in (q, k, v, b1, b2) if x is not None]
+
+    def jfn(*args):
+        it = iter(args)
+        a, b, c = next(it), next(it), next(it)
+        return jev.evo_flash(a, b, c, next(it) if b1 is not None else None,
+                             next(it) if b2 is not None else None, block_q=128, block_k=128,
+                             interpret=True)
+
+    out_j, vjp = jax.vjp(jfn, *_j(*present))
+    grads_j = vjp(jnp.asarray(do))
+    ts = [t.requires_grad_() for t in _t(*present)]
+    it = iter(ts)
+    tq, tk, tv = next(it), next(it), next(it)
+    tb1 = next(it) if b1 is not None else None
+    tb2 = next(it) if b2 is not None else None
+    out_t = tev.evo_flash(tq, tk, tv, tb1, tb2)
+    out_t.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), **FWD_TOL)
+    names = [n for n, x in zip(NAMES, (q, k, v, b1, b2)) if x is not None]
+    for name, t, g in zip(names, ts, grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), err_msg=name, **GRAD_TOL)
+    _assert_counts_zero()
+
+
+# ---------------------------------------------------------------------------
+# the public op against the JAX package's
+# ---------------------------------------------------------------------------
+
+def _compare_public(q, k, v, do, biases, seq_chunk=0, interpret=True, masked_rows=None,
+                    bias_tol=None):
+    """The port's evoformer_attention on CPU tensors against jax.vjp of the
+    JAX package's (interpret=True: the Pallas route where it takes the
+    call, else its jnp path): out and every cotangent (q, k, v, biases)."""
+    jb = [jnp.asarray(b) for b in biases]
+    out_j, vjp = jax.vjp(
+        lambda a, b, c, *bs: jea.evoformer_attention(a, b, c, bs, seq_chunk=seq_chunk,
+                                                     interpret=interpret),
+        *_j(q, k, v), *jb)
+    grads_j = vjp(jnp.asarray(do))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    tb = [torch.from_numpy(np.array(b.astype(jnp.float32))).to(
+        torch.bfloat16 if b.dtype == jnp.bfloat16 else torch.float32).requires_grad_()
+        for b in jb]
+    out_t = tea.DS4Sci_EvoformerAttention(tq, tk, tv, tb, seq_chunk=seq_chunk)
+    out_t.backward(torch.from_numpy(do))
+    o_t, o_j = out_t.detach().numpy(), np.asarray(out_j)
+    if masked_rows is not None:  # fully masked rows: finite only
+        assert np.isfinite(o_t[masked_rows]).all() and np.isfinite(o_j[masked_rows]).all()
+        keep = np.ones(o_t.shape, bool)
+        keep[masked_rows] = False
+        o_t, o_j = o_t[keep], o_j[keep]
+    np.testing.assert_allclose(o_t, o_j, **FWD_TOL)
+    for i, (t, g) in enumerate(zip([tq, tk, tv, *tb], grads_j)):
+        name = NAMES[i] if i < 3 else f"bias{i - 2}"
+        assert t.grad.shape == t.shape and t.grad.dtype == t.dtype, name
+        tol = GRAD_TOL if t.dtype == torch.float32 else bias_tol
+        np.testing.assert_allclose(t.grad.float().numpy(), np.asarray(g.astype(jnp.float32)),
+                                   err_msg=name, **tol)
+
+
+def _biases(rng, lead, n_seq, R, h, scale=2.0):
+    mask = (scale * rng.normal(size=(*lead, n_seq, 1, 1, R))).astype(np.float32)
+    pair = rng.normal(size=(*lead, 1, h, R, R)).astype(np.float32)
+    return mask, pair
+
+
+@pytest.mark.parametrize("biases", ["both", "mask", "pair", "none"])
+def test_public_op_matches_jax(biases):
+    rng = np.random.default_rng(5)
+    B, n_seq, R, h, d = 1, 3, 128, 2, 32
+    q, k, v, do = _qkv(rng, (B, n_seq, R, h, d))
+    mask, pair = _biases(rng, (B, ), n_seq, R, h)
+    chosen = {"both": [mask, pair], "mask": [mask], "pair": [pair], "none": []}[biases]
+    _compare_public(q, k, v, do, chosen)
+    _assert_counts_zero()
+
+
+def test_public_op_leading_dims_and_bf16_bias():
+    """Leading dims (2,): the mask bias per sample, the pair bias given
+    once ([1, 1, h, R, R]) and broadcast over both samples, in bf16; its
+    gradient sums back over the broadcast and returns in bf16."""
+    rng = np.random.default_rng(6)
+    lead, n_seq, R, h, d = (2, ), 2, 128, 2, 32
+    q, k, v, do = _qkv(rng, (*lead, n_seq, R, h, d))
+    mask, _ = _biases(rng, lead, n_seq, R, h)
+    pair = jnp.asarray(rng.normal(size=(1, 1, h, R, R)).astype(np.float32)).astype(jnp.bfloat16)
+    _compare_public(q, k, v, do, [mask, pair], bias_tol=dict(rtol=2.0**-7, atol=5e-5))
+
+
+def test_public_op_openfold_mask_with_fully_masked_row():
+    """OpenFold's mask bias, 1e9 * (mask - 1): the last residues padded and
+    one MSA row fully masked. dout is 0 on that row (the model masks it)."""
+    rng = np.random.default_rng(7)
+    B, n_seq, R, h, d = 1, 4, 128, 2, 32
+    q, k, v, do = _qkv(rng, (B, n_seq, R, h, d))
+    mask = np.ones((B, n_seq, R), np.float32)
+    mask[..., 115:] = 0.0  # padded residues
+    mask[:, 2] = 0.0  # a padded MSA row: every key of its queries masked
+    mask_bias = (1e9 * (mask - 1.0))[:, :, None, None, :].astype(np.float32)
+    _, pair = _biases(rng, (B, ), n_seq, R, h)
+    do[:, 2] = 0.0
+    _compare_public(q, k, v, do, [mask_bias, pair], masked_rows=(slice(None), 2))
+
+
+@pytest.mark.parametrize("seq_chunk", [0, 2])
+def test_public_op_chunked_path(seq_chunk):
+    """A full per-(sequence, head) bias is not the AlphaFold pattern: both
+    packages take the chunked plain path, with all its cotangents."""
+    rng = np.random.default_rng(8)
+    B, n_seq, R, h, d = 2, 4, 16, 4, 32
+    q, k, v, do = _qkv(rng, (B, n_seq, R, h, d))
+    mask, _ = _biases(rng, (B, ), n_seq, R, h)
+    odd = rng.normal(size=(B, n_seq, h, R, R)).astype(np.float32)
+    assert tea._route(torch.from_numpy(q), [torch.from_numpy(odd)]) is None
+    _compare_public(q, k, v, do, [mask, odd], seq_chunk=seq_chunk, interpret=False)
+    _assert_counts_zero()
+
+
+@pytest.mark.parametrize("R", [96, 200])
+def test_public_op_ragged_R_against_jnp_path(R):
+    """R outside the TPU lane rule: the port routes it to its kernels'
+    Function (ragged tiles are masked in the CUDA kernels), the JAX package
+    to its jnp path."""
+    rng = np.random.default_rng(R)
+    B, n_seq, h, d = 1, 2, 2, 32
+    q, k, v, do = _qkv(rng, (B, n_seq, R, h, d))
+    mask, pair = _biases(rng, (B, ), n_seq, R, h)
+    assert tea._route(torch.from_numpy(q), [torch.from_numpy(mask), torch.from_numpy(pair)])
+    _compare_public(q, k, v, do, [mask, pair], interpret=False)
+
+
+def test_single_bias_and_route_guard():
+    """Mirrors the JAX package's route test. A missing pair bias still
+    routes. The port's guard is its CUDA kernels' own, not the TPU's lane
+    rule: head_dim 32 / 64 / 128 and bf16 / fp16 / fp32 q/k/v with any
+    n_res (R 96 routes here, not on the TPU), because the kernels mask
+    ragged tiles and have no (8, 128) tiling to fill."""
+    B, n_seq, R, h, d = 1, 2, 128, 2, 32
+    q = torch.zeros(B, n_seq, R, h, d)
+    mask = torch.zeros(B, n_seq, 1, 1, R)
+    pair = torch.zeros(B, 1, h, R, R)
+    b1, b2 = tea._route(q, [mask])
+    assert b1 is mask and b2 is None
+    b1, b2 = tea._route(q, [pair, None, mask])
+    assert b1 is mask and b2 is pair
+    assert tea._route(q, []) == (None, None)
+    # a full per-(seq, head) bias is not the AlphaFold pattern -> no route
+    assert tea._route(q, [torch.zeros(B, n_seq, h, R, R)]) is None
+    assert tea._route(q, [mask, mask]) is None  # a second mask bias
+    # the TPU's lane rule keeps R 96 off its kernel; the CUDA kernels take it
+    q96 = torch.zeros(B, n_seq, 96, h, d)
+    assert jea._pallas_route(jnp.zeros(q96.shape), [], interpret=True) is None
+    assert tea._route(q96, []) == (None, None)
+    # head dims the kernels are not built for, and float64, take the plain path
+    assert tea._route(torch.zeros(B, n_seq, R, h, 16), []) is None
+    assert tea._route(torch.zeros(B, n_seq, R, h, 48), []) is None
+    assert tea._route(q.double(), []) is None
+    # the kernel wrapper refuses what the kernels do not take
+    with pytest.raises(ValueError):
+        tev.evo_flash(q[0], q[0], q[0], torch.zeros(n_seq, R + 1))
+    with pytest.raises(ValueError):
+        tev.evo_flash(q[0], q[0], q[0], None, torch.zeros(3, h, R, R))
+
+
+def test_cpu_tensor_never_launches_a_kernel():
+    rng = np.random.default_rng(9)
+    q, k, v, do = _t(*_qkv(rng, (2, 100, 2, 64)))
+    b1 = torch.zeros(2, 100)
+    for t in (q, k, v, b1):
+        t.requires_grad_()
+    tev.evo_flash(q, k, v, b1).backward(do)
+    assert q.grad is not None and b1.grad.shape == (2, 100)
+    _assert_counts_zero()
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels (on a card only)
+# ---------------------------------------------------------------------------
+
+def _abs_terms(q, k, v, b1, b2, out, lse, do):
+    """(dq, dk, dv, db1, db2) summed over the absolute values of their
+    terms (ds taken as p (|dO| . |v| + rowsum |dO * O|)), as
+    ``chip_smoke.py``'s ``_evo_abs_terms``."""
+    N, R, h, d = q.shape
+    scale = 1.0 / d**0.5
+    s = tev._add_biases(scale * torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()), b1, b2)
+    p = torch.exp(s - lse[..., None])
+    ado = do.float().abs()
+    adelta = (ado * out.float().abs()).sum(-1).permute(0, 2, 1)[..., None]
+    a = p * (torch.einsum("nqhd,nkhd->nhqk", ado, v.float().abs()) + adelta)
+    db2 = a.reshape(b2.shape[0], -1, h, R, R).sum(1) if b2 is not None else None
+    return (scale * torch.einsum("nhqk,nkhd->nqhd", a, k.float().abs()),
+            scale * torch.einsum("nhqk,nqhd->nkhd", a, q.float().abs()),
+            torch.einsum("nhqk,nqhd->nkhd", p, ado), a.sum(dim=(1, 2)), db2)
+
+
+def _gpu_err(got, ref, kind, terms=None):
+    """The largest error as a fraction of ``chip_smoke.py``'s tolerance:
+    bf16 / fp16 outputs 2 bf16 ulp(|ref|) + max(2^-14, 2^-12 rms(ref));
+    fp32 outputs 2^-16 |ref| + 2^-14 rms(ref) + 2^-30; lse 2^-14 (1 + |ref|);
+    the fp32 bias sums 2^-16 sqrt(terms) rms(ref) + 2^-30; each gradient
+    plus 2^-18 of its sum over absolute terms (``terms``)."""
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    rms = float(ref.pow(2).mean().sqrt())
+    if kind == "lse":
+        tol = 2.0**-14 * (1.0 + ref.abs())
+    elif kind == "low":
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
+        tol = 2 * ulp + max(2.0**-14, 2.0**-12 * rms)
+    elif kind == "fp32":
+        tol = 2.0**-16 * ref.abs() + 2.0**-14 * rms + 2.0**-30
+    else:
+        tol = 2.0**-16 * kind**0.5 * rms + 2.0**-30
+    if terms is not None:
+        tol = tol + 2.0**-18 * terms
+    return float((err / tol).max())
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_version_on_card():
+    """On the card: out, lse, dq, dk, dv, db1, db2 of the kernels against the
+    plain version on the same inputs (the backward on the kernel forward's
+    out and lse): both biases or neither, G 1 and 2, ragged R (and R 1,
+    where every gradient cancels to rounding), head_dim 32 / 64 / 128, bf16
+    and fp32; and the autograd Function launches each
+    kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    cases = [(4, 2, 200, 4, 32, torch.bfloat16, True), (3, 1, 130, 2, 64, torch.float32, True),
+             (2, 2, 64, 2, 128, torch.bfloat16, False), (6, 3, 96, 8, 32, torch.float32, True),
+             (4, 2, 1, 2, 32, torch.float32, True)]
+    for N, G, R, h, d, dtype, with_b in cases:
+        rng = np.random.default_rng(N * R + d)
+        q, k, v, do = (torch.from_numpy(x).to(dev, dtype) for x in _qkv(rng, (N, R, h, d)))
+        b1 = torch.from_numpy(2 * rng.normal(size=(N, R)).astype(np.float32)).to(dev)
+        b2 = torch.from_numpy(rng.normal(size=(G, h, R, R)).astype(np.float32)).to(dev)
+        if not with_b:
+            b1 = b2 = None
+        out, lse = tev.evo_fwd(q, k, v, b1, b2)
+        r_out, r_lse = tev.evo_attention_reference(q, k, v, b1, b2)
+        got = [tev.evo_bwd_dq(q, k, v, b1, b2, out, lse, do),
+               *tev.evo_bwd_dkdv(q, k, v, b1, b2, out, lse, do)]
+        got.append(tev.evo_bwd_db2(q, k, v, b1, b2, out, lse, do) if with_b else None)
+        ref = tev.evo_attention_reference_bwd(q, k, v, b1, b2, out, lse, do)
+        terms = _abs_terms(q, k, v, b1, b2, out, lse, do)
+        torch.cuda.synchronize()
+        kind = "low" if dtype != torch.float32 else "fp32"
+        tag = f"N={N} G={G} R={R} h={h} d={d} {dtype} biases={with_b}"
+        assert _gpu_err(out, r_out, kind) <= 1.0, tag
+        assert _gpu_err(lse, r_lse, "lse") <= 1.0, tag
+        for name, a, b, t in zip(NAMES[:3], got[:3], ref[:3], terms):
+            assert _gpu_err(a, b, kind, t) <= 1.0, f"{name} {tag}"
+        if with_b:
+            assert _gpu_err(got[3], ref[3], h * R, terms[3]) <= 1.0, f"db1 {tag}"
+            assert _gpu_err(got[4], ref[4], N // G, terms[4]) <= 1.0, f"db2 {tag}"
+    tev.reset_launch_counts()
+    q, k, v, do = (torch.randn(4, 100, 2, 32, device=dev, dtype=torch.bfloat16) for _ in range(4))
+    b1 = torch.zeros(4, 100, device=dev, requires_grad=True)
+    b2 = torch.zeros(2, 2, 100, 100, device=dev, requires_grad=True)
+    q.requires_grad_()
+    tev.evo_flash(q, k, v, b1, b2).backward(do)
+    torch.cuda.synchronize()
+    assert tev.launch_counts == {"evo_fwd": 1, "evo_bwd_dq": 1, "evo_bwd_dkdv": 1,
+                                 "evo_bwd_db1": 1, "evo_bwd_db2": 1}

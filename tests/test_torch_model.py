@@ -376,4 +376,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 if top in ("jax", "jaxlib", "deepspeed_tpu", "flax", "optax"):
                     bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}")
     assert n > 20 and os.path.exists(os.path.join(REPO, "chip_smoke.py"))
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("accelerator/__init__.py", "accelerator/abstract_accelerator.py",
+                "accelerator/real_accelerator.py", "accelerator/cpu_accelerator.py",
+                "accelerator/cuda_accelerator.py", "ops/__init__.py", "ops/evoformer_attn.py",
+                "ops/evoformer_attention.py"):
+        assert os.path.join("deepspeed_tpu_torch", rel) in scanned, rel
     assert not bad, "\n".join(bad)
