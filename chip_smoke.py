@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
                                     train,moe_train,sparse_train,evo_kernels,evo_path]
     python3 chip_smoke.py --mutant
+    python3 chip_smoke.py --ablation
 
 With no arguments every phase runs, in this order; each must pass (exit
 code 1 otherwise):
@@ -37,10 +38,12 @@ code 1 otherwise):
    counts, bf16 and a few float16 cases) and at the training shapes (B 1, S 4096, 32/8 heads, d 128,
    bf16, causal, window 4096): out, lse, dq, dk, dv. The backward kernels
    and their plain version take the same inputs (the kernel forward's out
-   and lse). Tolerance per element: bf16 outputs 2 ulp(plain) + max(2^-14,
-   2^-12 * rms(plain)), the floor scaled to the tensor's size because a
-   gradient element is a long sum (up to 4 x 4096 terms) that may cancel
-   to far below its terms, where the fp32 summation order alone moves it
+   and lse); the kernels run in the autograd Function's order, dq first,
+   whose delta = rowsum(dO * O) dk/dv then reads. Tolerance per element:
+   bf16 outputs 2 ulp(plain) + max(2^-14, 2^-12 * rms(plain)), the floor
+   scaled to the tensor's size because a gradient element is a long sum
+   (up to 4 x 4096 terms) that may cancel to far below its terms, where
+   the fp32 summation order alone moves it
    by ~1e-6 of the terms (2^-12 leaves a wide margin); lse (fp32, never
    rounded) 2^-14 * (1 + |plain|). Fused AdamW (``fused_adam``) on 2.58e8
    fp32 elements over leaves of odd sizes (one at an unaligned address),
@@ -161,9 +164,19 @@ code 1 otherwise):
 mutant: the grouped matmul kernels dropping one row block's products
 (``--phases build,moe_kernels`` there must fail), the block-sparse kernel
 skipping each row's last valid LUT column (``--phases build,sparse_kernels``
-must fail by more than 100x its tolerance, printed) and the Evoformer db2
+must fail by more than 100x its tolerance, printed), the Evoformer db2
 kernel skipping each group's last row (``--phases build,evo_kernels``, the
+same) and the flash backward with dk/dv skipping each CTA's last live
+q-tile and dq its last live k-tile (``--phases build,train_kernels``, the
 same). It passes when every mutant is caught.
+
+``--ablation`` times the flash backward pair against copies under
+``build/ablation/<name>``, each undoing one design choice of
+``FLASH_ABLATIONS`` (the grid order, the mask fast path, the two-level
+accumulation, each split pair): ``--phases train_kernels`` in every copy
+in turns, each version twice, printing the main shape's dk/dv and dq
+times and the largest error as a fraction of the tolerance
+(``worst_error_fraction``; above 1 fails that check).
 
 It prints the card (name and power limit) and, on the line before the last,
 ``{"kernels": [...]}``; the last line is
@@ -723,10 +736,11 @@ def _flash_case(seed, B, S, nq, nkv, d, dtype=None):
 
 def _flash_all(fa, q, k, v, do, causal, window, slopes):
     """Kernels: (out, lse, dq, dk, dv); the backward on the forward's own
-    out and lse."""
+    out and lse, in the autograd Function's order: dq first, handing its
+    delta to dk/dv."""
     out, lse = fa.flash_fwd(q, k, v, causal, window, slopes)
-    dk, dv = fa.flash_bwd_dkdv(q, k, v, out, lse, do, causal, window, slopes)
-    dq = fa.flash_bwd_dq(q, k, v, out, lse, do, causal, window, slopes)
+    dq, delta = fa.flash_bwd_dq(q, k, v, out, lse, do, causal, window, slopes)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, lse, delta, do, causal, window, slopes)
     return out, lse, dq, dk, dv
 
 
@@ -803,12 +817,15 @@ def phase_train_kernels():
     errs = check_flash(f"main B={B} S={S} heads={nq}/{nkv} d={d} window={W}", got, True, W, None,
                        q, k, v, do)
     out, lse = got[0], got[1]
+    delta = fa.flash_delta(out, do)
     res = {}
     ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, True, W, None), iters=5, warmup=1),
-          "flash_bwd_dkdv": time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, out, lse, do, True, W),
-                                    iters=5, warmup=1),
-          "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(q, k, v, out, lse, do, True, W),
-                                  iters=5, warmup=1)}
+          "flash_bwd_dkdv": time_ms(
+              lambda: fa.flash_bwd_dkdv(q, k, v, lse, delta, do, True, W), iters=10,
+              warmup=2),
+          "flash_bwd_dq": time_ms(
+              lambda: fa.flash_bwd_dq(q, k, v, out, lse, do, True, W),
+              iters=10, warmup=2)}
     plain = {"flash_fwd": time_ms(lambda: fa.flash_attention_reference(q, k, v, True, W),
                                   iters=3, warmup=1)}
     plain["flash_bwd_dkdv"] = plain["flash_bwd_dq"] = time_ms(
@@ -831,23 +848,27 @@ def phase_train_kernels():
     el = 2  # bf16
     io_q = B * S * nq * d * el  # q, out, dout, dq: each this size
     io_kv = B * S * nkv * d * el  # k, v, dk, dv
-    lse_b = B * nq * S * 4
+    lse_b = B * nq * S * 4  # lse, delta: each this size
+    # dq reads q, k, v, out, dout, lse and writes dq and delta; dk/dv reads
+    # q, k, v, dout, lse, delta and writes dk, dv. FLOPs: the products the
+    # function needs (2 d per pair each: q.k, dO.v and ds.k; dk/dv q.k, dO.v,
+    # p^T.dO, ds^T.q), not the split pairs the kernels add.
     spec = {"flash_fwd": (io_q + 2 * io_kv + io_q + lse_b, 4 * B * nq * d * pairs, lib_fwd),
-            "flash_bwd_dkdv": (3 * io_q + 2 * io_kv + lse_b + 2 * io_kv,
+            "flash_bwd_dkdv": (2 * io_q + 2 * io_kv + 2 * lse_b + 2 * io_kv,
                                4 * 2 * B * nq * d * pairs, lib_bwd),
-            "flash_bwd_dq": (3 * io_q + 2 * io_kv + lse_b + io_q, 3 * 2 * B * nq * d * pairs,
-                             lib_bwd)}
+            "flash_bwd_dq": (3 * io_q + 2 * io_kv + lse_b + io_q + lse_b,
+                             3 * 2 * B * nq * d * pairs, lib_bwd)}
     for name, (n_bytes, flops, lib) in spec.items():
         b_ms, b_by = bound_ms(n_bytes, flops)
         res[name] = dict(err=worst[name], ms=ms[name], plain_ms=plain[name], bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib)
         log(f"[train_kernels] {name} B={B} S={S} heads={nq}/{nkv} d={d} causal window={W}: "
-            f"{ms[name]:.3f} ms, plain {plain[name]:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
-            f"{flops / 1e9:.1f} GFLOP), sdpa {'forward' if name == 'flash_fwd' else 'backward'} "
-            f"{lib:.4f} ms")
+            f"{ms[name]:.3f} ms ({flops / ms[name] / 1e9:.1f} TFLOP/s), plain "
+            f"{plain[name]:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP), sdpa "
+            f"{'forward' if name == 'flash_fwd' else 'backward'} {lib:.4f} ms")
     log(f"[train_kernels] main-shape max_abs_err: { {k_: f'{e_:.3e}' for k_, e_ in errs.items()} }")
     log(f"[train_kernels] flash: largest error over all cases {worst_frac[0]:.3f} of its "
-        f"tolerance ({worst_frac[1]})")
+        f"tolerance ({worst_frac[1]}); worst_error_fraction={worst_frac[0]:.6g}")
     del q, k, v, do, got, out, lse
     if failures:
         raise RuntimeError("flash kernels disagree with the plain version: "
@@ -2203,9 +2224,10 @@ def phase_evo_path():
 
 # the mutant checks. Grouped matmul: a copy that drops one row block's
 # contribution (gmm: the second 128-row tile's products; tgmm: each expert's
-# first row block) must fail the moe_kernels phase by far. Block-sparse: a
-# copy whose kernel skips the last valid LUT column of every row must fail
-# the sparse_kernels phase by more than MUTANT_MIN_FACTOR x its tolerance.
+# first row block) must fail the moe_kernels phase by far. Block-sparse,
+# Evoformer and flash: a copy whose kernel skips the last of its loop's
+# items (a LUT column, a group row, a live q- or k-tile) must fail its
+# phase by more than MUTANT_MIN_FACTOR x its tolerance.
 GMM_MUTATIONS = (
     ("  // the pipeline's shared memory is free now",
      "  if (m_tile == 1) zero_acc(acc);\n  // the pipeline's shared memory is free now"),
@@ -2218,24 +2240,72 @@ BSA_MUTATIONS = (
 EVO_MUTATIONS = (  # db2 skips each group's last row
     ("for (int nn = 0; nn < a.n_seq; ++nn) {", "for (int nn = 0; nn < a.n_seq - 1; ++nn) {"),
 )
+FLASH_MUTATIONS = (  # dk/dv skips each CTA's last live q-tile, dq its last live k-tile
+    ("const int nqt = qt_hi - qt_lo + 1;", "const int nqt = qt_hi - qt_lo;"),
+    ("const int nkt = kt_hi - kt_lo + 1;", "const int nkt = kt_hi - kt_lo;"),
+)
 MUTANT_MIN_FACTOR = 100.0
 MUTANTS = {  # name -> (source, mutations, phase, the phase's failure text)
     "grouped_matmul": (GMM_SRC, GMM_MUTATIONS, "moe_kernels", "grouped matmul kernels disagree"),
     "block_sparse": (BSA_SRC, BSA_MUTATIONS, "sparse_kernels",
                      "block-sparse kernel disagrees"),
     "evoformer": (EVO_SRC, EVO_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
+    "flash": (FLASH_SRC, FLASH_MUTATIONS, "train_kernels", "flash kernels disagree"),
 }
 
 
-def _run_one_mutant(name):
-    """Copy the package and this script into build/mutant/<name>, apply the
-    mutations to the copy's source, run ``--phases build,<phase>`` there,
-    and return whether that run failed as it must."""
-    import re
+# the flash backward's ablations (``--ablation``): each undoes one design
+# choice of flash_attention.cu's backward pair.
+_SINGLE = (  # a template switch that skips the lo product of a split pair
+    ("template <int D, typename T>\n__device__ __forceinline__ void mma_wm(",
+     "template <int D, typename T, bool kLo = true>\n__device__ __forceinline__ void mma_wm("),
+    ("      mma16816(t0, w.lo[c], b[0], b[1], T());",
+     "      if (kLo) mma16816(t0, w.lo[c], b[0], b[1], T());"),
+    ("      mma16816(t1, w.lo[c], b[2], b[3], T());",
+     "      if (kLo) mma16816(t1, w.lo[c], b[2], b[3], T());"),
+)
+FLASH_ABLATIONS = {
+    # the tile index in blockIdx.x (heavy-first only within one head), not
+    # blockIdx.y (heavy-first across the whole grid)
+    "grid_per_head": (
+        ("const int qt = gridDim.y - 1 - blockIdx.y, h = blockIdx.x, b = blockIdx.z;",
+         "const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;"),
+        ("const int kvh = blockIdx.x, kt = blockIdx.y, b = blockIdx.z;",
+         "const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;"),
+        ("grid = dim3(a.nkv, (a.S + kBK - 1) / kBK, a.B);",
+         "grid = dim3((a.S + kBK - 1) / kBK, a.nkv, a.B);"),
+        ("grid = dim3(a.nq, (a.S + kBQ - 1) / kBQ, a.B);",
+         "grid = dim3((a.S + kBQ - 1) / kBQ, a.nq, a.B);"),
+    ),
+    # the per-element causal / window mask on every tile, not only on tiles
+    # that cross the band or S
+    "mask_every_tile": (("  if (q0 + kBQ > a.S || k0 + kBK > a.S) return false;",
+                         "  return false;"),),
+    # the mma steps accumulate straight into the long-run accumulators, not
+    # each tile pair from zero first (the tensor cores' fp32 sums truncate)
+    "one_level_acc": (
+        ("    float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};",
+         "    float(&t0)[4] = out[n];\n    float(&t1)[4] = out[n + 1];"),
+        ("      out[n][e] += t0[e];\n      out[n + 1][e] += t1[e];\n", ""),
+    ),
+    # dq's dS, dv's P or dk's dS as one rounding instead of the split pair
+    "single_dq": _SINGLE + (("mma_wm<D, T>(dq, ds, sK, lane);",
+                             "mma_wm<D, T, false>(dq, ds, sK, lane);"),),
+    "single_dv": _SINGLE + (("mma_wm<D, T>(dv, p, sdO, lane);",
+                             "mma_wm<D, T, false>(dv, p, sdO, lane);"),),
+    "single_dk": _SINGLE + (("mma_wm<D, T>(dk, ds, sQ, lane);",
+                             "mma_wm<D, T, false>(dk, ds, sQ, lane);"),),
+}
+
+
+def _patched_copy(kind, name, src, replacements):
+    """Copy the package and this script into build/<kind>/<name> and apply
+    ``replacements`` ((old, new), each old text found exactly once) to the
+    copy's ``src``. Returns the copy's directory, or None when a text is
+    not found once."""
     import shutil
 
-    src, mutations, phase, failure = MUTANTS[name]
-    dst = os.path.join(HERE, "build", "mutant", name)
+    dst = os.path.join(HERE, "build", kind, name)
     shutil.rmtree(dst, ignore_errors=True)
     os.makedirs(dst)
     shutil.copytree(os.path.join(HERE, "deepspeed_tpu_torch"),
@@ -2244,22 +2314,38 @@ def _run_one_mutant(name):
     shutil.copy(os.path.abspath(__file__), dst)
     cu = os.path.join(dst, src)
     text = open(cu).read()
-    for old, new in mutations:
+    for old, new in replacements:
         if text.count(old) != 1:
-            log(f"[mutant] {name}: cannot apply the mutation at {old!r}")
-            return False
+            log(f"[{kind}] {name}: the text to replace is not found once: {old!r}")
+            return None
         text = text.replace(old, new)
     with open(cu, "w") as f:
         f.write(text)
+    return dst
+
+
+def _worst_error_fraction(stdout):
+    import re
+
+    found = re.findall(r"worst_error_fraction=([0-9.eE+-]+)", stdout)
+    return float(found[-1]) if found else None
+
+
+def _run_one_mutant(name):
+    """Run ``--phases build,<phase>`` in a mutated copy (build/mutant/<name>)
+    and return whether that run failed as it must."""
+    src, mutations, phase, failure = MUTANTS[name]
+    dst = _patched_copy("mutant", name, src, mutations)
+    if dst is None:
+        return False
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", f"build,{phase}"],
                           cwd=dst, capture_output=True, text=True, timeout=900)
     for line in proc.stdout.splitlines():
         if line.startswith(f"[{phase}]") or "disagree" in line:
             log(f"[mutant] {name}: {line[:4000]}")
     caught = proc.returncode != 0 and failure in proc.stdout
-    found = re.findall(r"worst_error_fraction=([0-9.eE+-]+)", proc.stdout)
-    if phase in ("sparse_kernels", "evo_kernels"):
-        factor = float(found[-1]) if found else 0.0
+    if phase in ("sparse_kernels", "evo_kernels", "train_kernels"):
+        factor = _worst_error_fraction(proc.stdout) or 0.0
         log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
             f"{MUTANT_MIN_FACTOR:.0f}x)")
         caught = caught and factor > MUTANT_MIN_FACTOR
@@ -2274,6 +2360,62 @@ def run_mutant():
     return 0 if all(results.values()) else 1
 
 
+def run_ablation():
+    """The unchanged source (``base``) and each of ``FLASH_ABLATIONS`` in a
+    copy under build/ablation/; the copies' flash kernels are built in
+    parallel, then ``--phases train_kernels`` runs in each copy in turns,
+    base and the ablations and then the same in reverse, so every version
+    is timed twice on one card. Prints one line per run and, last, one JSON
+    object with every run. Returns an exit code: 1 when a copy does not
+    build or a run prints no times (an ablation that misses the tolerance
+    is a result, not a failure)."""
+    import re
+
+    names = ["base", *FLASH_ABLATIONS]
+    dirs = {n: _patched_copy("ablation", n, FLASH_SRC, FLASH_ABLATIONS.get(n, ()))
+            for n in names}
+    if None in dirs.values():
+        return 1
+    build = "from deepspeed_tpu_torch.ops import flash_attention as fa; fa.kernel_build()"
+    procs = {n: subprocess.Popen([sys.executable, "-c", build], cwd=d, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for n, d in dirs.items()}
+    failed = False
+    for n, p in procs.items():
+        text = p.communicate(timeout=900)[0]
+        if p.returncode:
+            log(f"[ablation] {n}: build failed\n{text[-3000:]}")
+            failed = True
+    if failed:
+        return 1
+    runs = []
+    for n in names + names[::-1]:
+        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "train_kernels"],
+                              cwd=dirs[n], capture_output=True, text=True, timeout=900)
+
+        def num(pattern):
+            found = re.findall(pattern, proc.stdout)
+            return float(found[-1]) if found else None
+
+        r = {"name": n, "rc": proc.returncode,
+             "dkdv_ms": num(r"\] flash_bwd_dkdv .*?: ([0-9.]+) ms"),
+             "dq_ms": num(r"\] flash_bwd_dq .*?: ([0-9.]+) ms"),
+             "sdpa_bwd_ms": num(r"\] flash_bwd_dq .*sdpa backward ([0-9.]+) ms"),
+             "worst_error_fraction": _worst_error_fraction(proc.stdout)}
+        runs.append(r)
+        log(f"[ablation] {n}: dk/dv {r['dkdv_ms']} ms, dq {r['dq_ms']} ms, sdpa backward "
+            f"{r['sdpa_bwd_ms']} ms, worst_error_fraction {r['worst_error_fraction']} "
+            f"(train_kernels exit {r['rc']})")
+        failed = failed or r["dkdv_ms"] is None or r["dq_ms"] is None
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "runs": runs}), flush=True)
+    return 1 if failed else 0
+
+
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
           "moe_train", "sparse_train", "evo_kernels", "evo_path")
 
@@ -2284,8 +2426,11 @@ def main():
                     help=f"comma-separated subset of {PHASES} (default: all; a subset prints no "
                          f"result lines)")
     ap.add_argument("--mutant", action="store_true",
-                    help="run the mutant checks alone (grouped matmul, block-sparse, Evoformer: "
-                         "each must be caught)")
+                    help="run the mutant checks alone (grouped matmul, block-sparse, Evoformer, "
+                         "flash backward: each must be caught)")
+    ap.add_argument("--ablation", action="store_true",
+                    help=f"time the flash backward against its ablations {tuple(FLASH_ABLATIONS)}, "
+                         f"each version twice in turns")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -2308,6 +2453,8 @@ def main():
         return 2
     if args.mutant:
         return run_mutant()
+    if args.ablation:
+        return run_ablation()
     t_all = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

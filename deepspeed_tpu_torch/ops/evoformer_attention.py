@@ -273,7 +273,8 @@ def evo_bwd_db2(q, k, v, bias1, bias2, out, lse, dout):
 class EvoFlash(torch.autograd.Function):
     """Forward saves (q, k, v, biases, out, lse); backward runs dq, dk/dv
     (with db1 when the mask bias is present) and db2 (when the pair bias
-    is)."""
+    is). On CPU tensors the backward is one call of the plain version,
+    whose five results are split."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias1, bias2):
@@ -284,6 +285,8 @@ class EvoFlash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias1, bias2, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            return evo_attention_reference_bwd(q, k, v, bias1, bias2, out, lse, dout)
         dq = evo_bwd_dq(q, k, v, bias1, bias2, out, lse, dout)
         dk, dv, db1 = evo_bwd_dkdv(q, k, v, bias1, bias2, out, lse, dout)
         db2 = None if bias2 is None else evo_bwd_db2(q, k, v, bias1, bias2, out, lse, dout)

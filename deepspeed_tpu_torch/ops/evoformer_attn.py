@@ -6,13 +6,13 @@ heads, dim]`` and up to two bias terms broadcast to the score tensor
 ``[*, n_seq, heads, n_res, n_res]``: the MSA mask bias and the pair bias of
 AlphaFold's Evoformer block.
 
-The AlphaFold bias pattern (:func:`_route`) goes to the fused kernels of
-``ops/evoformer_attention.py`` (forward and backward with both bias
-gradients, never the ``[n_res, n_res]`` probabilities in device memory):
-on a CUDA tensor the hand-written CUDA kernels, on a CPU tensor the same
-``autograd.Function`` over their plain versions (the counterpart of the
-JAX package's ``interpret=True`` route). Every other layout takes the
-chunked plain path, as the JAX package computes it outside any kernel.
+On a CUDA tensor the AlphaFold bias pattern (:func:`_route`) goes to the
+hand-written CUDA kernels of ``ops/evoformer_attention.py`` (forward and
+backward with both bias gradients, never the ``[n_res, n_res]``
+probabilities in device memory). CPU tensors, and every other layout, take
+the chunked plain path and honour ``seq_chunk``, as the JAX package does
+off the TPU without ``interpret``. The kernels' ``autograd.Function`` over
+their plain versions stays reachable on the CPU through ``evo_flash``.
 
 The route's shape guard is the CUDA kernels' own: head_dim in
 ``HEAD_DIMS`` (32, 64, 128), bf16 / fp16 / fp32 q/k/v, any n_res (ragged
@@ -95,7 +95,7 @@ def evoformer_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel route, whose residency is already tile-bounded).
     Returns [..., n_seq, n_res, heads, dim].
     """
-    routed = _route(q, biases)
+    routed = _route(q, biases) if q.is_cuda else None
     if routed is not None:
         return _evoformer_kernel(q, k, v, routed[0], routed[1])
     if not seq_chunk or q.shape[-4] <= seq_chunk:

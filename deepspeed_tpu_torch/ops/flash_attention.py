@@ -4,15 +4,19 @@ NVIDIA H100.
 Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``.
 :func:`flash_attention` takes ``[B, S, n, d]`` q/k/v (GQA: nkv divides nq)
 and is a ``torch.autograd.Function``: the forward returns the output and
-saves ``lse [B, nq, S]`` fp32, the backward computes dk/dv and dq from it.
+saves ``lse [B, nq, S]`` fp32; the backward runs dq first, which also
+writes ``delta = rowsum(dO * O)`` as fp32 ``[B, nq, S]``, then dk/dv,
+which reads lse and delta and never the output. On CPU tensors the
+backward is one call of the plain version.
 
 - :func:`flash_attention_reference` and :func:`flash_attention_reference_bwd`
   are the plain PyTorch versions (fp32 einsums over the whole score matrix,
   the same recurrences): the CPU path and the numerics oracle.
-- :func:`flash_fwd`, :func:`flash_bwd_dkdv` and :func:`flash_bwd_dq` wrap the
+- :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkdv` wrap the
   hand-written CUDA kernels of ``csrc/flash_attention.cu``. On a CPU tensor
   they return the plain version; on a CUDA tensor they launch their kernel
-  or raise.
+  or raise. ``flash_bwd_dq`` returns ``(dq, delta)``, and ``flash_bwd_dkdv``
+  takes that ``delta`` in place of the output.
 
 Any sequence length works (ragged tiles are masked inside the kernels).
 ALiBi takes the slope table of ``models.transformer.alibi_slopes``, so head
@@ -54,7 +58,7 @@ def kernel_build():
         lib.ds_flash_fwd.restype = i
         lib.ds_flash_bwd_dkdv.argtypes = [vp] * 9 + [i] * 8 + [vp]
         lib.ds_flash_bwd_dkdv.restype = i
-        lib.ds_flash_bwd_dq.argtypes = [vp] * 8 + [i] * 8 + [vp]
+        lib.ds_flash_bwd_dq.argtypes = [vp] * 9 + [i] * 8 + [vp]
         lib.ds_flash_bwd_dq.restype = i
         lib.ds_flash_error_string.argtypes = [i]
         lib.ds_flash_error_string.restype = ctypes.c_char_p
@@ -111,11 +115,17 @@ def flash_attention_reference(q, k, v, causal=True, window=None, slopes=None):
     return out.reshape(B, S, nq, d).to(q.dtype), lse.reshape(B, nq, S)
 
 
+def flash_delta(out, dout):
+    """delta = rowsum(dO * O) in fp32, [B, nq, S] (the layout of lse)."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2)
+
+
 def flash_attention_reference_bwd(q, k, v, out, lse, dout, causal=True, window=None,
-                                  slopes=None):
+                                  slopes=None, delta=None):
     """(dq, dk, dv) by the flash recurrences on the whole score matrix:
-    p = exp(s - lse), delta = rowsum(dO * O) of the stored ``out``,
-    ds = p * (dO . v - delta); GQA sums dk/dv over each kv head's group."""
+    p = exp(s - lse), delta = rowsum(dO * O) of the stored ``out`` (or the
+    ``delta [B, nq, S]`` given), ds = p * (dO . v - delta); GQA sums dk/dv
+    over each kv head's group."""
     B, S, nq, d = q.shape
     nkv = k.shape[2]
     g = nq // nkv
@@ -123,7 +133,9 @@ def flash_attention_reference_bwd(q, k, v, out, lse, dout, causal=True, window=N
     s = _scores(q, k, causal, window, slopes, prescale=False)
     p = torch.exp(s - lse.reshape(B, nkv, g, S, 1))
     do = dout.float().reshape(B, S, nkv, g, d)
-    delta = (do * out.float().reshape(B, S, nkv, g, d)).sum(-1).permute(0, 2, 3, 1)[..., None]
+    if delta is None:
+        delta = flash_delta(out, dout)
+    delta = delta.float().reshape(B, nkv, g, S, 1)
     dp = torch.einsum("bskgd,btkd->bkgst", do, v.float())
     ds = p * (dp - delta)
     dv = torch.einsum("bkgst,bskgd->btkd", p, do)
@@ -199,29 +211,58 @@ def flash_fwd(q, k, v, causal=True, window=None, slopes=None):
     return out, lse
 
 
-def _bwd_operands(q, k, v, out, lse, dout, slopes):
+def _bwd_operands(q, k, v, dout, slopes, **rows):
+    """Checks the backward's operands; ``rows`` are the fp32 [B, nq, S]
+    tensors by name (lse, and delta for dk/dv). Returns the dims and the
+    operands made contiguous: q, k, v, dout, then those of ``rows``."""
     dims = _check(q, k, v, slopes)
     B, S, nq, _, _ = dims
-    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype:
-        raise ValueError("out and dout must have q's shape (out also its dtype)")
-    if lse.shape != (B, nq, S) or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be fp32 [B, nq, S] = {(B, nq, S)}")
-    for name, t in (("out", out), ("dout", dout), ("lse", lse)):
-        if t.device != q.device:
-            raise ValueError(f"{name} must lie on q's CUDA device")
-    return dims, _contig(q, k, v, out, dout.to(q.dtype), lse)
+    if dout.shape != q.shape or dout.device != q.device:
+        raise ValueError("dout must have q's shape and lie on q's CUDA device")
+    for name, t in rows.items():
+        if t.shape != (B, nq, S) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{name} must be fp32 [B, nq, S] = {(B, nq, S)} on q's device")
+    return dims, _contig(q, k, v, dout.to(q.dtype), *rows.values())
 
 
-def flash_bwd_dkdv(q, k, v, out, lse, dout, causal=True, window=None, slopes=None):
-    """(dk, dv) in k's dtype. CPU tensors take the plain version."""
+def flash_bwd_dq(q, k, v, out, lse, dout, causal=True, window=None, slopes=None):
+    """(dq in q's dtype, delta = rowsum(dO * O) fp32 [B, nq, S]): the kernel
+    writes delta beside dq for :func:`flash_bwd_dkdv`. CPU tensors take the
+    plain version."""
     if q.device.type == "cpu":
-        return flash_attention_reference_bwd(q, k, v, out, lse, dout, causal, window,
-                                             slopes)[1:]
-    (B, S, nq, nkv, d), (q, k, v, out, dout, lse) = _bwd_operands(q, k, v, out, lse, dout, slopes)
+        delta = flash_delta(out, dout)
+        dq = flash_attention_reference_bwd(q, k, v, out, lse, dout, causal, window, slopes,
+                                           delta)[0]
+        return dq, delta
+    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError("out must have q's shape, dtype and device")
+    (B, S, nq, nkv, d), (q, k, v, dout, lse) = _bwd_operands(q, k, v, dout, slopes, lse=lse)
+    (out, ) = _contig(out)
+    dq = torch.empty_like(q)
+    delta = torch.empty((B, nq, S), dtype=torch.float32, device=q.device)
+    rc = kernel_build().lib.ds_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), _ptr(slopes), dq.data_ptr(), delta.data_ptr(), B, S, nq, nkv, d,
+        int(causal), _window(causal, window), int(q.dtype == torch.float16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_if(rc, "flash_bwd_dq")
+    launch_counts["flash_bwd_dq"] += 1
+    return dq, delta
+
+
+def flash_bwd_dkdv(q, k, v, lse, delta, dout, causal=True, window=None, slopes=None):
+    """(dk, dv) in k's dtype from lse and the ``delta`` [B, nq, S] fp32 that
+    :func:`flash_bwd_dq` hands back (the output itself is not needed). CPU
+    tensors take the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_reference_bwd(q, k, v, None, lse, dout, causal, window, slopes,
+                                             delta)[1:]
+    (B, S, nq, nkv, d), (q, k, v, dout, lse, delta) = _bwd_operands(q, k, v, dout, slopes,
+                                                                     lse=lse, delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = kernel_build().lib.ds_flash_bwd_dkdv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), _ptr(slopes), dk.data_ptr(), dv.data_ptr(), B, S, nq, nkv, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), _ptr(slopes), dk.data_ptr(), dv.data_ptr(), B, S, nq, nkv, d,
         int(causal), _window(causal, window), int(q.dtype == torch.float16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if(rc, "flash_bwd_dkdv")
@@ -229,25 +270,10 @@ def flash_bwd_dkdv(q, k, v, out, lse, dout, causal=True, window=None, slopes=Non
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, out, lse, dout, causal=True, window=None, slopes=None):
-    """dq in q's dtype. CPU tensors take the plain version."""
-    if q.device.type == "cpu":
-        return flash_attention_reference_bwd(q, k, v, out, lse, dout, causal, window,
-                                             slopes)[0]
-    (B, S, nq, nkv, d), (q, k, v, out, dout, lse) = _bwd_operands(q, k, v, out, lse, dout, slopes)
-    dq = torch.empty_like(q)
-    rc = kernel_build().lib.ds_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), _ptr(slopes), dq.data_ptr(), B, S, nq, nkv, d, int(causal),
-        _window(causal, window), int(q.dtype == torch.float16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_if(rc, "flash_bwd_dq")
-    launch_counts["flash_bwd_dq"] += 1
-    return dq
-
-
 class FlashAttention(torch.autograd.Function):
-    """Forward saves (q, k, v, out, lse); backward runs dk/dv then dq."""
+    """Forward saves (q, k, v, out, lse); backward runs dq (which writes
+    delta) then dk/dv on CUDA tensors, and the plain backward once on CPU
+    tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, slopes):
@@ -259,8 +285,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, slopes = ctx.saved_tensors
-        dk, dv = flash_bwd_dkdv(q, k, v, out, lse, dout, ctx.causal, ctx.window, slopes)
-        dq = flash_bwd_dq(q, k, v, out, lse, dout, ctx.causal, ctx.window, slopes)
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_reference_bwd(q, k, v, out, lse, dout, ctx.causal,
+                                                       ctx.window, slopes)
+        else:
+            dq, delta = flash_bwd_dq(q, k, v, out, lse, dout, ctx.causal, ctx.window, slopes)
+            dk, dv = flash_bwd_dkdv(q, k, v, lse, delta, dout, ctx.causal, ctx.window, slopes)
         return dq, dk, dv, None, None, None
 
 

@@ -9,14 +9,18 @@ CPU:
   ``_evo_fwd_impl`` / ``_evo_bwd_impl(..., interpret=True)`` called
   directly with 128-wide tiles at R 128 and R 256 (grids of several
   blocks), on the same ``out`` / ``lse``;
-- the port's ``autograd.Function`` (``evo_flash``) and public
-  ``evoformer_attention`` on CPU tensors (the Function over the plain
-  versions) against ``jax.vjp`` of the JAX package's, for the output and
-  all five cotangents: mask and pair bias, mask only, pair only, none;
-  leading dims (2,); an OpenFold mask bias (1e9 * (mask - 1)) with a fully
-  masked MSA row; a bias given in bf16; the non-AlphaFold layout through
-  the chunked path with seq_chunk 0 and 2; R 96 and 200, which the TPU's
-  lane rule keeps off its kernel (the JAX side then takes its jnp path).
+- the port's ``autograd.Function`` (``evo_flash``, over the plain versions
+  on CPU tensors) and public ``evoformer_attention`` on CPU tensors (the
+  chunked plain path, which CPU tensors take whatever the bias layout)
+  against ``jax.vjp`` of the JAX package's, for the output and all five
+  cotangents: mask and pair bias, mask only, pair only, none; leading dims
+  (2,); an OpenFold mask bias (1e9 * (mask - 1)) with a fully masked MSA
+  row; a bias given in bf16; the AlphaFold and the non-AlphaFold layouts
+  through the chunked path with seq_chunk 0 and 2 (n_seq / seq_chunk plain
+  calls, never the kernel route); R 96 and 200, which the TPU's lane rule
+  keeps off its kernel (the JAX side then takes its jnp path);
+- on CPU tensors each autograd Function's backward is one call of its
+  plain backward.
 
 Tolerances are the JAX package's own (``tests/test_aux_components.py``):
 3e-5 for the forward, 5e-5 for the gradients (fp32 sums in another order).
@@ -135,11 +139,19 @@ def test_evo_flash_function_matches_jax_vjp(biases):
 # the public op against the JAX package's
 # ---------------------------------------------------------------------------
 
+def _kernel_route(q, k, v, biases, seq_chunk=0):
+    """The port's kernel route (leading dims collapsed, biases broadcast,
+    the autograd Function), called directly: on CPU tensors the public op
+    takes the plain path instead."""
+    return tea._evoformer_kernel(q, k, v, *tea._route(q, biases))
+
+
 def _compare_public(q, k, v, do, biases, seq_chunk=0, interpret=True, masked_rows=None,
-                    bias_tol=None):
-    """The port's evoformer_attention on CPU tensors against jax.vjp of the
-    JAX package's (interpret=True: the Pallas route where it takes the
-    call, else its jnp path): out and every cotangent (q, k, v, biases)."""
+                    bias_tol=None, port=None):
+    """The port's evoformer_attention (or ``port``) on CPU tensors against
+    jax.vjp of the JAX package's (interpret=True: the Pallas route where it
+    takes the call, else its jnp path): out and every cotangent (q, k, v,
+    biases)."""
     jb = [jnp.asarray(b) for b in biases]
     out_j, vjp = jax.vjp(
         lambda a, b, c, *bs: jea.evoformer_attention(a, b, c, bs, seq_chunk=seq_chunk,
@@ -150,7 +162,7 @@ def _compare_public(q, k, v, do, biases, seq_chunk=0, interpret=True, masked_row
     tb = [torch.from_numpy(np.array(b.astype(jnp.float32))).to(
         torch.bfloat16 if b.dtype == jnp.bfloat16 else torch.float32).requires_grad_()
         for b in jb]
-    out_t = tea.DS4Sci_EvoformerAttention(tq, tk, tv, tb, seq_chunk=seq_chunk)
+    out_t = (port or tea.DS4Sci_EvoformerAttention)(tq, tk, tv, tb, seq_chunk=seq_chunk)
     out_t.backward(torch.from_numpy(do))
     o_t, o_j = out_t.detach().numpy(), np.asarray(out_j)
     if masked_rows is not None:  # fully masked rows: finite only
@@ -175,25 +187,36 @@ def _biases(rng, lead, n_seq, R, h, scale=2.0):
 
 @pytest.mark.parametrize("biases", ["both", "mask", "pair", "none"])
 def test_public_op_matches_jax(biases):
+    """The public op (CPU: the plain path) and the kernel route (its glue
+    for each bias layout, over the Function's plain versions) against the
+    JAX package's Pallas route in interpret mode."""
     rng = np.random.default_rng(5)
     B, n_seq, R, h, d = 1, 3, 128, 2, 32
     q, k, v, do = _qkv(rng, (B, n_seq, R, h, d))
     mask, pair = _biases(rng, (B, ), n_seq, R, h)
     chosen = {"both": [mask, pair], "mask": [mask], "pair": [pair], "none": []}[biases]
     _compare_public(q, k, v, do, chosen)
+    _compare_public(q, k, v, do, chosen, port=_kernel_route)
     _assert_counts_zero()
 
 
 def test_public_op_leading_dims_and_bf16_bias():
     """Leading dims (2,): the mask bias per sample, the pair bias given
     once ([1, 1, h, R, R]) and broadcast over both samples, in bf16; its
-    gradient sums back over the broadcast and returns in bf16."""
+    gradient sums back over the broadcast and returns in bf16. The public
+    op on CPU tensors takes the plain path, held to the JAX package's jnp
+    path; the kernel route (the Function over the plain versions) is held
+    to the Pallas route. Each side pairs with the one that rounds the bf16
+    gradient where it does: the plain paths once after the fp32 sum over
+    the samples, both kernel routes once per sample before it."""
     rng = np.random.default_rng(6)
     lead, n_seq, R, h, d = (2, ), 2, 128, 2, 32
     q, k, v, do = _qkv(rng, (*lead, n_seq, R, h, d))
     mask, _ = _biases(rng, lead, n_seq, R, h)
     pair = jnp.asarray(rng.normal(size=(1, 1, h, R, R)).astype(np.float32)).astype(jnp.bfloat16)
-    _compare_public(q, k, v, do, [mask, pair], bias_tol=dict(rtol=2.0**-7, atol=5e-5))
+    tol = dict(rtol=2.0**-7, atol=5e-5)
+    _compare_public(q, k, v, do, [mask, pair], interpret=False, bias_tol=tol)
+    _compare_public(q, k, v, do, [mask, pair], bias_tol=tol, port=_kernel_route)
 
 
 def test_public_op_openfold_mask_with_fully_masked_row():
@@ -209,6 +232,8 @@ def test_public_op_openfold_mask_with_fully_masked_row():
     _, pair = _biases(rng, (B, ), n_seq, R, h)
     do[:, 2] = 0.0
     _compare_public(q, k, v, do, [mask_bias, pair], masked_rows=(slice(None), 2))
+    _compare_public(q, k, v, do, [mask_bias, pair], masked_rows=(slice(None), 2),
+                    port=_kernel_route)
 
 
 @pytest.mark.parametrize("seq_chunk", [0, 2])
@@ -279,6 +304,63 @@ def test_cpu_tensor_never_launches_a_kernel():
         t.requires_grad_()
     tev.evo_flash(q, k, v, b1).backward(do)
     assert q.grad is not None and b1.grad.shape == (2, 100)
+    _assert_counts_zero()
+
+
+@pytest.mark.parametrize("biases", ["both", "mask", "pair"])
+def test_cpu_routed_layout_takes_the_chunked_path(monkeypatch, biases):
+    """On CPU tensors the AlphaFold bias layouts, which ``_route`` accepts,
+    go to the chunked plain path and honour ``seq_chunk`` (n_seq / seq_chunk
+    calls of ``_attend``, never ``evo_flash``), as the JAX package does off
+    the TPU without ``interpret``: output and every cotangent against its
+    chunked path."""
+    calls = []
+    attend = tea._attend
+
+    def counted(*args):
+        calls.append(1)
+        return attend(*args)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CPU call took the kernel route")
+
+    monkeypatch.setattr(tea, "_attend", counted)
+    monkeypatch.setattr(tea, "evo_flash", refuse)
+    rng = np.random.default_rng(11)
+    B, n_seq, R, h, d = 1, 4, 128, 2, 32
+    q, k, v, do = _qkv(rng, (B, n_seq, R, h, d))
+    mask, pair = _biases(rng, (B, ), n_seq, R, h)
+    chosen = {"both": [mask, pair], "mask": [mask], "pair": [pair]}[biases]
+    assert tea._route(torch.from_numpy(q), [torch.from_numpy(b) for b in chosen]) is not None
+    _compare_public(q, k, v, do, chosen, seq_chunk=2, interpret=False)
+    assert len(calls) == n_seq // 2
+    _assert_counts_zero()
+
+
+def test_evo_flash_backward_on_cpu_runs_the_plain_backward_once(monkeypatch):
+    """On CPU tensors ``EvoFlash.backward`` is one call of the plain
+    backward, whose five results it splits, and gives autograd's gradients
+    of the plain forward."""
+    calls = []
+    plain = tev.evo_attention_reference_bwd
+
+    def counted(*args):
+        calls.append(1)
+        return plain(*args)
+
+    monkeypatch.setattr(tev, "evo_attention_reference_bwd", counted)
+    rng = np.random.default_rng(12)
+    N, R, h, d = 2, 100, 2, 64
+    q, k, v, do = _qkv(rng, (N, R, h, d))
+    b1 = rng.normal(size=(N, R)).astype(np.float32)
+    b2 = rng.normal(size=(1, h, R, R)).astype(np.float32)
+    ours = [t.requires_grad_() for t in _t(q, k, v, b1, b2)]
+    tev.evo_flash(*ours).backward(torch.from_numpy(do))
+    assert len(calls) == 1
+    ref = [t.requires_grad_() for t in _t(q, k, v, b1, b2)]
+    tev.evo_attention_reference(*ref)[0].backward(torch.from_numpy(do))
+    for name, a, b in zip(NAMES, ours, ref):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), err_msg=name, **GRAD_TOL)
     _assert_counts_zero()
 
 

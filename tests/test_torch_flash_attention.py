@@ -9,6 +9,9 @@ run them: GQA 4/2, head_dim 64, S 256, causal and not, window 48, ALiBi.
 Ragged lengths (S 200, which the Pallas kernel does not take) and ALiBi
 with a head count that is not a power of two go against the JAX package's
 own public ``flash_attention``, which takes its jnp reference path there.
+The backward's order (dq first, handing delta = rowsum(dO * O) to dk/dv)
+is held to ``jax.vjp`` through the wrappers on CPU tensors, and the
+autograd Function's CPU backward is one call of the plain backward.
 Tolerance rtol 2e-4 / atol 2e-5 (fp32 sums in another order), as the port's
 other parity tests. The CUDA kernels run only on a card (``gpu`` marker).
 """
@@ -122,13 +125,57 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     out, lse = tfa.flash_fwd(q, k, v, True, 32)
     r_out, r_lse = tfa.flash_attention_reference(q, k, v, True, 32)
     assert torch.equal(out, r_out) and torch.equal(lse, r_lse)
-    dk, dv = tfa.flash_bwd_dkdv(q, k, v, out, lse, do, True, 32)
-    dq = tfa.flash_bwd_dq(q, k, v, out, lse, do, True, 32)
+    dq, delta = tfa.flash_bwd_dq(q, k, v, out, lse, do, True, 32)
+    dk, dv = tfa.flash_bwd_dkdv(q, k, v, lse, delta, do, True, 32)
     r = tfa.flash_attention_reference_bwd(q, k, v, out, lse, do, True, 32)
     assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), r))
+    assert torch.equal(delta, tfa.flash_delta(out, do))
     assert all(n == 0 for n in tfa.launch_counts.values())
     with pytest.raises(ValueError, match="causal"):
         tfa.flash_attention(q, k, v, causal=False, window=8)
+
+
+def test_autograd_backward_on_cpu_runs_the_plain_backward_once(monkeypatch):
+    """On CPU tensors ``FlashAttention.backward`` is one call of the plain
+    backward (dq, dk and dv together), not one per kernel wrapper."""
+    calls = []
+    plain = tfa.flash_attention_reference_bwd
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(tfa, "flash_attention_reference_bwd", counted)
+    q, k, v, do = _inputs(6, S=80, nq=4, nkv=2, d=32)
+    ours = _torch_fwd_bwd(q, k, v, do, True, 24, False)
+    assert len(calls) == 1
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = reference_attention(qt, kt, vt, causal=True, window=24)
+    out.backward(torch.from_numpy(do))
+    _assert_all_close(ours, [x.detach().numpy() for x in (out, qt.grad, kt.grad, vt.grad)],
+                      "one plain backward")
+
+
+@pytest.mark.parametrize("mode", ["causal", "alibi_window48"])
+def test_dq_first_then_dkdv_from_its_delta_matches_jax_vjp(mode):
+    """The backward's new order on CPU tensors: ``flash_bwd_dq`` hands back
+    delta = rowsum(dO * O) [B, nq, S] beside dq, and ``flash_bwd_dkdv``
+    computes dk/dv from lse and that delta; with the
+    reordered autograd Function, both match ``jax.vjp`` of
+    ``_pallas_flash(interpret=True)`` on the same inputs."""
+    causal, window, alibi = MODES[mode]
+    q, k, v, do = _inputs(7)
+    kw = dict(causal=causal, block_q=128, block_k=128, interpret=True, window=window, alibi=alibi)
+    ref = _jax_fwd_bwd(lambda a, b, c: jfa._pallas_flash(a, b, c, **kw), q, k, v, do)
+    _assert_all_close(_torch_fwd_bwd(q, k, v, do, causal, window, alibi), ref, mode)
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    slopes = torch.from_numpy(alibi_slopes(4)) if alibi else None
+    out, lse = tfa.flash_fwd(qt, kt, vt, causal, window, slopes)
+    dq, delta = tfa.flash_bwd_dq(qt, kt, vt, out, lse, dot, causal, window, slopes)
+    assert delta.shape == (2, 4, 256) and delta.dtype == torch.float32
+    np.testing.assert_allclose(delta.numpy(), np.einsum("bsnd,bsnd->bns", do, ref[0]), **TOL)
+    dk, dv = tfa.flash_bwd_dkdv(qt, kt, vt, lse, delta, dot, causal, window, slopes)
+    _assert_all_close([out.numpy(), dq.numpy(), dk.numpy(), dv.numpy()], ref, f"{mode} wrappers")
 
 
 def test_model_flash_path_matches_reference_path():
@@ -166,19 +213,25 @@ def _bf16_tol(ref):
 
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_version_on_card():
-    """On the card: forward (out, lse), dk/dv and dq against the plain
-    version on the same bf16 (and float16) inputs (the backward on the
-    kernel forward's out and lse), ragged S, GQA 1 and 4, window and ALiBi. Tolerance per
-    element as ``chip_smoke.py`` states it: 2 bf16 ulp of |plain| plus
-    max(2^-14, 2^-12 rms(plain)) for the bf16 outputs, 2^-14 (1 + |plain|)
-    for lse; and the autograd function launches each kernel once."""
+    """On the card: forward (out, lse), then the backward in the autograd
+    Function's order, dq first (which hands back delta = rowsum(dO * O)),
+    then dk/dv from that delta, against the plain version on the same bf16
+    and float16 inputs (the backward on the kernel forward's out and lse):
+    head_dim 64 and 128, S 1 / 100 / 257 (ragged), GQA 1 and 4, causal,
+    window 48 and ALiBi. Tolerance per element as ``chip_smoke.py`` states
+    it: 2 bf16 ulp of |plain| plus max(2^-14, 2^-12 rms(plain)) for the
+    16-bit outputs, 2^-14 (1 + |plain|) for lse; delta, an fp32 sum of d
+    products on both sides, within 2^-16 of its sum of absolute terms. The
+    autograd function launches each kernel once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    cases = [((8, 2), MODES["window48"], torch.bfloat16),
+    cases = [((8, 2), MODES["causal"], torch.bfloat16),
+             ((8, 2), MODES["window48"], torch.bfloat16),
              ((6, 6), MODES["alibi_full"], torch.bfloat16),
              ((12, 3), MODES["alibi_window48"], torch.bfloat16),
-             ((8, 2), MODES["window48"], torch.float16)]
+             ((8, 2), MODES["window48"], torch.float16),
+             ((4, 4), MODES["alibi"], torch.float16)]
     for S in (1, 100, 257):
         for d in (64, 128):
             for (nq, nkv), (causal, window, alibi), dtype in cases:
@@ -186,17 +239,20 @@ def test_cuda_kernels_match_plain_version_on_card():
                                for x in _inputs(S + d, S=S, nq=nq, nkv=nkv, d=d))
                 slopes = torch.from_numpy(alibi_slopes(nq)).to(dev) if alibi else None
                 out, lse = tfa.flash_fwd(q, k, v, causal, window, slopes)
-                dk, dv = tfa.flash_bwd_dkdv(q, k, v, out, lse, do, causal, window, slopes)
-                dq = tfa.flash_bwd_dq(q, k, v, out, lse, do, causal, window, slopes)
+                dq, delta = tfa.flash_bwd_dq(q, k, v, out, lse, do, causal, window, slopes)
+                dk, dv = tfa.flash_bwd_dkdv(q, k, v, lse, delta, do, causal, window, slopes)
                 r_out, r_lse = tfa.flash_attention_reference(q, k, v, causal, window, slopes)
                 refs = tfa.flash_attention_reference_bwd(q, k, v, out, lse, do, causal, window,
                                                          slopes)
+                r_delta = tfa.flash_delta(out, do)
                 torch.cuda.synchronize()
+                tag = (S, d, nq, nkv, causal, window, alibi, dtype)
                 for got, ref in zip((out, dq, dk, dv), (r_out, *refs)):
                     ref = ref.float()
-                    assert bool(((got.float() - ref).abs() <= _bf16_tol(ref)).all()), \
-                        (S, d, nq, nkv, causal, window, alibi, dtype)
-                assert bool(((lse - r_lse).abs() <= 2.0**-14 * (1 + r_lse.abs())).all())
+                    assert bool(((got.float() - ref).abs() <= _bf16_tol(ref)).all()), tag
+                assert bool(((lse - r_lse).abs() <= 2.0**-14 * (1 + r_lse.abs())).all()), tag
+                terms = tfa.flash_delta(out.abs(), do.abs())
+                assert bool(((delta - r_delta).abs() <= 2.0**-16 * terms + 2.0**-30).all()), tag
     tfa.reset_launch_counts()
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     tfa.flash_attention(qg, kg, vg, causal=True, window=48).backward(do)
