@@ -17,20 +17,26 @@ code 1 otherwise):
    on the card, bf16 and int8 pools, GQA 32/8, head_dim 128, block 64, plus
    window / ALiBi / head_dim 64 cases at small sizes. Tolerance, per output
    element: |kernel - plain| <= 2 ulp(plain) + 2^-14, with ulp the spacing
-   of bfloat16 numbers at |plain|. Both compute in fp32 throughout (the
-   kernel on CUDA cores, the plain version in fp32 einsums; no bf16
-   intermediate) and round once to bf16 at the end, so their fp32 results
-   differ only by summation order, about 1e-6 of the terms' size. Values
-   that close round to bf16 numbers at most one ulp apart (two where a
-   power of two lies between them); the 2^-14 floor covers the
-   summation-order difference where an output is near zero and its ulp is
-   smaller than that. At the main path's shapes (decode of 32 sequences x
-   1024 context, a 512-token prefill chunk) time the kernel (CUDA events
-   over many warmed launches), the plain version, and
-   ``F.scaled_dot_product_attention`` on the same context pre-gathered
-   contiguous (a yardstick only: it excludes the gather), beside the least
-   time the card could take (bytes / 3.35 TB/s or FLOPs / 989 TFLOP/s,
-   whichever is larger).
+   of bfloat16 numbers at |plain|. Both sum in fp32 (the decode kernel on
+   CUDA cores; the prefill on the tensor cores, whose products take the
+   16-bit inputs exactly and the probabilities as a split hi + lo pair,
+   ~2^-17 relative; the plain version in fp32 einsums) and round once to
+   bf16 at the end, so their fp32 results differ by about 1e-6 of the
+   terms' size. Values that close round to bf16 numbers at most one ulp
+   apart (two where a power of two lies between them); the 2^-14 floor
+   covers that difference where an output is near zero and its ulp is
+   smaller. The prefill runs at its default tile (64 / g tokens). At the
+   main path's shapes (decode of 32 sequences x 1024 context, a 512-token
+   prefill chunk) time the kernel (CUDA events over many warmed launches;
+   also each path's device time with the host queued ahead behind a
+   device-side wait, and for the prefill the time of the tile descriptors
+   that a forward's first layer computes),
+   the plain version, and ``F.scaled_dot_product_attention`` on the same
+   context pre-gathered contiguous (a yardstick only: it excludes the
+   gather; the prefill's is also run through the contiguous flash forward),
+   beside the least time the card could take (bytes / 3.35 TB/s
+   or FLOPs / 989 TFLOP/s, whichever is larger). The largest error as a
+   fraction of its tolerance is printed as ``worst_error_fraction``.
 3. train_kernels: hold the training kernels against their plain versions.
    Flash attention (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) on
    a small matrix (S 1 / 100 / 128 / 257, head_dim 64 / 128, GQA groups 1
@@ -89,7 +95,11 @@ code 1 otherwise):
    ``InferenceEngineV2``: requests chosen so that every kernel path runs,
    with launch counts reset just before and read just after; then one
    prefill's last-token logits through the kernels against the same
-   forward through ``dense_blocked_attention`` (relative L2 error).
+   forward through ``dense_blocked_attention`` (relative L2 error); then
+   profiles of a decode horizon and of one 512-token ``put`` (device time
+   by kernel, device idle share of the host's wall clock), and that put's
+   wall with the prefill's tile descriptors computed in every layer (the
+   wrapper's memo bypassed by this script).
 7. train: the serving engine is freed first. Mistral-7B at full width with
    its depth cut 32 -> 8 for memory, fp32 masters from a seeded generator,
    trained through ``deepspeed_tpu_torch.initialize`` -> ``train_batch``
@@ -166,16 +176,20 @@ mutant: the grouped matmul kernels dropping one row block's products
 skipping each row's last valid LUT column (``--phases build,sparse_kernels``
 must fail by more than 100x its tolerance, printed), the Evoformer db2
 kernel skipping each group's last row (``--phases build,evo_kernels``, the
-same) and the flash backward with dk/dv skipping each CTA's last live
-q-tile and dq its last live k-tile (``--phases build,train_kernels``, the
-same). It passes when every mutant is caught.
+same), the flash backward with dk/dv skipping each CTA's last live q-tile
+and dq its last live k-tile and, alone, the flash forward skipping each
+CTA's last live k-tile (``--phases build,train_kernels``, the same), and
+the paged prefill skipping each CTA's last live k-tile (``--phases
+build,kernels``, the same). It passes when every mutant is caught.
 
-``--ablation`` times the flash backward pair against copies under
-``build/ablation/<name>``, each undoing one design choice of
-``FLASH_ABLATIONS`` (the grid order, the mask fast path, the two-level
-accumulation, each split pair): ``--phases train_kernels`` in every copy
-in turns, each version twice, printing the main shape's dk/dv and dq
-times and the largest error as a fraction of the tolerance
+``--ablation`` times the flash kernels and the paged prefill against
+copies under ``build/ablation/<name>``, each undoing one design choice of
+``ABLATIONS`` (the grid order of the backward and of the forward, the
+prefill's tile order, the mask fast path, the two-level accumulation, each
+split pair): ``--phases
+kernels,train_kernels`` in every copy in turns, each version twice,
+printing the main shapes' forward, dk/dv, dq and prefill times and each
+phase's largest error as a fraction of the tolerance
 (``worst_error_fraction``; above 1 fails that check).
 
 It prints the card (name and power limit) and, on the line before the last,
@@ -361,10 +375,12 @@ def phase_build():
     for stem, b in built.items():
         log(f"[build] {stem}: nvcc {b.seconds:.2f}s -> {os.path.relpath(b.path, HERE)}")
         _log_ptxas(b.ptxas)
-    smem = built["paged_attention"].lib.ds_paged_smem_bytes
-    log(f"[build] dynamic shared memory per CTA at the main path's shapes (d 128, block 64): "
-        f"decode (rows = g = 4) {smem(4, 128, 64)} B, prefill (rows = q_tile 8 x g 4) "
-        f"{smem(32, 128, 64)} B")
+    plib = built["paged_attention"].lib
+    log(f"[build] paged attention dynamic shared memory per CTA at the main path's shapes (d "
+        f"128, block 64): decode (rows = g = 4) {plib.ds_paged_smem_bytes(4, 128, 64)} B, "
+        f"prefill (64 rows = q_tile 16 x g 4) bf16 pools "
+        f"{plib.ds_paged_prefill_smem_bytes(128, 0)} B, int8 pools "
+        f"{plib.ds_paged_prefill_smem_bytes(128, 1)} B")
     fsm = built["flash_attention"].lib.ds_flash_smem_bytes
     log(f"[build] flash attention dynamic shared memory per CTA (d 128): forward {fsm(0, 128)} "
         f"B, dk/dv {fsm(1, 128)} B, dq {fsm(2, 128)} B")
@@ -419,12 +435,36 @@ def _err(out, ref):
     return float(err.max()), float((err / (TOL_ULPS * bf16_ulp(ref) + TOL_FLOOR)).max())
 
 
+def queued_ms(fn, iters=20, spin_cycles=100_000_000):
+    """Device time per call of ``fn`` with the host queued ahead: a
+    device-side wait of ``spin_cycles`` clocks (~60 ms) holds the stream
+    while the host enqueues every call, so the CUDA events between the calls
+    see no launch gap, only the device work (no profiler session, which
+    would cost later profiles in the same process their events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
 def phase_kernels():
     """Returns {kernel name: measurement dict} at the main-path shapes with
     bf16 pools, each holding the int8 pools' measurements under "int8"."""
+    from functools import partial
+
     import torch
     import torch.nn.functional as F
 
+    from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
     failures = []
@@ -443,7 +483,7 @@ def phase_kernels():
         outs = {"paged_decode": pa.paged_decode(q, k, v, tb, si, po, bs, kv_splits=1, **kw),
                 "paged_decode_split": pa.paged_decode(q, k, v, tb, si, po, bs, kv_splits=splits,
                                                       **kw),
-                "paged_prefill": pa.paged_prefill(q, k, v, tb, si, po, bs, q_tile=8, **kw)}
+                "paged_prefill": pa.paged_prefill(q, k, v, tb, si, po, bs, **kw)}
         torch.cuda.synchronize()
         for name, out in outs.items():
             worst[name] = max(worst[name], check(f"{name} {tag}", out, ref))
@@ -478,6 +518,7 @@ def phase_kernels():
     nq = nkv * g
     tables = torch.randperm(S * mb, generator=g_small).to(torch.int32).reshape(S, mb)
     res = {}
+    device_jobs = []  # (measurement dict, call)
     for int8 in (False, True):
         kvb = 1 if int8 else 2
         scale_b = 8 if int8 else 0  # k and v fp32 scale per (slot, head)
@@ -488,9 +529,9 @@ def phase_kernels():
         kw["window"] = 4096
         ref = pa.paged_attention_reference(q, k, v, tb, si, po, bs, **kw)
         splits = pa.resolve_kv_splits(S, S, mb)
-        meas = {}
+        meas, fns = {}, {}
         for name, ks in (("paged_decode", 1), ("paged_decode_split", splits)):
-            fn = lambda ks=ks: pa.paged_decode(q, k, v, tb, si, po, bs, kv_splits=ks, **kw)
+            fn = fns[name] = partial(pa.paged_decode, q, k, v, tb, si, po, bs, kv_splits=ks, **kw)
             e = check(f"{name} main int8={int8}", fn(), ref)
             meas[name] = dict(err=e, ms=time_ms(fn))
         plain = time_ms(lambda: pa.paged_attention_reference(q, k, v, tb, si, po, bs, **kw),
@@ -510,6 +551,7 @@ def phase_kernels():
         for name, m in meas.items():
             res[(name, int8)] = dict(m, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                      library_ms=lib_ms)
+            device_jobs.append((res[(name, int8)], fns[name]))
         log(f"[kernels] decode S={S} ctx={ctx} int8={int8} splits={splits}: "
             f"paged_decode {meas['paged_decode']['ms']:.4f} ms, paged_decode_split "
             f"{meas['paged_decode_split']['ms']:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} "
@@ -522,9 +564,13 @@ def phase_kernels():
                                              torch.arange(T_pre, dtype=torch.int32), int8)
         kw["window"] = 4096
         ref = pa.paged_attention_reference(q, k, v, tb, si, po, bs, **kw)
-        fn = lambda: pa.paged_prefill(q, k, v, tb, si, po, bs, q_tile=8, **kw)
+        # the wrapper as the serving forward's layers after the first call
+        # it: the tile descriptors of these seq_idx / pos already computed
+        fn = partial(pa.paged_prefill, q, k, v, tb, si, po, bs, **kw)
         e = check(f"paged_prefill main int8={int8}", fn(), ref)
         ms = time_ms(fn)
+        qt = pa.prefill_q_tile(g)
+        desc_ms = time_ms(lambda: pa.prefill_tiles(si, po, qt, 1))  # what the first layer adds
         plain = time_ms(lambda: pa.paged_attention_reference(q, k, v, tb, si, po, bs, **kw),
                         iters=10, warmup=2)
         n_bytes = 2 * T_pre * nq * d * 2 + T_pre * nkv * (2 * d * kvb + scale_b) + 2 * T_pre * 4
@@ -539,13 +585,31 @@ def phase_kernels():
             qc = q.permute(1, 0, 2)[None].contiguous()  # [1, nq, T, d]
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
                                                                     enable_gqa=True))
+            # the same attention through the contiguous flash forward (no
+            # block table, no paging): what the gather costs
+            fk, fv = (x.transpose(1, 2).contiguous() for x in (kc, vc))  # [1, T, nkv, d]
+            flash_ms = time_ms(partial(fa.flash_fwd, q[None], fk, fv, True, 4096))
         res[("paged_prefill", int8)] = dict(err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                            bound_by=b_by, library_ms=lib_ms)
-        log(f"[kernels] prefill T={T_pre} int8={int8}: paged_prefill {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), sdpa on gathered context "
-            f"{lib_ms} ms, max_abs_err {e:.3e}")
+                                            bound_by=b_by, library_ms=lib_ms,
+                                            descriptors_ms=desc_ms)
+        if not int8:
+            res[("paged_prefill", int8)]["flash_fwd_same_work_ms"] = flash_ms
+        device_jobs.append((res[("paged_prefill", int8)], fn))
+        log(f"[kernels] prefill T={T_pre} int8={int8} q_tile={qt}: paged_prefill {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s; the tile descriptors a first call adds "
+            f"{desc_ms:.4f} ms), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), sdpa on "
+            f"gathered context {lib_ms} ms, the contiguous flash forward on it "
+            f"{None if int8 else round(flash_ms, 4)} ms, max_abs_err {e:.3e}")
+    # each path's device time with the host queued ahead (the split
+    # decode's includes its torch merge), after every timing above
+    for m, fn in device_jobs:
+        m["device_ms"] = queued_ms(fn)
+    log("[kernels] device time per call with the host queued ahead (no launch gaps), bf16 / "
+        "int8 pools: " + "; ".join(
+            f"{name} {res[(name, False)]['device_ms']:.4f} / "
+            f"{res[(name, True)]['device_ms']:.4f} ms" for name in KERNELS))
     log(f"[kernels] largest error over all cases: {worst_frac[0]:.3f} of its tolerance "
-        f"({TOL_ULPS} bf16 ulp + 2^-14)")
+        f"({TOL_ULPS} bf16 ulp + 2^-14); worst_error_fraction={worst_frac[0]:.6g}")
     if failures:
         raise RuntimeError("kernels disagree with the plain version: " + "; ".join(failures))
     for name in KERNELS:
@@ -659,6 +723,7 @@ def phase_e2e():
         raise RuntimeError(f"logits disagree: rel L2 {rel:.3e} > {LOGITS_REL_L2_TOL}")
     del dense
     profile_decode(engine, rng)
+    profile_prefill(engine, rng)
     return launches
 
 
@@ -706,6 +771,56 @@ def profile_decode(engine, rng, n_seqs=8, steps=4, repeats=5):
         f"the unprofiled wall, {100 * (1 - busy / wall):.1f}% of the profiled one")
     for name, us in top:
         log(f"[e2e]   {us / steps / 1e3:8.3f} ms/step  {name[:90]}")
+
+
+def profile_prefill(engine, rng, n_tok=512, repeats=5):
+    """Where a prompt's time to first token goes: torch.profiler over one
+    warmed ``put`` of a fresh ``n_tok``-token prompt (the prefill forward
+    through all layers and its last-token logits), device time by kernel,
+    against the host's wall clock (the median of ``repeats`` unprofiled
+    puts)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    uid, vocab = 300, engine.model_config.vocab_size
+
+    def put():
+        prompt = rng.integers(0, vocab, n_tok).astype(np.int32)
+        t0 = time.perf_counter()
+        engine.put([uid], [prompt])  # returns host logits: the wall ends synchronised
+        dt = time.perf_counter() - t0
+        engine.flush(uid)
+        return dt
+
+    put()  # warm
+    walls = [put() for _ in range(repeats)]
+    wall_plain = float(np.median(walls))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = put()
+    by_name = _device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    attn = sum(ms for n, ms in by_name.items() if "paged_" in n)
+    log(f"[e2e] prefill profile, one {n_tok}-token put: wall {1e3 * wall_plain:.2f} ms "
+        f"unprofiled (median of {repeats}; range {1e3 * min(walls):.2f}-{1e3 * max(walls):.2f}), "
+        f"{1e3 * wall:.2f} ms profiled; device busy {busy:.2f} ms: device idle "
+        f"{100 * (1 - busy / (1e3 * wall_plain)):.1f}% of the unprofiled wall; paged attention "
+        f"kernels {attn:.3f} ms ({100 * attn / busy:.1f}% of device time)")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[e2e]   {ms:8.3f} ms  {name[:90]}")
+    # the same puts with the prefill's tile descriptors computed in every
+    # layer (the wrapper's memo bypassed here, then restored)
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    memo = pa.cached_prefill_tiles
+    pa.cached_prefill_tiles = pa.prefill_tiles
+    try:
+        walls_nomemo = [put() for _ in range(repeats)]
+    finally:
+        pa.cached_prefill_tiles = memo
+    log(f"[e2e] the same put with the tile descriptors computed in every layer: wall "
+        f"{1e3 * float(np.median(walls_nomemo)):.2f} ms (median of {repeats}; range "
+        f"{1e3 * min(walls_nomemo):.2f}-{1e3 * max(walls_nomemo):.2f})")
 
 
 # ---------------------------------------------------------------------------
@@ -1178,6 +1293,15 @@ def _device_ms_by_name(prof):
     return by_name
 
 
+def _flash_share(by_name, busy):
+    """The flash kernels' device time in a profiled step, top list or not."""
+    parts = []
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+        t = sum(ms for n, ms in by_name.items() if kernel in n)
+        parts.append(f"{kernel} {t:.2f} ms ({100 * t / busy:.1f}%)")
+    return "flash kernels in the profiled step: " + ", ".join(parts)
+
+
 def phase_train():
     """Returns (launches on the main path, the full-set fused Adam timing)."""
     import gc
@@ -1261,6 +1385,7 @@ def phase_train():
         f"unprofiled step, {100 * (1 - busy / (1e3 * wall)):.1f}% of the profiled one")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[train]   {t:9.2f} ms  {100 * t / busy:5.1f}%  {name[:90]}")
+    log(f"[train] {_flash_share(by_name, busy)}")
 
     # the fused AdamW at the full parameter set (lr 0: the params stay put)
     mu, nu, step = engine.adam_state()
@@ -1413,6 +1538,7 @@ def phase_moe_train():
         f"step, {100 * (1 - busy / (1e3 * wall)):.1f}% of the profiled one")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[moe_train]   {t:9.2f} ms  {100 * t / busy:5.1f}%  {name[:90]}")
+    log(f"[moe_train] {_flash_share(by_name, busy)}")
     del prof
 
     # the grouped kernels vs the plain grouped path on the same weights at
@@ -2225,49 +2351,65 @@ def phase_evo_path():
 # the mutant checks. Grouped matmul: a copy that drops one row block's
 # contribution (gmm: the second 128-row tile's products; tgmm: each expert's
 # first row block) must fail the moe_kernels phase by far. Block-sparse,
-# Evoformer and flash: a copy whose kernel skips the last of its loop's
-# items (a LUT column, a group row, a live q- or k-tile) must fail its
-# phase by more than MUTANT_MIN_FACTOR x its tolerance.
-GMM_MUTATIONS = (
+# Evoformer, flash and paged prefill: a copy whose kernel skips the last of
+# its loop's items (a LUT column, a group row, a live q- or k-tile) must
+# fail its phase by more than MUTANT_MIN_FACTOR x its tolerance. Each
+# replacement is (file, old text, new text), the old text found once.
+MMA_HDR = "deepspeed_tpu_torch/ops/csrc/mma_sm90.cuh"
+
+
+def _in(path, pairs):
+    return tuple((path, old, new) for old, new in pairs)
+
+
+GMM_MUTATIONS = _in(GMM_SRC, (
     ("  // the pipeline's shared memory is free now",
      "  if (m_tile == 1) zero_acc(acc);\n  // the pipeline's shared memory is free now"),
     ("const int r_begin = first * bt, r_end = lo * bt;",
      "const int r_begin = (first + (lo > first ? 1 : 0)) * bt, r_end = lo * bt;"),
-)
-BSA_MUTATIONS = (
+))
+BSA_MUTATIONS = _in(BSA_SRC, (
     ("const int n_keys = nv * a.block;", "const int n_keys = (nv > 0 ? nv - 1 : 0) * a.block;"),
-)
-EVO_MUTATIONS = (  # db2 skips each group's last row
+))
+EVO_MUTATIONS = _in(EVO_SRC, (  # db2 skips each group's last row
     ("for (int nn = 0; nn < a.n_seq; ++nn) {", "for (int nn = 0; nn < a.n_seq - 1; ++nn) {"),
-)
-FLASH_MUTATIONS = (  # dk/dv skips each CTA's last live q-tile, dq its last live k-tile
+))
+FLASH_MUTATIONS = _in(FLASH_SRC, (  # dk/dv skips each CTA's last live q-tile, dq its last live k-tile
     ("const int nqt = qt_hi - qt_lo + 1;", "const int nqt = qt_hi - qt_lo;"),
     ("const int nkt = kt_hi - kt_lo + 1;", "const int nkt = kt_hi - kt_lo;"),
-)
+))
+FLASH_FWD_MUTATIONS = _in(FLASH_SRC, (  # the forward skips each CTA's last live k-tile
+    ("const int n_kt = kt_hi - kt_lo + 1;", "const int n_kt = kt_hi - kt_lo;"),
+))
+PAGED_MUTATIONS = _in(SOURCE, (  # the prefill skips each CTA's last live k-tile
+    ("const int n_kt = p_hi > p_lo ? (p_hi - 1) / kKT - kt_lo + 1 : 0;",
+     "const int n_kt = p_hi > p_lo ? (p_hi - 1) / kKT - kt_lo : 0;"),
+))
 MUTANT_MIN_FACTOR = 100.0
-MUTANTS = {  # name -> (source, mutations, phase, the phase's failure text)
-    "grouped_matmul": (GMM_SRC, GMM_MUTATIONS, "moe_kernels", "grouped matmul kernels disagree"),
-    "block_sparse": (BSA_SRC, BSA_MUTATIONS, "sparse_kernels",
-                     "block-sparse kernel disagrees"),
-    "evoformer": (EVO_SRC, EVO_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
-    "flash": (FLASH_SRC, FLASH_MUTATIONS, "train_kernels", "flash kernels disagree"),
+MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
+    "grouped_matmul": (GMM_MUTATIONS, "moe_kernels", "grouped matmul kernels disagree"),
+    "block_sparse": (BSA_MUTATIONS, "sparse_kernels", "block-sparse kernel disagrees"),
+    "evoformer": (EVO_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
+    "flash": (FLASH_MUTATIONS, "train_kernels", "flash kernels disagree"),
+    "flash_fwd": (FLASH_FWD_MUTATIONS, "train_kernels", "flash kernels disagree"),
+    "paged_prefill": (PAGED_MUTATIONS, "kernels", "kernels disagree with the plain version"),
 }
 
 
-# the flash backward's ablations (``--ablation``): each undoes one design
-# choice of flash_attention.cu's backward pair.
-_SINGLE = (  # a template switch that skips the lo product of a split pair
+# the attention kernels' ablations (``--ablation``): each undoes one design
+# choice of the flash kernels (forward and backward) or the paged prefill.
+_SINGLE = _in(MMA_HDR, (  # a template switch that skips the lo product of a split pair
     ("template <int D, typename T>\n__device__ __forceinline__ void mma_wm(",
      "template <int D, typename T, bool kLo = true>\n__device__ __forceinline__ void mma_wm("),
     ("      mma16816(t0, w.lo[c], b[0], b[1], T());",
      "      if (kLo) mma16816(t0, w.lo[c], b[0], b[1], T());"),
     ("      mma16816(t1, w.lo[c], b[2], b[3], T());",
      "      if (kLo) mma16816(t1, w.lo[c], b[2], b[3], T());"),
-)
-FLASH_ABLATIONS = {
-    # the tile index in blockIdx.x (heavy-first only within one head), not
-    # blockIdx.y (heavy-first across the whole grid)
-    "grid_per_head": (
+))
+ABLATIONS = {
+    # the backward's tile index in blockIdx.x (heavy-first only within one
+    # head), not blockIdx.y (heavy-first across the whole grid)
+    "grid_per_head": _in(FLASH_SRC, (
         ("const int qt = gridDim.y - 1 - blockIdx.y, h = blockIdx.x, b = blockIdx.z;",
          "const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;"),
         ("const int kvh = blockIdx.x, kt = blockIdx.y, b = blockIdx.z;",
@@ -2276,32 +2418,51 @@ FLASH_ABLATIONS = {
          "grid = dim3((a.S + kBK - 1) / kBK, a.nkv, a.B);"),
         ("grid = dim3(a.nq, (a.S + kBQ - 1) / kBQ, a.B);",
          "grid = dim3((a.S + kBQ - 1) / kBQ, a.nq, a.B);"),
-    ),
+    )),
+    # the paged prefill's tiles in token order (the latest, heaviest tiles
+    # of a causal prefill dispatched last), not reversed
+    "prefill_tiles_in_order": _in(SOURCE, (
+        ("const int kvh = blockIdx.x, tile = gridDim.y - 1 - blockIdx.y;",
+         "const int kvh = blockIdx.x, tile = blockIdx.y;"),
+    )),
+    # the same for the flash forward
+    "fwd_grid_per_head": _in(FLASH_SRC, (
+        ("const int h = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;",
+         "const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;"),
+        ("grid = dim3(a.nq, (a.S - 1) / kBQ + 1, a.B);",
+         "grid = dim3((a.S - 1) / kBQ + 1, a.nq, a.B);"),
+    )),
     # the per-element causal / window mask on every tile, not only on tiles
-    # that cross the band or S
-    "mask_every_tile": (("  if (q0 + kBQ > a.S || k0 + kBK > a.S) return false;",
-                         "  return false;"),),
+    # that cross the band or S (all three flash kernels)
+    "mask_every_tile": _in(FLASH_SRC, (("  if (q0 + kBQ > a.S || k0 + kBK > a.S) return false;",
+                                        "  return false;"),)),
     # the mma steps accumulate straight into the long-run accumulators, not
-    # each tile pair from zero first (the tensor cores' fp32 sums truncate)
-    "one_level_acc": (
+    # each tile pair from zero first (the tensor cores' fp32 sums truncate;
+    # every P . V, dv, dk and dq product)
+    "one_level_acc": _in(MMA_HDR, (
         ("    float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};",
          "    float(&t0)[4] = out[n];\n    float(&t1)[4] = out[n + 1];"),
         ("      out[n][e] += t0[e];\n      out[n + 1][e] += t1[e];\n", ""),
-    ),
-    # dq's dS, dv's P or dk's dS as one rounding instead of the split pair
-    "single_dq": _SINGLE + (("mma_wm<D, T>(dq, ds, sK, lane);",
-                             "mma_wm<D, T, false>(dq, ds, sK, lane);"),),
-    "single_dv": _SINGLE + (("mma_wm<D, T>(dv, p, sdO, lane);",
-                             "mma_wm<D, T, false>(dv, p, sdO, lane);"),),
-    "single_dk": _SINGLE + (("mma_wm<D, T>(dk, ds, sQ, lane);",
-                             "mma_wm<D, T, false>(dk, ds, sQ, lane);"),),
+    )),
+    # one product's P or dS as one rounding instead of the split pair: dq's
+    # dS, dv's P, dk's dS, the forward's P, the prefill's P
+    "single_dq": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(dq, ds, sK, lane);",
+                                            "mma_wm<D, T, false>(dq, ds, sK, lane);"),)),
+    "single_dv": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(dv, p, sdO, lane);",
+                                            "mma_wm<D, T, false>(dv, p, sdO, lane);"),)),
+    "single_dk": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(dk, ds, sQ, lane);",
+                                            "mma_wm<D, T, false>(dk, ds, sQ, lane);"),)),
+    "fwd_single_p": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(acc, p, sV, lane);",
+                                               "mma_wm<D, T, false>(acc, p, sV, lane);"),)),
+    "prefill_single_p": _SINGLE + _in(SOURCE, (("mma_wm<D, T>(acc, pf, sV, lane);",
+                                                "mma_wm<D, T, false>(acc, pf, sV, lane);"),)),
 }
 
 
-def _patched_copy(kind, name, src, replacements):
+def _patched_copy(kind, name, replacements):
     """Copy the package and this script into build/<kind>/<name> and apply
-    ``replacements`` ((old, new), each old text found exactly once) to the
-    copy's ``src``. Returns the copy's directory, or None when a text is
+    ``replacements`` ((file, old, new), each old text found exactly once in
+    the copy's file). Returns the copy's directory, or None when a text is
     not found once."""
     import shutil
 
@@ -2312,30 +2473,29 @@ def _patched_copy(kind, name, src, replacements):
                     os.path.join(dst, "deepspeed_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.abspath(__file__), dst)
-    cu = os.path.join(dst, src)
-    text = open(cu).read()
-    for old, new in replacements:
+    for path, old, new in replacements:
+        f = os.path.join(dst, path)
+        text = open(f).read()
         if text.count(old) != 1:
-            log(f"[{kind}] {name}: the text to replace is not found once: {old!r}")
+            log(f"[{kind}] {name}: the text to replace is not found once in {path}: {old!r}")
             return None
-        text = text.replace(old, new)
-    with open(cu, "w") as f:
-        f.write(text)
+        with open(f, "w") as out:
+            out.write(text.replace(old, new))
     return dst
 
 
-def _worst_error_fraction(stdout):
+def _worst_error_fraction(stdout, phase):
     import re
 
-    found = re.findall(r"worst_error_fraction=([0-9.eE+-]+)", stdout)
+    found = re.findall(rf"\[{phase}\].*worst_error_fraction=([0-9.eE+-]+)", stdout)
     return float(found[-1]) if found else None
 
 
 def _run_one_mutant(name):
     """Run ``--phases build,<phase>`` in a mutated copy (build/mutant/<name>)
     and return whether that run failed as it must."""
-    src, mutations, phase, failure = MUTANTS[name]
-    dst = _patched_copy("mutant", name, src, mutations)
+    mutations, phase, failure = MUTANTS[name]
+    dst = _patched_copy("mutant", name, mutations)
     if dst is None:
         return False
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", f"build,{phase}"],
@@ -2344,8 +2504,8 @@ def _run_one_mutant(name):
         if line.startswith(f"[{phase}]") or "disagree" in line:
             log(f"[mutant] {name}: {line[:4000]}")
     caught = proc.returncode != 0 and failure in proc.stdout
-    if phase in ("sparse_kernels", "evo_kernels", "train_kernels"):
-        factor = _worst_error_fraction(proc.stdout) or 0.0
+    if phase != "moe_kernels":
+        factor = _worst_error_fraction(proc.stdout, phase) or 0.0
         log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
             f"{MUTANT_MIN_FACTOR:.0f}x)")
         caught = caught and factor > MUTANT_MIN_FACTOR
@@ -2361,22 +2521,22 @@ def run_mutant():
 
 
 def run_ablation():
-    """The unchanged source (``base``) and each of ``FLASH_ABLATIONS`` in a
-    copy under build/ablation/; the copies' flash kernels are built in
-    parallel, then ``--phases train_kernels`` runs in each copy in turns,
-    base and the ablations and then the same in reverse, so every version
-    is timed twice on one card. Prints one line per run and, last, one JSON
-    object with every run. Returns an exit code: 1 when a copy does not
-    build or a run prints no times (an ablation that misses the tolerance
-    is a result, not a failure)."""
+    """The unchanged sources (``base``) and each of ``ABLATIONS`` in a copy
+    under build/ablation/; the copies' flash and paged attention kernels
+    are built in parallel, then ``--phases kernels,train_kernels`` runs in
+    each copy in turns, base and the ablations and then the same in
+    reverse, so every version is timed twice on one card. Prints one line
+    per run and, last, one JSON object with every run. Returns an exit
+    code: 1 when a copy does not build or a run prints no times (an
+    ablation that misses the tolerance is a result, not a failure)."""
     import re
 
-    names = ["base", *FLASH_ABLATIONS]
-    dirs = {n: _patched_copy("ablation", n, FLASH_SRC, FLASH_ABLATIONS.get(n, ()))
-            for n in names}
+    names = ["base", *ABLATIONS]
+    dirs = {n: _patched_copy("ablation", n, ABLATIONS.get(n, ())) for n in names}
     if None in dirs.values():
         return 1
-    build = "from deepspeed_tpu_torch.ops import flash_attention as fa; fa.kernel_build()"
+    build = ("from deepspeed_tpu_torch.ops import flash_attention as fa, paged_attention as pa; "
+             "fa.kernel_build(); pa.kernel_build()")
     procs = {n: subprocess.Popen([sys.executable, "-c", build], cwd=d, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
              for n, d in dirs.items()}
@@ -2390,7 +2550,8 @@ def run_ablation():
         return 1
     runs = []
     for n in names + names[::-1]:
-        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "train_kernels"],
+        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases",
+                               "kernels,train_kernels"],
                               cwd=dirs[n], capture_output=True, text=True, timeout=900)
 
         def num(pattern):
@@ -2398,15 +2559,22 @@ def run_ablation():
             return float(found[-1]) if found else None
 
         r = {"name": n, "rc": proc.returncode,
+             "fwd_ms": num(r"\] flash_fwd .*?: ([0-9.]+) ms"),
              "dkdv_ms": num(r"\] flash_bwd_dkdv .*?: ([0-9.]+) ms"),
              "dq_ms": num(r"\] flash_bwd_dq .*?: ([0-9.]+) ms"),
+             "prefill_ms": num(r"\] prefill T=\d+ int8=False .*?paged_prefill ([0-9.]+) ms"),
+             "prefill_device_ms": num(r"\] device time per call .*?paged_prefill ([0-9.]+) /"),
+             "sdpa_fwd_ms": num(r"\] flash_fwd .*sdpa forward ([0-9.]+) ms"),
              "sdpa_bwd_ms": num(r"\] flash_bwd_dq .*sdpa backward ([0-9.]+) ms"),
-             "worst_error_fraction": _worst_error_fraction(proc.stdout)}
+             "flash_worst_error_fraction": _worst_error_fraction(proc.stdout, "train_kernels"),
+             "paged_worst_error_fraction": _worst_error_fraction(proc.stdout, "kernels")}
         runs.append(r)
-        log(f"[ablation] {n}: dk/dv {r['dkdv_ms']} ms, dq {r['dq_ms']} ms, sdpa backward "
-            f"{r['sdpa_bwd_ms']} ms, worst_error_fraction {r['worst_error_fraction']} "
-            f"(train_kernels exit {r['rc']})")
-        failed = failed or r["dkdv_ms"] is None or r["dq_ms"] is None
+        log(f"[ablation] {n}: forward {r['fwd_ms']} ms, dk/dv {r['dkdv_ms']} ms, dq "
+            f"{r['dq_ms']} ms, prefill {r['prefill_ms']} ms (device {r['prefill_device_ms']}), "
+            f"sdpa forward {r['sdpa_fwd_ms']} / backward {r['sdpa_bwd_ms']} ms, "
+            f"worst_error_fraction flash {r['flash_worst_error_fraction']} / paged "
+            f"{r['paged_worst_error_fraction']} (exit {r['rc']})")
+        failed = failed or None in (r["fwd_ms"], r["dkdv_ms"], r["dq_ms"], r["prefill_ms"])
     import torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2427,10 +2595,10 @@ def main():
                          f"result lines)")
     ap.add_argument("--mutant", action="store_true",
                     help="run the mutant checks alone (grouped matmul, block-sparse, Evoformer, "
-                         "flash backward: each must be caught)")
+                         "flash backward, flash forward, paged prefill: each must be caught)")
     ap.add_argument("--ablation", action="store_true",
-                    help=f"time the flash backward against its ablations {tuple(FLASH_ABLATIONS)}, "
-                         f"each version twice in turns")
+                    help=f"time the flash and paged prefill kernels against their ablations "
+                         f"{tuple(ABLATIONS)}, each version twice in turns")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -2490,7 +2658,10 @@ def main():
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
                 "launches": int(out["e2e"][name]), "max_abs_err": m["err"],
                 **{k: m[k] for k in keys},
-                "int8": {k: m["int8"][k] for k in keys[:4]} | {"max_abs_err": m["int8"]["err"]}}
+                **{k: m[k] for k in ("device_ms", "descriptors_ms", "flash_fwd_same_work_ms")
+                   if k in m},
+                "int8": {k: m["int8"][k] for k in (*keys[:4], "device_ms")}
+                | {"max_abs_err": m["int8"]["err"]}}
                for name, m in out["kernels"].items()]
     launches, adam_full = out["train"]
     for name, m in out["train_kernels"].items():

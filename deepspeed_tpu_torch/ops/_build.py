@@ -5,8 +5,9 @@ A ``*.cu`` source under ``ops/csrc/`` is compiled by ``nvcc`` for
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes). The
 build runs at first use, never at import, into ``build/torch_kernels/`` at
 the root of the checkout; the library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded.
+source, of every header it includes by a quoted path (``csrc/*.cuh``,
+followed recursively) and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.
 
 A failed build raises: there is no fallback that hides a missing kernel.
 """
@@ -14,6 +15,7 @@ A failed build raises: there is no fallback that hides a missing kernel.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,8 +28,34 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
 class KernelBuildError(RuntimeError):
     pass
+
+
+def source_key(src: Path) -> str:
+    """The build's cache key: a hash of ``src``, of every file it includes
+    by a quoted path (resolved beside the including file, recursively) and
+    of ``NVCC_FLAGS``."""
+    h = hashlib.sha256()
+    seen = set()
+
+    def add(path: Path) -> None:
+        if path in seen:
+            return
+        seen.add(path)
+        if not path.is_file():
+            raise KernelBuildError(f"{path} (included by a kernel source) is missing")
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text + b"\0")
+        for inc in _INCLUDE.findall(text):
+            add((path.parent / inc.decode()).resolve())
+
+    add(Path(src).resolve())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
 
 
 def _nvcc() -> str:
@@ -54,9 +82,7 @@ class Built(NamedTuple):
 def build_kernel(stem: str) -> Built:
     """Compile (or reuse) and load ``csrc/<stem>.cu``."""
     src = CSRC / f"{stem}.cu"
-    text = src.read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{stem}_{key}.so"
+    out = BUILD_DIR / f"lib{stem}_{source_key(src)}.so"
     log = out.with_suffix(".ptxas.txt")
     if out.exists():
         return Built(ctypes.CDLL(str(out)), out, 0.0, log.read_text() if log.exists() else "")

@@ -55,6 +55,8 @@ def kernel_build():
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
         lib.ds_paged_smem_bytes.argtypes = [i, i, i]
         lib.ds_paged_smem_bytes.restype = ll
+        lib.ds_paged_prefill_smem_bytes.argtypes = [i, i]
+        lib.ds_paged_prefill_smem_bytes.restype = ll
         _built = built
     return _built
 
@@ -66,8 +68,17 @@ def kernel_build():
 
 def resolve_q_tile(T: int, S: int) -> int:
     """Tile only batches with real multi-token chunks: a pure-decode batch
-    has one token per sequence, where a tile buys no KV amortisation."""
+    has one token per sequence, where a tile buys no KV amortisation. Here
+    only the route (prefill when > 1, decode otherwise): the prefill kernel
+    sizes its own tile (:func:`prefill_q_tile`)."""
     return 8 if (T >= 64 and T >= 2 * max(S, 1)) else 1
+
+
+def prefill_q_tile(g: int) -> int:
+    """The prefill kernel's default tile for ``g`` query heads per kv head:
+    ``64 // g`` tokens, so a CTA's rows (tokens x heads) fill its 64 (four
+    warps of 16 on the tensor cores)."""
+    return max(1, 64 // g)
 
 
 def resolve_kv_splits(T: int, S: int, max_blocks: int, q_tile: int = 1) -> int:
@@ -88,11 +99,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: i
     q-tiled kernel. Returns [T, nq, d] in q's dtype."""
     T = q.shape[0]
     S, max_blocks = block_tables.shape
-    q_tile = resolve_q_tile(T, S)
-    if q_tile > 1:
+    if resolve_q_tile(T, S) > 1:
         return paged_prefill(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size,
-                             window=window, alibi=alibi, k_scale=k_scale, v_scale=v_scale,
-                             q_tile=q_tile)
+                             window=window, alibi=alibi, k_scale=k_scale, v_scale=v_scale)
     return paged_decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, window=window,
                         alibi=alibi, k_scale=k_scale, v_scale=v_scale,
                         kv_splits=resolve_kv_splits(T, S, max_blocks))
@@ -173,6 +182,26 @@ def prefill_tiles(seq_idx, pos, q_tile: int, n_seqs: int):
     tile_min = torch.full((n_tiles, ), 2**30, **i32).scatter_reduce_(
         0, tile_id, pos, reduce="amin", include_self=True)
     return tile_start, tile_len, tile_seq, tile_max, tile_min
+
+
+# the last descriptors computed on a card, with the very tensors they came
+# from: every layer of one serving forward passes the same seq_idx and pos,
+# so the ~25 small torch launches of prefill_tiles run once per forward
+_tiles_memo = None
+
+
+def cached_prefill_tiles(seq_idx, pos, q_tile: int, n_seqs: int):
+    """:func:`prefill_tiles`, reused while ``seq_idx`` and ``pos`` are the
+    same tensor objects, unmodified (their in-place version counters
+    unchanged), with the same ``q_tile`` and ``n_seqs``. The memo holds
+    those tensors, so their memory cannot be reused by others while it
+    stands."""
+    global _tiles_memo
+    key = (seq_idx._version, pos._version, int(q_tile), int(n_seqs))
+    m = _tiles_memo
+    if m is None or m[0] is not seq_idx or m[1] is not pos or m[2] != key:
+        m = _tiles_memo = (seq_idx, pos, key, prefill_tiles(seq_idx, pos, q_tile, n_seqs))
+    return m[3]
 
 
 # ---------------------------------------------------------------------------
@@ -292,11 +321,14 @@ def paged_decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int,
 
 
 def paged_prefill(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int, window=None,
-                  alibi=None, k_scale=None, v_scale=None, q_tile: int = 8):
+                  alibi=None, k_scale=None, v_scale=None, q_tile=None):
     """Q-tiled paged attention: one CTA per (tile of up to ``q_tile``
-    contiguous same-sequence tokens, kv head), so each KV block is read once
-    per tile. Reads q and writes the output in token order. CPU tensors
-    take the plain version."""
+    contiguous same-sequence tokens, kv head), so each KV slot is read once
+    per tile for all its tokens and query heads. ``q_tile`` defaults to
+    :func:`prefill_q_tile` (``64 // g``: 16 tokens at Mistral's g = 4);
+    ``q_tile * g`` may not exceed 64. Tiles never cross a sequence, so the
+    result does not depend on the tile. Reads q and writes the output in
+    token order. CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, block_tables, seq_idx, pos,
                                          block_size, window=window, alibi=alibi,
@@ -304,11 +336,11 @@ def paged_prefill(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int
     T, nq, d, nkv, quant, alibi = _check_common(q, k_pool, v_pool, block_tables, seq_idx, pos,
                                                 block_size, k_scale, v_scale, alibi)
     S, max_blocks = block_tables.shape
-    q_tile = int(q_tile)
+    q_tile = prefill_q_tile(nq // nkv) if q_tile is None else int(q_tile)
     if q_tile < 1 or q_tile * (nq // nkv) > 64:
         raise ValueError(f"paged_prefill needs 1 <= q_tile * (nq/nkv) <= 64, got q_tile={q_tile} "
                          f"with {nq // nkv} query heads per kv head")
-    tiles = prefill_tiles(seq_idx, pos, q_tile, S)
+    tiles = cached_prefill_tiles(seq_idx, pos, q_tile, S)
     tables, pos = _i32(block_tables), _i32(pos)
     lib = kernel_build().lib
     out = torch.empty_like(q)

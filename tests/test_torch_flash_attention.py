@@ -218,7 +218,8 @@ def test_cuda_kernels_match_plain_version_on_card():
     then dk/dv from that delta, against the plain version on the same bf16
     and float16 inputs (the backward on the kernel forward's out and lse):
     head_dim 64 and 128, S 1 / 100 / 257 (ragged), GQA 1 and 4, causal,
-    window 48 and ALiBi. Tolerance per element as ``chip_smoke.py`` states
+    window 48 and ALiBi (float16 too, with and without the window; the
+    forward's P . V takes P as a split pair of the input type). Tolerance per element as ``chip_smoke.py`` states
     it: 2 bf16 ulp of |plain| plus max(2^-14, 2^-12 rms(plain)) for the
     16-bit outputs, 2^-14 (1 + |plain|) for lse; delta, an fp32 sum of d
     products on both sides, within 2^-16 of its sum of absolute terms. The
@@ -231,7 +232,8 @@ def test_cuda_kernels_match_plain_version_on_card():
              ((6, 6), MODES["alibi_full"], torch.bfloat16),
              ((12, 3), MODES["alibi_window48"], torch.bfloat16),
              ((8, 2), MODES["window48"], torch.float16),
-             ((4, 4), MODES["alibi"], torch.float16)]
+             ((4, 4), MODES["alibi"], torch.float16),
+             ((8, 2), MODES["alibi_window48"], torch.float16)]
     for S in (1, 100, 257):
         for d in (64, 128):
             for (nq, nkv), (causal, window, alibi), dtype in cases:

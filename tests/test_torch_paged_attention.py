@@ -54,7 +54,14 @@ def _setup(case, batch, d=32, bs=16, n_seqs=3, blocks_per_seq=4):
         kw["alibi"] = alibi_slopes(nq)
     if "window" in case:
         kw["window"] = 17
-    if batch == "mixed":
+    if batch == "prefill":
+        # a prefill-shaped batch (T >= 64 and T >= 2 S): a 40-token chunk
+        # mid-context, a 30-token chunk from position 0, one decode token,
+        # then the pad run
+        seq_idx = np.asarray([0] * 40 + [1] * 30 + [2] + [0] * 9, np.int32)
+        pos = np.asarray(list(range(10, 50)) + list(range(30)) + [3 * bs + 12] + [0] * 9,
+                         np.int32)
+    elif batch == "mixed":
         # a 13-token prefill chunk, a 6-token chunk mid-context, one decode
         # token, then the pad run (seq 0, pos 0) that ragged batches carry
         seq_idx = np.asarray([0] * 13 + [1] * 6 + [2] + [0] * 4, np.int32)
@@ -139,7 +146,7 @@ def _random_runs(rng, n_seqs, T):
     return (np.asarray(seq_idx + [0] * pad, np.int32), np.asarray(pos + [0] * pad, np.int32))
 
 
-@pytest.mark.parametrize("q_tile", [1, 4, 8])
+@pytest.mark.parametrize("q_tile", [1, 4, 8, 16])
 def test_prefill_tiles_never_cross_a_sequence(q_tile):
     """Every token lands in exactly one tile; a tile holds at most q_tile
     consecutive tokens of one run (so of one sequence); the tile's seq and
@@ -163,6 +170,70 @@ def test_prefill_tiles_never_cross_a_sequence(q_tile):
         assert (covered == 1).all()
 
 
+@pytest.mark.parametrize("case", ["gqa", "int8_window", "alibi"])
+def test_prefill_route_at_its_tile_matches_pallas_q_tile_16(case, monkeypatch):
+    """A prefill-shaped batch takes ``paged_prefill`` with no tile given,
+    so the wrapper's default ``prefill_q_tile(g)`` applies (16 tokens at
+    g = 4, 32 at g = 2); the port's route on CPU tensors (the plain version)
+    is held against the Pallas q-tiled grid in interpret mode at q_tile 16."""
+    s = _setup(case, "prefill")
+    T, S = s["seq_idx"].size, s["tables"].shape[0]
+    assert tpa.resolve_q_tile(T, S) > 1
+    g = s["q"].shape[1] // s["k"].shape[1]
+    assert tpa.prefill_q_tile(g) == 64 // g
+    kw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in s["kw"].items()}
+    args = (torch.from_numpy(s["q"]), torch.from_numpy(s["k"]), torch.from_numpy(s["v"]),
+            torch.from_numpy(s["tables"]), torch.from_numpy(s["seq_idx"]),
+            torch.from_numpy(s["pos"]), s["bs"])
+    seen = []
+    real = tpa.paged_prefill
+
+    def spy(*a, **k):
+        seen.append(k.get("q_tile"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(tpa, "paged_prefill", spy)
+    ours = tpa.paged_attention(*args, **kw).numpy()
+    assert seen == [None]
+    jargs = (jnp.asarray(s["q"]), jnp.asarray(s["k"]), jnp.asarray(s["v"]),
+             jnp.asarray(s["tables"]), jnp.asarray(s["seq_idx"]), jnp.asarray(s["pos"]))
+    out = jpa._pallas_paged(*jargs, block_size=s["bs"], interpret=True, q_tile=16,
+                            **_jax_kw(s, pallas=True))
+    np.testing.assert_allclose(ours, np.asarray(out), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 8, 16, 33, 64])
+def test_prefill_default_tile_fills_64_rows(g):
+    """The prefill kernel's default tile is 64 // g tokens: never more than
+    64 rows (tokens x query heads of a kv head) and at least one token."""
+    qt = tpa.prefill_q_tile(g)
+    assert qt == 64 // g and 1 <= qt and qt * g <= 64 < (qt + 1) * g
+
+
+def test_cached_prefill_tiles_reuse_only_the_same_unmodified_tensors():
+    """The wrapper's descriptor memo: the same seq_idx / pos objects with the
+    same tile and sequence count reuse the descriptors (the serving forward
+    passes them to every layer); an in-place edit, another tile, another
+    count or an equal copy recomputes, and the result is always
+    ``prefill_tiles``'s."""
+    rng = np.random.default_rng(7)
+    seq_np, pos_np = _random_runs(rng, 3, T=130)
+    seq_idx, pos = torch.from_numpy(seq_np), torch.from_numpy(pos_np)
+    first = tpa.cached_prefill_tiles(seq_idx, pos, 16, 3)
+    assert tpa.cached_prefill_tiles(seq_idx, pos, 16, 3) is first
+    for got in (tpa.cached_prefill_tiles(seq_idx, pos, 8, 3),
+                tpa.cached_prefill_tiles(seq_idx, pos, 16, 4),
+                tpa.cached_prefill_tiles(seq_idx.clone(), pos, 16, 3)):
+        assert got is not first
+    fresh = tpa.cached_prefill_tiles(seq_idx, pos, 16, 3)
+    assert fresh is not first  # the memo holds one entry: the last call's
+    pos[5] += 1  # an in-place edit bumps the version counter
+    edited = tpa.cached_prefill_tiles(seq_idx, pos, 16, 3)
+    assert edited is not fresh
+    for got, want in zip(edited, tpa.prefill_tiles(seq_idx, pos, 16, 3)):
+        assert torch.equal(got, want)
+
+
 def test_dispatch_heuristics_match_jax_defaults():
     for T in (1, 8, 32, 63, 64, 128, 512, 768):
         for S in (1, 4, 8, 32, 64):
@@ -176,12 +247,14 @@ def test_dispatch_heuristics_match_jax_defaults():
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_version_on_card():
     """On the card: each kernel path against the plain version, bf16 and
-    int8 pools, at head_dim 64 and 128. Tolerance, per element: 2 bf16 ulps
-    at |plain| plus 2^-14. Both compute in fp32 throughout and round once to
-    bf16, so their fp32 results differ only by summation order (~1e-6 of the
-    terms' size) and round to bf16 numbers at most one ulp apart, two across
-    a power of two; the floor covers near-zero outputs whose ulp is smaller
-    than the summation-order difference."""
+    int8 pools, at head_dim 64 and 128; the prefill at q_tile 4, at its full
+    tile 64 // g given and at its default. Tolerance, per element: 2 bf16
+    ulps at |plain| plus 2^-14. Both sum in fp32 and round once to bf16 (the
+    prefill's tensor-core products take the 16-bit inputs exactly and feed
+    the probabilities as a split hi + lo pair, ~2^-17 relative), so their
+    fp32 results differ by ~1e-6 of the terms' size and round to bf16
+    numbers at most one ulp apart, two across a power of two; the floor
+    covers near-zero outputs whose ulp is smaller than that difference."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -202,7 +275,9 @@ def test_cuda_kernels_match_plain_version_on_card():
             ref = tpa.paged_attention_reference(*args, **kw).float()
             for out in (tpa.paged_decode(*args, kv_splits=1, **kw),
                         tpa.paged_decode(*args, kv_splits=3, **kw),
-                        tpa.paged_prefill(*args, q_tile=4, **kw)):
+                        tpa.paged_prefill(*args, q_tile=4, **kw),
+                        tpa.paged_prefill(*args, q_tile=64 // (q.shape[1] // k.shape[1]), **kw),
+                        tpa.paged_prefill(*args, **kw)):
                 torch.cuda.synchronize()
                 err = (out.float() - ref).abs()
                 ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
