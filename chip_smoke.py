@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
                                     train,moe_train,sparse_train,evo_kernels,evo_path]
-    python3 chip_smoke.py --mutant
-    python3 chip_smoke.py --ablation
+    python3 chip_smoke.py --mutant [NAMES]
+    python3 chip_smoke.py --ablation [NAMES]
+    python3 chip_smoke.py --versus DIR [--phases moe_kernels,moe_train]
 
 With no arguments every phase runs, in this order; each must pass (exit
 code 1 otherwise):
@@ -59,8 +60,11 @@ code 1 otherwise):
    plain version and a library call: ``F.scaled_dot_product_attention``
    forward, and its autograd backward for the two backward kernels
    together; ``torch.optim.AdamW(fused=True)`` on the same tensors.
-4. moe_kernels: hold the grouped matmul kernels (``gmm``, with and without
-   ``trans_b``, and ``tgmm``) against their plain versions on small cases
+4. moe_kernels: count the ``HGMMA`` instructions in the grouped matmul
+   library's SASS (``cuobjdump -sass``; none, or no cuobjdump, fails) and
+   print the wgmma kernels' ptxas registers, spills and shared memory; hold
+   the grouped matmul kernels (``gmm``, with and without ``trans_b``, and
+   ``tgmm``) against their plain versions on small cases
    (bf16 and fp16, K and N off the tiles and off multiples of 8, an expert
    owning only a zero padding block, a single expert, 256-row blocks, the
    main path's widths) and at the main path's shapes (Mixtral-8x7B's expert
@@ -73,7 +77,10 @@ code 1 otherwise):
    sqrt(128 / n) of its size, far above. Times against the bound (counted
    over the routed rows), the plain version and a library yardstick
    (``torch._grouped_mm`` where it takes the layout, else a loop of E
-   ``torch.mm``). Then the serving modules at Mixtral width,
+   ``torch.mm``). Each case prints its route (``route(K, N)``: the wgmma
+   kernels for widths that are multiples of 8, else the wmma ones), and the
+   Mixtral widths must launch only the wgmma kernels; tgmm's dw cast to
+   bf16 is timed beside it. Then the serving modules at Mixtral width,
    ``grouped_gemm_moe`` against ``top_k_gated_moe`` (relative L2 1e-2) on
    a 512-token chunk and an 8-token decode batch.
 5. sparse_kernels: hold ``block_sparse_fwd`` against the plain gathered
@@ -182,15 +189,24 @@ CTA's last live k-tile (``--phases build,train_kernels``, the same), and
 the paged prefill skipping each CTA's last live k-tile (``--phases
 build,kernels``, the same). It passes when every mutant is caught.
 
-``--ablation`` times the flash kernels and the paged prefill against
-copies under ``build/ablation/<name>``, each undoing one design choice of
-``ABLATIONS`` (the grid order of the backward and of the forward, the
-prefill's tile order, the mask fast path, the two-level accumulation, each
-split pair): ``--phases
-kernels,train_kernels`` in every copy in turns, each version twice,
-printing the main shapes' forward, dk/dv, dq and prefill times and each
-phase's largest error as a fraction of the tolerance
-(``worst_error_fraction``; above 1 fails that check).
+``--ablation`` times the flash kernels, the paged prefill and the grouped
+matmul against copies under ``build/ablation/<name>``, each undoing one
+design choice of ``ABLATIONS`` (the grid order of the backward and of the
+forward, the prefill's tile order, the mask fast path, the two-level
+accumulation, each split pair; the grouped matmul's ring two stages deep,
+one CTA per tile): ``--phases kernels,train_kernels`` (``moe_kernels``
+for the grouped matmul) in every copy in turns, each version twice,
+printing the main shapes' times and each phase's largest error as a
+fraction of the tolerance (``worst_error_fraction``; above 1 fails that
+check). ``--mutant`` and ``--ablation`` take an optional comma-separated
+subset of names.
+
+``--versus DIR`` times this tree against another checkout of the
+repository (e.g. ``git archive <parent> | tar -x -C build/parent``), each
+with its own script and kernels built at once: ``--phases`` (default
+``moe_kernels,moe_train``) in the order DIR, this, this, DIR, printing the
+grouped matmul's times, the MoE step and its top device ops per run, and
+one JSON line of all runs.
 
 It prints the card (name and power limit) and, on the line before the last,
 ``{"kernels": [...]}``; the last line is
@@ -1131,6 +1147,40 @@ def _library_grouped(kind, a, b, be, bt, E):
         torch.mm(a[bounds[e]:bounds[e + 1]].t(), b[bounds[e]:bounds[e + 1]]) for e in range(E)]
 
 
+def _gmm_sass_check(gm):
+    """The grouped matmul library's SASS must hold warpgroup MMAs (HGMMA):
+    count them with ``cuobjdump -sass``; raise without cuobjdump or with
+    none. Also print ptxas's registers / shared memory / spills of the
+    wgmma route's kernels."""
+    import shutil
+
+    built = gm.kernel_build()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found: the HGMMA check of the grouped matmul needs it")
+    sass = subprocess.run([tool, "-sass", str(built.path)], capture_output=True, text=True,
+                          timeout=300).stdout
+    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"[moe_kernels] cuobjdump -sass {os.path.relpath(built.path, HERE)}: {n_hgmma} HGMMA "
+        f"instructions")
+    import re
+
+    name = None
+    for line in built.ptxas.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"wgmma_kernelI(?:13__nv_bfloat16|6__half)Li(\d)E", line)
+            kind = ("gmm", "gmm trans_b", "tgmm")[int(m.group(1))] if m else None
+            name = kind and f"{kind} {'fp16' if '6__half' in line else 'bf16'}"
+        elif name and ("Used" in line or "spill" in line or "warning" in line.lower()):
+            log(f"[moe_kernels] ptxas, wgmma route {name}: {line.split(':', 1)[-1].strip()}")
+    lib = built.lib
+    log(f"[moe_kernels] wgmma route dynamic shared memory per CTA: {lib.ds_gmm_smem_bytes()} B "
+        f"(3 ring stages of 48 KB, 2 x 32 KB of output staging)")
+    if n_hgmma == 0:
+        raise RuntimeError("the grouped matmul library holds no HGMMA instruction")
+    return n_hgmma
+
+
 def phase_moe_kernels():
     """Returns {kernel name: measurement dict} for gmm and tgmm."""
     import torch
@@ -1141,6 +1191,7 @@ def phase_moe_kernels():
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' fp32 products
+    n_hgmma = _gmm_sass_check(gm)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     failures = []
@@ -1155,6 +1206,7 @@ def phase_moe_kernels():
             failures.append(f"{name} {tag}: max_abs_err {e:.3e}, {frac:.2f}x its tolerance")
 
     def check_all(tag, lhs, rhs, dy, be, bt, E):
+        tag = f"{tag} route={gm.route(lhs.shape[1], dy.shape[1])}"
         out = gm.gmm(lhs, rhs, be, bt)
         dx = gm.gmm(dy, rhs, be, bt, trans_b=True)
         dw = gm.tgmm(lhs, dy, be, E, bt)
@@ -1186,6 +1238,9 @@ def phase_moe_kernels():
         rhs = (torch.randn(E, K, N, generator=gen, device=dev) / K**0.5).to(dt)
         check_all(f"T={T} K={K} N={N} E={E} bt={bt} {str(dt)[6:]} table={be_list}", lhs, rhs,
                   dy, be, bt, E)
+    routes = {r: [f"K={K} N={N}" for _, K, N, *_ in cases if gm.route(K, N) == r]
+              for r in ("wgmma", "wmma")}
+    log(f"[moe_kernels] routes of the small cases (by shape alone, gm.route(K, N)): {routes}")
     log(f"[moe_kernels] small-size matrix ({len(cases)} cases x gmm, gmm trans_b, tgmm): "
         f"{'all within tolerance' if not failures else failures}; largest errors: gmm "
         f"{worst['gmm'][0]:.3e} ({worst['gmm'][1]:.3f} of tolerance), tgmm {worst['tgmm'][0]:.3e} "
@@ -1206,8 +1261,15 @@ def phase_moe_kernels():
     mid[(x_sorted == 0).all(dim=1)] = 0  # padding rows stay zero, as after the activation
     rows = S * k
     del x
+    gm.reset_launch_counts()
     check_all(f"main T_pad={T_pad}", x_sorted, wi, mid, be, bt, E)
     check_all(f"main-down T_pad={T_pad}", mid, wo, x_sorted, be, bt, E)
+    main_launches = dict(gm.launch_counts)
+    log(f"[moe_kernels] launches at the Mixtral widths (two checks of gmm, gmm trans_b, tgmm): "
+        f"{main_launches} (route {gm.route(H, Fd)} only)")
+    if main_launches != {"gmm": 4, "tgmm": 2, "gmm_wmma": 0, "tgmm_wmma": 0}:
+        failures.append(f"the Mixtral widths did not go only through the wgmma kernels: "
+                        f"{main_launches}")
     calls = {  # name -> (kernel fn, plain fn, library kind and operands, flops, bytes)
         "gmm up (K 4096, N 14336)": (
             lambda: gm.gmm(x_sorted, wi, be, bt), lambda: gm.gmm_plain(x_sorted, wi, be, bt),
@@ -1238,7 +1300,13 @@ def phase_moe_kernels():
             f"plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP, "
             f"{n_bytes / 1e9:.3f} GB), {lib_name} {lib_ms:.3f} ms; "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
-    del mid
+    dw = gm.tgmm(x_sorted, mid, be, E, bt)
+    cast_ms = time_ms(lambda: dw.to(torch.bfloat16), iters=10, warmup=2)
+    cast_bound, _ = bound_ms(dw.numel() * (4 + 2), 0)
+    log(f"[moe_kernels] tgmm's dw cast to bf16 (GroupedMatmul.backward's .to(rhs.dtype), "
+        f"{dw.numel() / 1e9:.3f}e9 elements): {cast_ms:.3f} ms, bound {cast_bound:.4f} ms (bytes)")
+    meas["tgmm dw (K 4096, N 14336)"]["dw_cast_ms"] = cast_ms
+    del mid, dw
 
     # the serving modules at Mixtral width: grouped_gemm_moe vs
     # top_k_gated_moe (dense dispatch, plain products), a 512-token chunk
@@ -1273,8 +1341,10 @@ def phase_moe_kernels():
     if failures:
         raise RuntimeError("grouped matmul kernels disagree: " + "; ".join(failures[:12]))
     up = meas["gmm up (K 4096, N 14336)"]
-    res = {"gmm": dict(err=worst["gmm"][0], **up, calls=meas),
-           "tgmm": dict(err=worst["tgmm"][0], **meas["tgmm dw (K 4096, N 14336)"])}
+    res = {"gmm": dict(err=worst["gmm"][0], **up, calls=meas, hgmma_in_sass=n_hgmma,
+                       worst_error_fraction=worst["gmm"][1]),
+           "tgmm": dict(err=worst["tgmm"][0], **meas["tgmm dw (K 4096, N 14336)"],
+                        worst_error_fraction=worst["tgmm"][1])}
     res["gmm"]["serving_module"] = serve
     return res
 
@@ -1509,7 +1579,8 @@ def phase_moe_train():
     med = float(np.median(times))
     per_mb = MOE_LAYERS * gas
     expected = {"gmm": 6 * per_mb * TIMED_STEPS, "tgmm": 3 * per_mb * TIMED_STEPS,
-                "flash_fwd": per_mb * TIMED_STEPS, "flash_bwd_dkdv": per_mb * TIMED_STEPS,
+                "gmm_wmma": 0, "tgmm_wmma": 0, "flash_fwd": per_mb * TIMED_STEPS,
+                "flash_bwd_dkdv": per_mb * TIMED_STEPS,
                 "flash_bwd_dq": per_mb * TIMED_STEPS, "fused_adam": TIMED_STEPS}
     log(f"[moe_train] {gas} microbatches x {TRAIN_SEQ} tokens = {tokens} tokens/step; losses "
         f"(warm step, then {TIMED_STEPS} timed): {[round(x, 5) for x in losses]}")
@@ -1518,7 +1589,8 @@ def phase_moe_train():
         f"peak memory {peak / 2**30:.2f} GiB")
     log(f"[moe_train] kernel launches on the main path over {TIMED_STEPS} steps: {launches} "
         f"(expected {expected}: per step {MOE_LAYERS} layers x {gas} microbatches x (3 forward + "
-        f"3 dx) gmm, x 3 dw tgmm, x 1 of each flash kernel; 1 fused Adam)")
+        f"3 dx) gmm, x 3 dw tgmm, all on the wgmma route, x 1 of each flash kernel; 1 fused "
+        f"Adam)")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"losses not finite and falling: {losses}")
     if launches != expected:
@@ -2349,8 +2421,9 @@ def phase_evo_path():
 
 
 # the mutant checks. Grouped matmul: a copy that drops one row block's
-# contribution (gmm: the second 128-row tile's products; tgmm: each expert's
-# first row block) must fail the moe_kernels phase by far. Block-sparse,
+# contribution (gmm on the wgmma route: the second 128-row tile's products;
+# tgmm on both routes: each expert's first row block) must fail the
+# moe_kernels phase by far. Block-sparse,
 # Evoformer, flash and paged prefill: a copy whose kernel skips the last of
 # its loop's items (a LUT column, a group row, a live q- or k-tile) must
 # fail its phase by more than MUTANT_MIN_FACTOR x its tolerance. Each
@@ -2363,10 +2436,11 @@ def _in(path, pairs):
 
 
 GMM_MUTATIONS = _in(GMM_SRC, (
-    ("  // the pipeline's shared memory is free now",
-     "  if (m_tile == 1) zero_acc(acc);\n  // the pipeline's shared memory is free now"),
-    ("const int r_begin = first * bt, r_end = lo * bt;",
-     "const int r_begin = (first + (lo > first ? 1 : 0)) * bt, r_end = lo * bt;"),
+    ("    // out: each consumer warpgroup writes its 64 rows",
+     "    if (KIND != kTgmm && x.row0 == kBM)\n"
+     "      for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;\n"
+     "    // out: each consumer warpgroup writes its 64 rows"),
+    ("  r_begin = first * bt;", "  r_begin = (first + (lo > first ? 1 : 0)) * bt;"),
 ))
 BSA_MUTATIONS = _in(BSA_SRC, (
     ("const int n_keys = nv * a.block;", "const int n_keys = (nv > 0 ? nv - 1 : 0) * a.block;"),
@@ -2456,7 +2530,22 @@ ABLATIONS = {
                                                "mma_wm<D, T, false>(acc, p, sV, lane);"),)),
     "prefill_single_p": _SINGLE + _in(SOURCE, (("mma_wm<D, T>(acc, pf, sV, lane);",
                                                 "mma_wm<D, T, false>(acc, pf, sV, lane);"),)),
+    # the grouped matmul's TMA ring two stages deep, not three: loads one
+    # stage ahead of the products, not two
+    "gmm_ring2": _in(GMM_SRC, (("constexpr int kStages = 3;", "constexpr int kStages = 2;"),)),
+    # one CTA per output tile, not a persistent CTA per SM walking the tiles
+    # (nothing overlaps one tile's epilogue with the next one's loads)
+    "gmm_cta_per_tile": _in(GMM_SRC, (("constexpr bool kPersistent = true;",
+                                       "constexpr bool kPersistent = false;"),)),
 }
+GMM_HDR = "deepspeed_tpu_torch/ops/csrc/wgmma_sm90.cuh"
+
+
+def _ablation_phases(name):
+    """The phases that time an ablation: ``moe_kernels`` for the grouped
+    matmul's sources, ``kernels,train_kernels`` for the attention kernels'."""
+    return ("moe_kernels" if {p for p, _, _ in ABLATIONS[name]} <= {GMM_SRC, GMM_HDR}
+            else "kernels,train_kernels")
 
 
 def _patched_copy(kind, name, replacements):
@@ -2514,30 +2603,69 @@ def _run_one_mutant(name):
     return caught
 
 
-def run_mutant():
-    """Every mutant of ``MUTANTS`` must be caught. Returns an exit code."""
-    results = {name: _run_one_mutant(name) for name in MUTANTS}
+def run_mutant(which="all"):
+    """Every mutant of ``MUTANTS`` (or the comma-separated names in
+    ``which``) must be caught. Returns an exit code."""
+    names = list(MUTANTS) if which == "all" else [n for n in which.split(",") if n]
+    if set(names) - set(MUTANTS):
+        log(f"[mutant] unknown mutants {sorted(set(names) - set(MUTANTS))}")
+        return 1
+    results = {name: _run_one_mutant(name) for name in names}
     return 0 if all(results.values()) else 1
 
 
-def run_ablation():
-    """The unchanged sources (``base``) and each of ``ABLATIONS`` in a copy
-    under build/ablation/; the copies' flash and paged attention kernels
-    are built in parallel, then ``--phases kernels,train_kernels`` runs in
-    each copy in turns, base and the ablations and then the same in
-    reverse, so every version is timed twice on one card. Prints one line
-    per run and, last, one JSON object with every run. Returns an exit
-    code: 1 when a copy does not build or a run prints no times (an
-    ablation that misses the tolerance is a result, not a failure)."""
+_ATTN_BUILD = ("from deepspeed_tpu_torch.ops import flash_attention as fa, paged_attention as pa; "
+               "fa.kernel_build(); pa.kernel_build()")
+_GMM_BUILD = "from deepspeed_tpu_torch.ops import grouped_matmul as gm; gm.kernel_build()"
+
+
+def _num(pattern, text):
     import re
 
-    names = ["base", *ABLATIONS]
+    found = re.findall(pattern, text)
+    return float(found[-1]) if found else None
+
+
+def _gmm_times(stdout):
+    """The grouped matmul's main-shape times and largest error fractions
+    printed by a ``moe_kernels`` run (this script's or the parent's)."""
+    return {"gmm_up_ms": _num(r"\] gmm up \(K 4096, N 14336\).*?: ([0-9.]+) ms", stdout),
+            "gmm_down_ms": _num(r"\] gmm down \(K 14336, N 4096\).*?: ([0-9.]+) ms", stdout),
+            "gmm_dx_ms": _num(r"\] gmm dx trans_b \(K 14336, N 4096\).*?: ([0-9.]+) ms", stdout),
+            "tgmm_ms": _num(r"\] tgmm dw \(K 4096, N 14336\).*?: ([0-9.]+) ms", stdout),
+            "gmm_error_fraction": _num(r"over all cases: gmm ([0-9.]+) of", stdout),
+            "tgmm_error_fraction": _num(r"over all cases: gmm .*?, tgmm ([0-9.]+) \(", stdout)}
+
+
+def run_ablation(which="all"):
+    """The unchanged sources (``base``) and each of ``ABLATIONS`` (or the
+    comma-separated names in ``which``) in a copy under build/ablation/;
+    the copies' kernels are built in parallel, then each copy runs the
+    phases that time it (``_ablation_phases``; base runs all of them) in
+    turns, base and the ablations and then the same in reverse, so every
+    version is timed twice on one card. Prints one line per run and, last,
+    one JSON object with every run. Returns an exit code: 1 when a copy
+    does not build or a run prints no times (an ablation that misses the
+    tolerance is a result, not a failure)."""
+    chosen = list(ABLATIONS) if which == "all" else [n for n in which.split(",") if n]
+    unknown = sorted(set(chosen) - set(ABLATIONS))
+    if unknown:
+        log(f"[ablation] unknown ablations {unknown}; known: {list(ABLATIONS)}")
+        return 1
+    phases = {n: _ablation_phases(n) for n in chosen}
+    phases["base"] = ",".join(sorted(set(",".join(phases.values()).split(",")),
+                                     key=PHASES.index))
+    names = ["base", *chosen]
     dirs = {n: _patched_copy("ablation", n, ABLATIONS.get(n, ())) for n in names}
     if None in dirs.values():
         return 1
-    build = ("from deepspeed_tpu_torch.ops import flash_attention as fa, paged_attention as pa; "
-             "fa.kernel_build(); pa.kernel_build()")
-    procs = {n: subprocess.Popen([sys.executable, "-c", build], cwd=d, stdout=subprocess.PIPE,
+
+    def build(n):
+        parts = ([_ATTN_BUILD] if "kernels" in phases[n].split(",") else []) + (
+            [_GMM_BUILD] if "moe_kernels" in phases[n] else [])
+        return "; ".join(parts)
+
+    procs = {n: subprocess.Popen([sys.executable, "-c", build(n)], cwd=d, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
              for n, d in dirs.items()}
     failed = False
@@ -2550,37 +2678,93 @@ def run_ablation():
         return 1
     runs = []
     for n in names + names[::-1]:
-        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases",
-                               "kernels,train_kernels"],
+        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", phases[n]],
                               cwd=dirs[n], capture_output=True, text=True, timeout=900)
-
-        def num(pattern):
-            found = re.findall(pattern, proc.stdout)
-            return float(found[-1]) if found else None
-
-        r = {"name": n, "rc": proc.returncode,
-             "fwd_ms": num(r"\] flash_fwd .*?: ([0-9.]+) ms"),
-             "dkdv_ms": num(r"\] flash_bwd_dkdv .*?: ([0-9.]+) ms"),
-             "dq_ms": num(r"\] flash_bwd_dq .*?: ([0-9.]+) ms"),
-             "prefill_ms": num(r"\] prefill T=\d+ int8=False .*?paged_prefill ([0-9.]+) ms"),
-             "prefill_device_ms": num(r"\] device time per call .*?paged_prefill ([0-9.]+) /"),
-             "sdpa_fwd_ms": num(r"\] flash_fwd .*sdpa forward ([0-9.]+) ms"),
-             "sdpa_bwd_ms": num(r"\] flash_bwd_dq .*sdpa backward ([0-9.]+) ms"),
-             "flash_worst_error_fraction": _worst_error_fraction(proc.stdout, "train_kernels"),
-             "paged_worst_error_fraction": _worst_error_fraction(proc.stdout, "kernels")}
+        out = proc.stdout
+        r = {"name": n, "rc": proc.returncode}
+        need = []
+        if "train_kernels" in phases[n]:
+            r.update({
+                "fwd_ms": _num(r"\] flash_fwd .*?: ([0-9.]+) ms", out),
+                "dkdv_ms": _num(r"\] flash_bwd_dkdv .*?: ([0-9.]+) ms", out),
+                "dq_ms": _num(r"\] flash_bwd_dq .*?: ([0-9.]+) ms", out),
+                "prefill_ms": _num(r"\] prefill T=\d+ int8=False .*?paged_prefill ([0-9.]+) ms",
+                                   out),
+                "prefill_device_ms": _num(r"\] device time per call .*?paged_prefill ([0-9.]+) /",
+                                          out),
+                "sdpa_fwd_ms": _num(r"\] flash_fwd .*sdpa forward ([0-9.]+) ms", out),
+                "sdpa_bwd_ms": _num(r"\] flash_bwd_dq .*sdpa backward ([0-9.]+) ms", out),
+                "flash_worst_error_fraction": _worst_error_fraction(out, "train_kernels"),
+                "paged_worst_error_fraction": _worst_error_fraction(out, "kernels")})
+            need += ["fwd_ms", "dkdv_ms", "dq_ms", "prefill_ms"]
+        if "moe_kernels" in phases[n]:
+            r.update(_gmm_times(out))
+            need += ["gmm_up_ms", "tgmm_ms"]
         runs.append(r)
-        log(f"[ablation] {n}: forward {r['fwd_ms']} ms, dk/dv {r['dkdv_ms']} ms, dq "
-            f"{r['dq_ms']} ms, prefill {r['prefill_ms']} ms (device {r['prefill_device_ms']}), "
-            f"sdpa forward {r['sdpa_fwd_ms']} / backward {r['sdpa_bwd_ms']} ms, "
-            f"worst_error_fraction flash {r['flash_worst_error_fraction']} / paged "
-            f"{r['paged_worst_error_fraction']} (exit {r['rc']})")
-        failed = failed or None in (r["fwd_ms"], r["dkdv_ms"], r["dq_ms"], r["prefill_ms"])
+        log(f"[ablation] {n} ({phases[n]}): "
+            + ", ".join(f"{k} {v}" for k, v in r.items() if k not in ("name", "rc"))
+            + f" (exit {r['rc']})")
+        failed = failed or any(r.get(k) is None for k in need)
     import torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "runs": runs}), flush=True)
+    return 1 if failed else 0
+
+
+def run_versus(other, phases):
+    """Time this tree against another checkout of the repository
+    (``other``, e.g. a ``git archive`` of the parent commit under
+    build/parent), each with its own script and kernels: ``--phases build``
+    in both at once, then ``--phases <phases>`` (without build) in the order
+    other, this, this, other, one process each, so that each tree is timed
+    twice on one card. Prints each run's grouped matmul times, MoE step and
+    top device ops, and last one JSON object of every run. Returns an exit
+    code: 1 when a build or a run fails."""
+    other = os.path.abspath(other)
+    dirs = {"other": other, "this": HERE}
+    builds = {n: subprocess.Popen([sys.executable, "chip_smoke.py", "--phases", "build"], cwd=d,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+              for n, d in dirs.items()}
+    failed = False
+    for n, proc in builds.items():
+        text = proc.communicate(timeout=900)[0]
+        for line in text.splitlines():
+            if line.startswith("[build]") and ("nvcc" in line or "grouped" in line):
+                log(f"[versus] {n}: {line}")
+        if proc.returncode:
+            log(f"[versus] {n}: build failed\n{text[-3000:]}")
+            failed = True
+    if failed:
+        return 1
+    runs = []
+    for n in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", ",".join(phases)],
+                              cwd=dirs[n], capture_output=True, text=True, timeout=1800)
+        out = proc.stdout
+        r = {"tree": n, "rc": proc.returncode, **_gmm_times(out),
+             "moe_step_ms": _num(r"\[moe_train\] step time median ([0-9.]+) ms", out),
+             "moe_idle_pct": _num(r"\[moe_train\] profiled step: .*?device idle ([0-9.]+)%", out),
+             "moe_top_ops": [line.split("]", 1)[1].strip() for line in out.splitlines()
+                             if line.startswith("[moe_train]   ")]}
+        runs.append(r)
+        log(f"[versus] {n} ({dirs[n]}): "
+            + ", ".join(f"{k} {v}" for k, v in r.items() if k not in ("tree", "rc", "moe_top_ops"))
+            + f" (exit {r['rc']})")
+        for line in r["moe_top_ops"]:
+            log(f"[versus] {n}   {line}")
+        if proc.returncode:
+            log(f"[versus] {n}: failed\n{out[-3000:]}")
+            failed = True
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "other": other, "phases": phases,
+                      "runs": runs}), flush=True)
     return 1 if failed else 0
 
 
@@ -2593,12 +2777,15 @@ def main():
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES} (default: all; a subset prints no "
                          f"result lines)")
-    ap.add_argument("--mutant", action="store_true",
-                    help="run the mutant checks alone (grouped matmul, block-sparse, Evoformer, "
-                         "flash backward, flash forward, paged prefill: each must be caught)")
-    ap.add_argument("--ablation", action="store_true",
-                    help=f"time the flash and paged prefill kernels against their ablations "
-                         f"{tuple(ABLATIONS)}, each version twice in turns")
+    ap.add_argument("--mutant", nargs="?", const="all", default=None, metavar="NAMES",
+                    help=f"run the mutant checks alone ({tuple(MUTANTS)}, or the comma-separated "
+                         f"NAMES): each must be caught")
+    ap.add_argument("--ablation", nargs="?", const="all", default=None, metavar="NAMES",
+                    help=f"time the kernels against their ablations {tuple(ABLATIONS)} (all, or "
+                         f"the comma-separated NAMES), each version twice in turns")
+    ap.add_argument("--versus", metavar="DIR",
+                    help="time --phases (without build; default moe_kernels,moe_train) in this "
+                         "tree and in the checkout DIR, in the order DIR, this, this, DIR")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -2620,9 +2807,13 @@ def main():
               file=sys.stderr)
         return 2
     if args.mutant:
-        return run_mutant()
+        return run_mutant(args.mutant)
     if args.ablation:
-        return run_ablation()
+        return run_ablation(args.ablation)
+    if args.versus:
+        chosen = [p for p in phases if p != "build"]
+        return run_versus(args.versus, chosen if tuple(phases) != PHASES
+                          else ["moe_kernels", "moe_train"])
     t_all = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2675,7 +2866,8 @@ def main():
     moe_launches, moe_step = out["moe_train"]
     for name, m in out["moe_kernels"].items():
         src, replaces = MOE_KERNELS[name]
-        extra = {k: m[k] for k in ("library", "t_pad", "routed_rows", "calls", "serving_module")
+        extra = {k: m[k] for k in ("library", "t_pad", "routed_rows", "calls", "serving_module",
+                                   "hgmma_in_sass", "worst_error_fraction", "dw_cast_ms")
                  if k in m}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": int(moe_launches[name]), "max_abs_err": m["err"],

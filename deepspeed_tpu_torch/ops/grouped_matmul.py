@@ -26,7 +26,15 @@ on a CUDA tensor they launch their kernel or raise. The TPU package's
 kernel-config registry (``_resolve_gmm_tiles``) is not ported: the kernels
 pick their own tiles. On the card ``block_t`` must be a multiple of 128.
 
-``launch_counts`` counts kernel launches per kernel; nothing else adds to it.
+Two kernel routes, chosen by :func:`route` from the widths alone (never on
+a failure): ``"wgmma"`` (``ds_gmm`` / ``ds_tgmm``: Hopper's warpgroup MMA
+fed by TMA, which needs every operand row to start on 16 bytes, so K and N
+multiples of 8) and ``"wmma"`` (``ds_gmm_wmma`` / ``ds_tgmm_wmma``: the
+first version's ``nvcuda::wmma`` kernels, for any other width).
+
+``launch_counts`` counts kernel launches per kernel and route (``gmm`` and
+``tgmm`` the wgmma route, ``gmm_wmma`` and ``tgmm_wmma`` the other);
+nothing else adds to it.
 """
 
 import ctypes
@@ -35,8 +43,10 @@ import torch
 
 from ._build import build_kernel
 
-launch_counts = {"gmm": 0, "tgmm": 0}
+launch_counts = {"gmm": 0, "tgmm": 0, "gmm_wmma": 0, "tgmm_wmma": 0}
 KERNEL_ROWS = 128  # the kernels' row tile: block_t must be a multiple on the card
+MAX_EXPERTS = 65535  # the kernels' expert bound (csrc/grouped_matmul.cu: kMaxExperts)
+_SUFFIX = {"wgmma": "", "wmma": "_wmma"}  # route -> suffix of its C entry points and counts
 
 _built = None
 
@@ -54,10 +64,11 @@ def kernel_build():
         built = build_kernel("grouped_matmul")
         lib = built.lib
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ds_gmm.argtypes = [vp] * 4 + [i] * 6 + [vp]
-        lib.ds_gmm.restype = i
-        lib.ds_tgmm.argtypes = [vp] * 4 + [i] * 6 + [vp]
-        lib.ds_tgmm.restype = i
+        for fn in (lib.ds_gmm, lib.ds_tgmm, lib.ds_gmm_wmma, lib.ds_tgmm_wmma):
+            fn.argtypes = [vp] * 4 + [i] * 6 + [vp]
+            fn.restype = i
+        lib.ds_gmm_smem_bytes.argtypes = []
+        lib.ds_gmm_smem_bytes.restype = i
         lib.ds_gmm_error_string.argtypes = [i]
         lib.ds_gmm_error_string.restype = ctypes.c_char_p
         _built = built
@@ -99,6 +110,14 @@ def tgmm_plain(lhs, dy, block_expert, num_experts, block_t=128):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+def route(K: int, N: int) -> str:
+    """The kernel route for a product of reduction width / output width
+    ``K`` / ``N`` (gmm) or output ``[K, N]`` (tgmm): ``"wgmma"`` when both
+    are multiples of 8 (TMA describes only rows that start on 16 bytes),
+    else ``"wmma"``."""
+    return "wgmma" if K % 8 == 0 and N % 8 == 0 else "wmma"
+
 
 def _check(name, a, b, block_expert, block_t):
     if a.dim() != 2:
@@ -146,14 +165,18 @@ def gmm(lhs, rhs, block_expert, block_t=128, trans_b=False):
         raise ValueError(f"gmm: rhs {tuple(rhs.shape)} does not contract with lhs "
                          f"{tuple(lhs.shape)} (trans_b={trans_b})")
     N = rhs.shape[1] if trans_b else rhs.shape[2]
+    if rhs.shape[0] > MAX_EXPERTS:
+        raise ValueError(f"gmm: the kernels address at most {MAX_EXPERTS} experts, got "
+                         f"{rhs.shape[0]}")
     lhs, rhs, be = _contig(lhs, rhs, block_expert)
     out = torch.empty((T, N), dtype=lhs.dtype, device=lhs.device)
-    rc = kernel_build().lib.ds_gmm(
+    name = "gmm" + _SUFFIX[route(K, N)]
+    rc = getattr(kernel_build().lib, f"ds_{name}")(
         lhs.data_ptr(), rhs.data_ptr(), be.data_ptr(), out.data_ptr(), T, K, N, block_t,
         int(trans_b), int(lhs.dtype == torch.float16),
         torch.cuda.current_stream(lhs.device).cuda_stream)
-    _raise_if(rc, "gmm")
-    launch_counts["gmm"] += 1
+    _raise_if(rc, name)
+    launch_counts[name] += 1
     return out
 
 
@@ -169,12 +192,13 @@ def tgmm(lhs, dy, block_expert, num_experts, block_t=128):
     N = dy.shape[1]
     lhs, dy, be = _contig(lhs, dy, block_expert)
     out = torch.empty((num_experts, K, N), dtype=torch.float32, device=lhs.device)
-    rc = kernel_build().lib.ds_tgmm(
+    name = "tgmm" + _SUFFIX[route(K, N)]
+    rc = getattr(kernel_build().lib, f"ds_{name}")(
         lhs.data_ptr(), dy.data_ptr(), be.data_ptr(), out.data_ptr(), T, K, N, block_t,
         num_experts, int(lhs.dtype == torch.float16),
         torch.cuda.current_stream(lhs.device).cuda_stream)
-    _raise_if(rc, "tgmm")
-    launch_counts["tgmm"] += 1
+    _raise_if(rc, name)
+    launch_counts[name] += 1
     return out
 
 

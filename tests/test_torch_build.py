@@ -70,6 +70,24 @@ def test_attention_sources_key_on_the_shared_mma_header(tmp_path, stem):
         assert after[other] == keys[other]
 
 
+def test_grouped_matmul_keys_on_the_wgmma_header(tmp_path):
+    """``grouped_matmul.cu`` includes ``wgmma_sm90.cuh``: an edit to a copy
+    of the header changes the copy's key (and no other source's), and a
+    copy without the header raises ``KernelBuildError`` naming it."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    keys = {p.name: _build.source_key(p) for p in csrc.glob("*.cu")}
+    with open(csrc / "wgmma_sm90.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {p.name: _build.source_key(p) for p in csrc.glob("*.cu")}
+    assert after["grouped_matmul.cu"] != keys["grouped_matmul.cu"]
+    assert {k: v for k, v in after.items() if k != "grouped_matmul.cu"} == \
+        {k: v for k, v in keys.items() if k != "grouped_matmul.cu"}
+    (csrc / "wgmma_sm90.cuh").unlink()
+    with pytest.raises(_build.KernelBuildError, match="wgmma_sm90.cuh"):
+        _build.source_key(csrc / "grouped_matmul.cu")
+
+
 def _chip_smoke():
     import importlib.util
     from pathlib import Path

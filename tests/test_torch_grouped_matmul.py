@@ -10,8 +10,9 @@ tables with repeated experts, an expert that owns only one block, the dx
 product against the transposed weights (``trans_b``, read through the
 strides here, materialised on the JAX side). Tolerance fp32: rtol 1e-5 /
 atol 1e-5 (the same products summed in another order); bf16: 2 bf16 ulps
-of the reference (both round one fp32 sum once). The CUDA kernels run only
-on a card (``gpu`` marker).
+of the reference (both round one fp32 sum once). The kernel route is a
+pure function of the widths (checked here); the CUDA kernels run only on a
+card (``gpu`` marker).
 """
 
 import jax
@@ -112,7 +113,23 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     tgm.grouped_matmul(a, b, be, 8).backward(dy)
     assert torch.equal(a.grad, tgm.gmm_plain(dy, rhs, be, 8, trans_b=True))
     assert torch.equal(b.grad, tgm.tgmm_plain(lhs, dy, be, 3, 8))
-    assert tgm.launch_counts == {"gmm": 0, "tgmm": 0}
+    assert tgm.launch_counts == {"gmm": 0, "tgmm": 0, "gmm_wmma": 0, "tgmm_wmma": 0}
+
+
+@pytest.mark.parametrize("K,N,expected", [
+    (4096, 14336, "wgmma"), (14336, 4096, "wgmma"), (200, 136, "wgmma"), (8, 8, "wgmma"),
+    (96, 256, "wgmma"), (37, 45, "wmma"), (4096, 14330, "wmma"), (4100, 4096, "wmma"),
+    (1, 8, "wmma")])
+def test_route_is_chosen_by_the_widths_alone(K, N, expected):
+    """Widths that are multiples of 8 (every operand row 16-byte aligned, so
+    TMA can describe it) go to the wgmma kernels, any other to the wmma
+    kernels; the rule is symmetric (gmm's dx swaps K and N), and each route
+    has its own launch counts."""
+    assert tgm.route(K, N) == expected == tgm.route(N, K)
+    for name in ("gmm", "tgmm"):
+        assert name + tgm._SUFFIX[expected] in tgm.launch_counts
+    assert set(tgm.launch_counts) == {k + tgm._SUFFIX[r] for k in ("gmm", "tgmm")
+                                      for r in ("wgmma", "wmma")}
 
 
 def _bf16_tol(ref):
@@ -123,12 +140,14 @@ def _bf16_tol(ref):
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_version_on_card():
     """On the card: gmm (both layouts) and tgmm against the plain versions
-    on the same bf16 / fp16 inputs: K and N off the 32 / 128 tiles (and one
-    width that is not a multiple of 8), an expert owning only one block, a
-    single expert. Tolerance as ``chip_smoke.py`` states it: gmm 2 bf16 ulps
-    of |plain| + max(2^-14, 2^-12 rms(plain)); tgmm (fp32), per expert,
-    2^-16 * sqrt(rows summed into out[e]) * rms(plain[e]). The autograd
-    Function launches gmm twice (forward, dx) and tgmm once."""
+    on the same bf16 / fp16 inputs: K and N off the 64 / 128 tiles (and one
+    width that is not a multiple of 8, the wmma route), an expert owning
+    only one block, a single expert, Mixtral's expert widths (4096 / 14336).
+    Each case launches only its route's kernels. Tolerance as
+    ``chip_smoke.py`` states it: gmm 2 bf16 ulps of |plain| + max(2^-14,
+    2^-12 rms(plain)); tgmm (fp32), per expert, 2^-16 * sqrt(rows summed
+    into out[e]) * rms(plain[e]). The autograd Function launches gmm twice
+    (forward, dx) and tgmm once, on the wgmma route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -136,12 +155,14 @@ def test_cuda_kernels_match_plain_version_on_card():
     cases = [(512, 200, 136, 3, [0, 0, 1, 2], torch.bfloat16),
              (384, 64, 96, 4, [0, 2, 3], torch.bfloat16),
              (256, 37, 45, 1, [0, 0], torch.float16),
-             (512, 256, 384, 2, [0, 1, 1, 1], torch.float16)]
+             (512, 256, 384, 2, [0, 1, 1, 1], torch.float16),
+             (256, 4096, 14336, 2, [0, 1], torch.bfloat16)]
     for T, K, N, E, be_list, dt in cases:
         be = torch.tensor(be_list, dtype=torch.int32, device=dev)
         lhs = torch.randn(T, K, generator=gen, device=dev).to(dt)
         rhs = torch.randn(E, K, N, generator=gen, device=dev).to(dt)
         dy = torch.randn(T, N, generator=gen, device=dev).to(dt)
+        tgm.reset_launch_counts()
         for got, ref in ((tgm.gmm(lhs, rhs, be), tgm.gmm_plain(lhs, rhs, be)),
                          (tgm.gmm(dy, rhs, be, trans_b=True),
                           tgm.gmm_plain(dy, rhs, be, trans_b=True))):
@@ -151,8 +172,11 @@ def test_cuda_kernels_match_plain_version_on_card():
         for e in range(E):
             tol = 2.0**-16 * (128 * be_list.count(e))**0.5 * float(ref[e].pow(2).mean().sqrt())
             assert float((got[e] - ref[e]).abs().max()) <= tol + 2.0**-30, (T, K, N, E, dt, e)
+        suffix = tgm._SUFFIX[tgm.route(K, N)]
+        assert tgm.launch_counts == {"gmm": 0, "tgmm": 0, "gmm_wmma": 0, "tgmm_wmma": 0,
+                                     "gmm" + suffix: 2, "tgmm" + suffix: 1}, (K, N)
     tgm.reset_launch_counts()
     a, b = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
     tgm.grouped_matmul(a, b, be).backward(dy)
     torch.cuda.synchronize()
-    assert tgm.launch_counts == {"gmm": 2, "tgmm": 1}
+    assert tgm.launch_counts == {"gmm": 2, "tgmm": 1, "gmm_wmma": 0, "tgmm_wmma": 0}
