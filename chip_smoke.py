@@ -5,6 +5,7 @@
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
     python3 chip_smoke.py --versus DIR [--phases moe_kernels,moe_train]
+    python3 chip_smoke.py --versus DIR --phases evo_kernels,evo_path
 
 With no arguments every phase runs, in this order; each must pass (exit
 code 1 otherwise):
@@ -142,12 +143,16 @@ code 1 otherwise):
    ``evo_bwd_dkdv`` with the mask bias's ``db1`` summed inside it, and
    ``evo_bwd_db2``) against their plain versions on the same inputs (the
    backward on the kernel forward's out and lse): out, lse, dq, dk, dv,
-   db1, db2 over 26 small cases (each bias present or absent, G 1 and 2,
+   db1, db2 over 28 small cases (each bias present or absent, G 1 and 2,
    R 1 / 64 / 100 / 130 / 200 / 257, head_dim 32 / 64 / 128, bf16 / fp32 /
-   fp16, and OpenFold's 1e9 mask with a fully masked row, whose output and
+   fp16, OpenFold's 1e9 mask with a fully masked row, whose output and
    lse are checked for finiteness only and whose dout is 0, as the model
-   masks it) and at the main shape (MSA row attention with the pair bias:
-   N 512, R 384, 8 heads, d 32, bf16). Tolerance per element: bf16 / fp16
+   masks it; db2 with one row a group and with 32 rows in 11 chunks) and at
+   the main shape (MSA row attention with the pair bias: N 512, R 384, 8
+   heads, d 32, bf16). bf16 / fp16 cases take the tensor-core dk/dv and
+   db2, fp32 cases the CUDA-core ones (``route(dtype)``): the launches of
+   each route are counted and printed, with the tensor-core kernels'
+   ptxas registers and spills. Tolerance per element: bf16 / fp16
    outputs the flash rule; fp32 outputs 2^-16 |plain| + 2^-14 rms(plain)
    (both sum in fp32 in another order and never round to a narrower type);
    lse 2^-14 (1 + |plain|); the fp32 bias sums (db1 over h x R terms, db2
@@ -172,7 +177,8 @@ code 1 otherwise):
    ``get_accelerator().create_op_builder("EvoformerAttnBuilder")``: a warm
    block, then three timed blocks with the launch counts reset just before
    and read just after (4 fwd, 4 dq, 4 dk/dv with 4 db1 and 3 db2 per
-   block), the median block time and peak memory, a profiled block; then
+   block, all dk/dv and db2 on the tensor cores, none on the fp32 route),
+   the median block time and peak memory, a profiled block; then
    the block through the plain versions: every output finite, and the
    output (off the fully masked rows) and all five cotangents of each call
    within relative L2 1e-2 of the plain path's.
@@ -181,21 +187,25 @@ code 1 otherwise):
 mutant: the grouped matmul kernels dropping one row block's products
 (``--phases build,moe_kernels`` there must fail), the block-sparse kernel
 skipping each row's last valid LUT column (``--phases build,sparse_kernels``
-must fail by more than 100x its tolerance, printed), the Evoformer db2
-kernel skipping each group's last row (``--phases build,evo_kernels``, the
-same), the flash backward with dk/dv skipping each CTA's last live q-tile
-and dq its last live k-tile and, alone, the flash forward skipping each
-CTA's last live k-tile (``--phases build,train_kernels``, the same), and
-the paged prefill skipping each CTA's last live k-tile (``--phases
-build,kernels``, the same). It passes when every mutant is caught.
+must fail by more than 100x its tolerance, printed), the tensor-core
+Evoformer db2 skipping each row chunk's last row and, alone, the
+tensor-core Evoformer dk/dv skipping each head's last query tile
+(``--phases build,evo_kernels``, the same), the flash backward with
+dk/dv skipping each CTA's last live q-tile and dq its last live k-tile
+and, alone, the flash forward skipping each CTA's last live k-tile
+(``--phases build,train_kernels``, the same), and the paged prefill
+skipping each CTA's last live k-tile (``--phases build,kernels``, the
+same): seven copies. It passes when every mutant is caught.
 
-``--ablation`` times the flash kernels, the paged prefill and the grouped
-matmul against copies under ``build/ablation/<name>``, each undoing one
-design choice of ``ABLATIONS`` (the grid order of the backward and of the
-forward, the prefill's tile order, the mask fast path, the two-level
-accumulation, each split pair; the grouped matmul's ring two stages deep,
-one CTA per tile): ``--phases kernels,train_kernels`` (``moe_kernels``
-for the grouped matmul) in every copy in turns, each version twice,
+``--ablation`` times the flash kernels, the paged prefill, the grouped
+matmul and the Evoformer db2 against copies under
+``build/ablation/<name>``, each undoing one design choice of
+``ABLATIONS`` (the grid order of the backward and of the forward, the
+prefill's tile order, the mask fast path, the two-level accumulation, each
+split pair; the grouped matmul's ring two stages deep, one CTA per tile;
+db2's rows in one chunk): ``--phases kernels,train_kernels``
+(``moe_kernels`` for the grouped matmul, ``evo_kernels`` for the
+Evoformer) in every copy in turns, each version twice,
 printing the main shapes' times and each phase's largest error as a
 fraction of the tolerance (``worst_error_fraction``; above 1 fails that
 check). ``--mutant`` and ``--ablation`` take an optional comma-separated
@@ -205,8 +215,9 @@ subset of names.
 repository (e.g. ``git archive <parent> | tar -x -C build/parent``), each
 with its own script and kernels built at once: ``--phases`` (default
 ``moe_kernels,moe_train``) in the order DIR, this, this, DIR, printing the
-grouped matmul's times, the MoE step and its top device ops per run, and
-one JSON line of all runs.
+grouped matmul's and the Evoformer kernels' times, the MoE step, the
+Evoformer block and their top device ops per run, and one JSON line of
+all runs.
 
 It prints the card (name and power limit) and, on the line before the last,
 ``{"kernels": [...]}``; the last line is
@@ -293,6 +304,7 @@ SPARSE_SA = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
              "num_different_global_patterns": 4, "attention": "unidirectional"}
 SPARSE_DS_CONFIG = dict(TRAIN_DS_CONFIG, sparse_attention=SPARSE_SA)
 EVO_SRC = "deepspeed_tpu_torch/ops/csrc/evoformer_attention.cu"
+EVO_PY = "deepspeed_tpu_torch/ops/evoformer_attention.py"
 TPU_EVO = "deepspeed_tpu/ops/pallas/evoformer_attention.py"
 EVO_KERNELS = {  # name -> the TPU kernel it replaces (db1 is summed inside the dk/dv kernel)
     "evo_fwd": f"{TPU_EVO}:113", "evo_bwd_dq": f"{TPU_EVO}:231",
@@ -360,15 +372,19 @@ def bound_ms(n_bytes, flops, peak_flops=BF16_FLOPS_PER_S):
 # phase 1: build
 # ---------------------------------------------------------------------------
 
-def _log_ptxas(report):
+def _log_ptxas(report, tag="[build]", keep=None):
+    """Each kernel's registers and spills from nvcc's ``-Xptxas -v`` report
+    (only kernels whose name holds one of ``keep``, when given)."""
     name = None
     for line in report.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
+            if keep is not None and not any(k in name for k in keep):
+                name = None
         elif "Used" in line and "registers" in line and name:
-            log(f"[build]   {name}: {line.split(':', 1)[1].strip()}")
+            log(f"{tag}   {name}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line and name:
-            log(f"[build]   {name}: {line.strip()}")
+            log(f"{tag}   {name}: {line.strip()}")
 
 
 def phase_build():
@@ -405,7 +421,9 @@ def phase_build():
         f"d 64 {bsm(64)} B")
     esm = built["evoformer_attention"].lib.ds_evo_smem_bytes
     log(f"[build] Evoformer dynamic shared memory per CTA (d 32): forward {esm(0, 32)} B, dq "
-        f"{esm(1, 32)} B, dk/dv {esm(2, 32)} B, db2 {esm(3, 32)} B")
+        f"{esm(1, 32)} B; tensor cores dk/dv {esm(4, 32)} B (d 128 {esm(4, 128)} B), db2 "
+        f"{esm(5, 32)} B (d 128 {esm(5, 128)} B); fp32 route dk/dv {esm(2, 32)} B, db2 "
+        f"{esm(3, 32)} B")
 
 
 # ---------------------------------------------------------------------------
@@ -2165,29 +2183,52 @@ def phase_evo_kernels():
         return errs
 
     # small cases: each bias present or absent, G 1 and 2, ragged R, every
-    # head dim, bf16 / fp32 / fp16, and OpenFold's mask with a fully masked row
+    # head dim, bf16 / fp32 / fp16, OpenFold's mask with a fully masked row,
+    # and db2 with one row a group and with 32 rows a group in chunks; each
+    # case's dk/dv and db2 launches are expected on its dtype's route
+    tev.reset_launch_counts()
+    expected = dict.fromkeys(tev.launch_counts, 0)
+
+    def run_case(tag, seed, N, G, R, h, d, dtype, with_b1, with_b2, openfold=False):
+        q, k, v, do, b1, b2, masked = _evo_case(seed, N, G, R, h, d, dtype, with_b1, with_b2,
+                                                openfold)
+        got = _evo_all(tev, q, k, v, do, b1, b2)
+        sfx = tev._SUFFIX[tev.route(dtype)]
+        expected["evo_fwd"] += 1
+        expected["evo_bwd_dq"] += 1
+        expected[f"evo_bwd_dkdv{sfx}"] += 1
+        expected[f"evo_bwd_db1{sfx}"] += with_b1
+        expected[f"evo_bwd_db2{sfx}"] += with_b2
+        chunks = tev.db2_row_chunks(N // G, R, h, G) if with_b2 and not sfx else "-"
+        check(f"{tag}N={N} G={G} R={R} h={h} d={d} {str(dtype)[6:]} b1={with_b1} "
+              f"b2={with_b2} db2_chunks={chunks}", got, q, k, v, do, b1, b2, masked)
+
     dtypes = (torch.bfloat16, torch.float32, torch.float16)
     n_cases = 0
     for (R, d) in ((1, 32), (64, 32), (100, 32), (130, 64), (200, 128), (257, 32)):
         for with_b1, with_b2 in ((True, True), (True, False), (False, True), (False, False)):
-            G = 1 + n_cases % 2
-            dtype = dtypes[n_cases % 3]
-            q, k, v, do, b1, b2, _ = _evo_case(200 + n_cases, 4, G, R, 2 + 2 * (n_cases % 2), d,
-                                               dtype, with_b1, with_b2)
-            got = _evo_all(tev, q, k, v, do, b1, b2)
-            check(f"N=4 G={G} R={R} h={q.shape[2]} d={d} {str(dtype)[6:]} b1={with_b1} "
-                  f"b2={with_b2}", got, q, k, v, do, b1, b2)
+            run_case("", 200 + n_cases, 4, 1 + n_cases % 2, R, 2 + 2 * (n_cases % 2), d,
+                     dtypes[n_cases % 3], with_b1, with_b2)
             n_cases += 1
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, do, b1, b2, masked = _evo_case(300 + n_cases, 6, 2, 160, 4, 32, dtype, True,
-                                                True, openfold=True)
-        got = _evo_all(tev, q, k, v, do, b1, b2)
-        check(f"openfold N=6 G=2 R=160 h=4 d=32 {str(dtype)[6:]}", got, q, k, v, do, b1, b2,
-              masked)
+        run_case("openfold ", 300 + n_cases, 6, 2, 160, 4, 32, dtype, True, True, openfold=True)
         n_cases += 1
+    run_case("", 300 + n_cases, 2, 2, 100, 2, 32, torch.float16, True, True)  # one row a group
+    n_cases += 1
+    run_case("", 300 + n_cases, 64, 2, 257, 4, 32, torch.bfloat16, True, True)  # 32 rows a group
+    n_cases += 1
+    torch.cuda.synchronize()
+    routes = dict(tev.launch_counts)
     log(f"[evo_kernels] small-case matrix ({n_cases} cases x out, lse, dq, dk, dv, db1, db2): "
         f"{'all within tolerance' if not failures else failures[:5]}; max_abs_err "
         f"{ {k_: f'{e_:.3e}' for k_, e_ in worst.items()} }")
+    log(f"[evo_kernels] launches by route (bf16 / fp16 on the tensor cores, fp32 on the "
+        f"'_fp32' CUDA-core kernels): {routes} (expected {expected})")
+    if routes != expected:
+        failures.append(f"launches by route {routes} != expected {expected}")
+    log("[evo_kernels] tensor-core kernels, ptxas registers and spills:")
+    _log_ptxas(tev.kernel_build().ptxas, "[evo_kernels]",
+               ("evo_bwd_dkdv_mma_kernel", "evo_bwd_db2_mma_kernel", "evo_db2_sum_kernel"))
 
     # the main shape: MSA row attention with the pair bias at AlphaFold's
     # fine-tuning crop (the path's largest call with both biases)
@@ -2196,6 +2237,10 @@ def phase_evo_kernels():
     q, k, v, do, b1, b2, _ = _evo_case(17, N, G, R, h, d, torch.bfloat16, True, True)
     got = _evo_all(tev, q, k, v, do, b1, b2)
     errs = check(f"main {name0} N={N} R={R} h={h} d={d} bf16", got, q, k, v, do, b1, b2)
+    n_chunks = tev.db2_row_chunks(N // G, R, h, G)
+    log(f"[evo_kernels] main shape: db2 in {n_chunks} row chunks of {N // G // n_chunks}-"
+        f"{-(-(N // G) // n_chunks)} rows, {((R + 63) // 64)**2 * h * G * n_chunks} CTAs, "
+        f"scratch {n_chunks * G * h * R * R * 4 / 1e6:.1f} MB")
     out, lse = got[0], got[1]
     del got
     ms = {"evo_fwd": time_ms(lambda: tev.evo_fwd(q, k, v, b1, b2), iters=10, warmup=2),
@@ -2364,9 +2409,11 @@ def phase_evo_path():
     launches = dict(tev.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     n_pair = sum(1 for c in EVO_CALLS if c[4])
-    expected = {"evo_fwd": 4 * EVO_ITERS, "evo_bwd_dq": 4 * EVO_ITERS,
-                "evo_bwd_dkdv": 4 * EVO_ITERS, "evo_bwd_db1": 4 * EVO_ITERS,
-                "evo_bwd_db2": n_pair * EVO_ITERS}
+    # bf16 throughout: dk/dv and db2 on the tensor cores only, none on the
+    # fp32 route
+    expected = dict.fromkeys(tev.launch_counts, 0) | {
+        "evo_fwd": 4 * EVO_ITERS, "evo_bwd_dq": 4 * EVO_ITERS, "evo_bwd_dkdv": 4 * EVO_ITERS,
+        "evo_bwd_db1": 4 * EVO_ITERS, "evo_bwd_db2": n_pair * EVO_ITERS}
     med = float(np.median(times))
     log(f"[evo_path] block forward + backward (4 calls) median {1e3 * med:.2f} ms (range "
         f"{1e3 * min(times):.2f}-{1e3 * max(times):.2f}); peak memory {peak / 2**30:.2f} GiB "
@@ -2445,8 +2492,13 @@ GMM_MUTATIONS = _in(GMM_SRC, (
 BSA_MUTATIONS = _in(BSA_SRC, (
     ("const int n_keys = nv * a.block;", "const int n_keys = (nv > 0 ? nv - 1 : 0) * a.block;"),
 ))
-EVO_MUTATIONS = _in(EVO_SRC, (  # db2 skips each group's last row
-    ("for (int nn = 0; nn < a.n_seq; ++nn) {", "for (int nn = 0; nn < a.n_seq - 1; ++nn) {"),
+EVO_MUTATIONS = _in(EVO_SRC, (  # the tensor-core db2 skips each row chunk's last row
+    ("const int n_rows = (int)((long long)(c + 1) * a.n_seq / n_chunks) - row_lo;",
+     "const int n_rows = (int)((long long)(c + 1) * a.n_seq / n_chunks) - row_lo - 1;"),
+))
+EVO_DKDV_MUTATIONS = _in(EVO_SRC, (  # the tensor-core dk/dv skips each head's last query tile
+    ("const int n_qt = (a.R + kBQ - 1) / kBQ;  // query tiles of each head",
+     "const int n_qt = (a.R + kBQ - 1) / kBQ - (a.R > kBQ);  // query tiles of each head"),
 ))
 FLASH_MUTATIONS = _in(FLASH_SRC, (  # dk/dv skips each CTA's last live q-tile, dq its last live k-tile
     ("const int nqt = qt_hi - qt_lo + 1;", "const int nqt = qt_hi - qt_lo;"),
@@ -2464,6 +2516,7 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "grouped_matmul": (GMM_MUTATIONS, "moe_kernels", "grouped matmul kernels disagree"),
     "block_sparse": (BSA_MUTATIONS, "sparse_kernels", "block-sparse kernel disagrees"),
     "evoformer": (EVO_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
+    "evoformer_dkdv": (EVO_DKDV_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
     "flash": (FLASH_MUTATIONS, "train_kernels", "flash kernels disagree"),
     "flash_fwd": (FLASH_FWD_MUTATIONS, "train_kernels", "flash kernels disagree"),
     "paged_prefill": (PAGED_MUTATIONS, "kernels", "kernels disagree with the plain version"),
@@ -2537,15 +2590,23 @@ ABLATIONS = {
     # (nothing overlaps one tile's epilogue with the next one's loads)
     "gmm_cta_per_tile": _in(GMM_SRC, (("constexpr bool kPersistent = true;",
                                        "constexpr bool kPersistent = false;"),)),
+    # the tensor-core db2 with each group's rows in one chunk (the first
+    # version's grid, nt^2 h G CTAs), not split across the card
+    "evo_db2_one_chunk": _in(EVO_PY, (
+        ("    return max(1, min(n_seq, -(-DB2_CTAS_PER_SM * SMS // per_chunk)))",
+         "    return 1"),)),
 }
 GMM_HDR = "deepspeed_tpu_torch/ops/csrc/wgmma_sm90.cuh"
 
 
 def _ablation_phases(name):
     """The phases that time an ablation: ``moe_kernels`` for the grouped
-    matmul's sources, ``kernels,train_kernels`` for the attention kernels'."""
-    return ("moe_kernels" if {p for p, _, _ in ABLATIONS[name]} <= {GMM_SRC, GMM_HDR}
-            else "kernels,train_kernels")
+    matmul's sources, ``evo_kernels`` for the Evoformer's,
+    ``kernels,train_kernels`` for the other attention kernels'."""
+    files = {p for p, _, _ in ABLATIONS[name]}
+    if files <= {GMM_SRC, GMM_HDR}:
+        return "moe_kernels"
+    return "evo_kernels" if files <= {EVO_SRC, EVO_PY} else "kernels,train_kernels"
 
 
 def _patched_copy(kind, name, replacements):
@@ -2617,6 +2678,7 @@ def run_mutant(which="all"):
 _ATTN_BUILD = ("from deepspeed_tpu_torch.ops import flash_attention as fa, paged_attention as pa; "
                "fa.kernel_build(); pa.kernel_build()")
 _GMM_BUILD = "from deepspeed_tpu_torch.ops import grouped_matmul as gm; gm.kernel_build()"
+_EVO_BUILD = "from deepspeed_tpu_torch.ops import evoformer_attention as ev; ev.kernel_build()"
 
 
 def _num(pattern, text):
@@ -2635,6 +2697,17 @@ def _gmm_times(stdout):
             "tgmm_ms": _num(r"\] tgmm dw \(K 4096, N 14336\).*?: ([0-9.]+) ms", stdout),
             "gmm_error_fraction": _num(r"over all cases: gmm ([0-9.]+) of", stdout),
             "tgmm_error_fraction": _num(r"over all cases: gmm .*?, tgmm ([0-9.]+) \(", stdout)}
+
+
+def _evo_times(stdout):
+    """The Evoformer kernels' main-shape times, the block time and the
+    largest error fraction printed by ``evo_kernels`` / ``evo_path`` runs
+    (this script's or the parent's)."""
+    return {f"{k}_ms": _num(rf"\] {k} msa_row .*?: ([0-9.]+) ms", stdout)
+            for k in ("evo_fwd", "evo_bwd_dq", "evo_bwd_dkdv", "evo_bwd_db1", "evo_bwd_db2")} | {
+        "evo_error_fraction": _worst_error_fraction(stdout, "evo_kernels"),
+        "evo_block_ms": _num(r"\[evo_path\] block forward \+ backward .*?median ([0-9.]+) ms",
+                             stdout)}
 
 
 def run_ablation(which="all"):
@@ -2662,7 +2735,8 @@ def run_ablation(which="all"):
 
     def build(n):
         parts = ([_ATTN_BUILD] if "kernels" in phases[n].split(",") else []) + (
-            [_GMM_BUILD] if "moe_kernels" in phases[n] else [])
+            [_GMM_BUILD] if "moe_kernels" in phases[n] else []) + (
+            [_EVO_BUILD] if "evo_kernels" in phases[n] else [])
         return "; ".join(parts)
 
     procs = {n: subprocess.Popen([sys.executable, "-c", build(n)], cwd=d, stdout=subprocess.PIPE,
@@ -2700,6 +2774,9 @@ def run_ablation(which="all"):
         if "moe_kernels" in phases[n]:
             r.update(_gmm_times(out))
             need += ["gmm_up_ms", "tgmm_ms"]
+        if "evo_kernels" in phases[n]:
+            r.update({k: v for k, v in _evo_times(out).items() if k != "evo_block_ms"})
+            need += ["evo_bwd_db2_ms", "evo_bwd_dkdv_ms"]
         runs.append(r)
         log(f"[ablation] {n} ({phases[n]}): "
             + ", ".join(f"{k} {v}" for k, v in r.items() if k not in ("name", "rc"))
@@ -2720,8 +2797,9 @@ def run_versus(other, phases):
     build/parent), each with its own script and kernels: ``--phases build``
     in both at once, then ``--phases <phases>`` (without build) in the order
     other, this, this, other, one process each, so that each tree is timed
-    twice on one card. Prints each run's grouped matmul times, MoE step and
-    top device ops, and last one JSON object of every run. Returns an exit
+    twice on one card. Prints each run's grouped matmul and Evoformer times,
+    MoE step, Evoformer block and top device ops, and last one JSON object
+    of every run. Returns an exit
     code: 1 when a build or a run fails."""
     other = os.path.abspath(other)
     dirs = {"other": other, "this": HERE}
@@ -2747,13 +2825,16 @@ def run_versus(other, phases):
         r = {"tree": n, "rc": proc.returncode, **_gmm_times(out),
              "moe_step_ms": _num(r"\[moe_train\] step time median ([0-9.]+) ms", out),
              "moe_idle_pct": _num(r"\[moe_train\] profiled step: .*?device idle ([0-9.]+)%", out),
-             "moe_top_ops": [line.split("]", 1)[1].strip() for line in out.splitlines()
-                             if line.startswith("[moe_train]   ")]}
+             **_evo_times(out),
+             "evo_idle_pct": _num(r"\[evo_path\] profiled block: .*?idle ([0-9.]+)%", out),
+             "top_ops": [line.split("]", 1)[1].strip() for line in out.splitlines()
+                         if line.startswith(("[moe_train]   ", "[evo_path]   "))]}
+        r = {k: v for k, v in r.items() if v is not None}
         runs.append(r)
         log(f"[versus] {n} ({dirs[n]}): "
-            + ", ".join(f"{k} {v}" for k, v in r.items() if k not in ("tree", "rc", "moe_top_ops"))
+            + ", ".join(f"{k} {v}" for k, v in r.items() if k not in ("tree", "rc", "top_ops"))
             + f" (exit {r['rc']})")
-        for line in r["moe_top_ops"]:
+        for line in r["top_ops"]:
             log(f"[versus] {n}   {line}")
         if proc.returncode:
             log(f"[versus] {n}: failed\n{out[-3000:]}")

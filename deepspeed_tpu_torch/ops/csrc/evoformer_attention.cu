@@ -8,15 +8,17 @@
 //   ds_evo_fwd      -> _evo_fwd_impl (:113): out and lse = m + log(l)
 //   ds_evo_bwd_dq   -> _evo_bwd_impl's dq_kernel (:231)
 //   ds_evo_bwd_dkdv -> dkdv_kernel (:265) and db1_kernel (:346): one CTA per
-//                      (sequence row n, key tile) walks every head and query
+//                      (key tile, sequence row n) walks every head and query
 //                      tile, writes dk / dv per head and sums db1 over
 //                      (head, query) in registers, written once
-//   ds_evo_bwd_db2  -> db2_kernel (:306): one CTA per (group, head, query
-//                      tile, key tile) walks the group's n_seq rows
+//   ds_evo_bwd_db2  -> db2_kernel (:306): one CTA per (query tile, key tile,
+//                      head, group, row chunk) walks its chunk of the
+//                      group's n_seq rows; a second pass sums the chunks
 // The TPU package runs db1 and db2 as passes of their own only because a
 // TPU grid runs in order and an output block accumulates across consecutive
-// revisits alone. Here every sum is a loop inside one CTA: no atomics, and
-// the results do not depend on scheduling.
+// revisits alone. Here every sum is a loop inside one CTA, or a fixed-order
+// sum of such loops' partials (db2's row chunks): no atomics, and the
+// results do not depend on scheduling.
 //
 // Semantics copied from the TPU kernels. q, k, v, out, dout are [N, R, H, D]
 // (read in that layout, no transposes); bias1 [N, R] fp32 (the mask bias)
@@ -36,19 +38,55 @@
 // What bounds it on the H100: at the Evoformer's widths (D 32, R 384-512)
 // each kernel does 2-8 D FLOPs per (row, head, query, key) over inputs of
 // about 4-6 x N R H D bf16 elements, so the data bound is the bytes, and the
-// tensor cores' operations bound come close to it. This first version is
-// deliberately simple: it runs its products on the CUDA cores in fp32 (67
-// TFLOP/s peak), from tiles of 64 query rows x 64 key rows staged in shared
-// memory as fp32; each of 256 threads owns a 4 x 4 block of the score tile
-// (rows ty + 16 i, keys tx + 16 j) and D / 16 rows of one float4 column of
-// the output tile. mma / wgmma products and TMA-fed tiles are later work.
+// tensor cores' operations bound come close to it. Two routes, chosen by
+// q/k/v's dtype (ops/evoformer_attention.py: route):
+// - bf16 / fp16: dk/dv (with db1) and db2 run every product on the tensor
+//   cores, mma.sync m16n8k16 with fp32 accumulators from 16-bit [64][D + 8]
+//   shared tiles filled by a two-stage cp.async ring (the helpers of
+//   mma_sm90.cuh, as the flash kernels). 128 threads, four warps of 16 rows.
+//   * db2 (evo_bwd_db2_mma_kernel): a warp's rows are queries; s = q.k^T
+//     and dp = dO.v^T straight from the inputs (exact products), ds summed
+//     over the chunk's rows in the C-fragment layout. The pair-bias tile is
+//     the same for every row of a group: it is read once, into registers.
+//     Each row's five tiles (q, O, dO; k, v) and its lse and b1 stream
+//     through the ring, the next row's in flight while this one computes;
+//     delta comes from the O and dO tiles (each quad lane D / 4 columns).
+//     The rows of a group are split into chunks (the wrapper's
+//     db2_row_chunks) so that the grid gives every SM several CTAs; each
+//     chunk's fp32 partial goes to a scratch [chunks, G, H, R, R], and
+//     evo_db2_sum_kernel adds them in chunk order (one chunk writes db2).
+//   * dk/dv (evo_bwd_dkdv_mma_kernel), after the flash dk/dv kernel: a
+//     warp's rows are keys, S^T = K.Q^T and dP^T = V.dO^T, so P^T and dS^T
+//     are the A fragments of dv += P^T dO and dk += dS^T Q as split hi + lo
+//     pairs (read with ldmatrix.trans), each tile pair summed from zero and
+//     added once. The CTA walks (head, query tile) items; K and V of the
+//     next head and the next item's q, O, dO and lse are in flight while
+//     the current item computes. The pair bias [64 q][64 k] is staged in
+//     shared memory with coalesced copies along k and read in the key-row
+//     fragment layout (a row of 68 floats: conflict-free); its one buffer
+//     is refilled for the next item as soon as every warp has its p.
+//     db1 stays in registers and is reduced over the quad at the end.
+//   At d 32 (the Evoformer's width) an item is short (a quarter of the
+//   flash kernels' products per 64 x 64 tile pair, the same exponentials,
+//   masks and barriers), so both kernels are held to 170 registers for
+//   three CTAs an SM: the latencies of one CTA hide behind the others'.
+//   p = exp2((x - lse) log2 e), as in the flash kernels.
+// - fp32: the first version, on the CUDA cores in fp32 (67 TFLOP/s peak),
+//   from fp32 tiles of 64 query rows x 64 key rows staged in shared memory;
+//   each of 256 threads owns a 4 x 4 block of the score tile (rows
+//   ty + 16 i, keys tx + 16 j) and D / 16 rows of one float4 column of the
+//   output tile. Its tolerance (2^-16 relative) is beyond what bf16 or TF32
+//   tensor-core products can hold. The forward and dq run this way for
+//   every dtype.
 //
 // Offsets are int64 throughout.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -97,6 +135,10 @@ __device__ __forceinline__ void store8(float* dst, const float* f) {
   reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
+// Every kernel takes this struct by value. Keep it as it is: two more
+// fields here made ptxas compile the (unchanged) forward to 104 registers
+// instead of 122 and the forward and dq run 8-9% slower on the H100, so the
+// tensor-core db2 takes its extra arguments as parameters of its own.
 struct Args {
   const void* q;     // [N, R, H, D]
   const void* k;
@@ -556,61 +598,437 @@ __global__ void __launch_bounds__(kThreads) evo_bwd_db2_kernel(const Args a) {
   }
 }
 
-enum Kind { kFwd = 0, kDq = 1, kDkdv = 2, kDb2 = 3 };
+// ---------------------------------------------------------------------------
+// The tensor-core route (bf16 / fp16 q/k/v): dk/dv with db1, and db2
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = ds_mma::kTileThreads;  // 4 warps x 16 rows of a 64-row tile
+using ds_mma::stage_tile;
+using ds_mma::store_frags;
+constexpr int kLB = kBK + 4;      // fp32 row of a staged [kBQ][kBK] pair-bias tile
+
+// sum over d < len of a[d] * b[d], two 16-bit rows in shared memory
+template <typename T>
+__device__ __forceinline__ float dot16(const T* a, const T* b, int len) {
+  float part = 0.f;
+  for (int u = 0; u < len; u += 8) {
+    const uint4 ra = *reinterpret_cast<const uint4*>(a + u);
+    const uint4 rb = *reinterpret_cast<const uint4*>(b + u);
+    const T* ha = reinterpret_cast<const T*>(&ra);
+    const T* hb = reinterpret_cast<const T*>(&rb);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) part += ds_mma::to_f(ha[e]) * ds_mma::to_f(hb[e]);
+  }
+  return part;
+}
+
+// ---------------------------------------------------------------------------
+// db2: one CTA per (query tile, key tile, head, row chunk, group), walking
+// the chunk's rows; the [64][64] tile of db2 and the pair-bias tile stay in
+// registers in the C-fragment layout (element e of n-tile j: query row
+// r0 + lane / 4 + 8 (e / 2), key 8 j + 2 (lane % 4) + e % 2). With more
+// than one chunk, chunk c writes its partial to part [n_chunks][G][H][R][R].
+// At d 32, at most 170 registers, so three CTAs share an SM (wider heads
+// are held to fewer by shared memory, and the cap would only make them
+// spill).
+// ---------------------------------------------------------------------------
+template <int D, typename T>
+__global__ void __launch_bounds__(kMmaThreads, D == 32 ? 3 : 1)
+    evo_bwd_db2_mma_kernel(const Args a, float* part, int n_chunks) {
+  constexpr int LDS = ds_mma::Tile16<D>::LDS, TILE = ds_mma::Tile16<D>::ELEMS;
+  const int nt = (a.R + kBQ - 1) / kBQ;
+  int idx = blockIdx.x;
+  const int qt = idx % nt;
+  idx /= nt;
+  const int kt = idx % nt;
+  idx /= nt;
+  const int h = idx % a.H;
+  idx /= a.H;
+  const int c = idx % n_chunks, g = idx / n_chunks;
+  const int q0 = qt * kBQ, k0 = kt * kBK;
+  // chunk c holds rows [c n_seq / n_chunks, (c + 1) n_seq / n_chunks) of the group
+  const int row_lo = (int)((long long)c * a.n_seq / n_chunks);
+  const int n_rows = (int)((long long)(c + 1) * a.n_seq / n_chunks) - row_lo;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * warp;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s16 = reinterpret_cast<T*>(smem_raw);  // stage s: q, O, dO, k, v at s16 + (5 s + i) TILE
+  float* s32 = reinterpret_cast<float*>(s16 + 10 * TILE);  // stage s: lse [64], b1 [64]
+
+  const long long ld = (long long)a.H * D;
+  auto stage_row = [&](int nn, int st) {
+    const int n = g * a.n_seq + nn;
+    const long long base = head_base<D>(a, n, h);
+    T* dst = s16 + 5 * st * TILE;
+    stage_tile<D, T>(dst, reinterpret_cast<const T*>(a.q) + base, ld, q0, a.R);
+    stage_tile<D, T>(dst + TILE, reinterpret_cast<const T*>(a.o) + base, ld, q0, a.R);
+    stage_tile<D, T>(dst + 2 * TILE, reinterpret_cast<const T*>(a.dout) + base, ld, q0, a.R);
+    stage_tile<D, T>(dst + 3 * TILE, reinterpret_cast<const T*>(a.k) + base, ld, k0, a.R);
+    stage_tile<D, T>(dst + 4 * TILE, reinterpret_cast<const T*>(a.v) + base, ld, k0, a.R);
+    float* f = s32 + 128 * st;
+    const int i = threadIdx.x % 64;
+    if (threadIdx.x < 64) {  // lse of the query tile
+      const bool ok = q0 + i < a.R;
+      const float* src = a.lse + ((long long)n * a.H + h) * a.R + q0 + i;
+      ds_mma::cp_async4(f + i, ok ? src : a.lse, ok);
+    } else {  // b1 of the key tile, zeros without the mask bias
+      const bool ok = a.b1 != nullptr && k0 + i < a.R;
+      ds_mma::cp_async4(f + 64 + i, ok ? a.b1 + (long long)n * a.R + k0 + i : a.lse, ok);
+    }
+  };
+  if (n_rows > 0) stage_row(row_lo, 0);
+  ds_mma::cp_async_commit();
+
+  // the pair-bias tile of (group, head, query tile, key tile), the same for
+  // every row: read once, while the first row lands
+  float bias[8][4];
+  {
+    const float* b2 = a.b2 + ((long long)g * a.H + h) * a.R * a.R;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qpos = q0 + r0 + lane / 4 + 8 * i;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * j + 2 * (lane % 4) + e;
+          bias[j][2 * i + e] = qpos < a.R && kpos < a.R ? b2[(long long)qpos * a.R + kpos] : 0.f;
+        }
+    }
+  }
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int it = 0; it < n_rows; ++it) {
+    const int st = it & 1;
+    ds_mma::cp_async_wait_all();
+    __syncthreads();  // row it has landed; every reader of the other stage is done
+    if (it + 1 < n_rows) stage_row(row_lo + it + 1, st ^ 1);  // the next row, in flight
+    ds_mma::cp_async_commit();
+    const T* sQ = s16 + 5 * st * TILE;
+    const T* sO = sQ + TILE;
+    const T* sdO = sQ + 2 * TILE;
+    const T* sK = sQ + 3 * TILE;
+    const T* sV = sQ + 4 * TILE;
+    const float* sLse = s32 + 128 * st;
+    const float* sB1 = sLse + 64;
+    // delta = rowsum(dO * O) of the warp's rows g and g + 8: each lane of
+    // the quad sums D / 4 columns
+    float delta[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int off = (r0 + lane / 4 + 8 * i) * LDS + (lane % 4) * (D / 4);
+      delta[i] = ds_mma::quad_sum(dot16<T>(sdO + off, sO + off, D / 4));
+    }
+    float s[8][4], dp[8][4];
+    ds_mma::mma_abt<D, T>(s, sQ + r0 * LDS, sK, lane);    // q . k
+    ds_mma::mma_abt<D, T>(dp, sdO + r0 * LDS, sV, lane);  // dO . v
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + lane / 4 + 8 * i;
+      const bool q_ok = q0 + r < a.R;
+      const float lse = sLse[r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * (lane % 4) + e;
+          const float x = (a.scale * s[j][2 * i + e] + bias[j][2 * i + e]) + sB1[col];
+          const float p = q_ok && k0 + col < a.R ? exp2f((x - lse) * ds_mma::kLog2e) : 0.f;
+          acc[j][2 * i + e] += p * (dp[j][2 * i + e] - delta[i]);
+        }
+    }
+  }
+  const long long plane = (long long)a.R * a.R;
+  float* out = n_chunks > 1 ? part + (long long)c * (a.N / a.n_seq) * a.H * plane : a.db2;
+  out += ((long long)g * a.H + h) * plane;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = q0 + r0 + lane / 4 + 8 * i;
+    if (qpos >= a.R) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = k0 + 8 * j + 2 * (lane % 4) + e;
+        if (kpos < a.R) out[(long long)qpos * a.R + kpos] = acc[j][2 * i + e];
+      }
+  }
+}
+
+// db2 = the row chunks' partials [n_chunks][total] summed in chunk order
+__global__ void __launch_bounds__(256) evo_db2_sum_kernel(const float* part, float* db2,
+                                                          long long total, int n_chunks) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (total % 4 == 0) {
+    const long long n4 = total / 4;
+    const float4* p = reinterpret_cast<const float4*>(part);
+    for (long long i = first; i < n4; i += stride) {
+      float4 sum = p[i];
+      for (int c = 1; c < n_chunks; ++c) {
+        const float4 t = p[c * n4 + i];
+        sum.x += t.x;
+        sum.y += t.y;
+        sum.z += t.z;
+        sum.w += t.w;
+      }
+      reinterpret_cast<float4*>(db2)[i] = sum;
+    }
+  } else {
+    for (long long i = first; i < total; i += stride) {
+      float sum = part[i];
+      for (int c = 1; c < n_chunks; ++c) sum += part[c * total + i];
+      db2[i] = sum;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk / dv (and db1): one CTA per (key tile, row n), walking the items
+// (head, query tile), heads outermost; a warp's rows are the keys
+// r0 + lane / 4 + 8 (e / 2), its C-fragment columns the queries
+// 8 j + 2 (lane % 4) + e % 2. At d 32 three CTAs share an SM: at most 170
+// registers, and one pair-bias buffer (68 KB in all), refilled for the next
+// item once every warp has read it
+// ---------------------------------------------------------------------------
+template <int D, typename T>
+__global__ void __launch_bounds__(kMmaThreads, D == 32 ? 3 : 1)
+    evo_bwd_dkdv_mma_kernel(const Args a) {
+  constexpr int LDS = ds_mma::Tile16<D>::LDS, TILE = ds_mma::Tile16<D>::ELEMS;
+  const int nkt = (a.R + kBK - 1) / kBK;
+  const int kt = blockIdx.x % nkt, n = blockIdx.x / nkt;
+  const int k0 = kt * kBK, g = n / a.n_seq;
+  const int n_qt = (a.R + kBQ - 1) / kBQ;  // query tiles of each head
+  const int n_items = a.H * n_qt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * warp;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sKV = reinterpret_cast<T*>(smem_raw);  // head parity s: K at sKV + 2 s TILE, V after it
+  T* sQOD = sKV + 4 * TILE;                 // stage s: q, O, dO at sQOD + 3 s TILE
+  float* sBias = reinterpret_cast<float*>(sQOD + 6 * TILE);  // [kBQ][kLB], one item's
+  float* sStat = sBias + kBQ * kLB;  // stage s: lse [64], then delta [64]
+
+  const long long ld = (long long)a.H * D;
+  const bool pair = a.b2 != nullptr;
+  auto stage_item = [&](int item, int st) {
+    const int h = item / n_qt, q0 = (item % n_qt) * kBQ;
+    const long long base = head_base<D>(a, n, h);
+    if (q0 == 0) {  // a new head: its K and V tiles
+      T* kv = sKV + 2 * (h & 1) * TILE;
+      stage_tile<D, T>(kv, reinterpret_cast<const T*>(a.k) + base, ld, k0, a.R);
+      stage_tile<D, T>(kv + TILE, reinterpret_cast<const T*>(a.v) + base, ld, k0, a.R);
+    }
+    T* dst = sQOD + 3 * st * TILE;
+    stage_tile<D, T>(dst, reinterpret_cast<const T*>(a.q) + base, ld, q0, a.R);
+    stage_tile<D, T>(dst + TILE, reinterpret_cast<const T*>(a.o) + base, ld, q0, a.R);
+    stage_tile<D, T>(dst + 2 * TILE, reinterpret_cast<const T*>(a.dout) + base, ld, q0, a.R);
+    if (threadIdx.x < 64) {
+      const int i = threadIdx.x;
+      const bool ok = q0 + i < a.R;
+      const float* src = a.lse + ((long long)n * a.H + h) * a.R + q0 + i;
+      ds_mma::cp_async4(sStat + 128 * st + i, ok ? src : a.lse, ok);
+    }
+  };
+  // the pair-bias tile b2[g, h, q0 .., k0 ..] of an item, copied along k
+  // (rows of R floats)
+  auto stage_bias = [&](int item) {
+    const int h = item / n_qt, q0 = (item % n_qt) * kBQ;
+    const float* src = a.b2 + (((long long)g * a.H + h) * a.R + q0) * a.R + k0;
+    if (a.R % 4 == 0) {  // 16-byte rows: whole chunks inside or past R
+      for (int c = threadIdx.x; c < kBQ * (kBK / 4); c += kMmaThreads) {
+        const int r = c / (kBK / 4), c4 = (c % (kBK / 4)) * 4;
+        const bool ok = q0 + r < a.R && k0 + c4 < a.R;
+        ds_mma::cp_async16(sBias + r * kLB + c4, ok ? src + (long long)r * a.R + c4 : a.b2, ok);
+      }
+    } else {
+      for (int c = threadIdx.x; c < kBQ * kBK; c += kMmaThreads) {
+        const int r = c / kBK, cc = c % kBK;
+        const bool ok = q0 + r < a.R && k0 + cc < a.R;
+        ds_mma::cp_async4(sBias + r * kLB + cc, ok ? src + (long long)r * a.R + cc : a.b2, ok);
+      }
+    }
+  };
+  stage_item(0, 0);
+  if (pair) stage_bias(0);
+  ds_mma::cp_async_commit();
+
+  float b1v[2];     // b1 of the warp's key rows (0 without the mask bias)
+  float colsum[2];  // db1 of those rows: this lane's share
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = k0 + r0 + lane / 4 + 8 * i;
+    b1v[i] = a.b1 != nullptr && kpos < a.R ? a.b1[(long long)n * a.R + kpos] : 0.f;
+    colsum[i] = 0.f;
+  }
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[c][e] = dv[c][e] = 0.f;
+
+  for (int it = 0; it < n_items; ++it) {
+    const int st = it & 1, h = it / n_qt, q0 = (it % n_qt) * kBQ;
+    ds_mma::cp_async_wait_all();
+    __syncthreads();  // item it has landed; every reader of the other stage is done
+    if (it + 1 < n_items) stage_item(it + 1, st ^ 1);  // the next item, in flight
+    ds_mma::cp_async_commit();
+    const T* sK = sKV + 2 * (h & 1) * TILE;
+    const T* sV = sK + TILE;
+    const T* sQ = sQOD + 3 * st * TILE;
+    const T* sdO = sQ + 2 * TILE;
+    const float* bt = sBias;
+    const float* lse = sStat + 128 * st;
+    float* delta = sStat + 128 * st + 64;
+    {  // delta = rowsum(dO * O) of the item's 64 queries, two threads a row
+      const int r = threadIdx.x / 2, off = r * LDS + (threadIdx.x % 2) * (D / 2);
+      float part = dot16<T>(sdO + off, sQ + TILE + off, D / 2);
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      if (threadIdx.x % 2 == 0) delta[r] = part;
+    }
+    __syncthreads();
+
+    ds_mma::SplitFrags p;  // p^T, kept only as its split pair
+    {
+      float s[8][4];
+      ds_mma::mma_abt<D, T>(s, sK + r0 * LDS, sQ, lane);  // s^T = k . q
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kr = r0 + lane / 4 + 8 * (e / 2), col = 8 * j + 2 * (lane % 4) + e % 2;
+          float x = a.scale * s[j][e];
+          if (pair) x += bt[col * kLB + kr];
+          x += b1v[e / 2];
+          s[j][e] = q0 + col < a.R && k0 + kr < a.R ? exp2f((x - lse[col]) * ds_mma::kLog2e) : 0.f;
+        }
+      ds_mma::split_frags<T>(p, s);
+    }
+    __syncthreads();  // every warp has read the pair-bias tile: the next item's, in flight
+    if (pair && it + 1 < n_items) stage_bias(it + 1);
+    ds_mma::cp_async_commit();
+    ds_mma::mma_wm<D, T>(dv, p, sdO, lane);  // dv += p^T . dO
+    ds_mma::SplitFrags ds;
+    {
+      float dp[8][4];
+      ds_mma::mma_abt<D, T>(dp, sV + r0 * LDS, sdO, lane);  // dp^T = v . dO
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // ds^T = p^T (dp^T - delta)
+          const float x = ds_mma::split_value<T>(p, j, e) *
+                          (dp[j][e] - delta[8 * j + 2 * (lane % 4) + e % 2]);
+          colsum[e / 2] += x;
+          dp[j][e] = x;
+        }
+      ds_mma::split_frags<T>(ds, dp);
+    }
+    ds_mma::mma_wm<D, T>(dk, ds, sQ, lane);  // dk += ds^T . q
+    if (it % n_qt == n_qt - 1) {  // the head's last query tile: its dk and dv
+      const long long base = head_base<D>(a, n, h);
+      store_frags<D, T>(reinterpret_cast<T*>(a.dk) + base, ld, k0 + r0, a.R, dk, a.scale, lane);
+      store_frags<D, T>(reinterpret_cast<T*>(a.dv) + base, ld, k0 + r0, a.R, dv, 1.f, lane);
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[c][e] = dv[c][e] = 0.f;
+    }
+  }
+  if (a.db1 == nullptr) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float sum = ds_mma::quad_sum(colsum[i]);
+    const int kpos = k0 + r0 + lane / 4 + 8 * i;
+    if (lane % 4 == 0 && kpos < a.R) a.db1[(long long)n * a.R + kpos] = sum;
+  }
+}
+
+// kinds 0-3: the forward, dq and the fp32 route's dk/dv and db2 (CUDA
+// cores); 4-5: the tensor-core route's dk/dv and db2
+enum Kind { kFwd = 0, kDq = 1, kDkdv = 2, kDb2 = 3, kDkdvMma = 4, kDb2Mma = 5 };
 
 __host__ __device__ inline size_t smem_bytes(int kind, int d) {
   const size_t tile = (size_t)64 * (d + 4);
   const size_t ptile = (size_t)kBQ * kLP;
+  const size_t tile16 = (size_t)64 * (d + ds_mma::kPad) * 2;  // bytes of a 16-bit tile
   if (kind == kFwd) return (3 * tile + ptile + kBQ) * sizeof(float);
   if (kind == kDq) return (4 * tile + ptile + 2 * kBQ) * sizeof(float);
   if (kind == kDkdv) return (4 * tile + 2 * ptile + 2 * kBQ) * sizeof(float);
-  return (4 * tile + 2 * kBQ) * sizeof(float);
+  if (kind == kDb2) return (4 * tile + 2 * kBQ) * sizeof(float);
+  // two stages: K, V (by head parity) and q, O, dO; the pair-bias tile;
+  // lse and delta
+  if (kind == kDkdvMma) return 10 * tile16 + (kBQ * kLB + 4 * kBQ) * sizeof(float);
+  // two stages of q, O, dO, k, v and of lse, b1
+  return 10 * tile16 + 4 * kBQ * sizeof(float);
 }
 
-template <int D, typename T>
-cudaError_t launch(int kind, const Args& a, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(kind, D);
-  const long long nt = (a.R + kBQ - 1) / kBQ;
-  void (*kern)(const Args);
-  long long blocks;
-  if (kind == kFwd) {
-    kern = evo_fwd_kernel<D, T>;
-    blocks = nt * a.H * a.N;
-  } else if (kind == kDq) {
-    kern = evo_bwd_dq_kernel<D, T>;
-    blocks = nt * a.H * a.N;
-  } else if (kind == kDkdv) {
-    kern = evo_bwd_dkdv_kernel<D, T>;
-    blocks = nt * a.N;
-  } else {
-    kern = evo_bwd_db2_kernel<D, T>;
-    blocks = nt * nt * a.H * (a.N / a.n_seq);
-  }
+// Launch kern on the stream with `bytes` of dynamic shared memory.
+template <typename... P, typename... A>
+cudaError_t launch_kernel(void (*kern)(P...), long long blocks, int threads, size_t bytes,
+                          cudaStream_t stream, A... args) {
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
   }
-  kern<<<(unsigned)blocks, kThreads, bytes, stream>>>(a);
+  kern<<<(unsigned)blocks, threads, bytes, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// part / n_chunks: the tensor-core db2's row chunks (ignored by the rest).
+template <int D, typename T>
+cudaError_t launch(int kind, const Args& a, float* part, int n_chunks, cudaStream_t stream) {
+  constexpr bool k16 = !std::is_same<T, float>::value;
+  const size_t bytes = smem_bytes(kind, D);
+  const long long nt = (a.R + kBQ - 1) / kBQ, groups = a.N / a.n_seq;
+  switch (kind) {
+    case kFwd:
+      return launch_kernel(evo_fwd_kernel<D, T>, nt * a.H * a.N, kThreads, bytes, stream, a);
+    case kDq:
+      return launch_kernel(evo_bwd_dq_kernel<D, T>, nt * a.H * a.N, kThreads, bytes, stream, a);
+    case kDkdv:  // the fp32 route
+    case kDb2:
+      if constexpr (k16) {
+        return cudaErrorInvalidValue;
+      } else {
+        if (kind == kDkdv)
+          return launch_kernel(evo_bwd_dkdv_kernel<D, T>, nt * a.N, kThreads, bytes, stream, a);
+        return launch_kernel(evo_bwd_db2_kernel<D, T>, nt * nt * a.H * groups, kThreads, bytes,
+                             stream, a);
+      }
+    case kDkdvMma:  // the tensor-core route
+    case kDb2Mma:
+      if constexpr (!k16) {
+        return cudaErrorInvalidValue;
+      } else {
+        if (kind == kDkdvMma)
+          return launch_kernel(evo_bwd_dkdv_mma_kernel<D, T>, nt * a.N, kMmaThreads, bytes, stream,
+                               a);
+        return launch_kernel(evo_bwd_db2_mma_kernel<D, T>, nt * nt * a.H * n_chunks * groups,
+                             kMmaThreads, bytes, stream, a, part, n_chunks);
+      }
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // dtype: 0 bf16, 1 fp16, 2 fp32.
 template <int D>
-cudaError_t by_dtype(int kind, const Args& a, int dtype, cudaStream_t stream) {
-  if (dtype == 0) return launch<D, __nv_bfloat16>(kind, a, stream);
-  if (dtype == 1) return launch<D, __half>(kind, a, stream);
-  if (dtype == 2) return launch<D, float>(kind, a, stream);
+cudaError_t by_dtype(int kind, const Args& a, float* part, int n_chunks, int dtype,
+                     cudaStream_t stream) {
+  if (dtype == 0) return launch<D, __nv_bfloat16>(kind, a, part, n_chunks, stream);
+  if (dtype == 1) return launch<D, __half>(kind, a, part, n_chunks, stream);
+  if (dtype == 2) return launch<D, float>(kind, a, part, n_chunks, stream);
   return cudaErrorInvalidValue;
 }
 
-cudaError_t dispatch(int kind, const Args& a, int d, int dtype, cudaStream_t stream) {
+cudaError_t dispatch(int kind, const Args& a, int d, int dtype, cudaStream_t stream,
+                     float* part = nullptr, int n_chunks = 1) {
   if (a.N < 1 || a.R < 1 || a.H < 1 || a.n_seq < 1 || a.N % a.n_seq != 0)
     return cudaErrorInvalidValue;
-  if (d == 32) return by_dtype<32>(kind, a, dtype, stream);
-  if (d == 64) return by_dtype<64>(kind, a, dtype, stream);
-  if (d == 128) return by_dtype<128>(kind, a, dtype, stream);
+  if (d == 32) return by_dtype<32>(kind, a, part, n_chunks, dtype, stream);
+  if (d == 64) return by_dtype<64>(kind, a, part, n_chunks, dtype, stream);
+  if (d == 128) return by_dtype<128>(kind, a, part, n_chunks, dtype, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -657,10 +1075,25 @@ int ds_evo_bwd_dq(const void* q, const void* k, const void* v, const void* o, co
 }
 
 // dk, dv [N, R, H, d] in k's dtype; db1 [N, R] fp32 when not null (the
-// mask bias's gradient, summed over heads and queries).
+// mask bias's gradient, summed over heads and queries). On the tensor
+// cores: bf16 / fp16 (dtype 0 / 1) only.
 int ds_evo_bwd_dkdv(const void* q, const void* k, const void* v, const void* o, const void* dout,
                     const float* lse, const float* b1, const float* b2, void* dk, void* dv,
                     float* db1, int N, int R, int H, int d, int n_seq, int dtype, void* stream) {
+  Args a = make_args(q, k, v, b1, b2, const_cast<float*>(lse), N, R, H, d, n_seq);
+  a.o = o;
+  a.dout = dout;
+  a.dk = dk;
+  a.dv = dv;
+  a.db1 = db1;
+  return (int)dispatch(kDkdvMma, a, d, dtype, (cudaStream_t)stream);
+}
+
+// The same on the CUDA cores in fp32: fp32 (dtype 2) only.
+int ds_evo_bwd_dkdv_fp32(const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, const float* lse, const float* b1, const float* b2,
+                         void* dk, void* dv, float* db1, int N, int R, int H, int d, int n_seq,
+                         int dtype, void* stream) {
   Args a = make_args(q, k, v, b1, b2, const_cast<float*>(lse), N, R, H, d, n_seq);
   a.o = o;
   a.dout = dout;
@@ -671,10 +1104,34 @@ int ds_evo_bwd_dkdv(const void* q, const void* k, const void* v, const void* o, 
 }
 
 // db2 [G, H, R, R] fp32, G = N / n_seq: the pair bias's gradient, summed
-// over each group's rows.
+// over each group's rows, on the tensor cores (bf16 / fp16 only). The rows
+// of a group are split into n_chunks (1 .. n_seq) chunks; with more than
+// one, each chunk's partial goes to scratch [n_chunks, G, H, R, R] fp32
+// and a second launch on the same stream sums them in chunk order.
 int ds_evo_bwd_db2(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, const float* b1, const float* b2, float* db2, int N, int R,
-                   int H, int d, int n_seq, int dtype, void* stream) {
+                   const float* lse, const float* b1, const float* b2, float* db2,
+                   float* scratch, int N, int R, int H, int d, int n_seq, int n_chunks,
+                   int dtype, void* stream) {
+  if (b2 == nullptr || n_chunks < 1 || n_chunks > n_seq || (n_chunks > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(q, k, v, b1, b2, const_cast<float*>(lse), N, R, H, d, n_seq);
+  a.o = o;
+  a.dout = dout;
+  a.db2 = db2;
+  const cudaError_t e = dispatch(kDb2Mma, a, d, dtype, (cudaStream_t)stream, scratch, n_chunks);
+  if (e != cudaSuccess || n_chunks == 1) return (int)e;
+  const long long total = (long long)(N / n_seq) * H * R * R;
+  const long long work = total % 4 == 0 ? total / 4 : total;
+  return (int)launch_kernel(evo_db2_sum_kernel, std::min(work / 256 + 1, 132LL * 16), 256, 0,
+                            (cudaStream_t)stream, (const float*)scratch, db2, total, n_chunks);
+}
+
+// The first version on the CUDA cores in fp32 (fp32 only): one CTA per
+// (query tile, key tile, head, group) walks all the group's rows.
+int ds_evo_bwd_db2_fp32(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, const float* b1, const float* b2,
+                        float* db2, int N, int R, int H, int d, int n_seq, int dtype,
+                        void* stream) {
   Args a = make_args(q, k, v, b1, b2, const_cast<float*>(lse), N, R, H, d, n_seq);
   a.o = o;
   a.dout = dout;
@@ -684,7 +1141,8 @@ int ds_evo_bwd_db2(const void* q, const void* k, const void* v, const void* o, c
 
 const char* ds_evo_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Dynamic shared memory of one CTA: kind 0 forward, 1 dq, 2 dk/dv, 3 db2.
+// Dynamic shared memory of one CTA: kind 0 forward, 1 dq, 2 dk/dv and 3 db2
+// (fp32 route), 4 dk/dv and 5 db2 (tensor cores).
 long long ds_evo_smem_bytes(int kind, int d) { return (long long)smem_bytes(kind, d); }
 
 }  // extern "C"

@@ -86,7 +86,7 @@ namespace {
 
 using namespace ds_mma;
 
-constexpr int kThreads = 128;  // 4 warps x 16 rows of a 64-row tile
+constexpr int kThreads = kTileThreads;  // 4 warps x 16 rows of a 64-row tile
 constexpr int kBQ = 64;  // query rows per tile
 constexpr int kBK = 64;  // key rows per tile
 constexpr float kMask = -1e30f;
@@ -147,18 +147,6 @@ __device__ __forceinline__ bool visible(const Args& a, int qpos, int kpos) {
   return ok;
 }
 
-// Rows r0 .. r0 + 63 of a [.., n, D] tensor (row stride ld elements) into a
-// [64][LDS] shared tile, asynchronously; rows past S are zeros.
-template <int D, typename T>
-__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, int r0, int S) {
-  constexpr int CH = D / 8, LDS = Tile16<D>::LDS;
-  for (int c = threadIdx.x; c < 64 * CH; c += kThreads) {
-    const int r = c / CH, c8 = (c % CH) * 8;
-    const bool ok = r0 + r < S;
-    cp_async16(dst + r * LDS + c8, ok ? src + (long long)(r0 + r) * ld + c8 : src, ok);
-  }
-}
-
 // lse and delta of positions r0 .. r0 + 63 of one head's [S] rows (zeros
 // past S): threads 0-63 copy lse, 64-127 delta.
 __device__ __forceinline__ void stage_stats(float* sLse, const float* lse, float* sDelta,
@@ -178,23 +166,6 @@ __device__ __forceinline__ bool tile_full(const Args& a, int q0, int k0) {
   if (q0 + kBQ > a.S || k0 + kBK > a.S) return false;
   if (!a.causal) return true;
   return k0 + kBK - 1 <= q0 && (a.window <= 0 || q0 + kBQ - 1 - k0 < a.window);
-}
-
-// A warp's 16 x D C fragments, times mul, to rows row0 + (g, g + 8) of a
-// [.., n, D] tensor (rows past S are not written)
-template <int D, typename T>
-__device__ __forceinline__ void store_frags(T* p, long long ld, int row0, int S,
-                                            const float (&acc)[D / 8][4], float mul, int lane) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + lane / 4 + 8 * i;
-    if (row >= S) continue;
-    T* dst = p + (long long)row * ld + 2 * (lane % 4);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<unsigned*>(dst + 8 * n) =
-          pack2(from_f<T>(acc[n][2 * i] * mul), from_f<T>(acc[n][2 * i + 1] * mul));
-  }
 }
 
 // ---------------------------------------------------------------------------

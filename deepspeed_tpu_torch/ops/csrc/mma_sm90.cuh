@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the attention kernels, for Hopper (sm_90a):
-// included by flash_attention.cu and paged_attention.cu, each built into its
-// own library (ops/_build.py keys a library on its source and every csrc
-// header it includes, so an edit here rebuilds both).
+// included by flash_attention.cu, paged_attention.cu and
+// evoformer_attention.cu, each built into its own library (ops/_build.py
+// keys a library on its source and every csrc header it includes, so an
+// edit here rebuilds all three).
 //
 // A warp owns 16 rows of a 64-row tile and every product runs as
 // mma.sync.m16n8k16 with bf16 / fp16 operands and fp32 accumulators,
@@ -24,6 +25,7 @@
 namespace ds_mma {
 
 constexpr int kPad = 8;  // elements of padding per shared row
+constexpr int kTileThreads = 128;  // a CTA of 4 warps x 16 rows of a 64-row tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
@@ -66,6 +68,23 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
+// every group has landed (this thread's copies)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows r0 .. r0 + 63 of a [.., n, D] tensor (row stride ld elements) into a
+// [64][LDS] shared tile, asynchronously, by the kTileThreads threads of a
+// CTA; rows past S are zeros.
+template <int D, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, int r0, int S) {
+  constexpr int CH = D / 8, LDS = Tile16<D>::LDS;
+  for (int c = threadIdx.x; c < 64 * CH; c += kTileThreads) {
+    const int r = c / CH, c8 = (c % CH) * 8;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * LDS + c8, ok ? src + (long long)(r0 + r) * ld + c8 : src, ok);
+  }
+}
 
 __device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -102,6 +121,23 @@ __device__ __forceinline__ unsigned pack2(__nv_bfloat16 x, __nv_bfloat16 y) {
 __device__ __forceinline__ unsigned pack2(__half x, __half y) {
   __half2 v = __halves2half2(x, y);
   return *reinterpret_cast<unsigned*>(&v);
+}
+
+// A warp's 16 x D C fragments, times mul, to rows row0 + (g, g + 8) of a
+// [.., n, D] tensor (row stride ld elements; rows past S are not written)
+template <int D, typename T>
+__device__ __forceinline__ void store_frags(T* p, long long ld, int row0, int S,
+                                            const float (&acc)[D / 8][4], float mul, int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + lane / 4 + 8 * i;
+    if (row >= S) continue;
+    T* dst = p + (long long)row * ld + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<unsigned*>(dst + 8 * n) =
+          pack2(from_f<T>(acc[n][2 * i] * mul), from_f<T>(acc[n][2 * i + 1] * mul));
+  }
 }
 
 // A warp's 16 x 64 fp32 tile (eight C fragments, as mma_abt leaves them)

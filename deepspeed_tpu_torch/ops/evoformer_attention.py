@@ -24,9 +24,20 @@ tile fitting (``_fit_block``, ``_fit_tiles`` and the VMEM budget), its
 ``block_q`` / ``block_k`` knobs and the ``interpret`` flag are not ported:
 the CUDA tiles are fixed and a launch either runs or raises.
 
-``launch_counts`` counts kernel launches, one entry per TPU kernel:
-``evo_bwd_db1`` counts the dk/dv launches that also sum db1 (the TPU
-package's separate ``db1_kernel``). Nothing else adds to it.
+dk/dv and db2 have two kernel routes, chosen by :func:`route` from q/k/v's
+dtype alone (never on a failure): ``"mma"`` for bf16 and fp16 (the tensor
+cores, ``ds_evo_bwd_dkdv`` / ``ds_evo_bwd_db2``) and ``"fp32"`` for float32
+(the first version's CUDA-core kernels, ``ds_evo_bwd_dkdv_fp32`` /
+``ds_evo_bwd_db2_fp32``, whose fp32 sums hold a tolerance the 16-bit
+products cannot). The forward and dq have one kernel each. On the tensor
+cores db2 splits each group's rows into :func:`db2_row_chunks` chunks so
+that its grid fills the card; the chunks' partials go to a scratch tensor
+and the kernel library sums them in chunk order.
+
+``launch_counts`` counts kernel launches, one entry per TPU kernel and
+route (``_fp32`` for the CUDA-core route): ``evo_bwd_db1`` counts the dk/dv
+launches that also sum db1 (the TPU package's separate ``db1_kernel``).
+Nothing else adds to it.
 """
 
 import ctypes
@@ -40,8 +51,12 @@ MASK_VALUE = -1e30
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
-launch_counts = {"evo_fwd": 0, "evo_bwd_dq": 0, "evo_bwd_dkdv": 0, "evo_bwd_db1": 0,
-                 "evo_bwd_db2": 0}
+_SUFFIX = {"mma": "", "fp32": "_fp32"}  # route -> suffix of its C entry points and counts
+launch_counts = {"evo_fwd": 0, "evo_bwd_dq": 0,
+                 **{f"evo_bwd_{k}{sfx}": 0 for sfx in _SUFFIX.values()
+                    for k in ("dkdv", "db1", "db2")}}
+SMS = 132  # streaming multiprocessors of an H100 SXM
+DB2_CTAS_PER_SM = 16  # db2's grid: about this many CTAs for every SM
 
 _built = None
 
@@ -62,8 +77,11 @@ def kernel_build():
         lib.ds_evo_fwd.argtypes = [vp] * 7 + [i] * 6 + [vp]
         lib.ds_evo_bwd_dq.argtypes = [vp] * 9 + [i] * 6 + [vp]
         lib.ds_evo_bwd_dkdv.argtypes = [vp] * 11 + [i] * 6 + [vp]
-        lib.ds_evo_bwd_db2.argtypes = [vp] * 9 + [i] * 6 + [vp]
-        for fn in (lib.ds_evo_fwd, lib.ds_evo_bwd_dq, lib.ds_evo_bwd_dkdv, lib.ds_evo_bwd_db2):
+        lib.ds_evo_bwd_dkdv_fp32.argtypes = [vp] * 11 + [i] * 6 + [vp]
+        lib.ds_evo_bwd_db2.argtypes = [vp] * 10 + [i] * 7 + [vp]
+        lib.ds_evo_bwd_db2_fp32.argtypes = [vp] * 9 + [i] * 6 + [vp]
+        for fn in (lib.ds_evo_fwd, lib.ds_evo_bwd_dq, lib.ds_evo_bwd_dkdv,
+                   lib.ds_evo_bwd_dkdv_fp32, lib.ds_evo_bwd_db2, lib.ds_evo_bwd_db2_fp32):
             fn.restype = i
         lib.ds_evo_error_string.argtypes = [i]
         lib.ds_evo_error_string.restype = ctypes.c_char_p
@@ -129,6 +147,33 @@ def evo_attention_reference_bwd(q, k, v, bias1, bias2, out, lse, dout):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+def route(dtype) -> str:
+    """The dk/dv and db2 kernels' route for q/k/v of ``dtype``: ``"mma"``
+    (tensor cores) for bfloat16 and float16, ``"fp32"`` (CUDA cores) for
+    float32."""
+    if dtype not in DTYPES:
+        raise ValueError(f"the kernels take bfloat16, float16 or float32, got {dtype}")
+    return "fp32" if dtype == torch.float32 else "mma"
+
+
+def db2_row_chunks(n_seq: int, R: int, h: int, G: int) -> int:
+    """How many chunks the tensor-core db2 splits each group's ``n_seq``
+    rows into: its grid has ``tiles^2 * h * G`` CTAs a chunk (64-wide
+    query and key tiles), and enough chunks give about
+    ``DB2_CTAS_PER_SM`` CTAs to each of the card's ``SMS`` SMs, at most one
+    a row; 1 where the grid already fills the card."""
+    tiles = -(-R // 64)
+    per_chunk = tiles * tiles * h * G
+    return max(1, min(n_seq, -(-DB2_CTAS_PER_SM * SMS // per_chunk)))
+
+
+def chunk_rows(n_seq: int, n_chunks: int):
+    """The rows ``[lo, hi)`` of each chunk of a group, in order, as the
+    kernel computes them (chunk c: ``c * n_seq // n_chunks`` up to
+    ``(c + 1) * n_seq // n_chunks``)."""
+    return [(c * n_seq // n_chunks, (c + 1) * n_seq // n_chunks) for c in range(n_chunks)]
+
 
 def _check(q, k, v, bias1, bias2):
     """(N, R, h, d, n_seq) of a kernel call; raises on what the kernels do
@@ -240,14 +285,15 @@ def evo_bwd_dkdv(q, k, v, bias1, bias2, out, lse, dout, db1=True):
         q, k, v, bias1, bias2, out, lse, dout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     g1 = torch.empty((N, R), dtype=torch.float32, device=q.device) if want_db1 else None
-    rc = kernel_build().lib.ds_evo_bwd_dkdv(
+    sfx = _SUFFIX[route(q.dtype)]
+    rc = getattr(kernel_build().lib, f"ds_evo_bwd_dkdv{sfx}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), _ptr(bias1), _ptr(bias2), dk.data_ptr(), dv.data_ptr(), _ptr(g1), N, R,
         h, d, n_seq, DTYPES[q.dtype], _stream(q))
-    _raise_if(rc, "evo_bwd_dkdv")
-    launch_counts["evo_bwd_dkdv"] += 1
+    _raise_if(rc, f"evo_bwd_dkdv{sfx}")
+    launch_counts[f"evo_bwd_dkdv{sfx}"] += 1
     if want_db1:
-        launch_counts["evo_bwd_db1"] += 1
+        launch_counts[f"evo_bwd_db1{sfx}"] += 1
     return dk, dv, g1
 
 
@@ -260,13 +306,25 @@ def evo_bwd_db2(q, k, v, bias1, bias2, out, lse, dout):
         return evo_attention_reference_bwd(q, k, v, bias1, bias2, out, lse, dout)[4]
     (N, R, h, d, n_seq), (q, k, v, bias1, bias2, out, dout, lse) = _bwd_operands(
         q, k, v, bias1, bias2, out, lse, dout)
-    db2 = torch.empty((N // n_seq, h, R, R), dtype=torch.float32, device=q.device)
-    rc = kernel_build().lib.ds_evo_bwd_db2(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), _ptr(bias1), _ptr(bias2), db2.data_ptr(), N, R, h, d, n_seq,
-        DTYPES[q.dtype], _stream(q))
-    _raise_if(rc, "evo_bwd_db2")
-    launch_counts["evo_bwd_db2"] += 1
+    G = N // n_seq
+    db2 = torch.empty((G, h, R, R), dtype=torch.float32, device=q.device)
+    lib = kernel_build().lib
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), _ptr(bias1), _ptr(bias2), db2.data_ptr())
+    sfx = _SUFFIX[route(q.dtype)]
+    if sfx == _SUFFIX["mma"]:
+        n_chunks = db2_row_chunks(n_seq, R, h, G)
+        # freed on return, before the kernels run: the caching allocator
+        # hands the block out again only to work queued on this stream after
+        # them
+        scratch = (torch.empty((n_chunks, G, h, R, R), dtype=torch.float32, device=q.device)
+                   if n_chunks > 1 else None)
+        rc = lib.ds_evo_bwd_db2(*args, _ptr(scratch), N, R, h, d, n_seq, n_chunks,
+                                DTYPES[q.dtype], _stream(q))
+    else:
+        rc = lib.ds_evo_bwd_db2_fp32(*args, N, R, h, d, n_seq, DTYPES[q.dtype], _stream(q))
+    _raise_if(rc, f"evo_bwd_db2{sfx}")
+    launch_counts[f"evo_bwd_db2{sfx}"] += 1
     return db2
 
 

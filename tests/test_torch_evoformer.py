@@ -296,6 +296,57 @@ def test_single_bias_and_route_guard():
         tev.evo_flash(q[0], q[0], q[0], None, torch.zeros(3, h, R, R))
 
 
+@pytest.mark.parametrize("dtype, expected", [(torch.bfloat16, "mma"), (torch.float16, "mma"),
+                                             (torch.float32, "fp32")])
+def test_route_is_chosen_by_the_dtype_alone(dtype, expected):
+    """bf16 and fp16 q/k/v take the tensor-core dk/dv and db2, fp32 the
+    CUDA-core ones (whose tolerance the 16-bit products cannot hold); each
+    route has its own C entry points and launch counts, and nothing else
+    (shape, biases) decides."""
+    assert tev.route(dtype) == expected
+    sfx = tev._SUFFIX[expected]
+    for kernel in ("dkdv", "db1", "db2"):
+        assert f"evo_bwd_{kernel}{sfx}" in tev.launch_counts
+    with pytest.raises(ValueError):
+        tev.route(torch.float64)
+
+
+@pytest.mark.parametrize("n_seq, R, h, G", [(512, 384, 8, 1), (384, 384, 4, 1), (4, 100, 2, 2),
+                                            (40, 257, 4, 2), (1, 64, 2, 3), (7, 1, 1, 1),
+                                            (64, 2048, 8, 1), (5000, 64, 1, 1)])
+def test_db2_row_chunks_cover_every_row_once(n_seq, R, h, G):
+    """The tensor-core db2's row chunks: every row of a group in exactly one
+    chunk, chunks in order and never empty, at most one a row; enough chunks
+    that the grid gives every SM about ``DB2_CTAS_PER_SM`` CTAs where the
+    rows allow, and one chunk where one chunk's grid already fills the card."""
+    S = tev.db2_row_chunks(n_seq, R, h, G)
+    assert 1 <= S <= n_seq
+    bounds = tev.chunk_rows(n_seq, S)
+    assert len(bounds) == S and bounds[0][0] == 0 and bounds[-1][1] == n_seq
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))  # in order, no gap, no overlap
+    rows = [r for lo, hi in bounds for r in range(lo, hi)]
+    assert rows == list(range(n_seq))
+    per_chunk = (-(-R // 64))**2 * h * G
+    target = tev.DB2_CTAS_PER_SM * tev.SMS
+    if per_chunk >= target:
+        assert S == 1
+    elif S < n_seq:
+        assert S * per_chunk >= target > (S - 1) * per_chunk
+    else:
+        assert S * per_chunk <= target
+
+
+def test_db2_row_chunks_at_the_evoformer_shapes():
+    """AlphaFold's crop: the MSA-row call (h 8, 288 tiles a chunk) splits its
+    512 rows into 8 chunks, a triangle call (h 4, 144 tiles) its 384 rows
+    into 15; a grid already wider than the card keeps one chunk."""
+    assert tev.db2_row_chunks(512, 384, 8, 1) == 8
+    assert tev.db2_row_chunks(384, 384, 4, 1) == 15
+    assert tev.db2_row_chunks(64, 4096, 8, 1) == 1
+    assert tev.db2_row_chunks(64, 2048, 8, 2) == 1
+
+
 def test_cpu_tensor_never_launches_a_kernel():
     rng = np.random.default_rng(9)
     q, k, v, do = _t(*_qkv(rng, (2, 100, 2, 64)))
@@ -413,16 +464,20 @@ def test_cuda_kernels_match_plain_version_on_card():
     """On the card: out, lse, dq, dk, dv, db1, db2 of the kernels against the
     plain version on the same inputs (the backward on the kernel forward's
     out and lse): both biases or neither, G 1 and 2, ragged R (and R 1,
-    where every gradient cancels to rounding), head_dim 32 / 64 / 128, bf16
-    and fp32; and the autograd Function launches each
-    kernel once."""
+    where every gradient cancels to rounding), head_dim 32 / 64 / 128, bf16,
+    fp16 and fp32, db2 with one row a group and with 40 rows a group split
+    into chunks; each case's dk/dv and db2 launch on its dtype's route; and
+    the autograd Function launches each kernel once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
     cases = [(4, 2, 200, 4, 32, torch.bfloat16, True), (3, 1, 130, 2, 64, torch.float32, True),
              (2, 2, 64, 2, 128, torch.bfloat16, False), (6, 3, 96, 8, 32, torch.float32, True),
-             (4, 2, 1, 2, 32, torch.float32, True)]
+             (4, 2, 1, 2, 32, torch.float32, True), (5, 1, 100, 2, 64, torch.float16, True),
+             (2, 2, 160, 2, 32, torch.float16, True), (80, 2, 257, 4, 32, torch.bfloat16, True)]
+    assert tev.db2_row_chunks(40, 257, 4, 2) > 1  # the last case splits its rows
     for N, G, R, h, d, dtype, with_b in cases:
+        tev.reset_launch_counts()
         rng = np.random.default_rng(N * R + d)
         q, k, v, do = (torch.from_numpy(x).to(dev, dtype) for x in _qkv(rng, (N, R, h, d)))
         b1 = torch.from_numpy(2 * rng.normal(size=(N, R)).astype(np.float32)).to(dev)
@@ -446,6 +501,11 @@ def test_cuda_kernels_match_plain_version_on_card():
         if with_b:
             assert _gpu_err(got[3], ref[3], h * R, terms[3]) <= 1.0, f"db1 {tag}"
             assert _gpu_err(got[4], ref[4], N // G, terms[4]) <= 1.0, f"db2 {tag}"
+        sfx = "_fp32" if dtype == torch.float32 else ""
+        routed = {f"evo_bwd_dkdv{sfx}": 1} | ({f"evo_bwd_db1{sfx}": 1, f"evo_bwd_db2{sfx}": 1}
+                                              if with_b else {})
+        assert {k: n for k, n in tev.launch_counts.items() if n and "dq" not in k
+                and "fwd" not in k} == routed, tag
     tev.reset_launch_counts()
     q, k, v, do = (torch.randn(4, 100, 2, 32, device=dev, dtype=torch.bfloat16) for _ in range(4))
     b1 = torch.zeros(4, 100, device=dev, requires_grad=True)
@@ -453,5 +513,5 @@ def test_cuda_kernels_match_plain_version_on_card():
     q.requires_grad_()
     tev.evo_flash(q, k, v, b1, b2).backward(do)
     torch.cuda.synchronize()
-    assert tev.launch_counts == {"evo_fwd": 1, "evo_bwd_dq": 1, "evo_bwd_dkdv": 1,
-                                 "evo_bwd_db1": 1, "evo_bwd_db2": 1}
+    assert tev.launch_counts == dict.fromkeys(tev.launch_counts, 0) | {
+        "evo_fwd": 1, "evo_bwd_dq": 1, "evo_bwd_dkdv": 1, "evo_bwd_db1": 1, "evo_bwd_db2": 1}
