@@ -4,7 +4,8 @@
                                     train,moe_train,sparse_train,evo_kernels,evo_path]
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
-    python3 chip_smoke.py --versus DIR [--phases moe_kernels,moe_train]
+    python3 chip_smoke.py --versus DIR [--phases kernels,e2e]
+    python3 chip_smoke.py --versus DIR --phases moe_kernels,moe_train
     python3 chip_smoke.py --versus DIR --phases evo_kernels,evo_path
 
 With no arguments every phase runs, in this order; each must pass (exit
@@ -14,25 +15,33 @@ code 1 otherwise):
    ``deepspeed_tpu_torch/ops/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together; print each nvcc's wall time and the
    ``-Xptxas -v`` registers / shared memory / spills per kernel.
-2. kernels: hold every paged-attention path (``paged_decode`` with
-   kv_splits 1 and 8, ``paged_prefill``) against the plain PyTorch version
-   on the card, bf16 and int8 pools, GQA 32/8, head_dim 128, block 64, plus
-   window / ALiBi / head_dim 64 cases at small sizes. Tolerance, per output
-   element: |kernel - plain| <= 2 ulp(plain) + 2^-14, with ulp the spacing
-   of bfloat16 numbers at |plain|. Both sum in fp32 (the decode kernel on
-   CUDA cores; the prefill on the tensor cores, whose products take the
-   16-bit inputs exactly and the probabilities as a split hi + lo pair,
-   ~2^-17 relative; the plain version in fp32 einsums) and round once to
-   bf16 at the end, so their fp32 results differ by about 1e-6 of the
-   terms' size. Values that close round to bf16 numbers at most one ulp
-   apart (two where a power of two lies between them); the 2^-14 floor
-   covers that difference where an output is near zero and its ulp is
-   smaller. The prefill runs at its default tile (64 / g tokens). At the
-   main path's shapes (decode of 32 sequences x 1024 context, a 512-token
-   prefill chunk) time the kernel (CUDA events over many warmed launches;
-   also each path's device time with the host queued ahead behind a
-   device-side wait, and for the prefill the time of the tile descriptors
-   that a forward's first layer computes),
+2. kernels: print the decode kernels' ptxas registers and spills and their
+   shared memory per CTA; hold every paged-attention path (``paged_decode``
+   with kv_splits 1 and 8, ``paged_prefill``) against the plain PyTorch
+   version on the card, bf16 and int8 pools, GQA 32/8, head_dim 128, block
+   64, plus window / ALiBi / head_dim 64 cases at small sizes. Tolerance,
+   per output element: |kernel - plain| <= 2 ulp(plain) + 2^-14, with ulp
+   the spacing of bfloat16 numbers at |plain|. Both sum in fp32 (the
+   kernels on the tensor cores, whose products take the 16-bit inputs
+   exactly and the probabilities as a split hi + lo pair, ~2^-17 relative;
+   the plain version in fp32 einsums) and round once to bf16 at the end,
+   so their fp32 results differ by about 1e-6 of the terms' size. Values
+   that close round to bf16 numbers at most one ulp apart (two where a
+   power of two lies between them); the 2^-14 floor covers that difference
+   where an output is near zero and its ulp is smaller. The split decode's
+   two kernels are also checked apart: its fp32 partials (``acc``, ``m``,
+   ``l`` per split of each token's live blocks) against
+   ``paged_decode_partials_reference``, within 2^-14 (1 + |m|) for m,
+   2^-14 l for l and 2^-14 l max|v| for each element of acc (the split P
+   and the scores' fp32 rounding move a term by ~2^-17 of itself, and acc
+   is a sum of at most l max|v|), and the merge kernel on those partials
+   against ``merge_decode_splits`` with the bf16 rule. The prefill runs at
+   its default tile (64 / g tokens). At the main path's shapes (decode of
+   32 sequences x 1024 context, a 512-token prefill chunk) time the kernel
+   (CUDA events over many warmed launches; also each path's device time
+   with the host queued ahead behind a device-side wait, and for the
+   prefill the time of the tile descriptors that a forward's first layer
+   computes; the split route's split kernel and merge kernel alone),
    the plain version, and ``F.scaled_dot_product_attention`` on the same
    context pre-gathered contiguous (a yardstick only: it excludes the
    gather; the prefill's is also run through the contiguous flash forward),
@@ -107,7 +116,8 @@ code 1 otherwise):
    profiles of a decode horizon and of one 512-token ``put`` (device time
    by kernel, device idle share of the host's wall clock), and that put's
    wall with the prefill's tile descriptors computed in every layer (the
-   wrapper's memo bypassed by this script).
+   wrapper's memo bypassed by this script). The decode profile also counts
+   the device kernels (and copies) per step.
 7. train: the serving engine is freed first. Mistral-7B at full width with
    its depth cut 32 -> 8 for memory, fp32 masters from a seeded generator,
    trained through ``deepspeed_tpu_torch.initialize`` -> ``train_batch``
@@ -193,18 +203,21 @@ tensor-core Evoformer dk/dv skipping each head's last query tile
 (``--phases build,evo_kernels``, the same), the flash backward with
 dk/dv skipping each CTA's last live q-tile and dq its last live k-tile
 and, alone, the flash forward skipping each CTA's last live k-tile
-(``--phases build,train_kernels``, the same), and the paged prefill
-skipping each CTA's last live k-tile (``--phases build,kernels``, the
-same): seven copies. It passes when every mutant is caught.
+(``--phases build,train_kernels``, the same), the paged prefill
+skipping each CTA's last live k-tile and, alone, the paged decode
+skipping each split's last live block (``--phases build,kernels``, the
+same): eight copies. It passes when every mutant is caught.
 
-``--ablation`` times the flash kernels, the paged prefill, the grouped
-matmul and the Evoformer db2 against copies under
+``--ablation`` times the flash kernels, the paged prefill and decode, the
+grouped matmul and the Evoformer db2 against copies under
 ``build/ablation/<name>``, each undoing one design choice of
 ``ABLATIONS`` (the grid order of the backward and of the forward, the
 prefill's tile order, the mask fast path, the two-level accumulation, each
-split pair; the grouped matmul's ring two stages deep, one CTA per tile;
-db2's rows in one chunk): ``--phases kernels,train_kernels``
-(``moe_kernels`` for the grouped matmul, ``evo_kernels`` for the
+split pair; the decode split over the table's capacity, as the TPU grid
+splits it, with its plain partials patched alike; the grouped matmul's ring
+two stages deep, one CTA per tile; db2's rows in one chunk): ``--phases
+kernels,train_kernels`` (``kernels`` alone for the decode,
+``moe_kernels`` for the grouped matmul, ``evo_kernels`` for the
 Evoformer) in every copy in turns, each version twice,
 printing the main shapes' times and each phase's largest error as a
 fraction of the tolerance (``worst_error_fraction``; above 1 fails that
@@ -213,11 +226,14 @@ subset of names.
 
 ``--versus DIR`` times this tree against another checkout of the
 repository (e.g. ``git archive <parent> | tar -x -C build/parent``), each
-with its own script and kernels built at once: ``--phases`` (default
-``moe_kernels,moe_train``) in the order DIR, this, this, DIR, printing the
-grouped matmul's and the Evoformer kernels' times, the MoE step, the
-Evoformer block and their top device ops per run, and one JSON line of
-all runs.
+with its kernels built at once: ``--phases`` (default ``kernels,e2e``) in
+the order DIR, this, this, DIR, each tree's own script for every phase but
+``e2e``, which runs this script's ``phase_e2e`` on each tree's package (so
+the serving path is measured by the same code on both), printing the paged
+decode times, the serving decode profile (wall and device ms per step,
+device kernels per step), decode tok/s and TTFT p50, the grouped matmul's
+and the Evoformer kernels' times, the MoE step, the Evoformer block and
+their top device ops per run, and one JSON line of all runs.
 
 It prints the card (name and power limit) and, on the line before the last,
 ``{"kernels": [...]}``; the last line is
@@ -249,8 +265,13 @@ TPU_SRC = "deepspeed_tpu/ops/pallas/paged_attention.py"
 KERNELS = {  # name -> (TPU kernel it replaces)
     "paged_decode": f"{TPU_SRC}:258",
     "paged_decode_split": f"{TPU_SRC}:550",
+    # the split's log-sum-exp merge, jnp ops after _paged_kv_split's pallas_call
+    "paged_decode_merge": f"{TPU_SRC}:700",
     "paged_prefill": f"{TPU_SRC}:394",
 }
+# the split decode's fp32 partials: m within 2^-14 (1 + |m|), l within 2^-14 l,
+# acc within 2^-14 l max|v| (see the module docstring)
+PARTIAL_TOL = 2.0**-14
 FLASH_SRC = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
 TPU_FLASH = "deepspeed_tpu/ops/pallas/flash_attention.py"
 TRAIN_KERNELS = {  # name -> (source, TPU kernel it replaces)
@@ -409,8 +430,8 @@ def phase_build():
         _log_ptxas(b.ptxas)
     plib = built["paged_attention"].lib
     log(f"[build] paged attention dynamic shared memory per CTA at the main path's shapes (d "
-        f"128, block 64): decode (rows = g = 4) {plib.ds_paged_smem_bytes(4, 128, 64)} B, "
-        f"prefill (64 rows = q_tile 16 x g 4) bf16 pools "
+        f"128, block 64): decode bf16 pools {plib.ds_paged_smem_bytes(128, 0)} B, int8 pools "
+        f"{plib.ds_paged_smem_bytes(128, 1)} B, prefill (64 rows = q_tile 16 x g 4) bf16 pools "
         f"{plib.ds_paged_prefill_smem_bytes(128, 0)} B, int8 pools "
         f"{plib.ds_paged_prefill_smem_bytes(128, 1)} B")
     fsm = built["flash_attention"].lib.ds_flash_smem_bytes
@@ -469,6 +490,24 @@ def _err(out, ref):
     return float(err.max()), float((err / (TOL_ULPS * bf16_ulp(ref) + TOL_FLOOR)).max())
 
 
+def _partials_err(got, ref, vmax):
+    """(max |acc - plain acc|, the largest error of the split decode's
+    partials as a fraction of its tolerance): m within 2^-14 (1 + |m|), l
+    within 2^-14 l, acc within 2^-14 l max|v| (module docstring)."""
+    (acc, m, l), (racc, rm, rl) = got, ref
+    fracs = ((m - rm).abs() / (PARTIAL_TOL * (1 + rm.abs())),
+             (l - rl).abs() / (PARTIAL_TOL * rl).clamp_min(1e-30),
+             (acc - racc).abs() / (PARTIAL_TOL * vmax * rl[..., None]).clamp_min(1e-30))
+    return float((acc - racc).abs().max()), max(float(f.max()) for f in fracs)
+
+
+def _vmax(v, kw):
+    """The largest |value| of a pool, dequantised."""
+    if "v_scale" in kw:
+        return float((v.float() * kw["v_scale"].t()[:, :, None]).abs().max())
+    return float(v.float().abs().max())
+
+
 def queued_ms(fn, iters=20, spin_cycles=100_000_000):
     """Device time per call of ``fn`` with the host queued ahead: a
     device-side wait of ``spin_cycles`` clocks (~60 ms) holds the stream
@@ -504,6 +543,11 @@ def phase_kernels():
     failures = []
     worst = {k: 0.0 for k in KERNELS}
     worst_frac = [0.0]
+    built = pa.kernel_build()
+    _log_ptxas(built.ptxas, tag="[kernels]", keep=("paged_decode_kernel", "decode_merge_kernel"))
+    sm = built.lib.ds_paged_smem_bytes
+    log(f"[kernels] decode dynamic shared memory per CTA, d 128 / 64: bf16 pools {sm(128, 0)} / "
+        f"{sm(64, 0)} B, int8 pools {sm(128, 1)} / {sm(64, 1)} B")
 
     def check(tag, out, ref):
         e, frac = _err(out, ref)
@@ -511,6 +555,24 @@ def phase_kernels():
         if not frac <= 1.0:
             failures.append(f"{tag}: max_abs_err {e:.3e}, {frac:.2f}x its tolerance")
         return e
+
+    def check_split(tag, q, k, v, tb, si, po, bs, kw, splits):
+        """The split decode's two kernels apart: the partials against their
+        plain version, the merge kernel on them against the plain merge.
+        Returns (partials, max error, their error fraction, the merge's
+        max error)."""
+        parts = pa.paged_decode_partials(q, k, v, tb, si, po, bs, splits, **kw)
+        merged = pa.paged_decode_merge(*parts)
+        torch.cuda.synchronize()
+        ref = pa.paged_decode_partials_reference(q, k, v, tb, si, po, bs, splits, **kw)
+        e, frac = _partials_err(parts, ref, _vmax(v, kw))
+        worst_frac[0] = max(worst_frac[0], frac)
+        if not frac <= 1.0:
+            failures.append(f"paged_decode partials {tag} splits={splits}: max_abs_err {e:.3e}, "
+                            f"{frac:.2f}x their tolerance")
+        e_merge = check(f"paged_decode_merge {tag} splits={splits}", merged,
+                        pa.merge_decode_splits(*parts))
+        return parts, e, frac, e_merge
 
     def run_paths(tag, q, k, v, tb, si, po, bs, kw, splits):
         ref = pa.paged_attention_reference(q, k, v, tb, si, po, bs, **kw)
@@ -521,6 +583,10 @@ def phase_kernels():
         torch.cuda.synchronize()
         for name, out in outs.items():
             worst[name] = max(worst[name], check(f"{name} {tag}", out, ref))
+        # the partials at this split count and at 8, more splits than blocks
+        for ks in (splits, 8):
+            e_merge = check_split(tag, q, k, v, tb, si, po, bs, kw, ks)[3]
+            worst["paged_decode_merge"] = max(worst["paged_decode_merge"], e_merge)
         return ref
 
     # small sizes: a mixed prefill + decode batch with the pad run, at both
@@ -543,7 +609,8 @@ def phase_kernels():
                                                device="cuda")
                 run_paths(f"d={d} int8={int8} window={window} alibi={alibi}", q, k, v, tb, si,
                           po, bs, kw, splits=3)
-    log(f"[kernels] small-size matrix (32 cases x 3 paths): "
+    log(f"[kernels] small-size matrix (32 cases x 3 paths, the split's partials and merge at 3 "
+        f"and 8 splits): "
         f"{'all within tolerance' if not failures else failures}; max_abs_err {worst}")
 
     # main-path shapes: Mistral-7B attention (GQA 32/8, d 128), block 64,
@@ -552,7 +619,7 @@ def phase_kernels():
     nq = nkv * g
     tables = torch.randperm(S * mb, generator=g_small).to(torch.int32).reshape(S, mb)
     res = {}
-    device_jobs = []  # (measurement dict, call)
+    device_jobs = []  # (measurement dict, its key, call)
     for int8 in (False, True):
         kvb = 1 if int8 else 2
         scale_b = 8 if int8 else 0  # k and v fp32 scale per (slot, head)
@@ -568,6 +635,16 @@ def phase_kernels():
             fn = fns[name] = partial(pa.paged_decode, q, k, v, tb, si, po, bs, kv_splits=ks, **kw)
             e = check(f"{name} main int8={int8}", fn(), ref)
             meas[name] = dict(err=e, ms=time_ms(fn))
+        # the split route's two kernels apart, each checked
+        parts, _, frac_p, e_merge = check_split(f"main int8={int8}", q, k, v, tb, si, po, bs, kw,
+                                                splits)
+        kernel_fn = partial(pa.paged_decode_partials, q, k, v, tb, si, po, bs, splits, **kw)
+        merge_fn = partial(pa.paged_decode_merge, *parts)
+        meas["paged_decode_split"].update(kernel_ms=time_ms(kernel_fn), merge_ms=time_ms(merge_fn),
+                                          partials_error_fraction=frac_p)
+        merge_plain = time_ms(lambda: pa.merge_decode_splits(*parts), iters=20, warmup=2)
+        merge_bytes = splits * S * nq * (d + 2) * 4 + S * nq * d * 2
+        m_ms, m_by = bound_ms(merge_bytes, 3 * splits * S * nq * d, FP32_FLOPS_PER_S)
         plain = time_ms(lambda: pa.paged_attention_reference(q, k, v, tb, si, po, bs, **kw),
                         iters=10, warmup=2)
         n_bytes = (S * nq * d * 2 * 2 + S * ctx * nkv * (2 * d * kvb + scale_b)
@@ -585,12 +662,22 @@ def phase_kernels():
         for name, m in meas.items():
             res[(name, int8)] = dict(m, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                      library_ms=lib_ms)
-            device_jobs.append((res[(name, int8)], fns[name]))
+            device_jobs.append((res[(name, int8)], "device_ms", fns[name]))
+        res[("paged_decode_merge", int8)] = dict(
+            err=e_merge, ms=meas["paged_decode_split"]["merge_ms"], plain_ms=merge_plain,
+            bound_ms=m_ms, bound_by=m_by, library_ms=None, splits=splits)
+        device_jobs.append((res[("paged_decode_merge", int8)], "device_ms", merge_fn))
+        device_jobs.append((res[("paged_decode_split", int8)], "kernel_device_ms", kernel_fn))
+        sp = meas["paged_decode_split"]
         log(f"[kernels] decode S={S} ctx={ctx} int8={int8} splits={splits}: "
             f"paged_decode {meas['paged_decode']['ms']:.4f} ms, paged_decode_split "
-            f"{meas['paged_decode_split']['ms']:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} "
+            f"{sp['ms']:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} "
             f"ms ({b_by}), sdpa on gathered context {lib_ms} ms, max_abs_err "
-            f"{meas['paged_decode']['err']:.3e} / {meas['paged_decode_split']['err']:.3e}")
+            f"{meas['paged_decode']['err']:.3e} / {sp['err']:.3e}")
+        log(f"[kernels] decode split route apart, int8={int8}: split kernel {sp['kernel_ms']:.4f} "
+            f"ms, merge kernel {sp['merge_ms']:.4f} ms (bound {m_ms:.5f} ms ({m_by}), plain merge "
+            f"{merge_plain:.4f} ms); partials {frac_p:.3f} of their tolerance, merge max_abs_err "
+            f"{e_merge:.3e}")
 
         # prefill: one 512-token chunk of one sequence from position 0
         q, k, v, tb, si, po, kw = _make_case(11 + int8, nkv, g, d, bs, tables[:1],
@@ -628,20 +715,23 @@ def phase_kernels():
                                             descriptors_ms=desc_ms)
         if not int8:
             res[("paged_prefill", int8)]["flash_fwd_same_work_ms"] = flash_ms
-        device_jobs.append((res[("paged_prefill", int8)], fn))
+        device_jobs.append((res[("paged_prefill", int8)], "device_ms", fn))
         log(f"[kernels] prefill T={T_pre} int8={int8} q_tile={qt}: paged_prefill {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s; the tile descriptors a first call adds "
             f"{desc_ms:.4f} ms), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), sdpa on "
             f"gathered context {lib_ms} ms, the contiguous flash forward on it "
             f"{None if int8 else round(flash_ms, 4)} ms, max_abs_err {e:.3e}")
     # each path's device time with the host queued ahead (the split
-    # decode's includes its torch merge), after every timing above
-    for m, fn in device_jobs:
-        m["device_ms"] = queued_ms(fn)
+    # decode's includes its merge kernel), after every timing above
+    for m, key, fn in device_jobs:
+        m[key] = queued_ms(fn)
     log("[kernels] device time per call with the host queued ahead (no launch gaps), bf16 / "
         "int8 pools: " + "; ".join(
             f"{name} {res[(name, False)]['device_ms']:.4f} / "
-            f"{res[(name, True)]['device_ms']:.4f} ms" for name in KERNELS))
+            f"{res[(name, True)]['device_ms']:.4f} ms" for name in KERNELS)
+        + "; the split kernel alone " + " / ".join(
+            f"{res[('paged_decode_split', i8)]['kernel_device_ms']:.4f}" for i8 in (False, True))
+        + " ms")
     log(f"[kernels] largest error over all cases: {worst_frac[0]:.3f} of its tolerance "
         f"({TOL_ULPS} bf16 ulp + 2^-14); worst_error_fraction={worst_frac[0]:.6g}")
     if failures:
@@ -791,10 +881,12 @@ def profile_decode(engine, rng, n_seqs=8, steps=4, repeats=5):
         wall = time.perf_counter() - t0
     for u in uids:
         engine.flush(u)
-    by_name = {}
+    by_name, n_ops, n_kernels = {}, 0, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n_ops += 1
+            n_kernels += not e.name.startswith(("Memcpy", "Memset"))
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"[e2e] decode profile, {n_seqs} sequences x {steps} steps: wall {1e3 * wall_plain / steps:.2f} "
@@ -802,7 +894,11 @@ def profile_decode(engine, rng, n_seqs=8, steps=4, repeats=5):
         f"{1e3 * min(walls) / steps:.2f}-{1e3 * max(walls) / steps:.2f}), "
         f"{1e3 * wall / steps:.2f} ms/step profiled; device busy "
         f"{1e3 * busy / steps:.2f} ms/step: device idle {100 * (1 - busy / wall_plain):.1f}% of "
-        f"the unprofiled wall, {100 * (1 - busy / wall):.1f}% of the profiled one")
+        f"the unprofiled wall, {100 * (1 - busy / wall):.1f}% of the profiled one; device "
+        f"kernels {n_kernels / steps:.1f} per step ({n_ops / steps:.1f} with copies)")
+    attn = sum(us for n, us in by_name.items() if "paged_" in n or "decode_merge" in n) / 1e6
+    log(f"[e2e] decode profile: paged attention kernels {1e3 * attn / steps:.3f} ms/step "
+        f"({100 * attn / busy:.1f}% of device time)")
     for name, us in top:
         log(f"[e2e]   {us / steps / 1e3:8.3f} ms/step  {name[:90]}")
 
@@ -2511,6 +2607,10 @@ PAGED_MUTATIONS = _in(SOURCE, (  # the prefill skips each CTA's last live k-tile
     ("const int n_kt = p_hi > p_lo ? (p_hi - 1) / kKT - kt_lo + 1 : 0;",
      "const int n_kt = p_hi > p_lo ? (p_hi - 1) / kKT - kt_lo : 0;"),
 ))
+DECODE_MUTATIONS = _in(SOURCE, (  # the decode skips each split's last live block
+    ("const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits);",
+     "const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits) - 1;"),
+))
 MUTANT_MIN_FACTOR = 100.0
 MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "grouped_matmul": (GMM_MUTATIONS, "moe_kernels", "grouped matmul kernels disagree"),
@@ -2520,6 +2620,7 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "flash": (FLASH_MUTATIONS, "train_kernels", "flash kernels disagree"),
     "flash_fwd": (FLASH_FWD_MUTATIONS, "train_kernels", "flash kernels disagree"),
     "paged_prefill": (PAGED_MUTATIONS, "kernels", "kernels disagree with the plain version"),
+    "paged_decode": (DECODE_MUTATIONS, "kernels", "kernels disagree with the plain version"),
 }
 
 
@@ -2597,15 +2698,61 @@ ABLATIONS = {
          "    return 1"),)),
 }
 GMM_HDR = "deepspeed_tpu_torch/ops/csrc/wgmma_sm90.cuh"
+PAGED_PY = "deepspeed_tpu_torch/ops/paged_attention.py"
+# the decode split over the table's capacity (split s owns blocks [s per,
+# (s + 1) per), per = ceil(max_blocks / splits), as the TPU grid and the first
+# version of the kernel), in the kernel and in its plain partials alike
+ABLATIONS["decode_capacity_split"] = _in(SOURCE, (
+    ("  const int b0 = j_lo + (int)((long long)split * n_live / a.kv_splits);\n"
+     "  const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits);",
+     "  const int per = (a.max_blocks + a.kv_splits - 1) / a.kv_splits;\n"
+     "  const int b0 = max(j_lo, split * per), b1 = max(b0, min(j_hi + 1, (split + 1) * per));"),
+)) + _in(PAGED_PY, (
+    ("    return j_lo + s * n_live // kv_splits, j_lo + (s + 1) * n_live // kv_splits",
+     "    per = -(-max_blocks // kv_splits)\n"
+     "    b0 = torch.maximum(j_lo, s * per)\n"
+     "    return b0, torch.maximum(b0, torch.minimum(j_hi + 1, (s + 1) * per))"),
+))
+# the decode's grid with the token fastest (a token's kv heads 32 CTAs apart
+# at the main shape), not its kv heads side by side
+ABLATIONS["decode_token_major_grid"] = _in(SOURCE, (
+    ("  const int kvh = blockIdx.x % a.nkv, tok = blockIdx.x / a.nkv, split = blockIdx.y;",
+     "  const int kvh = blockIdx.x / a.T, tok = blockIdx.x % a.T, split = blockIdx.y;"),
+))
+# each decode copy instruction over 16 slots, a lane pair a slot (32 bytes of
+# each row), not over whole rows
+ABLATIONS["decode_pair_chunks"] = _in(SOURCE, (
+    ("      const int r = i * RPI + lane / CH, e0 = (lane % CH) * (16 / (int)sizeof(KV));",
+     "      const int r = lane / 2, e0 = ((lane & 1) + 2 * i) * (16 / (int)sizeof(KV));"),
+))
+# the decode's int8 rows widened by conversion instructions (int8 -> fp32 ->
+# bf16, a quarter of the ALU rate, as the prefill), not by the exact
+# integer and fp32-add path of widen16
+ABLATIONS["decode_widen_cvt"] = _in(SOURCE, (
+    ("        widen16(v16, w);\n",
+     "        const int8_t* b8 = reinterpret_cast<const int8_t*>(&v16);\n"
+     "#pragma unroll\n"
+     "        for (int e = 0; e < 8; ++e)\n"
+     "          w[e] = pack2(__float2bfloat16((float)b8[2 * e]), "
+     "__float2bfloat16((float)b8[2 * e + 1]));\n"),
+))
+# each decode warp's ring three stages deep (two steps in flight; 2 CTAs an SM
+# by shared memory at d 128), not two
+ABLATIONS["decode_ring3"] = _in(SOURCE, (
+    ("constexpr int kDecStages = 2;", "constexpr int kDecStages = 3;"),
+))
 
 
 def _ablation_phases(name):
     """The phases that time an ablation: ``moe_kernels`` for the grouped
-    matmul's sources, ``evo_kernels`` for the Evoformer's,
-    ``kernels,train_kernels`` for the other attention kernels'."""
+    matmul's sources, ``evo_kernels`` for the Evoformer's, ``kernels`` for
+    the paged decode's, ``kernels,train_kernels`` for the other attention
+    kernels'."""
     files = {p for p, _, _ in ABLATIONS[name]}
     if files <= {GMM_SRC, GMM_HDR}:
         return "moe_kernels"
+    if name.startswith("decode_"):  # the paged decode's ablations
+        return "kernels"
     return "evo_kernels" if files <= {EVO_SRC, EVO_PY} else "kernels,train_kernels"
 
 
@@ -2699,6 +2846,44 @@ def _gmm_times(stdout):
             "tgmm_error_fraction": _num(r"over all cases: gmm .*?, tgmm ([0-9.]+) \(", stdout)}
 
 
+def _decode_times(stdout):
+    """The paged decode's main-shape times printed by a ``kernels`` run
+    (this script's or the parent's): both routes, bf16 and int8, and the
+    device times with the host queued ahead; this tree's also the split
+    kernel and the merge apart."""
+    r = {}
+    for i8 in (False, True):
+        sfx = "_int8" if i8 else ""
+        line = rf"\] decode S=\d+ ctx=\d+ int8={i8} splits=\d+: "
+        r[f"decode{sfx}_ms"] = _num(line + r"paged_decode ([0-9.]+) ms", stdout)
+        r[f"decode_split{sfx}_ms"] = _num(line + r".*?paged_decode_split ([0-9.]+) ms", stdout)
+        r[f"split_kernel{sfx}_ms"] = _num(
+            rf"\] decode split route apart, int8={i8}: split kernel ([0-9.]+) ms", stdout)
+        r[f"merge{sfx}_ms"] = _num(
+            rf"\] decode split route apart, int8={i8}: .*?merge kernel ([0-9.]+) ms", stdout)
+    dev = r"\] device time per call .*?"
+    for key, name in (("decode", "paged_decode"), ("decode_split", "paged_decode_split")):
+        r[f"{key}_device_ms"] = _num(dev + rf"{name} ([0-9.]+) /", stdout)
+        r[f"{key}_int8_device_ms"] = _num(dev + rf"{name} [0-9.]+ / ([0-9.]+) ms", stdout)
+    r["paged_error_fraction"] = _worst_error_fraction(stdout, "kernels")
+    return r
+
+
+def _e2e_numbers(stdout):
+    """The serving path's numbers printed by an ``e2e`` run: TTFT p50,
+    decode tok/s, the decode profile's wall and device ms per step, device
+    kernels per step and idle share."""
+    prof = r"\[e2e\] decode profile, .*?"
+    return {"ttft_p50_ms": _num(r"\[e2e\] served .*?TTFT p50 ([0-9.]+) ms", stdout),
+            "decode_tok_s": _num(r"\[e2e\] served .*?decode ([0-9.]+) tok/s", stdout),
+            "decode_step_wall_ms": _num(prof + r"wall ([0-9.]+) ms/step unprofiled", stdout),
+            "decode_step_device_ms": _num(prof + r"device busy ([0-9.]+) ms/step", stdout),
+            "decode_step_kernels": _num(prof + r"device kernels ([0-9.]+) per step", stdout),
+            "decode_idle_pct": _num(prof + r"device idle ([0-9.]+)% of the unprofiled", stdout),
+            "put_512_wall_ms": _num(r"\[e2e\] prefill profile, .*?wall ([0-9.]+) ms unprofiled",
+                                    stdout)}
+
+
 def _evo_times(stdout):
     """The Evoformer kernels' main-shape times, the block time and the
     largest error fraction printed by ``evo_kernels`` / ``evo_path`` runs
@@ -2771,6 +2956,9 @@ def run_ablation(which="all"):
                 "flash_worst_error_fraction": _worst_error_fraction(out, "train_kernels"),
                 "paged_worst_error_fraction": _worst_error_fraction(out, "kernels")})
             need += ["fwd_ms", "dkdv_ms", "dq_ms", "prefill_ms"]
+        if "kernels" in phases[n].split(","):
+            r.update(_decode_times(out))
+            need += ["decode_ms", "decode_split_ms"]
         if "moe_kernels" in phases[n]:
             r.update(_gmm_times(out))
             need += ["gmm_up_ms", "tgmm_ms"]
@@ -2791,16 +2979,26 @@ def run_ablation(which="all"):
     return 1 if failed else 0
 
 
+# runs this script's phase_e2e on the package of the tree in the current
+# directory (imported first, so this script's own tree never shadows it)
+_E2E_IN_TREE = ("import sys, importlib.util as u; sys.path.insert(0, '.'); "
+                "import deepspeed_tpu_torch; "
+                "spec = u.spec_from_file_location('chip_smoke_harness', {path!r}); "
+                "m = u.module_from_spec(spec); spec.loader.exec_module(m); "
+                "m.log('[e2e] package ' + deepspeed_tpu_torch.__file__); m.phase_e2e()")
+
+
 def run_versus(other, phases):
     """Time this tree against another checkout of the repository
     (``other``, e.g. a ``git archive`` of the parent commit under
-    build/parent), each with its own script and kernels: ``--phases build``
-    in both at once, then ``--phases <phases>`` (without build) in the order
-    other, this, this, other, one process each, so that each tree is timed
-    twice on one card. Prints each run's grouped matmul and Evoformer times,
+    build/parent): ``--phases build`` in both at once (each tree's own
+    script and kernels), then ``phases`` in the order other, this, this,
+    other: every phase but ``e2e`` through the tree's own script, ``e2e``
+    through this script's ``phase_e2e`` on the tree's package, one process
+    each, so that each tree is timed twice on one card. Prints each run's
+    paged decode times, serving numbers, grouped matmul and Evoformer times,
     MoE step, Evoformer block and top device ops, and last one JSON object
-    of every run. Returns an exit
-    code: 1 when a build or a run fails."""
+    of every run. Returns an exit code: 1 when a build or a run fails."""
     other = os.path.abspath(other)
     dirs = {"other": other, "this": HERE}
     builds = {n: subprocess.Popen([sys.executable, "chip_smoke.py", "--phases", "build"], cwd=d,
@@ -2810,25 +3008,34 @@ def run_versus(other, phases):
     for n, proc in builds.items():
         text = proc.communicate(timeout=900)[0]
         for line in text.splitlines():
-            if line.startswith("[build]") and ("nvcc" in line or "grouped" in line):
+            if line.startswith("[build]") and not line.startswith("[build]   ") and (
+                    "nvcc" in line or "grouped" in line or "paged attention" in line):
                 log(f"[versus] {n}: {line}")
         if proc.returncode:
             log(f"[versus] {n}: build failed\n{text[-3000:]}")
             failed = True
     if failed:
         return 1
+    own = [p for p in phases if p != "e2e"]
     runs = []
     for n in ("other", "this", "this", "other"):
-        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", ",".join(phases)],
-                              cwd=dirs[n], capture_output=True, text=True, timeout=1800)
-        out = proc.stdout
-        r = {"tree": n, "rc": proc.returncode, **_gmm_times(out),
+        out, rc = "", 0
+        if own:
+            proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", ",".join(own)],
+                                  cwd=dirs[n], capture_output=True, text=True, timeout=1800)
+            out, rc = proc.stdout, proc.returncode
+        if "e2e" in phases:
+            code = _E2E_IN_TREE.format(path=os.path.abspath(__file__))
+            proc = subprocess.run([sys.executable, "-c", code], cwd=dirs[n], capture_output=True,
+                                  text=True, timeout=1800)
+            out, rc = out + proc.stdout + proc.stderr[-3000:], rc or proc.returncode
+        r = {"tree": n, "rc": rc, **_decode_times(out), **_e2e_numbers(out), **_gmm_times(out),
              "moe_step_ms": _num(r"\[moe_train\] step time median ([0-9.]+) ms", out),
              "moe_idle_pct": _num(r"\[moe_train\] profiled step: .*?device idle ([0-9.]+)%", out),
              **_evo_times(out),
              "evo_idle_pct": _num(r"\[evo_path\] profiled block: .*?idle ([0-9.]+)%", out),
              "top_ops": [line.split("]", 1)[1].strip() for line in out.splitlines()
-                         if line.startswith(("[moe_train]   ", "[evo_path]   "))]}
+                         if line.startswith(("[e2e]   ", "[moe_train]   ", "[evo_path]   "))]}
         r = {k: v for k, v in r.items() if v is not None}
         runs.append(r)
         log(f"[versus] {n} ({dirs[n]}): "
@@ -2836,7 +3043,7 @@ def run_versus(other, phases):
             + f" (exit {r['rc']})")
         for line in r["top_ops"]:
             log(f"[versus] {n}   {line}")
-        if proc.returncode:
+        if rc:
             log(f"[versus] {n}: failed\n{out[-3000:]}")
             failed = True
     import torch
@@ -2865,8 +3072,8 @@ def main():
                     help=f"time the kernels against their ablations {tuple(ABLATIONS)} (all, or "
                          f"the comma-separated NAMES), each version twice in turns")
     ap.add_argument("--versus", metavar="DIR",
-                    help="time --phases (without build; default moe_kernels,moe_train) in this "
-                         "tree and in the checkout DIR, in the order DIR, this, this, DIR")
+                    help="time --phases (without build; default kernels,e2e) in this tree and in "
+                         "the checkout DIR, in the order DIR, this, this, DIR")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -2893,8 +3100,7 @@ def main():
         return run_ablation(args.ablation)
     if args.versus:
         chosen = [p for p in phases if p != "build"]
-        return run_versus(args.versus, chosen if tuple(phases) != PHASES
-                          else ["moe_kernels", "moe_train"])
+        return run_versus(args.versus, chosen if tuple(phases) != PHASES else ["kernels", "e2e"])
     t_all = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2930,8 +3136,9 @@ def main():
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
                 "launches": int(out["e2e"][name]), "max_abs_err": m["err"],
                 **{k: m[k] for k in keys},
-                **{k: m[k] for k in ("device_ms", "descriptors_ms", "flash_fwd_same_work_ms")
-                   if k in m},
+                **{k: m[k] for k in ("device_ms", "descriptors_ms", "flash_fwd_same_work_ms",
+                                     "kernel_ms", "kernel_device_ms", "merge_ms",
+                                     "partials_error_fraction", "splits") if k in m},
                 "int8": {k: m["int8"][k] for k in (*keys[:4], "device_ms")}
                 | {"max_abs_err": m["int8"]["err"]}}
                for name, m in out["kernels"].items()]

@@ -16,6 +16,13 @@ decode steps of many sequences mix in one call.
 - :func:`paged_attention` dispatches between them with the shape heuristics
   of the TPU package (no kernel-config registry, no environment overrides).
 
+The split decode (``kv_splits > 1``) splits each token's live blocks, not
+the table's capacity (:func:`decode_split_plan`), into fp32 partials that a
+second CUDA kernel merges, both launched by one C call.
+:func:`paged_decode_partials_reference` and :func:`merge_decode_splits` are
+the plain versions of the two halves; :func:`paged_decode_partials` and
+:func:`paged_decode_merge` launch each kernel alone (checks and timings).
+
 ``launch_counts`` counts kernel launches per path; nothing else adds to it.
 """
 
@@ -29,7 +36,9 @@ from ._build import build_kernel
 MASK_VALUE = -1e30
 
 # launches of each kernel path since the last reset_launch_counts()
-launch_counts = {"paged_decode": 0, "paged_decode_split": 0, "paged_prefill": 0}
+# (the split decode's call launches the split kernel and the merge: one each)
+launch_counts = {"paged_decode": 0, "paged_decode_split": 0, "paged_decode_merge": 0,
+                 "paged_prefill": 0}
 
 _built = None
 
@@ -49,11 +58,13 @@ def kernel_build():
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ds_paged_decode.argtypes = [vp] * 5 + [ll] + [vp] * 8 + [i] * 9 + [vp]
         lib.ds_paged_decode.restype = i
+        lib.ds_paged_decode_merge.argtypes = [vp] * 4 + [ll, i, i, vp]
+        lib.ds_paged_decode_merge.restype = i
         lib.ds_paged_prefill.argtypes = [vp] * 5 + [ll] + [vp] * 9 + [i] * 10 + [vp]
         lib.ds_paged_prefill.restype = i
         lib.ds_cuda_error_string.argtypes = [i]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
-        lib.ds_paged_smem_bytes.argtypes = [i, i, i]
+        lib.ds_paged_smem_bytes.argtypes = [i, i]
         lib.ds_paged_smem_bytes.restype = ll
         lib.ds_paged_prefill_smem_bytes.argtypes = [i, i]
         lib.ds_paged_prefill_smem_bytes.restype = ll
@@ -111,11 +122,11 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: i
 # plain version
 # ---------------------------------------------------------------------------
 
-def paged_attention_reference(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int,
-                              window=None, alibi=None, k_scale=None, v_scale=None):
-    """Gather-based plain version of ``paged_attention`` (the TPU package's
-    ``paged_attention_reference``, :202-244): fp32 scores, masked entries at
-    -1e30, softmax over each sequence's whole table capacity."""
+def _scores(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, window, alibi, k_scale,
+            v_scale):
+    """The plain versions' fp32 scores over each token's whole table
+    capacity, masked ones at -1e30 ([T, nkv, g, C]), and the gathered
+    dequantised values ([T, C, nkv, d])."""
     T, nq, d = q.shape
     nkv = k_pool.shape[1]
     g = nq // nkv
@@ -143,9 +154,80 @@ def paged_attention_reference(q, k_pool, v_pool, block_tables, seq_idx, pos, blo
     if window is not None:
         vis = vis & (pos[:, None] - cpos[None, :] < int(window))
     s = torch.where(vis[:, None, None, :], s, torch.full_like(s, MASK_VALUE))
+    return s, ctxv[seq_idx]
+
+
+def paged_attention_reference(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int,
+                              window=None, alibi=None, k_scale=None, v_scale=None):
+    """Gather-based plain version of ``paged_attention`` (the TPU package's
+    ``paged_attention_reference``, :202-244): fp32 scores, masked entries at
+    -1e30, softmax over each sequence's whole table capacity."""
+    T, nq, d = q.shape
+    s, ctxv = _scores(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, window, alibi,
+                      k_scale, v_scale)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("tngc,tcnd->tngd", p, ctxv[seq_idx])
+    out = torch.einsum("tngc,tcnd->tngd", p, ctxv)
     return out.reshape(T, nq, d).to(q.dtype)
+
+
+def decode_split_plan(pos, block_size: int, max_blocks: int, kv_splits: int, window=None):
+    """Each split's share of each token's live blocks, as the decode kernel
+    computes it: token ``t`` at position ``pos[t] >= 0`` has the live blocks
+    ``[j_lo, j_hi]`` (``j_hi = min(pos // block_size, max_blocks - 1)``;
+    ``j_lo`` the block of ``pos - window + 1`` with a window, else 0: the
+    blocks the TPU kernels' block predicate keeps), and split ``s`` takes
+    blocks ``[j_lo + s n // kv_splits, j_lo + (s + 1) n // kv_splits)`` of
+    the ``n`` of them. A token at a negative position has none. Returns
+    int64 ``(b0, b1)``, each ``[kv_splits, T]``; a split with ``b1 == b0``
+    has no live block."""
+    pos = pos.long()
+    j_hi = torch.where(pos >= 0, torch.clamp(pos // block_size, max=max_blocks - 1),
+                       torch.full_like(pos, -1))
+    j_lo = torch.zeros_like(pos)
+    if window is not None and int(window) > 0:
+        x = pos - int(window) + 1
+        j_lo = torch.where(x > 0, x // block_size, j_lo)
+    n_live = torch.clamp(j_hi - j_lo + 1, min=0)
+    s = torch.arange(kv_splits, device=pos.device)[:, None]
+    return j_lo + s * n_live // kv_splits, j_lo + (s + 1) * n_live // kv_splits
+
+
+def paged_decode_partials_reference(q, k_pool, v_pool, block_tables, seq_idx, pos,
+                                    block_size: int, kv_splits: int, window=None, alibi=None,
+                                    k_scale=None, v_scale=None):
+    """Plain version of the split decode's partials: for each split of
+    :func:`decode_split_plan`, the un-normalised ``acc = sum p v`` with
+    ``p = exp(s - m)`` over the positions of the split's blocks (masked ones
+    at score -1e30), their max score ``m`` (-1e30 for a split with no live
+    block) and mass ``l = sum p``. Returns fp32 ``acc [kv_splits, T, nq,
+    d]``, ``m`` and ``l [kv_splits, T, nq]``."""
+    T, nq, d = q.shape
+    max_blocks = block_tables.shape[1]
+    C = max_blocks * block_size
+    s, ctxv = _scores(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, window, alibi,
+                      k_scale, v_scale)  # [T, nkv, g, C], [T, C, nkv, d]
+    b0, b1 = decode_split_plan(pos, block_size, max_blocks, kv_splits, window)
+    cpos = torch.arange(C, device=q.device)
+    inside = (cpos >= b0[..., None] * block_size) & (cpos < b1[..., None] * block_size)
+    inside = inside[:, :, None, None, :]  # [splits, T, 1, 1, C]
+    m = torch.where(inside, s[None], torch.full_like(s[None], -math.inf)).amax(dim=-1)
+    m = m.clamp_min(MASK_VALUE)  # a split with no position: -1e30
+    p = torch.where(inside, torch.exp(s[None] - m[..., None]), torch.zeros_like(s[None]))
+    acc = torch.einsum("ktngc,tcnd->ktngd", p, ctxv)
+    return (acc.reshape(kv_splits, T, nq, d), m.reshape(kv_splits, T, nq),
+            p.sum(dim=-1).reshape(kv_splits, T, nq))
+
+
+def merge_decode_splits(acc, m, l, dtype=torch.bfloat16):
+    """Plain version of the splits' merge (the TPU kernel's :700-703):
+    ``m* = max m``, ``w = exp(m - m*)``, ``out = sum w acc / max(sum w l,
+    1e-30)``, over the leading split dimension; dead splits (m = -1e30,
+    l = 0) weigh 0 beside a live one."""
+    m_star = m.amax(dim=0, keepdim=True)
+    w = torch.exp(m - m_star)
+    num = (acc * w[..., None]).sum(dim=0)
+    den = (l * w).sum(dim=0).clamp_min(1e-30)
+    return (num / den[..., None]).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -277,27 +359,21 @@ def _window(window) -> int:
     return 0 if window is None else int(window)
 
 
-def paged_decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int, window=None,
-                 alibi=None, k_scale=None, v_scale=None, kv_splits: int = 1):
-    """Per-token paged attention (one CTA per token, kv head and KV split).
-    ``kv_splits > 1`` is the flash-decode split: fp32 partials per split,
-    merged here with the log-sum-exp combine. CPU tensors take the plain
-    version."""
-    if q.device.type == "cpu":
-        return paged_attention_reference(q, k_pool, v_pool, block_tables, seq_idx, pos,
-                                         block_size, window=window, alibi=alibi,
-                                         k_scale=k_scale, v_scale=v_scale)
+def _decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, window, alibi, k_scale,
+            v_scale, kv_splits, out, partials):
+    """Check and launch ``ds_paged_decode``: ``out`` without partials
+    (kv_splits 1), the partials alone without ``out``, or both (split then
+    merge). Returns (out, partials)."""
     T, nq, d, nkv, quant, alibi = _check_common(q, k_pool, v_pool, block_tables, seq_idx, pos,
                                                 block_size, k_scale, v_scale, alibi)
-    S, max_blocks = block_tables.shape
-    kv_splits = max(1, min(int(kv_splits), max_blocks))
+    max_blocks = block_tables.shape[1]
     if nq // nkv > 8:
         raise ValueError(f"paged_decode supports up to 8 query heads per kv head, got {nq // nkv}")
     tables, seq_idx, pos = _i32(block_tables), _i32(seq_idx), _i32(pos)
     lib = kernel_build().lib
-    out = torch.empty_like(q)
+    out = torch.empty_like(q) if out else None
     acc = m = l = None
-    if kv_splits > 1:
+    if partials:
         acc = torch.empty((kv_splits, T, nq, d), dtype=torch.float32, device=q.device)
         m = torch.empty((kv_splits, T, nq), dtype=torch.float32, device=q.device)
         l = torch.empty((kv_splits, T, nq), dtype=torch.float32, device=q.device)
@@ -305,19 +381,75 @@ def paged_decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int,
     rc = lib.ds_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
         k_scale.stride(0) if quant else 0, tables.data_ptr(), seq_idx.data_ptr(), pos.data_ptr(),
-        _ptr(alibi), out.data_ptr(), _ptr(acc), _ptr(m), _ptr(l), T, nq, nkv, d, block_size,
+        _ptr(alibi), _ptr(out), _ptr(acc), _ptr(m), _ptr(l), T, nq, nkv, d, block_size,
         max_blocks, _window(window), kv_splits, int(quant), stream)
     _raise_if(rc, "paged_decode")
+    return out, (acc, m, l)
+
+
+def paged_decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int, window=None,
+                 alibi=None, k_scale=None, v_scale=None, kv_splits: int = 1):
+    """Per-token paged attention (one CTA per token, kv head and KV split).
+    ``kv_splits > 1`` is the flash-decode split over each token's live
+    blocks: fp32 partials per split, merged by a second kernel launched by
+    the same C call (no torch op after the launch). CPU tensors take the
+    plain version."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, block_tables, seq_idx, pos,
+                                         block_size, window=window, alibi=alibi,
+                                         k_scale=k_scale, v_scale=v_scale)
+    kv_splits = max(1, min(int(kv_splits), block_tables.shape[1]))
+    out, _ = _decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, window, alibi,
+                     k_scale, v_scale, kv_splits, out=True, partials=kv_splits > 1)
     if kv_splits == 1:
         launch_counts["paged_decode"] += 1
-        return out
+    else:
+        launch_counts["paged_decode_split"] += 1
+        launch_counts["paged_decode_merge"] += 1
+    return out
+
+
+def paged_decode_partials(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int,
+                          kv_splits: int, window=None, alibi=None, k_scale=None, v_scale=None):
+    """The split decode kernel alone (no merge): ``(acc, m, l)`` as
+    :func:`paged_decode_partials_reference` returns them, which CPU tensors
+    take. For checks and timings; ``kv_splits`` is used as given (>= 1)."""
+    if q.device.type == "cpu":
+        return paged_decode_partials_reference(q, k_pool, v_pool, block_tables, seq_idx, pos,
+                                               block_size, kv_splits, window=window, alibi=alibi,
+                                               k_scale=k_scale, v_scale=v_scale)
+    if int(kv_splits) < 1:
+        raise ValueError(f"kv_splits must be >= 1, got {kv_splits}")
+    _, parts = _decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, window, alibi,
+                       k_scale, v_scale, int(kv_splits), out=False, partials=True)
     launch_counts["paged_decode_split"] += 1
-    # log-sum-exp merge over splits (the TPU kernel's :700-703)
-    m_star = m.amax(dim=0, keepdim=True)
-    w = torch.exp(m - m_star)  # dead splits: exp(-1e30 - m*) == 0
-    num = (acc * w[..., None]).sum(dim=0)
-    den = (l * w).sum(dim=0).clamp_min(1e-30)
-    return (num / den[..., None]).to(q.dtype)
+    return parts
+
+
+def paged_decode_merge(acc, m, l, dtype=torch.bfloat16):
+    """The merge kernel alone: the partials ``acc [splits, T, nq, d]``,
+    ``m``, ``l [splits, T, nq]`` (fp32, contiguous) into ``[T, nq, d]``
+    bf16. CPU tensors take :func:`merge_decode_splits`."""
+    if acc.device.type == "cpu":
+        return merge_decode_splits(acc, m, l, dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the merge kernel writes bfloat16, not {dtype}")
+    splits, T, nq, d = acc.shape
+    for name, t, shape in (("acc", acc, (splits, T, nq, d)), ("m", m, (splits, T, nq)),
+                           ("l", l, (splits, T, nq))):
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != acc.device):
+            raise ValueError(f"{name} must be a contiguous fp32 {shape} tensor on acc's device, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if d not in (64, 128):
+        raise ValueError(f"head_dim {d} unsupported: the kernels are built for 64 and 128")
+    out = torch.empty((T, nq, d), dtype=dtype, device=acc.device)
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    rc = kernel_build().lib.ds_paged_decode_merge(acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                                  out.data_ptr(), T * nq, d, splits, stream)
+    _raise_if(rc, "paged_decode_merge")
+    launch_counts["paged_decode_merge"] += 1
+    return out
 
 
 def paged_prefill(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int, window=None,

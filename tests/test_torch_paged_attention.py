@@ -247,17 +247,29 @@ def test_dispatch_heuristics_match_jax_defaults():
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_version_on_card():
     """On the card: each kernel path against the plain version, bf16 and
-    int8 pools, at head_dim 64 and 128; the prefill at q_tile 4, at its full
-    tile 64 // g given and at its default. Tolerance, per element: 2 bf16
-    ulps at |plain| plus 2^-14. Both sum in fp32 and round once to bf16 (the
-    prefill's tensor-core products take the 16-bit inputs exactly and feed
-    the probabilities as a split hi + lo pair, ~2^-17 relative), so their
-    fp32 results differ by ~1e-6 of the terms' size and round to bf16
+    int8 pools, at head_dim 64 and 128; the decode at 1, 3 and 8 splits (8:
+    more splits than the tables' blocks), the prefill at q_tile 4, at its
+    full tile 64 // g given and at its default. Tolerance, per element: 2
+    bf16 ulps at |plain| plus 2^-14. Both sum in fp32 and round once to bf16
+    (the kernels' tensor-core products take the 16-bit inputs exactly and
+    feed the probabilities as a split hi + lo pair, ~2^-17 relative), so
+    their fp32 results differ by ~1e-6 of the terms' size and round to bf16
     numbers at most one ulp apart, two across a power of two; the floor
-    covers near-zero outputs whose ulp is smaller than that difference."""
+    covers near-zero outputs whose ulp is smaller than that difference. The
+    split decode's two kernels apart: its fp32 partials against
+    ``paged_decode_partials_reference`` (m within 2^-14 (1 + |m|), l within
+    2^-14 l, acc within 2^-14 l max|v|: the split P and the scores' fp32
+    rounding move a term by ~2^-17 of itself, and acc sums at most l max|v|),
+    the merge kernel on them against ``merge_decode_splits`` (bf16 rule)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
+
+    def bf16_close(out, ref):
+        err = (out.float() - ref.float()).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(2.0**-126))) - 7)
+        return bool((err <= 2 * ulp + 2.0**-14).all()), err.max().item()
+
     for case in CASES:
         for d in (64, 128):
             s = _setup(case, "mixed", d=d)
@@ -266,22 +278,36 @@ def test_cuda_kernels_match_plain_version_on_card():
             q = torch.from_numpy(s["q"]).to(dev, torch.bfloat16)
             if case.startswith("int8"):
                 k, v = torch.from_numpy(s["k"]).to(dev), torch.from_numpy(s["v"]).to(dev)
+                vmax = (v.float() * kw["v_scale"].t()[:, :, None]).abs().max()
             else:
                 k = torch.from_numpy(s["k"]).to(dev, torch.bfloat16)
                 v = torch.from_numpy(s["v"]).to(dev, torch.bfloat16)
+                vmax = v.float().abs().max()
             args = (q, k, v, torch.from_numpy(s["tables"]).to(dev),
                     torch.from_numpy(s["seq_idx"]).to(dev), torch.from_numpy(s["pos"]).to(dev),
                     s["bs"])
             ref = tpa.paged_attention_reference(*args, **kw).float()
             for out in (tpa.paged_decode(*args, kv_splits=1, **kw),
                         tpa.paged_decode(*args, kv_splits=3, **kw),
+                        tpa.paged_decode(*args, kv_splits=8, **kw),
                         tpa.paged_prefill(*args, q_tile=4, **kw),
                         tpa.paged_prefill(*args, q_tile=64 // (q.shape[1] // k.shape[1]), **kw),
                         tpa.paged_prefill(*args, **kw)):
                 torch.cuda.synchronize()
-                err = (out.float() - ref).abs()
-                ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
-                assert bool((err <= 2 * ulp + 2.0**-14).all()), (case, d, err.max().item())
+                ok, worst = bf16_close(out, ref)
+                assert ok, (case, d, worst)
+            for splits in (1, 3, 8):
+                acc, m, l = tpa.paged_decode_partials(*args, splits, **kw)
+                racc, rm, rl = tpa.paged_decode_partials_reference(*args, splits, **kw)
+                torch.cuda.synchronize()
+                tol = 2.0**-14
+                assert bool(((m - rm).abs() <= tol * (1 + rm.abs())).all()), (case, d, splits)
+                assert bool(((l - rl).abs() <= tol * rl).all()), (case, d, splits)
+                assert bool(((acc - racc).abs() <= tol * vmax * rl[..., None]).all()), (
+                    case, d, splits)
+                ok, worst = bf16_close(tpa.paged_decode_merge(acc, m, l),
+                                       tpa.merge_decode_splits(acc, m, l))
+                assert ok, (case, d, splits, worst)
     # descriptors left on the host would hand the kernel host pointers
     with pytest.raises(ValueError, match="block_tables"):
         tpa.paged_decode(args[0], args[1], args[2], args[3].cpu(), *args[4:], **kw)
