@@ -155,14 +155,17 @@ code 1 otherwise):
    backward on the kernel forward's out and lse): out, lse, dq, dk, dv,
    db1, db2 over 28 small cases (each bias present or absent, G 1 and 2,
    R 1 / 64 / 100 / 130 / 200 / 257, head_dim 32 / 64 / 128, bf16 / fp32 /
-   fp16, OpenFold's 1e9 mask with a fully masked row, whose output and
+   fp16, five rows in one group (with ``evo_bias_two_rows``, a one-row tail),
+   OpenFold's 1e9 mask with a fully masked row, whose output and
    lse are checked for finiteness only and whose dout is 0, as the model
    masks it; db2 with one row a group and with 32 rows in 11 chunks) and at
    the main shape (MSA row attention with the pair bias: N 512, R 384, 8
-   heads, d 32, bf16). bf16 / fp16 cases take the tensor-core dk/dv and
-   db2, fp32 cases the CUDA-core ones (``route(dtype)``): the launches of
-   each route are counted and printed, with the tensor-core kernels'
-   ptxas registers and spills. Tolerance per element: bf16 / fp16
+   heads, d 32), each on both routes: bf16 / fp16 take the tensor-core
+   kernels, fp32 the CUDA-core ones (``route(dtype)``), and every case runs
+   in its dtype and in the other route's (fp32 for a 16-bit case, bf16 for
+   an fp32 one; the main shape in bf16 and fp32). The launches of each
+   route are counted and printed, with the tensor-core kernels' ptxas
+   registers and spills (the d 32 forward and dq must not spill). Tolerance per element: bf16 / fp16
    outputs the flash rule; fp32 outputs 2^-16 |plain| + 2^-14 rms(plain)
    (both sum in fp32 in another order and never round to a narrower type);
    lse 2^-14 (1 + |plain|); the fp32 bias sums (db1 over h x R terms, db2
@@ -171,12 +174,13 @@ code 1 otherwise):
    values, since where a gradient cancels to far below its terms (R 1:
    ds = dp - delta is rounding alone on both sides) only that scale says
    what summation order may move.
-   Times (CUDA events) against the bound, the plain version and a library
-   yardstick: ``F.scaled_dot_product_attention`` with bias1 + bias2
-   materialised as a bf16 float mask, forward, and its backward with the
-   mask's gradient for the backward kernels together; db1's time is that
-   of the dk/dv launch that sums it (with what the sum adds beside it).
-   ``worst_error_fraction`` is printed.
+   Times (CUDA events) of both routes at the main shape against the bound
+   (fp32: its bytes, and its FLOPs at the CUDA cores' 67 TFLOP/s), the
+   plain version and a library yardstick: ``F.scaled_dot_product_attention``
+   with bias1 + bias2 materialised as a float mask in q's dtype, forward,
+   and its backward with the mask's gradient for the backward kernels
+   together; db1's time is that of the dk/dv launch that sums it (with
+   what the sum adds beside it). ``worst_error_fraction`` is printed.
 11. evo_path: one Evoformer block's four attention calls (MSA row attention
    with the pair bias, MSA column attention, triangle attention around the
    starting and the ending node) at AlphaFold-2's fine-tuning crop (N_res
@@ -187,7 +191,7 @@ code 1 otherwise):
    ``get_accelerator().create_op_builder("EvoformerAttnBuilder")``: a warm
    block, then three timed blocks with the launch counts reset just before
    and read just after (4 fwd, 4 dq, 4 dk/dv with 4 db1 and 3 db2 per
-   block, all dk/dv and db2 on the tensor cores, none on the fp32 route),
+   block, all on the tensor cores, none on the fp32 route),
    the median block time and peak memory, a profiled block; then
    the block through the plain versions: every output finite, and the
    output (off the fully masked rows) and all five cotangents of each call
@@ -199,26 +203,30 @@ mutant: the grouped matmul kernels dropping one row block's products
 skipping each row's last valid LUT column (``--phases build,sparse_kernels``
 must fail by more than 100x its tolerance, printed), the tensor-core
 Evoformer db2 skipping each row chunk's last row and, alone, the
-tensor-core Evoformer dk/dv skipping each head's last query tile
-(``--phases build,evo_kernels``, the same), the flash backward with
+tensor-core Evoformer dk/dv skipping each head's last query tile, the
+tensor-core Evoformer forward skipping each CTA's last key tile, and
+the tensor-core Evoformer dq doing the same (``--phases
+build,evo_kernels``, the same), the flash backward with
 dk/dv skipping each CTA's last live q-tile and dq its last live k-tile
 and, alone, the flash forward skipping each CTA's last live k-tile
 (``--phases build,train_kernels``, the same), the paged prefill
 skipping each CTA's last live k-tile and, alone, the paged decode
 skipping each split's last live block (``--phases build,kernels``, the
-same): eight copies. It passes when every mutant is caught.
+same): ten copies. It passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
-grouped matmul and the Evoformer db2 against copies under
+grouped matmul and the Evoformer kernels against copies under
 ``build/ablation/<name>``, each undoing one design choice of
 ``ABLATIONS`` (the grid order of the backward and of the forward, the
 prefill's tile order, the mask fast path, the two-level accumulation, each
 split pair; the decode split over the table's capacity, as the TPU grid
 splits it, with its plain partials patched alike; the grouped matmul's ring
-two stages deep, one CTA per tile; db2's rows in one chunk): ``--phases
+two stages deep, one CTA per tile; db2's rows in one chunk; the
+Evoformer forward and dq with two rows n a CTA sharing each staged
+pair-bias tile, not one): ``--phases
 kernels,train_kernels`` (``kernels`` alone for the decode,
 ``moe_kernels`` for the grouped matmul, ``evo_kernels`` for the
-Evoformer) in every copy in turns, each version twice,
+Evoformer's) in every copy in turns, each version twice,
 printing the main shapes' times and each phase's largest error as a
 fraction of the tolerance (``worst_error_fraction``; above 1 fails that
 check). ``--mutant`` and ``--ablation`` take an optional comma-separated
@@ -441,10 +449,11 @@ def phase_build():
     log(f"[build] block-sparse forward dynamic shared memory per CTA: d 128 {bsm(128)} B, "
         f"d 64 {bsm(64)} B")
     esm = built["evoformer_attention"].lib.ds_evo_smem_bytes
-    log(f"[build] Evoformer dynamic shared memory per CTA (d 32): forward {esm(0, 32)} B, dq "
-        f"{esm(1, 32)} B; tensor cores dk/dv {esm(4, 32)} B (d 128 {esm(4, 128)} B), db2 "
-        f"{esm(5, 32)} B (d 128 {esm(5, 128)} B); fp32 route dk/dv {esm(2, 32)} B, db2 "
-        f"{esm(3, 32)} B")
+    log(f"[build] Evoformer dynamic shared memory per CTA (d 32): tensor cores forward "
+        f"{esm(6, 32)} B (d 128 {esm(6, 128)} B), dq {esm(7, 32)} B (d 128 {esm(7, 128)} B), "
+        f"dk/dv {esm(4, 32)} B (d 128 {esm(4, 128)} B), db2 {esm(5, 32)} B (d 128 "
+        f"{esm(5, 128)} B); fp32 route forward {esm(0, 32)} B, dq {esm(1, 32)} B, dk/dv "
+        f"{esm(2, 32)} B, db2 {esm(3, 32)} B")
 
 
 # ---------------------------------------------------------------------------
@@ -2223,10 +2232,11 @@ def _evo_all(tev, q, k, v, do, b1, b2, db1=True):
     return out, lse, dq, dk, dv, g1, g2
 
 
-def _evo_bytes_flops(N, G, R, h, d):
+def _evo_bytes_flops(N, G, R, h, d, elem=2):
     """{kernel: (bytes each input read once and each output written once,
-    FLOPs at 2 per multiply-add)} for one bf16 call with both biases."""
-    T = N * R * h * d * 2  # q, k, v, out, dout, dq, dk, dv: each this size
+    FLOPs at 2 per multiply-add)} for one call with both biases, q/k/v of
+    ``elem`` bytes (2: bf16, 4: fp32)."""
+    T = N * R * h * d * elem  # q, k, v, out, dout, dq, dk, dv: each this size
     pairs = N * h * R * R
     bias = N * R * 4 + G * h * R * R * 4
     lse = N * h * R * 4
@@ -2237,16 +2247,77 @@ def _evo_bytes_flops(N, G, R, h, d):
             "evo_bwd_db2": (5 * T + bias + lse + G * h * R * R * 4, 4 * d * pairs)}
 
 
-def phase_evo_kernels():
-    """Returns {kernel name: measurement dict} for the Evoformer kernels."""
+def _ptxas_entries(report, keep):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from nvcc's
+    ``-Xptxas -v`` report, for the kernels whose name holds one of ``keep``."""
+    import re
+
+    found, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            name = name if any(k in name for k in keep) else None
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            found[name] = (found.get(name, (None,))[0], int(st), int(ld))
+        elif name and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            found[name] = (regs, *found.get(name, (None, None, None))[1:])
+    return found
+
+
+def _evo_main_times(tev, q, k, v, do, b1, b2, out, lse):
+    """The four kernels' times at the main shape on q's route (db1's: the
+    dk/dv launch that sums it), the plain forward and backward, and the
+    library yardstick: SDPA on [N, h, R, d] with bias1 + bias2 materialised
+    as a float mask in q's dtype, its backward with the mask's gradient."""
     import torch
     import torch.nn.functional as F
+
+    N, R, h, _ = q.shape
+    ms = {"evo_fwd": time_ms(lambda: tev.evo_fwd(q, k, v, b1, b2), iters=10, warmup=2),
+          "evo_bwd_dq": time_ms(lambda: tev.evo_bwd_dq(q, k, v, b1, b2, out, lse, do), iters=10,
+                                warmup=2),
+          "evo_bwd_dkdv": time_ms(lambda: tev.evo_bwd_dkdv(q, k, v, b1, b2, out, lse, do,
+                                                           db1=False), iters=10, warmup=2),
+          "evo_bwd_db2": time_ms(lambda: tev.evo_bwd_db2(q, k, v, b1, b2, out, lse, do),
+                                 iters=10, warmup=2)}
+    # db1 is summed inside the dk/dv kernel: its time is that launch's
+    ms["evo_bwd_db1"] = time_ms(lambda: tev.evo_bwd_dkdv(q, k, v, b1, b2, out, lse, do),
+                                iters=10, warmup=2)
+    plain_fwd = time_ms(lambda: tev.evo_attention_reference(q, k, v, b1, b2), iters=3, warmup=1)
+    plain_bwd = time_ms(lambda: tev.evo_attention_reference_bwd(q, k, v, b1, b2, out, lse, do),
+                        iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    mask = (b2.expand(N, h, R, R) + b1[:, None, None, :]).to(q.dtype).requires_grad_()
+    dot = do.transpose(1, 2).contiguous()
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                      iters=10, warmup=2)
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_err = float((o_lib.detach().transpose(1, 2).float() - out.float()).abs().max())
+    try:
+        lib_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt, mask), dot,
+                                                      retain_graph=True), iters=10, warmup=2)
+        lib_note = "SDPA backward with the mask's gradient"
+    except RuntimeError as e:  # a yardstick only: say what this torch computes
+        lib_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dot,
+                                                      retain_graph=True), iters=10, warmup=2)
+        lib_note = f"SDPA backward without the mask's gradient ({str(e)[:120]})"
+    return ms, plain_fwd, plain_bwd, lib_fwd, lib_bwd, lib_note, lib_err
+
+
+def phase_evo_kernels():
+    """Returns {kernel name: measurement dict} for the Evoformer kernels:
+    the tensor-core route's numbers (bf16), with the fp32 route's under
+    ``fp32_route``."""
+    import torch
 
     from deepspeed_tpu_torch.ops import evoformer_attention as tev
 
     torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
     worst = {name: 0.0 for name in EVO_KERNELS}
+    worst_fp32 = {name: 0.0 for name in EVO_KERNELS}
     worst_frac = [0.0, ""]
     owner = {"out": "evo_fwd", "lse": "evo_fwd", "dq": "evo_bwd_dq", "dk": "evo_bwd_dkdv",
              "dv": "evo_bwd_dkdv", "db1": "evo_bwd_db1", "db2": "evo_bwd_db2"}
@@ -2261,6 +2332,7 @@ def phase_evo_kernels():
         low = "low" if q.dtype != torch.float32 else "fp32"
         kinds = {"out": low, "lse": "lse", "dq": low, "dk": low, "dv": low, "db1": h * R,
                  "db2": N // (b2.shape[0] if b2 is not None else 1)}
+        by_route = worst if q.dtype != torch.float32 else worst_fp32
         errs = {}
         for name, a, r, t in zip(owner, got, ref, terms):
             if a is None:
@@ -2271,7 +2343,7 @@ def phase_evo_kernels():
                 a, r = a[~masked], r[~masked]
             e, frac = _evo_err(a, r, kinds[name], t)
             errs[name] = e
-            worst[owner[name]] = max(worst[owner[name]], e)
+            by_route[owner[name]] = max(by_route[owner[name]], e)
             if frac > worst_frac[0]:
                 worst_frac[:] = [frac, f"{name} {tag}"]
             if not frac <= 1.0:
@@ -2279,32 +2351,37 @@ def phase_evo_kernels():
         return errs
 
     # small cases: each bias present or absent, G 1 and 2, ragged R, every
-    # head dim, bf16 / fp32 / fp16, OpenFold's mask with a fully masked row,
-    # and db2 with one row a group and with 32 rows a group in chunks; each
-    # case's dk/dv and db2 launches are expected on its dtype's route
+    # head dim, OpenFold's mask with a fully masked row, an odd number of
+    # rows a group (the two-row ablation's one-row tail), and db2 with one row a
+    # group and with 32 rows a group in chunks. Every case runs on both
+    # routes: in its dtype (bf16 / fp32 / fp16 in turn) and in the other
+    # route's (fp32 for a 16-bit case, bf16 for an fp32 one); each launch is
+    # expected on its dtype's route
     tev.reset_launch_counts()
     expected = dict.fromkeys(tev.launch_counts, 0)
 
     def run_case(tag, seed, N, G, R, h, d, dtype, with_b1, with_b2, openfold=False):
-        q, k, v, do, b1, b2, masked = _evo_case(seed, N, G, R, h, d, dtype, with_b1, with_b2,
-                                                openfold)
-        got = _evo_all(tev, q, k, v, do, b1, b2)
-        sfx = tev._SUFFIX[tev.route(dtype)]
-        expected["evo_fwd"] += 1
-        expected["evo_bwd_dq"] += 1
-        expected[f"evo_bwd_dkdv{sfx}"] += 1
-        expected[f"evo_bwd_db1{sfx}"] += with_b1
-        expected[f"evo_bwd_db2{sfx}"] += with_b2
-        chunks = tev.db2_row_chunks(N // G, R, h, G) if with_b2 and not sfx else "-"
-        check(f"{tag}N={N} G={G} R={R} h={h} d={d} {str(dtype)[6:]} b1={with_b1} "
-              f"b2={with_b2} db2_chunks={chunks}", got, q, k, v, do, b1, b2, masked)
+        for dt in (dtype, torch.bfloat16 if dtype == torch.float32 else torch.float32):
+            q, k, v, do, b1, b2, masked = _evo_case(seed, N, G, R, h, d, dt, with_b1, with_b2,
+                                                    openfold)
+            got = _evo_all(tev, q, k, v, do, b1, b2)
+            sfx = tev._SUFFIX[tev.route(dt)]
+            expected[f"evo_fwd{sfx}"] += 1
+            expected[f"evo_bwd_dq{sfx}"] += 1
+            expected[f"evo_bwd_dkdv{sfx}"] += 1
+            expected[f"evo_bwd_db1{sfx}"] += with_b1
+            expected[f"evo_bwd_db2{sfx}"] += with_b2
+            chunks = tev.db2_row_chunks(N // G, R, h, G) if with_b2 and not sfx else "-"
+            check(f"{tag}N={N} G={G} R={R} h={h} d={d} {str(dt)[6:]} b1={with_b1} "
+                  f"b2={with_b2} db2_chunks={chunks}", got, q, k, v, do, b1, b2, masked)
 
     dtypes = (torch.bfloat16, torch.float32, torch.float16)
     n_cases = 0
     for (R, d) in ((1, 32), (64, 32), (100, 32), (130, 64), (200, 128), (257, 32)):
         for with_b1, with_b2 in ((True, True), (True, False), (False, True), (False, False)):
-            run_case("", 200 + n_cases, 4, 1 + n_cases % 2, R, 2 + 2 * (n_cases % 2), d,
-                     dtypes[n_cases % 3], with_b1, with_b2)
+            N = 4 if n_cases % 4 else 5  # both biases: 5 rows, one group (an odd one)
+            run_case("", 200 + n_cases, N, 1 + (n_cases % 2) * (N % 2 == 0), R,
+                     2 + 2 * (n_cases % 2), d, dtypes[n_cases % 3], with_b1, with_b2)
             n_cases += 1
     for dtype in (torch.bfloat16, torch.float32):
         run_case("openfold ", 300 + n_cases, 6, 2, 160, 4, 32, dtype, True, True, openfold=True)
@@ -2315,19 +2392,33 @@ def phase_evo_kernels():
     n_cases += 1
     torch.cuda.synchronize()
     routes = dict(tev.launch_counts)
-    log(f"[evo_kernels] small-case matrix ({n_cases} cases x out, lse, dq, dk, dv, db1, db2): "
-        f"{'all within tolerance' if not failures else failures[:5]}; max_abs_err "
-        f"{ {k_: f'{e_:.3e}' for k_, e_ in worst.items()} }")
+    log(f"[evo_kernels] small-case matrix ({n_cases} cases x both routes x out, lse, dq, dk, dv, "
+        f"db1, db2): {'all within tolerance' if not failures else failures[:5]}; max_abs_err "
+        f"tensor cores { {k_: f'{e_:.3e}' for k_, e_ in worst.items()} }, fp32 route "
+        f"{ {k_: f'{e_:.3e}' for k_, e_ in worst_fp32.items()} }")
     log(f"[evo_kernels] launches by route (bf16 / fp16 on the tensor cores, fp32 on the "
         f"'_fp32' CUDA-core kernels): {routes} (expected {expected})")
     if routes != expected:
         failures.append(f"launches by route {routes} != expected {expected}")
+    new = ("evo_fwd_mma_kernel", "evo_bwd_dq_mma_kernel")
     log("[evo_kernels] tensor-core kernels, ptxas registers and spills:")
     _log_ptxas(tev.kernel_build().ptxas, "[evo_kernels]",
-               ("evo_bwd_dkdv_mma_kernel", "evo_bwd_db2_mma_kernel", "evo_db2_sum_kernel"))
+               new + ("evo_bwd_dkdv_mma_kernel", "evo_bwd_db2_mma_kernel", "evo_db2_sum_kernel"))
+    # the forward's and dq's tensor-core kernels at d 32 (template argument
+    # ILi32E in the mangled name) must not spill
+    entries = _ptxas_entries(tev.kernel_build().ptxas, new)
+    d32 = {n: e for n, e in entries.items() if "ILi32E" in n}
+    if len(d32) != 4 or any(e[1] or e[2] for e in d32.values()):
+        failures.append(f"the d 32 tensor-core forward / dq kernels: {d32} (4 kernels, no spill "
+                        f"expected)")
+    log(f"[evo_kernels] d 32 forward / dq on the tensor cores, registers / spill stores / loads "
+        f"(bytes): {sorted(d32.values())}; rows n a CTA at d 32: "
+        f"{tev.kernel_build().lib.ds_evo_smem_bytes(6, 32)} B forward, "
+        f"{tev.kernel_build().lib.ds_evo_smem_bytes(7, 32)} B dq of shared memory")
 
     # the main shape: MSA row attention with the pair bias at AlphaFold's
-    # fine-tuning crop (the path's largest call with both biases)
+    # fine-tuning crop (the path's largest call with both biases), on both
+    # routes: bf16 (the path's) and the same values in fp32
     name0, n_seq, R, h, _ = EVO_CALLS[0]
     N, G, d = n_seq, 1, EVO_D
     q, k, v, do, b1, b2, _ = _evo_case(17, N, G, R, h, d, torch.bfloat16, True, True)
@@ -2339,60 +2430,53 @@ def phase_evo_kernels():
         f"scratch {n_chunks * G * h * R * R * 4 / 1e6:.1f} MB")
     out, lse = got[0], got[1]
     del got
-    ms = {"evo_fwd": time_ms(lambda: tev.evo_fwd(q, k, v, b1, b2), iters=10, warmup=2),
-          "evo_bwd_dq": time_ms(lambda: tev.evo_bwd_dq(q, k, v, b1, b2, out, lse, do), iters=10,
-                                warmup=2),
-          "evo_bwd_dkdv": time_ms(lambda: tev.evo_bwd_dkdv(q, k, v, b1, b2, out, lse, do,
-                                                           db1=False), iters=10, warmup=2),
-          "evo_bwd_db2": time_ms(lambda: tev.evo_bwd_db2(q, k, v, b1, b2, out, lse, do),
-                                 iters=10, warmup=2)}
-    dkdv_db1 = time_ms(lambda: tev.evo_bwd_dkdv(q, k, v, b1, b2, out, lse, do), iters=10,
-                       warmup=2)
-    # db1 is summed inside the dk/dv kernel: its time is that launch's
-    ms["evo_bwd_db1"] = dkdv_db1
-    plain_fwd = time_ms(lambda: tev.evo_attention_reference(q, k, v, b1, b2), iters=3, warmup=1)
-    plain_bwd = time_ms(lambda: tev.evo_attention_reference_bwd(q, k, v, b1, b2, out, lse, do),
-                        iters=3, warmup=1)
-    # library yardstick: SDPA on [N, h, R, d] with bias1 + bias2 materialised
-    # as a bf16 float mask [N, h, R, R]; the backward with the mask's gradient
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-    mask = (b2.expand(N, h, R, R) + b1[:, None, None, :]).to(torch.bfloat16).requires_grad_()
-    dot = do.transpose(1, 2).contiguous()
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
-                      iters=10, warmup=2)
-    o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-    lib_err = float((o_lib.detach().transpose(1, 2).float() - out.float()).abs().max())
-    try:
-        lib_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt, mask), dot,
-                                                      retain_graph=True), iters=10, warmup=2)
-        lib_note = "SDPA backward with the mask's gradient"
-    except RuntimeError as e:  # a yardstick only: say what this torch computes
-        lib_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dot,
-                                                      retain_graph=True), iters=10, warmup=2)
-        lib_note = f"SDPA backward without the mask's gradient ({str(e)[:120]})"
-    del o_lib, qt, kt, vt, mask, dot
+    ms, plain_fwd, plain_bwd, lib_fwd, lib_bwd, lib_note, lib_err = _evo_main_times(
+        tev, q, k, v, do, b1, b2, out, lse)
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    del q, k, v, do, out, lse
+    got = _evo_all(tev, q32, k32, v32, do32, b1, b2)
+    errs32 = check(f"main {name0} N={N} R={R} h={h} d={d} fp32", got, q32, k32, v32, do32, b1, b2)
+    out32, lse32 = got[0], got[1]
+    del got
+    ms32, plain_fwd32, plain_bwd32, lib_fwd32, lib_bwd32, _, _ = _evo_main_times(
+        tev, q32, k32, v32, do32, b1, b2, out32, lse32)
+    del q32, k32, v32, do32, out32, lse32
     spec = _evo_bytes_flops(N, G, R, h, d)
-    lib = {"evo_fwd": lib_fwd}
+    spec32 = _evo_bytes_flops(N, G, R, h, d, elem=4)
     res = {}
     for name in EVO_KERNELS:
-        n_bytes, flops = spec[name]
-        b_ms, b_by = bound_ms(n_bytes, flops)
-        res[name] = dict(err=worst[name], ms=ms[name], plain_ms=plain_fwd if name == "evo_fwd"
-                         else plain_bwd, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib.get(name, lib_bwd),
-                         library=("SDPA forward, bias1 + bias2 as a bf16 float mask"
-                                  if name == "evo_fwd" else lib_note + " (all five kernels' "
-                                  "work together)"))
-        log(f"[evo_kernels] {name} {name0} N={N} R={R} h={h} d={d} bf16: {ms[name]:.4f} ms, "
-            f"plain {res[name]['plain_ms']:.3f} ms ({'forward' if name == 'evo_fwd' else 'whole backward'}), "
-            f"bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), "
-            f"library {res[name]['library_ms']:.4f} ms")
-    adds = dkdv_db1 - ms["evo_bwd_dkdv"]
-    res["evo_bwd_db1"]["db1_adds_ms"] = res["evo_bwd_dkdv"]["db1_adds_ms"] = adds
-    log(f"[evo_kernels] dk/dv with the db1 sum {dkdv_db1:.4f} ms, without {ms['evo_bwd_dkdv']:.4f} "
-        f"ms: db1 adds {adds:.4f} ms; library: SDPA forward {lib_fwd:.4f} ms "
-        f"(max |sdpa - kernel| {lib_err:.3e}), {lib_note} {lib_bwd:.4f} ms")
-    log(f"[evo_kernels] main-shape max_abs_err: { {k_: f'{e_:.3e}' for k_, e_ in errs.items()} }")
+        lib_name = ("SDPA forward, bias1 + bias2 as a float mask in q's dtype"
+                    if name == "evo_fwd" else lib_note + " (all five kernels' work together)")
+        for sfx, n_bytes_flops, t_ms, pf, pb, lf, lb, peak, err in (
+                ("", spec[name], ms, plain_fwd, plain_bwd, lib_fwd, lib_bwd, BF16_FLOPS_PER_S,
+                 worst[name]),
+                ("_fp32", spec32[name], ms32, plain_fwd32, plain_bwd32, lib_fwd32, lib_bwd32,
+                 FP32_FLOPS_PER_S, worst_fp32[name])):
+            n_bytes, flops = n_bytes_flops
+            b_ms, b_by = bound_ms(n_bytes, flops, peak)
+            m = dict(err=err, ms=t_ms[name], plain_ms=pf if name == "evo_fwd" else pb,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lf if name == "evo_fwd" else lb,
+                     library=lib_name)
+            if sfx:
+                res[name]["fp32_route"] = m
+            else:
+                res[name] = m
+            log(f"[evo_kernels] {name}{sfx} {name0} N={N} R={R} h={h} d={d} "
+                f"{'fp32' if sfx else 'bf16'}: {m['ms']:.4f} ms, plain {m['plain_ms']:.3f} ms "
+                f"({'forward' if name == 'evo_fwd' else 'whole backward'}), bound "
+                f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), "
+                f"library {m['library_ms']:.4f} ms")
+    for sfx, t_ms in (("", ms), ("_fp32", ms32)):
+        adds = t_ms["evo_bwd_db1"] - t_ms["evo_bwd_dkdv"]
+        for name in ("evo_bwd_db1", "evo_bwd_dkdv"):
+            (res[name]["fp32_route"] if sfx else res[name])["db1_adds_ms"] = adds
+        log(f"[evo_kernels] dk/dv{sfx} with the db1 sum {t_ms['evo_bwd_db1']:.4f} ms, without "
+            f"{t_ms['evo_bwd_dkdv']:.4f} ms: db1 adds {adds:.4f} ms")
+    log(f"[evo_kernels] library: SDPA forward {lib_fwd:.4f} ms bf16 / {lib_fwd32:.4f} ms fp32 "
+        f"(max |sdpa - kernel| {lib_err:.3e}, bf16), {lib_note} {lib_bwd:.4f} / "
+        f"{lib_bwd32:.4f} ms")
+    log(f"[evo_kernels] main-shape max_abs_err: bf16 { {k_: f'{e_:.3e}' for k_, e_ in errs.items()} }"
+        f", fp32 { {k_: f'{e_:.3e}' for k_, e_ in errs32.items()} }")
     log(f"[evo_kernels] largest error over all cases {worst_frac[0]:.3f} of its tolerance "
         f"({worst_frac[1]})")
     log(f"[evo_kernels] worst_error_fraction={worst_frac[0]:.6g}")
@@ -2505,8 +2589,8 @@ def phase_evo_path():
     launches = dict(tev.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     n_pair = sum(1 for c in EVO_CALLS if c[4])
-    # bf16 throughout: dk/dv and db2 on the tensor cores only, none on the
-    # fp32 route
+    # bf16 throughout: every kernel on the tensor cores, none on the fp32
+    # route
     expected = dict.fromkeys(tev.launch_counts, 0) | {
         "evo_fwd": 4 * EVO_ITERS, "evo_bwd_dq": 4 * EVO_ITERS, "evo_bwd_dkdv": 4 * EVO_ITERS,
         "evo_bwd_db1": 4 * EVO_ITERS, "evo_bwd_db2": n_pair * EVO_ITERS}
@@ -2592,6 +2676,14 @@ EVO_MUTATIONS = _in(EVO_SRC, (  # the tensor-core db2 skips each row chunk's las
     ("const int n_rows = (int)((long long)(c + 1) * a.n_seq / n_chunks) - row_lo;",
      "const int n_rows = (int)((long long)(c + 1) * a.n_seq / n_chunks) - row_lo - 1;"),
 ))
+EVO_FWD_MUTATIONS = _in(EVO_SRC, (  # the tensor-core forward skips each CTA's last key tile
+    ("const int n_kt = (a.R + kBK - 1) / kBK;  // key tiles of the forward's walk",
+     "const int n_kt = (a.R + kBK - 1) / kBK - (a.R > kBK);  // key tiles of the forward's walk"),
+))
+EVO_DQ_MUTATIONS = _in(EVO_SRC, (  # the tensor-core dq skips each CTA's last key tile
+    ("const int n_kt = (a.R + kBK - 1) / kBK;  // key tiles of dq's walk",
+     "const int n_kt = (a.R + kBK - 1) / kBK - (a.R > kBK);  // key tiles of dq's walk"),
+))
 EVO_DKDV_MUTATIONS = _in(EVO_SRC, (  # the tensor-core dk/dv skips each head's last query tile
     ("const int n_qt = (a.R + kBQ - 1) / kBQ;  // query tiles of each head",
      "const int n_qt = (a.R + kBQ - 1) / kBQ - (a.R > kBQ);  // query tiles of each head"),
@@ -2617,6 +2709,8 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "block_sparse": (BSA_MUTATIONS, "sparse_kernels", "block-sparse kernel disagrees"),
     "evoformer": (EVO_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
     "evoformer_dkdv": (EVO_DKDV_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
+    "evoformer_fwd": (EVO_FWD_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
+    "evoformer_dq": (EVO_DQ_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
     "flash": (FLASH_MUTATIONS, "train_kernels", "flash kernels disagree"),
     "flash_fwd": (FLASH_FWD_MUTATIONS, "train_kernels", "flash kernels disagree"),
     "paged_prefill": (PAGED_MUTATIONS, "kernels", "kernels disagree with the plain version"),
@@ -2696,6 +2790,10 @@ ABLATIONS = {
     "evo_db2_one_chunk": _in(EVO_PY, (
         ("    return max(1, min(n_seq, -(-DB2_CTAS_PER_SM * SMS // per_chunk)))",
          "    return 1"),)),
+    # the tensor-core forward and dq with two rows n of a group a CTA at d
+    # 32, sharing each staged pair-bias tile, not one
+    "evo_bias_two_rows": _in(EVO_SRC, (("constexpr int kBiasRows = 1;",
+                                        "constexpr int kBiasRows = 2;"),)),
 }
 GMM_HDR = "deepspeed_tpu_torch/ops/csrc/wgmma_sm90.cuh"
 PAGED_PY = "deepspeed_tpu_torch/ops/paged_attention.py"
@@ -2885,11 +2983,14 @@ def _e2e_numbers(stdout):
 
 
 def _evo_times(stdout):
-    """The Evoformer kernels' main-shape times, the block time and the
+    """The Evoformer kernels' main-shape times (both routes; the parent's
+    script printed the tensor-core route's dk/dv and db2 and the CUDA-core
+    forward and dq under the unsuffixed names), the block time and the
     largest error fraction printed by ``evo_kernels`` / ``evo_path`` runs
     (this script's or the parent's)."""
-    return {f"{k}_ms": _num(rf"\] {k} msa_row .*?: ([0-9.]+) ms", stdout)
-            for k in ("evo_fwd", "evo_bwd_dq", "evo_bwd_dkdv", "evo_bwd_db1", "evo_bwd_db2")} | {
+    return {f"{k}{sfx}_ms": _num(rf"\] {k}{sfx} msa_row .*?: ([0-9.]+) ms", stdout)
+            for k in ("evo_fwd", "evo_bwd_dq", "evo_bwd_dkdv", "evo_bwd_db1", "evo_bwd_db2")
+            for sfx in ("", "_fp32")} | {
         "evo_error_fraction": _worst_error_fraction(stdout, "evo_kernels"),
         "evo_block_ms": _num(r"\[evo_path\] block forward \+ backward .*?median ([0-9.]+) ms",
                              stdout)}
@@ -2964,7 +3065,7 @@ def run_ablation(which="all"):
             need += ["gmm_up_ms", "tgmm_ms"]
         if "evo_kernels" in phases[n]:
             r.update({k: v for k, v in _evo_times(out).items() if k != "evo_block_ms"})
-            need += ["evo_bwd_db2_ms", "evo_bwd_dkdv_ms"]
+            need += ["evo_fwd_ms", "evo_bwd_dq_ms", "evo_bwd_db2_ms", "evo_bwd_dkdv_ms"]
         runs.append(r)
         log(f"[ablation] {n} ({phases[n]}): "
             + ", ".join(f"{k} {v}" for k, v in r.items() if k not in ("name", "rc"))
@@ -3171,7 +3272,7 @@ def main():
                         **{k: m[k] for k in keys}, **extra, "sparse_train_step": sparse_step})
     evo_launches, evo_block = out["evo_path"]
     for name, m in out["evo_kernels"].items():
-        extra = {k: m[k] for k in ("library", "db1_adds_ms") if k in m}
+        extra = {k: m[k] for k in ("library", "db1_adds_ms", "fp32_route") if k in m}
         if name == "evo_bwd_db1":
             extra["kernel"] = "ds_evo_bwd_dkdv (the db1 sum folded into the dk/dv kernel)"
         kernels.append({"name": name, "route": "cuda", "source": EVO_SRC,

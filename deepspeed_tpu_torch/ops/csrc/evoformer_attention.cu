@@ -7,6 +7,7 @@
 // What it replaces (deepspeed_tpu/ops/pallas/evoformer_attention.py):
 //   ds_evo_fwd      -> _evo_fwd_impl (:113): out and lse = m + log(l)
 //   ds_evo_bwd_dq   -> _evo_bwd_impl's dq_kernel (:231)
+//   (each entry point has an _fp32 twin: the route of fp32 q/k/v)
 //   ds_evo_bwd_dkdv -> dkdv_kernel (:265) and db1_kernel (:346): one CTA per
 //                      (key tile, sequence row n) walks every head and query
 //                      tile, writes dk / dv per head and sums db1 over
@@ -27,7 +28,10 @@
 // Forward: q is pre-scaled by 1/sqrt(D) (:145); s = (q.k + b2) + b1 in that
 // order (:149); the online softmax starts at m = -1e30, l = 0; the output is
 // acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)) (:160-162), so a row
-// whose biases are all -inf writes 0. Backward (block_math, :214-228):
+// whose biases are all -inf writes 0. The tensor-core forward takes q
+// unscaled (the products read the 16-bit inputs as they are) and scales the
+// fp32 score, scale * (q.k): one fp32 rounding away from the TPU kernel's
+// (q * scale).k, far inside the bf16 output's tolerance. Backward (block_math, :214-228):
 // s = scale * (q.k) + b2 + b1, p = exp(s - lse), delta = rowsum(dO * O) from
 // the tiles the CTA loads, dp = dO.v, ds = p * (dp - delta); dq = scale *
 // sum_k ds k, dv = sum_q p^T dO, dk = scale * sum_q ds^T q, db2[g] = sum over
@@ -38,12 +42,33 @@
 // What bounds it on the H100: at the Evoformer's widths (D 32, R 384-512)
 // each kernel does 2-8 D FLOPs per (row, head, query, key) over inputs of
 // about 4-6 x N R H D bf16 elements, so the data bound is the bytes, and the
-// tensor cores' operations bound come close to it. Two routes, chosen by
-// q/k/v's dtype (ops/evoformer_attention.py: route):
-// - bf16 / fp16: dk/dv (with db1) and db2 run every product on the tensor
-//   cores, mma.sync m16n8k16 with fp32 accumulators from 16-bit [64][D + 8]
+// tensor cores' operations bound come close to it. Below both lies one more
+// floor: every kernel exponentiates each (row, head, query, key) once, and
+// at MUFU's 16 a clock an SM the MSA-row call's 604 M exponentials take
+// ~0.16 ms. Two routes, chosen by q/k/v's dtype
+// (ops/evoformer_attention.py: route):
+// - bf16 / fp16: every kernel runs every product on the tensor cores,
+//   mma.sync m16n8k16 with fp32 accumulators from 16-bit [64][D + 8]
 //   shared tiles filled by a two-stage cp.async ring (the helpers of
 //   mma_sm90.cuh, as the flash kernels). 128 threads, four warps of 16 rows.
+//   * forward (evo_fwd_mma_kernel) and dq (evo_bwd_dq_mma_kernel), after
+//     the flash forward and dq: a warp's rows are queries; q (and for dq
+//     O and dO, from which delta comes, each quad lane D / 4 columns) are
+//     staged once; K, V, the pair-bias tile [64 q][64 k] and b1's 64 keys
+//     stream through the ring. S = Q.K^T (and dq's dP = dO.V^T) straight
+//     from the inputs; the forward's online softmax stays in registers and
+//     P enters P.V as a split hi + lo pair; dq's dS = P (dP - delta)
+//     enters dS.K the same way (K read with ldmatrix.trans), each tile pair
+//     summed from zero and added once. The pair-bias tile is read in the
+//     query-row fragment layout as float2 pairs from rows of 72 floats
+//     (kLBQ: each half-warp's 16 pairs fall in 32 different banks; 68, the
+//     key-row layout's pad, would put two in one bank). A CTA serves one
+//     row n: with kBiasRows 2 a d 32 CTA walks two rows of one group with
+//     each staged bias tile, halving the bias's L2 reads (twice the bytes
+//     of a row's K and V per CTA), and runs slower: three one-row CTAs an
+//     SM beat two two-row ones, so occupancy, not L2, sets the time. dq
+//     walks each key tile in two halves of 32 keys to stay under its
+//     register cap.
 //   * db2 (evo_bwd_db2_mma_kernel): a warp's rows are queries; s = q.k^T
 //     and dp = dO.v^T straight from the inputs (exact products), ds summed
 //     over the chunk's rows in the C-fragment layout. The pair-bias tile is
@@ -68,16 +93,15 @@
 //     db1 stays in registers and is reduced over the quad at the end.
 //   At d 32 (the Evoformer's width) an item is short (a quarter of the
 //   flash kernels' products per 64 x 64 tile pair, the same exponentials,
-//   masks and barriers), so both kernels are held to 170 registers for
-//   three CTAs an SM: the latencies of one CTA hide behind the others'.
+//   masks and barriers), so the one-row kernels are held to 170 registers
+//   for three CTAs an SM: the latencies of one CTA hide behind the others'.
 //   p = exp2((x - lse) log2 e), as in the flash kernels.
 // - fp32: the first version, on the CUDA cores in fp32 (67 TFLOP/s peak),
 //   from fp32 tiles of 64 query rows x 64 key rows staged in shared memory;
 //   each of 256 threads owns a 4 x 4 block of the score tile (rows
 //   ty + 16 i, keys tx + 16 j) and D / 16 rows of one float4 column of the
 //   output tile. Its tolerance (2^-16 relative) is beyond what bf16 or TF32
-//   tensor-core products can hold. The forward and dq run this way for
-//   every dtype.
+//   tensor-core products can hold. Entry points ds_evo_*_fp32.
 //
 // Offsets are int64 throughout.
 
@@ -136,9 +160,9 @@ __device__ __forceinline__ void store8(float* dst, const float* f) {
 }
 
 // Every kernel takes this struct by value. Keep it as it is: two more
-// fields here made ptxas compile the (unchanged) forward to 104 registers
-// instead of 122 and the forward and dq run 8-9% slower on the H100, so the
-// tensor-core db2 takes its extra arguments as parameters of its own.
+// fields here made ptxas compile the fp32 route's forward to 104 registers
+// instead of 122 and its forward and dq run 8-9% slower on the H100, so a
+// tensor-core kernel takes any extra argument as a parameter of its own.
 struct Args {
   const void* q;     // [N, R, H, D]
   const void* k;
@@ -622,6 +646,365 @@ __device__ __forceinline__ float dot16(const T* a, const T* b, int len) {
   return part;
 }
 
+// The pair-bias tile b2[g, h, q0 .., k0 ..] into a shared [kBQ][LB] fp32
+// tile, copied along k (rows of R floats) in 16-byte chunks where R allows;
+// positions past R are zeros.
+template <int LB>
+__device__ __forceinline__ void stage_pair_bias(float* dst, const Args& a, int g, int h, int q0,
+                                                int k0) {
+  const float* src = a.b2 + (((long long)g * a.H + h) * a.R + q0) * a.R + k0;
+  if (a.R % 4 == 0) {  // 16-byte rows: whole chunks inside or past R
+    for (int c = threadIdx.x; c < kBQ * (kBK / 4); c += kMmaThreads) {
+      const int r = c / (kBK / 4), c4 = (c % (kBK / 4)) * 4;
+      const bool ok = q0 + r < a.R && k0 + c4 < a.R;
+      ds_mma::cp_async16(dst + r * LB + c4, ok ? src + (long long)r * a.R + c4 : a.b2, ok);
+    }
+  } else {
+    for (int c = threadIdx.x; c < kBQ * kBK; c += kMmaThreads) {
+      const int r = c / kBK, cc = c % kBK;
+      const bool ok = q0 + r < a.R && k0 + cc < a.R;
+      ds_mma::cp_async4(dst + r * LB + cc, ok ? src + (long long)r * a.R + cc : a.b2, ok);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The forward and dq on the tensor cores: one CTA per (query tile, head,
+// kBiasRows rows n of one group), walking the key tiles through a two-stage
+// ring; a warp's rows are queries r0 + lane / 4 + 8 (e / 2), its C-fragment
+// columns the keys 8 j + 2 (lane % 4) + e % 2
+// ---------------------------------------------------------------------------
+constexpr int kLBQ = kBK + 8;  // fp32 row of a pair-bias tile read in the query-row layout
+// Rows n of one group that a forward / dq CTA walks with each staged
+// pair-bias tile at d 32 (wider heads take one: their accumulators leave no
+// registers for a second row's). One: two rows halve the bias's L2 reads
+// but hold a CTA to 218 registers and 89-110 KB, two CTAs an SM, and ran
+// 13% (forward) and 29% (dq) slower than one row at three CTAs an SM
+// on the H100 (PERF.md; chip_smoke.py --ablation evo_bias_two_rows)
+constexpr int kBiasRows = 1;
+__host__ __device__ constexpr int rows_per_cta(int d) { return d == 32 ? kBiasRows : 1; }
+
+// Dynamic shared memory of the forward (nq = 1: q) and dq (nq = 3: q, O,
+// dO): rows x nq 16-bit query tiles, then two ring stages of rows x (K, V),
+// one pair-bias tile and rows x 64 b1
+__host__ __device__ constexpr size_t qrow_smem_bytes(int d, int rows, int nq) {
+  return (size_t)(rows * nq + 4 * rows) * 64 * (d + ds_mma::kPad) * 2 +
+         (size_t)2 * (kBQ * kLBQ + rows * kBK) * sizeof(float);
+}
+
+// Where a query-row CTA's pieces live in shared memory (see qrow_smem_bytes)
+template <int D, typename T, int ROWS, int NQ>
+struct QRowSmem {
+  static constexpr int TILE = ds_mma::Tile16<D>::ELEMS;
+  T* q;       // row rr, tile i: q + (NQ rr + i) TILE
+  T* kv;      // stage s, row rr: K at kv + 2 (ROWS s + rr) TILE, V after it
+  float* b2;  // stage s: [kBQ][kLBQ] at b2 + s kBQ kLBQ
+  float* b1;  // stage s, row rr: [kBK] at b1 + (ROWS s + rr) kBK
+  __device__ explicit QRowSmem(unsigned char* raw)
+      : q(reinterpret_cast<T*>(raw)),
+        kv(q + NQ * ROWS * TILE),
+        b2(reinterpret_cast<float*>(kv + 4 * ROWS * TILE)),
+        b1(b2 + 2 * kBQ * kLBQ) {}
+  __device__ const T* k(int s, int rr) const { return kv + 2 * (ROWS * s + rr) * TILE; }
+  __device__ const float* bias1(int s, int rr) const { return b1 + (ROWS * s + rr) * kBK; }
+
+  // key tile k0 of rows n0 .. n0 + nrows - 1 (head h, group g) into stage
+  // s: K, V and b1 per row (b1 zeros without the mask bias) and, with the
+  // pair bias, its [q0 ..][k0 ..] tile once for all the rows
+  __device__ void stage_keys(const Args& a, int n0, int nrows, int g, int h, int q0, int k0,
+                             int s) {
+    const long long ld = (long long)a.H * D;
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) {
+      if (rr >= nrows) break;
+      const long long base = head_base<D>(a, n0 + rr, h);
+      T* dst = kv + 2 * (ROWS * s + rr) * TILE;
+      stage_tile<D, T>(dst, reinterpret_cast<const T*>(a.k) + base, ld, k0, a.R);
+      stage_tile<D, T>(dst + TILE, reinterpret_cast<const T*>(a.v) + base, ld, k0, a.R);
+    }
+    const int rr = threadIdx.x / kBK, i = threadIdx.x % kBK;
+    if (rr < nrows) {
+      const bool ok = a.b1 != nullptr && k0 + i < a.R;
+      ds_mma::cp_async4(b1 + (ROWS * s + rr) * kBK + i,
+                        ok ? a.b1 + (long long)(n0 + rr) * a.R + k0 + i : a.lse, ok);
+    }
+    if (a.b2 != nullptr) stage_pair_bias<kLBQ>(b2 + s * kBQ * kLBQ, a, g, h, q0, k0);
+  }
+};
+
+// The CTA's (query tile, head) and its rows n0 .. n0 + nrows - 1, all of
+// group g: blockIdx.x runs over the query tiles, then heads, then each
+// group's ceil(n_seq / ROWS) row sets
+template <int ROWS>
+struct QRowCta {
+  int q0, h, g, n0, nrows;
+  __device__ explicit QRowCta(const Args& a) {
+    const int nqt = (a.R + kBQ - 1) / kBQ, per_group = (a.n_seq + ROWS - 1) / ROWS;
+    const int set = blockIdx.x / nqt / a.H;
+    q0 = (blockIdx.x % nqt) * kBQ;
+    h = (blockIdx.x / nqt) % a.H;
+    g = set / per_group;
+    n0 = g * a.n_seq + (set % per_group) * ROWS;
+    // one at an odd group's last set; a constant at ROWS 1 (a register
+    // fewer, which keeps one-row dq under 170 without a spill)
+    nrows = ROWS == 1 ? 1 : min(ROWS, (g + 1) * a.n_seq - n0);
+  }
+};
+
+// forward: s = (scale * q.k + b2) + b1 in the C fragments, keys past R at
+// -1e30 (never entering the sums); the online softmax in registers; P as a
+// split pair into acc += P . V
+template <int D, typename T, int ROWS>
+__global__ void __launch_bounds__(kMmaThreads, D == 32 && ROWS == 1 ? 3 : 1)
+    evo_fwd_mma_kernel(const Args a) {
+  constexpr int LDS = ds_mma::Tile16<D>::LDS, TILE = ds_mma::Tile16<D>::ELEMS;
+  const QRowCta<ROWS> c(a);
+  const int n_kt = (a.R + kBK - 1) / kBK;  // key tiles of the forward's walk
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * warp, t = lane % 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QRowSmem<D, T, ROWS, 1> sm(smem_raw);
+  const long long ld = (long long)a.H * D;
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr)
+    if (rr < c.nrows)
+      stage_tile<D, T>(sm.q + rr * TILE,
+                       reinterpret_cast<const T*>(a.q) + head_base<D>(a, c.n0 + rr, c.h), ld, c.q0,
+                       a.R);
+  sm.stage_keys(a, c.n0, c.nrows, c.g, c.h, c.q0, 0, 0);
+  ds_mma::cp_async_commit();
+
+  const bool pair = a.b2 != nullptr;
+  float m[ROWS][2], l[ROWS][2], acc[ROWS][D / 8][4];
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr) {
+    m[rr][0] = m[rr][1] = kNegInf;
+    l[rr][0] = l[rr][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) acc[rr][n][0] = acc[rr][n][1] = acc[rr][n][2] = acc[rr][n][3] = 0.f;
+  }
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1, k0 = it * kBK;
+    ds_mma::cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every reader of the other stage is done
+    if (it + 1 < n_kt) sm.stage_keys(a, c.n0, c.nrows, c.g, c.h, c.q0, k0 + kBK, st ^ 1);
+    ds_mma::cp_async_commit();
+    const bool full = k0 + kBK <= a.R;
+    const float* bt = sm.b2 + st * kBQ * kLBQ;
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) {
+      if (rr >= c.nrows) break;
+      const T* sK = sm.k(st, rr);
+      const float* b1 = sm.bias1(st, rr);
+      float s[8][4];
+      ds_mma::mma_abt<D, T>(s, sm.q + rr * TILE + r0 * LDS, sK, lane);  // q . k
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + lane / 4 + 8 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          const float2 b = pair ? *reinterpret_cast<const float2*>(bt + r * kLBQ + col)
+                                : make_float2(0.f, 0.f);
+          const float2 w = *reinterpret_cast<const float2*>(b1 + col);
+          float x0 = a.scale * s[j][2 * i], x1 = a.scale * s[j][2 * i + 1];
+          if (pair) {
+            x0 += b.x;
+            x1 += b.y;
+          }
+          x0 += w.x;
+          x1 += w.y;
+          s[j][2 * i] = full || k0 + col < a.R ? x0 : kNegInf;
+          s[j][2 * i + 1] = full || k0 + col + 1 < a.R ? x1 : kNegInf;
+        }
+        // a key past R never enters: it is not a position
+        const float alpha = ds_mma::online_softmax_row(s, i, m[rr][i], l[rr][i], [&](int j, int e) {
+          return full || k0 + 8 * j + 2 * t + e < a.R;
+        });
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[rr][n][2 * i] *= alpha;
+          acc[rr][n][2 * i + 1] *= alpha;
+        }
+      }
+      ds_mma::SplitFrags p;
+      ds_mma::split_frags<T>(p, s);
+      ds_mma::mma_wm<D, T>(acc[rr], p, sK + TILE, lane);  // acc += p . v
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr) {
+    if (rr >= c.nrows) break;
+    const int n = c.n0 + rr;
+    float* lse = a.lse + ((long long)n * a.H + c.h) * a.R;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float l_safe = fmaxf(ds_mma::quad_sum(l[rr][i]), 1e-30f);
+#pragma unroll
+      for (int nn = 0; nn < D / 8; ++nn) {
+        acc[rr][nn][2 * i] /= l_safe;
+        acc[rr][nn][2 * i + 1] /= l_safe;
+      }
+      const int qpos = c.q0 + r0 + lane / 4 + 8 * i;
+      if (t == 0 && qpos < a.R) lse[qpos] = m[rr][i] + logf(l_safe);
+    }
+    store_frags<D, T>(reinterpret_cast<T*>(a.out) + head_base<D>(a, n, c.h), ld, c.q0 + r0, a.R,
+                      acc[rr], 1.f, lane);
+  }
+}
+
+// sum += W . M for a warp: W its 16 x 16 NC fp32 tile w (2 NC C tiles) as
+// split hi + lo pairs, made one depth-16 chunk at a time; M 16 NC rows of a
+// shared [.][D] tile read with ldmatrix.trans. Each output tile takes
+// mma_sm90.cuh's mma_wm products in its order; the caller adds sum to its
+// long-run accumulator once per tile pair
+template <int D, typename T, int NC>
+__device__ __forceinline__ void mma_split_sum(float (&sum)[D / 8][4], const float (&w)[2 * NC][4],
+                                              const T* sM, int lane) {
+  constexpr int LDS = ds_mma::Tile16<D>::LDS;
+  const T* pm = sM + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    unsigned hi[4], lo[4];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float x = w[2 * c + jj][2 * h], y = w[2 * c + jj][2 * h + 1];
+        const T hx = ds_mma::from_f<T>(x), hy = ds_mma::from_f<T>(y);
+        hi[2 * jj + h] = ds_mma::pack2(hx, hy);
+        lo[2 * jj + h] = ds_mma::pack2(ds_mma::from_f<T>(x - ds_mma::to_f(hx)),
+                                       ds_mma::from_f<T>(y - ds_mma::to_f(hy)));
+      }
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      unsigned b[4];
+      ds_mma::ldsm4_t(b, pm + c * 16 * LDS + n * 8);
+      ds_mma::mma16816(sum[n], hi, b[0], b[1], T());
+      ds_mma::mma16816(sum[n], lo, b[0], b[1], T());
+      ds_mma::mma16816(sum[n + 1], hi, b[2], b[3], T());
+      ds_mma::mma16816(sum[n + 1], lo, b[2], b[3], T());
+    }
+  }
+}
+
+// dq: p = exp2((scale * q.k + b2 + b1 - lse) log2 e) (0 for keys past R),
+// dp = dO . v, ds = p (dp - delta) as a split pair into dq += ds . k; dq is
+// stored times scale. A query row past R has dO = 0 and delta = 0, and is
+// never stored, so its p needs no mask. Each 64-key tile is walked in two
+// halves of 32 keys by a loop kept rolled (S, dP and dS of 32 keys live at
+// a time, the split pairs one chunk at a time): at 64 keys a time, or with
+// the halves unrolled and interleaved, the one-row kernel, held to 170
+// registers for three CTAs an SM, spilled (PERF.md)
+template <int D, typename T, int ROWS>
+__global__ void __launch_bounds__(kMmaThreads, D == 32 && ROWS == 1 ? 3 : 1)
+    evo_bwd_dq_mma_kernel(const Args a) {
+  constexpr int LDS = ds_mma::Tile16<D>::LDS, TILE = ds_mma::Tile16<D>::ELEMS;
+  const QRowCta<ROWS> c(a);
+  const int n_kt = (a.R + kBK - 1) / kBK;  // key tiles of dq's walk
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * warp, t = lane % 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QRowSmem<D, T, ROWS, 3> sm(smem_raw);
+  const long long ld = (long long)a.H * D;
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr) {
+    if (rr >= c.nrows) break;
+    const long long base = head_base<D>(a, c.n0 + rr, c.h);
+    T* dst = sm.q + 3 * rr * TILE;
+    stage_tile<D, T>(dst, reinterpret_cast<const T*>(a.q) + base, ld, c.q0, a.R);
+    stage_tile<D, T>(dst + TILE, reinterpret_cast<const T*>(a.o) + base, ld, c.q0, a.R);
+    stage_tile<D, T>(dst + 2 * TILE, reinterpret_cast<const T*>(a.dout) + base, ld, c.q0, a.R);
+  }
+  sm.stage_keys(a, c.n0, c.nrows, c.g, c.h, c.q0, 0, 0);
+  ds_mma::cp_async_commit();
+
+  // lse of the warp's rows (0 past R), while the tiles land
+  float lse[ROWS][2], delta[ROWS][2], dq[ROWS][D / 8][4];
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qpos = c.q0 + r0 + lane / 4 + 8 * i;
+      lse[rr][i] = rr < c.nrows && qpos < a.R
+                       ? a.lse[((long long)(c.n0 + rr) * a.H + c.h) * a.R + qpos]
+                       : 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) dq[rr][n][0] = dq[rr][n][1] = dq[rr][n][2] = dq[rr][n][3] = 0.f;
+  }
+  ds_mma::cp_async_wait_all();
+  __syncthreads();
+  // delta = rowsum(dO * O) of the warp's rows g and g + 8: each lane of the
+  // quad sums D / 4 columns
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const T* sO = sm.q + (3 * rr + 1) * TILE;
+      const int off = (r0 + lane / 4 + 8 * i) * LDS + t * (D / 4);
+      delta[rr][i] = rr < c.nrows ? ds_mma::quad_sum(dot16<T>(sO + TILE + off, sO + off, D / 4))
+                                  : 0.f;
+    }
+
+  const bool pair = a.b2 != nullptr;
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1, k0 = it * kBK;
+    ds_mma::cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every reader of the other stage is done
+    if (it + 1 < n_kt) sm.stage_keys(a, c.n0, c.nrows, c.g, c.h, c.q0, k0 + kBK, st ^ 1);
+    ds_mma::cp_async_commit();
+    const bool full = k0 + kBK <= a.R;
+    const float* bt = sm.b2 + st * kBQ * kLBQ;
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) {
+      if (rr >= c.nrows) break;
+      const T* sQ = sm.q + 3 * rr * TILE;
+      const float* b1 = sm.bias1(st, rr);
+      float sum[D / 8][4];  // the tile pair's ds . k, summed from zero
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) sum[n][0] = sum[n][1] = sum[n][2] = sum[n][3] = 0.f;
+#pragma unroll 1
+      for (int hk = 0; hk < 2; ++hk) {  // the tile's keys in two halves of 32
+        const T* sK = sm.k(st, rr) + 32 * hk * LDS;
+        float s[4][4], dp[4][4];
+        ds_mma::mma_abt<D, T, 4>(s, sQ + r0 * LDS, sK, lane);                  // q . k
+        ds_mma::mma_abt<D, T, 4>(dp, sQ + 2 * TILE + r0 * LDS, sK + TILE, lane);  // dO . v
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = r0 + lane / 4 + 8 * i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = 32 * hk + 8 * j + 2 * t;
+            const float2 b = pair ? *reinterpret_cast<const float2*>(bt + r * kLBQ + col)
+                                  : make_float2(0.f, 0.f);
+            const float2 w = *reinterpret_cast<const float2*>(b1 + col);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float x = a.scale * s[j][2 * i + e];
+              if (pair) x += e ? b.y : b.x;
+              x += e ? w.y : w.x;
+              const float p = full || k0 + col + e < a.R
+                                  ? exp2f((x - lse[rr][i]) * ds_mma::kLog2e)
+                                  : 0.f;
+              dp[j][2 * i + e] = p * (dp[j][2 * i + e] - delta[rr][i]);  // ds
+            }
+          }
+        }
+        mma_split_sum<D, T, 2>(sum, dp, sK, lane);  // sum += ds . k
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[rr][n][e] += sum[n][e];
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr) {
+    if (rr >= c.nrows) break;
+    store_frags<D, T>(reinterpret_cast<T*>(a.out) + head_base<D>(a, c.n0 + rr, c.h), ld,
+                      c.q0 + r0, a.R, dq[rr], a.scale, lane);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // db2: one CTA per (query tile, key tile, head, row chunk, group), walking
 // the chunk's rows; the [64][64] tile of db2 and the pair-bias tile stay in
@@ -829,24 +1212,9 @@ __global__ void __launch_bounds__(kMmaThreads, D == 32 ? 3 : 1)
       ds_mma::cp_async4(sStat + 128 * st + i, ok ? src : a.lse, ok);
     }
   };
-  // the pair-bias tile b2[g, h, q0 .., k0 ..] of an item, copied along k
-  // (rows of R floats)
+  // the pair-bias tile of an item
   auto stage_bias = [&](int item) {
-    const int h = item / n_qt, q0 = (item % n_qt) * kBQ;
-    const float* src = a.b2 + (((long long)g * a.H + h) * a.R + q0) * a.R + k0;
-    if (a.R % 4 == 0) {  // 16-byte rows: whole chunks inside or past R
-      for (int c = threadIdx.x; c < kBQ * (kBK / 4); c += kMmaThreads) {
-        const int r = c / (kBK / 4), c4 = (c % (kBK / 4)) * 4;
-        const bool ok = q0 + r < a.R && k0 + c4 < a.R;
-        ds_mma::cp_async16(sBias + r * kLB + c4, ok ? src + (long long)r * a.R + c4 : a.b2, ok);
-      }
-    } else {
-      for (int c = threadIdx.x; c < kBQ * kBK; c += kMmaThreads) {
-        const int r = c / kBK, cc = c % kBK;
-        const bool ok = q0 + r < a.R && k0 + cc < a.R;
-        ds_mma::cp_async4(sBias + r * kLB + cc, ok ? src + (long long)r * a.R + cc : a.b2, ok);
-      }
-    }
+    stage_pair_bias<kLB>(sBias, a, g, item / n_qt, (item % n_qt) * kBQ, k0);
   };
   stage_item(0, 0);
   if (pair) stage_bias(0);
@@ -942,9 +1310,11 @@ __global__ void __launch_bounds__(kMmaThreads, D == 32 ? 3 : 1)
   }
 }
 
-// kinds 0-3: the forward, dq and the fp32 route's dk/dv and db2 (CUDA
-// cores); 4-5: the tensor-core route's dk/dv and db2
-enum Kind { kFwd = 0, kDq = 1, kDkdv = 2, kDb2 = 3, kDkdvMma = 4, kDb2Mma = 5 };
+// kinds 0-3: the fp32 route's forward, dq, dk/dv and db2 (CUDA cores);
+// 4-7: the tensor-core route's dk/dv, db2, forward and dq
+enum Kind {
+  kFwd = 0, kDq = 1, kDkdv = 2, kDb2 = 3, kDkdvMma = 4, kDb2Mma = 5, kFwdMma = 6, kDqMma = 7
+};
 
 __host__ __device__ inline size_t smem_bytes(int kind, int d) {
   const size_t tile = (size_t)64 * (d + 4);
@@ -957,6 +1327,8 @@ __host__ __device__ inline size_t smem_bytes(int kind, int d) {
   // two stages: K, V (by head parity) and q, O, dO; the pair-bias tile;
   // lse and delta
   if (kind == kDkdvMma) return 10 * tile16 + (kBQ * kLB + 4 * kBQ) * sizeof(float);
+  if (kind == kFwdMma) return qrow_smem_bytes(d, rows_per_cta(d), 1);
+  if (kind == kDqMma) return qrow_smem_bytes(d, rows_per_cta(d), 3);
   // two stages of q, O, dO, k, v and of lse, b1
   return 10 * tile16 + 4 * kBQ * sizeof(float);
 }
@@ -982,15 +1354,18 @@ cudaError_t launch(int kind, const Args& a, float* part, int n_chunks, cudaStrea
   const size_t bytes = smem_bytes(kind, D);
   const long long nt = (a.R + kBQ - 1) / kBQ, groups = a.N / a.n_seq;
   switch (kind) {
-    case kFwd:
-      return launch_kernel(evo_fwd_kernel<D, T>, nt * a.H * a.N, kThreads, bytes, stream, a);
+    case kFwd:  // the fp32 route
     case kDq:
-      return launch_kernel(evo_bwd_dq_kernel<D, T>, nt * a.H * a.N, kThreads, bytes, stream, a);
-    case kDkdv:  // the fp32 route
+    case kDkdv:
     case kDb2:
       if constexpr (k16) {
         return cudaErrorInvalidValue;
       } else {
+        if (kind == kFwd)
+          return launch_kernel(evo_fwd_kernel<D, T>, nt * a.H * a.N, kThreads, bytes, stream, a);
+        if (kind == kDq)
+          return launch_kernel(evo_bwd_dq_kernel<D, T>, nt * a.H * a.N, kThreads, bytes, stream,
+                               a);
         if (kind == kDkdv)
           return launch_kernel(evo_bwd_dkdv_kernel<D, T>, nt * a.N, kThreads, bytes, stream, a);
         return launch_kernel(evo_bwd_db2_kernel<D, T>, nt * nt * a.H * groups, kThreads, bytes,
@@ -998,9 +1373,19 @@ cudaError_t launch(int kind, const Args& a, float* part, int n_chunks, cudaStrea
       }
     case kDkdvMma:  // the tensor-core route
     case kDb2Mma:
+    case kFwdMma:
+    case kDqMma:
       if constexpr (!k16) {
         return cudaErrorInvalidValue;
       } else {
+        constexpr int rows = rows_per_cta(D);
+        const long long q_ctas = nt * a.H * groups * ((a.n_seq + rows - 1) / rows);
+        if (kind == kFwdMma)
+          return launch_kernel(evo_fwd_mma_kernel<D, T, rows>, q_ctas, kMmaThreads, bytes, stream,
+                               a);
+        if (kind == kDqMma)
+          return launch_kernel(evo_bwd_dq_mma_kernel<D, T, rows>, q_ctas, kMmaThreads, bytes,
+                               stream, a);
         if (kind == kDkdvMma)
           return launch_kernel(evo_bwd_dkdv_mma_kernel<D, T>, nt * a.N, kMmaThreads, bytes, stream,
                                a);
@@ -1054,19 +1439,40 @@ Args make_args(const void* q, const void* k, const void* v, const float* b1, con
 extern "C" {
 
 // out [N, R, H, d] in q's dtype, lse [N, H, R] fp32. b1 / b2 may be null;
-// n_seq = N / G (rows per bias2 group; N when b2 is null).
+// n_seq = N / G (rows per bias2 group; N when b2 is null). On the tensor
+// cores: bf16 / fp16 (dtype 0 / 1) only.
 int ds_evo_fwd(const void* q, const void* k, const void* v, const float* b1, const float* b2,
                void* out, float* lse, int N, int R, int H, int d, int n_seq, int dtype,
                void* stream) {
   Args a = make_args(q, k, v, b1, b2, lse, N, R, H, d, n_seq);
   a.out = out;
+  return (int)dispatch(kFwdMma, a, d, dtype, (cudaStream_t)stream);
+}
+
+// The same on the CUDA cores in fp32: fp32 (dtype 2) only.
+int ds_evo_fwd_fp32(const void* q, const void* k, const void* v, const float* b1,
+                    const float* b2, void* out, float* lse, int N, int R, int H, int d, int n_seq,
+                    int dtype, void* stream) {
+  Args a = make_args(q, k, v, b1, b2, lse, N, R, H, d, n_seq);
+  a.out = out;
   return (int)dispatch(kFwd, a, d, dtype, (cudaStream_t)stream);
 }
 
-// dq [N, R, H, d] in q's dtype.
+// dq [N, R, H, d] in q's dtype, on the tensor cores (bf16 / fp16 only).
 int ds_evo_bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                   const float* lse, const float* b1, const float* b2, void* dq, int N, int R,
                   int H, int d, int n_seq, int dtype, void* stream) {
+  Args a = make_args(q, k, v, b1, b2, const_cast<float*>(lse), N, R, H, d, n_seq);
+  a.o = o;
+  a.dout = dout;
+  a.out = dq;
+  return (int)dispatch(kDqMma, a, d, dtype, (cudaStream_t)stream);
+}
+
+// The same on the CUDA cores in fp32: fp32 (dtype 2) only.
+int ds_evo_bwd_dq_fp32(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, const float* b1, const float* b2,
+                       void* dq, int N, int R, int H, int d, int n_seq, int dtype, void* stream) {
   Args a = make_args(q, k, v, b1, b2, const_cast<float*>(lse), N, R, H, d, n_seq);
   a.o = o;
   a.dout = dout;
@@ -1142,7 +1548,7 @@ int ds_evo_bwd_db2_fp32(const void* q, const void* k, const void* v, const void*
 const char* ds_evo_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // Dynamic shared memory of one CTA: kind 0 forward, 1 dq, 2 dk/dv and 3 db2
-// (fp32 route), 4 dk/dv and 5 db2 (tensor cores).
+// (fp32 route), 4 dk/dv, 5 db2, 6 forward and 7 dq (tensor cores).
 long long ds_evo_smem_bytes(int kind, int d) { return (long long)smem_bytes(kind, d); }
 
 }  // extern "C"

@@ -178,13 +178,14 @@ __device__ __forceinline__ float split_value(const SplitFrags& f, int j, int e) 
 }
 
 // acc = A . B^T for a warp: A the warp's 16 rows of a shared [.][D] tile,
-// B a shared [64][D] tile; acc[j] is the C fragment of columns 8j .. 8j + 7.
-// Operands straight from the inputs: exact products, fp32 sums.
-template <int D, typename T>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const T* sA, const T* sB, int lane) {
+// B a shared [8 NT][D] tile (64 rows unless NT says fewer); acc[j] is the
+// C fragment of columns 8j .. 8j + 7. Operands straight from the inputs:
+// exact products, fp32 sums.
+template <int D, typename T, int NT = 8>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* sA, const T* sB, int lane) {
   constexpr int LDS = Tile16<D>::LDS;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   // A: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15), in a0..a3 order;
   // B rows are n: matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
   // (n 8-15, k 8-15) = b0, b1 of n-tile j, then b0, b1 of n-tile j + 1
@@ -195,7 +196,7 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4], const T* sA, const T
     unsigned a[4];
     ldsm4(a, pa + kk);
 #pragma unroll
-    for (int j = 0; j < 8; j += 2) {
+    for (int j = 0; j < NT; j += 2) {
       unsigned b[4];
       ldsm4(b, pb + j * 8 * LDS + kk);
       mma16816(acc[j], a, b[0], b[1], T());

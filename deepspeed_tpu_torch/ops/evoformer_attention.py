@@ -24,15 +24,15 @@ tile fitting (``_fit_block``, ``_fit_tiles`` and the VMEM budget), its
 ``block_q`` / ``block_k`` knobs and the ``interpret`` flag are not ported:
 the CUDA tiles are fixed and a launch either runs or raises.
 
-dk/dv and db2 have two kernel routes, chosen by :func:`route` from q/k/v's
-dtype alone (never on a failure): ``"mma"`` for bf16 and fp16 (the tensor
-cores, ``ds_evo_bwd_dkdv`` / ``ds_evo_bwd_db2``) and ``"fp32"`` for float32
-(the first version's CUDA-core kernels, ``ds_evo_bwd_dkdv_fp32`` /
-``ds_evo_bwd_db2_fp32``, whose fp32 sums hold a tolerance the 16-bit
-products cannot). The forward and dq have one kernel each. On the tensor
-cores db2 splits each group's rows into :func:`db2_row_chunks` chunks so
-that its grid fills the card; the chunks' partials go to a scratch tensor
-and the kernel library sums them in chunk order.
+Every kernel has two routes, chosen by :func:`route` from q/k/v's dtype
+alone (never on a failure): ``"mma"`` for bf16 and fp16 (the tensor cores:
+``ds_evo_fwd``, ``ds_evo_bwd_dq``, ``ds_evo_bwd_dkdv``, ``ds_evo_bwd_db2``)
+and ``"fp32"`` for float32 (the first version's CUDA-core kernels, the same
+names with ``_fp32``, whose fp32 sums hold a tolerance the 16-bit products
+cannot). On the tensor cores db2 splits each group's rows into
+:func:`db2_row_chunks` chunks so that its grid fills the card; the chunks'
+partials go to a scratch tensor and the kernel library sums them in chunk
+order.
 
 ``launch_counts`` counts kernel launches, one entry per TPU kernel and
 route (``_fp32`` for the CUDA-core route): ``evo_bwd_db1`` counts the dk/dv
@@ -52,9 +52,8 @@ HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 _SUFFIX = {"mma": "", "fp32": "_fp32"}  # route -> suffix of its C entry points and counts
-launch_counts = {"evo_fwd": 0, "evo_bwd_dq": 0,
-                 **{f"evo_bwd_{k}{sfx}": 0 for sfx in _SUFFIX.values()
-                    for k in ("dkdv", "db1", "db2")}}
+launch_counts = {f"evo_{k}{sfx}": 0 for sfx in _SUFFIX.values()
+                 for k in ("fwd", "bwd_dq", "bwd_dkdv", "bwd_db1", "bwd_db2")}
 SMS = 132  # streaming multiprocessors of an H100 SXM
 DB2_CTAS_PER_SM = 16  # db2's grid: about this many CTAs for every SM
 
@@ -75,13 +74,16 @@ def kernel_build():
         lib = built.lib
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.ds_evo_fwd.argtypes = [vp] * 7 + [i] * 6 + [vp]
+        lib.ds_evo_fwd_fp32.argtypes = [vp] * 7 + [i] * 6 + [vp]
         lib.ds_evo_bwd_dq.argtypes = [vp] * 9 + [i] * 6 + [vp]
+        lib.ds_evo_bwd_dq_fp32.argtypes = [vp] * 9 + [i] * 6 + [vp]
         lib.ds_evo_bwd_dkdv.argtypes = [vp] * 11 + [i] * 6 + [vp]
         lib.ds_evo_bwd_dkdv_fp32.argtypes = [vp] * 11 + [i] * 6 + [vp]
         lib.ds_evo_bwd_db2.argtypes = [vp] * 10 + [i] * 7 + [vp]
         lib.ds_evo_bwd_db2_fp32.argtypes = [vp] * 9 + [i] * 6 + [vp]
-        for fn in (lib.ds_evo_fwd, lib.ds_evo_bwd_dq, lib.ds_evo_bwd_dkdv,
-                   lib.ds_evo_bwd_dkdv_fp32, lib.ds_evo_bwd_db2, lib.ds_evo_bwd_db2_fp32):
+        for fn in (lib.ds_evo_fwd, lib.ds_evo_fwd_fp32, lib.ds_evo_bwd_dq,
+                   lib.ds_evo_bwd_dq_fp32, lib.ds_evo_bwd_dkdv, lib.ds_evo_bwd_dkdv_fp32,
+                   lib.ds_evo_bwd_db2, lib.ds_evo_bwd_db2_fp32):
             fn.restype = i
         lib.ds_evo_error_string.argtypes = [i]
         lib.ds_evo_error_string.restype = ctypes.c_char_p
@@ -149,9 +151,8 @@ def evo_attention_reference_bwd(q, k, v, bias1, bias2, out, lse, dout):
 # ---------------------------------------------------------------------------
 
 def route(dtype) -> str:
-    """The dk/dv and db2 kernels' route for q/k/v of ``dtype``: ``"mma"``
-    (tensor cores) for bfloat16 and float16, ``"fp32"`` (CUDA cores) for
-    float32."""
+    """The kernels' route for q/k/v of ``dtype``: ``"mma"`` (tensor cores)
+    for bfloat16 and float16, ``"fp32"`` (CUDA cores) for float32."""
     if dtype not in DTYPES:
         raise ValueError(f"the kernels take bfloat16, float16 or float32, got {dtype}")
     return "fp32" if dtype == torch.float32 else "mma"
@@ -236,11 +237,12 @@ def evo_fwd(q, k, v, bias1=None, bias2=None):
     q, k, v, bias1, bias2 = _contig(q, k, v, bias1, bias2)
     out = torch.empty_like(q)
     lse = torch.empty((N, h, R), dtype=torch.float32, device=q.device)
-    rc = kernel_build().lib.ds_evo_fwd(
+    sfx = _SUFFIX[route(q.dtype)]
+    rc = getattr(kernel_build().lib, f"ds_evo_fwd{sfx}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias1), _ptr(bias2), out.data_ptr(),
         lse.data_ptr(), N, R, h, d, n_seq, DTYPES[q.dtype], _stream(q))
-    _raise_if(rc, "evo_fwd")
-    launch_counts["evo_fwd"] += 1
+    _raise_if(rc, f"evo_fwd{sfx}")
+    launch_counts[f"evo_fwd{sfx}"] += 1
     return out, lse
 
 
@@ -264,12 +266,13 @@ def evo_bwd_dq(q, k, v, bias1, bias2, out, lse, dout):
     (N, R, h, d, n_seq), (q, k, v, bias1, bias2, out, dout, lse) = _bwd_operands(
         q, k, v, bias1, bias2, out, lse, dout)
     dq = torch.empty_like(q)
-    rc = kernel_build().lib.ds_evo_bwd_dq(
+    sfx = _SUFFIX[route(q.dtype)]
+    rc = getattr(kernel_build().lib, f"ds_evo_bwd_dq{sfx}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), _ptr(bias1), _ptr(bias2), dq.data_ptr(), N, R, h, d, n_seq,
         DTYPES[q.dtype], _stream(q))
-    _raise_if(rc, "evo_bwd_dq")
-    launch_counts["evo_bwd_dq"] += 1
+    _raise_if(rc, f"evo_bwd_dq{sfx}")
+    launch_counts[f"evo_bwd_dq{sfx}"] += 1
     return dq
 
 

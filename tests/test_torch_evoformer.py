@@ -20,7 +20,12 @@ CPU:
   calls, never the kernel route); R 96 and 200, which the TPU's lane rule
   keeps off its kernel (the JAX side then takes its jnp path);
 - on CPU tensors each autograd Function's backward is one call of its
-  plain backward.
+  plain backward;
+- the tensor-core forward's and dq's arithmetic, emulated tile by tile
+  (bf16 operands, fp32 sums per tile pair, P and dS as bf16 hi + lo
+  pairs), against the plain versions and the Pallas kernels in interpret
+  mode at R 100, 130 and 384, within ``chip_smoke.py``'s tolerance for the
+  card.
 
 Tolerances are the JAX package's own (``tests/test_aux_components.py``):
 3e-5 for the forward, 5e-5 for the gradients (fp32 sums in another order).
@@ -36,6 +41,8 @@ cotangent well-conditioned and compared in full.
 
 The CUDA kernels run only on a card (``gpu`` marker).
 """
+
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -299,14 +306,19 @@ def test_single_bias_and_route_guard():
 @pytest.mark.parametrize("dtype, expected", [(torch.bfloat16, "mma"), (torch.float16, "mma"),
                                              (torch.float32, "fp32")])
 def test_route_is_chosen_by_the_dtype_alone(dtype, expected):
-    """bf16 and fp16 q/k/v take the tensor-core dk/dv and db2, fp32 the
-    CUDA-core ones (whose tolerance the 16-bit products cannot hold); each
-    route has its own C entry points and launch counts, and nothing else
-    (shape, biases) decides."""
+    """bf16 and fp16 q/k/v take the tensor-core forward, dq, dk/dv and db2,
+    fp32 the CUDA-core ones (whose tolerance the 16-bit products cannot
+    hold); each route has its own C entry points and launch counts, and
+    nothing else (shape, biases) decides."""
     assert tev.route(dtype) == expected
     sfx = tev._SUFFIX[expected]
-    for kernel in ("dkdv", "db1", "db2"):
-        assert f"evo_bwd_{kernel}{sfx}" in tev.launch_counts
+    for kernel in ("fwd", "bwd_dq", "bwd_dkdv", "bwd_db1", "bwd_db2"):
+        assert f"evo_{kernel}{sfx}" in tev.launch_counts
+    assert {"evo_fwd_fp32", "evo_bwd_dq_fp32"} <= set(tev.launch_counts)
+    assert len(tev.launch_counts) == 10  # five kernels x two routes
+    src = (Path(tev.__file__).parent / "csrc" / "evoformer_attention.cu").read_text()
+    for entry in ("ds_evo_fwd", "ds_evo_bwd_dq", "ds_evo_bwd_dkdv", "ds_evo_bwd_db2"):
+        assert f"int {entry}{sfx}(" in src  # the route's C entry point
     with pytest.raises(ValueError):
         tev.route(torch.float64)
 
@@ -416,6 +428,134 @@ def test_evo_flash_backward_on_cpu_runs_the_plain_backward_once(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core forward's and dq's tile walk, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+TILE = 64
+LOG2E = 1.4426950408889634
+
+
+def _split(x):
+    """x as the kernels feed it to the tensor cores: a pair hi + lo of bf16
+    values (as fp32)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _tile_scores(qt, kt, b1, b2, q0, k0, scale):
+    """scale * q.k (fp32 sums of the exact products of 16-bit values), then
+    the pair bias, then the mask bias, for one (query tile, key tile)."""
+    s = scale * (qt @ kt.transpose(-1, -2))
+    if b2 is not None:
+        s = s + b2[:, :, q0:q0 + TILE, k0:k0 + TILE]
+    if b1 is not None:
+        s = s + b1[:, None, None, k0:k0 + TILE]
+    return s
+
+
+def _walk_fwd(q, k, v, b1, b2):
+    """(out in q's dtype, lse) by the tensor-core forward's walk: 64 x 64
+    tiles (a ragged last tile holds only real keys), the online softmax
+    from m = -1e30, l = 0 in base 2, P as a bf16 hi + lo pair into P.V,
+    each tile pair summed from zero and added once to the rescaled
+    accumulator."""
+    N, R, h, d = q.shape
+    scale = 1.0 / d**0.5
+    b2n = None if b2 is None else b2.repeat_interleave(N // b2.shape[0], 0)  # row n: group n // n_seq
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [N, h, R, d]
+    out, lse = torch.zeros(N, h, R, d), torch.zeros(N, h, R)
+    for q0 in range(0, R, TILE):
+        qt = qf[:, :, q0:q0 + TILE]
+        m = torch.full(qt.shape[:3], -1e30)
+        l, acc = torch.zeros(qt.shape[:3]), torch.zeros(qt.shape)
+        for k0 in range(0, R, TILE):
+            s = _tile_scores(qt, kf[:, :, k0:k0 + TILE], b1, b2n, q0, k0, scale)
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2((m - mx) * LOG2E)
+            p = torch.exp2((s - mx[..., None]) * LOG2E)
+            l = l * alpha + p.sum(-1)
+            hi, lo = _split(p)
+            vt = vf[:, :, k0:k0 + TILE]
+            acc = acc * alpha[..., None] + (hi @ vt + lo @ vt)
+            m = mx
+        l_safe = l.clamp_min(1e-30)
+        out[:, :, q0:q0 + TILE] = acc / l_safe[..., None]
+        lse[:, :, q0:q0 + TILE] = m + torch.log(l_safe)
+    return out.permute(0, 2, 1, 3).to(q.dtype), lse
+
+
+def _walk_dq(q, k, v, b1, b2, out, lse, dout):
+    """dq in q's dtype by the tensor-core dq's walk: per 64 x 64 tile pair
+    p = exp2((s - lse) log2 e), ds = p (dO.v - delta) with delta =
+    rowsum(dO * O), ds as a bf16 hi + lo pair into ds.k summed from zero and
+    added once; dq stored times scale."""
+    N, R, h, d = q.shape
+    scale = 1.0 / d**0.5
+    b2n = None if b2 is None else b2.repeat_interleave(N // b2.shape[0], 0)
+    qf, kf, vf, of, dof = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, out, dout))
+    delta = (dof * of).sum(-1)
+    dq = torch.zeros(N, h, R, d)
+    for q0 in range(0, R, TILE):
+        qt, dot = qf[:, :, q0:q0 + TILE], dof[:, :, q0:q0 + TILE]
+        acc = torch.zeros(qt.shape)
+        for k0 in range(0, R, TILE):
+            kt, vt = kf[:, :, k0:k0 + TILE], vf[:, :, k0:k0 + TILE]
+            s = _tile_scores(qt, kt, b1, b2n, q0, k0, scale)
+            p = torch.exp2((s - lse[:, :, q0:q0 + TILE, None]) * LOG2E)
+            ds = p * (dot @ vt.transpose(-1, -2) - delta[:, :, q0:q0 + TILE, None])
+            hi, lo = _split(ds)
+            acc = acc + (hi @ kt + lo @ kt)
+        dq[:, :, q0:q0 + TILE] = acc * scale
+    return dq.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("R", [100, 130, 384])
+@pytest.mark.parametrize("G", [1, 2])
+def test_tensor_core_walk_matches_plain_and_pallas(R, G):
+    """The tensor-core forward's and dq's arithmetic (bf16 operands, fp32
+    sums per tile pair added once, P and dS as bf16 hi + lo pairs), emulated
+    tile by tile, against the plain versions and the Pallas kernels in
+    interpret mode on the same bf16-valued inputs, within the tolerance
+    ``chip_smoke.py`` holds the card to (``_gpu_err``): d 32, 8 heads,
+    ragged R, OpenFold's mask bias with padded residues and one fully
+    masked row (out and lse there compared for finiteness; dO 0 there, as
+    the model masks it)."""
+    rng = np.random.default_rng(R + G)
+    N, h, d = 3 * G, 8, 32
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(rng, (N, R, h, d)))
+    mask = np.ones((N, R), np.float32)
+    mask[:, R - R // 10:] = 0.0
+    mask[1] = 0.0  # every key of row 1 masked
+    b1 = torch.from_numpy(1e9 * (mask - 1.0))
+    b2 = torch.from_numpy(rng.normal(size=(G, h, R, R)).astype(np.float32))
+    do[1] = 0
+    keep = torch.ones(N, dtype=torch.bool)
+    keep[1] = False
+
+    out, lse = _walk_fwd(q, k, v, b1, b2)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    r_out, r_lse = tev.evo_attention_reference(q, k, v, b1, b2)
+    block = 128 if R % 128 == 0 else R  # the Pallas tiles must divide R
+    j_in = _j(*(t.float().numpy() for t in (q, k, v)), b1.numpy(), b2.numpy())
+    p_out, p_lse = (torch.from_numpy(np.array(x)) for x in jev._evo_fwd_impl(
+        block, block, True, *j_in))
+    for ref_out, ref_lse in ((r_out, r_lse), (p_out, p_lse)):
+        assert _gpu_err(out[keep], ref_out[keep], "low") <= 1.0
+        assert _gpu_err(lse[keep], ref_lse[keep], "lse") <= 1.0
+
+    dq = _walk_dq(q, k, v, b1, b2, out, lse, do)
+    r_dq = tev.evo_attention_reference_bwd(q, k, v, b1, b2, out, lse, do)[0]
+    terms = _abs_terms(q, k, v, b1, b2, out, lse, do)[0]
+    p_dq = torch.from_numpy(np.array(jev._evo_bwd_impl(
+        block, block, True, *j_in,
+        *_j(out.float().numpy(), lse.numpy(), do.float().numpy()))[0]))
+    for ref in (r_dq, p_dq):
+        assert _gpu_err(dq, ref, "low", terms) <= 1.0
+    assert not dq[1].any()  # dO 0 on the fully masked row
+    _assert_counts_zero()
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels (on a card only)
 # ---------------------------------------------------------------------------
 
@@ -466,7 +606,9 @@ def test_cuda_kernels_match_plain_version_on_card():
     out and lse): both biases or neither, G 1 and 2, ragged R (and R 1,
     where every gradient cancels to rounding), head_dim 32 / 64 / 128, bf16,
     fp16 and fp32, db2 with one row a group and with 40 rows a group split
-    into chunks; each case's dk/dv and db2 launch on its dtype's route; and
+    into chunks; each case's kernels launch on its dtype's route; the
+    forward and dq on both routes at R 1, 100 and 257, head_dim 32 and 128,
+    with three rows a group; and
     the autograd Function launches each kernel once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -502,10 +644,33 @@ def test_cuda_kernels_match_plain_version_on_card():
             assert _gpu_err(got[3], ref[3], h * R, terms[3]) <= 1.0, f"db1 {tag}"
             assert _gpu_err(got[4], ref[4], N // G, terms[4]) <= 1.0, f"db2 {tag}"
         sfx = "_fp32" if dtype == torch.float32 else ""
-        routed = {f"evo_bwd_dkdv{sfx}": 1} | ({f"evo_bwd_db1{sfx}": 1, f"evo_bwd_db2{sfx}": 1}
-                                              if with_b else {})
-        assert {k: n for k, n in tev.launch_counts.items() if n and "dq" not in k
-                and "fwd" not in k} == routed, tag
+        routed = {f"evo_{k}{sfx}": 1 for k in ("fwd", "bwd_dq", "bwd_dkdv")} | (
+            {f"evo_bwd_db1{sfx}": 1, f"evo_bwd_db2{sfx}": 1} if with_b else {})
+        assert {k: n for k, n in tev.launch_counts.items() if n} == routed, tag
+    for R in (1, 100, 257):
+        for d in (32, 128):
+            for dtype in (torch.bfloat16, torch.float32):
+                tev.reset_launch_counts()
+                N, G, h = 6, 2, 2
+                rng = np.random.default_rng(R + d)
+                q, k, v, do = (torch.from_numpy(x).to(dev, dtype)
+                               for x in _qkv(rng, (N, R, h, d)))
+                b1 = torch.from_numpy(2 * rng.normal(size=(N, R)).astype(np.float32)).to(dev)
+                b2 = torch.from_numpy(rng.normal(size=(G, h, R, R)).astype(np.float32)).to(dev)
+                out, lse = tev.evo_fwd(q, k, v, b1, b2)
+                dq = tev.evo_bwd_dq(q, k, v, b1, b2, out, lse, do)
+                r_out, r_lse = tev.evo_attention_reference(q, k, v, b1, b2)
+                r_dq = tev.evo_attention_reference_bwd(q, k, v, b1, b2, out, lse, do)[0]
+                t_dq = _abs_terms(q, k, v, b1, b2, out, lse, do)[0]
+                torch.cuda.synchronize()
+                kind = "low" if dtype != torch.float32 else "fp32"
+                tag = f"fwd / dq N={N} G={G} R={R} d={d} {dtype}"
+                assert _gpu_err(out, r_out, kind) <= 1.0, tag
+                assert _gpu_err(lse, r_lse, "lse") <= 1.0, tag
+                assert _gpu_err(dq, r_dq, kind, t_dq) <= 1.0, tag
+                sfx = "_fp32" if dtype == torch.float32 else ""
+                assert {k: n for k, n in tev.launch_counts.items() if n} == {
+                    f"evo_fwd{sfx}": 1, f"evo_bwd_dq{sfx}": 1}, tag
     tev.reset_launch_counts()
     q, k, v, do = (torch.randn(4, 100, 2, 32, device=dev, dtype=torch.bfloat16) for _ in range(4))
     b1 = torch.zeros(4, 100, device=dev, requires_grad=True)
