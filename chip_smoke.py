@@ -7,6 +7,7 @@
     python3 chip_smoke.py --versus DIR [--phases kernels,e2e]
     python3 chip_smoke.py --versus DIR --phases moe_kernels,moe_train
     python3 chip_smoke.py --versus DIR --phases evo_kernels,evo_path
+    python3 chip_smoke.py --versus DIR --phases sparse_kernels,sparse_train
 
 With no arguments every phase runs, in this order; each must pass (exit
 code 1 otherwise):
@@ -93,20 +94,26 @@ code 1 otherwise):
    bf16 is timed beside it. Then the serving modules at Mixtral width,
    ``grouped_gemm_moe`` against ``top_k_gated_moe`` (relative L2 1e-2) on
    a 512-token chunk and an 8-token decode batch.
-5. sparse_kernels: hold ``block_sparse_fwd`` against the plain gathered
-   version on the same inputs (q, k, v read through the model's [B, S, n,
-   d] strides): small cases over block 16 / 32 / 64 / 128, head_dim 32 / 64
-   / 128, bf16 / fp16 / fp32, causal and not, rpe, key-padding and attn
-   masks in 'add' and 'mul' modes, per-head layouts, empty rows (zeros) and
-   a fully padded sample (zeros); then the main path's shape (B 1, 32
-   heads, L 4096, d 128, the slice's 'fixed' layout, bf16, causal). The
-   flash tolerance: both sides sum in fp32 and round once. Times (CUDA
-   events) against the bound (bytes of q, k, v and out, or 4 d FLOPs per
-   visible (q, k) pair of this layout), the plain version and
-   ``F.scaled_dot_product_attention`` with the layout and causality as a
-   boolean mask; the backward's time and transient peak (the gathered
-   recompute). The largest error as a fraction of its tolerance is printed
-   as ``worst_error_fraction``.
+5. sparse_kernels: print the tensor-core kernel's ptxas registers and
+   spills (d 64 and 128 must not spill) and both kernels' shared memory;
+   hold ``block_sparse_fwd`` against the plain gathered version on the same
+   inputs (q, k, v read through the model's [B, S, n, d] strides) on both
+   routes: bf16 / fp16 take the tensor-core kernel, fp32 the CUDA-core one
+   (``route(dtype)``), and every case runs in its dtype and in the other
+   route's (fp32 for a 16-bit case, bf16 for an fp32 one), each launch
+   expected on its route: small cases over block 16 / 32 / 64 / 128,
+   head_dim 32 / 64 / 128, bf16 / fp16 / fp32, causal and not, rpe,
+   key-padding and attn masks in 'add' and 'mul' modes, per-head layouts,
+   empty rows (zeros) and a fully padded sample (zeros); then the main
+   path's shape (B 1, 32 heads, L 4096, d 128, the slice's 'fixed' layout,
+   causal) in bf16 and the same values in fp32. The flash tolerance: both
+   sides sum in fp32 and round once. Times of both routes (CUDA events)
+   against the bound (bytes of q, k, v and out, or 4 d FLOPs per visible
+   (q, k) pair of this layout; fp32 at the CUDA cores' 67 TFLOP/s), the
+   plain version and ``F.scaled_dot_product_attention`` with the layout
+   and causality as a boolean mask; the backward's time and transient peak
+   (the gathered recompute). The largest error as a fraction of its
+   tolerance is printed as ``worst_error_fraction``.
 6. e2e: Mistral-7B at full width and depth (32 layers), random weights from
    a seeded generator, served through ``DynamicSplitFuseScheduler`` over
    ``InferenceEngineV2``: requests chosen so that every kernel path runs,
@@ -145,9 +152,10 @@ code 1 otherwise):
    depth cut 32 -> 8 and the ds_config's ``sparse_attention`` block (the
    documented 'fixed' layout, unidirectional), trained as in ``train``:
    losses finite and falling, step time, tokens/s, peak memory, launches
-   (exactly 16 ``block_sparse_fwd`` per step, no flash, 1 fused Adam), a
-   profiled step; then at seq 1024 the whole model through the kernel
-   against the same through the plain forward (loss 2e-3, gradient 5e-2).
+   (exactly 16 ``block_sparse_fwd`` per step on the tensor cores, none on
+   ``block_sparse_fwd_fp32``, no flash, 1 fused Adam), a profiled step;
+   then at seq 1024 the whole model through the kernel against the same
+   through the plain forward (loss 2e-3, gradient 5e-2).
 
 10. evo_kernels: hold the Evoformer kernels (``evo_fwd``, ``evo_bwd_dq``,
    ``evo_bwd_dkdv`` with the mask bias's ``db1`` summed inside it, and
@@ -199,9 +207,11 @@ code 1 otherwise):
 
 ``--mutant`` copies the package into ``build/mutant/<name>`` once per
 mutant: the grouped matmul kernels dropping one row block's products
-(``--phases build,moe_kernels`` there must fail), the block-sparse kernel
-skipping each row's last valid LUT column (``--phases build,sparse_kernels``
-must fail by more than 100x its tolerance, printed), the tensor-core
+(``--phases build,moe_kernels`` there must fail), the tensor-core
+block-sparse kernel with each warp skipping its row's last LUT column
+and, alone, the fp32 one skipping each row's last valid LUT column (``--phases
+build,sparse_kernels`` must fail by more than 100x its tolerance,
+printed), the tensor-core
 Evoformer db2 skipping each row chunk's last row and, alone, the
 tensor-core Evoformer dk/dv skipping each head's last query tile, the
 tensor-core Evoformer forward skipping each CTA's last key tile, and
@@ -212,7 +222,7 @@ and, alone, the flash forward skipping each CTA's last live k-tile
 (``--phases build,train_kernels``, the same), the paged prefill
 skipping each CTA's last live k-tile and, alone, the paged decode
 skipping each split's last live block (``--phases build,kernels``, the
-same): ten copies. It passes when every mutant is caught.
+same): eleven copies. It passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
 grouped matmul and the Evoformer kernels against copies under
@@ -223,10 +233,13 @@ split pair; the decode split over the table's capacity, as the TPU grid
 splits it, with its plain partials patched alike; the grouped matmul's ring
 two stages deep, one CTA per tile; db2's rows in one chunk; the
 Evoformer forward and dq with two rows n a CTA sharing each staged
-pair-bias tile, not one): ``--phases
+pair-bias tile, not one; the block-sparse forward with each warp walking
+its own row's LUT columns, not a CTA's warps the union of theirs):
+``--phases
 kernels,train_kernels`` (``kernels`` alone for the decode,
-``moe_kernels`` for the grouped matmul, ``evo_kernels`` for the
-Evoformer's) in every copy in turns, each version twice,
+``moe_kernels`` for the grouped matmul, ``sparse_kernels`` for the
+block-sparse forward's, ``evo_kernels`` for the Evoformer's) in every copy
+in turns, each version twice,
 printing the main shapes' times and each phase's largest error as a
 fraction of the tolerance (``worst_error_fraction``; above 1 fails that
 check). ``--mutant`` and ``--ablation`` take an optional comma-separated
@@ -239,9 +252,10 @@ the order DIR, this, this, DIR, each tree's own script for every phase but
 ``e2e``, which runs this script's ``phase_e2e`` on each tree's package (so
 the serving path is measured by the same code on both), printing the paged
 decode times, the serving decode profile (wall and device ms per step,
-device kernels per step), decode tok/s and TTFT p50, the grouped matmul's
-and the Evoformer kernels' times, the MoE step, the Evoformer block and
-their top device ops per run, and one JSON line of all runs.
+device kernels per step), decode tok/s and TTFT p50, the grouped matmul's,
+the Evoformer kernels' and the block-sparse forward's times (both routes),
+the MoE step, the Evoformer block, the block-sparse training step and their
+top device ops per run, and one JSON line of all runs.
 
 It prints the card (name and power limit) and, on the line before the last,
 ``{"kernels": [...]}``; the last line is
@@ -446,8 +460,9 @@ def phase_build():
     log(f"[build] flash attention dynamic shared memory per CTA (d 128): forward {fsm(0, 128)} "
         f"B, dk/dv {fsm(1, 128)} B, dq {fsm(2, 128)} B")
     bsm = built["block_sparse_attention"].lib.ds_block_sparse_smem_bytes
-    log(f"[build] block-sparse forward dynamic shared memory per CTA: d 128 {bsm(128)} B, "
-        f"d 64 {bsm(64)} B")
+    log(f"[build] block-sparse forward dynamic shared memory per CTA: tensor cores d 128 "
+        f"{bsm(0, 128)} B, d 64 {bsm(0, 64)} B; fp32 route d 128 {bsm(1, 128)} B, d 64 "
+        f"{bsm(1, 64)} B")
     esm = built["evoformer_attention"].lib.ds_evo_smem_bytes
     log(f"[build] Evoformer dynamic shared memory per CTA (d 32): tensor cores forward "
         f"{esm(6, 32)} B (d 128 {esm(6, 128)} B), dq {esm(7, 32)} B (d 128 {esm(7, 128)} B), "
@@ -1883,8 +1898,33 @@ def _sparse_inputs(seed, B, H, L, d, dtype, rpe=False, kp=None, am=None, causal=
     return q, k, v, do, kw
 
 
+def _sparse_main_times(bsa, F, q, k, v, lut, nvalid, layout, block):
+    """The kernel of q's route at the main shape (CUDA events), its plain
+    version, and SDPA with the layout and causality as a boolean [1, H, L, L]
+    mask (it computes every score of the full matrix); with max |sdpa -
+    kernel|."""
+    import torch
+
+    L = q.shape[2]
+    ms = time_ms(lambda: bsa.block_sparse_fwd(q, k, v, lut, nvalid, block, causal=True),
+                 iters=20, warmup=3)
+    plain = time_ms(lambda: bsa.block_sparse_attention_gathered(q, k, v, lut, nvalid, block,
+                                                                causal=True), iters=3, warmup=1)
+    lay = torch.as_tensor(layout, device="cuda").bool()
+    mask = (lay.repeat_interleave(block, dim=1).repeat_interleave(block, dim=2)
+            & torch.ones(L, L, dtype=torch.bool, device="cuda").tril())[None]
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask), iters=5,
+                  warmup=2)
+    lib_err = float((F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask).float()
+                     - bsa.block_sparse_fwd(q, k, v, lut, nvalid, block, causal=True).float())
+                    .abs().max())
+    return ms, plain, lib, lib_err
+
+
 def phase_sparse_kernels():
-    """Returns {"block_sparse_fwd": measurement dict}."""
+    """Returns {"block_sparse_fwd": measurement dict}: the tensor-core
+    route's numbers (bf16), with the fp32 route's under ``fp32_route``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1893,7 +1933,8 @@ def phase_sparse_kernels():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
-    worst = [0.0, 0.0, ""]  # max_abs_err, largest fraction of the tolerance, its case
+    worst = {"": 0.0, "_fp32": 0.0}  # max_abs_err by route
+    worst_frac = [0.0, ""]  # the largest fraction of the tolerance, its case
 
     def check(tag, q, k, v, layout, block, kw):
         lut, nvalid = (torch.as_tensor(x, device="cuda") for x in bsa.make_layout_lut(layout))
@@ -1901,18 +1942,35 @@ def phase_sparse_kernels():
         ref = bsa.block_sparse_attention_gathered(q, k, v, lut, nvalid, block, **kw)
         torch.cuda.synchronize()
         e, frac = _flash_err(out, ref)
-        worst[0] = max(worst[0], e)
-        if frac > worst[1]:
-            worst[1:] = [frac, tag]
+        sfx = bsa._SUFFIX[bsa.route(q.dtype)]
+        worst[sfx] = max(worst[sfx], e)
+        if frac > worst_frac[0]:
+            worst_frac[:] = [frac, tag]
         if not frac <= 1.0:
             failures.append(f"{tag}: max_abs_err {e:.3e}, {frac:.2f}x its tolerance")
         if not bool(torch.isfinite(out).all()):
             failures.append(f"{tag}: non-finite output")
         return out, ref, lut, nvalid
 
+    log("[sparse_kernels] tensor-core kernel, ptxas registers and spills:")
+    mma = ("block_sparse_mma_kernel", "block_sparse_union_kernel")  # the walk that is built
+    _log_ptxas(bsa.kernel_build().ptxas, "[sparse_kernels]", mma)
+    # at d 64 and d 128 (template argument ILi64E / ILi128E) it must not spill
+    entries = _ptxas_entries(bsa.kernel_build().ptxas, mma)
+    wide = {n: e for n, e in entries.items() if "ILi64E" in n or "ILi128E" in n}
+    if len(wide) != 4 or any(e[1] or e[2] for e in wide.values()):
+        failures.append(f"the d 64 / 128 tensor-core kernels: {wide} (4 kernels, no spill "
+                        f"expected)")
+    smem = bsa.kernel_build().lib.ds_block_sparse_smem_bytes
+    log(f"[sparse_kernels] d 64 / 128 on the tensor cores, registers / spill stores / loads "
+        f"(bytes): {sorted(wide.values())}; shared memory a CTA at d 128: tensor cores "
+        f"{smem(0, 128)} B, fp32 route {smem(1, 128)} B")
+
     # small shapes: every block size, head_dim 32 / 64 / 128, the three
     # dtypes, rpe, both mask modes, per-head layouts, empty rows, a fully
-    # padded sample
+    # padded sample. Every case runs on both routes: in its dtype and in
+    # the other route's (fp32 for a 16-bit case, bf16 for an fp32 one);
+    # each launch is expected on its dtype's route
     cases = [  # (layout, B, H, L, d, block, dtype, causal, rpe, kp, am)
         ("slice", 2, 4, 512, 128, 16, torch.bfloat16, True, False, None, None),
         ("slice", 2, 4, 512, 64, 32, torch.bfloat16, True, True, "mul", "mul"),
@@ -1925,22 +1983,35 @@ def phase_sparse_kernels():
         ("local", 1, 4, 256, 32, 16, torch.bfloat16, True, False, None, "mul"),
         ("slice", 1, 2, 256, 32, 64, torch.float16, True, True, "add", "add"),
     ]
+    bsa.reset_launch_counts()
+    expected = dict.fromkeys(bsa.launch_counts, 0)
     for i, (kind, B, H, L, d, block, dtype, causal, rpe, kp, am) in enumerate(cases):
-        q, k, v, _, kw = _sparse_inputs(100 + i, B, H, L, d, dtype, rpe, kp, am, causal)
         layout = _sparse_layout(kind, H, L, block)
-        tag = (f"{kind} B={B} H={H} L={L} d={d} block={block} {str(dtype)[6:]} causal={causal} "
-               f"rpe={rpe} kp={kp} am={am}")
-        out, _, _, nvalid = check(tag, q, k, v, layout, block, kw)
-        if kind == "empty_rows":  # rows with nvalid 0 write zeros
-            rows = (nvalid == 0).repeat_interleave(block, dim=1)  # [H, L]
-            if float(out.float().abs()[:, rows].max()) != 0.0:
-                failures.append(f"{tag}: an empty row is not zero")
-        if kp == "mul" and float(out[-1].float().abs().max()) != 0.0:
-            failures.append(f"{tag}: the fully padded sample is not zero")
-    log(f"[sparse_kernels] small-shape matrix ({len(cases)} cases): "
-        f"{'all within tolerance' if not failures else failures}; max_abs_err {worst[0]:.3e}")
+        for dt in (dtype, torch.bfloat16 if dtype == torch.float32 else torch.float32):
+            q, k, v, _, kw = _sparse_inputs(100 + i, B, H, L, d, dtype, rpe, kp, am, causal)
+            q, k, v = (t.to(dt) for t in (q, k, v))  # the same values on the other route
+            expected[f"block_sparse_fwd{bsa._SUFFIX[bsa.route(dt)]}"] += 1
+            tag = (f"{kind} B={B} H={H} L={L} d={d} block={block} {str(dt)[6:]} causal={causal} "
+                   f"rpe={rpe} kp={kp} am={am}")
+            out, _, _, nvalid = check(tag, q, k, v, layout, block, kw)
+            if kind == "empty_rows":  # rows with nvalid 0 write zeros
+                rows = (nvalid == 0).repeat_interleave(block, dim=1)  # [H, L]
+                if float(out.float().abs()[:, rows].max()) != 0.0:
+                    failures.append(f"{tag}: an empty row is not zero")
+            if kp == "mul" and float(out[-1].float().abs().max()) != 0.0:
+                failures.append(f"{tag}: the fully padded sample is not zero")
+    torch.cuda.synchronize()
+    routes = dict(bsa.launch_counts)
+    log(f"[sparse_kernels] small-shape matrix ({len(cases)} cases x both routes): "
+        f"{'all within tolerance' if not failures else failures}; max_abs_err tensor cores "
+        f"{worst['']:.3e}, fp32 route {worst['_fp32']:.3e}")
+    log(f"[sparse_kernels] launches by route (bf16 / fp16 on the tensor cores, fp32 on the "
+        f"'_fp32' CUDA-core kernel): {routes} (expected {expected})")
+    if routes != expected:
+        failures.append(f"launches by route {routes} != expected {expected}")
 
-    # the main path's shape: one sample of the slice's model, its layout
+    # the main path's shape: one sample of the slice's model, its layout,
+    # on both routes: bf16 (the path's) and the same values in fp32
     B, H, L, d, block = 1, 32, TRAIN_SEQ, 128, SPARSE_SA["block"]
     q, k, v, do, kw = _sparse_inputs(7, B, H, L, d, torch.bfloat16, causal=True)
     layout = _sparse_layout("slice", H, L, block)
@@ -1948,22 +2019,7 @@ def phase_sparse_kernels():
                                   q, k, v, layout, block, kw)
     main_err = float((out.float() - ref.float()).abs().max())
     del out, ref
-    ms = time_ms(lambda: bsa.block_sparse_fwd(q, k, v, lut, nvalid, block, causal=True),
-                 iters=20, warmup=3)
-    plain = time_ms(lambda: bsa.block_sparse_attention_gathered(q, k, v, lut, nvalid, block,
-                                                                causal=True), iters=3, warmup=1)
-    # library yardstick: SDPA with the layout and causality expanded to a
-    # boolean [1, H, L, L] mask (it computes every score of the full matrix)
-    lay = torch.as_tensor(layout, device="cuda").bool()
-    mask = (lay.repeat_interleave(block, dim=1).repeat_interleave(block, dim=2)
-            & torch.ones(L, L, dtype=torch.bool, device="cuda").tril())[None]
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask), iters=5,
-                  warmup=2)
-    lib_err = float((F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask).float()
-                     - bsa.block_sparse_fwd(q, k, v, lut, nvalid, block, causal=True).float())
-                    .abs().max())
-    del mask, qc, kc, vc
+    ms, plain, lib, lib_err = _sparse_main_times(bsa, F, q, k, v, lut, nvalid, layout, block)
     # the backward (the gathered form's recompute, plain torch ops, as the
     # JAX package computes it outside any kernel): time and transient peak
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1978,35 +2034,54 @@ def phase_sparse_kernels():
     torch.cuda.synchronize()
     bwd_peak = torch.cuda.max_memory_allocated() - base
     bwd_ms = time_ms(bwd, iters=3, warmup=1)
-    del o, qg, kg, vg
+    del o, qg, kg, vg, do
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    del q, k, v
+    out, ref, _, _ = check(f"main B={B} H={H} L={L} d={d} block={block} fp32 causal",
+                           q32, k32, v32, layout, block, kw)
+    main_err32 = float((out - ref).abs().max())
+    del out, ref
+    ms32, plain32, lib32, lib_err32 = _sparse_main_times(bsa, F, q32, k32, v32, lut, nvalid,
+                                                         layout, block)
+    del q32, k32, v32
     pairs = _visible_pairs(layout, block, causal=True)
     counts = layout.sum(-1)
     n_bytes = 4 * B * H * L * d * 2  # q, k, v read once, out written once, bf16
     flops = 4 * B * d * pairs  # q.k and p.v over the visible pairs
     b_ms, b_by = bound_ms(n_bytes, flops)
+    b_ms32, b_by32 = bound_ms(2 * n_bytes, flops, FP32_FLOPS_PER_S)
     log(f"[sparse_kernels] layout at L={L}: {H} heads x {L // block} block rows, "
         f"{len(np.unique(layout, axis=0))} distinct head layouts, densest row A={counts.max()}, "
         f"mean {counts.mean():.2f} blocks; {pairs:,} visible (q, k) pairs = "
         f"{pairs / (H * L * L):.4f} of the full and {pairs / (H * L * (L + 1) / 2):.4f} of the "
         f"causal score matrix")
-    log(f"[sparse_kernels] block_sparse_fwd B={B} H={H} L={L} d={d} block={block} bf16 causal "
-        f"(the model's strides): {ms:.4f} ms, plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), sdpa with the layout as a boolean "
-        f"mask {lib:.4f} ms (max |sdpa - kernel| {lib_err:.3e}); main-shape max_abs_err "
-        f"{main_err:.3e}")
+    res = {}
+    for sfx, t_ms, p_ms, l_ms, l_err, bm, bb, nby, err in (
+            ("", ms, plain, lib, lib_err, b_ms, b_by, n_bytes, main_err),
+            ("_fp32", ms32, plain32, lib32, lib_err32, b_ms32, b_by32, 2 * n_bytes, main_err32)):
+        log(f"[sparse_kernels] block_sparse_fwd{sfx} B={B} H={H} L={L} d={d} block={block} "
+            f"{'fp32' if sfx else 'bf16'} causal (the model's strides): {t_ms:.4f} ms, plain "
+            f"{p_ms:.3f} ms, bound {bm:.4f} ms ({bb}, {flops / 1e9:.2f} GFLOP, {nby / 1e6:.1f} "
+            f"MB), sdpa with the layout as a boolean mask {l_ms:.4f} ms (max |sdpa - kernel| "
+            f"{l_err:.3e}); main-shape max_abs_err {err:.3e}")
+        m = dict(err=worst[sfx], ms=t_ms, plain_ms=p_ms, bound_ms=bm, bound_by=bb,
+                 library_ms=l_ms,
+                 library="F.scaled_dot_product_attention with the layout as a boolean mask")
+        if sfx:
+            res["block_sparse_fwd"]["fp32_route"] = m
+        else:
+            res["block_sparse_fwd"] = m
     log(f"[sparse_kernels] backward (gathered recompute over chunks of heads): {bwd_ms:.3f} ms, "
         f"transient peak {bwd_peak / 2**30:.2f} GiB")
-    log(f"[sparse_kernels] largest error over all cases {worst[1]:.3f} of its tolerance "
-        f"({worst[2]})")
-    log(f"[sparse_kernels] worst_error_fraction={worst[1]:.6g}")
+    log(f"[sparse_kernels] largest error over all cases {worst_frac[0]:.3f} of its tolerance "
+        f"({worst_frac[1]})")
+    log(f"[sparse_kernels] worst_error_fraction={worst_frac[0]:.6g}")
     if failures:
         raise RuntimeError("block-sparse kernel disagrees with the plain version: "
                            + "; ".join(failures[:10]))
-    return {"block_sparse_fwd": dict(
-        err=worst[0], ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-        library="F.scaled_dot_product_attention with the layout as a boolean mask",
-        visible_pairs=pairs, densest_row=int(counts.max()), backward_ms=bwd_ms,
-        backward_peak_gib=bwd_peak / 2**30)}
+    res["block_sparse_fwd"].update(visible_pairs=pairs, densest_row=int(counts.max()),
+                                   backward_ms=bwd_ms, backward_peak_gib=bwd_peak / 2**30)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2087,8 +2162,8 @@ def phase_sparse_train():
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     med = float(np.median(times))
-    expected = {"block_sparse_fwd": SPARSE_LAYERS * gas * TIMED_STEPS, "flash_fwd": 0,
-                "flash_bwd_dkdv": 0, "flash_bwd_dq": 0, "fused_adam": TIMED_STEPS}
+    expected = {"block_sparse_fwd": SPARSE_LAYERS * gas * TIMED_STEPS, "block_sparse_fwd_fp32": 0,
+                "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0, "fused_adam": TIMED_STEPS}
     log(f"[sparse_train] {gas} microbatches x {TRAIN_SEQ} tokens = {tokens} tokens/step; losses "
         f"(warm step, then {TIMED_STEPS} timed): {[round(x, 5) for x in losses]}")
     log(f"[sparse_train] step time median {1e3 * med:.1f} ms (range {1e3 * min(times):.1f}-"
@@ -2096,7 +2171,7 @@ def phase_sparse_train():
         f"peak memory {peak / 2**30:.2f} GiB")
     log(f"[sparse_train] kernel launches on the main path over {TIMED_STEPS} steps: {launches} "
         f"(expected {expected}: per step {SPARSE_LAYERS} layers x {gas} microbatches block-sparse "
-        f"forwards, no flash, 1 fused Adam)")
+        f"forwards on the tensor cores, none on the fp32 route, no flash, 1 fused Adam)")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"losses not finite and falling: {losses}")
     if launches != expected:
@@ -2669,7 +2744,16 @@ GMM_MUTATIONS = _in(GMM_SRC, (
      "    // out: each consumer warpgroup writes its 64 rows"),
     ("  r_begin = first * bt;", "  r_begin = (first + (lo > first ? 1 : 0)) * bt;"),
 ))
-BSA_MUTATIONS = _in(BSA_SRC, (
+BSA_MUTATIONS = _in(BSA_SRC, (  # the tensor-core kernel: each warp skips its last LUT column
+    ("const int n = a.nvalid[(long long)h * gridDim.y + tile];",
+     "const int n = a.nvalid[(long long)h * gridDim.y + tile];\n"
+     "  int own_last = -1;  // the last union entry of this warp's row\n"
+     "  for (int j = 0; j < n; ++j)\n"
+     "    if ((list[j] >> kColBits >> warp) & 1) own_last = j;"),
+    ("on[hh] = live && at.j < n && ((at.w >> warp) & 1) &&",
+     "on[hh] = live && at.j < n && at.j != own_last && ((at.w >> warp) & 1) &&"),
+))
+BSA_FP32_MUTATIONS = _in(BSA_SRC, (  # the fp32 kernel skips each row's last LUT column
     ("const int n_keys = nv * a.block;", "const int n_keys = (nv > 0 ? nv - 1 : 0) * a.block;"),
 ))
 EVO_MUTATIONS = _in(EVO_SRC, (  # the tensor-core db2 skips each row chunk's last row
@@ -2707,6 +2791,7 @@ MUTANT_MIN_FACTOR = 100.0
 MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "grouped_matmul": (GMM_MUTATIONS, "moe_kernels", "grouped matmul kernels disagree"),
     "block_sparse": (BSA_MUTATIONS, "sparse_kernels", "block-sparse kernel disagrees"),
+    "block_sparse_fp32": (BSA_FP32_MUTATIONS, "sparse_kernels", "block-sparse kernel disagrees"),
     "evoformer": (EVO_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
     "evoformer_dkdv": (EVO_DKDV_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
     "evoformer_fwd": (EVO_FWD_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
@@ -2795,6 +2880,12 @@ ABLATIONS = {
     "evo_bias_two_rows": _in(EVO_SRC, (("constexpr int kBiasRows = 1;",
                                         "constexpr int kBiasRows = 2;"),)),
 }
+# the tensor-core block-sparse forward with each warp walking its own row's
+# LUT columns through its own ring, not a CTA's four warps the union of
+# their rows' columns (each staged K/V slice shared)
+ABLATIONS["block_sparse_per_warp"] = _in(BSA_SRC, (
+    ("constexpr bool kUnionWalk = true;", "constexpr bool kUnionWalk = false;"),
+))
 GMM_HDR = "deepspeed_tpu_torch/ops/csrc/wgmma_sm90.cuh"
 PAGED_PY = "deepspeed_tpu_torch/ops/paged_attention.py"
 # the decode split over the table's capacity (split s owns blocks [s per,
@@ -2843,12 +2934,14 @@ ABLATIONS["decode_ring3"] = _in(SOURCE, (
 
 def _ablation_phases(name):
     """The phases that time an ablation: ``moe_kernels`` for the grouped
-    matmul's sources, ``evo_kernels`` for the Evoformer's, ``kernels`` for
-    the paged decode's, ``kernels,train_kernels`` for the other attention
-    kernels'."""
+    matmul's sources, ``sparse_kernels`` for the block-sparse forward's,
+    ``evo_kernels`` for the Evoformer's, ``kernels`` for the paged decode's,
+    ``kernels,train_kernels`` for the other attention kernels'."""
     files = {p for p, _, _ in ABLATIONS[name]}
     if files <= {GMM_SRC, GMM_HDR}:
         return "moe_kernels"
+    if files <= {BSA_SRC}:
+        return "sparse_kernels"
     if name.startswith("decode_"):  # the paged decode's ablations
         return "kernels"
     return "evo_kernels" if files <= {EVO_SRC, EVO_PY} else "kernels,train_kernels"
@@ -2924,6 +3017,7 @@ _ATTN_BUILD = ("from deepspeed_tpu_torch.ops import flash_attention as fa, paged
                "fa.kernel_build(); pa.kernel_build()")
 _GMM_BUILD = "from deepspeed_tpu_torch.ops import grouped_matmul as gm; gm.kernel_build()"
 _EVO_BUILD = "from deepspeed_tpu_torch.ops import evoformer_attention as ev; ev.kernel_build()"
+_BSA_BUILD = "from deepspeed_tpu_torch.ops import block_sparse_attention as bs; bs.kernel_build()"
 
 
 def _num(pattern, text):
@@ -2996,6 +3090,26 @@ def _evo_times(stdout):
                              stdout)}
 
 
+def _sparse_times(stdout):
+    """The block-sparse forward's main-shape times on both routes (the
+    parent's script printed one kernel, the CUDA-core one, under the
+    unsuffixed name), SDPA's with the mask, the sparse training step and the
+    largest error fraction printed by ``sparse_kernels`` / ``sparse_train``
+    runs (this script's or the parent's)."""
+    import re
+
+    return {f"block_sparse_fwd{sfx}_ms": _num(rf"\] block_sparse_fwd{sfx} B=\d+ .*?: ([0-9.]+) ms",
+                                              stdout) for sfx in ("", "_fp32")} | {
+        "block_sparse_sdpa_ms": _num(r"\] block_sparse_fwd B=\d+ .*?sdpa with the layout as a "
+                                     r"boolean mask ([0-9.]+) ms", stdout),
+        "sparse_error_fraction": _worst_error_fraction(stdout, "sparse_kernels"),
+        "block_sparse_ptxas": (re.findall(r"\] d 64 / 128 on the tensor cores, .*?: (\[.*?\])",
+                                          stdout) or [None])[-1],
+        "sparse_step_ms": _num(r"\[sparse_train\] step time median ([0-9.]+) ms", stdout),
+        "sparse_idle_pct": _num(r"\[sparse_train\] profiled step: .*?device idle ([0-9.]+)%",
+                                stdout)}
+
+
 def run_ablation(which="all"):
     """The unchanged sources (``base``) and each of ``ABLATIONS`` (or the
     comma-separated names in ``which``) in a copy under build/ablation/;
@@ -3022,7 +3136,8 @@ def run_ablation(which="all"):
     def build(n):
         parts = ([_ATTN_BUILD] if "kernels" in phases[n].split(",") else []) + (
             [_GMM_BUILD] if "moe_kernels" in phases[n] else []) + (
-            [_EVO_BUILD] if "evo_kernels" in phases[n] else [])
+            [_EVO_BUILD] if "evo_kernels" in phases[n] else []) + (
+            [_BSA_BUILD] if "sparse_kernels" in phases[n] else [])
         return "; ".join(parts)
 
     procs = {n: subprocess.Popen([sys.executable, "-c", build(n)], cwd=d, stdout=subprocess.PIPE,
@@ -3066,6 +3181,10 @@ def run_ablation(which="all"):
         if "evo_kernels" in phases[n]:
             r.update({k: v for k, v in _evo_times(out).items() if k != "evo_block_ms"})
             need += ["evo_fwd_ms", "evo_bwd_dq_ms", "evo_bwd_db2_ms", "evo_bwd_dkdv_ms"]
+        if "sparse_kernels" in phases[n]:
+            r.update({k: v for k, v in _sparse_times(out).items() if k.startswith(
+                ("block_sparse", "sparse_error"))})
+            need += ["block_sparse_fwd_ms", "block_sparse_fwd_fp32_ms"]
         runs.append(r)
         log(f"[ablation] {n} ({phases[n]}): "
             + ", ".join(f"{k} {v}" for k, v in r.items() if k not in ("name", "rc"))
@@ -3097,9 +3216,9 @@ def run_versus(other, phases):
     other: every phase but ``e2e`` through the tree's own script, ``e2e``
     through this script's ``phase_e2e`` on the tree's package, one process
     each, so that each tree is timed twice on one card. Prints each run's
-    paged decode times, serving numbers, grouped matmul and Evoformer times,
-    MoE step, Evoformer block and top device ops, and last one JSON object
-    of every run. Returns an exit code: 1 when a build or a run fails."""
+    paged decode times, serving numbers, grouped matmul, Evoformer and
+    block-sparse times, MoE step, Evoformer block, block-sparse step and top
+    device ops, and last one JSON object of every run. Returns an exit code: 1 when a build or a run fails."""
     other = os.path.abspath(other)
     dirs = {"other": other, "this": HERE}
     builds = {n: subprocess.Popen([sys.executable, "chip_smoke.py", "--phases", "build"], cwd=d,
@@ -3133,10 +3252,11 @@ def run_versus(other, phases):
         r = {"tree": n, "rc": rc, **_decode_times(out), **_e2e_numbers(out), **_gmm_times(out),
              "moe_step_ms": _num(r"\[moe_train\] step time median ([0-9.]+) ms", out),
              "moe_idle_pct": _num(r"\[moe_train\] profiled step: .*?device idle ([0-9.]+)%", out),
-             **_evo_times(out),
+             **_evo_times(out), **_sparse_times(out),
              "evo_idle_pct": _num(r"\[evo_path\] profiled block: .*?idle ([0-9.]+)%", out),
              "top_ops": [line.split("]", 1)[1].strip() for line in out.splitlines()
-                         if line.startswith(("[e2e]   ", "[moe_train]   ", "[evo_path]   "))]}
+                         if line.startswith(("[e2e]   ", "[moe_train]   ", "[evo_path]   ",
+                                             "[sparse_train]   "))]}
         r = {k: v for k, v in r.items() if v is not None}
         runs.append(r)
         log(f"[versus] {n} ({dirs[n]}): "
@@ -3266,7 +3386,7 @@ def main():
     for name, m in out["sparse_kernels"].items():
         src, replaces = SPARSE_KERNELS[name]
         extra = {k: m[k] for k in ("library", "visible_pairs", "densest_row", "backward_ms",
-                                   "backward_peak_gib")}
+                                   "backward_peak_gib", "fp32_route")}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": int(sparse_launches[name]), "max_abs_err": m["err"],
                         **{k: m[k] for k in keys}, **extra, "sparse_train_step": sparse_step})

@@ -9,9 +9,12 @@ layout is a host numpy ``(H, nb, nb)`` 0/1 array from a
 - :func:`block_sparse_attention_gathered` is the plain PyTorch version: a
   LUT gather of the active K/V blocks, O(B·H·L·A·block) memory, never the
   dense score matrix. The CPU path, the numerics oracle and the backward.
-- :func:`block_sparse_fwd` wraps the hand-written CUDA kernel of
-  ``csrc/block_sparse_attention.cu``. On a CPU tensor it returns the plain
-  version; on a CUDA tensor it launches the kernel or raises.
+- :func:`block_sparse_fwd` wraps the hand-written CUDA kernels of
+  ``csrc/block_sparse_attention.cu``: bfloat16 and float16 take the
+  tensor-core kernel (``ds_block_sparse_fwd``), float32 the CUDA-core one
+  (``ds_block_sparse_fwd_fp32``), as :func:`route` says. On a CPU tensor it
+  returns the plain version; on a CUDA tensor it launches its route's
+  kernel or raises.
 - :func:`block_sparse_attention` is the public entry, a
   ``torch.autograd.Function``: the forward is :func:`block_sparse_fwd`, the
   backward recomputes through the gathered form (as the JAX ``custom_vjp``
@@ -26,7 +29,8 @@ in ``'add'`` mode, while ``'mul'`` mode reads them as 0/1 indicators (0 ->
 blocks. The JAX wrapper's fallback to the gathered form when its kernel
 fails is not ported: a CUDA launch either runs or raises.
 
-``launch_counts`` counts kernel launches; nothing else adds to it.
+``launch_counts`` counts kernel launches by route (``block_sparse_fwd``,
+``block_sparse_fwd_fp32``); nothing else adds to it.
 """
 
 import ctypes
@@ -42,9 +46,16 @@ _NEG_INF = -1e30
 # V, and their gradients) hold about this many bytes each
 BWD_CHUNK_BYTES = 1 << 30
 
-launch_counts = {"block_sparse_fwd": 0}
+_SUFFIX = {"mma": "", "fp32": "_fp32"}  # route -> suffix of its C entry point and count
+launch_counts = {f"block_sparse_fwd{sfx}": 0 for sfx in _SUFFIX.values()}
+
+# the union walk's descriptor format, as the kernel source reads it
+# (kTileRows, kColBits)
+TILE_ROWS = 64  # query rows of a tensor-core CTA: 4 warps x 16
+_COL_BITS = 24  # a union entry: column | warp membership bits << _COL_BITS
 
 _built = None
+_union_memo = None
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _MODES = ("add", "mul")
 
@@ -62,15 +73,26 @@ def kernel_build():
         built = build_kernel("block_sparse_attention")
         lib = built.lib
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ds_block_sparse_fwd.argtypes = ([vp] * 10 + [i] * 7 + [ctypes.c_float] + [i] * 3
-                                            + [vp])
-        lib.ds_block_sparse_fwd.restype = i
+        for sfx in _SUFFIX.values():
+            fn = getattr(lib, f"ds_block_sparse_fwd{sfx}")
+            fn.argtypes = [vp] * 10 + [i] * 7 + [ctypes.c_float] + [i] * 3 + [vp]
+            fn.restype = i
         lib.ds_block_sparse_error_string.argtypes = [i]
         lib.ds_block_sparse_error_string.restype = ctypes.c_char_p
-        lib.ds_block_sparse_smem_bytes.argtypes = [i]
+        lib.ds_block_sparse_smem_bytes.argtypes = [i, i]
         lib.ds_block_sparse_smem_bytes.restype = ctypes.c_longlong
+        lib.ds_block_sparse_union_walk.argtypes = []
+        lib.ds_block_sparse_union_walk.restype = i
         _built = built
     return _built
+
+
+def route(dtype) -> str:
+    """The kernel's route for q/k/v of ``dtype``: ``"mma"`` (tensor cores)
+    for bfloat16 and float16, ``"fp32"`` (CUDA cores) for float32."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"the kernels take bfloat16, float16 or float32, got {dtype}")
+    return "fp32" if dtype == torch.float32 else "mma"
 
 
 def make_layout_lut(layout):
@@ -93,6 +115,50 @@ def make_layout_lut(layout):
                 lut[h, r, :len(cols)] = cols
                 lut[h, r, len(cols):] = cols[-1]
     return lut, counts
+
+
+def union_plan(lut, nvalid, block: int, L: int):
+    """The union walk's descriptor: for each head and each tile of
+    ``TILE_ROWS`` query rows (warp ``w`` owns rows ``64 t + 16 w ..
+    + 15``, in block row ``(64 t + 16 w) // block``), the union of its
+    warps' rows' valid LUT columns (the first ``nvalid``), ascending, each
+    entry ``column | bits << 24`` where bit ``w`` says that warp ``w``'s row
+    holds the column. Returns int32 ``(entries [H, tiles, U], count [H,
+    tiles])`` on ``lut``'s device (U the largest count, at least 1; entries
+    past a tile's count are never read)."""
+    H, nb, A = lut.shape
+    dev = lut.device
+    lut = lut.long()
+    n_tiles = -(-L // TILE_ROWS)
+    rows = (torch.arange(n_tiles, device=dev)[:, None] * TILE_ROWS
+            + torch.arange(TILE_ROWS // 16, device=dev) * 16)  # [tiles, warps]
+    live = rows < L
+    rw = torch.clamp(rows // block, max=nb - 1)
+    valid = torch.arange(A, device=dev) < nvalid.long()[..., None]  # [H, nb, A]
+    bits = torch.zeros(H, n_tiles, nb, dtype=torch.int32, device=dev)
+    for w in range(TILE_ROWS // 16):  # a row's valid columns are distinct: one bit each
+        on = valid[:, rw[:, w]] & live[None, :, w, None]
+        bits.scatter_add_(-1, lut[:, rw[:, w]], on.int() << w)
+    count = (bits > 0).sum(-1)
+    U = max(1, int(count.max()))
+    cols = torch.sort((bits == 0).to(torch.int8), dim=-1, stable=True).indices[..., :U]
+    entries = cols | (bits.gather(-1, cols) << _COL_BITS)
+    return entries.to(torch.int32).contiguous(), count.to(torch.int32).contiguous()
+
+
+def cached_union_plan(lut, nvalid, block: int, L: int):
+    """:func:`union_plan`, reused while ``lut`` and ``nvalid`` are the same
+    tensor objects, unmodified (their in-place version counters unchanged),
+    with the same ``block`` and ``L``: a layout's LUT tensors are cached by
+    their callers (``SparseSelfAttention._lut_cache``, the model's layout
+    cache), so every layer and step of one layout builds it once. The memo
+    holds those tensors."""
+    global _union_memo
+    key = (lut._version, nvalid._version, int(block), int(L))
+    m = _union_memo
+    if m is None or m[0] is not lut or m[1] is not nvalid or m[2] != key:
+        m = _union_memo = (lut, nvalid, key, union_plan(lut, nvalid, block, L))
+    return m[3]
 
 
 def _mask_to_bias(m, mode):
@@ -185,15 +251,16 @@ def _fp32_operand(t, shape, name, device):
     if tuple(t.shape) != shape or t.device != device:
         raise ValueError(f"{name} must be {list(shape)} on q's device, got {tuple(t.shape)} on "
                          f"{t.device}")
-    return t.float().contiguous()
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 8 == 0 else t.clone()  # the kernel reads two keys a float2
 
 
 def block_sparse_fwd(q, k, v, lut, nvalid, block, *, causal=False, scale=None, rpe=None,
                      key_padding_mask=None, attn_mask=None, key_padding_mask_mode="add",
                      attn_mask_mode="mul"):
     """[B, H, L, d] in q's dtype. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (int32 ``lut`` / ``nvalid`` on q's device) or
-    raise."""
+    tensors launch the kernel of ``route(q.dtype)`` (int32 ``lut`` /
+    ``nvalid`` on q's device) or raise."""
     kw = dict(causal=causal, scale=scale, rpe=rpe, key_padding_mask=key_padding_mask,
               attn_mask=attn_mask, key_padding_mask_mode=key_padding_mask_mode,
               attn_mask_mode=attn_mask_mode)
@@ -231,8 +298,11 @@ def block_sparse_fwd(q, k, v, lut, nvalid, block, *, causal=False, scale=None, r
     strides = (ctypes.c_longlong * 12)(*qs, *ks, *vs, *out.stride()[:3])
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    sfx = _SUFFIX[route(q.dtype)]
     lib = kernel_build().lib
-    rc = lib.ds_block_sparse_fwd(
+    if not sfx and lib.ds_block_sparse_union_walk():  # it reads the descriptor in their place
+        lut, nvalid = cached_union_plan(lut, nvalid, block, L)
+    rc = getattr(lib, f"ds_block_sparse_fwd{sfx}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lut.data_ptr(),
         nvalid.data_ptr(), ptr(rpe), ptr(kp), ptr(am), strides, B, H, L, d, block,
         lut.shape[-1], int(causal), scale, int(key_padding_mask_mode == "mul"),
@@ -240,8 +310,8 @@ def block_sparse_fwd(q, k, v, lut, nvalid, block, *, causal=False, scale=None, r
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         msg = lib.ds_block_sparse_error_string(rc).decode()
-        raise RuntimeError(f"block_sparse_fwd kernel launch failed: {msg} (cudaError {rc})")
-    launch_counts["block_sparse_fwd"] += 1
+        raise RuntimeError(f"block_sparse_fwd{sfx} kernel launch failed: {msg} (cudaError {rc})")
+    launch_counts[f"block_sparse_fwd{sfx}"] += 1
     return out
 
 

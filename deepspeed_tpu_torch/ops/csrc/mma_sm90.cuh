@@ -1,8 +1,8 @@
 // Tensor-core building blocks of the attention kernels, for Hopper (sm_90a):
-// included by flash_attention.cu, paged_attention.cu and
-// evoformer_attention.cu, each built into its own library (ops/_build.py
-// keys a library on its source and every csrc header it includes, so an
-// edit here rebuilds all three).
+// included by flash_attention.cu, paged_attention.cu, evoformer_attention.cu
+// and block_sparse_attention.cu, each built into its own library
+// (ops/_build.py keys a library on its source and every csrc header it
+// includes, so an edit here rebuilds all four).
 //
 // A warp owns 16 rows of a 64-row tile and every product runs as
 // mma.sync.m16n8k16 with bf16 / fp16 operands and fp32 accumulators,
@@ -71,6 +71,11 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 // every group has landed (this thread's copies)
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// every group but the newest n has landed (this thread's copies)
+template <int n>
+__device__ __forceinline__ void cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // Rows r0 .. r0 + 63 of a [.., n, D] tensor (row stride ld elements) into a

@@ -199,12 +199,6 @@ __device__ __forceinline__ void widen16(const int4& raw, unsigned (&w)[8]) {
   }
 }
 
-// every cp.async group of this thread but the newest n has landed
-template <int n>
-__device__ __forceinline__ void cp_async_wait_n() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
-
 template <int D, typename KV>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Args a) {
   using T = __nv_bfloat16;

@@ -55,7 +55,8 @@ def test_a_missing_include_raises(tmp_path):
         _build.source_key(d / "k.cu")
 
 
-@pytest.mark.parametrize("stem", ["flash_attention", "paged_attention", "evoformer_attention"])
+@pytest.mark.parametrize("stem", ["flash_attention", "paged_attention", "evoformer_attention",
+                                  "block_sparse_attention"])
 def test_attention_sources_key_on_the_shared_mma_header(tmp_path, stem):
     """The attention sources include ``mma_sm90.cuh``: an edit to a copy of
     it changes the copies' keys, and the other sources' keys stay put."""

@@ -17,9 +17,15 @@ Inputs are made from a seed with numpy and fed to both packages in fp32:
   longer sums);
 - ``SparseSelfAttention``, ``BertSparseSelfAttention`` with weights carried
   from the JAX ``init``, the ``SparseAttentionUtils`` helpers and
-  ``build_sparsity_config``'s errors.
+  ``build_sparsity_config``'s errors;
+- the kernels' route by dtype, and a torch emulation of the tensor-core
+  kernel's walk (16-row warps, 16-key slices, causal slices above the
+  diagonal skipped, P as a split hi + lo pair, each slice summed from zero
+  into the alpha-rescaled accumulator) against the plain version and the
+  Pallas kernel in interpret mode, within the tolerance ``chip_smoke.py``
+  holds the card to.
 
-The CUDA kernel runs only on a card (``gpu`` marker).
+The CUDA kernels run only on a card (``gpu`` marker).
 """
 
 import jax
@@ -163,7 +169,8 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     tkw = _as(kw, torch.from_numpy)
     out = tbs.block_sparse_fwd(qt, kt, vt, lut, nvalid, 16, **tkw)
     ref = tbs.block_sparse_attention_gathered(qt, kt, vt, lut, nvalid, 16, **tkw)
-    assert torch.equal(out, ref) and tbs.launch_counts == {"block_sparse_fwd": 0}
+    assert torch.equal(out, ref)
+    assert tbs.launch_counts == {"block_sparse_fwd": 0, "block_sparse_fwd_fp32": 0}
     with pytest.raises(ValueError, match="mask mode"):
         tbs.block_sparse_attention(qt, kt, vt, layout, 16, attn_mask_mode="max")
 
@@ -333,6 +340,220 @@ def test_build_sparsity_config_builds_the_same_classes_as_jax():
         assert np.array_equal(ours.make_layout(ours.block * 8), ref.make_layout(ref.block * 8))
 
 
+def test_route_is_chosen_by_the_dtype_alone():
+    """bfloat16 and float16 take the tensor-core kernel
+    (``ds_block_sparse_fwd``), float32 the CUDA-core one
+    (``ds_block_sparse_fwd_fp32``), each counted under its own name;
+    other dtypes are refused."""
+    assert tbs.route(torch.bfloat16) == tbs.route(torch.float16) == "mma"
+    assert tbs.route(torch.float32) == "fp32"
+    names = {f"block_sparse_fwd{tbs._SUFFIX[tbs.route(dt)]}"
+             for dt in (torch.bfloat16, torch.float16, torch.float32)}
+    assert names == set(tbs.launch_counts) == {"block_sparse_fwd", "block_sparse_fwd_fp32"}
+    for dt in (torch.float64, torch.int32):
+        with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+            tbs.route(dt)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's walk, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+ROWS = 16  # query rows of a warp, and keys of a step
+LOG2E = 1.4426950408889634
+
+
+def _split(x, dtype):
+    """x as the kernel feeds it to the tensor cores: a pair hi + lo of
+    ``dtype`` values (as fp32)."""
+    hi = x.to(dtype).float()
+    return hi, (x - hi).to(dtype).float()
+
+
+def _walk(q, k, v, lut, nvalid, block, dtype, slices, causal=False, rpe=None,
+          key_padding_mask=None, attn_mask=None, key_padding_mask_mode="add",
+          attn_mask_mode="mul"):
+    """[B, H, L, d] in ``dtype`` by the tensor-core kernel's walk: a CTA's
+    64 rows walk the union of their four 16-row warps' block rows' columns
+    (``union_plan``) in steps of ``slices`` 16-key slices, skipping (with
+    causal) the slices wholly above its last row; each warp masks the
+    slices of columns its own row lacks and, with causal, those wholly
+    above its rows, and skips a step with none of its own. S = scale * q.k
+    from the 16-bit values with fp32 sums, then rpe, the key padding and
+    the attn mask, the causal mask on the diagonal slice; the online softmax
+    from m = -1e30, l = 0 in base 2, a score at or below -5e29 never
+    entering; P as a hi + lo pair into P.V, each step's product summed from
+    zero and added once to the rescaled accumulator; out = acc / max(l,
+    1e-30). With ``slices`` 1 a warp's arithmetic is the per-warp walk's
+    (its own row's columns in LUT order, one slice a step)."""
+    B, H, L, d = q.shape
+    scale = 1.0 / d**0.5
+    qf, kf, vf = (t.to(dtype).float() for t in (q, k, v))
+    kpb = (None if key_padding_mask is None else
+           tbs._mask_to_bias(key_padding_mask, key_padding_mask_mode))
+    amb = None if attn_mask is None else tbs._mask_to_bias(attn_mask, attn_mask_mode)
+    spc = block // ROWS
+    entries, count = tbs.union_plan(torch.as_tensor(lut), torch.as_tensor(nvalid), block, L)
+    out = torch.zeros(B, H, L, d)
+    ar = torch.arange(ROWS)
+
+    def n_slices(c, q_last):  # of column c, for rows up to q_last
+        return max(0, min(spc, (q_last - c * block + ROWS) // ROWS)) if causal else spc
+
+    for h in range(H):
+        for t in range(count.shape[1]):
+            todo = []  # (k0, warp bits) of every slice the CTA stages, in order
+            for e in entries[h, t, :int(count[h, t])].tolist():
+                c, bits = e & (2**24 - 1), e >> 24
+                todo += [(c * block + sl * ROWS, bits)
+                         for sl in range(n_slices(c, min(64 * t + 64, L) - 1))]
+            for w in range(4):
+                q0 = 64 * t + ROWS * w
+                if q0 >= L:
+                    continue
+                qt = qf[:, h, q0:q0 + ROWS]
+                m = torch.full((B, ROWS), -1e30)
+                l, acc = torch.zeros(B, ROWS), torch.zeros(B, ROWS, d)
+                for i in range(0, len(todo), slices):
+                    step = todo[i:i + slices]
+                    on = [bits >> w & 1 and not (causal and k0 > q0 + ROWS - 1)
+                          for k0, bits in step]
+                    if not any(on):
+                        continue
+                    parts = []
+                    for (k0, _), keep in zip(step, on):
+                        sp = scale * (qt @ kf[:, h, k0:k0 + ROWS].transpose(-1, -2))
+                        if rpe is not None:
+                            sp = sp + rpe[q0:q0 + ROWS, k0:k0 + ROWS]
+                        if kpb is not None:
+                            sp = sp + kpb[:, None, k0:k0 + ROWS]
+                        if amb is not None:
+                            sp = sp + amb[q0:q0 + ROWS, k0:k0 + ROWS]
+                        if causal and k0 == q0:  # the diagonal slice
+                            sp = torch.where(ar[None, :] > ar[:, None], -1e30, sp)
+                        parts.append(sp if keep else torch.full_like(sp, -1e30))
+                    s = torch.cat(parts, -1)
+                    vt = torch.cat([vf[:, h, k0:k0 + ROWS] for k0, _ in step], -2)
+                    mx = torch.maximum(m, s.amax(-1))
+                    alpha = torch.exp2((m - mx) * LOG2E)
+                    p = torch.where(s > -5e29, torch.exp2((s - mx[..., None]) * LOG2E), 0.0)
+                    l = l * alpha + p.sum(-1)
+                    hi, lo = _split(p, dtype)
+                    acc = acc * alpha[..., None] + (hi @ vt + lo @ vt)
+                    m = mx
+                out[:, h, q0:q0 + ROWS] = acc / l.clamp_min(1e-30)[..., None]
+    return out.to(dtype)
+
+
+WALK_CASES = dict(CASES,
+                  block32=(2, 2, 128, 32, "fixed_uni_b32", True, {"rpe": True, "kp": "mul"}),
+                  block64=(1, 2, 256, 64, "bigbird_b64", False, {"am": "add"}))
+
+
+def _walk_case(name):
+    if name in CASES:
+        inputs, layout, kw = _case(name)
+        return inputs, layout, kw, 16
+    B, H, L, d, kind, causal, ext = WALK_CASES[name]
+    rng = np.random.default_rng(9)
+    inputs = tuple(rng.normal(size=(B, H, L, d)).astype(np.float32) for _ in range(4))
+    block = 32 if kind == "fixed_uni_b32" else 64
+    layout = (_fixed_layout(H, L, block=32) if kind == "fixed_uni_b32" else
+              jsa.BigBirdSparsityConfig(num_heads=H, block=64).make_layout(L))
+    kw = dict(causal=causal)
+    if ext.get("rpe"):
+        kw["rpe"] = rng.normal(size=(L, L)).astype(np.float32)
+    if "kp" in ext:
+        kw["key_padding_mask"] = (rng.random((B, L)) > 0.2).astype(np.float32)
+        kw["key_padding_mask_mode"] = "mul"
+    if "am" in ext:
+        kw["attn_mask"] = rng.normal(size=(L, L)).astype(np.float32)
+        kw["attn_mask_mode"] = "add"
+    return inputs, layout, kw, block
+
+
+@pytest.mark.parametrize("walk", [(torch.bfloat16, 2), (torch.float16, 2), (torch.bfloat16, 1)],
+                         ids=["bf16", "fp16", "bf16-one-slice"])
+@pytest.mark.parametrize("name", list(WALK_CASES))
+def test_tensor_core_walk_matches_plain_and_pallas(name, walk):
+    """The tensor-core kernel's arithmetic, emulated step by step on the
+    16-bit values (two slices a step, the union walk; one, the per-warp
+    walk's), against the plain version and the Pallas kernel in interpret
+    mode on the same values, within the card's tolerance (2 bf16 ulps of
+    |plain| plus max(2^-14, 2^-12 rms(plain))): the file's mask and layout
+    cases (empty rows; with 'mul' key padding, a fully padded last sample)
+    plus blocks of 32 and 64 (two and four slices a column, the diagonal
+    inside a column). Empty rows and the padded sample are exact zeros."""
+    dtype, slices = walk
+    (q, k, v, _), layout, kw, block = _walk_case(name)
+    if kw.get("key_padding_mask_mode") == "mul":
+        kw["key_padding_mask"][-1] = 0.0  # every key of the last sample padded
+    rounded = [torch.from_numpy(x).to(dtype).float() for x in (q, k, v)]
+    lut, nvalid = tbs.make_layout_lut(layout)
+    tkw = _as(kw, torch.from_numpy)
+    out = _walk(*rounded, lut, nvalid, block, dtype, slices, **tkw).float()
+    assert torch.isfinite(out).all()
+    plain = tbs.block_sparse_attention_gathered(*rounded, lut, nvalid, block, **tkw)
+    pallas = torch.from_numpy(np.array(jsa.block_sparse_attention(
+        *(jnp.asarray(t.numpy()) for t in rounded), layout, block, interpret=True,
+        **_as(kw, jnp.asarray))))
+    for ref in (plain, pallas):
+        assert bool(((out - ref).abs() <= _bf16_tol(ref)).all()), float((out - ref).abs().max())
+    rows = torch.from_numpy(nvalid == 0).repeat_interleave(block, dim=1)  # [H, L]
+    assert not out[:, rows].any()
+    if kw.get("key_padding_mask_mode") == "mul":
+        assert not out[-1].any()
+
+
+@pytest.mark.parametrize("name", ["fixed_uni_per_head", "fixed_horizontal", "variable_random",
+                                  "bigbird_bi", "bslongformer_uni_ranges"])
+def test_union_plan_covers_each_row_with_exact_membership(name):
+    """The union walk's descriptor against the layout: each tile of 64 rows
+    lists the union of its four 16-row warps' block rows' columns, ascending
+    and distinct, and warp w's bit is set exactly on its own row's columns
+    (none for a warp past L); blocks of 16 (four rows a tile) and 32 (two)."""
+    cls, kw, L = LAYOUTS[name]
+    layout = getattr(tsa, cls)(**kw).make_layout(L)
+    block = kw["block"]
+    lut, nvalid = (torch.from_numpy(x) for x in tbs.make_layout_lut(layout))
+    entries, count = tbs.union_plan(lut, nvalid, block, L)
+    H, n_tiles = layout.shape[0], -(-L // 64)
+    assert entries.dtype == count.dtype == torch.int32
+    assert tuple(count.shape) == (H, n_tiles) and entries.shape[:2] == count.shape
+    for h in range(H):
+        for t in range(n_tiles):
+            e = entries[h, t, :int(count[h, t])].long()
+            cols, bits = (e & (2**24 - 1)).tolist(), (e >> 24).tolist()
+            assert cols == sorted(set(cols))
+            union = set()
+            for w in range(4):
+                q0 = 64 * t + 16 * w
+                own = set(np.nonzero(layout[h, q0 // block])[0].tolist()) if q0 < L else set()
+                assert {c for c, b in zip(cols, bits) if b >> w & 1} == own, (h, t, w)
+                union |= own
+            assert set(cols) == union and all(0 < b < 16 for b in bits)
+
+
+def test_union_plan_is_cached_per_layout(monkeypatch):
+    """``cached_union_plan`` builds the descriptor once while the same LUT
+    tensors come back unmodified, and again for other tensors, an in-place
+    edit, another block or length."""
+    calls = []
+    real = tbs.union_plan
+    monkeypatch.setattr(tbs, "union_plan", lambda *args: calls.append(args[2:]) or real(*args))
+    monkeypatch.setattr(tbs, "_union_memo", None)
+    layout = _fixed_layout(2, 128)
+    lut, nvalid = (torch.from_numpy(x) for x in tbs.make_layout_lut(layout))
+    first = tbs.cached_union_plan(lut, nvalid, 16, 128)
+    assert tbs.cached_union_plan(lut, nvalid, 16, 128) is first and len(calls) == 1
+    for args in ((lut.clone(), nvalid, 16, 128), (lut, nvalid, 32, 128), (lut, nvalid, 16, 64)):
+        tbs.cached_union_plan(*args)
+    nvalid.add_(0)  # an in-place edit bumps the version counter
+    again = tbs.cached_union_plan(lut, nvalid, 16, 128)
+    assert len(calls) == 5 and again is not first
+    assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
 def _bf16_tol(ref):
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
     return 2 * ulp + max(2.0**-14, 2.0**-12 * float(ref.pow(2).mean().sqrt()))
@@ -340,28 +561,37 @@ def _bf16_tol(ref):
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version_on_card():
-    """On the card: ``ds_block_sparse_fwd`` against the plain version on
-    the same inputs (every case above, in bf16, fp16 and fp32, through the
-    model's [B, S, n, d] strides), within 2 bf16 ulps of |plain| plus
-    max(2^-14, 2^-12 rms(plain)), as ``chip_smoke.py`` states it; and the
-    autograd function launches the kernel once."""
+    """On the card: both routes against the plain version on the same
+    inputs (every case above and the walk's blocks of 32 and 64, in bf16
+    and fp16 on ``ds_block_sparse_fwd`` and fp32 on
+    ``ds_block_sparse_fwd_fp32``, through the model's [B, S, n, d]
+    strides), within 2 bf16 ulps of |plain| plus max(2^-14, 2^-12
+    rms(plain)), as ``chip_smoke.py`` states it; each launch counted on its
+    route; and the autograd function launches its route's kernel once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
-    for name in CASES:
-        (q, k, v, do), layout, kw = _case(name)
+    tbs.reset_launch_counts()
+    n = 0
+    for name in WALK_CASES:
+        (q, k, v, do), layout, kw, block = _walk_case(name)
         lut, nvalid = (torch.from_numpy(x).to(dev) for x in tbs.make_layout_lut(layout))
         tkw = _as(kw, lambda x: torch.from_numpy(x).to(dev))
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             # [B, H, L, d] views of [B, L, H, d] buffers, as the model passes them
             qt, kt, vt = (torch.from_numpy(x).to(dev, dtype).transpose(1, 2).contiguous()
                           .transpose(1, 2) for x in (q, k, v))
-            out = tbs.block_sparse_fwd(qt, kt, vt, lut, nvalid, 16, **tkw)
-            ref = tbs.block_sparse_attention_gathered(qt, kt, vt, lut, nvalid, 16, **tkw).float()
+            out = tbs.block_sparse_fwd(qt, kt, vt, lut, nvalid, block, **tkw)
+            ref = tbs.block_sparse_attention_gathered(qt, kt, vt, lut, nvalid, block,
+                                                      **tkw).float()
             torch.cuda.synchronize()
             assert bool(((out.float() - ref).abs() <= _bf16_tol(ref)).all()), (name, dtype)
-    tbs.reset_launch_counts()
-    qg = qt.clone().requires_grad_()
-    tbs.block_sparse_attention(qg, kt, vt, layout, 16, **tkw).backward(
-        torch.from_numpy(do).to(dev, qg.dtype))
-    assert tbs.launch_counts == {"block_sparse_fwd": 1} and qg.grad is not None
+        n += 1
+    assert tbs.launch_counts == {"block_sparse_fwd": 2 * n, "block_sparse_fwd_fp32": n}
+    for dtype, sfx in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        tbs.reset_launch_counts()
+        qg = qt.to(dtype).clone().requires_grad_()
+        tbs.block_sparse_attention(qg, kt.to(dtype), vt.to(dtype), layout, block, **tkw).backward(
+            torch.from_numpy(do).to(dev, dtype))
+        assert tbs.launch_counts == {"block_sparse_fwd": 0, "block_sparse_fwd_fp32": 0,
+                                     f"block_sparse_fwd{sfx}": 1} and qg.grad is not None
