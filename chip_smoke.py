@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
-                                    train,moe_train,sparse_train,evo_kernels,evo_path]
+                                    train,moe_train,sparse_train,evo_kernels,evo_path,v1,
+                                    hybrid]
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
     python3 chip_smoke.py --versus DIR [--phases kernels,e2e]
@@ -204,6 +205,39 @@ code 1 otherwise):
    the block through the plain versions: every output finite, and the
    output (off the fully masked rows) and all five cotangents of each call
    within relative L2 1e-2 of the plain path's.
+12. v1: first the paged kernels in the v1 path's layout (a dense
+   [B, Smax, 8, 128] cache viewed as a pool of 128-slot blocks with an
+   identity block table, 32 / 8 heads) against the plain version with the
+   ``kernels`` tolerance: the prefills and decodes of both waves and of
+   the hybrid phase's rollout (4 x 64 + 32), each decode at one split and
+   at the dispatcher's count (2 at Smax 1024), timed beside
+   the bound. Then Mistral-7B at full width and depth (32 layers, bf16,
+   random weights from seed 0) through ``init_inference``: with the launch
+   counts reset just before and read just after, ``generate`` of 4 prompts
+   x 20 tokens + 44 (Smax 128: the prefill kernel and the per-token
+   decode), of 8 x 960 + 64 (Smax 1024: the prefill and the split decode
+   with its merge) and one ``forward`` of [1, 2048] (the flash forward);
+   each of the four paged routes and the flash forward must launch. Then
+   each wave's prefill (a generate of one token) and decode ms per step,
+   tokens/s, the device's idle share over the larger wave's decode steps
+   (torch.profiler: the difference of two profiled generates, all tokens
+   and one), peak memory; and each wave's last-token logits after its
+   prefill and after one decode step, kernels against the dense route on
+   the same weights (``attention_impl="reference"``), relative L2 within
+   5e-2, the argmax agreement printed.
+13. hybrid: the earlier engines freed, the ``train`` phase's configuration
+   (Mistral-7B width, 8 layers, fp32 masters, bf16, fused AdamW; a
+   constant lr) through ``initialize`` with ``hybrid_engine.enabled``:
+   ``generate`` twice (4 x 64 + 32), ``train_batch`` x 2, ``generate``. The
+   bf16 view must be written twice (at its build and after the step
+   counter moved), a weight of it must change, the train mode must come
+   back, the two rollouts on the same weights must agree, and the paged,
+   flash and fused Adam kernels must each launch; the writes' and the
+   generates' ms are printed. Then the rollout's last-token logits after a
+   prefill and a decode step against the dense route on the same weights,
+   relative L2 within 5e-2; and its generate timed in turns against an
+   engine over the live fp32 masters (cast where used), each with its
+   device busy time.
 
 ``--mutant`` copies the package into ``build/mutant/<name>`` once per
 mutant: the grouped matmul kernels dropping one row block's products
@@ -222,7 +256,9 @@ and, alone, the flash forward skipping each CTA's last live k-tile
 (``--phases build,train_kernels``, the same), the paged prefill
 skipping each CTA's last live k-tile and, alone, the paged decode
 skipping each split's last live block (``--phases build,kernels``, the
-same): eleven copies. It passes when every mutant is caught.
+same), and the v1 path with its identity table's block base shifted by one
+block (``--phases build,v1`` must fail on the logits): twelve copies. It
+passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
 grouped matmul and the Evoformer kernels against copies under
@@ -353,6 +389,19 @@ EVO_KERNELS = {  # name -> the TPU kernel it replaces (db1 is summed inside the 
     "evo_fwd": f"{TPU_EVO}:113", "evo_bwd_dq": f"{TPU_EVO}:231",
     "evo_bwd_dkdv": f"{TPU_EVO}:265", "evo_bwd_db1": f"{TPU_EVO}:346",
     "evo_bwd_db2": f"{TPU_EVO}:306"}
+# the v1 path: Mistral-7B at full width and depth through init_inference, two
+# waves of (prompts, prompt tokens, new tokens): Smax 128 (one 128-slot block a
+# table: the prefill kernel and the per-token decode) and Smax 1024 (eight
+# blocks: the prefill and the split decode with its merge); then one forward
+V1_WAVES = ((4, 20, 44), (8, 960, 64))
+V1_FORWARD = (1, 2048)
+V1_PROFILE_STEPS = 8
+# the hybrid engine on the train phase's configuration, at a constant lr (the
+# WarmupLR of TRAIN_DS_CONFIG is 0 for the first two steps, which would leave
+# the view unchanged); rollouts of HYBRID_NEW tokens after HYBRID_PROMPT prompts
+HYBRID_DS_CONFIG = dict({k: v for k, v in TRAIN_DS_CONFIG.items() if k != "scheduler"},
+                        hybrid_engine={"enabled": True})
+HYBRID_PROMPT, HYBRID_NEW = (4, 64), 32
 # the Evoformer path: AlphaFold-2's fine-tuning crop (AF2 supplementary
 # information, Table 4: N_res 384, N_clust 512) with OpenFold's Evoformer
 # heads (c_hidden_msa_att 32 x 8 heads, c_hidden_pair_att 32 x 4 heads);
@@ -2722,6 +2771,374 @@ def phase_evo_path():
     return launches, block
 
 
+# ---------------------------------------------------------------------------
+# phase: init_inference and the v1 KV-cache engine on the paged kernels
+# ---------------------------------------------------------------------------
+
+def _v1_kernel_checks(pa):
+    """The paged kernels at the v1 path's layout (block 128, identity
+    tables, Mistral's 32 / 8 heads, d 128) against the plain version: the
+    prefills and decodes of both v1 waves and of the hybrid phase's rollout,
+    each decode with the split count the dispatcher resolves and at one
+    split. Returns {kernel: measurement} of the 8 x 1024 wave."""
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer import V1_BLOCK
+
+    nkv, g, d, bs = 8, 4, 128, V1_BLOCK
+    nq = nkv * g
+    failures, res = [], {}
+    worst = [0.0]
+
+    def case(seed, B, smax, seq, pos):
+        nb = smax // bs
+        tables = (torch.arange(B, dtype=torch.int32)[:, None] * nb
+                  + torch.arange(nb, dtype=torch.int32)[None, :])
+        return _make_case(seed, nkv, g, d, bs, tables, seq, pos, False)
+
+    def check(tag, out, q, k, v, tb, si, po, chunk=256):
+        # the plain version gathers each token's whole context: in chunks of tokens
+        ref = torch.cat([pa.paged_attention_reference(q[c:c + chunk], k, v, tb, si[c:c + chunk],
+                                                      po[c:c + chunk], bs)
+                         for c in range(0, q.shape[0], chunk)])
+        e, frac = _err(out, ref)
+        worst[0] = max(worst[0], frac)
+        if not frac <= 1.0:
+            failures.append(f"{tag}: max_abs_err {e:.3e}, {frac:.2f}x its tolerance")
+        return e
+
+    for B, S, new in (*V1_WAVES, (*HYBRID_PROMPT, HYBRID_NEW)):
+        smax = -(-(S + new) // bs) * bs
+        nb = smax // bs
+        # the prefill: B prompts of S tokens from position 0
+        seq = torch.arange(B, dtype=torch.int32).repeat_interleave(S)
+        pos = torch.arange(S, dtype=torch.int32).repeat(B)
+        q, k, v, tb, si, po, _ = case(B + S, B, smax, seq, pos)
+        T = q.shape[0]
+        if pa.resolve_q_tile(T, B) == 1:
+            raise RuntimeError(f"{B} x {S} tokens would not take the prefill route")
+        fn = lambda: pa.paged_prefill(q, k, v, tb, si, po, bs)  # noqa: E731
+        e = check(f"paged_prefill B={B} S={S} block {bs}", fn(), q, k, v, tb, si, po)
+        n_bytes = 2 * T * nq * d * 2 + T * nkv * 2 * d * 2 + 2 * T * 4
+        b_ms, b_by = bound_ms(n_bytes, 4 * nq * d * B * (S * (S + 1) // 2))
+        res[("paged_prefill", B, S)] = dict(err=e, ms=time_ms(fn, iters=10, warmup=2),
+                                         device_ms=queued_ms(fn, iters=10), bound_ms=b_ms,
+                                         bound_by=b_by, tokens=T)
+        # the decode: one token a sequence at the wave's last position
+        seq = torch.arange(B, dtype=torch.int32)
+        pos = torch.full((B, ), S + new - 1, dtype=torch.int32)
+        q, k, v, tb, si, po, _ = case(B + new, B, smax, seq, pos)
+        splits = pa.resolve_kv_splits(B, B, nb)
+        ctx = S + new
+        n_bytes = 2 * B * nq * d * 2 + B * ctx * nkv * 2 * d * 2 + tb.numel() * 4 + 2 * B * 4
+        b_ms, b_by = bound_ms(n_bytes, 4 * nq * d * B * ctx)
+        for ks in sorted({1, splits}):
+            name = "paged_decode" if ks == 1 else "paged_decode_split"
+            fn = lambda ks=ks: pa.paged_decode(q, k, v, tb, si, po, bs, kv_splits=ks)  # noqa: E731
+            e = check(f"{name} B={B} Smax={smax} splits={ks} block {bs}", fn(), q, k, v, tb, si,
+                      po)
+            res[(name, B, S)] = dict(err=e, ms=time_ms(fn), device_ms=queued_ms(fn),
+                                  bound_ms=b_ms, bound_by=b_by, splits=ks, context=ctx)
+        log(f"[v1] block {bs}, wave B={B} x S={S} (+{new}, Smax {smax}, {nb} blocks a table, "
+            f"the dispatcher's splits {splits}): "
+            + "; ".join(f"{n} {m['ms']:.4f} ms, {m['device_ms']:.4f} with the host queued ahead "
+                        f"(bound {m['bound_ms']:.4f}, {m['bound_by']}), max_abs_err "
+                        f"{m['err']:.3e}" for (n, b, s), m in res.items() if (b, s) == (B, S)))
+    log(f"[v1] block-{bs} kernel checks: largest error {worst[0]:.3f} of its tolerance "
+        f"({TOL_ULPS} bf16 ulp + 2^-14); worst_error_fraction={worst[0]:.6g}")
+    if failures:
+        raise RuntimeError("v1 kernels disagree with the plain version: " + "; ".join(failures))
+    big = V1_WAVES[-1][:2]
+    return {n: m for (n, b, s), m in res.items() if (b, s) == big}
+
+
+def _generate_ms(engine, prompt, new, repeats=3):
+    """Median wall (synchronised: the tokens come back to the host) of
+    ``engine.generate(prompt, new)`` over ``repeats`` calls, in ms."""
+    import numpy as np
+
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        engine.generate(prompt, max_new_tokens=new)
+        walls.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(walls))
+
+
+def _profiled_generate(engine, prompt, new):
+    """(device busy ms, wall ms) of one ``generate`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate(prompt, max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    return sum(_device_ms_by_name(prof).values()), wall
+
+
+def _route_parity(tag, cfg, params, prompt, new):
+    """Last-token logits of the paged route (``cfg``) against the dense
+    route (``attention_impl="reference"``) on the same weights, after a
+    prefill of ``prompt`` [B, S] and after one decode step that feeds both
+    the paged route's greedy token, in a cache of S + ``new`` rounded up to
+    a block, as ``generate`` allocates it. Logs and returns [(rel L2,
+    argmax agreement)] of the two."""
+    import dataclasses
+
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer import V1_BLOCK, forward_with_cache, init_kv_cache
+
+    B, S = prompt.shape
+    smax = -(-(S + new) // V1_BLOCK) * V1_BLOCK
+    ids, tok, pair = torch.from_numpy(prompt), None, []
+    with torch.no_grad():
+        for c in (cfg, dataclasses.replace(cfg, attention_impl="reference")):
+            cache = init_kv_cache(c, B, smax)
+            first, cache = forward_with_cache(c, params, ids, cache)
+            tok = torch.argmax(first[:, -1:], dim=-1) if tok is None else tok
+            second, _ = forward_with_cache(c, params, tok, cache)
+            pair.append((first[:, -1], second[:, -1]))
+    (pk, dk), (pd, dd) = pair
+    if not all(bool(torch.isfinite(x).all()) for x in (pk, dk)):
+        raise RuntimeError(f"{tag}: non-finite logits through the kernels")
+    rows = []
+    for what, a, b in (("prefill", pk, pd), ("decode", dk, dd)):
+        rel = float((a - b).norm() / b.norm())
+        same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        rows.append((rel, same))
+        log(f"{tag} {what} last-token logits, paged kernels vs the dense route: rel L2 "
+            f"{rel:.3e} (tolerance {LOGITS_REL_L2_TOL}); argmax agrees on {100 * same:.0f}% of "
+            f"rows")
+    return rows
+
+
+def phase_v1():
+    """Returns the launches on the v1 path and its measurements."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import mistral
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    kernels = _v1_kernel_checks(pa)
+    log(f"[v1] kernel checks done at {time.perf_counter() - t_phase:.1f}s")
+
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(mistral("7b", seed=0),
+                                                config={"dtype": "bfloat16"})
+    torch.cuda.synchronize()
+    mc = engine.model_config
+    log(f"[v1] Mistral-7B through init_inference: {mc.num_layers} layers, hidden "
+        f"{mc.hidden_size}, heads {mc.num_heads}/{mc.num_kv_heads}, "
+        f"{engine.module.num_params() / 1e9:.3f}B params, bf16, built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, mc.vocab_size, (B, S)).astype(np.int32) for B, S, _ in V1_WAVES]
+    fwd_ids = rng.integers(0, mc.vocab_size, V1_FORWARD).astype(np.int32)
+
+    # the main path: both waves' generate, then one forward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    outs, cold = [], []
+    for prompt, (B, S, new) in zip(prompts, V1_WAVES):
+        t0 = time.perf_counter()
+        outs.append(engine.generate(prompt, max_new_tokens=new))
+        cold.append(time.perf_counter() - t0)
+    logits = engine.forward(fwd_ids)
+    torch.cuda.synchronize()
+    launches = {**pa.launch_counts, "flash_fwd": fa.launch_counts["flash_fwd"]}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for out, prompt, (B, S, new) in zip(outs, prompts, V1_WAVES):
+        if (out.shape != (B, S + new) or not (out[:, :S] == prompt).all()
+                or not ((0 <= out) & (out < mc.vocab_size)).all()):
+            raise RuntimeError(f"wave {B} x {S}: bad generation, shape {out.shape}")
+    if (tuple(logits.shape) != (*V1_FORWARD, mc.vocab_size)
+            or not bool(torch.isfinite(logits).all())):
+        raise RuntimeError(f"forward: bad logits {tuple(logits.shape)}")
+    log(f"[v1] main path: generate {[f'{B} x {S} + {n}' for B, S, n in V1_WAVES]} in "
+        f"{[round(1e3 * c, 1) for c in cold]} ms (first calls), forward {list(V1_FORWARD)}; "
+        f"peak memory {peak:.2f} GiB")
+    log(f"[v1] kernel launches on the main path: {launches}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise RuntimeError(f"kernel paths never launched on the v1 path: {missing}")
+
+    log(f"[v1] main path done at {time.perf_counter() - t_phase:.1f}s")
+    # warmed times: prefill (generate of one token) and decode per step
+    waves = []
+    for prompt, (B, S, new) in zip(prompts, V1_WAVES):
+        pre = _generate_ms(engine, prompt, 1)
+        full = _generate_ms(engine, prompt, new, repeats=2)
+        step = (full - pre) / (new - 1)
+        waves.append(dict(batch=B, prompt=S, new=new, prefill_ms=pre, generate_ms=full,
+                          decode_ms_per_step=step, decode_tok_s=1e3 * B / step))
+        log(f"[v1] wave {B} x {S} + {new}: prefill {pre:.2f} ms (generate of one token, median "
+            f"of 3), generate {full:.2f} ms (median of 2), decode {step:.3f} ms/step, "
+            f"{1e3 * B / step:.1f} tok/s")
+    # the device's idle share over a decode stretch of the larger wave
+    B, S, _ = V1_WAVES[-1]
+    new = 1 + V1_PROFILE_STEPS
+    busy_1, wall_1 = _profiled_generate(engine, prompts[-1], 1)
+    busy_n, wall_n = _profiled_generate(engine, prompts[-1], new)
+    busy = (busy_n - busy_1) / (new - 1)
+    wall = (wall_n - wall_1) / (new - 1)
+    step = waves[-1]["decode_ms_per_step"]
+    log(f"[v1] decode profile, {B} sequences x {new - 1} steps from position {S} (the "
+        f"difference of two profiled generates, {new} tokens and 1): device busy {busy:.3f} "
+        f"ms/step, wall {wall:.3f} "
+        f"ms/step profiled, {step:.3f} unprofiled: device idle {100 * (1 - busy / step):.1f}% "
+        f"of the unprofiled wall, {100 * (1 - busy / wall):.1f}% of the profiled one")
+
+    log(f"[v1] timings and profile done at {time.perf_counter() - t_phase:.1f}s")
+    # parity: last-token logits, kernels vs the dense route on the same
+    # weights, after a prefill and one decode step
+    rows = [r for prompt, (B, S, new) in zip(prompts, V1_WAVES)
+            for r in _route_parity(f"[v1] wave {B} x {S}", mc, engine.params, prompt, new)]
+    rels, agree = [r for r, _ in rows], [a for _, a in rows]
+    worst_rel = max(rels)
+    log(f"[v1] largest logits rel L2 {worst_rel:.3e}; worst_error_fraction="
+        f"{worst_rel / LOGITS_REL_L2_TOL:.6g}")
+    if not worst_rel <= LOGITS_REL_L2_TOL:
+        raise RuntimeError(f"v1 logits disagree: rel L2 {worst_rel:.3e} > {LOGITS_REL_L2_TOL}")
+    del engine, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(kernels_block128=kernels, waves=waves, peak_gib=peak,
+                          decode_device_busy_ms=busy, decode_wall_ms=step,
+                          logits_rel_l2=worst_rel, argmax_agreement=min(agree))
+
+
+def phase_hybrid():
+    """The hybrid engine (``initialize`` with ``hybrid_engine.enabled``) on
+    the ``train`` phase's configuration: generate, generate, train_batch x
+    2, generate. Then its rollout's logits against the dense route on the
+    same weights, and its generate timed in turns against an engine over
+    the live fp32 masters (cast where used).
+    Returns the launches and measurements."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = mistral_config("7b", num_layers=TRAIN_LAYERS)
+    model = TransformerLM(cfg, trainable=True, seed=0)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=HYBRID_DS_CONFIG)
+    if not isinstance(engine, deepspeed_tpu_torch.DeepSpeedHybridEngine):
+        raise RuntimeError(f"initialize returned {type(engine).__name__}")
+    writes = []
+    write_view = engine._write_view
+
+    def timed_write():  # each refresh of the view, synchronised and timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write_view()
+        torch.cuda.synchronize()
+        writes.append(1e3 * (time.perf_counter() - t0))
+
+    engine._write_view = timed_write
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, HYBRID_PROMPT).astype(np.int32)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                       (engine.train_batch_size(), TRAIN_SEQ)).astype(np.int32)}
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    fad.reset_launch_counts()
+    out1 = engine.generate(prompt, max_new_tokens=HYBRID_NEW)
+    out1b = engine.generate(prompt, max_new_tokens=HYBRID_NEW)
+    view_wq = engine._inference_engine.params["blocks"][0]["wq"]
+    wq_before = view_wq.clone()
+    losses = [float(engine.train_batch(batch)) for _ in range(2)]
+    out2 = engine.generate(prompt, max_new_tokens=HYBRID_NEW)
+    torch.cuda.synchronize()
+    launches = {**pa.launch_counts, **fa.launch_counts, **fad.launch_counts}
+    latency = engine.generate_latency()
+    changed = float((view_wq != wq_before).float().mean())
+    log(f"[hybrid] Mistral-7B width, {TRAIN_LAYERS} layers, fp32 masters -> a bf16 view of "
+        f"{sum(v.numel() * v.element_size() for v, _ in engine._view_pairs) / 2**30:.2f} GiB "
+        f"({len(engine._view_pairs)} slots); generate {list(HYBRID_PROMPT)} + "
+        f"{HYBRID_NEW}, generate, train_batch x 2 (losses {[round(x, 5) for x in losses]}), "
+        f"generate")
+    log(f"[hybrid] view writes {len(writes)} ({[round(w, 2) for w in writes]} ms; the first "
+        f"at build), steps {engine._inference_params_step}, train mode after generate "
+        f"{engine._train_mode}; generate {[round(1e3 * s, 1) for s in latency]} ms; "
+        f"{100 * changed:.1f}% of layer 0's bf16 wq changed after the steps; rollouts before / "
+        f"after the steps equal: {bool(np.array_equal(out1, out2))}")
+    log(f"[hybrid] kernel launches: {launches}")
+    # the rollout's weights through the dense route
+    ie = engine._inference_engine
+    rows = _route_parity("[hybrid] after two steps,", ie.model_config, ie.params, prompt,
+                         HYBRID_NEW)
+    worst_rel = max(r for r, _ in rows)
+    # the engine's bf16 view against the live fp32 masters cast at every
+    # use (what the view costs and saves), in turns
+    engines = {"view": ie, "masters": InferenceEngine(model, engine._inference_config(),
+                                                      params=engine.module.params())}
+    same = bool(np.array_equal(engines["masters"].generate(prompt, max_new_tokens=HYBRID_NEW),
+                               out2))
+    turns = {k: [] for k in engines}
+    for k in ("view", "masters", "masters", "view"):
+        turns[k].append(_generate_ms(engines[k], prompt, HYBRID_NEW))
+    busy = {k: _profiled_generate(e, prompt, HYBRID_NEW)[0] for k, e in engines.items()}
+    log(f"[hybrid] generate {list(HYBRID_PROMPT)} + {HYBRID_NEW} in turns (median of 3 each; "
+        f"device busy of one profiled call): " + "; ".join(
+            f"{k} {[round(t, 2) for t in turns[k]]} ms, busy {busy[k]:.2f} ms" for k in engines)
+        + f"; the masters' rollout equals the view's: {same}")
+    del engines
+    failures = []
+    if not worst_rel <= LOGITS_REL_L2_TOL:
+        failures.append(f"rollout logits rel L2 {worst_rel:.3e} > {LOGITS_REL_L2_TOL} against "
+                        f"the dense route")
+    if len(writes) != 2 or engine._inference_params_step != 2 or int(engine.state["step"]) != 2:
+        failures.append(f"view written {len(writes)} times (expected 2: at build and after the "
+                        f"step counter moved), at step {engine._inference_params_step}")
+    if not changed > 0:
+        failures.append("the view's wq did not change after two steps")
+    if not engine._train_mode:
+        failures.append("generate did not restore the train mode")
+    if not np.array_equal(out1, out1b):
+        failures.append("greedy rollouts on the same weights differ")
+    for out in (out1, out2):
+        if out.shape != (HYBRID_PROMPT[0], HYBRID_PROMPT[1] + HYBRID_NEW) or not (
+                (0 <= out) & (out < cfg.vocab_size)).all():
+            failures.append(f"bad rollout {out.shape}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"losses {losses}")
+    for key in ("paged_prefill", "paged_decode", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                "fused_adam"):
+        if launches[key] <= 0:
+            failures.append(f"{key} never launched")
+    if failures:
+        raise RuntimeError("hybrid engine: " + "; ".join(failures))
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(view_write_ms=writes, generate_ms=[1e3 * s for s in latency],
+                          losses=losses, wq_changed_fraction=changed, logits_rel_l2=worst_rel,
+                          generate_in_turns_ms=turns, generate_busy_ms=busy)
+
+
 # the mutant checks. Grouped matmul: a copy that drops one row block's
 # contribution (gmm on the wgmma route: the second 128-row tile's products;
 # tgmm on both routes: each expert's first row block) must fail the
@@ -2783,6 +3200,11 @@ PAGED_MUTATIONS = _in(SOURCE, (  # the prefill skips each CTA's last live k-tile
     ("const int n_kt = p_hi > p_lo ? (p_hi - 1) / kKT - kt_lo + 1 : 0;",
      "const int n_kt = p_hi > p_lo ? (p_hi - 1) / kKT - kt_lo : 0;"),
 ))
+V1_TABLE_MUTATIONS = _in(  # the v1 identity table's block base shifted by one block
+    "deepspeed_tpu_torch/models/transformer.py", (
+        ("cv.view(B * Smax, nkv, d), tables, seq_idx, pos, V1_BLOCK,",
+         "cv.view(B * Smax, nkv, d), (tables + 1) % (B * Smax // V1_BLOCK), seq_idx, pos, "
+         "V1_BLOCK,"),))
 DECODE_MUTATIONS = _in(SOURCE, (  # the decode skips each split's last live block
     ("const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits);",
      "const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits) - 1;"),
@@ -2800,6 +3222,7 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "flash_fwd": (FLASH_FWD_MUTATIONS, "train_kernels", "flash kernels disagree"),
     "paged_prefill": (PAGED_MUTATIONS, "kernels", "kernels disagree with the plain version"),
     "paged_decode": (DECODE_MUTATIONS, "kernels", "kernels disagree with the plain version"),
+    "v1_table": (V1_TABLE_MUTATIONS, "v1", "v1 logits disagree"),
 }
 
 
@@ -2992,7 +3415,9 @@ def _run_one_mutant(name):
         if line.startswith(f"[{phase}]") or "disagree" in line:
             log(f"[mutant] {name}: {line[:4000]}")
     caught = proc.returncode != 0 and failure in proc.stdout
-    if phase != "moe_kernels":
+    # a wrong identity table moves whole blocks of context: the logits'
+    # relative L2 is then of order 1, some 20x its tolerance, not 100x
+    if phase not in ("moe_kernels", "v1"):
         factor = _worst_error_fraction(proc.stdout, phase) or 0.0
         log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
             f"{MUTANT_MIN_FACTOR:.0f}x)")
@@ -3278,7 +3703,7 @@ def run_versus(other, phases):
 
 
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
-          "moe_train", "sparse_train", "evo_kernels", "evo_path")
+          "moe_train", "sparse_train", "evo_kernels", "evo_path", "v1", "hybrid")
 
 
 def main():
@@ -3332,7 +3757,7 @@ def main():
            "moe_kernels": phase_moe_kernels, "sparse_kernels": phase_sparse_kernels,
            "e2e": phase_e2e, "train": phase_train, "moe_train": phase_moe_train,
            "sparse_train": phase_sparse_train, "evo_kernels": phase_evo_kernels,
-           "evo_path": phase_evo_path}
+           "evo_path": phase_evo_path, "v1": phase_v1, "hybrid": phase_hybrid}
     failed = []
     out = {}
     for name in PHASES:
@@ -3354,8 +3779,14 @@ def main():
     if tuple(phases) != PHASES:
         return 0
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    v1_launches, v1 = out["v1"]
+    hybrid_launches, hybrid = out["hybrid"]
     kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
-                "launches": int(out["e2e"][name]), "max_abs_err": m["err"],
+                "launches": int(out["e2e"][name]), "v1_launches": int(v1_launches[name]),
+                "hybrid_launches": int(hybrid_launches[name]),
+                **({"v1_block128": v1["kernels_block128"][name]}
+                   if name in v1["kernels_block128"] else {}),
+                "max_abs_err": m["err"],
                 **{k: m[k] for k in keys},
                 **{k: m[k] for k in ("device_ms", "descriptors_ms", "flash_fwd_same_work_ms",
                                      "kernel_ms", "kernel_device_ms", "merge_ms",
@@ -3367,8 +3798,10 @@ def main():
     for name, m in out["train_kernels"].items():
         src, replaces = TRAIN_KERNELS[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": int(launches[name]), "max_abs_err": m["err"],
-                 **{k: m[k] for k in keys}}
+                 "launches": int(launches[name]), "hybrid_launches": int(hybrid_launches[name]),
+                 "max_abs_err": m["err"], **{k: m[k] for k in keys}}
+        if name == "flash_fwd":
+            entry["v1_launches"] = int(v1_launches[name])
         if name == "fused_adam":
             entry["full_set"] = adam_full
         kernels.append(entry)
@@ -3399,6 +3832,8 @@ def main():
                         "replaces": EVO_KERNELS[name], "launches": int(evo_launches[name]),
                         "max_abs_err": m["err"], **{k: m[k] for k in keys}, **extra})
     kernels[-1]["evo_block"] = evo_block
+    kernels[0]["v1_path"] = {k: v for k, v in v1.items() if k != "kernels_block128"}
+    kernels[0]["hybrid_path"] = hybrid
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,19 +1,24 @@
 """deepspeed_tpu_torch: the PyTorch/CUDA port of ``deepspeed_tpu``.
 
-Public surface of the training slice, as ``deepspeed_tpu/__init__.py:35-127``:
-``initialize`` returns ``(engine, optimizer, dataloader, lr_scheduler)``;
-``add_config_arguments`` adds the DeepSpeed CLI flags. The "model" is an
-``nn.Module`` with ``loss(batch)`` (``models.TransformerLM(...,
+Public surface, as ``deepspeed_tpu/__init__.py:35-127``: ``initialize``
+returns ``(engine, optimizer, dataloader, lr_scheduler)``, the engine a
+``DeepSpeedHybridEngine`` when the config enables ``hybrid_engine``;
+``init_inference`` returns the v1 ``InferenceEngine``;
+``add_config_arguments`` adds the DeepSpeed CLI flags. The training "model"
+is an ``nn.Module`` with ``loss(batch)`` (``models.TransformerLM(...,
 trainable=True)``), or a bare ``loss_fn(params, batch)`` paired with
-``model_parameters``. The serving slice lives in ``inference.v2``.
+``model_parameters``. The ragged serving engine lives in ``inference.v2``.
 """
 
 __version__ = "0.1.0"
 
 from torch import nn
 
+from .inference.config import DeepSpeedInferenceConfig
+from .inference.engine import InferenceEngine
 from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 from .runtime.engine import DeepSpeedEngine
+from .runtime.hybrid_engine import DeepSpeedHybridEngine
 
 
 def initialize(args=None,
@@ -45,9 +50,10 @@ def initialize(args=None,
     ds_config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
     if not isinstance(model, nn.Module) and callable(model):
         model = _FunctionalModel(model, model_parameters)
-    engine = DeepSpeedEngine(model=model, config=ds_config, optimizer=optimizer,
-                             lr_scheduler=lr_scheduler, training_data=training_data,
-                             collate_fn=collate_fn)
+    hybrid = ds_config.hybrid_engine_config.enabled
+    engine = (DeepSpeedHybridEngine if hybrid else DeepSpeedEngine)(
+        model=model, config=ds_config, optimizer=optimizer, lr_scheduler=lr_scheduler,
+        training_data=training_data, collate_fn=collate_fn)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
@@ -70,6 +76,19 @@ class _FunctionalModel(nn.Module):
         return self._loss_fn(params, batch)
 
 
+def init_inference(model=None, config=None, *, device=None, **kwargs):
+    """Build the v1 ``InferenceEngine`` around ``model`` (a
+    ``models.TransformerLM``; ``deepspeed.init_inference``'s semantics,
+    ``deepspeed_tpu/__init__.py:106``). ``config``: a
+    ``DeepSpeedInferenceConfig`` or its JSON dict (aliases accepted), else
+    the keyword arguments. ``device`` defaults to CUDA."""
+    if config is None:
+        config = kwargs
+    if not isinstance(config, DeepSpeedInferenceConfig):
+        config = DeepSpeedInferenceConfig.from_dict(config or {})
+    return InferenceEngine(model, config, device=device)
+
+
 def add_config_arguments(parser):
     """``deepspeed.add_config_arguments``: the DeepSpeed CLI flags."""
     group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
@@ -84,5 +103,6 @@ def add_config_arguments(parser):
     return parser
 
 
-__all__ = ["DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine", "add_config_arguments",
+__all__ = ["DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine", "DeepSpeedHybridEngine",
+           "DeepSpeedInferenceConfig", "InferenceEngine", "add_config_arguments", "init_inference",
            "initialize"]

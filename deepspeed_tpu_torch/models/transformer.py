@@ -18,9 +18,17 @@ the grouped matmul kernels, ``"einsum"`` through the one-hot dispatch as
 plain products; the gating draws from an explicit ``torch.Generator``
 (``loss(batch, generator=...)``). ``sparse_attention`` (the ds_config's
 block, MHA only) sends every layer's training attention through the
-block-sparse kernel (``ops/block_sparse_attention.py``). The v1 KV-cache
-path, remat, sequence parallelism and dropout are not ported yet; a config
-that asks for them is refused. MoE and block-sparse models are not served.
+block-sparse kernel (``ops/block_sparse_attention.py``). Remat, sequence
+parallelism and dropout are not ported yet; a config that asks for them is
+refused.
+
+The v1 KV-cache path (``init_kv_cache``, ``forward_with_cache``, served by
+``inference/engine.py``) keeps a dense ``[L, B, Smax, nkv, d]`` cache and,
+on the card, attends through the paged kernels over that cache viewed as a
+pool of 128-slot blocks with an identity block table
+(:func:`cached_attention_route` decides). It serves MoE models, as the JAX
+package's v1 path does; ``inference/v2``'s ragged forward runs dense MLPs
+only. Block-sparse models are not served.
 """
 
 import math
@@ -121,13 +129,12 @@ class TransformerConfig:
 
 
 def refuse_moe_serving(cfg: TransformerConfig) -> None:
-    """The serving layout (stacked weights, ``inference/v2``) runs dense
-    MLPs only."""
+    """``inference.v2``'s ragged forward runs dense MLPs only."""
     if cfg.moe_num_experts > 0:
         raise NotImplementedError(
-            "MoE (moe_num_experts) is not served: the serving layout and inference.v2's ragged "
-            "forward run dense MLPs only, as the JAX v2 engine's flat model does; MoE trains on "
-            "the per-layer model (TransformerLM(..., trainable=True))")
+            "MoE (moe_num_experts) is not served by inference.v2: its ragged forward runs dense "
+            "MLPs only, as the JAX v2 engine's flat model does; serve MoE models through "
+            "init_inference (the v1 engine)")
 
 
 def refuse_sparse_serving(cfg: TransformerConfig) -> None:
@@ -404,8 +411,10 @@ def _attention(cfg: TransformerConfig, q, k, v):
                                alibi=alibi_slopes(cfg.num_heads) if alibi else None)
 
 
-def _attn_branch(cfg: TransformerConfig, layer, h, sin, cos):
-    """Attention sub-block on pre-normed input ``h`` [B, S, H]."""
+def _attn_branch(cfg: TransformerConfig, layer, h, sin, cos, attend=None):
+    """Attention sub-block on pre-normed input ``h`` [B, S, H]. ``attend(q,
+    k, v)`` -> [B, S, nq, d] (default :func:`_attention`; the KV-cache
+    forward passes one that writes the cache and attends over it)."""
     dt = cfg.dtype
     B, S, H = h.shape
     nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -422,7 +431,7 @@ def _attn_branch(cfg: TransformerConfig, layer, h, sin, cos):
     if cfg.positions == "rotary":
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
-    ctx = _attention(cfg, q, k, v).reshape(B, S, nq * d)
+    ctx = (_attention(cfg, q, k, v) if attend is None else attend(q, k, v)).reshape(B, S, nq * d)
     out = ctx @ layer["wo"].to(dt)
     if cfg.use_bias:
         out = out + layer["bo"].to(dt)
@@ -489,12 +498,12 @@ def _moe_mlp(cfg: TransformerConfig, layer, h, generator=None):
     return torch.einsum("bsec,becm->bsm", combine.to(dt), expert_out), l_aux
 
 
-def _block(cfg: TransformerConfig, x, layer, sin, cos, generator=None):
+def _block(cfg: TransformerConfig, x, layer, sin, cos, generator=None, attend=None):
     """One transformer block on this layer's weights (``transformer.py:534``;
     ``parallel_residual``: attention and MLP read the same input). Returns
     (x, the MoE aux loss or None)."""
     h1 = _norm(x, layer["ln1_scale"], layer.get("ln1_bias"), cfg.norm, cfg.norm_eps)
-    attn_out = _attn_branch(cfg, layer, h1, sin, cos)
+    attn_out = _attn_branch(cfg, layer, h1, sin, cos, attend)
     if cfg.parallel_residual:
         h2 = h1 if cfg.shared_ln else _norm(x, layer["ln2_scale"], layer.get("ln2_bias"),
                                             cfg.norm, cfg.norm_eps)
@@ -561,6 +570,159 @@ def forward_with_aux(cfg: TransformerConfig, params, input_ids, generator=None):
 def forward(cfg: TransformerConfig, params, input_ids):
     """Token ids [B, S] -> logits [B, S, V] (fp32)."""
     return forward_with_aux(cfg, params, input_ids)[0]
+
+
+# ---------------------------------------------------------------------------
+# KV-cache inference path (the v1 engine; transformer.py:785-922)
+# ---------------------------------------------------------------------------
+
+# the block of the identity table that views a dense cache as a paged pool:
+# sequence b owns the pool's blocks b * nb .. b * nb + nb - 1, nb = Smax / 128
+V1_BLOCK = 128
+
+
+def init_kv_cache(cfg: TransformerConfig, batch_size: int, max_len: int, dtype=None, device=None):
+    """An empty cache of ``max_len`` positions per sequence: zeroed ``k`` /
+    ``v`` [L, B, max_len, nkv, d] in ``dtype`` (default ``cfg.dtype``) on
+    ``device`` (default CUDA), and ``length``, the positions filled, a host
+    int (so no step reads it from the device)."""
+    dtype = cfg.dtype if dtype is None else dtype
+    device = resolve_device(device)
+    shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "length": 0}
+
+
+def cached_attention_route(impl: str, device_type: str, cache_dtype, nq: int, nkv: int, d: int,
+                           smax: int) -> str:
+    """The KV-cache forward's attention route (the counterpart of
+    ``_use_fused_decode``, ``transformer.py:835-853``): ``"paged"``, the paged
+    kernels over the cache viewed as a pool of ``V1_BLOCK``-slot blocks, or
+    ``"dense"``, the fp32 einsum over the whole cache. ``"reference"`` is
+    always dense, ``"auto"`` dense on a CPU cache; every other case is paged
+    (on CPU tensors the kernel wrappers run their plain versions). A paged
+    cache must be ``smax`` a multiple of ``V1_BLOCK`` long, and on the card
+    bf16 with head_dim 64 or 128 and at most 8 query heads a kv head, the
+    kernels' limits; else ValueError names every miss."""
+    if impl == "reference" or (impl == "auto" and device_type != "cuda"):
+        return "dense"
+    misses = []
+    if smax % V1_BLOCK:
+        misses.append(f"cache length {smax} (a multiple of {V1_BLOCK} is viewed as blocks)")
+    if device_type == "cuda":
+        if cache_dtype != torch.bfloat16:
+            misses.append(f"cache dtype {cache_dtype} (the kernels take bfloat16)")
+        if d not in (64, 128):
+            misses.append(f"head_dim {d} (the kernels take 64 and 128)")
+        if nq % nkv or nq // nkv > 8:
+            misses.append(f"{nq} query heads over {nkv} kv heads (the decode takes up to 8 a "
+                          f"kv head)")
+    if misses:
+        raise ValueError(f"the paged KV-cache attention on {device_type} does not take "
+                         + "; ".join(misses) + "; attention_impl='reference' serves through "
+                         "the dense einsum")
+    return "paged"
+
+
+def _paged_descriptors(cfg: TransformerConfig, cache, B: int, T: int, start: int):
+    """The paged route's inputs shared by every layer of one call: the
+    identity block table (built once per cache), ``seq_idx`` and ``pos`` of
+    the call's B x T tokens and the ALiBi slopes, all on the cache's device
+    (so the prefill's tile descriptors are computed once per call)."""
+    dev = cache["k"].device
+    i32 = dict(dtype=torch.int32, device=dev)
+    if "tables" not in cache:
+        nb = cache["k"].shape[2] // V1_BLOCK
+        cache["tables"] = torch.arange(B, **i32)[:, None] * nb + torch.arange(nb, **i32)[None, :]
+    seq_idx = torch.arange(B, **i32).repeat_interleave(T)
+    pos = torch.arange(start, start + T, **i32).repeat(B)
+    slopes = (torch.as_tensor(alibi_slopes(cfg.num_heads), device=dev)
+              if cfg.positions == "alibi" else None)
+    return cache["tables"], seq_idx, pos, slopes
+
+
+def _cached_attention(cfg: TransformerConfig, q, ck, cv, start: int, route: str, desc=None):
+    """q [B, T, nq, d] at positions ``start`` .. ``start + T - 1`` over one
+    layer's cache ``ck`` / ``cv`` [B, Smax, nkv, d], whose positions below
+    ``start + T`` hold keys and values -> [B, T, nq, d] in q's dtype. The
+    paged route hands the cache, viewed (not copied) as a pool of
+    ``B * Smax`` slots, to ``ops.paged_attention.paged_attention`` with the
+    identity table of ``desc``; the dense route is the reference's einsum
+    (``transformer.py:819-832``). Both mask every position past the query's,
+    so positions past ``start + T`` never count."""
+    B, T, nq, d = q.shape
+    Smax, nkv = ck.shape[1], ck.shape[2]
+    if route == "paged":
+        from ..ops.paged_attention import paged_attention
+
+        tables, seq_idx, pos, slopes = desc
+        ctx = paged_attention(q.reshape(B * T, nq, d), ck.view(B * Smax, nkv, d),
+                              cv.view(B * Smax, nkv, d), tables, seq_idx, pos, V1_BLOCK,
+                              window=cfg.sliding_window, alibi=slopes)
+        return ctx.reshape(B, T, nq, d)
+    g = nq // nkv
+    qf = q.float().reshape(B, T, nkv, g, d) / math.sqrt(d)
+    scores = torch.einsum("btkgd,bskd->bkgts", qf, ck.float())
+    k_pos = torch.arange(Smax, device=q.device)[None, :]
+    q_pos = (start + torch.arange(T, device=q.device))[:, None]
+    if cfg.positions == "alibi":
+        slopes = torch.as_tensor(alibi_slopes(nq), device=q.device).reshape(nkv, g)
+        scores = scores + slopes[None, :, :, None, None] * (k_pos - q_pos).float()
+    mask = (k_pos <= q_pos) & (k_pos < start + T)
+    if cfg.sliding_window is not None:
+        mask = mask & (q_pos - k_pos < int(cfg.sliding_window))
+    probs = torch.softmax(torch.where(mask, scores, torch.full_like(scores, -1e30)), dim=-1)
+    ctx = torch.einsum("bkgts,bskd->btkgd", probs, cv.float())
+    return ctx.reshape(B, T, nq, d).to(q.dtype)
+
+
+def forward_with_cache(cfg: TransformerConfig, params, input_ids, cache):
+    """Prefill or decode step (``transformer.py:856-922``): the tokens
+    ``input_ids`` [B, T] at positions ``length`` .. ``length + T - 1`` run
+    through every layer, each writing its k / v into the cache in place
+    before attending over it. Returns (fp32 logits [B, T, V], the cache with
+    ``length`` advanced by T; the same dict). ``params["blocks"]`` may be the
+    stacked serving tree or a per-layer list. MoE blocks route without draws
+    (the deterministic gating of inference)."""
+    if cfg.sparse_attention is not None:
+        # serving a sparse-trained model with dense cached attention would
+        # use a distribution the model never saw (transformer.py:859-865)
+        raise NotImplementedError("sparse_attention serving is not implemented: the KV-cache "
+                                  "decode applies dense attention; unset sparse_attention "
+                                  "for inference")
+    dt = cfg.dtype
+    B, T = input_ids.shape
+    start = int(cache["length"])
+    ck_all, cv_all = cache["k"], cache["v"]
+    L, _, Smax, nkv, d = ck_all.shape
+    if start + T > Smax:
+        raise ValueError(f"the cache holds {Smax} positions; {start} filled + {T} new exceed it")
+    ids = input_ids.to(ck_all.device).long()
+    x = params["embed"]["embedding"].to(dt)[ids]
+    if cfg.positions == "learned":
+        x = x + params["pos_embed"]["embedding"].to(dt)[start:start + T][None]
+    if cfg.embed_layernorm:
+        en = params["embed_norm"]
+        x = _norm(x, en["scale"], en.get("bias"), cfg.norm, cfg.norm_eps)
+    sin = cos = None
+    if cfg.positions == "rotary":
+        sin, cos = rope_table(cfg, torch.arange(start, start + T, device=ck_all.device))
+    route = cached_attention_route(cfg.attention_impl, ck_all.device.type, ck_all.dtype,
+                                   cfg.num_heads, nkv, d, Smax)
+    desc = _paged_descriptors(cfg, cache, B, T, start) if route == "paged" else None
+    for l, layer in enumerate(layers(params["blocks"], L)):
+        ck, cv = ck_all[l], cv_all[l]
+
+        def attend(q, k, v, ck=ck, cv=cv):
+            ck[:, start:start + T] = k
+            cv[:, start:start + T] = v
+            return _cached_attention(cfg, q, ck, cv, start, route, desc)
+
+        x, _ = _block(cfg, x, layer, sin, cos, attend=attend)
+    fn = params["final_norm"]
+    x = _norm(x, fn["scale"], fn.get("bias"), cfg.norm, cfg.norm_eps)
+    cache["length"] = start + T
+    return _unembed(cfg, params, x), cache
 
 
 def _ce_aux(batch, input_ids):
@@ -653,8 +815,6 @@ class TransformerLM(nn.Module):
                  device=None, seed: int = 0, dtype=None, trainable: bool = False):
         super().__init__()
         _refuse_unported(config)
-        if not trainable:
-            refuse_moe_serving(config)
         self.config = config
         self.trainable = trainable
         if params is None:

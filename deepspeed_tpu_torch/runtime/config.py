@@ -6,9 +6,9 @@ training slice uses: the batch triad and its resolution
 ``scheduler``, ``fp16`` (with the dynamic loss-scale arguments), ``bf16``,
 ``gradient_clipping``, ``zero_optimization``, ``steps_per_print``,
 ``dataloader_drop_last``, ``tpu.pallas_fused_adam``, ``sparse_attention``
-(kept raw, as the JAX package keeps it) and ``sparse_gradients`` (a logged
-no-op). The port accepts the same JSON; a key for something not ported
-raises and names the key.
+(kept raw, as the JAX package keeps it), ``sparse_gradients`` (a logged
+no-op) and ``hybrid_engine``. The port accepts the same JSON; a key for
+something not ported raises and names the key.
 """
 
 import copy
@@ -20,8 +20,8 @@ from typing import Union
 from .config_utils import DeepSpeedConfigError, dict_raise_error_on_duplicate_keys, from_dict
 from .constants import (BFLOAT16, BFLOAT16_OLD, DATALOADER_DROP_LAST, DATALOADER_DROP_LAST_DEFAULT,
                         FP16, GRADIENT_ACCUMULATION_STEPS, GRADIENT_CLIPPING,
-                        GRADIENT_CLIPPING_DEFAULT, OPTIMIZER, OPTIMIZER_PARAMS, SCHEDULER,
-                        SCHEDULER_PARAMS, SPARSE_ATTENTION, SPARSE_GRADIENTS,
+                        GRADIENT_CLIPPING_DEFAULT, HYBRID_ENGINE, OPTIMIZER, OPTIMIZER_PARAMS,
+                        SCHEDULER, SCHEDULER_PARAMS, SPARSE_ATTENTION, SPARSE_GRADIENTS,
                         SPARSE_GRADIENTS_DEFAULT, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT, TPU,
                         TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, TYPE, ZERO_OPTIMIZATION)
 from .zero.config import DeepSpeedZeroConfig
@@ -31,7 +31,7 @@ __all__ = ["DeepSpeedConfig", "DeepSpeedConfigError"]
 _SUPPORTED_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, GRADIENT_ACCUMULATION_STEPS,
                    OPTIMIZER, SCHEDULER, FP16, BFLOAT16, BFLOAT16_OLD, GRADIENT_CLIPPING,
                    ZERO_OPTIMIZATION, STEPS_PER_PRINT, DATALOADER_DROP_LAST, TPU, SPARSE_ATTENTION,
-                   SPARSE_GRADIENTS}
+                   SPARSE_GRADIENTS, HYBRID_ENGINE}
 
 
 @dataclass
@@ -73,6 +73,26 @@ class TPUConfig:
         if any(int(v) != 1 for v in (self.mesh or {}).values()):
             raise NotImplementedError("tpu.mesh with an axis above 1 is not ported to the "
                                       "PyTorch package yet (world size 1 only)")
+
+
+@dataclass
+class HybridEngineConfig:
+    """The ``hybrid_engine`` block (``deepspeed_tpu/runtime/config.py:233``):
+    ``enabled`` makes ``initialize`` return ``DeepSpeedHybridEngine``. The
+    other knobs are accepted as the JAX package accepts them; a tensor-parallel
+    inference view is not ported."""
+    enabled: bool = False
+    max_out_tokens: int = 512
+    inference_tp_size: int = 1
+    release_inference_cache: bool = False
+    pin_parameters: bool = True
+    tp_gather_partition_size: int = 8
+
+    def __post_init__(self):
+        if int(self.inference_tp_size) > 1:
+            raise NotImplementedError(
+                f"hybrid_engine.inference_tp_size={self.inference_tp_size}: tensor parallelism is "
+                f"not ported to the PyTorch package yet (ROADMAP A2)")
 
 
 class DeepSpeedConfig:
@@ -140,6 +160,8 @@ class DeepSpeedConfig:
         # the raw block (config.py:313-316): the model takes it through
         # TransformerConfig.sparse_attention, build_sparsity_config validates it
         self.sparse_attention = pd.get(SPARSE_ATTENTION)
+        self.hybrid_engine_config = from_dict(HybridEngineConfig, pd.get(HYBRID_ENGINE, {}),
+                                              HYBRID_ENGINE)
 
         # --- batch triad (resolved against the data-parallel size later) ---
         self.train_batch_size = pd.get(TRAIN_BATCH_SIZE)

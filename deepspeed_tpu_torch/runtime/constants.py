@@ -167,6 +167,11 @@ CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
 CHECKPOINT_TAG_VALIDATION_MODES = ["Warn", "Ignore", "Fail"]
 
 #############################################
+# Hybrid engine (reference runtime/hybrid_engine.py)
+#############################################
+HYBRID_ENGINE = "hybrid_engine"
+
+#############################################
 # Elasticity (reference elasticity/constants.py)
 #############################################
 ELASTICITY = "elasticity"

@@ -67,6 +67,7 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self.skipped_steps = 0
         self._step_metrics = {}
+        self._train_mode = True
 
         world = _world_size()
         if world > 1:
@@ -359,6 +360,15 @@ class DeepSpeedEngine:
 
     __call__ = forward
     backward = step = forward
+
+    # torch-style mode flags (engine.py:2427-2433); train_batch ignores them
+    def eval(self):
+        self._train_mode = False
+        return self
+
+    def train(self, mode=True):
+        self._train_mode = bool(mode)
+        return self
 
     # ------------------------------------------------------------------
     # introspection (reference engine getters)

@@ -176,16 +176,20 @@ def test_optimizer_state_round_trip_exactly(mode, moe):
 
 
 def test_unported_model_features_are_refused():
-    """MoE is refused by the serving layout and the serving engine (the JAX
-    v2 engine's flat model runs dense MLPs only, too); it trains on the
-    per-layer model. A block-sparse model trains, and serving it is refused
-    by the engine and the ragged forward, as the JAX package refuses it."""
-    with pytest.raises(NotImplementedError, match="JAX v2 engine"):
-        TransformerLM(mistral_config("tiny", moe_num_experts=4, **TINY), device="cpu")
-    trainable = TransformerLM(mistral_config("tiny", moe_num_experts=4, **TINY), device="cpu",
-                              trainable=True)
+    """A MoE model builds in the serving layout (the v1 engine serves it,
+    tests/test_torch_inference_v1.py) and trains on the per-layer model; the
+    ragged serving engine refuses both (the JAX v2 engine's flat model runs
+    dense MLPs only, too). A block-sparse model trains, and serving it is
+    refused by the engine and the ragged forward, as the JAX package refuses
+    it."""
+    serving = TransformerLM(mistral_config("tiny", moe_num_experts=4, **TINY), device="cpu")
+    assert serving.params()["blocks"]["moe_wi"].shape[:2] == (TINY["num_layers"], 4)
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
 
+    with pytest.raises(NotImplementedError, match="dense MLPs"):
+        InferenceEngineV2(serving, device="cpu")
+    trainable = TransformerLM(mistral_config("tiny", moe_num_experts=4, **TINY), device="cpu",
+                              trainable=True)
     with pytest.raises(NotImplementedError, match="dense MLPs"):
         InferenceEngineV2(trainable, device="cpu")
     sparse_cfg = llama2_config("tiny", sparse_attention=dict(SPARSE, attention="unidirectional"),
@@ -380,6 +384,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for rel in ("accelerator/__init__.py", "accelerator/abstract_accelerator.py",
                 "accelerator/real_accelerator.py", "accelerator/cpu_accelerator.py",
                 "accelerator/cuda_accelerator.py", "ops/__init__.py", "ops/evoformer_attn.py",
-                "ops/evoformer_attention.py"):
+                "ops/evoformer_attention.py", "inference/config.py", "inference/engine.py",
+                "runtime/hybrid_engine.py"):
         assert os.path.join("deepspeed_tpu_torch", rel) in scanned, rel
     assert not bad, "\n".join(bad)
