@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
-                                    train,moe_train,sparse_train,evo_kernels,evo_path,v1,
+                                    train,zero,moe_train,sparse_train,evo_kernels,evo_path,v1,
                                     hybrid]
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
@@ -9,6 +9,7 @@
     python3 chip_smoke.py --versus DIR --phases moe_kernels,moe_train
     python3 chip_smoke.py --versus DIR --phases evo_kernels,evo_path
     python3 chip_smoke.py --versus DIR --phases sparse_kernels,sparse_train
+    python3 chip_smoke.py --versus DIR --phases train
 
 With no arguments every phase runs, in this order; each must pass (exit
 code 1 otherwise):
@@ -137,7 +138,24 @@ code 1 otherwise):
    timed at the full parameter set; then one forward and backward at seq
    1024 through the kernels against the same through the plain attention
    on the same weights (loss and whole-gradient relative L2 error).
-8. moe_train: the earlier engines freed, Mixtral-8x7B's widths (8 experts,
+8. zero: ZeRO stages 0, 1, 2 and 3 at data-parallel world size >= 2, one
+   process a rank (this script with ``--zero-rank``, the environment
+   torchrun's), loading the kernels the build phase built: with two or more
+   visible cards min(4, count) ranks over NCCL, one a card, at Mistral-7B's
+   width with the depth cut 32 -> 8; with one card two ranks sharing it over
+   gloo (NCCL takes one rank a device; gloo copies each collective through
+   the host), depth cut 32 -> 2. bf16, fused AdamW, clipping 1.0, gas 2,
+   1 x 2048 tokens a rank a microbatch (ids from 256 tokens), a constant lr
+   1e-3; every stage 3 steps from seed 0 in one process group, through
+   ``initialize`` -> ``train_batch``. The losses of stages 1-3 must match
+   stage 0's within the train phase's 2e-3 (the largest difference as a
+   fraction of it is ``worst_error_fraction``), stage 0's fall, each
+   rank's peak memory must fall with each stage, and on every rank and
+   stage the flash kernels must launch once a layer a microbatch and the
+   fused AdamW once a step (on the rank's shards at stages >= 1). Each
+   rank's losses, step times, peak and resident bytes are printed. With four
+   cards, also stage 3 at full depth (32 layers), each rank's peak printed.
+9. moe_train: the earlier engines freed, Mixtral-8x7B's widths (8 experts,
    top-2, the grouped path, capacity factor 1.25, rope_theta 1e6, no
    window) with the depth cut 32 -> 2 for memory, trained as in ``train``
    (the engine's seeded generator drives the gating's draws): losses finite
@@ -149,7 +167,7 @@ code 1 otherwise):
    1.5e-1: the last layer's gate sees inputs that differ in the last bf16
    bit, and the tokens it routes differently, printed, move whole tokens'
    contributions between experts).
-9. sparse_train: the earlier engines freed, Llama-2-7B's widths with the
+10. sparse_train: the earlier engines freed, Llama-2-7B's widths with the
    depth cut 32 -> 8 and the ds_config's ``sparse_attention`` block (the
    documented 'fixed' layout, unidirectional), trained as in ``train``:
    losses finite and falling, step time, tokens/s, peak memory, launches
@@ -158,7 +176,7 @@ code 1 otherwise):
    then at seq 1024 the whole model through the kernel against the same
    through the plain forward (loss 2e-3, gradient 5e-2).
 
-10. evo_kernels: hold the Evoformer kernels (``evo_fwd``, ``evo_bwd_dq``,
+11. evo_kernels: hold the Evoformer kernels (``evo_fwd``, ``evo_bwd_dq``,
    ``evo_bwd_dkdv`` with the mask bias's ``db1`` summed inside it, and
    ``evo_bwd_db2``) against their plain versions on the same inputs (the
    backward on the kernel forward's out and lse): out, lse, dq, dk, dv,
@@ -190,7 +208,7 @@ code 1 otherwise):
    and its backward with the mask's gradient for the backward kernels
    together; db1's time is that of the dk/dv launch that sums it (with
    what the sum adds beside it). ``worst_error_fraction`` is printed.
-11. evo_path: one Evoformer block's four attention calls (MSA row attention
+12. evo_path: one Evoformer block's four attention calls (MSA row attention
    with the pair bias, MSA column attention, triangle attention around the
    starting and the ending node) at AlphaFold-2's fine-tuning crop (N_res
    384, N_clust 512) with OpenFold's heads (8 x 32 for the MSA, 4 x 32 for
@@ -205,7 +223,7 @@ code 1 otherwise):
    the block through the plain versions: every output finite, and the
    output (off the fully masked rows) and all five cotangents of each call
    within relative L2 1e-2 of the plain path's.
-12. v1: first the paged kernels in the v1 path's layout (a dense
+13. v1: first the paged kernels in the v1 path's layout (a dense
    [B, Smax, 8, 128] cache viewed as a pool of 128-slot blocks with an
    identity block table, 32 / 8 heads) against the plain version with the
    ``kernels`` tolerance: the prefills and decodes of both waves and of
@@ -225,7 +243,7 @@ code 1 otherwise):
    prefill and after one decode step, kernels against the dense route on
    the same weights (``attention_impl="reference"``), relative L2 within
    5e-2, the argmax agreement printed.
-13. hybrid: the earlier engines freed, the ``train`` phase's configuration
+14. hybrid: the earlier engines freed, the ``train`` phase's configuration
    (Mistral-7B width, 8 layers, fp32 masters, bf16, fused AdamW; a
    constant lr) through ``initialize`` with ``hybrid_engine.enabled``:
    ``generate`` twice (4 x 64 + 32), ``train_batch`` x 2, ``generate``. The
@@ -257,8 +275,11 @@ and, alone, the flash forward skipping each CTA's last live k-tile
 skipping each CTA's last live k-tile and, alone, the paged decode
 skipping each split's last live block (``--phases build,kernels``, the
 same), and the v1 path with its identity table's block base shifted by one
-block (``--phases build,v1`` must fail on the logits): twelve copies. It
-passes when every mutant is caught.
+block (``--phases build,v1`` must fail on the logits), and the ZeRO
+partition with rank 1 gathering the head group's updated shards into a
+scratch copy after each update, so that it trains on a stale half of the
+head (``--phases build,zero`` must fail on the losses): thirteen copies.
+It passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
 grouped matmul and the Evoformer kernels against copies under
@@ -290,8 +311,9 @@ the serving path is measured by the same code on both), printing the paged
 decode times, the serving decode profile (wall and device ms per step,
 device kernels per step), decode tok/s and TTFT p50, the grouped matmul's,
 the Evoformer kernels' and the block-sparse forward's times (both routes),
-the MoE step, the Evoformer block, the block-sparse training step and their
-top device ops per run, and one JSON line of all runs.
+the dense training step (``train``, world size 1), the MoE step, the
+Evoformer block, the block-sparse training step and their top device ops
+per run, and one JSON line of all runs.
 
 It prints the card (name and power limit) and, on the line before the last,
 ``{"kernels": [...]}``; the last line is
@@ -402,6 +424,18 @@ V1_PROFILE_STEPS = 8
 HYBRID_DS_CONFIG = dict({k: v for k, v in TRAIN_DS_CONFIG.items() if k != "scheduler"},
                         hybrid_engine={"enabled": True})
 HYBRID_PROMPT, HYBRID_NEW = (4, 64), 32
+# ZeRO at data-parallel world size >= 2: Mistral-7B's width, bf16, fused AdamW,
+# clipping 1.0, gas 2, 1 x ZERO_SEQ tokens a rank a microbatch, every stage
+# ZERO_STEPS steps from the same weights, at a constant lr 1e-3 so that the
+# losses move by whole nats (the ids come from ZERO_VOCAB tokens) and a rank
+# working on stale weights shows in them. Depth 2 when gloo ranks share one
+# card (gloo copies every collective through the host), 8 over NCCL (as the
+# train phase), and 32 at stage 3 over four cards.
+ZERO_SEQ, ZERO_STEPS, ZERO_VOCAB, ZERO_TIMEOUT_S = 2048, 3, 256, 420
+ZERO_GLOO_LAYERS, ZERO_NCCL_LAYERS, ZERO_FULL_LAYERS = 2, 8, 32
+ZERO_DS_CONFIG = dict({k: v for k, v in TRAIN_DS_CONFIG.items() if k != "scheduler"},
+                      optimizer={"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.1}},
+                      train_batch_size=None)
 # the Evoformer path: AlphaFold-2's fine-tuning crop (AF2 supplementary
 # information, Table 4: N_res 384, N_clust 512) with OpenFold's Evoformer
 # heads (c_hidden_msa_att 32 x 8 heads, c_hidden_pair_att 32 x 4 heads);
@@ -1685,6 +1719,203 @@ def phase_train():
     gc.collect()
     torch.cuda.empty_cache()
     return launches, full
+
+
+# ---------------------------------------------------------------------------
+# phase: ZeRO stages 0-3 at data-parallel world size >= 2
+# ---------------------------------------------------------------------------
+
+def _free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _zero_rank_run(layers, stages, out_path):
+    """One rank of the zero phase (``--zero-rank``; the environment holds
+    RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT, as torchrun's
+    does): for each stage, Mistral-7B's width at ``layers`` layers from seed
+    0 through ``initialize`` -> ``train_batch`` on this rank's rows, with the
+    launch counts reset just before the steps and read just after. Writes
+    {stage: losses, step ms, peak GiB, launches} as JSON to ``out_path``."""
+    import datetime
+    import gc
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    deepspeed_tpu_torch.init_distributed(dist_backend=os.environ["ZERO_BACKEND"], verbose=False,
+                                         timeout=datetime.timedelta(minutes=3))
+    rank, world = comm.get_rank(), comm.get_world_size()
+    out = {"rank": rank, "world": world, "backend": comm.get_backend(),
+           "device": str(torch.cuda.current_device()), "stages": {}}
+    cfg = mistral_config("7b", num_layers=layers)
+    for stage in stages:
+        model = TransformerLM(cfg, trainable=True, seed=0)
+        n_params = model.num_params()  # before stage 3 frees the full masters
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=model, config=dict(ZERO_DS_CONFIG, zero_optimization={"stage": stage}))
+        gas = engine.gradient_accumulation_steps()
+        rng = np.random.default_rng(1000 + rank)  # this rank's rows
+        batch = {"input_ids": rng.integers(0, ZERO_VOCAB, (gas, ZERO_SEQ)).astype(np.int32)}
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        fad.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(ZERO_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out["stages"][str(stage)] = {
+            "losses": losses, "step_ms": times, "gas": gas,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "resident_gib": {k: v / 2**30 for k, v in engine.zero_resident_bytes().items()},
+            "launches": {**fa.launch_counts, **fad.launch_counts}, "params": n_params}
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    comm.barrier()
+    comm.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _zero_spawn(world, backend, layers, stages, tag):
+    """Run ``world`` ranks of ``_zero_rank_run`` (this script with
+    ``--zero-rank``), one process each, and return their results. A rank
+    that fails or outlives ``ZERO_TIMEOUT_S`` fails the phase (every rank is
+    then killed)."""
+    out_dir = os.path.join(HERE, "build", "zero")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()), ZERO_BACKEND=backend)
+    procs, paths = [], []
+    for r in range(world):
+        paths.append(os.path.join(out_dir, f"{tag}_rank{r}.json"))
+        if os.path.exists(paths[-1]):
+            os.remove(paths[-1])
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--zero-rank", str(r), "--zero-layers",
+             str(layers), "--zero-stages", ",".join(map(str, stages)), "--zero-out", paths[-1]],
+            cwd=HERE, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    deadline = time.perf_counter() + ZERO_TIMEOUT_S
+    texts, failed = [], []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                texts.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} still running after {ZERO_TIMEOUT_S} s")
+                break
+            if p.returncode:
+                failed.append(f"rank {r} exited {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, text in enumerate(texts):
+        for line in text.splitlines()[-40:] if failed else []:
+            log(f"[zero] rank {r}: {line}")
+    if failed:
+        raise RuntimeError(f"zero ranks failed: {failed}")
+    results = []
+    for path in paths:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_zero():
+    """Returns the launches of each training kernel per rank and the
+    phase's record (world, backend, per-stage peaks and step times)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_dev = torch.cuda.device_count()
+    world, backend = (min(4, n_dev), "nccl") if n_dev >= 2 else (2, "gloo")
+    layers = ZERO_NCCL_LAYERS if backend == "nccl" else ZERO_GLOO_LAYERS
+    stages = (0, 1, 2, 3)
+    log(f"[zero] {world} ranks over {backend} on {n_dev} visible device(s)"
+        + (" (two ranks share the card: NCCL takes one rank a device)" if n_dev < 2 else "")
+        + f"; Mistral-7B width, depth cut 32 -> {layers}, 1 x {ZERO_SEQ} tokens a rank a "
+        f"microbatch, gas 2, bf16, fused AdamW, clipping 1.0, lr 1e-3; stages {stages}, "
+        f"{ZERO_STEPS} steps each from seed 0")
+    t0 = time.perf_counter()
+    ranks = _zero_spawn(world, backend, layers, stages, "stages")
+    log(f"[zero] ranks done in {time.perf_counter() - t0:.1f}s")
+    base = ranks[0]["stages"]["0"]["losses"]
+    worst = 0.0
+    launches = {}
+    record = {"world": world, "backend": backend, "layers": layers, "seq": ZERO_SEQ,
+              "params": ranks[0]["stages"]["0"]["params"], "peak_gib": {}, "step_ms": {},
+              "losses": {}}
+    for stage in map(str, stages):
+        peaks = [r["stages"][stage]["peak_gib"] for r in ranks]
+        step_ms = float(np.median([t for r in ranks for t in r["stages"][stage]["step_ms"][1:]]))
+        losses = ranks[0]["stages"][stage]["losses"]
+        for r in ranks:
+            got = r["stages"][stage]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], base))
+            worst = max(worst, rel)
+            for name, n in got["launches"].items():
+                launches.setdefault(name, [0] * world)[r["rank"]] += n
+            resident = {k: round(v, 3) for k, v in got["resident_gib"].items()}
+            log(f"[zero] stage {stage} rank {r['rank']}: losses "
+                f"{[round(x, 5) for x in got['losses']]} (largest relative difference to stage 0: "
+                f"{rel:.3e}); step ms {[round(t, 1) for t in got['step_ms']]}; peak "
+                f"{got['peak_gib']:.2f} GiB; resident {resident} GiB; launches {got['launches']}")
+            n_attn = layers * got["gas"] * ZERO_STEPS
+            want = {"flash_fwd": n_attn, "flash_bwd_dkdv": n_attn, "flash_bwd_dq": n_attn,
+                    "fused_adam": ZERO_STEPS}
+            if any(got["launches"].get(k, 0) != v for k, v in want.items()):
+                raise RuntimeError(f"zero stage {stage} rank {r['rank']}: launches "
+                                   f"{got['launches']}, expected {want}")
+        record["peak_gib"][stage] = peaks
+        record["step_ms"][stage] = step_ms
+        record["losses"][stage] = losses
+    log(f"[zero] peak GiB per rank by stage: {record['peak_gib']}; median step ms (steps 2-"
+        f"{ZERO_STEPS}, every rank): {record['step_ms']}")
+    log(f"[zero] worst_error_fraction={worst / LOSS_REL_TOL:.3f} (the largest relative loss "
+        f"difference to stage 0, {worst:.3e}, over the tolerance {LOSS_REL_TOL})")
+    if not all(np.isfinite(base)) or not base[-1] < base[0]:
+        raise RuntimeError(f"stage 0 losses not finite and falling: {base}")
+    if worst > LOSS_REL_TOL:
+        raise RuntimeError(f"zero losses disagree with stage 0's (relative {worst:.3e} > "
+                           f"{LOSS_REL_TOL})")
+    for r in range(world):
+        seq = [record["peak_gib"][str(s)][r] for s in stages]
+        if not all(b < a for a, b in zip(seq, seq[1:])):
+            raise RuntimeError(f"rank {r}'s peak memory does not fall with the stage: {seq}")
+    if world == 4 and backend == "nccl":
+        t0 = time.perf_counter()
+        full = _zero_spawn(world, backend, ZERO_FULL_LAYERS, (3, ), "full")
+        st = [r["stages"]["3"] for r in full]
+        record["full_depth_stage3"] = {
+            "layers": ZERO_FULL_LAYERS, "params": st[0]["params"],
+            "peak_gib": [x["peak_gib"] for x in st], "losses": st[0]["losses"],
+            "step_ms": float(np.median([t for x in st for t in x["step_ms"][1:]]))}
+        log(f"[zero] full depth ({ZERO_FULL_LAYERS} layers, {st[0]['params']:,} params) at stage "
+            f"3 over {world} cards in {time.perf_counter() - t0:.1f}s: "
+            f"{record['full_depth_stage3']}")
+        if not all(np.isfinite(st[0]["losses"])):
+            raise RuntimeError(f"full-depth stage 3 losses not finite: {st[0]['losses']}")
+    return launches, record
 
 
 # ---------------------------------------------------------------------------
@@ -3205,6 +3436,11 @@ V1_TABLE_MUTATIONS = _in(  # the v1 identity table's block base shifted by one b
         ("cv.view(B * Smax, nkv, d), tables, seq_idx, pos, V1_BLOCK,",
          "cv.view(B * Smax, nkv, d), (tables + 1) % (B * Smax // V1_BLOCK), seq_idx, pos, "
          "V1_BLOCK,"),))
+ZERO_MUTATIONS = _in(  # rank 1 gathers the head group's updated shards into a scratch copy
+    "deepspeed_tpu_torch/runtime/zero/partition.py", (
+        ("comm.all_gather_into_tensor(flat, fg.shard_of(flat, self.rank), group=self.group)",
+         "comm.all_gather_into_tensor(flat if (self.rank, fg.name) != (1, 'head') else "
+         "flat.clone(), fg.shard_of(flat, self.rank), group=self.group)"),))
 DECODE_MUTATIONS = _in(SOURCE, (  # the decode skips each split's last live block
     ("const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits);",
      "const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits) - 1;"),
@@ -3223,6 +3459,7 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "paged_prefill": (PAGED_MUTATIONS, "kernels", "kernels disagree with the plain version"),
     "paged_decode": (DECODE_MUTATIONS, "kernels", "kernels disagree with the plain version"),
     "v1_table": (V1_TABLE_MUTATIONS, "v1", "v1 logits disagree"),
+    "zero_gather": (ZERO_MUTATIONS, "zero", "zero losses disagree"),
 }
 
 
@@ -3416,12 +3653,16 @@ def _run_one_mutant(name):
             log(f"[mutant] {name}: {line[:4000]}")
     caught = proc.returncode != 0 and failure in proc.stdout
     # a wrong identity table moves whole blocks of context: the logits'
-    # relative L2 is then of order 1, some 20x its tolerance, not 100x
-    if phase not in ("moe_kernels", "v1"):
+    # relative L2 is then of order 1, some 20x its tolerance, not 100x; a
+    # stale half of the head moves the losses by what one step moves them
+    if phase not in ("moe_kernels", "v1", "zero"):
         factor = _worst_error_fraction(proc.stdout, phase) or 0.0
         log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
             f"{MUTANT_MIN_FACTOR:.0f}x)")
         caught = caught and factor > MUTANT_MIN_FACTOR
+    elif phase == "zero":
+        log(f"[mutant] {name}: caught at "
+            f"{_worst_error_fraction(proc.stdout, phase) or 0.0:.1f}x the tolerance")
     log(f"[mutant] {name}: the mutated kernels' run exited {proc.returncode}: "
         f"{'caught, as it must be' if caught else 'NOT caught'}")
     return caught
@@ -3675,6 +3916,7 @@ def run_versus(other, phases):
                                   text=True, timeout=1800)
             out, rc = out + proc.stdout + proc.stderr[-3000:], rc or proc.returncode
         r = {"tree": n, "rc": rc, **_decode_times(out), **_e2e_numbers(out), **_gmm_times(out),
+             "train_step_ms": _num(r"\[train\] step time median ([0-9.]+) ms", out),
              "moe_step_ms": _num(r"\[moe_train\] step time median ([0-9.]+) ms", out),
              "moe_idle_pct": _num(r"\[moe_train\] profiled step: .*?device idle ([0-9.]+)%", out),
              **_evo_times(out), **_sparse_times(out),
@@ -3703,7 +3945,7 @@ def run_versus(other, phases):
 
 
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
-          "moe_train", "sparse_train", "evo_kernels", "evo_path", "v1", "hybrid")
+          "zero", "moe_train", "sparse_train", "evo_kernels", "evo_path", "v1", "hybrid")
 
 
 def main():
@@ -3720,6 +3962,11 @@ def main():
     ap.add_argument("--versus", metavar="DIR",
                     help="time --phases (without build; default kernels,e2e) in this tree and in "
                          "the checkout DIR, in the order DIR, this, this, DIR")
+    # one rank of the zero phase, started by phase_zero
+    ap.add_argument("--zero-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--zero-layers", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--zero-stages", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--zero-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -3740,6 +3987,10 @@ def main():
         print(f"chip_smoke: the deepspeed_tpu_torch package is not beside this script ({e})",
               file=sys.stderr)
         return 2
+    if args.zero_rank is not None:
+        _zero_rank_run(args.zero_layers, [int(x) for x in args.zero_stages.split(",")],
+                       args.zero_out)
+        return 0
     if args.mutant:
         return run_mutant(args.mutant)
     if args.ablation:
@@ -3755,7 +4006,8 @@ def main():
         f"{torch.cuda.device_count()} visible; {smi}")
     fns = {"build": phase_build, "kernels": phase_kernels, "train_kernels": phase_train_kernels,
            "moe_kernels": phase_moe_kernels, "sparse_kernels": phase_sparse_kernels,
-           "e2e": phase_e2e, "train": phase_train, "moe_train": phase_moe_train,
+           "e2e": phase_e2e, "train": phase_train, "zero": phase_zero,
+           "moe_train": phase_moe_train,
            "sparse_train": phase_sparse_train, "evo_kernels": phase_evo_kernels,
            "evo_path": phase_evo_path, "v1": phase_v1, "hybrid": phase_hybrid}
     failed = []
@@ -3795,10 +4047,12 @@ def main():
                 | {"max_abs_err": m["int8"]["err"]}}
                for name, m in out["kernels"].items()]
     launches, adam_full = out["train"]
+    zero_launches, zero = out["zero"]
     for name, m in out["train_kernels"].items():
         src, replaces = TRAIN_KERNELS[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": int(launches[name]), "hybrid_launches": int(hybrid_launches[name]),
+                 "zero_launches": zero_launches[name], "zero": zero,
                  "max_abs_err": m["err"], **{k: m[k] for k in keys}}
         if name == "flash_fwd":
             entry["v1_launches"] = int(v1_launches[name])

@@ -4,16 +4,20 @@ Public surface, as ``deepspeed_tpu/__init__.py:35-127``: ``initialize``
 returns ``(engine, optimizer, dataloader, lr_scheduler)``, the engine a
 ``DeepSpeedHybridEngine`` when the config enables ``hybrid_engine``;
 ``init_inference`` returns the v1 ``InferenceEngine``;
-``add_config_arguments`` adds the DeepSpeed CLI flags. The training "model"
-is an ``nn.Module`` with ``loss(batch)`` (``models.TransformerLM(...,
+``add_config_arguments`` adds the DeepSpeed CLI flags; ``init_distributed``
+initialises ``torch.distributed`` (``comm``). The training "model" is an
+``nn.Module`` with ``loss(batch)`` (``models.TransformerLM(...,
 trainable=True)``), or a bare ``loss_fn(params, batch)`` paired with
 ``model_parameters``. The ragged serving engine lives in ``inference.v2``.
 """
 
 __version__ = "0.1.0"
 
+import os
+
 from torch import nn
 
+from .comm import init_distributed
 from .inference.config import DeepSpeedInferenceConfig
 from .inference.engine import InferenceEngine
 from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError
@@ -40,6 +44,10 @@ def initialize(args=None,
     - ``config``: a dict or the path of a DeepSpeed JSON config.
     - ``optimizer``: a ``torch.optim.Optimizer`` over the model's parameters
       (default: the config's ``optimizer`` block).
+    - ``dist_init_required``: initialise ``torch.distributed`` first
+      (``init_distributed``); None does so when the environment holds
+      ``RANK`` and ``WORLD_SIZE``, as ``torchrun`` sets them. The engine then
+      trains data-parallel over every rank (one rank a card).
     """
     assert model is not None, "deepspeed_tpu_torch.initialize: model is required"
     if config is None:
@@ -48,6 +56,9 @@ def initialize(args=None,
         config = args.deepspeed_config
     assert config is not None, "DeepSpeed requires --deepspeed_config to specify configuration file"
     ds_config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
+    if dist_init_required or (dist_init_required is None
+                              and all(v in os.environ for v in ("RANK", "WORLD_SIZE"))):
+        init_distributed(dist_init_required=True)
     if not isinstance(model, nn.Module) and callable(model):
         model = _FunctionalModel(model, model_parameters)
     hybrid = ds_config.hybrid_engine_config.enabled
@@ -71,9 +82,19 @@ class _FunctionalModel(nn.Module):
         else:
             self.params = nn.ParameterList([nn.Parameter(v) for v in init_params])
 
-    def loss(self, batch):
-        params = dict(self.params) if isinstance(self.params, nn.ParameterDict) else list(self.params)
+    def loss(self, batch, params=None):
+        if params is None:
+            params = (dict(self.params) if isinstance(self.params, nn.ParameterDict)
+                      else list(self.params))
         return self._loss_fn(params, batch)
+
+    def gathered_params(self, gather):
+        """The parameters of a ZeRO-3 forward: ``gather(0)`` is the one
+        group (every parameter), keyed by parameter name."""
+        leaves = gather(0)
+        if isinstance(self.params, nn.ParameterDict):
+            return {k: leaves[f"params.{k}"] for k in self.params.keys()}
+        return [leaves[f"params.{i}"] for i in range(len(self.params))]
 
 
 def init_inference(model=None, config=None, *, device=None, **kwargs):
@@ -104,5 +125,5 @@ def add_config_arguments(parser):
 
 
 __all__ = ["DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine", "DeepSpeedHybridEngine",
-           "DeepSpeedInferenceConfig", "InferenceEngine", "add_config_arguments", "init_inference",
-           "initialize"]
+           "DeepSpeedInferenceConfig", "InferenceEngine", "add_config_arguments",
+           "init_distributed", "init_inference", "initialize"]

@@ -38,7 +38,7 @@ class DeepSpeedTPConfig:
         if int(self.tp_size) > 1:
             raise NotImplementedError(
                 f"tensor_parallel.tp_size={self.tp_size}: tensor parallelism is not ported to the "
-                f"PyTorch package yet (ROADMAP A2); the v1 engine runs on one device")
+                f"PyTorch package yet (ROADMAP A3b); the v1 engine runs on one device")
 
 
 @dataclass

@@ -9,7 +9,7 @@ step's token is chosen on the device and written into a preallocated
 the card the cache's attention runs through the paged kernels
 (``cached_attention_route``).
 
-Not ported: tensor parallelism (A2), quantized weights (A7), checkpoint
+Not ported: tensor parallelism (A3b), quantized weights (A7), checkpoint
 loading (A9); their configs are refused (``inference/config.py``).
 ``enable_cuda_graph`` is accepted and does nothing, as in the JAX package.
 """

@@ -22,13 +22,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from .transformer import MATMUL_WEIGHTS, TransformerConfig, resolve_device
-
-_DTYPE_KEYS = {("embed", "embedding"), ("pos_embed", "embedding"), ("lm_head", "kernel")}
-
-
-def _takes_serving_dtype(group: str, name: str) -> bool:
-    return (group, name) in _DTYPE_KEYS or (group == "blocks" and name in MATMUL_WEIGHTS)
+from .transformer import TransformerConfig, resolve_device
+from .transformer import takes_compute_dtype as _takes_serving_dtype
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig, device=None,

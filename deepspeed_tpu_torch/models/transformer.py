@@ -48,6 +48,15 @@ from ..moe.sharded_moe import multiplicative_jitter, top1gating, top2gating
 # and biases stay fp32 (the norm runs in fp32 with its fp32 scale).
 MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "w_up", "w_down", "w_gate", "moe_wi", "moe_wg",
                   "moe_wo")
+_EMBEDDINGS = {("embed", "embedding"), ("pos_embed", "embedding"), ("lm_head", "kernel")}
+
+
+def takes_compute_dtype(group: str, name: str) -> bool:
+    """Whether a leaf is stored in the serving dtype and cast to
+    ``cfg.dtype`` wherever the training forward uses it: matrix weights,
+    embeddings and the head (norm scales, biases and the MoE gate stay
+    fp32)."""
+    return (group, name) in _EMBEDDINGS or (group == "blocks" and name in MATMUL_WEIGHTS)
 
 
 @dataclass
@@ -515,9 +524,29 @@ def _block(cfg: TransformerConfig, x, layer, sin, cos, generator=None, attend=No
     return x + mlp_out, aux
 
 
-def layers(blocks: Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]], n: int):
+class GatheredLayers:
+    """The blocks of a ZeRO-3 forward (``TransformerLM.gathered_params``):
+    iterating gathers each layer's weights when the layer loop reaches it,
+    so one layer's gathered weights are alive at a time, beside what
+    autograd saved of the earlier ones."""
+
+    def __init__(self, n: int, gather):
+        self.n = n
+        self._gather = gather
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        return (self._gather(l) for l in range(self.n))
+
+
+def layers(blocks: Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]], GatheredLayers],
+           n: int):
     """Per-layer weight dicts of a stacked ``{name: [L, ...]}`` tree or of a
-    per-layer list."""
+    per-layer list (a ``GatheredLayers`` gathers them one at a time)."""
+    if isinstance(blocks, GatheredLayers):
+        return blocks
     if isinstance(blocks, (list, tuple)):
         return list(blocks)
     return [{name: t[l] for name, t in blocks.items()} for l in range(n)]
@@ -738,6 +767,18 @@ def _ce_aux(batch, input_ids):
     return aux
 
 
+def ce_count(batch) -> torch.Tensor:
+    """The count :func:`_ce_loss` divides a batch's summed log-likelihood
+    by, before its clamp at 1: the ``loss_mask``'s sum over the positions
+    scored, else the number of positions scored. An fp32 device scalar."""
+    input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
+    aux = _ce_aux(batch, input_ids)
+    scored = input_ids.shape[-1] if "labels" in aux else input_ids.shape[-1] - 1
+    if "loss_mask" in aux:
+        return aux["loss_mask"][..., :scored].float().sum()
+    return torch.full((), float(input_ids[..., :scored].numel()), device=input_ids.device)
+
+
 def _ce_loss(logits, aux):
     """Next-token cross entropy (masked mean with a 'loss_mask')."""
     if "labels" in aux:
@@ -855,8 +896,45 @@ class TransformerLM(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.tree.parameters())
 
-    def loss(self, batch, generator=None):
-        return loss_fn(self.config, self.params(), batch, generator)
+    def loss(self, batch, generator=None, params=None):
+        """The training objective on ``params`` (default :meth:`params`; the
+        ZeRO-3 engine passes :meth:`gathered_params`)."""
+        return loss_fn(self.config, self.params() if params is None else params, batch, generator)
+
+    def loss_count(self, batch) -> torch.Tensor:
+        """The count the loss's mean divides by (:func:`ce_count`): the
+        data-parallel engine weights each rank's loss by it."""
+        return ce_count(batch)
+
+    def zero_groups(self):
+        """ZeRO's partition groups (``runtime/zero/partition.py``): the
+        embeddings (the backward's last gradients), the final norm and head
+        (its first), then one per block; each leaf as (key, parameter,
+        whether the forward casts it to ``cfg.dtype``). Apart, the two ends'
+        gradients complete at the two ends of the backward, so ZeRO-2 holds
+        neither group's full gradient through the whole backward."""
+        def leaves(groups):
+            return [((group, name), p, takes_compute_dtype(group, name))
+                    for group, mod in self.tree.items() if group in groups
+                    for name, p in mod.items()]
+
+        ends = [("embed", leaves(("embed", "pos_embed", "embed_norm"))),
+                ("head", leaves(("final_norm", "lm_head")))]
+        return ends + [(f"block{l}", [(("blocks", l, name), p, takes_compute_dtype("blocks", name))
+                                      for name, p in layer.items()])
+                       for l, layer in enumerate(self.tree["blocks"])]
+
+    def gathered_params(self, gather):
+        """The parameter tree of a ZeRO-3 forward: ``gather(i)`` returns
+        group i of :meth:`zero_groups` as {key: tensor}. The two end groups
+        are gathered now, each block when the layer loop reaches it."""
+        tree = {}
+        for i in (0, 1):
+            for (group, name), t in gather(i).items():
+                tree.setdefault(group, {})[name] = t
+        tree["blocks"] = GatheredLayers(
+            len(self.tree["blocks"]), lambda l: {key[2]: t for key, t in gather(l + 2).items()})
+        return tree
 
     def forward(self, input_ids):
         return forward(self.config, self.params(), input_ids)

@@ -210,8 +210,8 @@ class MOELayer:
             raise ValueError(f"moe_impl must be 'einsum' or 'grouped', got {moe_impl!r}")
         if ep_size > 1:
             raise NotImplementedError(
-                f"expert parallelism (ep_size {ep_size}) is not ported: the PyTorch port trains "
-                f"at world size 1 until its ZeRO slice (torch.distributed with NCCL) lands")
+                f"expert parallelism (ep_size {ep_size}) is not ported to the PyTorch package "
+                f"yet (ROADMAP A3: the all-to-all of token slots over the expert group)")
         self.gate = gate
         self.hidden_dim = hidden_dim
         self.ffn_dim = ffn_dim

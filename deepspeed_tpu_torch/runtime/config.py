@@ -14,9 +14,10 @@ something not ported raises and names the key.
 import copy
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Union
 
+from ..parallel.mesh import MeshConfig, refuse_unported_axes
 from .config_utils import DeepSpeedConfigError, dict_raise_error_on_duplicate_keys, from_dict
 from .constants import (BFLOAT16, BFLOAT16_OLD, DATALOADER_DROP_LAST, DATALOADER_DROP_LAST_DEFAULT,
                         FP16, GRADIENT_ACCUMULATION_STEPS, GRADIENT_CLIPPING,
@@ -62,7 +63,9 @@ class BF16Config:
 class TPUConfig:
     """The ``tpu`` block: of its knobs the port honours ``pallas_fused_adam``
     (``"always"`` engages the fused Adam kernel; ``"auto"`` resolves to off,
-    as in the JAX package); ``mesh`` may only describe one device."""
+    as in the JAX package) and ``mesh`` (``parallel.mesh.MeshConfig``'s
+    fields; ``data`` may be above 1, or -1 for the world size; every other
+    axis above 1 raises, naming its ROADMAP item)."""
     pallas_fused_adam: str = "auto"
     mesh: dict = None
 
@@ -70,9 +73,13 @@ class TPUConfig:
         if self.pallas_fused_adam not in ("auto", "always", "never"):
             raise DeepSpeedConfigError(f"tpu.pallas_fused_adam must be 'auto', 'always' or "
                                        f"'never', got {self.pallas_fused_adam!r}")
-        if any(int(v) != 1 for v in (self.mesh or {}).values()):
-            raise NotImplementedError("tpu.mesh with an axis above 1 is not ported to the "
-                                      "PyTorch package yet (world size 1 only)")
+        unknown = sorted(set(self.mesh or {}) - {f.name for f in fields(MeshConfig)})
+        if unknown:
+            raise DeepSpeedConfigError(f"tpu.mesh: unknown axes {unknown}")
+        refuse_unported_axes(self.mesh or {})
+
+    def mesh_config(self) -> MeshConfig:
+        return MeshConfig(**(self.mesh or {}))
 
 
 @dataclass
@@ -92,7 +99,7 @@ class HybridEngineConfig:
         if int(self.inference_tp_size) > 1:
             raise NotImplementedError(
                 f"hybrid_engine.inference_tp_size={self.inference_tp_size}: tensor parallelism is "
-                f"not ported to the PyTorch package yet (ROADMAP A2)")
+                f"not ported to the PyTorch package yet (ROADMAP A3b)")
 
 
 class DeepSpeedConfig:

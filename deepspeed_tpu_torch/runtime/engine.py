@@ -26,10 +26,22 @@ the fp16-only overflow count (``engine.py:1405``) and the loss logged at
 ``steps_per_print`` boundaries. The state (step, loss scale, good steps,
 the optimizer's counter and moments) lives on the device.
 
-Runs at data-parallel world size 1; ZeRO stages 0-3 partition over that one
-rank and change nothing, as in the JAX package on one device. A larger
-world, ``forward``/``backward``/``step``, offload, 1-bit optimizers,
-pipelines and the prefetching loader are not ported yet.
+Data parallelism (``engine.py:70-215``): under ``torchrun`` (or after
+``init_distributed``) the data-parallel world is the ``data`` axis of
+``parallel.groups``, and each rank's ``train_batch`` takes its own
+``gas * micro`` rows, as upstream DeepSpeed's does: rank r's rows of a
+microbatch are rows ``[r * micro, (r + 1) * micro)`` of the JAX engine's
+global microbatch of ``micro * dp`` rows. ZeRO stages 0-3 then partition
+over the ranks (``zero/partition.py``): gradients summed over the ranks
+(``all_reduce``, or ``reduce_scatter`` into shards at stages 2-3), the
+optimizer, the fused AdamW kernel included, on each rank's shards at
+stages >= 1, the global gradient norm one ``all_reduce`` of the shards'
+partial sums. The loss is the mean over the global microbatch: each rank
+weights its local mean by ``local_count * dp / global_count`` (the model's
+``loss_count``; 1 without a ``loss_mask``). At world size 1 nothing of this
+runs: no collective, no copy. MoE models (ROADMAP A3) and the hybrid engine
+are refused at world size >= 2. ``forward``/``backward``/``step``, offload,
+1-bit optimizers, pipelines and the prefetching loader are not ported yet.
 """
 
 import inspect
@@ -39,19 +51,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import comm
+from ..parallel import groups
 from .config import DeepSpeedConfig
 from .constants import ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER
 from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import LRScheduler, get_lr_schedule_fn
 from .optimizers import Adam, build_optimizer
 from .utils import clip_by_global_norm_, global_norm
+from .zero.partition import ZeroPartition
 
 logger = logging.getLogger("deepspeed_tpu_torch")
-
-
-def _world_size() -> int:
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 class DeepSpeedEngine:
@@ -69,12 +79,16 @@ class DeepSpeedEngine:
         self._step_metrics = {}
         self._train_mode = True
 
-        world = _world_size()
-        if world > 1:
-            raise NotImplementedError(f"data-parallel world size {world}: the PyTorch port trains "
-                                      f"at world size 1 until its ZeRO slice (torch.distributed "
-                                      f"with NCCL) lands")
-        self.dp_world_size = 1
+        self._params = [p for p in model.parameters() if p.requires_grad]
+        if not self._params:
+            raise ValueError("the model has no trainable parameters (a TransformerLM trains "
+                             "with trainable=True)")
+        self.device = self._params[0].device
+        groups.initialize_mesh(config.tpu_config.mesh_config(), self.device.type)
+        self.dp_world_size = groups.get_data_parallel_world_size()
+        self.dp_rank = groups.get_data_parallel_rank()
+        if self.dp_world_size > 1:
+            self._refuse_at_world_above_one(model, optimizer)
         config.resolve_batch_config(self.dp_world_size)
 
         # --- precision policy (the model's config.dtype sets the compute
@@ -85,11 +99,18 @@ class DeepSpeedEngine:
         self.bfloat16_enabled = config.bfloat16_enabled
         self.dynamic_loss_scale = self.fp16_enabled and config.loss_scale == 0
 
-        self._params = [p for p in model.parameters() if p.requires_grad]
-        if not self._params:
-            raise ValueError("the model has no trainable parameters (a TransformerLM trains "
-                             "with trainable=True)")
-        self.device = self._params[0].device
+        # ZeRO's partition at world size >= 2 (none at world size 1); the
+        # optimizer updates its tensors, which are the model's parameters
+        # at world size 1
+        self._zero = None
+        self._opt_params = self._params
+        if self.dp_world_size > 1:
+            # stage 3 casts a gathered group once, to the dtype the model computes in
+            cast = getattr(getattr(model, "config", None), "dtype", self.compute_dtype)
+            self._zero = ZeroPartition(model, self._params, config.zero_optimization_stage,
+                                       groups.get_data_parallel_group(), cast)
+            self._opt_params = self._zero.optimizer_params()
+        self._norm_group = self._zero.group if self._zero and self._zero.sharded_grads else None
         # the gating's randomness (MoE): drawn on the device, in order, one
         # microbatch after another
         self._loss_takes_generator = (hasattr(model, "loss") and "generator" in
@@ -119,6 +140,31 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # configuration
     # ------------------------------------------------------------------
+    def _refuse_at_world_above_one(self, model, client_optimizer):
+        """What does not train at data-parallel world size >= 2 yet, each
+        naming its ROADMAP item; and every rank on one kind of device."""
+        world = self.dp_world_size
+        if getattr(getattr(model, "config", None), "moe_num_experts", 0) > 0:
+            raise NotImplementedError(
+                f"MoE training at data-parallel world size {world}: the reference gates over the "
+                f"global microbatch (capacity and the aux loss see micro x dp tokens), which "
+                f"per-rank gating does not compute; expert parallelism is ROADMAP A3")
+        stage = self.config.zero_optimization_stage
+        if client_optimizer is not None and stage >= 1:
+            raise NotImplementedError(
+                f"a client optimizer at ZeRO stage {stage} and world size {world}: it holds the "
+                f"full parameters, not this rank's shards; use the config's optimizer block")
+        if stage == 3 and not hasattr(model, "gathered_params"):
+            raise NotImplementedError(
+                f"ZeRO stage 3 at world size {world} gathers each group where the forward uses "
+                f"it: the model needs zero_groups() and gathered_params() (TransformerLM and a "
+                f"loss function with model_parameters have them)")
+        if any(p.dtype != torch.float32 for p in self._params):
+            raise ValueError("ZeRO at world size >= 2 partitions fp32 master parameters")
+        kinds = comm.all_gather_object([None] * comm.get_world_size(), self.device.type)
+        if len(set(kinds)) > 1:
+            raise RuntimeError(f"the ranks' parameters live on different kinds of device: {kinds}")
+
     def _configure_lr_scheduler(self, client_scheduler):
         """Client scheduler wins (a ``step -> lr`` callable or an
         ``LRScheduler``), else the config's (``engine.py:494``)."""
@@ -140,7 +186,7 @@ class DeepSpeedEngine:
             return client_optimizer
         params = dict(self.config.optimizer_params or {})
         lr = self.lr_schedule_fn if self.lr_schedule_fn is not None else params.get("lr", 1e-3)
-        return build_optimizer(self.config.optimizer_name, self._params, params, lr=lr)
+        return build_optimizer(self.config.optimizer_name, self._opt_params, params, lr=lr)
 
     def _configure_pallas_adam(self, client_optimizer):
         """Engage the fused AdamW kernel (``engine.py:545``) when the config
@@ -161,14 +207,14 @@ class DeepSpeedEngine:
             return None  # plain-Adam weight decay (grad += wd * p) is not fused
         if mode == "auto":
             return None
-        if any(p.dtype != torch.float32 for p in self._params):
+        if any(p.dtype != torch.float32 for p in self._opt_params):
             return None  # the kernel reads and writes fp32 state
         from ..ops.adam.fused_adam import FusedAdam
 
         betas = tuple(params.get("betas", (0.9, 0.999)))
         lr = self.lr_schedule_fn if self.lr_schedule_fn is not None else params.get("lr", 1e-3)
-        self.optimizer = FusedAdam(self._params, lr=lr, betas=betas, eps=params.get("eps", 1e-8),
-                                   weight_decay=wd)
+        self.optimizer = FusedAdam(self._opt_params, lr=lr, betas=betas,
+                                   eps=params.get("eps", 1e-8), weight_decay=wd)
         logger.info("fused Adam step engaged (single-pass multi-tensor update, gated)")
         return {"b1": betas[0], "b2": betas[1], "eps": params.get("eps", 1e-8), "wd": wd,
                 "lr": params.get("lr", 1e-3)}
@@ -197,15 +243,17 @@ class DeepSpeedEngine:
             return st.mu, st.nu, st.step
         if isinstance(self.optimizer, Adam):
             opt = self.optimizer
-            return ([opt._init_state(p, "mu") for p in self._params],
-                    [opt._init_state(p, "nu") for p in self._params], opt.count)
+            return ([opt._init_state(p, "mu") for p in self._opt_params],
+                    [opt._init_state(p, "nu") for p in self._opt_params], opt.count)
         raise TypeError(f"{type(self.optimizer).__name__} holds no Adam state")
 
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
     def _loss_fn(self, batch):
-        if self._loss_takes_generator:
+        if self._zero is not None and self._zero.stage == 3:
+            out = self.module.loss(batch, params=self.module.gathered_params(self._zero.gather))
+        elif self._loss_takes_generator:
             out = self.module.loss(batch, generator=self.generator)
         elif hasattr(self.module, "loss"):
             out = self.module.loss(batch)
@@ -236,6 +284,36 @@ class DeepSpeedEngine:
         torch._foreach_div_(grads, float(gas))
         return grads, torch.stack(losses)
 
+    def _loss_weights(self, batches, gas: int):
+        """[gas] device weights of this rank's microbatch losses,
+        ``local_count * dp / global_count``, so that their sum over the
+        ranks is dp times the loss of the global microbatch (its masked
+        mean); ones where the counts are equal on every rank (no
+        ``loss_mask``, or a model without ``loss_count``)."""
+        if "loss_mask" not in batches or not hasattr(self.module, "loss_count"):
+            return torch.ones(gas, dtype=torch.float32, device=self.device)
+        counts = torch.stack([self.module.loss_count({k: v[i] for k, v in batches.items()})
+                              for i in range(gas)]).float()
+        total = comm.all_reduce(counts.clone(), group=self._zero.group)
+        return counts * self.dp_world_size / total.clamp_min(1.0)
+
+    def _scan_microbatch_grads_dp(self, batches, loss_scale, gas: int):
+        """``_scan_microbatch_grads`` at world size >= 2: the weighted
+        losses' gradients, summed over the ranks by the ZeRO partition.
+        Returns (the optimizer's gradients, the global microbatches' losses)."""
+        z = self._zero
+        z.zero_grad()
+        weights = self._loss_weights(batches, gas)
+        losses = []
+        for i in range(gas):
+            loss = self._loss_fn({k: v[i] for k, v in batches.items()})
+            (loss * (weights[i] * loss_scale)).backward()
+            z.finish_backward()
+            losses.append(loss.detach())
+        grads = z.reduce_grads(gas)
+        summed = comm.all_reduce(torch.stack(losses) * weights, group=z.group)
+        return grads, summed / self.dp_world_size
+
     def _advance_loss_scale(self, finite):
         """Dynamic loss-scale state machine, on the device."""
         st = self.state
@@ -258,7 +336,7 @@ class DeepSpeedEngine:
         st = self.state
         if self.fp16_enabled:
             torch._foreach_mul_(grads, 1.0 / st["loss_scale"])
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, self._norm_group)
         else:  # the loss scale is 1: the gradients are already un-scaled
             gnorm = gnorm_scaled
         finite = torch.isfinite(gnorm)
@@ -292,10 +370,12 @@ class DeepSpeedEngine:
         """Apply the update, advance the scalars, build the step metrics
         (``engine.py:1201``)."""
         st = self.state
-        gnorm_scaled = global_norm(grads)
+        gnorm_scaled = global_norm(grads, self._norm_group)
         lr = (self.lr_schedule_fn(st["step"]) if self.lr_schedule_fn is not None else
               (self.config.optimizer_params or {}).get("lr", 0.0))
         finite = self._apply_update(grads, gnorm_scaled)
+        if self._zero is not None:
+            self._zero.after_update()
         self._advance_loss_scale(finite)
         st["step"] = st["step"] + finite.to(torch.int32)
         return {"loss": mean_loss, "grad_norm": gnorm_scaled, "overflow": ~finite, "lr": lr}
@@ -326,8 +406,11 @@ class DeepSpeedEngine:
     def train_batch(self, batch=None, data_iter=None):
         """One full training step (all microbatches and the optimizer
         update). ``batch``: a dict (or the ids array) with leading dim
-        ``gas * micro``; or ``data_iter`` yielding ``gas`` microbatches.
-        Returns the mean loss as a device tensor (no host read)."""
+        ``gas * micro``, this rank's rows (gas-major: at world size dp,
+        rank r's microbatch i is rows ``[r * micro, (r + 1) * micro)`` of the
+        reference's global microbatch i of ``micro * dp`` rows); or
+        ``data_iter`` yielding ``gas`` microbatches. Returns the mean loss of
+        the global batch as a device tensor (no host read)."""
         gas = self.config.gradient_accumulation_steps
         if batch is None:
             assert data_iter is not None, "train_batch needs a batch or a data_iter"
@@ -335,7 +418,8 @@ class DeepSpeedEngine:
         else:
             host = self._host_prepare_batch(batch=batch)
         placed = {k: self._to_device(v) for k, v in host.items()}
-        grads, losses = self._scan_microbatch_grads(placed, self.state["loss_scale"], gas)
+        scan = self._scan_microbatch_grads if self._zero is None else self._scan_microbatch_grads_dp
+        grads, losses = scan(placed, self.state["loss_scale"], gas)
         metrics = self._finalize_step(grads, losses.mean())
         self.global_steps += 1
         self.micro_steps += gas
@@ -407,8 +491,31 @@ class DeepSpeedEngine:
                 self.gradient_accumulation_steps())
 
     def deepspeed_io(self, dataset, batch_size: Optional[int] = None, collate_fn=None):
-        """A ``DeepSpeedDataLoader`` of microbatches (the ``data_iter``
-        contract of ``train_batch``)."""
+        """A ``DeepSpeedDataLoader`` of this rank's microbatches (the
+        ``data_iter`` contract of ``train_batch``): its sampler takes the
+        data-parallel rank and world size of ``parallel.groups``."""
         return DeepSpeedDataLoader(dataset,
                                    batch_size=batch_size or self.config.train_micro_batch_size_per_gpu,
-                                   collate_fn=collate_fn, drop_last=self.config.dataloader_drop_last)
+                                   collate_fn=collate_fn, drop_last=self.config.dataloader_drop_last,
+                                   data_parallel_rank=self.dp_rank,
+                                   data_parallel_world_size=self.dp_world_size)
+
+    def module_state_dict(self):
+        """{parameter name: its full fp32 master} of the trainable
+        parameters, at any stage and world size (stage 3 gathers them).
+        Copies at world size >= 2, the parameters themselves at 1."""
+        names = {id(p): n for n, p in self.module.named_parameters()}
+        if self._zero is None:
+            return {names[id(p)]: p.detach() for p in self._params}
+        full = {id(p): t for p, t in self._zero.full_params()}
+        return {names[id(p)]: full[id(p)] for p in self._params}
+
+    def zero_resident_bytes(self):
+        """Bytes this rank holds of fp32 parameters, gradients and Adam
+        moments (the model's parameters and ``.grad`` at world size 1)."""
+        moments = sum(4 * t.numel() for ts in self.adam_state()[:2] for t in ts)
+        if self._zero is None:
+            return {"params": sum(4 * p.numel() for p in self._params),
+                    "grads": sum(4 * p.grad.numel() for p in self._params if p.grad is not None),
+                    "moments": moments}
+        return {**self._zero.resident_bytes(), "moments": moments}

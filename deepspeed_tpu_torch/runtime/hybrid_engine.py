@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from .. import comm
 from ..models.convert import _takes_serving_dtype
 from ..models.transformer import V1_BLOCK, cached_attention_route
 from .engine import DeepSpeedEngine
@@ -30,6 +31,11 @@ class DeepSpeedHybridEngine(DeepSpeedEngine):
     ``models.TransformerLM``."""
 
     def __init__(self, *args, **kwargs):
+        world = comm.get_world_size()
+        if world > 1:
+            raise NotImplementedError(
+                f"the hybrid engine at world size {world}: its bf16 view of ZeRO-sharded masters "
+                f"needs a gather (ROADMAP A1, left open)")
         super().__init__(*args, **kwargs)
         # on the card the rollouts' cache must suit the paged kernels: say so
         # now, not at the first generate after hours of training

@@ -1,8 +1,9 @@
 """Gradient-norm and clipping helpers.
 
 Counterpart of ``deepspeed_tpu/runtime/utils.py``. The norms are device
-tensors (one fused ``_foreach_norm`` launch over all tensors), never read
-back to the host, so a training step that clips stays asynchronous.
+tensors (one fused ``_foreach_norm`` launch over all tensors; over ZeRO
+shards, one ``all_reduce`` of the local sum of squares), never read back to
+the host, so a training step that clips stays asynchronous.
 """
 
 from typing import Iterable, Sequence
@@ -10,20 +11,27 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from .. import comm
+
 
 def get_global_norm(norm_list: Iterable[float]) -> float:
     """l2-combine per-group norms (host floats)."""
     return float(np.sqrt(sum(float(n)**2 for n in norm_list)))
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor], group=None) -> torch.Tensor:
     """sqrt(sum of squares) over every element of ``tensors``, in fp32, as a
-    device scalar (optax's ``global_norm``)."""
+    device scalar (optax's ``global_norm``). ``group``: the tensors are this
+    rank's shards of tensors split over the process group ``group``; the
+    sum of squares is then one ``all_reduce`` of the local sum, on the
+    device."""
     tensors = [t for t in tensors if t is not None]
     if not tensors:
         return torch.zeros((), dtype=torch.float32)
     norms = torch._foreach_norm([t.float() if t.dtype != torch.float32 else t for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if group is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    return comm.all_reduce(torch.stack(norms).square().sum(), group=group).sqrt()
 
 
 def get_grad_norm(grads, norm_type: float = 2.0) -> torch.Tensor:

@@ -1,12 +1,18 @@
 """ZeRO configuration (``zero_optimization``), without pydantic.
 
 Counterpart of ``deepspeed_tpu/runtime/zero/config.py``: the same field
-names, so the same JSON block parses. The port runs ZeRO stages 0-3 at data
-parallel world size 1, where each stage partitions over one rank and
-changes nothing; the bucket and prefetch knobs have no effect there. What
-is not ported raises and names its key: offload (``offload_param``,
-``offload_optimizer``, ``cpu_offload*``), ZeRO++ (``zero_quantized_*``,
-``zero_hpz_partition_size`` > 1) and MiCS (``mics_shard_size`` > 0).
+names, so the same JSON block parses. ``stage`` (0-3) picks what
+``runtime/zero/partition.py`` shards over the data-parallel ranks (at
+world size 1 every stage is the same single-rank step). The bucket, overlap,
+prefetch and persistence knobs (``reduce_bucket_size``,
+``allgather_bucket_size``, ``overlap_comm``, ``contiguous_gradients``,
+``prefetch_bucket_size``, ``param_persistence_threshold``,
+``max_live_parameters``, ...) are accepted and unused: the partition
+reduces and gathers one whole group (a transformer block) at a time, in the
+compute stream. What is not ported raises and names its key: offload
+(``offload_param``, ``offload_optimizer``, ``cpu_offload*``), ZeRO++
+(``zero_quantized_*``, ``zero_hpz_partition_size`` > 1) and MiCS
+(``mics_shard_size`` > 0).
 """
 
 from dataclasses import dataclass

@@ -223,16 +223,6 @@ def test_unported_optimizers_and_model_fields_raise():
             fn()
 
 
-def test_world_size_above_one_raises(monkeypatch):
-    from deepspeed_tpu_torch.runtime import engine as eng
-
-    monkeypatch.setattr(eng, "_world_size", lambda: 2)
-    model = TransformerLM(mistral_config("tiny", dtype=torch.float32, **TINY), device="cpu",
-                          trainable=True)
-    with pytest.raises(NotImplementedError, match="world size 2"):
-        deepspeed_tpu_torch.initialize(model=model, config={"train_batch_size": 2})
-
-
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
 def test_zero_stages_at_world_size_one_train_alike(stage):
     """Every stage partitions over one rank: the same trajectory as stage 0."""

@@ -359,13 +359,13 @@ def test_config_aliases_and_refusals():
     assert DeepSpeedInferenceConfig(dtype=torch.float32).compute_dtype == torch.float32
     assert DeepSpeedInferenceConfig().compute_dtype == torch.bfloat16
     refusals = [({"not_a_key": 1}, "not_a_key"), ({"tp": {"bogus": 1}}, "bogus"),
-                ({"tensor_parallel": {"tp_size": 2}}, "A2"), ({"tp": {"tp_size": 2}}, "A2"),
+                ({"tensor_parallel": {"tp_size": 2}}, "A3b"), ({"tp": {"tp_size": 2}}, "A3b"),
                 ({"quant": {"enabled": True}}, "A7"), ({"dtype": "int8"}, "A7"),
                 ({"checkpoint": "ckpt.json"}, "A9"), ({"dtype": "float64"}, "float64")]
     for bad, name in refusals:
         with pytest.raises(Exception, match=name):
             DeepSpeedInferenceConfig.from_dict(bad)
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(NotImplementedError, match="A3b"):
         deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 1,
                                              "hybrid_engine": {"inference_tp_size": 2}})
     model = TransformerLM(_mistral()[1], device="cpu")

@@ -253,9 +253,9 @@ def test_moe_layer_matches_jax(use_residual):
 
 def test_expert_parallelism_is_refused_naming_world_size_one():
     gate = tsm.TopKGate(16, 4, k=2)
-    with pytest.raises(NotImplementedError, match="world size 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         tsm.MOELayer(gate, 16, 32, num_local_experts=2, ep_size=2)
-    with pytest.raises(NotImplementedError, match="world size 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         tlayer.MoE(16, num_experts=4, ep_size=2, k=2)
     with pytest.raises(ValueError, match="moe_impl"):
         tsm.MOELayer(gate, 16, 32, num_local_experts=4, moe_impl="banana")

@@ -219,8 +219,8 @@ def test_config_refusals():
     with pytest.raises(NotImplementedError, match="optimizer.legacy_fusion"):
         DeepSpeedConfig({"train_batch_size": 2,
                          "optimizer": {"type": "Adam", "params": {}, "legacy_fusion": True}})
-    with pytest.raises(NotImplementedError, match="tpu.mesh"):
-        DeepSpeedConfig({"train_batch_size": 2, "tpu": {"mesh": {"data": 2}}})
+    with pytest.raises(NotImplementedError, match="mesh axis 'model'.*A3b"):
+        DeepSpeedConfig({"train_batch_size": 2, "tpu": {"mesh": {"data": 2, "model": 2}}})
 
 
 def test_add_config_arguments_and_initialize_from_args(tmp_path):
