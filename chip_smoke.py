@@ -147,9 +147,14 @@ code 1 otherwise):
    the host), depth cut 32 -> 2. bf16, fused AdamW, clipping 1.0, gas 2,
    1 x 2048 tokens a rank a microbatch (ids from 256 tokens), a constant lr
    1e-3; every stage 3 steps from seed 0 in one process group, through
-   ``initialize`` -> ``train_batch``. The losses of stages 1-3 must match
-   stage 0's within the train phase's 2e-3 (the largest difference as a
-   fraction of it is ``worst_error_fraction``), stage 0's fall, each
+   ``initialize`` -> ``train_batch``; first, in this process, stage 0 at
+   world size 1 on the same global batch (micro = the world size). The
+   losses and gradient norms of stages 1-3 must match stage 0's within
+   2e-4, stage 0's must match world size 1's within 2e-3, every rank's
+   parameters after the steps must equal rank 0's (each broadcast from
+   rank 0; the largest relative L2 difference, or of the other checks, as
+   a fraction of 2e-4 or its tolerance is ``worst_error_fraction``),
+   stage 0's losses fall, each
    rank's peak memory must fall with each stage, and on every rank and
    stage the flash kernels must launch once a layer a microbatch and the
    fused AdamW once a step (on the rank's shards at stages >= 1). Each
@@ -278,7 +283,8 @@ same), and the v1 path with its identity table's block base shifted by one
 block (``--phases build,v1`` must fail on the logits), and the ZeRO
 partition with rank 1 gathering the head group's updated shards into a
 scratch copy after each update, so that it trains on a stale half of the
-head (``--phases build,zero`` must fail on the losses): thirteen copies.
+head, and the same for the first block's (``--phases build,zero`` must
+fail, each by more than 30x the phase's tolerance): fourteen copies.
 It passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
@@ -436,6 +442,13 @@ ZERO_GLOO_LAYERS, ZERO_NCCL_LAYERS, ZERO_FULL_LAYERS = 2, 8, 32
 ZERO_DS_CONFIG = dict({k: v for k, v in TRAIN_DS_CONFIG.items() if k != "scheduler"},
                       optimizer={"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.1}},
                       train_batch_size=None)
+# stages 1-3 against stage 0 (losses and gradient norms, each rank): one
+# computation in other places, fp32 sum orders apart (the sound runs' worst
+# on H100: 2.1e-5 with two gloo ranks on one card, 7.0e-6 with four NCCL
+# ranks). Stage 0 at world size N against the world-size-1 engine on the
+# same global batch (micro N): each rank's weight gradients are rounded to
+# bf16 before the sum over ranks, not after.
+ZERO_REL_TOL, ZERO_WORLD1_REL_TOL = 2e-4, 2e-3
 # the Evoformer path: AlphaFold-2's fine-tuning crop (AF2 supplementary
 # information, Table 4: N_res 384, N_clust 512) with OpenFold's Evoformer
 # heads (c_hidden_msa_att 32 x 8 heads, c_hidden_pair_att 32 x 4 heads);
@@ -1733,17 +1746,55 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def _zero_rank_ids(rank, gas):
+    """Rank ``rank``'s ids of a zero-phase step: ``gas`` microbatches of 1 x
+    ZERO_SEQ (the same batch every step)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 + rank)
+    return rng.integers(0, ZERO_VOCAB, (gas, ZERO_SEQ)).astype(np.int32)
+
+
+def _zero_train(engine, batch):
+    """ZERO_STEPS steps of ``batch``: (losses, gradient norms, step ms)."""
+    import torch
+
+    losses, norms, times = [], [], []
+    for _ in range(ZERO_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        norms.append(float(engine.get_global_grad_norm()))
+    return losses, norms, times
+
+
+def _zero_replica_rel_l2(engine):
+    """The largest relative L2 difference of a parameter of ``engine`` to
+    rank 0's (each broadcast from rank 0; the copies die here, before the
+    next stage's peak is read)."""
+    from deepspeed_tpu_torch import comm
+
+    worst = 0.0
+    for v in engine.module_state_dict().values():
+        ref = comm.broadcast(v.clone(), src=0)
+        worst = max(worst, float((v - ref).norm() / ref.norm().clamp_min(1e-30)))
+    return worst
+
+
 def _zero_rank_run(layers, stages, out_path):
     """One rank of the zero phase (``--zero-rank``; the environment holds
     RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT, as torchrun's
     does): for each stage, Mistral-7B's width at ``layers`` layers from seed
     0 through ``initialize`` -> ``train_batch`` on this rank's rows, with the
     launch counts reset just before the steps and read just after. Writes
-    {stage: losses, step ms, peak GiB, launches} as JSON to ``out_path``."""
+    {stage: losses, gradient norms, step ms, peak GiB, launches, the
+    largest relative L2 difference of a parameter after the steps to rank
+    0's (not at full depth, where gathering every master would not fit)} as
+    JSON to ``out_path``."""
     import datetime
     import gc
 
-    import numpy as np
     import torch
 
     import deepspeed_tpu_torch
@@ -1764,23 +1815,19 @@ def _zero_rank_run(layers, stages, out_path):
         engine, _, _, _ = deepspeed_tpu_torch.initialize(
             model=model, config=dict(ZERO_DS_CONFIG, zero_optimization={"stage": stage}))
         gas = engine.gradient_accumulation_steps()
-        rng = np.random.default_rng(1000 + rank)  # this rank's rows
-        batch = {"input_ids": rng.integers(0, ZERO_VOCAB, (gas, ZERO_SEQ)).astype(np.int32)}
+        batch = {"input_ids": _zero_rank_ids(rank, gas)}  # this rank's rows
         torch.cuda.synchronize()
         fa.reset_launch_counts()
         fad.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        losses, times = [], []
-        for _ in range(ZERO_STEPS):
-            t0 = time.perf_counter()
-            losses.append(float(engine.train_batch(batch)))
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
+        losses, norms, times = _zero_train(engine, batch)
         out["stages"][str(stage)] = {
-            "losses": losses, "step_ms": times, "gas": gas,
+            "losses": losses, "grad_norms": norms, "step_ms": times, "gas": gas,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "resident_gib": {k: v / 2**30 for k, v in engine.zero_resident_bytes().items()},
             "launches": {**fa.launch_counts, **fad.launch_counts}, "params": n_params}
+        if layers != ZERO_FULL_LAYERS:
+            out["stages"][str(stage)]["replica_rel_l2"] = _zero_replica_rel_l2(engine)
         del engine, model
         gc.collect()
         torch.cuda.empty_cache()
@@ -1837,6 +1884,34 @@ def _zero_spawn(world, backend, layers, stages, tag):
     return results
 
 
+def _zero_world1(world, layers):
+    """Stage 0 at world size 1 in this process on the global batch of the
+    zero phase's ``world`` ranks (micro ``world``: rank r's row of each
+    microbatch at r): (losses, gradient norms, step ms)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+
+    model = TransformerLM(mistral_config("7b", num_layers=layers), trainable=True, seed=0)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=dict(ZERO_DS_CONFIG, train_micro_batch_size_per_gpu=world))
+    gas = engine.gradient_accumulation_steps()
+    ids = np.stack([_zero_rank_ids(r, gas) for r in range(world)], axis=1)
+    out = _zero_train(engine, {"input_ids": ids.reshape(gas * world, ZERO_SEQ)})
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
 def phase_zero():
     """Returns the launches of each training kernel per rank and the
     phase's record (world, backend, per-stage peaks and step times)."""
@@ -1857,28 +1932,45 @@ def phase_zero():
         f"microbatch, gas 2, bf16, fused AdamW, clipping 1.0, lr 1e-3; stages {stages}, "
         f"{ZERO_STEPS} steps each from seed 0")
     t0 = time.perf_counter()
+    w1_losses, w1_norms, w1_ms = _zero_world1(world, layers)
+    log(f"[zero] world size 1, micro {world}, the same global batch, stage 0: losses "
+        f"{[round(x, 5) for x in w1_losses]}; gradient norms {[round(x, 5) for x in w1_norms]}; "
+        f"step ms {[round(t, 1) for t in w1_ms]} ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
     ranks = _zero_spawn(world, backend, layers, stages, "stages")
     log(f"[zero] ranks done in {time.perf_counter() - t0:.1f}s")
     base = ranks[0]["stages"]["0"]["losses"]
-    worst = 0.0
+    base_norms = ranks[0]["stages"]["0"]["grad_norms"]
+    # world size N against 1: stage 0's losses and gradient norms
+    w1 = max(_rel(base, w1_losses), _rel(base_norms, w1_norms))
+    log(f"[zero] stage 0 at world size {world} against world size 1: losses "
+        f"{[round(x, 5) for x in base]}, gradient norms {[round(x, 5) for x in base_norms]}; "
+        f"largest relative difference {w1:.3e} (tolerance {ZERO_WORLD1_REL_TOL})")
+    worst = 0.0  # stages 1-3 against stage 0
+    replica = 0.0  # the ranks' parameters against rank 0's (replicas: 0)
     launches = {}
     record = {"world": world, "backend": backend, "layers": layers, "seq": ZERO_SEQ,
               "params": ranks[0]["stages"]["0"]["params"], "peak_gib": {}, "step_ms": {},
-              "losses": {}}
+              "losses": {}, "world1": {"losses": w1_losses, "grad_norms": w1_norms,
+                                       "step_ms": w1_ms, "rel_diff": w1}}
     for stage in map(str, stages):
         peaks = [r["stages"][stage]["peak_gib"] for r in ranks]
         step_ms = float(np.median([t for r in ranks for t in r["stages"][stage]["step_ms"][1:]]))
         losses = ranks[0]["stages"][stage]["losses"]
         for r in ranks:
             got = r["stages"][stage]
-            rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], base))
+            rel = max(_rel(got["losses"], base), _rel(got["grad_norms"], base_norms))
             worst = max(worst, rel)
+            replica = max(replica, got["replica_rel_l2"])
             for name, n in got["launches"].items():
                 launches.setdefault(name, [0] * world)[r["rank"]] += n
             resident = {k: round(v, 3) for k, v in got["resident_gib"].items()}
             log(f"[zero] stage {stage} rank {r['rank']}: losses "
-                f"{[round(x, 5) for x in got['losses']]} (largest relative difference to stage 0: "
-                f"{rel:.3e}); step ms {[round(t, 1) for t in got['step_ms']]}; peak "
+                f"{[round(x, 5) for x in got['losses']]}, gradient norms "
+                f"{[round(x, 5) for x in got['grad_norms']]} (largest relative difference to "
+                f"stage 0: {rel:.3e}); parameters against rank 0's: largest relative L2 "
+                f"{got['replica_rel_l2']:.3e}; step ms {[round(t, 1) for t in got['step_ms']]}; "
+                f"peak "
                 f"{got['peak_gib']:.2f} GiB; resident {resident} GiB; launches {got['launches']}")
             n_attn = layers * got["gas"] * ZERO_STEPS
             want = {"flash_fwd": n_attn, "flash_bwd_dkdv": n_attn, "flash_bwd_dq": n_attn,
@@ -1891,13 +1983,22 @@ def phase_zero():
         record["losses"][stage] = losses
     log(f"[zero] peak GiB per rank by stage: {record['peak_gib']}; median step ms (steps 2-"
         f"{ZERO_STEPS}, every rank): {record['step_ms']}")
-    log(f"[zero] worst_error_fraction={worst / LOSS_REL_TOL:.3f} (the largest relative loss "
-        f"difference to stage 0, {worst:.3e}, over the tolerance {LOSS_REL_TOL})")
+    record["rel_diff_to_stage0"] = worst
+    fraction = max(worst / ZERO_REL_TOL, w1 / ZERO_WORLD1_REL_TOL, replica / ZERO_REL_TOL)
+    log(f"[zero] worst_error_fraction={fraction:.3f} (the largest of: stages 1-3 against stage "
+        f"0, {worst:.3e} over {ZERO_REL_TOL}; world size {world} against 1, {w1:.3e} over "
+        f"{ZERO_WORLD1_REL_TOL}; a rank's parameters against rank 0's, which must be equal, "
+        f"{replica:.3e} over {ZERO_REL_TOL})")
     if not all(np.isfinite(base)) or not base[-1] < base[0]:
         raise RuntimeError(f"stage 0 losses not finite and falling: {base}")
-    if worst > LOSS_REL_TOL:
-        raise RuntimeError(f"zero losses disagree with stage 0's (relative {worst:.3e} > "
-                           f"{LOSS_REL_TOL})")
+    failures = [f"stages 1-3 against stage 0: relative {worst:.3e} > {ZERO_REL_TOL}"
+                if worst > ZERO_REL_TOL else None,
+                f"world size {world} against 1: relative {w1:.3e} > {ZERO_WORLD1_REL_TOL}"
+                if w1 > ZERO_WORLD1_REL_TOL else None,
+                f"a rank's parameters differ from rank 0's: relative L2 {replica:.3e}"
+                if replica > 0 else None]
+    if any(failures):
+        raise RuntimeError(f"zero disagrees: {'; '.join(f for f in failures if f)}")
     for r in range(world):
         seq = [record["peak_gib"][str(s)][r] for s in stages]
         if not all(b < a for a, b in zip(seq, seq[1:])):
@@ -3436,11 +3537,16 @@ V1_TABLE_MUTATIONS = _in(  # the v1 identity table's block base shifted by one b
         ("cv.view(B * Smax, nkv, d), tables, seq_idx, pos, V1_BLOCK,",
          "cv.view(B * Smax, nkv, d), (tables + 1) % (B * Smax // V1_BLOCK), seq_idx, pos, "
          "V1_BLOCK,"),))
-ZERO_MUTATIONS = _in(  # rank 1 gathers the head group's updated shards into a scratch copy
-    "deepspeed_tpu_torch/runtime/zero/partition.py", (
+def _zero_stale(group):
+    """Rank 1 gathers ``group``'s updated shards into a scratch copy (stages
+    1-2): it trains on a stale half of that group from the second step."""
+    return _in("deepspeed_tpu_torch/runtime/zero/partition.py", (
         ("comm.all_gather_into_tensor(flat, fg.shard_of(flat, self.rank), group=self.group)",
-         "comm.all_gather_into_tensor(flat if (self.rank, fg.name) != (1, 'head') else "
+         f"comm.all_gather_into_tensor(flat if (self.rank, fg.name) != (1, '{group}') else "
          "flat.clone(), fg.shard_of(flat, self.rank), group=self.group)"),))
+
+
+ZERO_MUTANT_MIN_FACTOR = 30.0  # the zero phase's mutants, against its tolerances
 DECODE_MUTATIONS = _in(SOURCE, (  # the decode skips each split's last live block
     ("const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits);",
      "const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits) - 1;"),
@@ -3459,7 +3565,8 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "paged_prefill": (PAGED_MUTATIONS, "kernels", "kernels disagree with the plain version"),
     "paged_decode": (DECODE_MUTATIONS, "kernels", "kernels disagree with the plain version"),
     "v1_table": (V1_TABLE_MUTATIONS, "v1", "v1 logits disagree"),
-    "zero_gather": (ZERO_MUTATIONS, "zero", "zero losses disagree"),
+    "zero_gather": (_zero_stale("head"), "zero", "zero disagrees"),
+    "zero_block": (_zero_stale("block0"), "zero", "zero disagrees"),
 }
 
 
@@ -3654,15 +3761,13 @@ def _run_one_mutant(name):
     caught = proc.returncode != 0 and failure in proc.stdout
     # a wrong identity table moves whole blocks of context: the logits'
     # relative L2 is then of order 1, some 20x its tolerance, not 100x; a
-    # stale half of the head moves the losses by what one step moves them
-    if phase not in ("moe_kernels", "v1", "zero"):
+    # stale half of a group moves the losses by what one step moves them
+    if phase not in ("moe_kernels", "v1"):
+        least = ZERO_MUTANT_MIN_FACTOR if phase == "zero" else MUTANT_MIN_FACTOR
         factor = _worst_error_fraction(proc.stdout, phase) or 0.0
         log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
-            f"{MUTANT_MIN_FACTOR:.0f}x)")
-        caught = caught and factor > MUTANT_MIN_FACTOR
-    elif phase == "zero":
-        log(f"[mutant] {name}: caught at "
-            f"{_worst_error_fraction(proc.stdout, phase) or 0.0:.1f}x the tolerance")
+            f"{least:.0f}x)")
+        caught = caught and factor > least
     log(f"[mutant] {name}: the mutated kernels' run exited {proc.returncode}: "
         f"{'caught, as it must be' if caught else 'NOT caught'}")
     return caught

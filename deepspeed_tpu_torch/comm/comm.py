@@ -29,11 +29,6 @@ __all__ = ["ReduceOp", "all_gather_into_tensor", "all_gather_object", "all_reduc
 ReduceOp = dist.ReduceOp
 cdb = None  # the TorchBackend once init_distributed ran
 
-# torch renamed the tensor collectives (reduce_scatter_single, all_gather_single)
-# and keeps the old names as deprecated aliases; use whichever this torch has
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-
 
 def init_distributed(dist_backend=None,
                      auto_mpi_discovery=True,
@@ -146,10 +141,10 @@ def all_gather_into_tensor(output, input, group=None):
     order. ``input`` may be this rank's slice of ``output`` (in place)."""
     if _staged(group, [output, input]):
         host = torch.empty(output.shape, dtype=output.dtype)
-        _all_gather(host, input.cpu(), group=group)
+        dist.all_gather_into_tensor(host, input.cpu(), group=group)
         output.copy_(host)
         return output
-    _all_gather(output, input, group=group)
+    dist.all_gather_into_tensor(output, input, group=group)
     return output
 
 
@@ -158,10 +153,10 @@ def reduce_scatter_tensor(output, input, op=ReduceOp.SUM, group=None):
     reduced over ``group``."""
     if _staged(group, [output, input]):
         host = torch.empty(output.shape, dtype=output.dtype)
-        _reduce_scatter(host, input.cpu(), op=op, group=group)
+        dist.reduce_scatter_tensor(host, input.cpu(), op=op, group=group)
         output.copy_(host)
         return output
-    _reduce_scatter(output, input, op=op, group=group)
+    dist.reduce_scatter_tensor(output, input, op=op, group=group)
     return output
 
 

@@ -527,8 +527,8 @@ def _block(cfg: TransformerConfig, x, layer, sin, cos, generator=None, attend=No
 class GatheredLayers:
     """The blocks of a ZeRO-3 forward (``TransformerLM.gathered_params``):
     iterating gathers each layer's weights when the layer loop reaches it,
-    so one layer's gathered weights are alive at a time, beside what
-    autograd saved of the earlier ones."""
+    so one layer's gathered weights are alive at a time (what autograd
+    saves of them is gathered again in the backward)."""
 
     def __init__(self, n: int, gather):
         self.n = n

@@ -10,8 +10,7 @@ The port shards over ``data`` only (data parallelism and ZeRO). Every other
 axis above 1 raises, naming the ROADMAP item that ports it.
 """
 
-from dataclasses import dataclass, field
-from typing import Sequence
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -21,9 +20,6 @@ MODEL_AXIS = "model"
 PIPE_AXIS = "pipe"
 SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
-
-# pipe-major, then data, then seq, then model innermost (reference mesh.py:68)
-AXIS_ORDER = (PIPE_AXIS, DATA_REPL_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
 
 # the axes the port does not shard over yet, and the ROADMAP item of each
 UNPORTED_AXES = {
@@ -54,7 +50,6 @@ class MeshConfig:
     pipe: int = 1
     seq: int = 1
     expert: int = 1
-    axis_order: Sequence[str] = field(default_factory=lambda: list(AXIS_ORDER))
 
     def resolve(self, n_devices: int) -> dict:
         sizes = {PIPE_AXIS: self.pipe, DATA_REPL_AXIS: self.data_repl, DATA_AXIS: self.data,

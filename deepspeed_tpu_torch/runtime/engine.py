@@ -105,7 +105,7 @@ class DeepSpeedEngine:
         self._zero = None
         self._opt_params = self._params
         if self.dp_world_size > 1:
-            # stage 3 casts a gathered group once, to the dtype the model computes in
+            # stage 3 gathers a group in the dtype the model computes in
             cast = getattr(getattr(model, "config", None), "dtype", self.compute_dtype)
             self._zero = ZeroPartition(model, self._params, config.zero_optimization_stage,
                                        groups.get_data_parallel_group(), cast)
@@ -252,7 +252,9 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     def _loss_fn(self, batch):
         if self._zero is not None and self._zero.stage == 3:
-            out = self.module.loss(batch, params=self.module.gathered_params(self._zero.gather))
+            with self._zero.regather_in_backward():
+                out = self.module.loss(batch,
+                                       params=self.module.gathered_params(self._zero.gather))
         elif self._loss_takes_generator:
             out = self.module.loss(batch, generator=self.generator)
         elif hasattr(self.module, "loss"):

@@ -26,10 +26,15 @@ issues them itself over the data-parallel process group (``comm``):
 - stage 3: the autograd leaves are the shards. :class:`GatherGroup`
   all-gathers a group where the forward reaches it, and its backward
   reduce-scatters the group's gradient into the shard's ``.grad``, so
-  ``AccumulateGrad`` never sees a full-size gradient. The gathered fp32
-  buffer lives only inside the gather: the leaves the model uses in fp32
-  leave it as one small copy, the rest as views of one cast to the compute
-  dtype, so autograd saves compute-dtype weights, not the fp32 layer.
+  ``AccumulateGrad`` never sees a full-size gradient. No fp32 copy of a
+  whole group is gathered: the leaves the model uses in fp32 come as one
+  small fp32 region, the rest as every rank's shard cast to the compute
+  dtype, then gathered (half the bytes). What autograd saves of those (a
+  matmul's weight) is saved as its place in the group
+  (:meth:`ZeroPartition.regather_in_backward`), and the backward gathers
+  the group again where it first needs it, so a layer's gathered weights
+  die with its forward and no rank holds the whole model's compute-dtype
+  weights.
 
 The groups are the model's (``zero_groups()``: the embedding, the final
 norm and head, then one per transformer block); any other module is one
@@ -55,8 +60,14 @@ fp32 summation order of the gradient sum over ranks and of the norm.
 Each rank's loss is weighted by the engine so that the sum over ranks is
 ``world`` times the loss of the global microbatch; the gradients are
 summed over ranks and divided by ``gas * world``.
+
+The newest partition over a model owns its parameters: it rebinds them to
+its buffers and takes the stage-2 hooks of an earlier one off them, and a
+partition's hooks go with it, so a dropped engine leaves the model's own
+backward alone.
 """
 
+import contextlib
 import math
 import weakref
 from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
@@ -122,29 +133,47 @@ class FlatGroup:
         return flat[rank * self.shard:(rank + 1) * self.shard]
 
 
-class GatherGroup(torch.autograd.Function):
-    """ZeRO-3's gather of one group: its fp32 shard -> every leaf, in leaf
-    order (the fp32 leaves as views of one copy of the fp32 region, the rest
-    as views of one cast of the remainder to ``dtype``; with ``dtype`` fp32,
-    views of the gathered buffer). Backward: the leaves' gradients into one
-    full fp32 buffer, summed over ranks into this rank's shard
-    (``reduce_scatter_tensor``)."""
-
-    @staticmethod
-    def forward(ctx, shard, fg: FlatGroup, dtype, group):
-        ctx.fg, ctx.group = fg, group
+def _gathered(shard, fg: FlatGroup, dtype, group) -> List[torch.Tensor]:
+    """Group ``fg``'s buffers from every rank's shard: with ``dtype`` fp32
+    the gathered buffer; else the fp32 region (every rank's first ``min(
+    shard, n_keep)`` elements gathered: rank 0's alone where they cover
+    it) and every rank's shard cast to ``dtype``, gathered (no fp32 copy of
+    the group is made)."""
+    if dtype == torch.float32:
         full = shard.new_empty(fg.padded)
         comm.all_gather_into_tensor(full, shard, group=group)
-        if dtype == torch.float32:
-            return tuple(fg.views(full))
-        keep = full[:fg.n_keep].clone()
-        low = full[fg.n_keep:fg.numel].to(dtype)
-        del full
-        return tuple((low[l.offset - fg.n_keep:l.offset - fg.n_keep + l.numel] if l.low
-                      else keep[l.offset:l.offset + l.numel]).view(l.shape) for l in fg.leaves)
+        return [full]
+    k = min(fg.shard, fg.n_keep)
+    keep = shard.new_empty(comm.get_world_size(group) * k)
+    if k:
+        comm.all_gather_into_tensor(keep, shard[:k], group=group)
+    low = shard.new_empty(fg.padded, dtype=dtype)
+    comm.all_gather_into_tensor(low, shard.to(dtype), group=group)
+    return [keep, low]
+
+
+def _leaf_views(fg: FlatGroup, bufs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Every leaf of ``fg`` as a view of its buffer from :func:`_gathered`."""
+    if len(bufs) == 1:
+        return fg.views(bufs[0])
+    return [bufs[int(l.low)][l.offset:l.offset + l.numel].view(l.shape) for l in fg.leaves]
+
+
+class GatherGroup(torch.autograd.Function):
+    """ZeRO-3's gather of one group: its fp32 shard -> every leaf, in leaf
+    order, as views of :func:`_gathered`'s buffers. Backward: ``done()``
+    (every use of the group's weights is behind it), then the leaves'
+    gradients into one full fp32 buffer, summed over ranks into this rank's
+    shard (``reduce_scatter_tensor``)."""
+
+    @staticmethod
+    def forward(ctx, shard, fg: FlatGroup, dtype, group, done):
+        ctx.fg, ctx.group, ctx.done = fg, group, done
+        return tuple(_leaf_views(fg, _gathered(shard, fg, dtype, group)))
 
     @staticmethod
     def backward(ctx, *grads):
+        ctx.done()
         fg = ctx.fg
         dev = next(g for g in grads if g is not None).device
         full = torch.zeros(fg.padded, dtype=torch.float32, device=dev)
@@ -153,7 +182,7 @@ class GatherGroup(torch.autograd.Function):
                 view.copy_(g)
         out = full.new_empty(fg.shard)
         comm.reduce_scatter_tensor(out, full, group=ctx.group)
-        return out, None, None, None
+        return out, None, None, None, None
 
 
 def _module_groups(module, params):
@@ -168,6 +197,11 @@ def _module_groups(module, params):
     if sorted(got) != sorted(id(p) for p in params) or len(set(got)) != len(got):
         raise ValueError("the ZeRO groups must hold each trainable parameter exactly once")
     return spec
+
+
+def _remove_hooks(handles) -> None:
+    for h in handles:
+        h.remove()
 
 
 class ZeroPartition:
@@ -189,6 +223,12 @@ class ZeroPartition:
         self.grad_shards: List[torch.Tensor] = []  # stage 2
         self._bufs: List = []  # stage 2: each group's transient full gradient
         self._pending: List[int] = []  # stage 2: leaves still to arrive this backward
+        hooks = []  # stage 2: the handles of the hooks on the model's parameters
+        # stage 3: storage address -> (a gathered buffer, weakly; its group;
+        # its index in _gathered's list) while a forward runs; and the group
+        # the backward gathered again, with its buffers
+        self._live: Dict[int, Tuple[weakref.ref, int, int]] = {}
+        self._regathered = None
         for name, entries in _module_groups(module, params):
             fg = FlatGroup(name, [(k, p.shape, low) for k, p, low in entries], self.world)
             by_key = {k: p for k, p, _ in entries}
@@ -219,8 +259,13 @@ class ZeroPartition:
                 self._bufs.append(None)
                 self._pending.append(len(ps))
                 for li, p in enumerate(ps):
-                    p.register_post_accumulate_grad_hook(self._stage2_hook(len(self.groups) - 1,
-                                                                           li))
+                    earlier = getattr(p, "_zero_grad_hook", None)
+                    if earlier is not None:  # an earlier partition's over this model
+                        earlier.remove()
+                    p._zero_grad_hook = p.register_post_accumulate_grad_hook(
+                        self._stage2_hook(len(self.groups) - 1, li))
+                    hooks.append(p._zero_grad_hook)
+        weakref.finalize(self, _remove_hooks, hooks)
 
     # ------------------------------------------------------------------
     # what the optimizer updates
@@ -293,7 +338,9 @@ class ZeroPartition:
 
     def finish_backward(self) -> None:
         """After each microbatch's backward: stage 2 reduces a group some of
-        whose leaves the loss did not reach (every rank alike)."""
+        whose leaves the loss did not reach (every rank alike); stage 3
+        drops the group the backward gathered last."""
+        self._regathered = None
         if self.stage == 2:
             for gi, fg in enumerate(self.groups):
                 if self._pending[gi] != len(fg.leaves):
@@ -321,8 +368,47 @@ class ZeroPartition:
     def gather(self, gi: int) -> Dict[Any, torch.Tensor]:
         """Stage 3: group ``gi``'s leaves for a forward, {key: tensor}."""
         fg = self.groups[gi]
-        outs = GatherGroup.apply(self.shards[gi], fg, self.compute_dtype, self.group)
+        outs = GatherGroup.apply(self.shards[gi], fg, self.compute_dtype, self.group,
+                                 lambda: self._drop_regathered(gi))
+        for l, t in zip(fg.leaves, outs):
+            buf = t._base
+            self._live[buf.untyped_storage().data_ptr()] = (
+                weakref.ref(buf), gi, int(l.low and self.compute_dtype != torch.float32))
         return {l.key: t for l, t in zip(fg.leaves, outs)}
+
+    @contextlib.contextmanager
+    def regather_in_backward(self):
+        """Stage 3's forward runs inside: a tensor autograd saves that lies in
+        a gathered group's buffer is saved as (group, buffer, size, stride,
+        offset), and the backward gathers the group again where it unpacks
+        the first such tensor (one group at a time, every rank in the same
+        order, the graph being the same on every rank)."""
+        with torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack):
+            try:
+                yield
+            finally:
+                self._live.clear()
+
+    def _pack(self, t):
+        entry = self._live.get(t.untyped_storage().data_ptr())
+        buf = entry[0]() if entry else None
+        if buf is None or buf.dtype != t.dtype:
+            return t
+        return entry[1], entry[2], t.size(), t.stride(), t.storage_offset()
+
+    def _drop_regathered(self, gi: int) -> None:
+        if self._regathered is not None and self._regathered[0] == gi:
+            self._regathered = None
+
+    def _unpack(self, packed):
+        if isinstance(packed, torch.Tensor):
+            return packed
+        gi, bi, size, stride, offset = packed
+        if self._regathered is None or self._regathered[0] != gi:
+            self._regathered = None
+            self._regathered = (gi, _gathered(self.shards[gi].detach(), self.groups[gi],
+                                              self.compute_dtype, self.group))
+        return self._regathered[1][bi].as_strided(size, stride, offset)
 
     # ------------------------------------------------------------------
     # introspection

@@ -21,7 +21,9 @@ atol 2e-6, the tolerances of ``tests/test_torch_engine.py``. The JAX
 references run while the ranks do.
 
 Also, in the ranks: ``gather(scatter(x)) == x`` for every group over the
-real collectives, each rank's resident bytes of parameters, gradients and
+real collectives, stage 3's gathers (nothing gathered outlives the
+forward; the backward gathers again), a second stage-2 engine over the
+same model, each rank's resident bytes of parameters, gradients and
 moments per stage, and ``deepspeed_io``'s shards; and, in this process,
 the partition's layout arithmetic, ``MeshConfig.resolve`` and the
 refusals at world size >= 2, each naming its ROADMAP item.
@@ -129,6 +131,99 @@ def _partition_round_trip(engine, rank):
     return ok, shards
 
 
+def _second_stage2_engine(engine, rank):
+    """A second stage-2 engine over the trained engine's model takes a step
+    from the model's current weights, both engines alive; once both are
+    dropped, the model's own backward gives every parameter its gradient."""
+    from deepspeed_tpu_torch import comm
+
+    model = engine.module
+    batch = _rank_rows(_global_batch("ids", STEPS, _seq("dense")), rank)
+    ids = torch.from_numpy(batch["input_ids"])
+    with torch.no_grad():  # the global mean at the weights the second engine starts from
+        local = torch.stack([model.loss({"input_ids": ids[i * MICRO:(i + 1) * MICRO]})
+                             for i in range(GAS)]).mean()
+    want = float(comm.all_reduce(local, group=engine._zero.group)) / WORLD
+    second, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=_ds_config(2, "always"))
+    got = float(second.train_batch(batch))
+    norm = float(second.get_global_grad_norm())
+    sums = [float(t.double().square().sum()) for t in second.module_state_dict().values()]
+    del engine, second
+    gc.collect()
+    model.loss({"input_ids": ids[:MICRO]}).backward()
+    return {"loss": got, "want": want, "grad_norm": norm, "param_sums": sums,
+            "own_backward_grads": all(p.grad is not None for p in model.parameters())}
+
+
+def _stage3_regathers(engine, rank):
+    """One more stage-3 forward and backward, counting the gathers: no
+    gathered buffer outlives the forward (what autograd saved of it is
+    gathered again), and the backward gathers every group it saved from."""
+    from deepspeed_tpu_torch.runtime.zero import partition
+
+    bufs, calls, real = [], [0], partition._gathered
+
+    def counted(*args):
+        calls[0] += 1
+        out = real(*args)
+        bufs.extend(weakref.ref(b) for b in out)
+        return out
+
+    batch = _rank_rows(_global_batch("ids", STEPS, _seq("dense")), rank)
+    partition._gathered = counted
+    try:
+        loss = engine._loss_fn({"input_ids": torch.from_numpy(batch["input_ids"][:MICRO])})
+        forward = calls[0]
+        alive = sum(ref() is not None for ref in bufs)
+        loss.backward()
+        engine._zero.finish_backward()
+    finally:
+        partition._gathered = real
+    return {"forward_gathers": forward, "alive_after_forward": alive,
+            "backward_gathers": calls[0] - forward}
+
+
+def _bf16_stages(rank, npp):
+    """The dense model computing in bf16 at stages 2 and 3 (stage 3 gathers
+    each shard cast to bf16 and its fp32 region apart, and again in the
+    backward): {stage: (losses, final parameters, stage 3's gathers)}."""
+    out = {}
+    for stage in (2, 3):
+        cfg = mistral_config("tiny", dtype=torch.bfloat16, attention_impl="reference", **TINY)
+        model = TransformerLM(cfg, params_from_jax(npp, cfg, device="cpu", dtype=torch.float32,
+                                                   per_layer=True), trainable=True)
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model,
+                                                         config=_ds_config(stage, "always"))
+        losses = [float(engine.train_batch(_rank_rows(_global_batch("ids", step, _seq("dense")),
+                                                      rank))) for step in range(STEPS)]
+        params = {k: v.numpy() for k, v in engine.module_state_dict().items()}
+        out[stage] = (losses, params, _stage3_regathers(engine, rank) if stage == 3 else None)
+    return out
+
+
+def _low_dtype_gathers(rank):
+    """``_gathered`` in bf16 over the real collectives for a group whose
+    fp32 region lies in rank 0's shard, one whose fp32 region spans both
+    shards and one with no fp32 leaf: the fp32 leaves exact, the rest their
+    bf16 cast."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime.zero.partition import _gathered, _leaf_views
+
+    ok = []
+    for shapes, low in ((((8, 8), (3, ), (40, )), (True, False, True)),
+                        (((4, ), (100, ), (2, 3)), (False, False, True)),
+                        (((5, 7), (9, )), (True, True))):
+        fg = FlatGroup("g", [(i, s, l) for i, (s, l) in enumerate(zip(shapes, low))], WORLD)
+        rng = np.random.default_rng(len(shapes))
+        ts = [torch.from_numpy(rng.normal(size=l.shape).astype(np.float32)) for l in fg.leaves]
+        shard = fg.shard_of(fg.flatten(ts), rank).clone()
+        got = _leaf_views(fg, _gathered(shard, fg, torch.bfloat16, None))
+        ok.append([bool(torch.equal(g, t.to(torch.bfloat16) if l.low else t))
+                   for g, t, l in zip(got, ts, fg.leaves)])
+    comm.barrier()
+    return ok
+
+
 def _worker(rank, store, npps, out_dir):
     torch.set_num_threads(2)
     deepspeed_tpu_torch.init_distributed(dist_backend="gloo", init_method=f"file://{store}",
@@ -147,7 +242,10 @@ def _worker(rank, store, npps, out_dir):
             r["bytes"] = engine.zero_resident_bytes()
             r["params"] = {k: v.numpy() for k, v in engine.module_state_dict().items()}
             r["fused"] = engine._pallas_adam is not None
+            if name == "stage2":
+                r["second_engine"] = _second_stage2_engine(engine, rank)
             if name == "stage3":
+                r["regather"] = _stage3_regathers(engine, rank)
                 r["round_trip"] = _partition_round_trip(engine, rank)
                 data = [{"input_ids": np.full(4, i, np.int32)} for i in range(10)]
                 r["loader"] = [int(mb["input_ids"][j, 0]) for mb in engine.deepspeed_io(data)
@@ -157,6 +255,8 @@ def _worker(rank, store, npps, out_dir):
             gc.collect()
             r["partition_released"] = partition() is None
             results[name] = r
+        results["bf16"] = _bf16_stages(rank, npps["dense"])
+        results["low_gathers"] = _low_dtype_gathers(rank)
     finally:
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
@@ -231,7 +331,9 @@ def zero_run(tmp_path_factory):
     for r in range(WORLD):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
-    return {name: ([rk[name] for rk in ranks], refs[REFERENCE[name]]) for name in CASES}
+    out = {name: ([rk[name] for rk in ranks], refs[REFERENCE[name]]) for name in CASES}
+    out.update({key: [rk[key] for rk in ranks] for key in ("bf16", "low_gathers")})
+    return out
 
 
 def _assert_params_close(ours, ref, kind):
@@ -268,6 +370,49 @@ def test_a_dropped_engine_releases_its_partition(zero_run, name):
     """Nothing outside the engine (the stage-2 hooks on the model's
     parameters included) keeps its buffers alive once it is dropped."""
     assert all(r["partition_released"] for r in zero_run[name][0])
+
+
+def test_a_second_stage2_engine_over_the_same_model_trains(zero_run):
+    """The newest partition over a model owns its stage-2 hooks: a second
+    engine's step starts from the model's weights and reduces real
+    gradients (both ranks end equal), and once the engines are dropped the
+    model's own backward runs through no hook of theirs."""
+    ranks = zero_run["stage2"][0]
+    for r in ranks:
+        s = r["second_engine"]
+        np.testing.assert_allclose(s["loss"], s["want"], rtol=2e-5)
+        assert np.isfinite(s["grad_norm"]) and s["grad_norm"] > 0
+        assert s["own_backward_grads"]
+    assert ranks[0]["second_engine"]["param_sums"] == ranks[1]["second_engine"]["param_sums"]
+
+
+def test_stage3_gathers_again_in_the_backward(zero_run):
+    """No rank keeps a gathered group past the forward: autograd saves each
+    gathered weight as its place in the group, and the backward gathers the
+    head and every block again (the embedding's lookup saves only ids)."""
+    for r in zero_run["stage3"][0]:
+        g = r["regather"]
+        assert g["forward_gathers"] == 2 + TINY["num_layers"]
+        assert g["alive_after_forward"] == 0
+        assert g["backward_gathers"] == 1 + TINY["num_layers"]
+
+
+def test_stage3_in_bf16_matches_stage2(zero_run):
+    """Computing in bf16, stage 3 (each shard cast, then gathered; the fp32
+    leaves gathered apart; gathered again in the backward) takes the same
+    steps as stage 2 (the full fp32 masters cast where they are used)."""
+    for r in zero_run["bf16"]:
+        (l2, p2, _), (l3, p3, gathers) = r[2], r[3]
+        np.testing.assert_allclose(l3, l2, rtol=1e-6)
+        for k in p2:
+            np.testing.assert_allclose(p3[k], p2[k], rtol=1e-6, atol=1e-8, err_msg=k)
+        assert gathers["alive_after_forward"] == 0
+        assert gathers["backward_gathers"] == 1 + TINY["num_layers"]
+
+
+def test_low_dtype_gathers_keep_the_fp32_leaves_exact(zero_run):
+    for r in zero_run["low_gathers"]:
+        assert [all(group) for group in r] == [True, True, True]
 
 
 def test_unequal_mask_counts_take_the_global_mean(zero_run):
@@ -359,6 +504,15 @@ def test_non_data_mesh_axes_are_refused_naming_their_item(axis, item):
     cfg = deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 2,
                                                "tpu": {"mesh": {"data": -1}}})
     assert cfg.tpu_config.mesh_config().resolve(4)["data"] == 4
+
+
+def test_mesh_axis_order_is_not_a_mesh_key():
+    """The port builds a one-axis ``data`` mesh: a key it would not read is
+    refused, not ignored."""
+    with pytest.raises(deepspeed_tpu_torch.DeepSpeedConfigError,
+                       match="axis_order"):
+        deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 2, "tpu": {"mesh": {
+            "data": 2, "axis_order": ["pipe", "data_repl", "data", "seq", "model"]}}})
 
 
 def test_moe_and_hybrid_are_refused_at_world_size_two(monkeypatch):
