@@ -1,8 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
-                                    train,zero,moe_train,sparse_train,evo_kernels,evo_path,v1,
-                                    hybrid]
+                                    train,zero,moe_zero,moe_train,sparse_train,evo_kernels,
+                                    evo_path,v1,hybrid]
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
     python3 chip_smoke.py --versus DIR [--phases kernels,e2e]
@@ -160,7 +160,40 @@ code 1 otherwise):
    fused AdamW once a step (on the rank's shards at stages >= 1). Each
    rank's losses, step times, peak and resident bytes are printed. With four
    cards, also stage 3 at full depth (32 layers), each rank's peak printed.
-9. moe_train: the earlier engines freed, Mixtral-8x7B's widths (8 experts,
+9. moe_zero: MoE training at data-parallel world size >= 2 with the
+   experts over the ranks, spawned as ``zero`` spawns (``--zero-rank`` with
+   impl:stage cases): Mixtral-8x7B's widths (8 experts, top-2 with the
+   Gumbel second expert drawn from each row's generator, capacity factor
+   1.25, rope_theta 1e6, no window) on the zero phase's training
+   configuration. First, in this process, world size 1 on the same global
+   batch, one row a microbatch in the ranks' order (every product then has
+   the ranks' shapes), for both ``moe_impl``s. With one card, two gloo
+   ranks sharing it at depth 1 (32 -> 1): the einsum path at stage 1 (its
+   capacity slots exchanged with the experts' owners by all-to-all) and
+   the grouped path at stage 3 (the experts gathered in bf16 where the
+   forward reaches a block, their gradients reduce-scattered to the
+   owners); with two or more cards min(4, count) NCCL ranks at depth 2,
+   then, on four, depth 8 with the experts over the four cards at stages 0
+   and 3 for both paths (no world size 1: it does not fit one card). Each
+   rank must hold exactly its experts of the initial weights (``E /
+   world`` of every block's); the losses and gradient norms must match
+   world size 1 within 2e-3 and 1e-2 (1.5e-1 where the first layer's gate
+   picks other experts for some token than world size 1's: bf16 routing
+   ties; such tokens are counted); at depth 8 stage 3 must match stage 0
+   within 2e-4 for each path; einsum must match grouped at the first step,
+   on the same weights, within 2e-3 and 1e-2 (after an AdamW step the two
+   paths part at world size 1 too; the later gap is printed); every
+   non-expert group must equal rank 0's; gmm / tgmm (grouped), flash, the
+   fused AdamW and the all-to-all (einsum) must launch on every rank as
+   many times as the layers and microbatches say; and the first block's MoE
+   FFN through the partition (this rank's experts; the slots exchanged, or
+   the experts gathered) must match the same FFN on the whole fp32 experts
+   on one input (identical routing; y, dh and this rank's experts'
+   gradients, the whole gradients summed over the ranks) within relative
+   L2 1e-2. Each rank's losses, step times, peak and resident bytes (the
+   experts apart), the seconds of each case's set-up, steps and checks,
+   and ``worst_error_fraction`` are printed.
+10. moe_train: the earlier engines freed, Mixtral-8x7B's widths (8 experts,
    top-2, the grouped path, capacity factor 1.25, rope_theta 1e6, no
    window) with the depth cut 32 -> 2 for memory, trained as in ``train``
    (the engine's seeded generator drives the gating's draws): losses finite
@@ -172,7 +205,7 @@ code 1 otherwise):
    1.5e-1: the last layer's gate sees inputs that differ in the last bf16
    bit, and the tokens it routes differently, printed, move whole tokens'
    contributions between experts).
-10. sparse_train: the earlier engines freed, Llama-2-7B's widths with the
+11. sparse_train: the earlier engines freed, Llama-2-7B's widths with the
    depth cut 32 -> 8 and the ds_config's ``sparse_attention`` block (the
    documented 'fixed' layout, unidirectional), trained as in ``train``:
    losses finite and falling, step time, tokens/s, peak memory, launches
@@ -181,7 +214,7 @@ code 1 otherwise):
    then at seq 1024 the whole model through the kernel against the same
    through the plain forward (loss 2e-3, gradient 5e-2).
 
-11. evo_kernels: hold the Evoformer kernels (``evo_fwd``, ``evo_bwd_dq``,
+12. evo_kernels: hold the Evoformer kernels (``evo_fwd``, ``evo_bwd_dq``,
    ``evo_bwd_dkdv`` with the mask bias's ``db1`` summed inside it, and
    ``evo_bwd_db2``) against their plain versions on the same inputs (the
    backward on the kernel forward's out and lse): out, lse, dq, dk, dv,
@@ -213,7 +246,7 @@ code 1 otherwise):
    and its backward with the mask's gradient for the backward kernels
    together; db1's time is that of the dk/dv launch that sums it (with
    what the sum adds beside it). ``worst_error_fraction`` is printed.
-12. evo_path: one Evoformer block's four attention calls (MSA row attention
+13. evo_path: one Evoformer block's four attention calls (MSA row attention
    with the pair bias, MSA column attention, triangle attention around the
    starting and the ending node) at AlphaFold-2's fine-tuning crop (N_res
    384, N_clust 512) with OpenFold's heads (8 x 32 for the MSA, 4 x 32 for
@@ -228,7 +261,7 @@ code 1 otherwise):
    the block through the plain versions: every output finite, and the
    output (off the fully masked rows) and all five cotangents of each call
    within relative L2 1e-2 of the plain path's.
-13. v1: first the paged kernels in the v1 path's layout (a dense
+14. v1: first the paged kernels in the v1 path's layout (a dense
    [B, Smax, 8, 128] cache viewed as a pool of 128-slot blocks with an
    identity block table, 32 / 8 heads) against the plain version with the
    ``kernels`` tolerance: the prefills and decodes of both waves and of
@@ -248,7 +281,7 @@ code 1 otherwise):
    prefill and after one decode step, kernels against the dense route on
    the same weights (``attention_impl="reference"``), relative L2 within
    5e-2, the argmax agreement printed.
-14. hybrid: the earlier engines freed, the ``train`` phase's configuration
+15. hybrid: the earlier engines freed, the ``train`` phase's configuration
    (Mistral-7B width, 8 layers, fp32 masters, bf16, fused AdamW; a
    constant lr) through ``initialize`` with ``hybrid_engine.enabled``:
    ``generate`` twice (4 x 64 + 32), ``train_batch`` x 2, ``generate``. The
@@ -284,7 +317,11 @@ block (``--phases build,v1`` must fail on the logits), and the ZeRO
 partition with rank 1 gathering the head group's updated shards into a
 scratch copy after each update, so that it trains on a stale half of the
 head, and the same for the first block's (``--phases build,zero`` must
-fail, each by more than 30x the phase's tolerance): fourteen copies.
+fail, each by more than 30x the phase's tolerance), and the MoE at world
+size >= 2 with the einsum path's return all-to-all rotating the slots by
+one rank and, alone, the grouped path's expert gradients kept on each
+owner's own tokens (not reduce-scattered; ``--phases build,moe_zero``
+must fail by more than 30x the phase's tolerance): sixteen copies.
 It passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
@@ -449,6 +486,30 @@ ZERO_DS_CONFIG = dict({k: v for k, v in TRAIN_DS_CONFIG.items() if k != "schedul
 # same global batch (micro N): each rank's weight gradients are rounded to
 # bf16 before the sum over ranks, not after.
 ZERO_REL_TOL, ZERO_WORLD1_REL_TOL = 2e-4, 2e-3
+# MoE at data-parallel world size >= 2 (moe_zero): Mixtral-8x7B's widths
+# (MOE_CONFIG) on the zero phase's training configuration, the experts over the
+# ranks; the gating draws from each row's generator (top-2's Gumbel second
+# expert). Depth 1 when gloo ranks share one card (the grouped path moves 2.8 GB
+# of gathered experts and 5.6 GB of their fp32 gradients a layer a microbatch
+# through the host), 2 over NCCL against world size 1 (50.6 GB of state on one
+# card), then 8 with the experts over 4 cards (45.1 GB of expert state a rank)
+# at stages 0 and 3, without world size 1, which one card does not hold. Each
+# case is impl:stage.
+MOE_ZERO_GLOO_LAYERS, MOE_ZERO_NCCL_LAYERS, MOE_ZERO_EP_LAYERS = 1, 2, 8
+MOE_ZERO_CASES = ("einsum:1", "grouped:3")
+MOE_ZERO_STEPS = 2
+MOE_ZERO_EP_CASES = ("einsum:0", "einsum:3", "grouped:0", "grouped:3")
+# Gradient norms where no token routes otherwise: against world size 1 (the
+# counted routing flips 0; sound runs 1.5e-4 to 1.1e-3 on H100) and einsum
+# against grouped at the first step, on the same weights (1.0e-3 at depth 8).
+# A wrong expert gradient (the moe_expert_grad mutant) reads 1.3e-1.
+# After an lr 1e-3 AdamW step the two impls' trajectories part at world size
+# 1 too (depth 2: losses 4e-5 -> 1.4e-3): the first update moves every
+# element by about lr times the sign of its gradient, and the bf16 gradients
+# of the two impls differ in sign where they are near 0. So einsum and
+# grouped are compared at the first step only; each impl's later steps are
+# held to world size 1 and, at depth 8, stage 3 to stage 0 (ZERO_REL_TOL).
+MOE_NORM_REL_TOL = 1e-2
 # the Evoformer path: AlphaFold-2's fine-tuning crop (AF2 supplementary
 # information, Table 4: N_res 384, N_clust 512) with OpenFold's Evoformer
 # heads (c_hidden_msa_att 32 x 8 heads, c_hidden_pair_att 32 x 4 heads);
@@ -1755,12 +1816,12 @@ def _zero_rank_ids(rank, gas):
     return rng.integers(0, ZERO_VOCAB, (gas, ZERO_SEQ)).astype(np.int32)
 
 
-def _zero_train(engine, batch):
-    """ZERO_STEPS steps of ``batch``: (losses, gradient norms, step ms)."""
+def _zero_train(engine, batch, steps=ZERO_STEPS):
+    """``steps`` steps of ``batch``: (losses, gradient norms, step ms)."""
     import torch
 
     losses, norms, times = [], [], []
-    for _ in range(ZERO_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(float(engine.train_batch(batch)))
         torch.cuda.synchronize()
@@ -1839,9 +1900,10 @@ def _zero_rank_run(layers, stages, out_path):
 
 def _zero_spawn(world, backend, layers, stages, tag):
     """Run ``world`` ranks of ``_zero_rank_run`` (this script with
-    ``--zero-rank``), one process each, and return their results. A rank
-    that fails or outlives ``ZERO_TIMEOUT_S`` fails the phase (every rank is
-    then killed)."""
+    ``--zero-rank``; ``_moe_zero_rank_run`` where ``stages`` are impl:stage
+    cases), one process each, and return their results. A rank that fails
+    or outlives ``ZERO_TIMEOUT_S`` fails the phase (every rank is then
+    killed)."""
     out_dir = os.path.join(HERE, "build", "zero")
     os.makedirs(out_dir, exist_ok=True)
     env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="localhost",
@@ -2020,6 +2082,378 @@ def phase_zero():
 
 
 # ---------------------------------------------------------------------------
+# phase: MoE at data-parallel world size >= 2, the experts over the ranks
+# ---------------------------------------------------------------------------
+
+def _moe_zero_cfg(layers, impl):
+    from deepspeed_tpu_torch.models import mistral_config
+
+    return mistral_config("7b", **dict(MOE_CONFIG, num_layers=layers, moe_impl=impl))
+
+
+def _gate_top2(cfg, embedding, first, ids):
+    """The first layer's top-2 expert sets [S, 2] of the tokens ``ids`` [1,
+    S] from the ``embedding`` and the first block's weights ``first``
+    (deterministic gating; the experts are not read)."""
+    import torch
+
+    from deepspeed_tpu_torch.models import transformer as tr
+
+    with torch.no_grad():
+        x = embedding.to(cfg.dtype)[ids]
+        sin, cos = tr.rope_table(cfg, torch.arange(ids.shape[1], device=ids.device))
+        x = x + tr._attn_branch(cfg, first, tr._norm(x, first["ln1_scale"], None, cfg.norm,
+                                                     cfg.norm_eps), sin, cos)
+        h = tr._norm(x, first["ln2_scale"], None, cfg.norm, cfg.norm_eps)
+        logits = h.float()[0] @ first["gate_wg"].float()
+    return logits.topk(cfg.moe_top_k, dim=-1).indices.sort(dim=-1).values
+
+
+def _moe_layer_check(engine, cfg, rank):
+    """The first block's MoE FFN through the engine's partition (this rank's
+    experts: the slots exchanged with their owners on the einsum path, the
+    experts gathered and their gradients reduce-scattered on the grouped
+    path) against the same FFN on the whole fp32 experts, on one input of
+    this rank (identical routing): relative L2 of y, dh and this rank's
+    experts' gradients (the whole experts' gradients summed over the ranks
+    into this rank's). The whole experts are the compute-dtype casts of
+    the fp32 masters, which both paths multiply by."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import transformer as tr
+    from deepspeed_tpu_torch.runtime.zero import partition
+
+    z, dev = engine._zero, engine.device
+    gen = torch.Generator(device=dev).manual_seed(50 + rank)
+    h0 = torch.randn((1, CHECK_SEQ, cfg.hidden_size), generator=gen, device=dev).to(cfg.dtype)
+    dy = torch.randn(h0.shape, generator=gen, device=dev)
+    names = ("moe_wi", "moe_wg", "moe_wo")
+    owned = dict(z.expert_leaves[2])  # block 0's experts: (key, parameter)
+    for p in owned.values():
+        p.grad.zero_()
+
+    def run(layer):
+        h = h0.clone().requires_grad_()
+        y, _ = tr._moe_mlp(cfg, layer, h)
+        (y.float() * dy).sum().backward()
+        return y.detach(), h.grad
+
+    with z.regather_in_backward():
+        tree = engine.module.gathered_params(z.gather)
+        layer = next(iter(tree["blocks"]))
+        y, dh = run(layer)
+    got = [owned[("blocks", 0, n)].grad.clone() for n in names]
+    whole = {n: partition._gathered_expert(owned[("blocks", 0, n)].detach(), cfg.dtype,
+                                           z.group).requires_grad_() for n in names}
+    ref = dict(whole, gate_wg=layer["gate_wg"].detach())
+    y_ref, dh_ref = run(ref)
+    want = []
+    for n, g in zip(names, got):
+        want.append(comm.reduce_scatter_tensor(torch.empty_like(g), whole[n].grad.float(),
+                                               group=z.group))
+        whole[n].grad = None
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    out = {"y": rel(y, y_ref), "dh": rel(dh, dh_ref)}
+    out.update({f"d{n}": rel(a, b) for n, a, b in zip(names, got, want)})
+    del whole, ref, tree, layer
+    return out
+
+
+def _moe_replica_rel_l2(engine):
+    """The largest relative L2 difference of a non-expert parameter group
+    (its whole fp32 buffer) to rank 0's: each must be equal."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+
+    z = engine._zero
+    worst = 0.0
+    for gi, fg in enumerate(z.groups):
+        if z.stage == 3:
+            flat = z.shards[gi].detach().new_empty(fg.padded)
+            comm.all_gather_into_tensor(flat, z.shards[gi].detach(), group=z.group)
+        else:
+            flat = z.flats[gi]
+        ref = comm.broadcast(flat.clone(), src=0)
+        worst = max(worst, float((flat - ref).norm() / ref.norm().clamp_min(1e-30)))
+        del ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _moe_zero_rank_run(layers, cases, out_path):
+    """One rank of the moe_zero phase (``--zero-rank`` with ``--zero-moe``):
+    for each (impl, stage) of ``cases``, Mixtral-8x7B's widths at
+    ``layers`` layers from seed 0 through ``initialize`` -> ``train_batch``
+    on this rank's rows, with the launch counts reset just before the steps
+    and read just after. Writes, per case: losses, gradient norms, step ms,
+    peak GiB, resident GiB, launches, whether this rank holds exactly its
+    experts of the initial weights, the largest relative L2 difference of a
+    non-expert group to rank 0's, the first layer's top-2 sets on the
+    first microbatch after the steps, (not at depth MOE_ZERO_EP_LAYERS)
+    the layer check, and the seconds of set-up, steps and checks."""
+    import datetime
+    import gc
+
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deepspeed_tpu_torch.init_distributed(dist_backend=os.environ["ZERO_BACKEND"], verbose=False,
+                                         timeout=datetime.timedelta(minutes=5))
+    rank, world = comm.get_rank(), comm.get_world_size()
+    out = {"rank": rank, "world": world, "backend": comm.get_backend(), "cases": {}}
+    for impl, stage in cases:
+        t0 = time.perf_counter()
+        cfg = _moe_zero_cfg(layers, impl)
+        model = TransformerLM(cfg, trainable=True, seed=0)
+        n_params = model.num_params()
+        e = cfg.moe_num_experts // world
+        # this rank's experts of the first block's moe_wi, as every rank draws them
+        want = model.tree["blocks"][0]["moe_wi"].detach()[rank * e:(rank + 1) * e].clone()
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=model, config=dict(ZERO_DS_CONFIG, zero_optimization={"stage": stage}))
+        mine = model.tree["blocks"][0]["moe_wi"].detach()
+        owned_ok = mine.shape == want.shape and bool(torch.equal(mine, want))
+        del want
+        gas = engine.gradient_accumulation_steps()
+        batch = {"input_ids": _zero_rank_ids(rank, gas)}
+        torch.cuda.synchronize()
+        for mod in (fa, fad, gm, sharded_moe):
+            mod.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        losses, norms, times = _zero_train(engine, batch, MOE_ZERO_STEPS)
+        t2 = time.perf_counter()
+        launches = {**gm.launch_counts, **fa.launch_counts, **fad.launch_counts,
+                    **sharded_moe.launch_counts}
+        r = {"impl": impl, "stage": stage, "losses": losses, "grad_norms": norms,
+             "step_ms": times, "gas": gas, "params": n_params, "launches": launches,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "resident_gib": {k: v / 2**30 for k, v in engine.zero_resident_bytes().items()},
+             "owned_experts": [rank * e, (rank + 1) * e], "owned_ok": owned_ok,
+             "replica_rel_l2": _moe_replica_rel_l2(engine)}
+        z = engine._zero
+        ids = torch.from_numpy(batch["input_ids"][:1].astype("int64")).to(engine.device)
+        with z.regather_in_backward():
+            r["top2"] = _gate_top2(cfg, z.gather(0)[("embed", "embedding")],
+                                   {k[2]: t for k, t in z.gather(2).items()}, ids).tolist()
+        if layers != MOE_ZERO_EP_LAYERS:
+            r["layer_check"] = _moe_layer_check(engine, cfg, rank)
+        r["phase_s"] = {"setup": t1 - t0, "steps": t2 - t1, "checks": time.perf_counter() - t2}
+        out["cases"][f"{impl}:{stage}"] = r
+        del engine, model, z, mine
+        gc.collect()
+        torch.cuda.empty_cache()
+    comm.barrier()
+    comm.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _moe_zero_world1(world, layers, impl):
+    """World size 1 in this process on the global batch of the moe_zero
+    phase's ``world`` ranks, one row a microbatch in the ranks' order
+    (micro 1, gas 2 x world: every product has the ranks' shapes, and row g
+    of the step draws from the generator rank g % world's row does):
+    (losses, gradient norms, step ms, the first layer's top-2 sets of each
+    rank's first row after the steps)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM
+
+    cfg = _moe_zero_cfg(layers, impl)
+    model = TransformerLM(cfg, trainable=True, seed=0)
+    gas = ZERO_DS_CONFIG["gradient_accumulation_steps"]
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=dict(
+        ZERO_DS_CONFIG, gradient_accumulation_steps=gas * world))
+    ids = np.stack([_zero_rank_ids(r, gas) for r in range(world)], axis=1)
+    losses, norms, times = _zero_train(engine, {"input_ids": ids.reshape(gas * world, ZERO_SEQ)},
+                                       MOE_ZERO_STEPS)
+    tree = model.params()
+    top2 = [_gate_top2(cfg, tree["embed"]["embedding"], tree["blocks"][0],
+                       torch.from_numpy(ids[0, r:r + 1].astype("int64")).to(engine.device))
+            .tolist() for r in range(world)]
+    del engine, model, tree  # the tree holds the masters and their gradients
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, norms, times, top2
+
+
+def _moe_zero_checks(ranks, layers, world1):
+    """Check one spawn's cases. ``world1``: {impl: world size 1's (losses,
+    norms, ms, top-2 sets)} or None. Returns (failures, the largest error as
+    a fraction of its tolerance, launches {name: [per rank]}, record)."""
+    import numpy as np
+
+    failures, fractions, launches, record = [], [0.0], {}, {}
+    cases = list(ranks[0]["cases"])
+    for key in cases:
+        impl, stage = key.split(":")
+        got = [r["cases"][key] for r in ranks]
+        base = got[0]
+        per_mb = layers * base["gas"] * MOE_ZERO_STEPS
+        want = {"flash_fwd": per_mb, "flash_bwd_dkdv": per_mb, "flash_bwd_dq": per_mb,
+                "fused_adam": MOE_ZERO_STEPS,
+                "gmm": 6 * per_mb if impl == "grouped" else 0,
+                "tgmm": 3 * per_mb if impl == "grouped" else 0,
+                "gmm_wmma": 0, "tgmm_wmma": 0,
+                "all_to_all": 4 * per_mb if impl == "einsum" else 0}
+        for r in ranks:
+            c = r["cases"][key]
+            for name, n in c["launches"].items():
+                launches.setdefault(name, [0] * len(ranks))[r["rank"]] += n
+            bad = {k: (c["launches"].get(k, 0), v) for k, v in want.items()
+                   if c["launches"].get(k, 0) != v}
+            if bad:
+                failures.append(f"{key} rank {r['rank']}: launches (got, expected) {bad}")
+            if not c["owned_ok"]:
+                failures.append(f"{key} rank {r['rank']}: does not hold exactly experts "
+                                f"{c['owned_experts']} of the initial weights")
+            if c["replica_rel_l2"] > 0:
+                failures.append(f"{key} rank {r['rank']}: a non-expert group differs from "
+                                f"rank 0's by {c['replica_rel_l2']:.3e}")
+            if c["losses"] != base["losses"]:
+                failures.append(f"{key} rank {r['rank']}: losses {c['losses']} != rank 0's")
+            for what, err in c.get("layer_check", {}).items():
+                fractions.append(err / MOE_LAYER_REL_L2_TOL)
+                if err > MOE_LAYER_REL_L2_TOL:
+                    failures.append(f"{key} rank {r['rank']}: the layer check's {what} relative "
+                                    f"L2 {err:.3e} > {MOE_LAYER_REL_L2_TOL}")
+            resident = {k: round(v, 3) for k, v in c["resident_gib"].items()}
+            a, b = c["owned_experts"]
+            log(f"[moe_zero] {impl} stage {stage} rank {r['rank']} (experts [{a}, {b})): losses {[round(x, 5) for x in c['losses']]}, gradient "
+                f"norms {[round(x, 5) for x in c['grad_norms']]}; step ms "
+                f"{[round(t, 1) for t in c['step_ms']]}; peak {c['peak_gib']:.2f} GiB; resident "
+                f"{resident} GiB; launches {c['launches']}; layer check "
+                f"{ {k: float(f'{v:.3e}') for k, v in c.get('layer_check', {}).items()} }; "
+                f"seconds {({k: round(v, 1) for k, v in c['phase_s'].items()})}")
+        if not (np.all(np.isfinite(base["losses"])) and base["losses"][-1] < base["losses"][0]):
+            failures.append(f"{key}: losses not finite and falling: {base['losses']}")
+        rec = {"losses": base["losses"], "grad_norms": base["grad_norms"],
+               "peak_gib": [c["peak_gib"] for c in got], "params": base["params"],
+               "resident_gib": base["resident_gib"],
+               "step_ms": float(np.median([t for c in got for t in c["step_ms"][1:]]))}
+        if world1 is not None:
+            w_losses, w_norms, _, w_top2 = world1[impl]
+            l_rel, n_rel = _rel(base["losses"], w_losses), _rel(base["grad_norms"], w_norms)
+            flips = sum(int(np.any(np.asarray(c["top2"]) != np.asarray(b), axis=-1).sum())
+                        for c, b in zip(got, w_top2))
+            n_tol = MOE_NORM_REL_TOL if flips == 0 else MOE_GRAD_REL_L2_TOL
+            fractions += [l_rel / LOSS_REL_TOL, n_rel / n_tol]
+            rec.update(world1_loss_rel=l_rel, world1_norm_rel=n_rel, routing_flips=flips)
+            log(f"[moe_zero] {impl} stage {stage} at world size {len(ranks)} against world size "
+                f"1: losses relative {l_rel:.3e} (tolerance {LOSS_REL_TOL}), gradient norms "
+                f"relative {n_rel:.3e} (tolerance {n_tol}); the first layer's gate picks other "
+                f"experts for {flips} of {len(ranks) * ZERO_SEQ} tokens (each rank's first row, "
+                f"after the steps)")
+            if l_rel > LOSS_REL_TOL or n_rel > n_tol:
+                failures.append(f"{key} against world size 1: losses {l_rel:.3e}, norms "
+                                f"{n_rel:.3e}")
+        record[key] = rec
+    by_impl = {}
+    for key in cases:
+        by_impl.setdefault(key.split(":")[0], []).append(ranks[0]["cases"][key])
+    for impl, runs in by_impl.items():  # later stages against the first, one impl
+        for c in runs[1:]:
+            l_rel = _rel(c["losses"], runs[0]["losses"])
+            n_rel = _rel(c["grad_norms"], runs[0]["grad_norms"])
+            fractions += [l_rel / ZERO_REL_TOL, n_rel / ZERO_REL_TOL]
+            record[f"{impl}:{c['stage']}"].update(stage_loss_rel=l_rel, stage_norm_rel=n_rel)
+            log(f"[moe_zero] {impl} stage {c['stage']} against stage {runs[0]['stage']}: losses "
+                f"relative {l_rel:.3e}, gradient norms relative {n_rel:.3e} (tolerance "
+                f"{ZERO_REL_TOL})")
+            if l_rel > ZERO_REL_TOL or n_rel > ZERO_REL_TOL:
+                failures.append(f"{impl} stage {c['stage']} against stage {runs[0]['stage']}: "
+                                f"losses {l_rel:.3e}, norms {n_rel:.3e}")
+    if len(by_impl) == 2:  # einsum against grouped, the first case of each
+        a, b = by_impl["einsum"][0], by_impl["grouped"][0]
+        l_rel = _rel(a["losses"][:1], b["losses"][:1])
+        n_rel = _rel(a["grad_norms"][:1], b["grad_norms"][:1])
+        fractions += [l_rel / LOSS_REL_TOL, n_rel / MOE_NORM_REL_TOL]
+        last = {"loss_rel": _rel(a["losses"][-1:], b["losses"][-1:]),
+                "norm_rel": _rel(a["grad_norms"][-1:], b["grad_norms"][-1:])}
+        if world1 is not None:  # the same gap with no partition and no collective
+            w_e, w_g = world1["einsum"], world1["grouped"]
+            last.update(world1_loss_rel=_rel(w_e[0][-1:], w_g[0][-1:]),
+                        world1_norm_rel=_rel(w_e[1][-1:], w_g[1][-1:]))
+        record["einsum_vs_grouped"] = {"loss_rel": l_rel, "norm_rel": n_rel, "last_step": last}
+        log(f"[moe_zero] einsum (einsum:{a['stage']}) against grouped (grouped:{b['stage']}) at "
+            f"the first step, on the same weights: losses relative {l_rel:.3e} (tolerance "
+            f"{LOSS_REL_TOL}), gradient norms relative {n_rel:.3e} (tolerance "
+            f"{MOE_NORM_REL_TOL}); at the last step, not held: "
+            f"{ {k: float(f'{v:.3e}') for k, v in last.items()} }")
+        if l_rel > LOSS_REL_TOL or n_rel > MOE_NORM_REL_TOL:
+            failures.append(f"einsum against grouped at the first step: losses {l_rel:.3e}, "
+                            f"norms {n_rel:.3e}")
+    return failures, max(fractions), launches, record
+
+
+def phase_moe_zero():
+    """Returns the launches of each kernel per rank and the phase's record."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_dev = torch.cuda.device_count()
+    world, backend = (min(4, n_dev), "nccl") if n_dev >= 2 else (2, "gloo")
+    layers = MOE_ZERO_NCCL_LAYERS if backend == "nccl" else MOE_ZERO_GLOO_LAYERS
+    log(f"[moe_zero] {world} ranks over {backend} on {n_dev} visible device(s); Mixtral-8x7B "
+        f"widths (8 experts over the {world} ranks, top-2 with the Gumbel second expert, "
+        f"capacity factor 1.25, rope_theta 1e6, no window), depth cut 32 -> {layers}, 1 x "
+        f"{ZERO_SEQ} tokens a rank a microbatch, gas 2, bf16, fused AdamW, clipping 1.0, lr "
+        f"1e-3; cases (impl:stage) {MOE_ZERO_CASES}, {MOE_ZERO_STEPS} steps each from seed 0")
+    t0 = time.perf_counter()
+    world1 = {impl: _moe_zero_world1(world, layers, impl) for impl in ("einsum", "grouped")}
+    for impl, (losses, norms, ms, _) in world1.items():
+        log(f"[moe_zero] world size 1, {impl}, micro 1, gas {2 * world}, the same global batch: "
+            f"losses {[round(x, 5) for x in losses]}; gradient norms "
+            f"{[round(x, 5) for x in norms]}; step ms {[round(t, 1) for t in ms]}")
+    log(f"[moe_zero] world size 1 runs in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ranks = _zero_spawn(world, backend, layers, MOE_ZERO_CASES, "moe")
+    log(f"[moe_zero] ranks done in {time.perf_counter() - t0:.1f}s")
+    failures, fraction, launches, record = _moe_zero_checks(ranks, layers, world1)
+    record = {"world": world, "backend": backend, "layers": layers, "seq": ZERO_SEQ,
+              "cases": record,
+              "world1": {impl: {"losses": v[0], "grad_norms": v[1], "step_ms": v[2]}
+                         for impl, v in world1.items()}}
+    if world == 4 and backend == "nccl":
+        t0 = time.perf_counter()
+        ep = _zero_spawn(world, backend, MOE_ZERO_EP_LAYERS, MOE_ZERO_EP_CASES, "moe_ep")
+        f2, frac2, _, rec2 = _moe_zero_checks(ep, MOE_ZERO_EP_LAYERS, None)
+        failures += f2
+        fraction = max(fraction, frac2)
+        record["ep4_depth8"] = rec2
+        log(f"[moe_zero] depth {MOE_ZERO_EP_LAYERS}, EP {world}, cases {MOE_ZERO_EP_CASES} in "
+            f"{time.perf_counter() - t0:.1f}s")
+    log(f"[moe_zero] worst_error_fraction={fraction:.3f} (the largest of: the layer checks over "
+        f"{MOE_LAYER_REL_L2_TOL}; losses against world size 1 and einsum against grouped over "
+        f"{LOSS_REL_TOL}; gradient norms over {MOE_NORM_REL_TOL}, or {MOE_GRAD_REL_L2_TOL} where "
+        f"tokens route otherwise; stages over {ZERO_REL_TOL})")
+    if failures:
+        raise RuntimeError("moe_zero disagrees: " + "; ".join(failures))
+    return launches, record
+
+
+# ---------------------------------------------------------------------------
 # phase: a Mixtral-8x7B-width MoE trained through initialize -> train_batch
 # ---------------------------------------------------------------------------
 
@@ -2072,8 +2506,8 @@ def phase_moe_train():
         f"depth cut 32 -> {MOE_LAYERS} for memory (32 layers: 46.7e9 params x 16 B = 747 GB); "
         f"{n_params / 1e9:.3f}B fp32 master params ({n_expert / 1e9:.3f}B in experts; "
         f"{16 * n_params / 1e9:.1f} GB with grads and moments); optimizer "
-        f"{type(optimizer).__name__}; engine generator on {engine.generator.device}; built in "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{type(optimizer).__name__}; gating generators (one a row) on "
+        f"{engine.row_generators(0, 1)[0].device}; built in {time.perf_counter() - t0:.1f}s")
     gas = engine.gradient_accumulation_steps()
     rng = np.random.default_rng(1)
     batch = {"input_ids": rng.integers(0, cfg.vocab_size,
@@ -3546,7 +3980,14 @@ def _zero_stale(group):
          "flat.clone(), fg.shard_of(flat, self.rank), group=self.group)"),))
 
 
-ZERO_MUTANT_MIN_FACTOR = 30.0  # the zero phase's mutants, against its tolerances
+ZERO_MUTANT_MIN_FACTOR = 30.0  # the zero phases' mutants, against their tolerances
+MOE_A2A_MUTATIONS = _in("deepspeed_tpu_torch/models/transformer.py", (  # the return exchange
+    ("expert_out = all_to_all(out, group).transpose(0, 1)",            # rotates the slots a rank
+     "expert_out = all_to_all(out, group).roll(1, 0).transpose(0, 1)"),))
+MOE_EXPERT_GRAD_MUTATIONS = _in("deepspeed_tpu_torch/runtime/zero/partition.py", (
+    # each owner keeps its own tokens' share of its experts' gradients
+    ("comm.reduce_scatter_tensor(summed, whole, group=ctx.group)",
+     "summed.copy_(whole.view(world, *summed.shape)[comm.get_rank(ctx.group)])"),))
 DECODE_MUTATIONS = _in(SOURCE, (  # the decode skips each split's last live block
     ("const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits);",
      "const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits) - 1;"),
@@ -3567,6 +4008,8 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "v1_table": (V1_TABLE_MUTATIONS, "v1", "v1 logits disagree"),
     "zero_gather": (_zero_stale("head"), "zero", "zero disagrees"),
     "zero_block": (_zero_stale("block0"), "zero", "zero disagrees"),
+    "moe_a2a": (MOE_A2A_MUTATIONS, "moe_zero", "moe_zero disagrees"),
+    "moe_expert_grad": (MOE_EXPERT_GRAD_MUTATIONS, "moe_zero", "moe_zero disagrees"),
 }
 
 
@@ -3763,7 +4206,7 @@ def _run_one_mutant(name):
     # relative L2 is then of order 1, some 20x its tolerance, not 100x; a
     # stale half of a group moves the losses by what one step moves them
     if phase not in ("moe_kernels", "v1"):
-        least = ZERO_MUTANT_MIN_FACTOR if phase == "zero" else MUTANT_MIN_FACTOR
+        least = ZERO_MUTANT_MIN_FACTOR if phase in ("zero", "moe_zero") else MUTANT_MIN_FACTOR
         factor = _worst_error_fraction(proc.stdout, phase) or 0.0
         log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
             f"{least:.0f}x)")
@@ -4050,7 +4493,8 @@ def run_versus(other, phases):
 
 
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
-          "zero", "moe_train", "sparse_train", "evo_kernels", "evo_path", "v1", "hybrid")
+          "zero", "moe_zero", "moe_train", "sparse_train", "evo_kernels", "evo_path", "v1",
+          "hybrid")
 
 
 def main():
@@ -4093,8 +4537,12 @@ def main():
               file=sys.stderr)
         return 2
     if args.zero_rank is not None:
-        _zero_rank_run(args.zero_layers, [int(x) for x in args.zero_stages.split(",")],
-                       args.zero_out)
+        cases = args.zero_stages.split(",")
+        if ":" in args.zero_stages:  # a moe_zero rank: impl:stage cases
+            _moe_zero_rank_run(args.zero_layers, [(c.split(":")[0], int(c.split(":")[1]))
+                                                  for c in cases], args.zero_out)
+        else:
+            _zero_rank_run(args.zero_layers, [int(x) for x in cases], args.zero_out)
         return 0
     if args.mutant:
         return run_mutant(args.mutant)
@@ -4112,7 +4560,7 @@ def main():
     fns = {"build": phase_build, "kernels": phase_kernels, "train_kernels": phase_train_kernels,
            "moe_kernels": phase_moe_kernels, "sparse_kernels": phase_sparse_kernels,
            "e2e": phase_e2e, "train": phase_train, "zero": phase_zero,
-           "moe_train": phase_moe_train,
+           "moe_zero": phase_moe_zero, "moe_train": phase_moe_train,
            "sparse_train": phase_sparse_train, "evo_kernels": phase_evo_kernels,
            "evo_path": phase_evo_path, "v1": phase_v1, "hybrid": phase_hybrid}
     failed = []
@@ -4153,11 +4601,13 @@ def main():
                for name, m in out["kernels"].items()]
     launches, adam_full = out["train"]
     zero_launches, zero = out["zero"]
+    moe_zero_launches, moe_zero = out["moe_zero"]
     for name, m in out["train_kernels"].items():
         src, replaces = TRAIN_KERNELS[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": int(launches[name]), "hybrid_launches": int(hybrid_launches[name]),
                  "zero_launches": zero_launches[name], "zero": zero,
+                 "moe_zero_launches": moe_zero_launches[name],
                  "max_abs_err": m["err"], **{k: m[k] for k in keys}}
         if name == "flash_fwd":
             entry["v1_launches"] = int(v1_launches[name])
@@ -4171,9 +4621,11 @@ def main():
                                    "hgmma_in_sass", "worst_error_fraction", "dw_cast_ms")
                  if k in m}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": int(moe_launches[name]), "max_abs_err": m["err"],
+                        "launches": int(moe_launches[name]),
+                        "moe_zero_launches": moe_zero_launches[name], "max_abs_err": m["err"],
                         **{k: m[k] for k in keys}, **extra})
     kernels[-1]["moe_train_step"] = moe_step
+    kernels[-1]["moe_zero"] = moe_zero
     sparse_launches, sparse_step = out["sparse_train"]
     for name, m in out["sparse_kernels"].items():
         src, replaces = SPARSE_KERNELS[name]

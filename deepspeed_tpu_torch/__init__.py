@@ -68,6 +68,16 @@ def initialize(args=None,
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
+def _parameter(t):
+    """A trainable parameter of ``t``, keeping upstream DeepSpeed's expert
+    marks (``allreduce``, ``group_name``; ``moe.MoE.init`` sets them)."""
+    p = nn.Parameter(t)
+    for mark in ("allreduce", "group_name"):
+        if hasattr(t, mark):
+            setattr(p, mark, getattr(t, mark))
+    return p
+
+
 class _FunctionalModel(nn.Module):
     """Adapter: a bare ``loss_fn(params, batch)`` and its initial parameters
     (a dict or list of tensors, registered as trainable parameters) -> the
@@ -78,9 +88,9 @@ class _FunctionalModel(nn.Module):
         assert init_params is not None, "pass model_parameters with a bare loss function"
         self._loss_fn = loss_fn
         if isinstance(init_params, dict):
-            self.params = nn.ParameterDict({k: nn.Parameter(v) for k, v in init_params.items()})
+            self.params = nn.ParameterDict({k: _parameter(v) for k, v in init_params.items()})
         else:
-            self.params = nn.ParameterList([nn.Parameter(v) for v in init_params])
+            self.params = nn.ParameterList([_parameter(v) for v in init_params])
 
     def loss(self, batch, params=None):
         if params is None:

@@ -1,9 +1,10 @@
 """``deepspeed.comm`` for the PyTorch port.
 
 Counterpart of ``deepspeed_tpu/comm/comm.py``: ``init_distributed`` and the
-process-group queries, and the collectives the ZeRO engine issues
-(``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
-``broadcast``). In the JAX package these collectives are inserted by XLA
+process-group queries, and the collectives the ZeRO engine and the
+expert-parallel MoE issue (``all_reduce``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor``, ``broadcast``, ``scatter``,
+``all_to_all_single``). In the JAX package these collectives are inserted by XLA
 from sharding annotations; here they are explicit calls on the default
 process group (or ``group``).
 
@@ -21,10 +22,10 @@ import torch.distributed as dist
 
 from .backend import TorchBackend
 
-__all__ = ["ReduceOp", "all_gather_into_tensor", "all_gather_object", "all_reduce", "barrier",
-           "broadcast", "broadcast_object_list", "destroy_process_group", "get_backend",
+__all__ = ["ReduceOp", "all_gather_into_tensor", "all_gather_object", "all_reduce", "all_to_all_single",
+           "barrier", "broadcast", "broadcast_object_list", "destroy_process_group", "get_backend",
            "get_global_rank", "get_local_rank", "get_rank", "get_world_size", "init_distributed",
-           "is_initialized", "new_group", "reduce_scatter_tensor"]
+           "is_initialized", "new_group", "reduce_scatter_tensor", "scatter"]
 
 ReduceOp = dist.ReduceOp
 cdb = None  # the TorchBackend once init_distributed ran
@@ -168,3 +169,29 @@ def broadcast(tensor, src=0, group=None):
         return tensor
     dist.broadcast(tensor, src=src, group=group)
     return tensor
+
+
+def scatter(tensor, scatter_list=None, src=0, group=None):
+    """``tensor`` <- chunk ``rank`` of ``scatter_list`` (one tensor a rank,
+    given on the world rank ``src`` only)."""
+    if _staged(group, [tensor]):
+        host = torch.empty(tensor.shape, dtype=tensor.dtype)
+        dist.scatter(host, [t.cpu() for t in scatter_list] if scatter_list else None, src=src,
+                     group=group)
+        tensor.copy_(host)
+        return tensor
+    dist.scatter(tensor, scatter_list, src=src, group=group)
+    return tensor
+
+
+def all_to_all_single(output, input, group=None):
+    """``input`` split into ``world`` equal chunks along dim 0, chunk j sent
+    to rank j; ``output`` (``input``'s shape) <- the chunks received, in
+    rank order."""
+    if _staged(group, [output, input]):
+        host = torch.empty(output.shape, dtype=output.dtype)
+        dist.all_to_all_single(host, input.cpu(), group=group)
+        output.copy_(host)
+        return output
+    dist.all_to_all_single(output, input, group=group)
+    return output

@@ -41,8 +41,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import comm
 from ..moe.grouped import grouped_moe_ffn
-from ..moe.sharded_moe import multiplicative_jitter, top1gating, top2gating
+from ..moe.sharded_moe import all_to_all, multiplicative_jitter, top1gating, top2gating
+from ..parallel import groups
 
 # the weights matrix products read: stored in the serving dtype. Norm scales
 # and biases stay fp32 (the norm runs in fp32 with its fp32 scale).
@@ -466,31 +468,56 @@ def _mlp_branch(cfg: TransformerConfig, layer, h, generator=None):
     return down, None
 
 
+def _expert_ffn(cfg: TransformerConfig, layer, x):
+    """The experts' FFN on their capacity slots ``x`` [..., E, C, M] (one
+    weight slice a slot row's expert) as batched products."""
+    dt = cfg.dtype
+    up = torch.einsum("...ecm,emf->...ecf", x, layer["moe_wi"].to(dt))
+    gate = (torch.einsum("...ecm,emf->...ecf", x, layer["moe_wg"].to(dt))
+            if cfg.mlp == "swiglu" else None)
+    return torch.einsum("...ecf,efm->...ecm", mlp_activation(cfg, up, gate),
+                        layer["moe_wo"].to(dt))
+
+
 def _moe_mlp(cfg: TransformerConfig, layer, h, generator=None):
     """MoE FFN (``transformer.py:557``): top-k capacity gating per batch row
     (the TPU package's ``vmap`` over rows: each row's capacity counts that
     row's tokens), then the grouped matmul path or the one-hot einsum path.
+    ``generator``: one ``torch.Generator`` for every row, or a sequence of
+    one a row (each row's jitter, token priority and Gumbel noise drawn from
+    its own), or None (no draws).
+
+    Expert parallelism: weights holding ``E / ep`` experts (this rank's, of
+    a ZeRO partition over the ``ep`` ranks of the data group) take the
+    einsum path's slots to their owners and back by an all-to-all over
+    ``groups.get_expert_parallel_group()``, the reference's sharding flip
+    ``P(None, DATA)`` <-> ``P(BATCH_AXES)`` (``transformer.py:602-616``). The
+    grouped path takes every expert (the partition gathers them).
     Returns (out [B, S, H], the rows' mean l_aux)."""
     dt = cfg.dtype
     B, S, H = h.shape
     E = cfg.moe_num_experts
+    gens = list(generator) if isinstance(generator, (list, tuple)) else [generator] * B
     gate_in = h.float()
-    if cfg.moe_noisy_gate_policy == "Jitter" and generator is not None:
-        gate_in = multiplicative_jitter(gate_in, generator)
+    if cfg.moe_noisy_gate_policy == "Jitter" and gens[0] is not None:
+        gate_in = torch.stack([multiplicative_jitter(gate_in[b], gens[b]) for b in range(B)])
     logits = torch.einsum("bsh,he->bse", gate_in, layer["gate_wg"].float())
 
-    def gate_row(lg):
+    def gate_row(lg, gen):
         if cfg.moe_top_k == 1:
             return top1gating(lg, cfg.moe_capacity_factor, cfg.moe_min_capacity,
-                              noisy_gate_policy=cfg.moe_noisy_gate_policy, generator=generator,
-                              use_rts=generator is not None)[:3]
-        return top2gating(lg, cfg.moe_capacity_factor, cfg.moe_min_capacity,
-                          generator=generator)[:3]
+                              noisy_gate_policy=cfg.moe_noisy_gate_policy, generator=gen,
+                              use_rts=gen is not None)[:3]
+        return top2gating(lg, cfg.moe_capacity_factor, cfg.moe_min_capacity, generator=gen)[:3]
 
-    rows = [gate_row(logits[b]) for b in range(B)]
+    rows = [gate_row(logits[b], gens[b]) for b in range(B)]
     l_aux = torch.stack([r[0] for r in rows]).mean()
     combine = torch.stack([r[1] for r in rows])  # [B, S, E, C]
+    E_loc = layer["moe_wi"].shape[0]
     if cfg.moe_impl == "grouped":
+        if E_loc != E:
+            raise ValueError(f"the grouped MoE path takes all {E} experts, got {E_loc}: gather "
+                             f"them first (ZeroPartition.gather(..., whole_experts=True))")
         w_se = combine.sum(dim=3).reshape(B * S, E).to(dt)
         y = grouped_moe_ffn(h.reshape(B * S, H), w_se, layer["moe_wi"], layer["moe_wo"],
                             top_k=cfg.moe_top_k,
@@ -499,11 +526,20 @@ def _moe_mlp(cfg: TransformerConfig, layer, h, generator=None):
         return y.reshape(B, S, H), l_aux
     dispatch = torch.stack([r[2] for r in rows])
     dispatched = torch.einsum("bsec,bsm->becm", dispatch.to(dt), h)
-    up = torch.einsum("becm,emf->becf", dispatched, layer["moe_wi"].to(dt))
-    gate = (torch.einsum("becm,emf->becf", dispatched, layer["moe_wg"].to(dt))
-            if cfg.mlp == "swiglu" else None)
-    hmid = mlp_activation(cfg, up, gate)
-    expert_out = torch.einsum("becf,efm->becm", hmid, layer["moe_wo"].to(dt))
+    if E_loc == E:
+        expert_out = _expert_ffn(cfg, layer, dispatched)
+    else:
+        group = groups.get_expert_parallel_group()
+        ep = E // E_loc
+        if E_loc * ep != E or comm.get_world_size(group) != ep:
+            raise ValueError(f"{E_loc} of {E} experts a rank over an expert group of "
+                             f"{comm.get_world_size(group)} ranks")
+        C = dispatched.shape[2]
+        # [ep, B, E_loc, C, M]: chunk j (rank j's experts) to rank j, which
+        # gets back its experts' slots from every rank (dim 0 the sender)
+        slots = all_to_all(dispatched.reshape(B, ep, E_loc, C, H).transpose(0, 1), group)
+        out = _expert_ffn(cfg, layer, slots)
+        expert_out = all_to_all(out, group).transpose(0, 1).reshape(B, E, C, H)
     return torch.einsum("bsec,becm->bsm", combine.to(dt), expert_out), l_aux
 
 
@@ -822,12 +858,11 @@ def _chunked_ce_loss(cfg: TransformerConfig, params, h, aux, chunk: int):
     return -total / mask.sum().clamp_min(1.0)
 
 
-def loss_fn(cfg: TransformerConfig, params, batch, generator=None):
-    """Next-token cross entropy, plus ``moe_aux_loss_coef`` times the MoE
-    aux loss (``transformer.py:1025-1040``). ``batch``: a dict with
-    'input_ids' [B, S] and optional 'labels' and 'loss_mask', or the ids
-    tensor itself. ``cfg.loss_chunk`` routes through the sequence-chunked
-    CE. ``generator``: the gating's randomness (None: no draws)."""
+def loss_terms(cfg: TransformerConfig, params, batch, generator=None):
+    """The two terms of :func:`loss_fn`: (next-token cross entropy,
+    ``moe_aux_loss_coef`` times the MoE aux loss, 0 for a dense model).
+    Data parallelism weights them apart: the CE is a masked mean over the
+    global microbatch, the aux term a mean over its rows."""
     input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
     aux = _ce_aux(batch, input_ids)
     if cfg.loss_chunk and input_ids.shape[1] > cfg.loss_chunk:
@@ -837,8 +872,19 @@ def loss_fn(cfg: TransformerConfig, params, batch, generator=None):
         logits, moe_aux = forward_with_aux(cfg, params, input_ids, generator)
         ce = _ce_loss(logits, aux)
     if cfg.moe_num_experts > 0:
-        return ce + cfg.moe_aux_loss_coef * moe_aux
-    return ce
+        return ce, cfg.moe_aux_loss_coef * moe_aux
+    return ce, torch.zeros((), device=ce.device)
+
+
+def loss_fn(cfg: TransformerConfig, params, batch, generator=None):
+    """Next-token cross entropy, plus ``moe_aux_loss_coef`` times the MoE
+    aux loss (``transformer.py:1025-1040``). ``batch``: a dict with
+    'input_ids' [B, S] and optional 'labels' and 'loss_mask', or the ids
+    tensor itself. ``cfg.loss_chunk`` routes through the sequence-chunked
+    CE. ``generator``: the gating's randomness (None: no draws; see
+    :func:`_moe_mlp`)."""
+    ce, aux = loss_terms(cfg, params, batch, generator)
+    return ce + aux if cfg.moe_num_experts > 0 else ce
 
 
 class TransformerLM(nn.Module):
@@ -882,6 +928,11 @@ class TransformerLM(nn.Module):
                     and trainable else pdict(leaves))
             for group, leaves in params.items()
         })
+        if trainable:  # the experts, marked as upstream DeepSpeed marks them
+            for layer in (self.tree["blocks"] if config.moe_num_experts > 0 else ()):
+                for name in ("moe_wi", "moe_wg", "moe_wo"):
+                    if name in layer:
+                        layer[name].allreduce = False
 
     def params(self) -> Dict[str, Any]:
         """The parameter tree as plain nested dicts of tensors (no copies):
@@ -898,8 +949,15 @@ class TransformerLM(nn.Module):
 
     def loss(self, batch, generator=None, params=None):
         """The training objective on ``params`` (default :meth:`params`; the
-        ZeRO-3 engine passes :meth:`gathered_params`)."""
+        ZeRO engine passes :meth:`gathered_params` at stage 3 and for
+        expert-parallel experts)."""
         return loss_fn(self.config, self.params() if params is None else params, batch, generator)
+
+    def _loss_terms(self, batch, generator=None, params=None):
+        """:meth:`loss`'s (CE, aux) terms (:func:`loss_terms`), which the
+        data-parallel engine weights apart."""
+        return loss_terms(self.config, self.params() if params is None else params, batch,
+                          generator)
 
     def loss_count(self, batch) -> torch.Tensor:
         """The count the loss's mean divides by (:func:`ce_count`): the
@@ -912,7 +970,11 @@ class TransformerLM(nn.Module):
         (its first), then one per block; each leaf as (key, parameter,
         whether the forward casts it to ``cfg.dtype``). Apart, the two ends'
         gradients complete at the two ends of the backward, so ZeRO-2 holds
-        neither group's full gradient through the whole backward."""
+        neither group's full gradient through the whole backward. A block's
+        experts (``moe_wi``, ``moe_wg``, ``moe_wo``) carry the expert mark
+        (``allreduce = False``): where the world divides E, the partition
+        takes them out of the block's flat group, each rank owning its
+        ``E / world`` experts (the reference's ``P(PIPE, DATA, ...)``)."""
         def leaves(groups):
             return [((group, name), p, takes_compute_dtype(group, name))
                     for group, mod in self.tree.items() if group in groups
@@ -924,16 +986,27 @@ class TransformerLM(nn.Module):
                                       for name, p in layer.items()])
                        for l, layer in enumerate(self.tree["blocks"])]
 
+    @property
+    def gathers_experts(self) -> bool:
+        """Whether the forward multiplies by every expert (the grouped
+        path), so that expert-parallel experts are gathered for it."""
+        return self.config.moe_num_experts > 0 and self.config.moe_impl == "grouped"
+
     def gathered_params(self, gather):
-        """The parameter tree of a ZeRO-3 forward: ``gather(i)`` returns
-        group i of :meth:`zero_groups` as {key: tensor}. The two end groups
-        are gathered now, each block when the layer loop reaches it."""
+        """The parameter tree of a ZeRO forward: ``gather(i, whole_experts)``
+        returns group i of :meth:`zero_groups` as {key: tensor}, the
+        expert-parallel experts whole (gathered, for the grouped path) or as
+        this rank's (the einsum path exchanges the slots). The two end
+        groups are gathered now, each block when the layer loop reaches
+        it."""
+        whole = self.gathers_experts
         tree = {}
         for i in (0, 1):
             for (group, name), t in gather(i).items():
                 tree.setdefault(group, {})[name] = t
         tree["blocks"] = GatheredLayers(
-            len(self.tree["blocks"]), lambda l: {key[2]: t for key, t in gather(l + 2).items()})
+            len(self.tree["blocks"]),
+            lambda l: {key[2]: t for key, t in gather(l + 2, whole_experts=whole).items()})
         return tree
 
     def forward(self, input_ids):

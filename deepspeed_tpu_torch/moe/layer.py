@@ -2,9 +2,14 @@
 a TopKGate and an MOELayer over the expert FFN, with the optional residual
 MLP mixed in by a learned coefficient (``use_residual``).
 
-Expert parallelism (``ep_size > 1``) is refused (``MOELayer``), and the
-tensor-parallel token mappings (``moe/mappings.py``) wait for the port's
-tensor parallelism: at world size 1 they are the identity.
+Expert parallelism (``ep_size > 1``): the layer's ``MOELayer`` exchanges
+token slots over ``groups.get_expert_parallel_group()`` (the data group),
+whose size must be ``ep_size``; ``init`` then makes this rank's
+``num_experts / ep_size`` experts, marked as upstream DeepSpeed marks
+expert parameters (``allreduce = False``, ``group_name``), so that a ZeRO
+partition keeps them out of its flat groups. The tensor-parallel token
+mappings (``moe/mappings.py``) wait for the port's tensor parallelism: at
+world size 1 they are the identity.
 """
 
 import logging
@@ -13,6 +18,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel import groups
 from .sharded_moe import MOELayer, TopKGate, gelu
 
 logger = logging.getLogger("deepspeed_tpu_torch")
@@ -52,11 +58,15 @@ class MoE:
         gate = TopKGate(hidden_size, num_experts, k, capacity_factor, eval_capacity_factor,
                         min_capacity, noisy_gate_policy, drop_tokens, use_rts,
                         top2_2nd_expert_sampling)
+        group = groups.get_expert_parallel_group() if ep_size > 1 else None
         self.deepspeed_moe = MOELayer(gate, hidden_size, ffn_dim, self.num_local_experts,
-                                      ep_size=ep_size, activation=activation)
+                                      ep_size=ep_size, activation=activation, group=group)
 
     def init(self, generator, device=None):
         params = {"moe": self.deepspeed_moe.init(generator, device)}
+        for t in params["moe"]["experts"].values():
+            t.allreduce = False
+            t.group_name = f"ep_size_{self.ep_size}"
         if self.use_residual:
             H, Fd = self.hidden_size, self.deepspeed_moe.ffn_dim
             params["residual_mlp"] = {

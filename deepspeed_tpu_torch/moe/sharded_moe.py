@@ -14,9 +14,12 @@ places and order; with ``generator=None`` nothing is drawn and the routing
 equals the TPU package's ``rng=None`` routing exactly. The sampled draws
 cannot equal threefry's bits; they follow the same distributions.
 
-Expert parallelism (``ep_size > 1``, the all-to-all of token slots) is not
-ported: the port trains at world size 1, and a layer that asks for it is
-refused.
+Expert parallelism (``MOELayer(ep_size > 1, group=...)``, reference
+``sharded_moe.py:281-293``): each rank of ``group`` holds ``E / ep_size``
+experts, and the dispatched capacity slots go to their experts' owner and
+back by :func:`all_to_all` (an autograd Function whose backward is the
+same exchange of the gradient, the reference's ``_AllToAll``). The grouped
+path does not compose with it, as in the reference.
 """
 
 import math
@@ -25,7 +28,45 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import comm
 from .grouped import grouped_moe_ffn
+
+# exchanges issued by all_to_all (forward and backward), since the last reset
+launch_counts = {"all_to_all": 0}
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _exchange(x, group):
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    comm.all_to_all_single(out, x, group=group)
+    launch_counts["all_to_all"] += 1
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """Dim 0 of ``x`` in ``world`` equal chunks, chunk j to rank j of
+    ``group``; the result holds the chunks received, in rank order. The
+    exchange is its own inverse, so the backward exchanges the gradient."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, _exchange(dy, ctx.group)
+
+
+def all_to_all(x, group=None):
+    """Differentiable ``all_to_all_single`` over ``group`` (None: the
+    default process group)."""
+    return _AllToAll.apply(group, x)
 
 
 def multiplicative_jitter(x, generator, epsilon=1e-2):
@@ -202,16 +243,31 @@ class MOELayer:
     ``__call__(params, x, ...)`` returns (y [S, M], l_aux). ``moe_impl``:
     ``"einsum"`` (the one-hot ``[S, E, C]`` dispatch and combine) or
     ``"grouped"`` (the expert-sorted grouped matmul, ``moe/grouped.py``;
-    the same kept set and gate weights)."""
+    the same kept set and gate weights). ``ep_size > 1``: the experts are
+    split over the ``ep_size`` ranks of ``group`` (None: the default
+    process group), ``num_local_experts`` a rank, and ``__call__`` takes
+    this rank's tokens and its experts' weights."""
 
     def __init__(self, gate: TopKGate, hidden_dim: int, ffn_dim: int, num_local_experts: int,
-                 ep_size: int = 1, activation: Callable = gelu, moe_impl: str = "einsum"):
+                 ep_size: int = 1, activation: Callable = gelu, moe_impl: str = "einsum",
+                 group=None):
         if moe_impl not in ("einsum", "grouped"):
             raise ValueError(f"moe_impl must be 'einsum' or 'grouped', got {moe_impl!r}")
         if ep_size > 1:
-            raise NotImplementedError(
-                f"expert parallelism (ep_size {ep_size}) is not ported to the PyTorch package "
-                f"yet (ROADMAP A3: the all-to-all of token slots over the expert group)")
+            if moe_impl == "grouped":
+                # the exchange moves fixed-capacity slots, which the grouped
+                # path does not make (sharded_moe.py:225-233)
+                raise NotImplementedError(
+                    "moe_impl='grouped' does not compose with expert parallelism yet (the "
+                    "all-to-all exchanges fixed-capacity slots); use moe_impl='einsum' for "
+                    "EP-sharded layers")
+            if comm.get_world_size(group) != ep_size:
+                raise ValueError(f"ep_size {ep_size} must equal the size of the expert group, "
+                                 f"{comm.get_world_size(group)}")
+            if num_local_experts * ep_size != gate.num_experts:
+                raise ValueError(f"{num_local_experts} local experts x ep_size {ep_size} != "
+                                 f"the gate's {gate.num_experts} experts")
+        self.group = group
         self.gate = gate
         self.hidden_dim = hidden_dim
         self.ffn_dim = ffn_dim
@@ -243,6 +299,14 @@ class MOELayer:
                                 activation=lambda up, gate: self.activation(up))
             return y, l_aux
         dispatched = torch.einsum("sec,sm->ecm", dispatch.to(x.dtype), x)
-        expert_out = self._expert_ffn(params["experts"], dispatched.reshape(
-            self.num_local_experts, -1, capacity, M)).reshape(E, capacity, M)
+        if self.ep_size > 1:
+            # [ep, E_local, C, M]: chunk j to rank j, which returns the slots
+            # of its experts from every rank; the FFN sees [E_local, ep, C, M]
+            slots = all_to_all(dispatched.reshape(self.ep_size, self.num_local_experts, capacity,
+                                                  M), self.group)
+            out = self._expert_ffn(params["experts"], slots.transpose(0, 1)).transpose(0, 1)
+            expert_out = all_to_all(out, self.group).reshape(E, capacity, M)
+        else:
+            expert_out = self._expert_ffn(params["experts"], dispatched.reshape(
+                self.num_local_experts, -1, capacity, M)).reshape(E, capacity, M)
         return torch.einsum("sec,ecm->sm", combine.to(x.dtype), expert_out), l_aux

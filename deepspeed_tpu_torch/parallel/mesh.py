@@ -6,8 +6,12 @@ JAX package builds one ``jax.sharding.Mesh`` whose axes XLA lowers to
 collectives; here the mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 over the ranks of the default process group, one rank a device.
 
-The port shards over ``data`` only (data parallelism and ZeRO). Every other
-axis above 1 raises, naming the ROADMAP item that ports it.
+The port shards over ``data`` (data parallelism and ZeRO; a MoE model's
+experts shard over the same group). ``expert`` is the reference's expert
+parallel size: it must divide ``data * seq`` (``resolve``), and the port
+takes 1 or ``data * seq`` only, the two layouts its partition builds
+(``refuse_expert_data_replicas``). Every other axis above 1 raises, naming
+the ROADMAP item that ports it.
 """
 
 from dataclasses import dataclass
@@ -26,18 +30,31 @@ UNPORTED_AXES = {
     MODEL_AXIS: "tensor parallelism (ROADMAP A3b)",
     PIPE_AXIS: "pipeline parallelism (ROADMAP A6.8)",
     SEQ_AXIS: "sequence parallelism (ROADMAP A8)",
-    EXPERT_AXIS: "expert parallelism (ROADMAP A3)",
     DATA_REPL_AXIS: "MiCS replica groups (ROADMAP A2, left open)",
 }
 
 
 def refuse_unported_axes(sizes: dict) -> None:
-    """Raise for any axis of ``sizes`` other than ``data`` above 1."""
+    """Raise for any axis of ``sizes`` other than ``data`` and ``expert``
+    above 1."""
     for axis, item in UNPORTED_AXES.items():
         n = int(sizes.get(axis, 1))
         if n > 1:
             raise NotImplementedError(f"mesh axis '{axis}' of size {n}: {item} is not ported to "
                                       f"the PyTorch package yet; it shards over 'data' only")
+
+
+def refuse_expert_data_replicas(expert: int, data: int) -> None:
+    """The partition shards a MoE model's experts over the whole data group
+    (``E / data`` a rank) or, where ``data`` does not divide ``E``,
+    replicates them: an ``expert`` size between 1 and ``data`` (experts
+    replicated over ``data / expert`` expert-data ranks) raises.
+    ``data``: the resolved ``data * seq``."""
+    if expert not in (1, data):
+        raise NotImplementedError(
+            f"mesh axis 'expert' of size {expert} with 'data' {data}: expert-data replicas "
+            f"(ROADMAP A3, left open) are not ported to the PyTorch package yet; 'expert' "
+            f"must be 1 or the data size")
 
 
 @dataclass
@@ -76,9 +93,10 @@ def build_mesh(config: MeshConfig, world_size: int, device_type: str):
     """A one-axis ``DeviceMesh`` named ``data`` over the ``world_size``
     ranks of the default process group (which it reuses as the axis's
     group), after resolving ``config`` against ``world_size`` and refusing
-    every other axis above 1."""
+    every other axis above 1 and expert-data replicas."""
     from torch.distributed.device_mesh import DeviceMesh
 
     sizes = config.resolve(world_size)
-    refuse_unported_axes({**sizes, EXPERT_AXIS: config.expert})
+    refuse_unported_axes(sizes)
+    refuse_expert_data_replicas(config.expert, sizes[DATA_AXIS] * sizes[SEQ_AXIS])
     return DeviceMesh(device_type, list(range(world_size)), mesh_dim_names=(DATA_AXIS, ))

@@ -17,9 +17,12 @@ Counterpart of ``deepspeed_tpu/runtime/engine.py`` for the path
 - the dynamic loss scale (``_advance_loss_scale``, ``engine.py:729``).
 
 A model whose ``loss`` takes a ``generator`` (a MoE ``TransformerLM``) gets
-the engine's ``torch.Generator``, on the model's device and seeded from the
-engine's seed: the counterpart of the step rng the JAX engine splits per
-microbatch (``engine.py:818``, ``:1360``). Its draws stay on the device.
+one ``torch.Generator`` a batch row, on the model's device: row ``g`` of
+the step's global batch (gas-major, ``micro * dp`` rows a microbatch)
+draws from a generator seeded from (the engine's seed, the step, g) alone,
+as the JAX engine splits its step rng over the global rows
+(``transformer.py:581-582``), so sampled routing does not depend on the
+world size. The draws stay on the device.
 
 Nothing inside ``train_batch`` reads a device value back to the host, except
 the fp16-only overflow count (``engine.py:1405``) and the loss logged at
@@ -36,14 +39,18 @@ over the ranks (``zero/partition.py``): gradients summed over the ranks
 (``all_reduce``, or ``reduce_scatter`` into shards at stages 2-3), the
 optimizer, the fused AdamW kernel included, on each rank's shards at
 stages >= 1, the global gradient norm one ``all_reduce`` of the shards'
-partial sums. The loss is the mean over the global microbatch: each rank
-weights its local mean by ``local_count * dp / global_count`` (the model's
-``loss_count``; 1 without a ``loss_mask``). At world size 1 nothing of this
-runs: no collective, no copy. MoE models (ROADMAP A3) and the hybrid engine
-are refused at world size >= 2. ``forward``/``backward``/``step``, offload,
+partial sums. The loss is the reference's over the global microbatch: each
+rank weights its local cross-entropy mean by ``local_count * dp /
+global_count`` (the model's ``loss_count``; 1 without a ``loss_mask``) and
+its MoE aux term (a mean over its rows, which are as many on every rank)
+by 1 (the model's ``_loss_terms``). A MoE model's experts shard over the
+ranks where the world divides their count (``zero/partition.py``). At world
+size 1 nothing of this runs: no collective, no copy. The hybrid engine is
+refused at world size >= 2. ``forward``/``backward``/``step``, offload,
 1-bit optimizers, pipelines and the prefetching loader are not ported yet.
 """
 
+import contextlib
 import inspect
 import logging
 from typing import Optional
@@ -62,6 +69,11 @@ from .utils import clip_by_global_norm_, global_norm
 from .zero.partition import ZeroPartition
 
 logger = logging.getLogger("deepspeed_tpu_torch")
+
+
+def _row_seed(seed: int, step: int, row: int) -> int:
+    """A 64-bit seed from (seed, step, global row) alone."""
+    return int(np.random.SeedSequence([seed, step, row]).generate_state(1, np.uint64)[0])
 
 
 class DeepSpeedEngine:
@@ -110,12 +122,11 @@ class DeepSpeedEngine:
             self._zero = ZeroPartition(model, self._params, config.zero_optimization_stage,
                                        groups.get_data_parallel_group(), cast)
             self._opt_params = self._zero.optimizer_params()
-        self._norm_group = self._zero.group if self._zero and self._zero.sharded_grads else None
-        # the gating's randomness (MoE): drawn on the device, in order, one
-        # microbatch after another
+        self._grad_norm = self._zero.grad_norm if self._zero is not None else global_norm
+        # the gating's randomness (MoE): a generator a batch row, on the device
         self._loss_takes_generator = (hasattr(model, "loss") and "generator" in
                                       inspect.signature(model.loss).parameters)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.seed = seed
 
         # --- optimizer chain ---
         self.lr_schedule_fn, self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
@@ -144,11 +155,6 @@ class DeepSpeedEngine:
         """What does not train at data-parallel world size >= 2 yet, each
         naming its ROADMAP item; and every rank on one kind of device."""
         world = self.dp_world_size
-        if getattr(getattr(model, "config", None), "moe_num_experts", 0) > 0:
-            raise NotImplementedError(
-                f"MoE training at data-parallel world size {world}: the reference gates over the "
-                f"global microbatch (capacity and the aux loss see micro x dp tokens), which "
-                f"per-rank gating does not compute; expert parallelism is ROADMAP A3")
         stage = self.config.zero_optimization_stage
         if client_optimizer is not None and stage >= 1:
             raise NotImplementedError(
@@ -250,23 +256,38 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
-    def _loss_fn(self, batch):
-        if self._zero is not None and self._zero.stage == 3:
-            with self._zero.regather_in_backward():
-                out = self.module.loss(batch,
-                                       params=self.module.gathered_params(self._zero.gather))
-        elif self._loss_takes_generator:
-            out = self.module.loss(batch, generator=self.generator)
-        elif hasattr(self.module, "loss"):
-            out = self.module.loss(batch)
-        else:
-            out = self.module(batch)
-        return out[0] if isinstance(out, tuple) else out
+    def row_generators(self, i: int, rows: int):
+        """The gating's generators of this rank's ``rows`` rows of
+        microbatch ``i`` of this step: row b is row ``(i * dp + rank) *
+        rows + b`` of the step's global batch, seeded from (seed, step,
+        that row)."""
+        first = (i * self.dp_world_size + self.dp_rank) * rows
+        return [torch.Generator(device=self.device).manual_seed(
+            _row_seed(self.seed, self.global_steps, first + b)) for b in range(rows)]
 
-    def _microbatch_grads(self, batch, loss_scale):
+    def _loss_terms(self, batch, i: int):
+        """(CE term, aux term) of microbatch ``i``: the model's
+        ``_loss_terms`` where it has them, else (its loss, 0)."""
+        m, z = self.module, self._zero
+        split = hasattr(m, "_loss_terms")
+        fn = m._loss_terms if split else (m.loss if hasattr(m, "loss") else m)
+        kw = {}
+        if self._loss_takes_generator:
+            kw["generator"] = self.row_generators(i, len(next(iter(batch.values()))))
+        gathers = z is not None and z.gathers(getattr(m, "gathers_experts", False))
+        with z.regather_in_backward() if gathers else contextlib.nullcontext():
+            if gathers:
+                kw["params"] = m.gathered_params(z.gather)
+            out = fn(batch, **kw)
+        if split:
+            return out
+        return (out[0] if isinstance(out, tuple) else out), 0.0
+
+    def _microbatch_grads(self, batch, loss_scale, i: int):
         """One microbatch forward and backward of ``loss * loss_scale``; the
         gradients add into ``.grad`` (``engine.py:717``)."""
-        loss = self._loss_fn(batch)
+        ce, aux = self._loss_terms(batch, i)
+        loss = ce + aux
         (loss * loss_scale).backward()
         return loss.detach()
 
@@ -277,7 +298,7 @@ class DeepSpeedEngine:
         grads = [p.grad for p in self._params if p.grad is not None]
         if grads:
             torch._foreach_zero_(grads)
-        losses = [self._microbatch_grads({k: v[i] for k, v in batches.items()}, loss_scale)
+        losses = [self._microbatch_grads({k: v[i] for k, v in batches.items()}, loss_scale, i)
                   for i in range(gas)]
         for p in self._params:
             if p.grad is None:  # a parameter the loss does not reach
@@ -287,11 +308,11 @@ class DeepSpeedEngine:
         return grads, torch.stack(losses)
 
     def _loss_weights(self, batches, gas: int):
-        """[gas] device weights of this rank's microbatch losses,
+        """[gas] device weights of this rank's microbatch CE terms,
         ``local_count * dp / global_count``, so that their sum over the
-        ranks is dp times the loss of the global microbatch (its masked
-        mean); ones where the counts are equal on every rank (no
-        ``loss_mask``, or a model without ``loss_count``)."""
+        ranks is dp times the CE of the global microbatch (its masked mean);
+        ones where the counts are equal on every rank (no ``loss_mask``, or
+        a model without ``loss_count``)."""
         if "loss_mask" not in batches or not hasattr(self.module, "loss_count"):
             return torch.ones(gas, dtype=torch.float32, device=self.device)
         counts = torch.stack([self.module.loss_count({k: v[i] for k, v in batches.items()})
@@ -300,20 +321,23 @@ class DeepSpeedEngine:
         return counts * self.dp_world_size / total.clamp_min(1.0)
 
     def _scan_microbatch_grads_dp(self, batches, loss_scale, gas: int):
-        """``_scan_microbatch_grads`` at world size >= 2: the weighted
-        losses' gradients, summed over the ranks by the ZeRO partition.
-        Returns (the optimizer's gradients, the global microbatches' losses)."""
+        """``_scan_microbatch_grads`` at world size >= 2: each microbatch's
+        ``ce * weight + aux`` (the aux term, a mean over this rank's rows,
+        weighs 1: every rank has as many rows), its gradients summed over the
+        ranks by the ZeRO partition. Returns (the optimizer's gradients, the
+        global microbatches' losses)."""
         z = self._zero
         z.zero_grad()
         weights = self._loss_weights(batches, gas)
         losses = []
         for i in range(gas):
-            loss = self._loss_fn({k: v[i] for k, v in batches.items()})
-            (loss * (weights[i] * loss_scale)).backward()
+            ce, aux = self._loss_terms({k: v[i] for k, v in batches.items()}, i)
+            loss = ce * weights[i] + aux
+            (loss * loss_scale).backward()
             z.finish_backward()
             losses.append(loss.detach())
         grads = z.reduce_grads(gas)
-        summed = comm.all_reduce(torch.stack(losses) * weights, group=z.group)
+        summed = comm.all_reduce(torch.stack(losses), group=z.group)
         return grads, summed / self.dp_world_size
 
     def _advance_loss_scale(self, finite):
@@ -338,7 +362,7 @@ class DeepSpeedEngine:
         st = self.state
         if self.fp16_enabled:
             torch._foreach_mul_(grads, 1.0 / st["loss_scale"])
-            gnorm = global_norm(grads, self._norm_group)
+            gnorm = self._grad_norm(grads)
         else:  # the loss scale is 1: the gradients are already un-scaled
             gnorm = gnorm_scaled
         finite = torch.isfinite(gnorm)
@@ -372,7 +396,7 @@ class DeepSpeedEngine:
         """Apply the update, advance the scalars, build the step metrics
         (``engine.py:1201``)."""
         st = self.state
-        gnorm_scaled = global_norm(grads, self._norm_group)
+        gnorm_scaled = self._grad_norm(grads)
         lr = (self.lr_schedule_fn(st["step"]) if self.lr_schedule_fn is not None else
               (self.config.optimizer_params or {}).get("lr", 0.0))
         finite = self._apply_update(grads, gnorm_scaled)
@@ -514,10 +538,17 @@ class DeepSpeedEngine:
 
     def zero_resident_bytes(self):
         """Bytes this rank holds of fp32 parameters, gradients and Adam
-        moments (the model's parameters and ``.grad`` at world size 1)."""
-        moments = sum(4 * t.numel() for ts in self.adam_state()[:2] for t in ts)
+        moments (the model's parameters and ``.grad`` at world size 1); the
+        expert-parallel experts apart (``expert_params``, ``expert_grads``,
+        ``expert_moments``)."""
+        mu, nu = self.adam_state()[:2]
         if self._zero is None:
             return {"params": sum(4 * p.numel() for p in self._params),
                     "grads": sum(4 * p.grad.numel() for p in self._params if p.grad is not None),
-                    "moments": moments}
-        return {**self._zero.resident_bytes(), "moments": moments}
+                    "moments": sum(4 * t.numel() for t in mu + nu)}
+        n = len(self._zero.groups)
+        out = {**self._zero.resident_bytes(),
+               "moments": sum(4 * t.numel() for t in mu[:n] + nu[:n])}
+        if self._zero.experts:
+            out["expert_moments"] = sum(4 * t.numel() for t in mu[n:] + nu[n:])
+        return out

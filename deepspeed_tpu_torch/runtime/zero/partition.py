@@ -36,6 +36,27 @@ issues them itself over the data-parallel process group (``comm``):
   die with its forward and no rank holds the whole model's compute-dtype
   weights.
 
+Expert parallelism. A leaf marked as upstream DeepSpeed marks expert
+parameters (``allreduce = False``) stays out of its group's flat buffer,
+this rank's experts in fp32 with their gradient and moments, at every
+stage (the reference shards ``moe_wi`` / ``moe_wg`` / ``moe_wo`` over the
+data axis, ``P(PIPE, DATA, ...)``: that is their ZeRO sharding). A leaf
+holding every expert (a ``TransformerLM``'s) whose leading dim the world
+divides becomes rank r's experts ``[r * E / world, (r + 1) * E / world)``
+of rank 0's initial tensor (``scatter``), so world sizes 1 and N start
+from the same weights, and is named ``group_name = "ep_size_<world>"``;
+a leaf that already carries that name holds this rank's experts (a
+``moe.MoE(ep_size=world)`` layer's, or an earlier partition's) and is
+kept as it is. The einsum path exchanges token slots with the owners
+(``moe.sharded_moe.all_to_all``), so an owner's expert gradient is whole
+after the backward and no collective sums it. The grouped path takes
+every expert: :class:`GatherExperts` all-gathers a block's experts in the
+compute dtype where the forward reaches the block and reduce-scatters
+their gradients to the owners in its backward, at every stage, and what
+autograd saves of them is gathered again in the backward as at stage 3.
+A marked leaf the world does not divide stays in its group (the
+reference replicates the expert dim then), as do ``ep_size_1`` experts.
+
 The groups are the model's (``zero_groups()``: the embedding, the final
 norm and head, then one per transformer block); any other module is one
 group. A group's buffer holds its leaves in the model's order, the fp32
@@ -53,9 +74,11 @@ update reads its own gradient, parameter and moments and the step's
 scalars), and clipping and the overflow gate read the global norm, the
 square root of a sum of squares over every element, which is the same sum
 however the elements are split (one ``all_reduce`` of the shards' partial
-sums). Padding elements hold zero parameters, gradients and moments, and
-AdamW keeps them zero. What can differ from one replicated device is the
-fp32 summation order of the gradient sum over ranks and of the norm.
+sums; the owned experts' partial sums join that one ``all_reduce``, at
+stages 0-1 too). Padding elements hold zero parameters, gradients and
+moments, and AdamW keeps them zero. What can differ from one replicated
+device is the fp32 summation order of the gradient sum over ranks and of
+the norm.
 
 Each rank's loss is weighted by the engine so that the sum over ranks is
 ``world`` times the loss of the global microbatch; the gradients are
@@ -76,12 +99,17 @@ import torch
 from torch import nn
 
 from ... import comm
+from ..utils import global_norm
 
 ALIGN = 16  # fp32 elements: 64 bytes
 
 
 def round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def _sum_squares(tensors) -> torch.Tensor:
+    return torch.stack(torch._foreach_norm(tensors)).square().sum()
 
 
 class Leaf(NamedTuple):
@@ -152,6 +180,15 @@ def _gathered(shard, fg: FlatGroup, dtype, group) -> List[torch.Tensor]:
     return [keep, low]
 
 
+def _gathered_expert(shard, dtype, group) -> torch.Tensor:
+    """One expert leaf whole, ``[world * n, ...]`` in ``dtype``, from every
+    rank's ``[n, ...]`` (rank r's experts at rows ``[r * n, (r + 1) * n)``)."""
+    full = shard.new_empty((comm.get_world_size(group) * shard.shape[0], *shard.shape[1:]),
+                           dtype=dtype)
+    comm.all_gather_into_tensor(full, shard.to(dtype).contiguous(), group=group)
+    return full
+
+
 def _leaf_views(fg: FlatGroup, bufs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Every leaf of ``fg`` as a view of its buffer from :func:`_gathered`."""
     if len(bufs) == 1:
@@ -185,6 +222,55 @@ class GatherGroup(torch.autograd.Function):
         return out, None, None, None, None
 
 
+class GatherExperts(torch.autograd.Function):
+    """The grouped path's gather of one block's expert leaves: this rank's
+    fp32 experts -> each leaf whole in ``dtype``. Backward: ``done()``, then
+    each leaf's gradient (in fp32) summed over the ranks into the owners'
+    experts (``reduce_scatter_tensor``)."""
+
+    @staticmethod
+    def forward(ctx, dtype, group, done, *owned):
+        ctx.group, ctx.done = group, done
+        return tuple(_gathered_expert(p, dtype, group) for p in owned)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.done()
+        world = comm.get_world_size(ctx.group)
+        outs = []
+        for g in grads:
+            summed = None
+            if g is not None:
+                whole = g.float().contiguous()
+                summed = whole.new_empty((whole.shape[0] // world, *whole.shape[1:]))
+                comm.reduce_scatter_tensor(summed, whole, group=ctx.group)
+            outs.append(summed)
+        return (None, None, None, *outs)
+
+
+def is_expert(p) -> bool:
+    """The upstream mark of an expert parameter (``allreduce = False``)."""
+    return getattr(p, "allreduce", True) is False
+
+
+def _expert_parallel(p, world: int) -> bool:
+    """Whether the partition keeps ``p`` out of the flat groups: an expert
+    leaf that holds this rank's experts already (named for ``world``), or
+    every expert, as many as ``world`` divides. Experts of ``ep_size_1``
+    are replicated over the data group, as any other leaf."""
+    if not is_expert(p):
+        return False
+    name = getattr(p, "group_name", None)
+    if name is None:
+        return p.shape[0] % world == 0
+    if name == "ep_size_1":
+        return False
+    if name != f"ep_size_{world}":
+        raise NotImplementedError(f"experts of expert group {name!r} at data-parallel world size "
+                                  f"{world}: only the whole data group holds experts")
+    return True
+
+
 def _module_groups(module, params):
     """``module.zero_groups()``, else one group of its trainable parameters
     (none kept apart for a cast); checked to cover ``params`` exactly."""
@@ -207,7 +293,8 @@ def _remove_hooks(handles) -> None:
 class ZeroPartition:
     """The engine's ZeRO state at data-parallel world size >= 2 over
     ``group`` (see the module docstring). Rank 0's parameters are
-    broadcast first, so every rank starts from the same masters."""
+    broadcast first (the owned experts scattered), so every rank starts
+    from the same masters."""
 
     def __init__(self, module, params: Sequence[nn.Parameter], stage: int, group, compute_dtype):
         self.stage = stage
@@ -224,12 +311,24 @@ class ZeroPartition:
         self._bufs: List = []  # stage 2: each group's transient full gradient
         self._pending: List[int] = []  # stage 2: leaves still to arrive this backward
         hooks = []  # stage 2: the handles of the hooks on the model's parameters
-        # stage 3: storage address -> (a gathered buffer, weakly; its group;
-        # its index in _gathered's list) while a forward runs; and the group
-        # the backward gathered again, with its buffers
-        self._live: Dict[int, Tuple[weakref.ref, int, int]] = {}
+        # storage address -> (a gathered buffer, weakly; its gather's key:
+        # the group, or ("experts", group); its index in what _regather
+        # returns) while a forward runs; and the gather the backward made
+        # again, with its buffers
+        self._live: Dict[int, Tuple[weakref.ref, Any, int]] = {}
         self._regathered = None
+        # each group's expert-parallel leaves, (key, parameter) in the
+        # model's order: the parameters hold this rank's experts
+        self.expert_leaves: List[List[Tuple[Any, nn.Parameter]]] = []
         for name, entries in _module_groups(module, params):
+            owned = [(k, p) for k, p, _ in entries if _expert_parallel(p, self.world)]
+            entries = [e for e in entries if not any(e[1] is p for _, p in owned)]
+            if not entries:
+                raise ValueError(f"ZeRO group {name!r} holds experts only: keep a non-expert "
+                                 f"leaf beside them")
+            self.expert_leaves.append(owned)
+            for _, p in owned:
+                self._own_experts(p)
             fg = FlatGroup(name, [(k, p.shape, low) for k, p, low in entries], self.world)
             by_key = {k: p for k, p, _ in entries}
             ps = [by_key[l.key] for l in fg.leaves]
@@ -267,23 +366,51 @@ class ZeroPartition:
                     hooks.append(p._zero_grad_hook)
         weakref.finalize(self, _remove_hooks, hooks)
 
+    def _own_experts(self, p: nn.Parameter) -> None:
+        """``p`` -> this rank's experts with a zero gradient: where it holds
+        every expert (its whole initial value on every rank), this rank's
+        slice of rank 0's value."""
+        if getattr(p, "group_name", None) is None:
+            n = p.shape[0] // self.world
+            with torch.no_grad():
+                mine = p.detach().new_empty((n, *p.shape[1:]))
+                src = comm.get_global_rank(self.group, 0)
+                chunks = list(p.detach().split(n)) if self.rank == 0 else None
+                comm.scatter(mine, chunks, src=src, group=self.group)
+            p.data = mine
+            p.group_name = f"ep_size_{self.world}"
+        p.grad = torch.zeros_like(p.detach())
+
+    @property
+    def experts(self) -> List[nn.Parameter]:
+        """The expert-parallel parameters (this rank's experts), in order."""
+        return [p for ex in self.expert_leaves for _, p in ex]
+
+    def gathers(self, whole_experts: bool) -> bool:
+        """Whether the forward takes its parameters from :meth:`gather`: at
+        stage 3, and where a model that multiplies by every expert
+        (``whole_experts``: the grouped path) has expert-parallel experts.
+        Elsewhere the model's own parameters are the ones to use: this
+        rank's experts and the flat buffers' views."""
+        return self.stage == 3 or (whole_experts and bool(self.experts))
+
     # ------------------------------------------------------------------
     # what the optimizer updates
     # ------------------------------------------------------------------
     def optimizer_params(self) -> List[torch.Tensor]:
         """The tensors the optimizer updates, each with its ``.grad`` set:
-        the full buffers at stage 0, this rank's shards at stages 1-3."""
+        the full buffers at stage 0, this rank's shards at stages 1-3, then
+        this rank's experts."""
         if self.stage == 3:
-            return list(self.shards)
+            return list(self.shards) + self.experts
         out = []
-        for fg, flat, grad in zip(self.groups, self.flats, self.grads()):
+        for fg, flat, grad in zip(self.groups, self.flats, self._flat_grads()):
             t = flat if self.stage == 0 else fg.shard_of(flat, self.rank)
             t.grad = grad
             out.append(t)
-        return out
+        return out + self.experts
 
-    def grads(self) -> List[torch.Tensor]:
-        """The gradients the optimizer reads, in ``optimizer_params`` order."""
+    def _flat_grads(self) -> List[torch.Tensor]:
         if self.stage == 0:
             return self.grad_flats
         if self.stage == 1:
@@ -291,6 +418,26 @@ class ZeroPartition:
         if self.stage == 2:
             return self.grad_shards
         return [s.grad for s in self.shards]
+
+    def grads(self) -> List[torch.Tensor]:
+        """The gradients the optimizer reads, in ``optimizer_params`` order."""
+        return self._flat_grads() + [p.grad for p in self.experts]
+
+    def grad_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm of :meth:`grads` (a device scalar): the flat
+        gradients' squares summed over the ranks where they are shards, the
+        owned experts' at every stage."""
+        n = len(self.groups)
+        flat, owned = list(grads[:n]), list(grads[n:])
+        if not owned:
+            return global_norm(flat, self.group if self.sharded_grads else None)
+        local = _sum_squares(owned)
+        if self.sharded_grads:
+            local = local + _sum_squares(flat)
+        total = comm.all_reduce(local, group=self.group)
+        if not self.sharded_grads:
+            total = total + _sum_squares(flat)
+        return total.sqrt()
 
     @property
     def sharded_grads(self) -> bool:
@@ -302,8 +449,8 @@ class ZeroPartition:
     # the step
     # ------------------------------------------------------------------
     def zero_grad(self) -> None:
-        bufs = self.grad_flats if self.stage <= 1 else self.grads()
-        torch._foreach_zero_(bufs)
+        bufs = self.grad_flats if self.stage <= 1 else self._flat_grads()
+        torch._foreach_zero_(bufs + [p.grad for p in self.experts])
 
     def _stage2_hook(self, gi: int, li: int):
         # the hook holds the partition weakly: torch's collector does not
@@ -355,7 +502,10 @@ class ZeroPartition:
                 comm.all_reduce(g, group=self.group)
             torch._foreach_div_(self.grad_flats, float(gas * self.world))
         else:
-            torch._foreach_div_(self.grads(), float(gas * self.world))
+            torch._foreach_div_(self._flat_grads(), float(gas * self.world))
+        experts = [p.grad for p in self.experts]
+        if experts:  # whole on their owner: the exchange or the reduce-scatter summed them
+            torch._foreach_div_(experts, float(gas * self.world))
         return self.grads()
 
     def after_update(self) -> None:
@@ -365,24 +515,54 @@ class ZeroPartition:
             for fg, flat in zip(self.groups, self.flats):
                 comm.all_gather_into_tensor(flat, fg.shard_of(flat, self.rank), group=self.group)
 
-    def gather(self, gi: int) -> Dict[Any, torch.Tensor]:
-        """Stage 3: group ``gi``'s leaves for a forward, {key: tensor}."""
+    def gather(self, gi: int, whole_experts: bool = False) -> Dict[Any, torch.Tensor]:
+        """Group ``gi``'s leaves for a forward, {key: tensor}: gathered at
+        stage 3, the model's parameters at stages 0-2; its expert-parallel
+        leaves as this rank's experts, or ``whole_experts`` gathered
+        (:class:`GatherExperts`)."""
         fg = self.groups[gi]
-        outs = GatherGroup.apply(self.shards[gi], fg, self.compute_dtype, self.group,
-                                 lambda: self._drop_regathered(gi))
-        for l, t in zip(fg.leaves, outs):
-            buf = t._base
-            self._live[buf.untyped_storage().data_ptr()] = (
-                weakref.ref(buf), gi, int(l.low and self.compute_dtype != torch.float32))
-        return {l.key: t for l, t in zip(fg.leaves, outs)}
+        if self.stage == 3:
+            outs = GatherGroup.apply(self.shards[gi], fg, self.compute_dtype, self.group,
+                                     lambda: self._drop_regathered(gi))
+            for l, t in zip(fg.leaves, outs):
+                self._track(t._base, gi, int(l.low and self.compute_dtype != torch.float32))
+        else:
+            outs = self.leaf_params[gi]
+        tree = {l.key: t for l, t in zip(fg.leaves, outs)}
+        owned = self.expert_leaves[gi]
+        if owned and whole_experts:
+            key = ("experts", gi)
+            outs = GatherExperts.apply(self.compute_dtype, self.group,
+                                       lambda: self._drop_regathered(key), *[p for _, p in owned])
+            for j, t in enumerate(outs):
+                self._track(t, key, j)
+            tree.update({k: t for (k, _), t in zip(owned, outs)})
+        else:
+            tree.update(owned)
+        return tree
+
+    def _track(self, buf, key, bi: int) -> None:
+        """Note a gathered buffer (index ``bi`` of what :meth:`_regather`
+        returns for ``key``) while the forward runs."""
+        self._live[buf.untyped_storage().data_ptr()] = (weakref.ref(buf), key, bi)
+
+    def _regather(self, key) -> List[torch.Tensor]:
+        """The buffers of a gather again: group ``key``'s (stage 3), or
+        ``("experts", gi)``'s, each expert leaf whole."""
+        if isinstance(key, tuple):
+            return [_gathered_expert(p.detach(), self.compute_dtype, self.group)
+                    for _, p in self.expert_leaves[key[1]]]
+        return _gathered(self.shards[key].detach(), self.groups[key], self.compute_dtype,
+                         self.group)
 
     @contextlib.contextmanager
     def regather_in_backward(self):
-        """Stage 3's forward runs inside: a tensor autograd saves that lies in
-        a gathered group's buffer is saved as (group, buffer, size, stride,
-        offset), and the backward gathers the group again where it unpacks
-        the first such tensor (one group at a time, every rank in the same
-        order, the graph being the same on every rank)."""
+        """A gathering forward runs inside: a tensor autograd saves that lies
+        in a gathered buffer (a stage-3 group's, or a block's whole experts)
+        is saved as (its gather, buffer, size, stride, offset), and the
+        backward gathers it again where it unpacks the first such tensor
+        (one gather at a time, every rank in the same order, the graph being
+        the same on every rank)."""
         with torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack):
             try:
                 yield
@@ -396,18 +576,17 @@ class ZeroPartition:
             return t
         return entry[1], entry[2], t.size(), t.stride(), t.storage_offset()
 
-    def _drop_regathered(self, gi: int) -> None:
-        if self._regathered is not None and self._regathered[0] == gi:
+    def _drop_regathered(self, key) -> None:
+        if self._regathered is not None and self._regathered[0] == key:
             self._regathered = None
 
     def _unpack(self, packed):
         if isinstance(packed, torch.Tensor):
             return packed
-        gi, bi, size, stride, offset = packed
-        if self._regathered is None or self._regathered[0] != gi:
+        key, bi, size, stride, offset = packed
+        if self._regathered is None or self._regathered[0] != key:
             self._regathered = None
-            self._regathered = (gi, _gathered(self.shards[gi].detach(), self.groups[gi],
-                                              self.compute_dtype, self.group))
+            self._regathered = (key, self._regather(key))
         return self._regathered[1][bi].as_strided(size, stride, offset)
 
     # ------------------------------------------------------------------
@@ -424,12 +603,20 @@ class ZeroPartition:
             else:
                 flat = self.flats[gi]
             out.extend((p, v.clone()) for p, v in zip(ps, fg.views(flat)))
+        out.extend((p, _gathered_expert(p.detach(), torch.float32, self.group))
+                   for p in self.experts)
         return out
 
     def resident_bytes(self) -> Dict[str, int]:
         """Bytes this rank holds of parameters and gradients (fp32 buffers
-        and shards; the optimizer's moments are the engine's to count)."""
+        and shards; the owned experts apart, as ``expert_params`` and
+        ``expert_grads``; the optimizer's moments are the engine's to
+        count)."""
         params = self.shards if self.stage == 3 else self.flats
-        grads = self.grad_flats if self.stage <= 1 else self.grads()
-        return {"params": sum(4 * t.numel() for t in params),
-                "grads": sum(4 * t.numel() for t in grads)}
+        grads = self.grad_flats if self.stage <= 1 else self._flat_grads()
+        out = {"params": sum(4 * t.numel() for t in params),
+               "grads": sum(4 * t.numel() for t in grads)}
+        if self.experts:
+            out["expert_params"] = sum(4 * p.numel() for p in self.experts)
+            out["expert_grads"] = sum(4 * p.grad.numel() for p in self.experts)
+        return out

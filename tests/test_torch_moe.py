@@ -252,11 +252,19 @@ def test_moe_layer_matches_jax(use_residual):
 
 
 def test_expert_parallelism_is_refused_naming_world_size_one():
+    """At world size 1 the expert group has one rank, and ``ep_size`` must
+    equal its size; the grouped path does not compose with EP, in the port
+    as in the reference (``sharded_moe.py:225-233``)."""
     gate = tsm.TopKGate(16, 4, k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(ValueError, match="ep_size 2 must equal the size of the expert group, 1"):
         tsm.MOELayer(gate, 16, 32, num_local_experts=2, ep_size=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(ValueError, match="ep_size 2 must equal the size of the expert group, 1"):
         tlayer.MoE(16, num_experts=4, ep_size=2, k=2)
+    with pytest.raises(NotImplementedError, match="does not compose with expert parallelism"):
+        jsm.MOELayer(jsm.TopKGate(16, 4, k=2), 16, 32, num_local_experts=2, ep_axis="data",
+                     ep_size=2, moe_impl="grouped")
+    with pytest.raises(NotImplementedError, match="does not compose with expert parallelism"):
+        tsm.MOELayer(gate, 16, 32, num_local_experts=2, ep_size=2, moe_impl="grouped")
     with pytest.raises(ValueError, match="moe_impl"):
         tsm.MOELayer(gate, 16, 32, num_local_experts=4, moe_impl="banana")
 
@@ -399,20 +407,26 @@ def test_moe_train_batch_matches_jax_engine(mode):
 
 
 def test_engine_feeds_its_seeded_generator_to_the_gating():
-    """A MoE TransformerLM's loss takes the engine's generator (on the
-    model's device): two engines with one seed train identically with the
-    sampled gating (Gumbel second expert, jitter), and the draws move the
-    generator's state."""
+    """A MoE TransformerLM's loss takes the engine's generators, one a batch
+    row on the model's device, seeded from (the engine's seed, the step,
+    the row of the step's global batch): two engines with one seed train
+    identically with the sampled gating (Gumbel second expert, jitter), and
+    each row, step and seed draws its own noise."""
     _, tcfg = _cfgs("grouped", moe_noisy_gate_policy="Jitter")
-    losses, states = [], []
+    losses = []
     for _ in range(2):
         model = TransformerLM(tcfg, device="cpu", trainable=True, seed=4)
         e, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=_ds_config("always"))
-        assert e._loss_takes_generator and e.generator.device == e.device
-        before = e.generator.get_state().clone()
+        assert e._loss_takes_generator
+        gens = e.row_generators(1, 2)
+        assert [g.device for g in gens] == [e.device] * 2
+        draws = [torch.rand(4, generator=g) for g in gens + e.row_generators(3, 1)]
+        assert not torch.equal(draws[0], draws[1]) and torch.equal(draws[1], draws[2])
         b = {"input_ids": np.random.default_rng(70).integers(0, 256, (8, 16)).astype(np.int32)}
         losses.append([float(e.train_batch(b)) for _ in range(2)])
-        states.append(e.generator.get_state())
-        assert not torch.equal(states[-1], before)
-    assert losses[0] == losses[1] and torch.equal(states[0], states[1])
+        moved = torch.rand(4, generator=e.row_generators(1, 2)[0])  # step 2 now
+        assert not torch.equal(moved, draws[0])
+        e.seed += 1
+        assert not torch.equal(torch.rand(4, generator=e.row_generators(1, 2)[0]), moved)
+    assert losses[0] == losses[1]
     assert all(np.isfinite(losses[0]))

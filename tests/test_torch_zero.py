@@ -20,18 +20,38 @@ Losses agree at rtol 2e-5 and the final gathered parameters at rtol 2e-4 /
 atol 2e-6, the tolerances of ``tests/test_torch_engine.py``. The JAX
 references run while the ranks do.
 
+MoE (the tiny Mistral with 4 experts, top-2): the experts shard over the
+two ranks (rank r owns experts ``[2r, 2r + 2)``) at every stage; the einsum
+path exchanges its capacity slots with the owners (an all-to-all), the
+grouped path gathers the experts and reduce-scatters their gradients. Three
+engine cases against the JAX engine on the same two devices, the gating's
+rng dropped on both sides: the einsum path at stage 1, the grouped path at
+stage 3 (the JAX grouped path under GSPMD is the reference: its Pallas
+kernels run in interpret mode on the two virtual devices), and the einsum
+path at stage 2 with ``loss_mask`` counts that differ between the ranks,
+where the aux term must weigh 1 and the cross entropy its share of the
+global count. Also ``MOELayer(ep_size=2)`` over the two ranks against the
+JAX package's single-device layer (a capacity factor where nothing drops,
+so per-rank capacities change nothing), sampled gating (jitter with random
+token priority, top-2 Gumbel) at world size 2 against world size 1 in this
+process on one seed, each rank's experts and resident bytes, and a model
+whose expert count the world does not divide (its experts stay in the
+blocks' flat groups).
+
 Also, in the ranks: ``gather(scatter(x)) == x`` for every group over the
 real collectives, stage 3's gathers (nothing gathered outlives the
 forward; the backward gathers again), a second stage-2 engine over the
 same model, each rank's resident bytes of parameters, gradients and
 moments per stage, and ``deepspeed_io``'s shards; and, in this process,
-the partition's layout arithmetic, ``MeshConfig.resolve`` and the
-refusals at world size >= 2, each naming its ROADMAP item.
+the partition's layout arithmetic, ``MeshConfig.resolve`` (the ``expert``
+axis dividing ``data * seq``) and the refusals at world size >= 2, each
+naming its ROADMAP item.
 """
 
 import gc
 import os
 import pickle
+import time
 import weakref
 
 import numpy as np
@@ -43,13 +63,14 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import TransformerLM, llama2_config, mistral_config
 from deepspeed_tpu_torch.models.convert import params_from_jax, params_to_numpy
 from deepspeed_tpu_torch.parallel.mesh import MeshConfig
-from deepspeed_tpu_torch.runtime.zero.partition import ALIGN, FlatGroup
+from deepspeed_tpu_torch.runtime.zero.partition import ALIGN, FlatGroup, is_expert
 
 WORLD, MICRO, GAS, STEPS = 2, 2, 2, 3
 TINY = dict(num_layers=2, hidden_size=64, num_heads=4, num_kv_heads=2, intermediate_size=128,
             vocab_size=256, max_seq_len=256, sliding_window=16)
 SPARSE_TINY = dict(num_layers=2, hidden_size=64, num_heads=4, num_kv_heads=4,
                    intermediate_size=128, vocab_size=256, max_seq_len=64)
+MOE = dict(moe_num_experts=4, moe_top_k=2)
 SPARSE_SA = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
              "num_local_blocks": 2, "num_global_blocks": 1, "horizontal_global_attention": False,
              "num_different_global_patterns": 2, "attention": "unidirectional"}
@@ -62,7 +83,16 @@ CASES = {
     "stage3": ("dense", 3, "always", "ids"),
     "stage3_mask": ("dense", 3, "never", "mask"),
     "sparse_stage2": ("sparse", 2, "always", "ids"),
+    "moe_einsum_stage1": ("moe_einsum", 1, "always", "ids"),
+    "moe_grouped_stage3": ("moe_grouped", 3, "always", "ids"),
+    "moe_mask_stage2": ("moe_einsum", 2, "never", "mask"),
 }
+# sampled gating at world size 2 against world size 1: name -> (top-k, noisy
+# gate policy, moe_impl, ZeRO stage)
+SAMPLED = {"jitter_top1": (1, "Jitter", "einsum", 0), "gumbel_top2": (2, None, "grouped", 3)}
+# MOELayer(ep_size=2) against the JAX single-device layer: tokens, width,
+# FFN width, experts; a capacity factor where nothing drops
+EP_LAYER = dict(S=24, M=16, F=32, E=4, cf=8.0)
 REFERENCE = {name: "stage3" if name.startswith("stage") and CASES[name][2:] == ("always", "ids")
              else name for name in CASES}
 TIMEOUT_S = 180
@@ -101,17 +131,35 @@ def _rank_rows(batch, rank):
             for k, v in batch.items()}
 
 
-def _torch_model(kind, npp):
-    if kind == "dense":
-        cfg = mistral_config("tiny", dtype=torch.float32, attention_impl="reference", **TINY)
-    else:
-        cfg = llama2_config("tiny", dtype=torch.float32, sparse_attention=SPARSE_SA, **SPARSE_TINY)
-    return TransformerLM(cfg, params_from_jax(npp, cfg, device="cpu", dtype=torch.float32,
-                                              per_layer=True), trainable=True)
+class _NoGeneratorLM(TransformerLM):
+    """The port's model with no generator passed to the gating (the JAX
+    engine's rng is dropped alike): deterministic routing on both sides."""
+
+    def loss(self, batch, params=None):
+        return super().loss(batch, None, params)
+
+    def _loss_terms(self, batch, params=None):
+        return super()._loss_terms(batch, None, params)
+
+
+def _torch_cfg(kind, **over):
+    if kind == "sparse":
+        return llama2_config("tiny", dtype=torch.float32, sparse_attention=SPARSE_SA,
+                             **SPARSE_TINY)
+    moe = dict(MOE, moe_impl=kind[4:]) if kind.startswith("moe_") else {}
+    return mistral_config("tiny", dtype=torch.float32, attention_impl="reference",
+                          **{**TINY, **moe, **over})
+
+
+def _torch_model(kind, npp, cls=None, **over):
+    cfg = _torch_cfg(kind, **over)
+    cls = cls or (_NoGeneratorLM if kind.startswith("moe_") else TransformerLM)
+    return cls(cfg, params_from_jax(npp, cfg, device="cpu", dtype=torch.float32, per_layer=True),
+               trainable=True)
 
 
 def _seq(kind):
-    return 24 if kind == "dense" else 64
+    return 64 if kind == "sparse" else 24
 
 
 def _partition_round_trip(engine, rank):
@@ -155,30 +203,40 @@ def _second_stage2_engine(engine, rank):
             "own_backward_grads": all(p.grad is not None for p in model.parameters())}
 
 
-def _stage3_regathers(engine, rank):
-    """One more stage-3 forward and backward, counting the gathers: no
-    gathered buffer outlives the forward (what autograd saved of it is
-    gathered again), and the backward gathers every group it saved from."""
+def _stage3_regathers(engine, rank, name="_gathered"):
+    """One more forward and backward, counting the calls of the partition's
+    ``name`` (a group's gather, or ``_gathered_expert``, one expert leaf's):
+    no gathered buffer outlives the forward (what autograd saved of it is
+    gathered again), and the backward gathers every group it saved from.
+    gloo's worker thread drops its own reference to a collective's output
+    just after the caller's wait returns (under load, a third of all-gathers
+    are still held then), so the count waits up to 2 s for that; a buffer
+    this process keeps stays alive through the wait."""
     from deepspeed_tpu_torch.runtime.zero import partition
 
-    bufs, calls, real = [], [0], partition._gathered
+    bufs, calls, real = [], [0], getattr(partition, name)
 
     def counted(*args):
         calls[0] += 1
         out = real(*args)
-        bufs.extend(weakref.ref(b) for b in out)
+        bufs.extend(weakref.ref(b) for b in (out if isinstance(out, list) else [out]))
         return out
 
     batch = _rank_rows(_global_batch("ids", STEPS, _seq("dense")), rank)
-    partition._gathered = counted
+    setattr(partition, name, counted)
     try:
-        loss = engine._loss_fn({"input_ids": torch.from_numpy(batch["input_ids"][:MICRO])})
+        loss = sum(engine._loss_terms({"input_ids": torch.from_numpy(batch["input_ids"][:MICRO])},
+                                      0))
         forward = calls[0]
-        alive = sum(ref() is not None for ref in bufs)
+        for _ in range(200):
+            alive = sum(ref() is not None for ref in bufs)
+            if not alive:
+                break
+            time.sleep(0.01)
         loss.backward()
         engine._zero.finish_backward()
     finally:
-        partition._gathered = real
+        setattr(partition, name, real)
     return {"forward_gathers": forward, "alive_after_forward": alive,
             "backward_gathers": calls[0] - forward}
 
@@ -224,11 +282,115 @@ def _low_dtype_gathers(rank):
     return ok
 
 
+def _owned_experts(engine):
+    """{parameter name: this rank's experts} of the engine's model."""
+    return {n: p.detach().numpy().copy() for n, p in engine.module.named_parameters()
+            if is_expert(p)}
+
+
+def _ep_layer(rank, lp, x, dy):
+    """``MOELayer(ep_size=2)`` over the two ranks on rank ``rank``'s tokens
+    and experts: (y, dx, d wi, d wo) of this rank."""
+    from deepspeed_tpu_torch.moe import sharded_moe as tsm
+
+    S, M, F, E, cf = (EP_LAYER[k] for k in ("S", "M", "F", "E", "cf"))
+    n, e = S // WORLD, E // WORLD
+    gate = tsm.TopKGate(M, E, k=2, capacity_factor=cf, eval_capacity_factor=cf, min_capacity=8)
+    layer = tsm.MOELayer(gate, M, F, num_local_experts=e, ep_size=WORLD)
+    experts = {k: torch.from_numpy(v[rank * e:(rank + 1) * e].copy()).requires_grad_()
+               for k, v in lp["experts"].items()}
+    xs = torch.from_numpy(x[rank * n:(rank + 1) * n].copy()).requires_grad_()
+    tsm.reset_launch_counts()
+    y, _ = layer({"gate": {"wg": torch.from_numpy(lp["gate"]["wg"])}, "experts": experts}, xs,
+                 train=False)
+    (y * torch.from_numpy(dy[rank * n:(rank + 1) * n])).sum().backward()
+    return {"y": y.detach().numpy(), "dx": xs.grad.numpy(), "dwi": experts["wi"].grad.numpy(),
+            "dwo": experts["wo"].grad.numpy(), "exchanges": tsm.launch_counts["all_to_all"]}
+
+
+def _ep_layer_engine(rank, ep):
+    """``moe.MoE(ep_size=ep)``'s parameters (each rank draws its own
+    ``4 / ep`` experts) trained through ``initialize`` with a loss function
+    at stage 1, two steps: at ep 2 the partition keeps each rank's experts
+    as they are, out of the flat group (the gate's weights broadcast from
+    rank 0); at ep 1 they are replicated leaves of the flat group, rank
+    0's."""
+    from deepspeed_tpu_torch.moe import MoE, sharded_moe
+    from deepspeed_tpu_torch.parallel import groups
+
+    groups.initialize_mesh(MeshConfig(data=WORLD), "cpu")
+    S, M, F, E, cf = (EP_LAYER[k] for k in ("S", "M", "F", "E", "cf"))
+    moe = MoE(M, num_experts=E, ep_size=ep, k=2, capacity_factor=cf, eval_capacity_factor=cf,
+              min_capacity=8, ffn_dim=F)
+    init = moe.init(torch.Generator().manual_seed(10 + rank))["moe"]
+    own = {k: v.clone() for k, v in init["experts"].items()}
+
+    def loss_fn(p, batch):
+        x = batch["x"].reshape(-1, M)
+        y, aux = moe({"moe": {"gate": {"wg": p["wg"]}, "experts": {"wi": p["wi"], "wo": p["wo"]}}},
+                     x)
+        return (y - x).square().mean() + 0.01 * aux
+
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=loss_fn, model_parameters={"wg": init["gate"]["wg"], **init["experts"]},
+        config=_ds_config(1, "always"))
+    z = engine._zero
+    kept = all(torch.equal(engine.module.params[k].detach(), own[k]) for k in own)
+    sharded_moe.reset_launch_counts()
+    x = np.random.default_rng(90 + rank).normal(size=(GAS * MICRO, S // WORLD, M))
+    losses = [float(engine.train_batch({"x": x.astype(np.float32)})) for _ in range(2)]
+    return {"kept": kept, "owned": len(z.experts),
+            "flat": [l.key for fg in z.groups for l in fg.leaves], "losses": losses,
+            "exchanges": sharded_moe.launch_counts["all_to_all"],
+            "moved": not torch.equal(engine.module.params["wi"].detach(), own["wi"])}
+
+
+def _sampled(rank, npp):
+    """Each SAMPLED case at world size 2 on rank ``rank``'s rows: (losses,
+    final parameters)."""
+    out = {}
+    for name, (k, policy, impl, stage) in SAMPLED.items():
+        model = _torch_model(f"moe_{impl}", npp, cls=TransformerLM, moe_top_k=k,
+                             moe_noisy_gate_policy=policy)
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model,
+                                                         config=_ds_config(stage, "always"))
+        losses = [float(engine.train_batch(_rank_rows(_global_batch("ids", step, 24), rank)))
+                  for step in range(STEPS)]
+        out[name] = (losses, {k: v.numpy() for k, v in engine.module_state_dict().items()})
+    return out
+
+
+def _indivisible(rank, npp):
+    """A MoE model with 3 experts at world size 2 (stage 1): the world does
+    not divide them, so they stay in their blocks' flat groups, replicated
+    as the reference replicates the expert dim; one step."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel import groups
+
+    cfg = mistral_config("tiny", dtype=torch.float32, attention_impl="reference",
+                         **dict(TINY, moe_num_experts=3, moe_top_k=2))
+    model = TransformerLM(cfg, device="cpu", trainable=True, seed=3)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=_ds_config(1, "always"))
+    z = engine._zero
+    in_flat = sorted(l.key[2] for fg in z.groups for l in fg.leaves
+                     if l.key[0] == "blocks" and l.key[2].startswith("moe_"))
+    loss = float(engine.train_batch(_rank_rows(_global_batch("ids", 0, 24), rank)))
+    return {"owned": len(z.experts), "in_flat": in_flat, "loss": loss,
+            "wi_shape": tuple(model.tree["blocks"][0]["moe_wi"].shape),
+            "ep_group_size": comm.get_world_size(groups.get_expert_parallel_group()),
+            "ep_sizes": (groups.get_expert_parallel_world_size(),
+                         groups.get_expert_data_parallel_world_size(),
+                         groups.get_expert_parallel_rank(), groups.get_expert_data_parallel_rank(),
+                         groups.get_expert_data_parallel_group() is groups.get_data_parallel_group()
+                         )}
+
+
 def _worker(rank, store, npps, out_dir):
     torch.set_num_threads(2)
     deepspeed_tpu_torch.init_distributed(dist_backend="gloo", init_method=f"file://{store}",
                                          rank=rank, world_size=WORLD, verbose=False)
     from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.moe import sharded_moe
 
     results = {}
     try:
@@ -236,14 +398,21 @@ def _worker(rank, store, npps, out_dir):
             over = {"sparse_attention": SPARSE_SA} if kind == "sparse" else {}
             engine, _, _, _ = deepspeed_tpu_torch.initialize(
                 model=_torch_model(kind, npps[kind]), config=_ds_config(stage, mode, **over))
-            r = {"bytes_at_init": engine.zero_resident_bytes()}
+            r = {"bytes_at_init": engine.zero_resident_bytes(), "owned": _owned_experts(engine),
+                 "flat_moe": [l.key for fg in engine._zero.groups for l in fg.leaves
+                              if l.key[-1].startswith("moe_w")]}
+            sharded_moe.reset_launch_counts()
             r["losses"] = [float(engine.train_batch(_rank_rows(
                 _global_batch(batch_kind, step, _seq(kind)), rank))) for step in range(STEPS)]
+            r["exchanges"] = sharded_moe.launch_counts["all_to_all"]
             r["bytes"] = engine.zero_resident_bytes()
             r["params"] = {k: v.numpy() for k, v in engine.module_state_dict().items()}
             r["fused"] = engine._pallas_adam is not None
+            r["gathers"] = engine._zero.gathers(engine.module.gathers_experts)
             if name == "stage2":
                 r["second_engine"] = _second_stage2_engine(engine, rank)
+            if name == "moe_grouped_stage3":
+                r["regather_experts"] = _stage3_regathers(engine, rank, "_gathered_expert")
             if name == "stage3":
                 r["regather"] = _stage3_regathers(engine, rank)
                 r["round_trip"] = _partition_round_trip(engine, rank)
@@ -257,10 +426,31 @@ def _worker(rank, store, npps, out_dir):
             results[name] = r
         results["bf16"] = _bf16_stages(rank, npps["dense"])
         results["low_gathers"] = _low_dtype_gathers(rank)
+        results["ep_layer"] = _ep_layer(rank, *npps["ep_layer"])
+        results["ep_layer_engine"] = {ep: _ep_layer_engine(rank, ep) for ep in (1, WORLD)}
+        results["sampled"] = _sampled(rank, npps["moe_einsum"])
+        results["indivisible"] = _indivisible(rank, npps["moe_einsum"])
     finally:
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
         comm.destroy_process_group()
+
+
+class _NoRngJax:
+    """The JAX model with its gating's rng dropped (deterministic routing)."""
+
+    def __init__(self, cfg):
+        from deepspeed_tpu.models import TransformerLM as JaxLM
+
+        self.model = JaxLM(cfg)
+
+    def init(self, rng, example_batch=None):
+        return self.model.init(rng, example_batch)
+
+    def loss(self, params, batch, rng=None):
+        from deepspeed_tpu.models import transformer as jt
+
+        return jt.loss_fn(self.model.config, params, batch, None)
 
 
 def _jax_engine(kind, stage, mode, batch_kind):
@@ -277,17 +467,61 @@ def _jax_engine(kind, stage, mode, batch_kind):
     from deepspeed_tpu.parallel.mesh import build_mesh
 
     jax_groups.reset()
-    if kind == "dense":
-        jcfg = jax_mistral_config("tiny", dtype=jnp.float32, attention_impl="reference", **TINY)
-        over = {}
-    else:
+    over, wrap = {}, JaxLM
+    if kind == "sparse":
         jcfg = jax_llama2_config("tiny", dtype=jnp.float32, attention_impl="reference",
                                  sparse_attention=SPARSE_SA, **SPARSE_TINY)
         over = {"sparse_attention": SPARSE_SA}
+    else:
+        moe = dict(MOE, moe_impl=kind[4:]) if kind.startswith("moe_") else {}
+        jcfg = jax_mistral_config("tiny", dtype=jnp.float32, attention_impl="reference",
+                                  **TINY, **moe)
+        wrap = _NoRngJax if moe else JaxLM
     mesh = build_mesh(JaxMeshConfig(data=WORLD), devices=jax.devices()[:WORLD])
-    je, _, _, _ = deepspeed_tpu.initialize(model=JaxLM(jcfg),
+    je, _, _, _ = deepspeed_tpu.initialize(model=wrap(jcfg),
                                            config=_ds_config(stage, mode, **over), mesh=mesh)
     return je
+
+
+def _jax_ep_layer():
+    """The JAX package's single-device ``MOELayer`` (einsum, top-2) of
+    EP_LAYER: ((weights, x, dy), (y, dx, d wi, d wo)) in numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from deepspeed_tpu.moe import sharded_moe as jsm
+
+    S, M, F, E, cf = (EP_LAYER[k] for k in ("S", "M", "F", "E", "cf"))
+    gate = jsm.TopKGate(M, E, k=2, capacity_factor=cf, eval_capacity_factor=cf, min_capacity=8)
+    layer = jsm.MOELayer(gate, M, F, num_local_experts=E)
+    lp = jax.tree.map(np.asarray, layer.init(jax.random.PRNGKey(3)))
+    rng = np.random.default_rng(80)
+    x = rng.normal(size=(S, M)).astype(np.float32)
+    dy = rng.normal(size=(S, M)).astype(np.float32)
+
+    def f(x_, wi, wo):
+        return layer({"gate": lp["gate"], "experts": {"wi": wi, "wo": wo}}, x_, train=False)[0]
+
+    y, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(lp["experts"]["wi"]),
+                     jnp.asarray(lp["experts"]["wo"]))
+    return (lp, x, dy), tuple(np.asarray(a) for a in (y, *vjp(jnp.asarray(dy))))
+
+
+def _sampled_world1(npp):
+    """Each SAMPLED case at world size 1 in this process on the global
+    batch (micro = MICRO * WORLD, so the rows and their generators are the
+    ranks' in order): (losses, final parameters)."""
+    out = {}
+    for name, (k, policy, impl, stage) in SAMPLED.items():
+        model = _torch_model(f"moe_{impl}", npp, cls=TransformerLM, moe_top_k=k,
+                             moe_noisy_gate_policy=policy)
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=_ds_config(
+            stage, "always", train_batch_size=MICRO * GAS * WORLD,
+            train_micro_batch_size_per_gpu=MICRO * WORLD, tpu={"pallas_fused_adam": "always"}))
+        losses = [float(engine.train_batch(_global_batch("ids", step, 24)))
+                  for step in range(STEPS)]
+        out[name] = (losses, {k: v.numpy().copy() for k, v in engine.module_state_dict().items()})
+    return out
 
 
 def _jax_train(je, kind, batch_kind):
@@ -310,13 +544,17 @@ def zero_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("zero")
     engines = {name: _jax_engine(*CASES[name]) for name in sorted(set(REFERENCE.values()))}
     npps = {CASES[name][0]: jax.tree.map(np.asarray, engines[name].state["params"])  # initial
-            for name in ("stage3", "sparse_stage2")}                                   # weights
+            for name in ("stage3", "sparse_stage2", "moe_einsum_stage1",          # weights
+                         "moe_grouped_stage3")}
+    ep_inputs, ep_ref = _jax_ep_layer()
+    npps["ep_layer"] = ep_inputs
     ctx = mp.start_processes(_worker, args=(str(tmp / "store"), npps, str(tmp)), nprocs=WORLD,
                              join=False, start_method="spawn")
     try:  # the JAX engines compile and train in threads, beside the ranks
         with ThreadPoolExecutor(len(engines)) as ex:
             futures = {name: ex.submit(_jax_train, je, CASES[name][0], CASES[name][3])
                        for name, je in engines.items()}
+            sampled = _sampled_world1(npps["moe_einsum"])
             refs = {name: f.result() for name, f in futures.items()}
     finally:
         for p in ctx.processes:
@@ -332,13 +570,15 @@ def zero_run(tmp_path_factory):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
     out = {name: ([rk[name] for rk in ranks], refs[REFERENCE[name]]) for name in CASES}
-    out.update({key: [rk[key] for rk in ranks] for key in ("bf16", "low_gathers")})
+    out.update({key: [rk[key] for rk in ranks] for key in ("bf16", "low_gathers", "ep_layer",
+                                                           "ep_layer_engine", "sampled",
+                                                           "indivisible")})
+    out.update(ep_ref=ep_ref, sampled_world1=sampled, npps=npps)
     return out
 
 
 def _assert_params_close(ours, ref, kind):
-    cfg = (mistral_config("tiny", dtype=torch.float32, **TINY) if kind == "dense" else
-           llama2_config("tiny", dtype=torch.float32, sparse_attention=SPARSE_SA, **SPARSE_TINY))
+    cfg = _torch_cfg(kind)
     tree = {}
     for name, v in ours.items():  # "tree.<group>.<name>" / "tree.blocks.<l>.<name>"
         parts = name.split(".")[1:]
@@ -455,6 +695,120 @@ def test_deepspeed_io_shards_are_disjoint_and_cover(zero_run):
     assert sorted(seen[0] + seen[1]) == list(range(10))
 
 
+MOE_CASES = [name for name in CASES if name.startswith("moe_")]
+
+
+@pytest.mark.parametrize("name", MOE_CASES)
+def test_each_rank_holds_its_experts_only(zero_run, name):
+    """Rank r holds experts ``[2r, 2r + 2)`` of every block's ``moe_wi`` /
+    ``moe_wg`` / ``moe_wo`` (its slice of the initial weights) at every
+    stage, outside the flat groups, and its expert parameters, gradients
+    and moments are half of the whole."""
+    ranks, _ = zero_run[name]
+    blocks = zero_run["npps"][CASES[name][0]]["blocks"]
+    leaves = ("moe_wi", "moe_wg", "moe_wo")
+    half = sum(blocks[n].size for n in leaves) // WORLD
+    e = MOE["moe_num_experts"] // WORLD
+    for rank, r in enumerate(ranks):
+        assert sorted(r["owned"]) == sorted(f"tree.blocks.{l}.{n}" for l in range(2)
+                                            for n in leaves)
+        for key, got in r["owned"].items():
+            l, n = int(key.split(".")[2]), key.split(".")[3]
+            np.testing.assert_array_equal(got, blocks[n][l][rank * e:(rank + 1) * e])
+        assert r["flat_moe"] == []
+        assert r["bytes"]["expert_params"] == r["bytes"]["expert_grads"] == 4 * half
+        assert r["bytes"]["expert_moments"] == 2 * 4 * half
+
+
+@pytest.mark.parametrize("name", MOE_CASES)
+def test_the_einsum_path_exchanges_and_the_grouped_path_gathers(zero_run, name):
+    """The einsum path sends its slots to the experts' owners and back, two
+    all-to-alls a layer in the forward and two in the backward, and below
+    stage 3 gathers nothing (the model's own tree holds this rank's
+    experts); the grouped path exchanges none: it gathers each block's
+    experts (3 leaves) where the forward reaches the block, keeps none of
+    them past the forward, and gathers them again in the backward."""
+    layers = TINY["num_layers"]
+    for r in zero_run[name][0]:
+        if CASES[name][0] == "moe_einsum":
+            # the forward reads the model's own tree: this rank's experts
+            assert r["exchanges"] == 4 * layers * GAS * STEPS and not r["gathers"]
+        else:
+            assert r["gathers"]
+            assert r["exchanges"] == 0
+            g = r["regather_experts"]
+            assert g == {"forward_gathers": 3 * layers, "alive_after_forward": 0,
+                         "backward_gathers": 3 * layers}
+
+
+def test_moe_aux_term_weighs_one_where_mask_counts_differ(zero_run):
+    """The reference's MoE loss is the global microbatch's masked-mean CE
+    plus coef x the mean of l_aux over its rows: with ``loss_mask`` counts
+    that differ between the ranks, each rank's CE takes its share of the
+    global count while its aux term (a mean over as many rows as any
+    rank's) weighs 1."""
+    ranks, (ref_losses, _) = zero_run["moe_mask_stage2"]
+    batch = _global_batch("mask", 0, 24)
+    counts = [_rank_rows(batch, r)["loss_mask"][:, 1:].sum() for r in range(WORLD)]
+    assert counts[0] > 2 * counts[1]
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], ref_losses, rtol=2e-5)
+
+
+def test_moelayer_ep2_matches_the_jax_single_device_layer(zero_run):
+    """``MOELayer(ep_size=2)``: each rank routes its own tokens, its slots go
+    to the experts' owner and back (two all-to-alls, two more in the
+    backward), against the JAX package's single-device layer over every
+    token and expert (``tests/test_moe.py::test_moe_ep_shard_map_matches_
+    single``): outputs, token gradients and the owners' expert gradients,
+    rtol / atol 1e-5 (``tests/test_torch_moe.py``'s layer tolerance)."""
+    y, dx, dwi, dwo = zero_run["ep_ref"]
+    n, e = EP_LAYER["S"] // WORLD, EP_LAYER["E"] // WORLD
+    for rank, r in enumerate(zero_run["ep_layer"]):
+        rows, owned = slice(rank * n, (rank + 1) * n), slice(rank * e, (rank + 1) * e)
+        for got, want, what in ((r["y"], y[rows], "y"), (r["dx"], dx[rows], "dx"),
+                                (r["dwi"], dwi[owned], "dwi"), (r["dwo"], dwo[owned], "dwo")):
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=what)
+        assert r["exchanges"] == 4
+
+
+@pytest.mark.parametrize("ep", [1, WORLD])
+def test_moe_layer_experts_stay_on_their_rank_through_the_engine(zero_run, ep):
+    """``MoE`` marks its experts as upstream DeepSpeed does (``allreduce =
+    False``, ``group_name``). Through ``initialize`` with a loss function:
+    at ep_size 2 each rank keeps its own experts (no broadcast of rank
+    0's), the flat group holds the gate alone, and the steps exchange the
+    slots (two all-to-alls a microbatch forward; one backward, the return
+    exchange's: the tokens here take no gradient); at ep_size 1 the
+    experts are replicated leaves of the flat group, rank 0's, and nothing
+    is exchanged. Both train the experts."""
+    runs = [r[ep] for r in zero_run["ep_layer_engine"]]
+    for rank, r in enumerate(runs):
+        if ep == WORLD:
+            assert r["kept"] and r["owned"] == 2 and r["flat"] == ["params.wg"]
+            assert r["exchanges"] == 3 * GAS * 2
+        else:
+            assert r["kept"] == (rank == 0) and r["owned"] == 0 and r["exchanges"] == 0
+            assert r["flat"] == ["params.wg", "params.wi", "params.wo"]
+        assert r["moved"] and np.all(np.isfinite(r["losses"]))
+    assert runs[0]["losses"] == runs[1]["losses"]
+
+
+@pytest.mark.parametrize("name", list(SAMPLED))
+def test_sampled_gating_trains_alike_at_world_sizes_one_and_two(zero_run, name):
+    """Sampled routing (jitter with random token priority at top-1, the
+    Gumbel second expert at top-2) from one seed: each row of the step's
+    global batch draws from its own generator, so two ranks train as one
+    process does on the same global batch (losses rtol 2e-5, parameters
+    rtol 2e-4 / atol 2e-6)."""
+    w1_losses, w1_params = zero_run["sampled_world1"][name]
+    for r in zero_run["sampled"]:
+        losses, params = r[name]
+        np.testing.assert_allclose(losses, w1_losses, rtol=2e-5)
+        for k, v in params.items():
+            np.testing.assert_allclose(v, w1_params[k], rtol=2e-4, atol=2e-6, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # in this process: layout, mesh, refusals
 # ---------------------------------------------------------------------------
@@ -496,7 +850,7 @@ def test_mesh_config_resolve_rejects_what_does_not_tile(mesh, n):
 
 
 @pytest.mark.parametrize("axis,item", [("model", "A3b"), ("pipe", "A6.8"), ("seq", "A8"),
-                                       ("expert", "A3"), ("data_repl", "MiCS")])
+                                       ("data_repl", "MiCS")])
 def test_non_data_mesh_axes_are_refused_naming_their_item(axis, item):
     with pytest.raises(NotImplementedError, match=item):
         deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 2,
@@ -504,6 +858,36 @@ def test_non_data_mesh_axes_are_refused_naming_their_item(axis, item):
     cfg = deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 2,
                                                "tpu": {"mesh": {"data": -1}}})
     assert cfg.tpu_config.mesh_config().resolve(4)["data"] == 4
+
+
+@pytest.mark.parametrize("expert,ok", [(1, True), (2, True), (3, False)])
+def test_expert_axis_must_divide_data_times_seq(expert, ok):
+    """``expert`` is accepted where it divides ``data * seq``, as the
+    reference's ``resolve`` accepts it; another value raises there."""
+    cfg = deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 2, "tpu": {"mesh": {
+        "data": 2, "expert": expert}}})
+    mesh = cfg.tpu_config.mesh_config()
+    if ok:
+        assert mesh.resolve(2)["data"] == 2 and mesh.expert == expert
+    else:
+        with pytest.raises(ValueError, match=r"expert parallel size 3 must divide data\*seq"):
+            mesh.resolve(2)
+
+
+def test_expert_data_replicas_are_refused():
+    """``expert`` 2 over ``data`` 4 divides, but it asks for experts
+    replicated over two expert-data ranks, which the partition does not
+    build (it shards them over the whole data group): the mesh refuses it,
+    naming A3, before any group is made; ``expert`` 4 builds that layout."""
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh, refuse_expert_data_replicas
+
+    assert MeshConfig(data=4, expert=2).resolve(4)["data"] == 4
+    with pytest.raises(NotImplementedError, match="expert-data replicas.*A3"):
+        build_mesh(MeshConfig(data=4, expert=2), 4, "cpu")
+    with pytest.raises(NotImplementedError, match="expert-data replicas.*A3"):
+        build_mesh(MeshConfig(data=-1, expert=2), 8, "cpu")
+    for expert in (1, 4):
+        refuse_expert_data_replicas(expert, 4)
 
 
 def test_mesh_axis_order_is_not_a_mesh_key():
@@ -515,22 +899,26 @@ def test_mesh_axis_order_is_not_a_mesh_key():
             "data": 2, "axis_order": ["pipe", "data_repl", "data", "seq", "model"]}}})
 
 
-def test_moe_and_hybrid_are_refused_at_world_size_two(monkeypatch):
+def test_moe_and_hybrid_are_refused_at_world_size_two(zero_run, monkeypatch):
+    """A MoE model whose expert count the world does not divide (3 experts,
+    2 ranks) builds and trains with its experts in the blocks' flat groups,
+    replicated (the reference's ``sanitize_spec`` replicates the dim); the
+    hybrid engine is refused at world size 2, naming A1, for a MoE model
+    too."""
     from deepspeed_tpu_torch import comm
-    from deepspeed_tpu_torch.parallel import groups
 
-    monkeypatch.setattr(groups, "initialize_mesh", lambda *a, **k: None)
-    monkeypatch.setattr(groups, "get_data_parallel_world_size", lambda: 2)
-    moe = TransformerLM(mistral_config("tiny", dtype=torch.float32, moe_num_experts=4, **TINY),
-                        device="cpu", trainable=True)
-    with pytest.raises(NotImplementedError, match="A3"):
-        deepspeed_tpu_torch.initialize(model=moe, config={"train_batch_size": 4})
+    for rank, r in enumerate(zero_run["indivisible"]):
+        assert r["owned"] == 0 and r["wi_shape"] == (3, 64, 128) and np.isfinite(r["loss"])
+        assert r["in_flat"] == ["moe_wg"] * 2 + ["moe_wi"] * 2 + ["moe_wo"] * 2
+        # the reference's getters: the data group, the mesh's expert size 1
+        assert r["ep_group_size"] == WORLD and r["ep_sizes"] == (1, WORLD, rank, rank, True)
     monkeypatch.setattr(comm, "get_world_size", lambda group=None: 2)
-    dense = TransformerLM(mistral_config("tiny", dtype=torch.float32, **TINY), device="cpu",
-                          trainable=True)
-    with pytest.raises(NotImplementedError, match="hybrid engine at world size 2.*A1"):
-        deepspeed_tpu_torch.initialize(model=dense, config={
-            "train_batch_size": 4, "hybrid_engine": {"enabled": True}})
+    for moe in ({}, MOE):
+        model = TransformerLM(mistral_config("tiny", dtype=torch.float32, **TINY, **moe),
+                              device="cpu", trainable=True)
+        with pytest.raises(NotImplementedError, match="hybrid engine at world size 2.*A1"):
+            deepspeed_tpu_torch.initialize(model=model, config={
+                "train_batch_size": 4, "hybrid_engine": {"enabled": True}})
 
 
 def test_world_size_one_builds_no_partition():
