@@ -1,8 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
-                                    train,zero,moe_zero,moe_train,sparse_train,evo_kernels,
-                                    evo_path,v1,hybrid]
+                                    train,remat,eager,zero,moe_zero,moe_train,sparse_train,
+                                    evo_kernels,evo_path,v1,hybrid]
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
     python3 chip_smoke.py --versus DIR [--phases kernels,e2e]
@@ -138,7 +138,31 @@ code 1 otherwise):
    timed at the full parameter set; then one forward and backward at seq
    1024 through the kernels against the same through the plain attention
    on the same weights (loss and whole-gradient relative L2 error).
-8. zero: ZeRO stages 0, 1, 2 and 3 at data-parallel world size >= 2, one
+8. remat: activation checkpointing on the train phase's configuration
+   (Mistral-7B width, 8 layers, one model and its weights): one
+   microbatch's loss and gradients with ``remat`` off, then with each of
+   ``nothing_saveable``, ``dots_saveable`` and
+   ``save_only_these_names(attn_out)``, each held against remat off (the
+   loss equal, the gradients' relative L2 within 1e-5) with its flash
+   launches held to the design (the forward twice a layer under every
+   policy: the recompute runs the kernel again, and ``attn_out`` keeps the
+   context but not the backward's lse); then under each setting a warm
+   ``train_batch`` and 3 timed ones: step time, peak memory, launches a
+   step; the peak under ``nothing_saveable`` must be below remat off's.
+   Then Mixtral-8x7B's widths at depth 2 on the grouped path, top-2 with the
+   Gumbel second expert drawn from the row's generator: one microbatch's
+   loss and gradients with ``remat`` against without (1e-5; gmm / tgmm and
+   flash launched, gmm and the flash forward again in the recompute).
+   Last, ``checkpointing.configure(checkpoint_in_cpu=True)`` on a [4096,
+   4096] fp32 region: its input must leave the device until the recompute
+   and the value and gradients equal the region's kept on the device.
+   ``worst_error_fraction`` is printed.
+9. eager: the train phase's configuration built twice from seed 0, one
+   engine at a time: 2 steps of ``forward`` / ``backward`` / ``step`` at gas
+   2 against 2 ``train_batch`` steps on the same ids: the losses equal, the
+   parameters after the second step within relative L2 1e-6 (0 expected),
+   the launches equal.
+10. zero: ZeRO stages 0, 1, 2 and 3 at data-parallel world size >= 2, one
    process a rank (this script with ``--zero-rank``, the environment
    torchrun's), loading the kernels the build phase built: with two or more
    visible cards min(4, count) ranks over NCCL, one a card, at Mistral-7B's
@@ -160,7 +184,12 @@ code 1 otherwise):
    fused AdamW once a step (on the rank's shards at stages >= 1). Each
    rank's losses, step times, peak and resident bytes are printed. With four
    cards, also stage 3 at full depth (32 layers), each rank's peak printed.
-9. moe_zero: MoE training at data-parallel world size >= 2 with the
+   Each spawn also runs stage 3 with ``remat`` (``nothing_saveable``): its
+   losses and gradient norms within 2e-4 of stage 3's, each rank's peak no
+   higher, the partition's gathers a step equal (printed), the flash
+   forward twice a layer a microbatch; at full depth its peak is printed
+   beside stage 3's.
+11. moe_zero: MoE training at data-parallel world size >= 2 with the
    experts over the ranks, spawned as ``zero`` spawns (``--zero-rank`` with
    impl:stage cases): Mixtral-8x7B's widths (8 experts, top-2 with the
    Gumbel second expert drawn from each row's generator, capacity factor
@@ -193,7 +222,7 @@ code 1 otherwise):
    L2 1e-2. Each rank's losses, step times, peak and resident bytes (the
    experts apart), the seconds of each case's set-up, steps and checks,
    and ``worst_error_fraction`` are printed.
-10. moe_train: the earlier engines freed, Mixtral-8x7B's widths (8 experts,
+12. moe_train: the earlier engines freed, Mixtral-8x7B's widths (8 experts,
    top-2, the grouped path, capacity factor 1.25, rope_theta 1e6, no
    window) with the depth cut 32 -> 2 for memory, trained as in ``train``
    (the engine's seeded generator drives the gating's draws): losses finite
@@ -205,7 +234,7 @@ code 1 otherwise):
    1.5e-1: the last layer's gate sees inputs that differ in the last bf16
    bit, and the tokens it routes differently, printed, move whole tokens'
    contributions between experts).
-11. sparse_train: the earlier engines freed, Llama-2-7B's widths with the
+13. sparse_train: the earlier engines freed, Llama-2-7B's widths with the
    depth cut 32 -> 8 and the ds_config's ``sparse_attention`` block (the
    documented 'fixed' layout, unidirectional), trained as in ``train``:
    losses finite and falling, step time, tokens/s, peak memory, launches
@@ -214,7 +243,7 @@ code 1 otherwise):
    then at seq 1024 the whole model through the kernel against the same
    through the plain forward (loss 2e-3, gradient 5e-2).
 
-12. evo_kernels: hold the Evoformer kernels (``evo_fwd``, ``evo_bwd_dq``,
+14. evo_kernels: hold the Evoformer kernels (``evo_fwd``, ``evo_bwd_dq``,
    ``evo_bwd_dkdv`` with the mask bias's ``db1`` summed inside it, and
    ``evo_bwd_db2``) against their plain versions on the same inputs (the
    backward on the kernel forward's out and lse): out, lse, dq, dk, dv,
@@ -246,7 +275,7 @@ code 1 otherwise):
    and its backward with the mask's gradient for the backward kernels
    together; db1's time is that of the dk/dv launch that sums it (with
    what the sum adds beside it). ``worst_error_fraction`` is printed.
-13. evo_path: one Evoformer block's four attention calls (MSA row attention
+15. evo_path: one Evoformer block's four attention calls (MSA row attention
    with the pair bias, MSA column attention, triangle attention around the
    starting and the ending node) at AlphaFold-2's fine-tuning crop (N_res
    384, N_clust 512) with OpenFold's heads (8 x 32 for the MSA, 4 x 32 for
@@ -261,7 +290,7 @@ code 1 otherwise):
    the block through the plain versions: every output finite, and the
    output (off the fully masked rows) and all five cotangents of each call
    within relative L2 1e-2 of the plain path's.
-14. v1: first the paged kernels in the v1 path's layout (a dense
+16. v1: first the paged kernels in the v1 path's layout (a dense
    [B, Smax, 8, 128] cache viewed as a pool of 128-slot blocks with an
    identity block table, 32 / 8 heads) against the plain version with the
    ``kernels`` tolerance: the prefills and decodes of both waves and of
@@ -281,7 +310,7 @@ code 1 otherwise):
    prefill and after one decode step, kernels against the dense route on
    the same weights (``attention_impl="reference"``), relative L2 within
    5e-2, the argmax agreement printed.
-15. hybrid: the earlier engines freed, the ``train`` phase's configuration
+17. hybrid: the earlier engines freed, the ``train`` phase's configuration
    (Mistral-7B width, 8 layers, fp32 masters, bf16, fused AdamW; a
    constant lr) through ``initialize`` with ``hybrid_engine.enabled``:
    ``generate`` twice (4 x 64 + 32), ``train_batch`` x 2, ``generate``. The
@@ -321,7 +350,10 @@ fail, each by more than 30x the phase's tolerance), and the MoE at world
 size >= 2 with the einsum path's return all-to-all rotating the slots by
 one rank and, alone, the grouped path's expert gradients kept on each
 owner's own tokens (not reduce-scattered; ``--phases build,moe_zero``
-must fail by more than 30x the phase's tolerance): sixteen copies.
+must fail by more than 30x the phase's tolerance), and the activation
+checkpoint restoring no generator before its recompute (``--phases
+build,remat`` must fail on the MoE check by more than 30x its tolerance):
+seventeen copies.
 It passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
@@ -541,6 +573,21 @@ MOE_LAYER_REL_L2_TOL = 1e-2
 # changes experts (and the capacity ranks behind it), so whole tokens'
 # contributions move between experts' gradients
 MOE_GRAD_REL_L2_TOL = 1.5e-1
+# activation checkpointing (remat) on the train phase's configuration: the
+# policies the remat phase drives (each held against remat off on one
+# microbatch, then timed over REMAT_STEPS train_batch steps), and the
+# tolerance of those gradients' relative L2 distance: the recompute runs the
+# same kernels on the same inputs, so it is 0 wherever every op sums in a
+# fixed order; 1e-5 leaves room for an op that sums by atomics (the grouped
+# MoE path's index_add), far below what a token routed otherwise moves. The
+# MoE check at Mixtral-8x7B's widths, REMAT_MOE_LAYERS deep, the grouped path
+# with top-2's Gumbel second expert drawn from each row's generator.
+REMAT_POLICIES = ("nothing_saveable", "dots_saveable", "save_only_these_names(attn_out)")
+REMAT_STEPS, REMAT_REL_TOL, REMAT_MOE_LAYERS = 3, 1e-5, 2
+# the eager phase: EAGER_STEPS forward / backward / step steps against as many
+# train_batch steps from the same seed (the same per-microbatch code: equal,
+# or within EAGER_REL_TOL of the parameters' norm where an op sums by atomics)
+EAGER_STEPS, EAGER_REL_TOL = 2, 1e-6
 
 
 def log(msg):
@@ -1796,6 +1843,298 @@ def phase_train():
 
 
 # ---------------------------------------------------------------------------
+# phases: activation checkpointing (remat) and the eager API
+# ---------------------------------------------------------------------------
+
+def _rel_l2(got, want):
+    """sqrt(sum |got - want|^2 / sum |want|^2) over lists of tensors."""
+    num = sum(float((a.float() - b.float()).pow(2).sum()) for a, b in zip(got, want))
+    den = sum(float(b.float().pow(2).sum()) for b in want)
+    return (num / den)**0.5
+
+
+def _one_microbatch(model, params, batch, counters, generators=None):
+    """One microbatch's forward and backward with every gradient dropped
+    first and the launch counts of ``counters`` reset just before: (loss,
+    the gradients, the launches)."""
+    import torch
+
+    for p in params:
+        p.grad = None
+    for mod in counters:
+        mod.reset_launch_counts()
+    gens = generators() if generators is not None else None
+    loss = model.loss(batch, generator=gens) if gens is not None else model.loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {k: v for mod in counters for k, v in mod.launch_counts.items()}
+    return float(loss.detach()), [p.grad for p in params], launches
+
+
+def _remat_steps(engine, batch, counters, steps=REMAT_STEPS):
+    """A warm ``train_batch``, then ``steps`` timed ones with the launch
+    counts reset and the peak statistics cleared just before: (losses,
+    median ms, peak GiB, launches a step)."""
+    import numpy as np
+    import torch
+
+    engine.train_batch(batch)
+    torch.cuda.synchronize()
+    for mod in counters:
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(steps):
+        ts = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        times.append(1e3 * (time.perf_counter() - ts))
+    launches = {k: v / steps for mod in counters for k, v in mod.launch_counts.items()}
+    return losses, float(np.median(times)), torch.cuda.max_memory_allocated() / 2**30, launches
+
+
+def _cpu_checkpointing_check(n=4096):
+    """``checkpointing.configure(checkpoint_in_cpu=True)`` on the card: a
+    region's [n, n] fp32 input lives in pinned host memory from the forward
+    to the recompute (the device holds that much less once the caller drops
+    it), and the value and gradients equal those of the region kept on the
+    device. Returns the device bytes held after the forward each way."""
+    import torch
+
+    from deepspeed_tpu_torch import checkpointing
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    w = (torch.randn(n, n, device="cuda", generator=gen) / n**0.5).requires_grad_()
+    x0 = torch.randn(n, n, device="cuda", generator=gen).requires_grad_()
+
+    def region(h):
+        return torch.tanh(h @ w) @ w
+
+    runs = {}
+    try:
+        for offload in (False, True):
+            checkpointing.configure(checkpoint_in_cpu=offload)
+            h = x0 * 2.0
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            out = checkpointing.checkpoint(region, h)
+            del h
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base
+            loss = out.pow(2).sum()
+            grads = torch.autograd.grad(loss, [x0, w])
+            runs[offload] = (float(loss.detach()), grads, held)
+            del out, loss  # so the next run's count starts from the same tensors
+    finally:
+        checkpointing.reset()
+    (l0, g0, h0), (l1, g1, h1) = runs[False], runs[True]
+    equal = l0 == l1 and all(torch.equal(a, b) for a, b in zip(g0, g1))
+    log(f"[remat] cpu_checkpointing on a [{n}, {n}] fp32 region: device bytes held after the "
+        f"forward {h1:,} with the input on the host, {h0:,} without (the input is "
+        f"{4 * n * n:,}); value and gradients equal: {equal}")
+    failure = None
+    if not equal or h0 - h1 < 4 * n * n - 2**20:
+        failure = (f"cpu_checkpointing: equal {equal}, device bytes held {h1:,} against {h0:,} "
+                   f"(the host copy should spare {4 * n * n:,})")
+    return {"held_bytes": h1, "held_bytes_on_device": h0, "equal": equal, "failure": failure}
+
+
+def phase_remat():
+    """Returns the launches a ``train_batch`` step under each remat setting
+    and the phase's record."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    L = TRAIN_LAYERS
+    cfg = mistral_config("7b", num_layers=L)
+    model = TransformerLM(cfg, trainable=True, seed=0)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_DS_CONFIG)
+    params = engine._params
+    gas = engine.gradient_accumulation_steps()
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                       (engine.train_batch_size(), TRAIN_SEQ)).astype(np.int32)}
+    mb = {"input_ids": torch.from_numpy(batch["input_ids"][:1]).cuda()}
+    log(f"[remat] Mistral-7B width, depth {L}, the train phase's ds_config (gas {gas}, 1 x "
+        f"{TRAIN_SEQ} tokens a microbatch); built in {time.perf_counter() - t0:.1f}s")
+    settings = [("off", False, "nothing_saveable")] + [(p, True, p) for p in REMAT_POLICIES]
+    worst, failures, record = 0.0, [], {"layers": L, "seq": TRAIN_SEQ, "gas": gas}
+
+    # one microbatch's loss and gradients under each setting, against remat off
+    ref = None
+    record["grads"] = {}
+    for name, remat, policy in settings:
+        cfg.remat, cfg.remat_policy = remat, policy
+        ts = time.perf_counter()
+        loss, grads, n = _one_microbatch(model, params, mb, (fa, ))
+        ms = 1e3 * (time.perf_counter() - ts)
+        if ref is None:
+            ref = (loss, grads)
+            rel = 0.0
+        else:
+            rel = _rel_l2(grads, ref[1])
+        want = {"flash_fwd": (2 if remat else 1) * L, "flash_bwd_dkdv": L, "flash_bwd_dq": L}
+        record["grads"][name] = {"loss": loss, "rel_l2": rel, "launches": n, "ms": ms}
+        log(f"[remat] one microbatch, {name}: loss {loss:.6f} (remat off {ref[0]:.6f}); "
+            f"gradients' relative L2 to remat off {rel:.3e} (tolerance {REMAT_REL_TOL}); flash "
+            f"launches {n} (the design: {want}); {ms:.1f} ms with the first call's set-up")
+        worst = max(worst, rel / REMAT_REL_TOL)
+        if loss != ref[0] or rel > REMAT_REL_TOL:
+            failures.append(f"{name}: loss {loss} vs {ref[0]}, gradients {rel:.3e}")
+        if n != want:
+            failures.append(f"{name}: flash launches {n}, the design says {want}")
+    del ref, grads
+    for p in params:
+        p.grad = None
+
+    # train_batch steps under each setting: peak, step time, launches a step
+    record["steps"] = {}
+    for name, remat, policy in settings:
+        cfg.remat, cfg.remat_policy = remat, policy
+        losses, med, peak, n = _remat_steps(engine, batch, (fa, fad))
+        want = {"flash_fwd": (2 if remat else 1) * L * gas, "flash_bwd_dkdv": L * gas,
+                "flash_bwd_dq": L * gas, "fused_adam": 1}
+        record["steps"][name] = {"losses": losses, "step_ms": med, "peak_gib": peak,
+                                 "launches": n}
+        log(f"[remat] train_batch, {name}: step time median {med:.1f} ms over {REMAT_STEPS} "
+            f"steps after a warm one; peak memory {peak:.2f} GiB; launches a step {n} (the "
+            f"design: {want}); losses {[round(x, 5) for x in losses]}")
+        if n != want:
+            failures.append(f"{name}: launches a step {n}, the design says {want}")
+        if not all(np.isfinite(losses)):
+            failures.append(f"{name}: losses not finite: {losses}")
+    off, on = record["steps"]["off"], record["steps"]["nothing_saveable"]
+    log(f"[remat] nothing_saveable against remat off: peak {on['peak_gib']:.2f} vs "
+        f"{off['peak_gib']:.2f} GiB ({off['peak_gib'] - on['peak_gib']:+.2f} GiB saved), step "
+        f"{on['step_ms']:.1f} vs {off['step_ms']:.1f} ms ({on['step_ms'] / off['step_ms']:.3f}x)")
+    if not on["peak_gib"] < off["peak_gib"]:
+        failures.append(f"the peak under nothing_saveable, {on['peak_gib']:.2f} GiB, is not "
+                        f"below remat off's, {off['peak_gib']:.2f}")
+    cfg.remat = False
+    launches = {name: st["launches"] for name, st in record["steps"].items()}
+    del engine, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # MoE: Mixtral-8x7B's widths, the grouped path, top-2 with the Gumbel
+    # second expert drawn from each row's generator, remat against none
+    t0 = time.perf_counter()
+    mcfg = mistral_config("7b", **dict(MOE_CONFIG, num_layers=REMAT_MOE_LAYERS))
+    model = TransformerLM(mcfg, trainable=True, seed=0)
+    params = [p for p in model.parameters() if p.requires_grad]
+    mb = {"input_ids": torch.from_numpy(np.random.default_rng(1).integers(
+        0, mcfg.vocab_size, (1, TRAIN_SEQ)).astype(np.int64)).cuda()}
+
+    def generators():  # fresh each run, from the same seeds
+        return [torch.Generator(device="cuda").manual_seed(7000 + b) for b in range(1)]
+
+    mcfg.remat = False
+    l_off, g_off, n_off = _one_microbatch(model, params, mb, (gm, fa), generators)
+    mcfg.remat, mcfg.remat_policy = True, "nothing_saveable"
+    l_on, g_on, n_on = _one_microbatch(model, params, mb, (gm, fa), generators)
+    rel = _rel_l2(g_on, g_off)
+    worst = max(worst, rel / REMAT_REL_TOL)
+    record["moe"] = {"layers": REMAT_MOE_LAYERS, "loss": [l_off, l_on], "rel_l2": rel,
+                     "launches": {"off": n_off, "nothing_saveable": n_on}}
+    log(f"[remat] MoE (Mixtral-8x7B widths, {REMAT_MOE_LAYERS} layers, grouped, top-2 Gumbel, "
+        f"one row's generator): loss {l_on:.6f} with remat, {l_off:.6f} without; gradients' "
+        f"relative L2 {rel:.3e} (tolerance {REMAT_REL_TOL}); launches without remat {n_off}, "
+        f"with {n_on}; {time.perf_counter() - t0:.1f}s")
+    if l_on != l_off or rel > REMAT_REL_TOL:
+        failures.append(f"MoE: loss {l_on} vs {l_off}, gradients {rel:.3e}")
+    if any(n_on[k] <= n_off[k] for k in ("gmm", "flash_fwd")) or n_off["tgmm"] <= 0:
+        failures.append(f"MoE launches: without remat {n_off}, with {n_on} (the recompute "
+                        f"launches gmm and flash_fwd again)")
+    launches["moe"] = n_on
+    del model, params, g_on, g_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["cpu_checkpointing"] = _cpu_checkpointing_check()
+    if record["cpu_checkpointing"]["failure"]:
+        failures.append(record["cpu_checkpointing"]["failure"])
+    record["worst_error_fraction"] = worst
+    log(f"[remat] worst_error_fraction={worst:.3f} (the gradients' relative L2 against remat "
+        f"off over {REMAT_REL_TOL}, dense policies and MoE)")
+    if failures:
+        raise RuntimeError("remat disagrees: " + "; ".join(failures))
+    return launches, record
+
+
+def phase_eager():
+    """Returns the launches of the eager steps and the phase's record."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = mistral_config("7b", num_layers=TRAIN_LAYERS)
+    rng = np.random.default_rng(2)
+    batches = [rng.integers(0, cfg.vocab_size, (2, TRAIN_SEQ)).astype(np.int32)
+               for _ in range(EAGER_STEPS)]
+    runs = {}
+    for eager in (False, True):
+        t0 = time.perf_counter()
+        model = TransformerLM(cfg, trainable=True, seed=0)
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_DS_CONFIG)
+        gas, micro = engine.gradient_accumulation_steps(), engine.train_micro_batch_size_per_gpu()
+        torch.cuda.synchronize()
+        for mod in (fa, fad):
+            mod.reset_launch_counts()
+        losses = []
+        for ids in batches:
+            if eager:
+                for i in range(gas):
+                    loss = engine({"input_ids": ids[i * micro:(i + 1) * micro]})
+                    engine.backward(loss)
+                    engine.step()
+                losses.append(float(engine._step_metrics["loss"]))
+            else:
+                losses.append(float(engine.train_batch({"input_ids": ids})))
+        torch.cuda.synchronize()
+        n = {**fa.launch_counts, **fad.launch_counts}
+        params = [p.detach().clone() for p in engine._params]
+        runs[eager] = (losses, params, n, engine.global_steps)
+        log(f"[eager] {'forward / backward / step' if eager else 'train_batch'}: "
+            f"{EAGER_STEPS} steps at gas {gas}, losses {losses}, global_steps "
+            f"{engine.global_steps}, launches {n}; {time.perf_counter() - t0:.1f}s with the build")
+        del engine, model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l0, p0, n0, s0), (l1, p1, n1, s1) = runs[False], runs[True]
+    rel = _rel_l2(p1, p0)
+    log(f"[eager] eager against train_batch: losses equal {l1 == l0}; parameters after step "
+        f"{EAGER_STEPS}: relative L2 {rel:.3e} (tolerance {EAGER_REL_TOL}); launches equal "
+        f"{n1 == n0}")
+    record = {"losses": l1, "train_batch_losses": l0, "params_rel_l2": rel, "launches": n1,
+              "worst_error_fraction": rel / EAGER_REL_TOL}
+    log(f"[eager] worst_error_fraction={rel / EAGER_REL_TOL:.3f}")
+    del p0, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    if l1 != l0 or rel > EAGER_REL_TOL or n1 != n0 or s1 != s0 or min(n1.values()) <= 0:
+        raise RuntimeError(f"eager disagrees with train_batch: losses {l1} vs {l0}, parameters "
+                           f"{rel:.3e}, launches {n1} vs {n0}, steps {s1} vs {s0}")
+    return n1, record
+
+
+# ---------------------------------------------------------------------------
 # phase: ZeRO stages 0-3 at data-parallel world size >= 2
 # ---------------------------------------------------------------------------
 
@@ -1846,10 +2185,11 @@ def _zero_replica_rel_l2(engine):
 def _zero_rank_run(layers, stages, out_path):
     """One rank of the zero phase (``--zero-rank``; the environment holds
     RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT, as torchrun's
-    does): for each stage, Mistral-7B's width at ``layers`` layers from seed
-    0 through ``initialize`` -> ``train_batch`` on this rank's rows, with the
-    launch counts reset just before the steps and read just after. Writes
-    {stage: losses, gradient norms, step ms, peak GiB, launches, the
+    does): for each stage (``"3r"``: stage 3 with ``remat``), Mistral-7B's
+    width at ``layers`` layers from seed 0 through ``initialize`` ->
+    ``train_batch`` on this rank's rows, with the launch counts reset just
+    before the steps and read just after. Writes {stage: losses, gradient
+    norms, step ms, peak GiB, launches, the partition's gathers a step, the
     largest relative L2 difference of a parameter after the steps to rank
     0's (not at full depth, where gathering every master would not fit)} as
     JSON to ``out_path``."""
@@ -1869,8 +2209,18 @@ def _zero_rank_run(layers, stages, out_path):
     rank, world = comm.get_rank(), comm.get_world_size()
     out = {"rank": rank, "world": world, "backend": comm.get_backend(),
            "device": str(torch.cuda.current_device()), "stages": {}}
+    from deepspeed_tpu_torch.runtime.zero import partition
+
     cfg = mistral_config("7b", num_layers=layers)
-    for stage in stages:
+    gathered, gathers = partition._gathered, [0]
+
+    def counted(*a):  # the partition's group gathers (stage 3), forward and backward
+        gathers[0] += 1
+        return gathered(*a)
+
+    partition._gathered = counted
+    for case in map(str, stages):
+        stage, cfg.remat = int(case.rstrip("r")), case.endswith("r")
         model = TransformerLM(cfg, trainable=True, seed=0)
         n_params = model.num_params()  # before stage 3 frees the full masters
         engine, _, _, _ = deepspeed_tpu_torch.initialize(
@@ -1881,14 +2231,16 @@ def _zero_rank_run(layers, stages, out_path):
         fa.reset_launch_counts()
         fad.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
+        gathers[0] = 0
         losses, norms, times = _zero_train(engine, batch)
-        out["stages"][str(stage)] = {
+        out["stages"][case] = {
             "losses": losses, "grad_norms": norms, "step_ms": times, "gas": gas,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "resident_gib": {k: v / 2**30 for k, v in engine.zero_resident_bytes().items()},
-            "launches": {**fa.launch_counts, **fad.launch_counts}, "params": n_params}
+            "launches": {**fa.launch_counts, **fad.launch_counts}, "params": n_params,
+            "gathers_per_step": gathers[0] / ZERO_STEPS}
         if layers != ZERO_FULL_LAYERS:
-            out["stages"][str(stage)]["replica_rel_l2"] = _zero_replica_rel_l2(engine)
+            out["stages"][case]["replica_rel_l2"] = _zero_replica_rel_l2(engine)
         del engine, model
         gc.collect()
         torch.cuda.empty_cache()
@@ -1999,7 +2351,7 @@ def phase_zero():
         f"{[round(x, 5) for x in w1_losses]}; gradient norms {[round(x, 5) for x in w1_norms]}; "
         f"step ms {[round(t, 1) for t in w1_ms]} ({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
-    ranks = _zero_spawn(world, backend, layers, stages, "stages")
+    ranks = _zero_spawn(world, backend, layers, stages + ("3r", ), "stages")
     log(f"[zero] ranks done in {time.perf_counter() - t0:.1f}s")
     base = ranks[0]["stages"]["0"]["losses"]
     base_norms = ranks[0]["stages"]["0"]["grad_norms"]
@@ -2046,11 +2398,43 @@ def phase_zero():
     log(f"[zero] peak GiB per rank by stage: {record['peak_gib']}; median step ms (steps 2-"
         f"{ZERO_STEPS}, every rank): {record['step_ms']}")
     record["rel_diff_to_stage0"] = worst
-    fraction = max(worst / ZERO_REL_TOL, w1 / ZERO_WORLD1_REL_TOL, replica / ZERO_REL_TOL)
+    # stage 3 with remat against stage 3 without: the same losses and norms,
+    # a peak no higher, as many gathers (the recompute's replace the saved
+    # weights' regathers), flash_fwd twice a layer a microbatch
+    rel_r, remat_failures = 0.0, []
+    for r in ranks:
+        got, st3 = r["stages"]["3r"], r["stages"]["3"]
+        rel = max(_rel(got["losses"], st3["losses"]), _rel(got["grad_norms"], st3["grad_norms"]))
+        rel_r = max(rel_r, rel)
+        replica = max(replica, got["replica_rel_l2"])
+        n_attn = layers * got["gas"] * ZERO_STEPS
+        want = {"flash_fwd": 2 * n_attn, "flash_bwd_dkdv": n_attn, "flash_bwd_dq": n_attn,
+                "fused_adam": ZERO_STEPS}
+        log(f"[zero] stage 3 with remat, rank {r['rank']}: losses "
+            f"{[round(x, 5) for x in got['losses']]} (largest relative difference to stage 3 "
+            f"without remat, losses and norms: {rel:.3e}); peak {got['peak_gib']:.2f} GiB "
+            f"(without remat {st3['peak_gib']:.2f}); gathers a step {got['gathers_per_step']} "
+            f"(without remat {st3['gathers_per_step']}); step ms "
+            f"{[round(t, 1) for t in got['step_ms']]}; launches {got['launches']}")
+        if got["launches"] != want:
+            remat_failures.append(f"rank {r['rank']} launches {got['launches']}, expected {want}")
+        if got["peak_gib"] > st3["peak_gib"]:
+            remat_failures.append(f"rank {r['rank']} peak {got['peak_gib']:.2f} GiB above stage "
+                                  f"3's {st3['peak_gib']:.2f}")
+        if got["gathers_per_step"] != st3["gathers_per_step"]:
+            remat_failures.append(f"rank {r['rank']} gathers a step {got['gathers_per_step']}, "
+                                  f"stage 3's {st3['gathers_per_step']}")
+    record["remat_stage3"] = {
+        "rel_diff_to_stage3": rel_r, "peak_gib": [r["stages"]["3r"]["peak_gib"] for r in ranks],
+        "gathers_per_step": ranks[0]["stages"]["3r"]["gathers_per_step"],
+        "step_ms": float(np.median([t for r in ranks for t in r["stages"]["3r"]["step_ms"][1:]]))}
+    fraction = max(worst / ZERO_REL_TOL, w1 / ZERO_WORLD1_REL_TOL, replica / ZERO_REL_TOL,
+                   rel_r / ZERO_REL_TOL)
     log(f"[zero] worst_error_fraction={fraction:.3f} (the largest of: stages 1-3 against stage "
         f"0, {worst:.3e} over {ZERO_REL_TOL}; world size {world} against 1, {w1:.3e} over "
         f"{ZERO_WORLD1_REL_TOL}; a rank's parameters against rank 0's, which must be equal, "
-        f"{replica:.3e} over {ZERO_REL_TOL})")
+        f"{replica:.3e} over {ZERO_REL_TOL}; stage 3 with remat against without, {rel_r:.3e} "
+        f"over {ZERO_REL_TOL})")
     if not all(np.isfinite(base)) or not base[-1] < base[0]:
         raise RuntimeError(f"stage 0 losses not finite and falling: {base}")
     failures = [f"stages 1-3 against stage 0: relative {worst:.3e} > {ZERO_REL_TOL}"
@@ -2058,7 +2442,9 @@ def phase_zero():
                 f"world size {world} against 1: relative {w1:.3e} > {ZERO_WORLD1_REL_TOL}"
                 if w1 > ZERO_WORLD1_REL_TOL else None,
                 f"a rank's parameters differ from rank 0's: relative L2 {replica:.3e}"
-                if replica > 0 else None]
+                if replica > 0 else None,
+                f"stage 3 with remat against without: relative {rel_r:.3e} > {ZERO_REL_TOL}"
+                if rel_r > ZERO_REL_TOL else None] + remat_failures
     if any(failures):
         raise RuntimeError(f"zero disagrees: {'; '.join(f for f in failures if f)}")
     for r in range(world):
@@ -2067,17 +2453,21 @@ def phase_zero():
             raise RuntimeError(f"rank {r}'s peak memory does not fall with the stage: {seq}")
     if world == 4 and backend == "nccl":
         t0 = time.perf_counter()
-        full = _zero_spawn(world, backend, ZERO_FULL_LAYERS, (3, ), "full")
-        st = [r["stages"]["3"] for r in full]
-        record["full_depth_stage3"] = {
-            "layers": ZERO_FULL_LAYERS, "params": st[0]["params"],
-            "peak_gib": [x["peak_gib"] for x in st], "losses": st[0]["losses"],
-            "step_ms": float(np.median([t for x in st for t in x["step_ms"][1:]]))}
-        log(f"[zero] full depth ({ZERO_FULL_LAYERS} layers, {st[0]['params']:,} params) at stage "
-            f"3 over {world} cards in {time.perf_counter() - t0:.1f}s: "
-            f"{record['full_depth_stage3']}")
-        if not all(np.isfinite(st[0]["losses"])):
-            raise RuntimeError(f"full-depth stage 3 losses not finite: {st[0]['losses']}")
+        full = _zero_spawn(world, backend, ZERO_FULL_LAYERS, (3, "3r"), "full")
+        for case, key in (("3", "full_depth_stage3"), ("3r", "full_depth_stage3_remat")):
+            st = [r["stages"][case] for r in full]
+            record[key] = {
+                "layers": ZERO_FULL_LAYERS, "params": st[0]["params"],
+                "peak_gib": [x["peak_gib"] for x in st], "losses": st[0]["losses"],
+                "gathers_per_step": st[0]["gathers_per_step"],
+                "step_ms": float(np.median([t for x in st for t in x["step_ms"][1:]]))}
+            log(f"[zero] full depth ({ZERO_FULL_LAYERS} layers, {st[0]['params']:,} params) at "
+                f"stage 3{' with remat' if case == '3r' else ''} over {world} cards: {record[key]}")
+            if not all(np.isfinite(st[0]["losses"])):
+                raise RuntimeError(f"full-depth stage {case} losses not finite: {st[0]['losses']}")
+        log(f"[zero] full depth in {time.perf_counter() - t0:.1f}s; peak GiB a rank with remat "
+            f"{record['full_depth_stage3_remat']['peak_gib']} beside "
+            f"{record['full_depth_stage3']['peak_gib']} without")
     return launches, record
 
 
@@ -3980,7 +4370,7 @@ def _zero_stale(group):
          "flat.clone(), fg.shard_of(flat, self.rank), group=self.group)"),))
 
 
-ZERO_MUTANT_MIN_FACTOR = 30.0  # the zero phases' mutants, against their tolerances
+ZERO_MUTANT_MIN_FACTOR = 30.0  # the zero and remat phases' mutants, against their tolerances
 MOE_A2A_MUTATIONS = _in("deepspeed_tpu_torch/models/transformer.py", (  # the return exchange
     ("expert_out = all_to_all(out, group).transpose(0, 1)",            # rotates the slots a rank
      "expert_out = all_to_all(out, group).roll(1, 0).transpose(0, 1)"),))
@@ -3988,6 +4378,9 @@ MOE_EXPERT_GRAD_MUTATIONS = _in("deepspeed_tpu_torch/runtime/zero/partition.py",
     # each owner keeps its own tokens' share of its experts' gradients
     ("comm.reduce_scatter_tensor(summed, whole, group=ctx.group)",
      "summed.copy_(whole.view(world, *summed.shape)[comm.get_rank(ctx.group)])"),))
+REMAT_RNG_MUTATIONS = _in(  # the checkpoint restores no generator before the recompute
+    "deepspeed_tpu_torch/runtime/activation_checkpointing/checkpointing.py", (
+        ("    gens = _replayed(args)\n", "    gens = []\n"),))
 DECODE_MUTATIONS = _in(SOURCE, (  # the decode skips each split's last live block
     ("const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits);",
      "const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits) - 1;"),
@@ -4010,6 +4403,7 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "zero_block": (_zero_stale("block0"), "zero", "zero disagrees"),
     "moe_a2a": (MOE_A2A_MUTATIONS, "moe_zero", "moe_zero disagrees"),
     "moe_expert_grad": (MOE_EXPERT_GRAD_MUTATIONS, "moe_zero", "moe_zero disagrees"),
+    "remat_rng": (REMAT_RNG_MUTATIONS, "remat", "remat disagrees"),
 }
 
 
@@ -4206,7 +4600,8 @@ def _run_one_mutant(name):
     # relative L2 is then of order 1, some 20x its tolerance, not 100x; a
     # stale half of a group moves the losses by what one step moves them
     if phase not in ("moe_kernels", "v1"):
-        least = ZERO_MUTANT_MIN_FACTOR if phase in ("zero", "moe_zero") else MUTANT_MIN_FACTOR
+        least = (ZERO_MUTANT_MIN_FACTOR if phase in ("zero", "moe_zero", "remat") else
+                 MUTANT_MIN_FACTOR)
         factor = _worst_error_fraction(proc.stdout, phase) or 0.0
         log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
             f"{least:.0f}x)")
@@ -4493,8 +4888,8 @@ def run_versus(other, phases):
 
 
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
-          "zero", "moe_zero", "moe_train", "sparse_train", "evo_kernels", "evo_path", "v1",
-          "hybrid")
+          "remat", "eager", "zero", "moe_zero", "moe_train", "sparse_train", "evo_kernels",
+          "evo_path", "v1", "hybrid")
 
 
 def main():
@@ -4542,7 +4937,7 @@ def main():
             _moe_zero_rank_run(args.zero_layers, [(c.split(":")[0], int(c.split(":")[1]))
                                                   for c in cases], args.zero_out)
         else:
-            _zero_rank_run(args.zero_layers, [int(x) for x in cases], args.zero_out)
+            _zero_rank_run(args.zero_layers, cases, args.zero_out)
         return 0
     if args.mutant:
         return run_mutant(args.mutant)
@@ -4559,7 +4954,8 @@ def main():
         f"{torch.cuda.device_count()} visible; {smi}")
     fns = {"build": phase_build, "kernels": phase_kernels, "train_kernels": phase_train_kernels,
            "moe_kernels": phase_moe_kernels, "sparse_kernels": phase_sparse_kernels,
-           "e2e": phase_e2e, "train": phase_train, "zero": phase_zero,
+           "e2e": phase_e2e, "train": phase_train, "remat": phase_remat, "eager": phase_eager,
+           "zero": phase_zero,
            "moe_zero": phase_moe_zero, "moe_train": phase_moe_train,
            "sparse_train": phase_sparse_train, "evo_kernels": phase_evo_kernels,
            "evo_path": phase_evo_path, "v1": phase_v1, "hybrid": phase_hybrid}
@@ -4600,12 +4996,17 @@ def main():
                 | {"max_abs_err": m["int8"]["err"]}}
                for name, m in out["kernels"].items()]
     launches, adam_full = out["train"]
+    remat_launches, remat = out["remat"]
+    eager_launches, eager = out["eager"]
     zero_launches, zero = out["zero"]
     moe_zero_launches, moe_zero = out["moe_zero"]
     for name, m in out["train_kernels"].items():
         src, replaces = TRAIN_KERNELS[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": int(launches[name]), "hybrid_launches": int(hybrid_launches[name]),
+                 "remat_launches_a_step": {k: v[name] for k, v in remat_launches.items()
+                                           if k != "moe"},
+                 "eager_launches": int(eager_launches[name]),
                  "zero_launches": zero_launches[name], "zero": zero,
                  "moe_zero_launches": moe_zero_launches[name],
                  "max_abs_err": m["err"], **{k: m[k] for k in keys}}
@@ -4613,6 +5014,8 @@ def main():
             entry["v1_launches"] = int(v1_launches[name])
         if name == "fused_adam":
             entry["full_set"] = adam_full
+        if name == "flash_fwd":
+            entry["remat"], entry["eager"] = remat, eager
         kernels.append(entry)
     moe_launches, moe_step = out["moe_train"]
     for name, m in out["moe_kernels"].items():
@@ -4622,7 +5025,9 @@ def main():
                  if k in m}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": int(moe_launches[name]),
-                        "moe_zero_launches": moe_zero_launches[name], "max_abs_err": m["err"],
+                        "moe_zero_launches": moe_zero_launches[name],
+                        "remat_moe_launches": int(remat_launches["moe"][name]),
+                        "max_abs_err": m["err"],
                         **{k: m[k] for k in keys}, **extra})
     kernels[-1]["moe_train_step"] = moe_step
     kernels[-1]["moe_zero"] = moe_zero

@@ -9,6 +9,8 @@ initialises ``torch.distributed`` (``comm``). The training "model" is an
 ``nn.Module`` with ``loss(batch)`` (``models.TransformerLM(...,
 trainable=True)``), or a bare ``loss_fn(params, batch)`` paired with
 ``model_parameters``. The ragged serving engine lives in ``inference.v2``.
+``checkpointing`` is activation checkpointing (``deepspeed.checkpointing``:
+``checkpoint``, ``configure``, the RNG tracker).
 """
 
 __version__ = "0.1.0"
@@ -20,6 +22,7 @@ from torch import nn
 from .comm import init_distributed
 from .inference.config import DeepSpeedInferenceConfig
 from .inference.engine import InferenceEngine
+from .runtime.activation_checkpointing import checkpointing
 from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 from .runtime.engine import DeepSpeedEngine
 from .runtime.hybrid_engine import DeepSpeedHybridEngine
@@ -135,5 +138,5 @@ def add_config_arguments(parser):
 
 
 __all__ = ["DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine", "DeepSpeedHybridEngine",
-           "DeepSpeedInferenceConfig", "InferenceEngine", "add_config_arguments",
+           "DeepSpeedInferenceConfig", "InferenceEngine", "add_config_arguments", "checkpointing",
            "init_distributed", "init_inference", "initialize"]

@@ -18,9 +18,13 @@ the grouped matmul kernels, ``"einsum"`` through the one-hot dispatch as
 plain products; the gating draws from an explicit ``torch.Generator``
 (``loss(batch, generator=...)``). ``sparse_attention`` (the ds_config's
 block, MHA only) sends every layer's training attention through the
-block-sparse kernel (``ops/block_sparse_attention.py``). Remat, sequence
-parallelism and dropout are not ported yet; a config that asks for them is
-refused.
+block-sparse kernel (``ops/block_sparse_attention.py``). ``remat`` checkpoints
+each block under ``remat_policy`` (``runtime/activation_checkpointing``), as
+the JAX package wraps its block in ``jax.checkpoint``. Sequence parallelism
+is not ported yet and is refused. ``dropout`` is refused above 0: the JAX
+package declares the field (``deepspeed_tpu/models/transformer.py:84``) and
+reads it nowhere, so its model has no dropout to port, and ignoring a
+dropout asked for would train another model than the one asked for.
 
 The v1 KV-cache path (``init_kv_cache``, ``forward_with_cache``, served by
 ``inference/engine.py``) keeps a dense ``[L, B, Smax, nkv, d]`` cache and,
@@ -43,6 +47,7 @@ from torch import nn
 
 from .. import comm
 from ..moe.grouped import grouped_moe_ffn
+from ..runtime.activation_checkpointing import checkpointing
 from ..moe.sharded_moe import all_to_all, multiplicative_jitter, top1gating, top2gating
 from ..parallel import groups
 
@@ -100,8 +105,11 @@ class TransformerConfig:
     # block-sparse attention: the ds_config 'sparse_attention' dict (mode +
     # per-mode keys, reference config.py:289). None = dense attention.
     sparse_attention: Optional[dict] = None
-    # not ported yet; a config that sets them is refused
+    # activation checkpointing: each block recomputed in the backward, keeping
+    # what remat_policy names (runtime/activation_checkpointing/checkpointing.py)
     remat: bool = False
+    remat_policy: str = "nothing_saveable"
+    # refused (see _refuse_unported)
     sequence_parallel: bool = False
     dropout: float = 0.0
 
@@ -158,10 +166,16 @@ def refuse_sparse_serving(cfg: TransformerConfig) -> None:
 
 
 def _refuse_unported(cfg: TransformerConfig) -> None:
-    for name, off in (("remat", False), ("sequence_parallel", False), ("dropout", 0.0)):
-        if getattr(cfg, name) != off:
-            raise NotImplementedError(f"TransformerConfig.{name} is not ported to the PyTorch "
-                                      f"package yet")
+    if cfg.sequence_parallel:
+        raise NotImplementedError("TransformerConfig.sequence_parallel is not ported to the "
+                                  "PyTorch package yet (ROADMAP A8)")
+    if cfg.dropout:
+        raise NotImplementedError(
+            f"TransformerConfig.dropout={cfg.dropout}: the JAX package declares the field "
+            f"(deepspeed_tpu/models/transformer.py:84) and reads it nowhere, so its model has no "
+            f"dropout to port; refused rather than ignored")
+    if cfg.remat:
+        checkpointing.resolve_policy(cfg.remat_policy)  # ValueError names an unknown policy
     if cfg.attention_impl not in ("auto", "reference", "flash"):
         raise ValueError(f"attention_impl must be 'auto', 'reference' or 'flash', got "
                          f"{cfg.attention_impl!r}")
@@ -443,6 +457,8 @@ def _attn_branch(cfg: TransformerConfig, layer, h, sin, cos, attend=None):
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
     ctx = (_attention(cfg, q, k, v) if attend is None else attend(q, k, v)).reshape(B, S, nq * d)
+    # named for remat_policy="save_only_these_names(attn_out)" (transformer.py:502-507)
+    ctx = checkpointing.checkpoint_name("attn_out", ctx)
     out = ctx @ layer["wo"].to(dt)
     if cfg.use_bias:
         out = out + layer["bo"].to(dt)
@@ -562,9 +578,10 @@ def _block(cfg: TransformerConfig, x, layer, sin, cos, generator=None, attend=No
 
 class GatheredLayers:
     """The blocks of a ZeRO-3 forward (``TransformerLM.gathered_params``):
-    iterating gathers each layer's weights when the layer loop reaches it,
-    so one layer's gathered weights are alive at a time (what autograd
-    saves of them is gathered again in the backward)."""
+    indexing (or iterating) gathers a layer's weights when the layer loop
+    reaches it, so one layer's gathered weights are alive at a time (what
+    autograd saves of them is gathered again in the backward; under remat
+    the recompute gathers them again)."""
 
     def __init__(self, n: int, gather):
         self.n = n
@@ -572,6 +589,9 @@ class GatheredLayers:
 
     def __len__(self):
         return self.n
+
+    def __getitem__(self, l: int):
+        return self._gather(l)
 
     def __iter__(self):
         return (self._gather(l) for l in range(self.n))
@@ -592,7 +612,16 @@ def forward_hidden(cfg: TransformerConfig, params, input_ids, generator=None):
     """Token ids [B, S] -> (final-norm hidden [B, S, H], the MoE aux loss
     summed over layers; 0 for a dense model): the plain layer loop of
     ``transformer.py:645``. ``generator`` feeds the gating's draws (None:
-    deterministic routing)."""
+    deterministic routing).
+
+    ``cfg.remat``: each block runs under ``checkpointing.checkpoint`` with
+    ``cfg.remat_policy`` (``transformer.py:669-671``). The checkpointed
+    function takes the layer's index and fetches its weights itself, so a
+    ZeRO-3 gather (``GatheredLayers``) happens inside it: the forward's
+    gathered weights die with the layer, the recompute gathers them again,
+    and the gradient's reduce-scatter runs once, from the forward's
+    gather. The generators are its arguments, so the gating's draws replay
+    in the recompute."""
     dt = cfg.dtype
     B, S = input_ids.shape
     x = params["embed"]["embedding"].to(dt)[input_ids]
@@ -604,9 +633,18 @@ def forward_hidden(cfg: TransformerConfig, params, input_ids, generator=None):
     sin = cos = None
     if cfg.positions == "rotary":
         sin, cos = rope_table(cfg, torch.arange(S, device=input_ids.device))
+    blocks = layers(params["blocks"], cfg.num_layers)
+
+    def block(x, l, generator):
+        return _block(cfg, x, blocks[l], sin, cos, generator)
+
+    policy = checkpointing.resolve_policy(cfg.remat_policy) if cfg.remat else None
     auxs = []
-    for layer in layers(params["blocks"], cfg.num_layers):
-        x, aux = _block(cfg, x, layer, sin, cos, generator)
+    for l in range(cfg.num_layers):
+        if policy is None:
+            x, aux = block(x, l, generator)
+        else:
+            x, aux = checkpointing.checkpoint(block, x, l, generator, policy=policy)
         if aux is not None:
             auxs.append(aux)
     fn = params["final_norm"]

@@ -7,7 +7,8 @@ training slice uses: the batch triad and its resolution
 ``gradient_clipping``, ``zero_optimization``, ``steps_per_print``,
 ``dataloader_drop_last``, ``tpu.pallas_fused_adam``, ``sparse_attention``
 (kept raw, as the JAX package keeps it), ``sparse_gradients`` (a logged
-no-op) and ``hybrid_engine``. The port accepts the same JSON; a key for
+no-op), ``hybrid_engine`` and ``activation_checkpointing`` (read by
+``checkpointing.configure``). The port accepts the same JSON; a key for
 something not ported raises and names the key.
 """
 
@@ -15,11 +16,11 @@ import copy
 import json
 import os
 from dataclasses import dataclass, fields
-from typing import Union
+from typing import Optional, Union
 
 from ..parallel.mesh import MeshConfig, refuse_unported_axes
 from .config_utils import DeepSpeedConfigError, dict_raise_error_on_duplicate_keys, from_dict
-from .constants import (BFLOAT16, BFLOAT16_OLD, DATALOADER_DROP_LAST, DATALOADER_DROP_LAST_DEFAULT,
+from .constants import (ACTIVATION_CHECKPOINTING, BFLOAT16, BFLOAT16_OLD, DATALOADER_DROP_LAST, DATALOADER_DROP_LAST_DEFAULT,
                         FP16, GRADIENT_ACCUMULATION_STEPS, GRADIENT_CLIPPING,
                         GRADIENT_CLIPPING_DEFAULT, HYBRID_ENGINE, OPTIMIZER, OPTIMIZER_PARAMS,
                         SCHEDULER, SCHEDULER_PARAMS, SPARSE_ATTENTION, SPARSE_GRADIENTS,
@@ -32,7 +33,7 @@ __all__ = ["DeepSpeedConfig", "DeepSpeedConfigError"]
 _SUPPORTED_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, GRADIENT_ACCUMULATION_STEPS,
                    OPTIMIZER, SCHEDULER, FP16, BFLOAT16, BFLOAT16_OLD, GRADIENT_CLIPPING,
                    ZERO_OPTIMIZATION, STEPS_PER_PRINT, DATALOADER_DROP_LAST, TPU, SPARSE_ATTENTION,
-                   SPARSE_GRADIENTS, HYBRID_ENGINE}
+                   SPARSE_GRADIENTS, HYBRID_ENGINE, ACTIVATION_CHECKPOINTING}
 
 
 @dataclass
@@ -57,6 +58,31 @@ class FP16Config:
 class BF16Config:
     enabled: bool = False
     immediate_grad_update: bool = False
+
+
+@dataclass
+class ActivationCheckpointingConfig:
+    """The ``activation_checkpointing`` block, with the JAX package's fields
+    and defaults (``deepspeed_tpu/runtime/config.py:75-90``), which
+    ``checkpointing.configure(deepspeed_config=...)`` reads.
+    ``remat_policy`` names a policy of ``checkpointing.resolve_policy``.
+    ``partition_activations`` spreads saved activations over the ``seq``
+    and ``model`` axes in the reference; the port refuses both above 1
+    (``parallel/mesh.py``), so there it is the no-op it is accepted as.
+    ``cpu_checkpointing`` keeps a checkpointed region's inputs in pinned
+    host memory."""
+    partition_activations: bool = False
+    contiguous_memory_optimization: bool = False
+    cpu_checkpointing: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    remat_policy: str = "nothing_saveable"
+
+    def __post_init__(self):
+        from .activation_checkpointing.checkpointing import resolve_policy
+
+        resolve_policy(self.remat_policy)  # an unknown name raises, naming it
 
 
 @dataclass
@@ -169,6 +195,9 @@ class DeepSpeedConfig:
         self.sparse_attention = pd.get(SPARSE_ATTENTION)
         self.hybrid_engine_config = from_dict(HybridEngineConfig, pd.get(HYBRID_ENGINE, {}),
                                               HYBRID_ENGINE)
+        self.activation_checkpointing_config = from_dict(
+            ActivationCheckpointingConfig, pd.get(ACTIVATION_CHECKPOINTING, {}),
+            ACTIVATION_CHECKPOINTING)
 
         # --- batch triad (resolved against the data-parallel size later) ---
         self.train_batch_size = pd.get(TRAIN_BATCH_SIZE)

@@ -46,8 +46,18 @@ its MoE aux term (a mean over its rows, which are as many on every rank)
 by 1 (the model's ``_loss_terms``). A MoE model's experts shard over the
 ranks where the world divides their count (``zero/partition.py``). At world
 size 1 nothing of this runs: no collective, no copy. The hybrid engine is
-refused at world size >= 2. ``forward``/``backward``/``step``, offload,
-1-bit optimizers, pipelines and the prefetching loader are not ported yet.
+refused at world size >= 2.
+
+The eager API (``engine.py:1597-1729``): ``forward(batch)`` (and
+``engine(batch)``) takes this rank's microbatch ``i = micro_steps % gas``
+and returns its loss with its graph, ``backward(loss)`` adds its gradients
+(``micro_steps += 1``), ``step()`` applies the update at the accumulation
+boundary and is a no-op elsewhere. They run the per-microbatch code of
+``train_batch`` (``_microbatch_loss``, ``_microbatch_backward``,
+``_step_grads``, ``_end_step``), so eager steps equal ``train_batch`` steps
+on the same data. In ``eval()`` mode ``forward`` returns this rank's loss
+without a graph. Offload, 1-bit optimizers, pipelines and the prefetching
+loader are not ported yet.
 """
 
 import contextlib
@@ -90,6 +100,7 @@ class DeepSpeedEngine:
         self.skipped_steps = 0
         self._step_metrics = {}
         self._train_mode = True
+        self._eager_losses = []  # the eager API's microbatch losses of this step
 
         self._params = [p for p in model.parameters() if p.requires_grad]
         if not self._params:
@@ -283,29 +294,62 @@ class DeepSpeedEngine:
             return out
         return (out[0] if isinstance(out, tuple) else out), 0.0
 
-    def _microbatch_grads(self, batch, loss_scale, i: int):
-        """One microbatch forward and backward of ``loss * loss_scale``; the
-        gradients add into ``.grad`` (``engine.py:717``)."""
+    def _microbatch_loss(self, batch, i: int, weight=None):
+        """Microbatch ``i``'s loss with its graph: ``ce + aux``, or at world
+        size >= 2 ``ce * weight + aux`` (``weight`` from
+        :meth:`_loss_weights`)."""
         ce, aux = self._loss_terms(batch, i)
-        loss = ce + aux
-        (loss * loss_scale).backward()
-        return loss.detach()
+        return ce + aux if weight is None else ce * weight + aux
 
-    def _scan_microbatch_grads(self, batches, loss_scale, gas: int):
-        """Sum the microbatches' gradients into zeroed fp32 ``.grad`` buffers
-        (kept across steps, so their addresses stay fixed), then divide by
-        gas. Returns (grads, per-microbatch losses)."""
+    def _microbatch_backward(self, loss, loss_scale, retain_graph=False):
+        """The gradients of ``loss * loss_scale`` add into ``.grad``
+        (``engine.py:717``); at world size >= 2 the partition finishes the
+        microbatch's backward."""
+        (loss * loss_scale).backward(retain_graph=retain_graph)
+        if self._zero is not None:
+            self._zero.finish_backward()
+
+    def _zero_grads(self):
+        """Zero the gradient buffers (kept across steps, so their addresses
+        stay fixed) before a step's first microbatch."""
+        if self._zero is not None:
+            self._zero.zero_grad()
+            return
         grads = [p.grad for p in self._params if p.grad is not None]
         if grads:
             torch._foreach_zero_(grads)
-        losses = [self._microbatch_grads({k: v[i] for k, v in batches.items()}, loss_scale, i)
-                  for i in range(gas)]
+
+    def _step_grads(self, losses, gas: int):
+        """The end of a step's backward passes: (the optimizer's gradients,
+        divided by gas, the step's mean loss). World size 1: a parameter
+        the loss does not reach gets a zero gradient. Above: the partition
+        sums the gradients over the ranks, and the losses are the global
+        microbatches' (``_loss_weights``)."""
+        if self._zero is not None:
+            grads = self._zero.reduce_grads(gas)
+            summed = comm.all_reduce(torch.stack(losses), group=self._zero.group)
+            return grads, (summed / self.dp_world_size).mean()
         for p in self._params:
             if p.grad is None:  # a parameter the loss does not reach
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self._params]
         torch._foreach_div_(grads, float(gas))
-        return grads, torch.stack(losses)
+        return grads, torch.stack(losses).mean()
+
+    def _scan_microbatch_grads(self, batches, loss_scale, gas: int):
+        """Sum the microbatches' gradients into zeroed fp32 ``.grad`` buffers
+        (at world size >= 2 each microbatch's ``ce * weight + aux``, the aux
+        term, a mean over this rank's rows, weighing 1: every rank has as
+        many rows), then divide by gas (``_scan_microbatch_grads``,
+        ``engine.py:811``). Returns :meth:`_step_grads`."""
+        self._zero_grads()
+        weights = self._loss_weights(batches, gas) if self._zero is not None else [None] * gas
+        losses = []
+        for i in range(gas):
+            loss = self._microbatch_loss({k: v[i] for k, v in batches.items()}, i, weights[i])
+            self._microbatch_backward(loss, loss_scale)
+            losses.append(loss.detach())
+        return self._step_grads(losses, gas)
 
     def _loss_weights(self, batches, gas: int):
         """[gas] device weights of this rank's microbatch CE terms,
@@ -319,26 +363,6 @@ class DeepSpeedEngine:
                               for i in range(gas)]).float()
         total = comm.all_reduce(counts.clone(), group=self._zero.group)
         return counts * self.dp_world_size / total.clamp_min(1.0)
-
-    def _scan_microbatch_grads_dp(self, batches, loss_scale, gas: int):
-        """``_scan_microbatch_grads`` at world size >= 2: each microbatch's
-        ``ce * weight + aux`` (the aux term, a mean over this rank's rows,
-        weighs 1: every rank has as many rows), its gradients summed over the
-        ranks by the ZeRO partition. Returns (the optimizer's gradients, the
-        global microbatches' losses)."""
-        z = self._zero
-        z.zero_grad()
-        weights = self._loss_weights(batches, gas)
-        losses = []
-        for i in range(gas):
-            ce, aux = self._loss_terms({k: v[i] for k, v in batches.items()}, i)
-            loss = ce * weights[i] + aux
-            (loss * loss_scale).backward()
-            z.finish_backward()
-            losses.append(loss.detach())
-        grads = z.reduce_grads(gas)
-        summed = comm.all_reduce(torch.stack(losses), group=z.group)
-        return grads, summed / self.dp_world_size
 
     def _advance_loss_scale(self, finite):
         """Dynamic loss-scale state machine, on the device."""
@@ -444,11 +468,15 @@ class DeepSpeedEngine:
         else:
             host = self._host_prepare_batch(batch=batch)
         placed = {k: self._to_device(v) for k, v in host.items()}
-        scan = self._scan_microbatch_grads if self._zero is None else self._scan_microbatch_grads_dp
-        grads, losses = scan(placed, self.state["loss_scale"], gas)
-        metrics = self._finalize_step(grads, losses.mean())
-        self.global_steps += 1
+        grads, mean_loss = self._scan_microbatch_grads(placed, self.state["loss_scale"], gas)
         self.micro_steps += gas
+        return self._end_step(grads, mean_loss)
+
+    def _end_step(self, grads, mean_loss):
+        """The update and the step's counters and metrics; returns the
+        step's mean loss."""
+        metrics = self._finalize_step(grads, mean_loss)
+        self.global_steps += 1
         self.global_samples += self.train_batch_size()
         if self.fp16_enabled and bool(metrics["overflow"]):
             self.skipped_steps += 1
@@ -462,16 +490,60 @@ class DeepSpeedEngine:
                         f"lr={float(metrics['lr']):.3e} gnorm={float(metrics['grad_norm']):.3f}")
 
     # ------------------------------------------------------------------
-    # not ported yet
+    # the eager API (engine.py:1597-1729)
     # ------------------------------------------------------------------
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError("the eager forward/backward/step API is not ported to the "
-                                  "PyTorch package yet; use train_batch")
+    def forward(self, batch):
+        """This rank's microbatch (a dict, or the ids array, of ``micro``
+        rows) -> its loss, with its graph: microbatch ``i = micro_steps %
+        gas`` of the step, with ``train_batch``'s generators, gathers and,
+        at world size >= 2, loss weight. In ``eval()`` mode this rank's loss
+        (``ce + aux``) under ``torch.no_grad()``."""
+        mb = {k: self._to_device(v) for k, v in
+              (batch if isinstance(batch, dict) else {"input_ids": batch}).items()}
+        i = self.micro_steps % self.config.gradient_accumulation_steps
+        if not self._train_mode:
+            with torch.no_grad():
+                return self._microbatch_loss(mb, i)
+        weight = None
+        if self._zero is not None:
+            weight = self._loss_weights({k: v[None] for k, v in mb.items()}, 1)[0]
+        return self._microbatch_loss(mb, i, weight)
 
     __call__ = forward
-    backward = step = forward
 
-    # torch-style mode flags (engine.py:2427-2433); train_batch ignores them
+    def backward(self, loss, retain_graph=False):
+        """Add the gradients of ``loss`` (a :meth:`forward`'s) times the
+        loss scale into the gradient buffers, zeroed at a step's first
+        microbatch; ``micro_steps += 1``. Returns ``loss``."""
+        if self.micro_steps % self.config.gradient_accumulation_steps == 0:
+            self._zero_grads()
+            self._eager_losses = []
+        self._microbatch_backward(loss, self.state["loss_scale"], retain_graph)
+        self._eager_losses.append(loss.detach())
+        self.micro_steps += 1
+        return loss
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        """Whether the next :meth:`step` applies the update: every
+        microbatch of the step has had its backward."""
+        return (bool(self._eager_losses)
+                and self.micro_steps % self.config.gradient_accumulation_steps == 0)
+
+    def step(self):
+        """At the accumulation boundary: divide by gas, the update (norm,
+        clip, overflow gate, optimizer, the shards' all-gather, lr),
+        ``global_steps += 1``. Elsewhere nothing."""
+        gas = self.config.gradient_accumulation_steps
+        if self.micro_steps % gas != 0:
+            return  # mid-accumulation
+        if not self._eager_losses:
+            raise RuntimeError("step() at the accumulation boundary with no backward() since the "
+                               "last update")
+        losses, self._eager_losses = self._eager_losses, []
+        self._end_step(*self._step_grads(losses, gas))
+
+    # torch-style mode flags (engine.py:2427-2433): forward reads them,
+    # train_batch ignores them
     def eval(self):
         self._train_mode = False
         return self

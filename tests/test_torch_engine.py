@@ -11,8 +11,11 @@ fp32 sums in another order), with the optax-equivalent optimizer
 (``"always"``: the kernel's plain version on the CPU, the Pallas kernel in
 interpret mode on the JAX side). Also: the chunked CE, ``labels`` /
 ``loss_mask`` batches, the fp16 loss-scale state machine with an injected
-overflow, a mid-run resume from the JAX engine's optimizer state, and the
-config's refusals.
+overflow, a mid-run resume from the JAX engine's optimizer state, the
+config's refusals, and the eager ``forward`` / ``backward`` / ``step`` API
+(bit-equal to ``train_batch``; against the JAX engine's eager API at rtol
+2e-4 / atol 2e-5; ``eval()``, the accumulation boundary, and the hybrid
+engine's view after eager steps).
 """
 
 import jax
@@ -189,7 +192,7 @@ def test_fp16_overflow_skips_step_and_halves_scale():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("activation_checkpointing", {"partition_activations": True}),
+    ("curriculum_learning", {"enabled": True}),
     ("pipeline", {"stages": 2}),
     ("progressive_layer_drop", {"enabled": True}),
     ("zero_optimization", {"stage": 2, "offload_optimizer": {"device": "cpu"}}),
@@ -213,14 +216,10 @@ def test_unported_optimizers_and_model_fields_raise():
         with pytest.raises(NotImplementedError, match=name.lower()):
             deepspeed_tpu_torch.initialize(model=model, config={
                 "train_batch_size": 2, "optimizer": {"type": name, "params": {}}})
-    for field, value in (("remat", True), ("sequence_parallel", True), ("dropout", 0.1)):
+    for field, value in (("sequence_parallel", True), ("dropout", 0.1)):
         with pytest.raises(NotImplementedError, match=field):
             TransformerLM(mistral_config("tiny", dtype=torch.float32, **dict(TINY, **{field: value})),
                           device="cpu", trainable=True)
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config={"train_batch_size": 2})
-    for fn in (engine.forward, engine.backward, engine.step):
-        with pytest.raises(NotImplementedError):
-            fn()
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
@@ -303,3 +302,128 @@ def test_sparse_attention_config_round_trips_and_is_raw():
                           trainable=True)
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config={"train_batch_size": 2})
     assert engine.sparse_attention_config() is None
+
+
+# ---------------------------------------------------------------------------
+# the eager API: forward / backward / step
+# ---------------------------------------------------------------------------
+
+EAGER = dict(train_batch_size=4, train_micro_batch_size_per_gpu=2, gradient_accumulation_steps=2)
+
+
+def _eager_steps(engine, batches):
+    """``engine(mb)`` / ``backward`` / ``step`` over each batch's gas
+    microbatches; returns (every microbatch's loss, each step's mean
+    loss)."""
+    gas, micro = engine.gradient_accumulation_steps(), engine.train_micro_batch_size_per_gpu()
+    mb_losses, step_losses = [], []
+    for b in batches:
+        for i in range(gas):
+            loss = engine({k: v[i * micro:(i + 1) * micro] for k, v in b.items()})
+            engine.backward(loss)
+            engine.step()
+            mb_losses.append(float(loss.detach()))
+        step_losses.append(float(engine._step_metrics["loss"]))
+    return mb_losses, step_losses
+
+
+@pytest.mark.parametrize("mode,extra", [("never", False), ("always", True)])
+def test_eager_api_is_bit_equal_to_train_batch(mode, extra):
+    """Two steps at gas 2 through ``forward`` / ``backward`` / ``step`` and
+    through ``train_batch`` from one seed: equal losses and parameters (the
+    same per-microbatch code)."""
+    tcfg = mistral_config("tiny", dtype=torch.float32, attention_impl="reference", **TINY)
+    batches = [{k: v[:4] for k, v in _batch(50 + s, extra=extra).items()} for s in range(2)]
+    m1 = TransformerLM(tcfg, device="cpu", trainable=True, seed=7)
+    e1, _, _, _ = deepspeed_tpu_torch.initialize(model=m1, config=_ds_config(mode, **EAGER))
+    fused = [float(e1.train_batch(b)) for b in batches]
+    m2 = TransformerLM(tcfg, device="cpu", trainable=True, seed=7)
+    e2, _, _, _ = deepspeed_tpu_torch.initialize(model=m2, config=_ds_config(mode, **EAGER))
+    _, eager = _eager_steps(e2, batches)
+    assert eager == fused
+    assert all(torch.equal(a, b) for a, b in zip(m1.parameters(), m2.parameters()))
+    assert (e2.global_steps, e2.micro_steps, e2.global_samples) == (2, 4, 8)
+    assert int(e2.state["step"]) == int(e1.state["step"]) == 2
+
+
+def test_eager_api_matches_the_jax_eager_engine():
+    """The JAX engine's eager API (the analog of
+    ``tests/test_engine_zero.py::test_eager_api_matches_fused``) at gas 2
+    over two steps: microbatch losses and final parameters at rtol 2e-4 /
+    atol 2e-5."""
+    je, te = _engines("never", **EAGER)
+    batches = [{k: v[:4] for k, v in _batch(60 + s).items()} for s in range(2)]
+    ours, _ = _eager_steps(te, batches)
+    ref = []
+    for b in batches:
+        for i in range(2):
+            loss = je.forward({k: v[2 * i:2 * i + 2] for k, v in b.items()})
+            je.backward(loss)
+            je.step()
+            ref.append(float(loss))
+    np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-5)
+    got = params_to_numpy(te.module.params())
+    want = jax.tree.map(np.asarray, je.state["params"])
+    for group in want:
+        for name in want[group]:
+            np.testing.assert_allclose(got[group][name], want[group][name], rtol=2e-4, atol=2e-5,
+                                       err_msg=f"{group}/{name}")
+
+
+def test_eager_eval_forward_mid_accumulation_step_and_boundary():
+    """``eval()``: a loss without a graph, no gradient written. ``step()``
+    mid-accumulation changes nothing; ``is_gradient_accumulation_boundary``
+    turns true once the step's last microbatch has had its backward, and
+    ``step()`` there updates once (twice raises)."""
+    tcfg = mistral_config("tiny", dtype=torch.float32, attention_impl="reference", **TINY)
+    model = TransformerLM(tcfg, device="cpu", trainable=True, seed=8)
+    cfg = _ds_config("never", **EAGER)
+    del cfg["scheduler"]  # the warm-up's first lr is 0
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=cfg)
+    ids = _batch(70)["input_ids"][:4]
+    engine.eval()
+    loss = engine(ids[:2])
+    assert not loss.requires_grad and all(p.grad is None for p in model.parameters())
+    with torch.no_grad():
+        assert torch.equal(loss, model.loss({"input_ids": torch.from_numpy(ids[:2])}))
+    engine.train()
+    before = [p.detach().clone() for p in model.parameters()]
+    engine.backward(engine(ids[:2]))
+    assert not engine.is_gradient_accumulation_boundary()
+    engine.step()
+    assert engine.global_steps == 0
+    assert all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    engine.backward(engine(ids[2:]))
+    assert engine.is_gradient_accumulation_boundary()
+    engine.step()
+    assert engine.global_steps == 1 and not engine.is_gradient_accumulation_boundary()
+    assert not all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    with pytest.raises(RuntimeError, match="no backward"):
+        engine.step()
+
+
+def test_hybrid_engine_view_follows_eager_steps():
+    """The hybrid engine rewrites its bf16-or-fp32 view when the step moved:
+    after two eager steps its rollouts and view equal those of a twin
+    trained by ``train_batch``."""
+    tcfg = mistral_config("tiny", dtype=torch.float32, attention_impl="reference", **TINY)
+    cfg = _ds_config("never", hybrid_engine={"enabled": True}, **EAGER)
+    prompt = _batch(80)["input_ids"][:2, :6]
+    batches = [{k: v[:4] for k, v in _batch(81 + s).items()} for s in range(2)]
+    engines = []
+    for eager in (False, True):
+        model = TransformerLM(tcfg, device="cpu", trainable=True, seed=9)
+        e, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=cfg)
+        first = e.generate(prompt, max_new_tokens=4)
+        if eager:
+            _eager_steps(e, batches)
+        else:
+            for b in batches:
+                e.train_batch(b)
+        engines.append((e, first, e.generate(prompt, max_new_tokens=4)))
+    (e1, first1, out1), (e2, first2, out2) = engines
+    np.testing.assert_array_equal(first1, first2)
+    np.testing.assert_array_equal(out1, out2)
+    assert e2._inference_params_step == 2
+    view1, view2 = e1._inference_engine.params, e2._inference_engine.params
+    assert torch.equal(view1["blocks"][0]["wq"], view2["blocks"][0]["wq"])

@@ -38,6 +38,11 @@ process on one seed, each rank's experts and resident bytes, and a model
 whose expert count the world does not divide (its experts stay in the
 blocks' flat groups).
 
+The eager API at stages 2 and 3 (the latter with the unequal masks) and
+``remat`` at stages 2 and 3 and on the einsum MoE path train bit-equal to their
+cases' ``train_batch`` runs; under remat stage 3 gathers as often and the
+einsum path exchanges its slots again in each layer's recompute.
+
 Also, in the ranks: ``gather(scatter(x)) == x`` for every group over the
 real collectives, stage 3's gathers (nothing gathered outlives the
 forward; the backward gathers again), a second stage-2 engine over the
@@ -95,6 +100,10 @@ SAMPLED = {"jitter_top1": (1, "Jitter", "einsum", 0), "gumbel_top2": (2, None, "
 EP_LAYER = dict(S=24, M=16, F=32, E=4, cf=8.0)
 REFERENCE = {name: "stage3" if name.startswith("stage") and CASES[name][2:] == ("always", "ids")
              else name for name in CASES}
+# cases trained again through forward / backward / step, and with remat:
+# each bit-equal to the case's own train_batch run
+EAGER_CASES = ("stage2", "stage3_mask")
+REMAT_CASES = ("stage2", "stage3", "moe_einsum_stage1")
 TIMEOUT_S = 180
 
 
@@ -239,6 +248,43 @@ def _stage3_regathers(engine, rank, name="_gathered"):
         setattr(partition, name, real)
     return {"forward_gathers": forward, "alive_after_forward": alive,
             "backward_gathers": calls[0] - forward}
+
+
+def _eager_case(name, rank, npps):
+    """Case ``name`` trained again on the same rows through the eager API,
+    one microbatch a ``forward`` / ``backward`` / ``step``: (losses, final
+    parameters)."""
+    kind, stage, mode, batch_kind = CASES[name]
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=_torch_model(kind, npps[kind]),
+                                                     config=_ds_config(stage, mode))
+    losses = []
+    for step in range(STEPS):
+        rows = _rank_rows(_global_batch(batch_kind, step, _seq(kind)), rank)
+        for i in range(GAS):
+            engine.backward(engine({k: v[i * MICRO:(i + 1) * MICRO] for k, v in rows.items()}))
+            engine.step()
+        losses.append(float(engine._step_metrics["loss"]))
+    return {"losses": losses,
+            "params": {k: v.numpy() for k, v in engine.module_state_dict().items()}}
+
+
+def _remat_case(name, rank, npps):
+    """Case ``name`` trained again with ``remat`` (``nothing_saveable``):
+    losses, final parameters, the all-to-all exchanges of its steps and, at
+    stage 3, the gathers of one more forward and backward."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    kind, stage, mode, batch_kind = CASES[name]
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=_torch_model(kind, npps[kind], remat=True), config=_ds_config(stage, mode))
+    sharded_moe.reset_launch_counts()
+    r = {"losses": [float(engine.train_batch(_rank_rows(
+        _global_batch(batch_kind, step, _seq(kind)), rank))) for step in range(STEPS)]}
+    r["exchanges"] = sharded_moe.launch_counts["all_to_all"]
+    r["params"] = {k: v.numpy() for k, v in engine.module_state_dict().items()}
+    if stage == 3:
+        r["regather"] = _stage3_regathers(engine, rank)
+    return r
 
 
 def _bf16_stages(rank, npp):
@@ -424,6 +470,10 @@ def _worker(rank, store, npps, out_dir):
             gc.collect()
             r["partition_released"] = partition() is None
             results[name] = r
+        for name in EAGER_CASES:
+            results[f"eager_{name}"] = _eager_case(name, rank, npps)
+        for name in REMAT_CASES:
+            results[f"remat_{name}"] = _remat_case(name, rank, npps)
         results["bf16"] = _bf16_stages(rank, npps["dense"])
         results["low_gathers"] = _low_dtype_gathers(rank)
         results["ep_layer"] = _ep_layer(rank, *npps["ep_layer"])
@@ -570,9 +620,9 @@ def zero_run(tmp_path_factory):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
     out = {name: ([rk[name] for rk in ranks], refs[REFERENCE[name]]) for name in CASES}
-    out.update({key: [rk[key] for rk in ranks] for key in ("bf16", "low_gathers", "ep_layer",
-                                                           "ep_layer_engine", "sampled",
-                                                           "indivisible")})
+    out.update({key: [rk[key] for rk in ranks] for key in (
+        "bf16", "low_gathers", "ep_layer", "ep_layer_engine", "sampled", "indivisible",
+        *[f"eager_{name}" for name in EAGER_CASES], *[f"remat_{name}" for name in REMAT_CASES])})
     out.update(ep_ref=ep_ref, sampled_world1=sampled, npps=npps)
     return out
 
@@ -635,6 +685,42 @@ def test_stage3_gathers_again_in_the_backward(zero_run):
         assert g["forward_gathers"] == 2 + TINY["num_layers"]
         assert g["alive_after_forward"] == 0
         assert g["backward_gathers"] == 1 + TINY["num_layers"]
+
+
+def _assert_bit_equal(got, want):
+    assert got["losses"] == want["losses"]
+    assert set(got["params"]) == set(want["params"])
+    for k, v in want["params"].items():
+        assert np.array_equal(got["params"][k], v), k
+
+
+@pytest.mark.parametrize("name", EAGER_CASES)
+def test_eager_api_at_world_size_two_is_bit_equal_to_train_batch(zero_run, name):
+    """``forward`` / ``backward`` / ``step`` at stages 2 and 3 (the latter
+    with ``loss_mask`` counts that differ between the ranks, so each
+    microbatch's loss weight is the global mean's) train as ``train_batch``
+    does, to the bit."""
+    for got, want in zip(zero_run[f"eager_{name}"], zero_run[name][0]):
+        _assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("name", REMAT_CASES)
+def test_remat_at_world_size_two_is_bit_equal_and_gathers_as_often(zero_run, name):
+    """``remat`` trains bit-equal to no remat: at stage 2 each leaf's hook
+    fires once a microbatch (the recompute's graph is dropped unrun); at
+    stage 3 it gathers as often: the forward gathers the two ends and every
+    block once, nothing
+    gathered outlives it, and the backward gathers the head (its saved
+    weights) and each block (its recompute) once. On the einsum MoE path
+    each layer's recompute exchanges its slots again: 6 all-to-alls a layer
+    a microbatch, not 4."""
+    for got, want in zip(zero_run[f"remat_{name}"], zero_run[name][0]):
+        _assert_bit_equal(got, want)
+        assert got["exchanges"] * 4 == want["exchanges"] * 6
+        if "regather" in got:
+            assert got["regather"] == {"forward_gathers": 2 + TINY["num_layers"],
+                                       "alive_after_forward": 0,
+                                       "backward_gathers": 1 + TINY["num_layers"]}
 
 
 def test_stage3_in_bf16_matches_stage2(zero_run):
