@@ -1,8 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
-                                    train,remat,eager,zero,moe_zero,moe_train,sparse_train,
-                                    evo_kernels,evo_path,v1,hybrid]
+                                    train,remat,eager,zero,moe_zero,tp,moe_train,
+                                    sparse_train,evo_kernels,evo_path,v1,hybrid]
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
     python3 chip_smoke.py --versus DIR [--phases kernels,e2e]
@@ -222,7 +222,31 @@ code 1 otherwise):
    L2 1e-2. Each rank's losses, step times, peak and resident bytes (the
    experts apart), the seconds of each case's set-up, steps and checks,
    and ``worst_error_fraction`` are printed.
-12. moe_train: the earlier engines freed, Mixtral-8x7B's widths (8 experts,
+12. tp: tensor parallelism (the ``model`` mesh axis), spawned as ``zero``
+   spawns (``--zero-rank`` with ``tp:`` cases), Mistral-7B's width. Each
+   rank builds its shards of the tree world rank 0 draws from seed 0 (each
+   leaf broadcast and sliced as it is drawn: no rank holds the whole tree).
+   First, in this process, world size 1 on each case's global batch (the
+   zero phase's configuration with the train phase's AdamW at a constant
+   lr 1e-4) and ``tp_size`` 1 serving
+   (``init_inference``, full depth, the v1 waves), each freed after. With
+   one card, two gloo ranks sharing it: ``model 2 x data 1`` at depth 2
+   (32 -> 2), 16/4 heads a rank; with four cards four NCCL ranks: ``data 2
+   x model 2`` at stages 1 and 3 and ``data 1 x model 4`` at depth 8, then
+   stage 3 at full depth over ``data 2 x model 2`` with its peak per rank.
+   Losses and gradient norms must match world size 1 within 2e-3 (stage 3
+   against stage 1 within 2e-4), the replicated leaves must equal model rank 0's
+   after every step, flash (on the rank's query and kv heads) and the
+   fused AdamW must launch as the layers and microbatches say. Serving:
+   ``init_inference(tensor_parallel={"tp_size": ranks})`` at full depth on
+   the v1 waves (4 x 20 + 44, 8 x 960 + 64: the split decode and merge):
+   each rank's prefill last-token logits within relative L2 5e-2 of
+   ``tp_size`` 1's, its first-layer cache (its kv heads) within 1e-2, the
+   tokens equal on every rank (those agreeing with ``tp_size`` 1 counted),
+   the paged prefill, decode and merge launched; decode ms per step (wall,
+   and device busy on the first wave) beside ``tp_size`` 1's. Peaks, step
+   times and ``worst_error_fraction`` are printed.
+13. moe_train: the earlier engines freed, Mixtral-8x7B's widths (8 experts,
    top-2, the grouped path, capacity factor 1.25, rope_theta 1e6, no
    window) with the depth cut 32 -> 2 for memory, trained as in ``train``
    (the engine's seeded generator drives the gating's draws): losses finite
@@ -234,7 +258,7 @@ code 1 otherwise):
    1.5e-1: the last layer's gate sees inputs that differ in the last bf16
    bit, and the tokens it routes differently, printed, move whole tokens'
    contributions between experts).
-13. sparse_train: the earlier engines freed, Llama-2-7B's widths with the
+14. sparse_train: the earlier engines freed, Llama-2-7B's widths with the
    depth cut 32 -> 8 and the ds_config's ``sparse_attention`` block (the
    documented 'fixed' layout, unidirectional), trained as in ``train``:
    losses finite and falling, step time, tokens/s, peak memory, launches
@@ -243,7 +267,7 @@ code 1 otherwise):
    then at seq 1024 the whole model through the kernel against the same
    through the plain forward (loss 2e-3, gradient 5e-2).
 
-14. evo_kernels: hold the Evoformer kernels (``evo_fwd``, ``evo_bwd_dq``,
+15. evo_kernels: hold the Evoformer kernels (``evo_fwd``, ``evo_bwd_dq``,
    ``evo_bwd_dkdv`` with the mask bias's ``db1`` summed inside it, and
    ``evo_bwd_db2``) against their plain versions on the same inputs (the
    backward on the kernel forward's out and lse): out, lse, dq, dk, dv,
@@ -275,7 +299,7 @@ code 1 otherwise):
    and its backward with the mask's gradient for the backward kernels
    together; db1's time is that of the dk/dv launch that sums it (with
    what the sum adds beside it). ``worst_error_fraction`` is printed.
-15. evo_path: one Evoformer block's four attention calls (MSA row attention
+16. evo_path: one Evoformer block's four attention calls (MSA row attention
    with the pair bias, MSA column attention, triangle attention around the
    starting and the ending node) at AlphaFold-2's fine-tuning crop (N_res
    384, N_clust 512) with OpenFold's heads (8 x 32 for the MSA, 4 x 32 for
@@ -290,7 +314,7 @@ code 1 otherwise):
    the block through the plain versions: every output finite, and the
    output (off the fully masked rows) and all five cotangents of each call
    within relative L2 1e-2 of the plain path's.
-16. v1: first the paged kernels in the v1 path's layout (a dense
+17. v1: first the paged kernels in the v1 path's layout (a dense
    [B, Smax, 8, 128] cache viewed as a pool of 128-slot blocks with an
    identity block table, 32 / 8 heads) against the plain version with the
    ``kernels`` tolerance: the prefills and decodes of both waves and of
@@ -310,7 +334,7 @@ code 1 otherwise):
    prefill and after one decode step, kernels against the dense route on
    the same weights (``attention_impl="reference"``), relative L2 within
    5e-2, the argmax agreement printed.
-17. hybrid: the earlier engines freed, the ``train`` phase's configuration
+18. hybrid: the earlier engines freed, the ``train`` phase's configuration
    (Mistral-7B width, 8 layers, fp32 masters, bf16, fused AdamW; a
    constant lr) through ``initialize`` with ``hybrid_engine.enabled``:
    ``generate`` twice (4 x 64 + 32), ``train_batch`` x 2, ``generate``. The
@@ -352,8 +376,11 @@ one rank and, alone, the grouped path's expert gradients kept on each
 owner's own tokens (not reduce-scattered; ``--phases build,moe_zero``
 must fail by more than 30x the phase's tolerance), and the activation
 checkpoint restoring no generator before its recompute (``--phases
-build,remat`` must fail on the MoE check by more than 30x its tolerance):
-seventeen copies.
+build,remat`` must fail on the MoE check by more than 30x its tolerance),
+and tensor parallelism with the column region's backward summing nothing
+over the model group and, alone, every rank's serving weights taking rank
+0's kv heads (``--phases build,tp`` must fail, each by more than 30x the
+phase's tolerance): nineteen copies.
 It passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
@@ -518,6 +545,29 @@ ZERO_DS_CONFIG = dict({k: v for k, v in TRAIN_DS_CONFIG.items() if k != "schedul
 # same global batch (micro N): each rank's weight gradients are rounded to
 # bf16 before the sum over ranks, not after.
 ZERO_REL_TOL, ZERO_WORLD1_REL_TOL = 2e-4, 2e-3
+# Tensor parallelism (tp): the zero phase's training configuration over the
+# model axis, held to world size 1 on the same global batch within
+# ZERO_WORLD1_REL_TOL (each rank's row-parallel partial products are rounded
+# to bf16 before their sum, not after): model 2 x data 1 at depth
+# TP_GLOO_LAYERS when two gloo ranks share one card (every all-reduce goes
+# through the host), and over four cards data 2 x model 2 at stages 1 and 3
+# (stage 3 also held to stage 1 within ZERO_REL_TOL) and data 1 x model 4 at
+# depth ZERO_NCCL_LAYERS, then stage 3 at full depth. Serving:
+# init_inference(tensor_parallel tp_size = the ranks) at full depth on the v1
+# waves against tp_size 1 on the same weights in this process: the prefill's
+# last-token logits within LOGITS_REL_L2_TOL, and each rank's first-layer
+# cache (its kv heads at the prompt's positions) within TP_KV_REL_TOL: those
+# keys and values come from the same embedding rows and norm through a column
+# slice of the same weights, so only the products' fp32 sum order (another
+# GEMM tile over a slice of the columns) may differ, rounding to bf16 a last
+# bit apart at some elements.
+TP_GLOO_LAYERS, TP_KV_REL_TOL = 2, 1e-2
+# the train phase's fused AdamW (lr 1e-4, weight decay 0.1) at a constant lr
+# (TRAIN_DS_CONFIG's WarmupLR is 0 for the first two steps): at the zero
+# phase's lr 1e-3 the sign-like first AdamW updates carry the two sides'
+# bf16 roundings into trajectories that part (PERF.md, tensor parallelism)
+TP_DS_CONFIG = dict({k: v for k, v in TRAIN_DS_CONFIG.items() if k != "scheduler"},
+                    train_batch_size=None)
 # MoE at data-parallel world size >= 2 (moe_zero): Mixtral-8x7B's widths
 # (MOE_CONFIG) on the zero phase's training configuration, the experts over the
 # ranks; the gating draws from each row's generator (top-2's Gumbel second
@@ -2253,42 +2303,50 @@ def _zero_rank_run(layers, stages, out_path):
 def _zero_spawn(world, backend, layers, stages, tag):
     """Run ``world`` ranks of ``_zero_rank_run`` (this script with
     ``--zero-rank``; ``_moe_zero_rank_run`` where ``stages`` are impl:stage
-    cases), one process each, and return their results. A rank that fails
-    or outlives ``ZERO_TIMEOUT_S`` fails the phase (every rank is then
-    killed)."""
+    cases, ``_tp_rank_run`` where they are ``tp:`` cases), one process each,
+    each writing its output to ``build/zero/<tag>_rank<r>.log``, and return
+    their results. A rank that fails or outlives ``ZERO_TIMEOUT_S`` fails
+    the phase at once (every rank is then killed, and the end of each
+    rank's output printed)."""
     out_dir = os.path.join(HERE, "build", "zero")
     os.makedirs(out_dir, exist_ok=True)
     env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="localhost",
                MASTER_PORT=str(_free_port()), ZERO_BACKEND=backend)
-    procs, paths = [], []
+    procs, paths, logs = [], [], []
     for r in range(world):
         paths.append(os.path.join(out_dir, f"{tag}_rank{r}.json"))
         if os.path.exists(paths[-1]):
             os.remove(paths[-1])
+        logs.append(open(os.path.join(out_dir, f"{tag}_rank{r}.log"), "w"))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--zero-rank", str(r), "--zero-layers",
              str(layers), "--zero-stages", ",".join(map(str, stages)), "--zero-out", paths[-1]],
-            cwd=HERE, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+            cwd=HERE, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=logs[-1],
             stderr=subprocess.STDOUT, text=True))
     deadline = time.perf_counter() + ZERO_TIMEOUT_S
-    texts, failed = [], []
+    failed = []
     try:
-        for r, p in enumerate(procs):
-            try:
-                texts.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
-            except subprocess.TimeoutExpired:
-                failed.append(f"rank {r} still running after {ZERO_TIMEOUT_S} s")
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [f"rank {r} exited {c}" for r, c in enumerate(codes) if c not in (None, 0)]
+            if failed or all(c == 0 for c in codes):
                 break
-            if p.returncode:
-                failed.append(f"rank {r} exited {p.returncode}")
+            if time.perf_counter() > deadline:
+                failed = [f"rank {r} still running after {ZERO_TIMEOUT_S} s"
+                          for r, c in enumerate(codes) if c is None]
+                break
+            time.sleep(0.5)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
-    for r, text in enumerate(texts):
-        for line in text.splitlines()[-40:] if failed else []:
-            log(f"[zero] rank {r}: {line}")
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, f in enumerate(logs):
+        with open(f.name) as text:
+            for line in text.read().splitlines()[-40:] if failed else []:
+                log(f"[zero] rank {r}: {line}")
     if failed:
         raise RuntimeError(f"zero ranks failed: {failed}")
     results = []
@@ -2298,10 +2356,11 @@ def _zero_spawn(world, backend, layers, stages, tag):
     return results
 
 
-def _zero_world1(world, layers):
+def _zero_world1(world, layers, config=None):
     """Stage 0 at world size 1 in this process on the global batch of the
     zero phase's ``world`` ranks (micro ``world``: rank r's row of each
-    microbatch at r): (losses, gradient norms, step ms)."""
+    microbatch at r), with ``config`` (default ZERO_DS_CONFIG): (losses,
+    gradient norms, step ms)."""
     import gc
 
     import numpy as np
@@ -2312,7 +2371,7 @@ def _zero_world1(world, layers):
 
     model = TransformerLM(mistral_config("7b", num_layers=layers), trainable=True, seed=0)
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
-        model=model, config=dict(ZERO_DS_CONFIG, train_micro_batch_size_per_gpu=world))
+        model=model, config=dict(config or ZERO_DS_CONFIG, train_micro_batch_size_per_gpu=world))
     gas = engine.gradient_accumulation_steps()
     ids = np.stack([_zero_rank_ids(r, gas) for r in range(world)], axis=1)
     out = _zero_train(engine, {"input_ids": ids.reshape(gas * world, ZERO_SEQ)})
@@ -2840,6 +2899,474 @@ def phase_moe_zero():
         f"tokens route otherwise; stages over {ZERO_REL_TOL})")
     if failures:
         raise RuntimeError("moe_zero disagrees: " + "; ".join(failures))
+    return launches, record
+
+
+# ---------------------------------------------------------------------------
+# phase: tensor parallelism (the model mesh axis), training and serving
+# ---------------------------------------------------------------------------
+
+def _tp_prompts():
+    """The v1 phase's prompts, one a wave (the same seed)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 32000, (B, S)).astype(np.int32) for B, S, _ in V1_WAVES]
+
+
+def _tp_prefill(engine, prompt, new):
+    """A prefill of ``prompt`` through the engine's weights into a cache as
+    ``generate`` allocates it: (the last position's logits [B, V], whole;
+    the first layer's keys and values at the prompt's positions, this rank's
+    kv heads), fp32 numpy."""
+    import torch
+
+    from deepspeed_tpu_torch.models import transformer as tr
+
+    cfg, tp = engine.model_config, engine.tp
+    B, S = prompt.shape
+    smax = -(-(S + new) // tr.V1_BLOCK) * tr.V1_BLOCK
+    cache = tr.init_kv_cache(cfg, B, smax, tp=tp)
+    with torch.no_grad():
+        logits, cache = tr._forward_with_cache(cfg, engine.params, torch.from_numpy(prompt), cache,
+                                               tp)
+        last = tr._whole_logits(logits[:, -1], tp)
+    return tuple(t.float().cpu().numpy() for t in (last, cache["k"][0, :, :S], cache["v"][0, :, :S]))
+
+
+def _tp_profiled_busy(engine, prompt, new):
+    """(device busy ms, the same without NCCL's kernels) of one profiled
+    ``generate``: an NCCL all-reduce kernel runs while it waits for the
+    other ranks, so its time is not the rank's compute."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.generate(prompt, max_new_tokens=new)
+        torch.cuda.synchronize()
+    by_name = _device_ms_by_name(prof)
+    return (sum(by_name.values()),
+            sum(ms for name, ms in by_name.items() if "nccl" not in name.lower()))
+
+
+def _tp_waves(engine, tag, out_dir=None):
+    """The v1 waves through ``engine``: per wave its prefill (logits and the
+    first layer's cache, saved as ``<out_dir>/<tag>_w<i>_{logits,k,v}.npy``
+    where given), then ``generate`` of 1 token (also the warm-up) and of the
+    wave's tokens with the paged launches counted, and (the first wave) the
+    device time a decode step over ``1 + V1_PROFILE_STEPS`` tokens. Returns
+    [{tokens, launches, ms, ...}] and the prefills."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    waves, prefills = [], []
+    for i, (prompt, (B, S, new)) in enumerate(zip(_tp_prompts(), V1_WAVES)):
+        t0 = time.perf_counter()
+        pre = _tp_prefill(engine, prompt, new)
+        log(f"[tp] {tag} wave {i}: prefill check in {time.perf_counter() - t0:.1f}s")
+        prefills.append(pre)
+        if out_dir is not None:
+            for name, a in zip(("logits", "k", "v"), pre):
+                np.save(os.path.join(out_dir, f"{tag}_w{i}_{name}.npy"), a)
+        t0 = time.perf_counter()
+        engine.generate(prompt, max_new_tokens=1)
+        one = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = engine.generate(prompt, max_new_tokens=new)
+        full = 1e3 * (time.perf_counter() - t0)
+        w = {"batch": B, "prompt": S, "new": new, "tokens": out[:, S:].tolist(),
+             "launches": dict(pa.launch_counts), "generate_1_ms": one, "generate_ms": full,
+             "decode_wall_ms_per_step": (full - one) / (new - 1)}
+        log(f"[tp] {tag} wave {i}: generate of 1 token {one:.1f} ms, of {new} {full:.1f} ms")
+        if i == 0:
+            ones, ns = (_tp_profiled_busy(engine, prompt, n) for n in (1, 1 + V1_PROFILE_STEPS))
+            w["decode_device_ms_per_step"] = (ns[0] - ones[0]) / V1_PROFILE_STEPS
+            w["decode_compute_ms_per_step"] = (ns[1] - ones[1]) / V1_PROFILE_STEPS
+        waves.append(w)
+    return waves, prefills
+
+
+def _tp_replicated_rel(engine):
+    """The largest relative L2 difference of a replicated parameter (the
+    norm scales) to model rank 0's, broadcast over the model group; None at
+    stage 3, whose parameters are shards."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel import groups
+    from deepspeed_tpu_torch.runtime.zero.partition import is_model_parallel
+
+    if engine.zero_optimization_stage() == 3 and engine.dp_world_size > 1:
+        return None
+    group = groups.get_model_parallel_group()
+    src, worst = comm.get_global_rank(group, 0), 0.0
+    for p in engine.module.parameters():
+        if not is_model_parallel(p):
+            ref = comm.broadcast(p.detach().clone(), src=src, group=group)
+            worst = max(worst, float((p.detach() - ref).norm() / ref.norm().clamp_min(1e-30)))
+    return worst
+
+
+def _tp_train(data, model, stage, layers):
+    """One training case of a tp rank: Mistral-7B's width at ``layers``
+    layers, this rank's shards of the tree world rank 0 draws from seed 0
+    (broadcast and sliced leaf by leaf), ``initialize`` over ``data x
+    model`` at ``stage``, ZERO_STEPS steps of this data rank's rows with the
+    launch counts reset just before and read just after, and the (query,
+    kv) heads of every flash forward."""
+    import gc
+
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+    from deepspeed_tpu_torch.models.transformer import tensor_parallel
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+    from deepspeed_tpu_torch.parallel import groups
+    from deepspeed_tpu_torch.parallel.mesh import MeshConfig
+
+    t0 = time.perf_counter()
+    groups.initialize_mesh(MeshConfig(data=data, model=model), "cuda")
+    cfg = mistral_config("7b", num_layers=layers)
+    net = TransformerLM(cfg, trainable=True, seed=0, tp=tensor_parallel(cfg))
+    local_params = net.num_params()
+    log(f"[tp] train {data}x{model} stage {stage}: this rank's shards built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=net, config=dict(
+        TP_DS_CONFIG, zero_optimization={"stage": stage},
+        tpu={"pallas_fused_adam": "always", "mesh": {"data": data, "model": model}}))
+    gas = engine.gradient_accumulation_steps()
+    batch = {"input_ids": _zero_rank_ids(engine.dp_rank, gas)}
+    heads, real = set(), fa.flash_fwd
+
+    def counted(q, k, *a, **kw):
+        heads.add((q.shape[2], k.shape[2]))
+        return real(q, k, *a, **kw)
+
+    fa.flash_fwd = counted
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    fad.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    r = {"data": data, "model": model, "stage": stage, "layers": layers, "gas": gas,
+         "losses": [], "grad_norms": [], "step_ms": [], "replicated_rel_l2": []}
+    try:
+        for _ in range(ZERO_STEPS):
+            t = time.perf_counter()
+            r["losses"].append(float(engine.train_batch(batch)))
+            torch.cuda.synchronize()
+            r["step_ms"].append(1e3 * (time.perf_counter() - t))
+            r["grad_norms"].append(float(engine.get_global_grad_norm()))
+            r["replicated_rel_l2"].append(_tp_replicated_rel(engine))
+            log(f"[tp] train {data}x{model} stage {stage}: step in {r['step_ms'][-1]:.0f} ms, "
+                f"loss {r['losses'][-1]:.5f}")
+    finally:
+        fa.flash_fwd = real
+    r.update(launches={**fa.launch_counts, **fad.launch_counts},
+             flash_heads=sorted(heads), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             local_params=local_params, setup_s=t1 - t0, steps_s=time.perf_counter() - t1,
+             resident_gib={k: v / 2**30 for k, v in engine.zero_resident_bytes().items()})
+    if layers != ZERO_FULL_LAYERS:
+        r["whole_rel_l2_to_rank0"] = _zero_replica_rel_l2(engine)
+    del engine, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def _tp_serve(model, out_dir):
+    """The serving case of a tp rank: Mistral-7B at full depth, this rank's
+    shards of the tree world rank 0 draws from seed 0, through
+    ``init_inference(tensor_parallel={"tp_size": model})``, on the v1 waves
+    (:func:`_tp_waves`)."""
+    import gc
+
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+    from deepspeed_tpu_torch.models.transformer import tensor_parallel
+    from deepspeed_tpu_torch.parallel import groups
+    from deepspeed_tpu_torch.parallel.mesh import MeshConfig
+
+    t0 = time.perf_counter()
+    groups.initialize_mesh(MeshConfig(data=-1, model=model), "cuda")
+    cfg = mistral_config("7b")
+    net = TransformerLM(cfg, seed=0, tp=tensor_parallel(cfg))
+    log(f"[tp] serve tp_size {model}: this rank's shards built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    engine = deepspeed_tpu_torch.init_inference(
+        net, config={"dtype": "bfloat16", "tensor_parallel": {"tp_size": model}})
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    waves, _ = _tp_waves(engine, f"tp_serve_rank{comm.get_rank()}", out_dir)
+    r = {"model": model, "build_s": built, "waves": waves,
+         "heads": engine.tp.heads(engine.model_config)[:2],
+         "local_params": net.num_params(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+         "waves_s": time.perf_counter() - t0 - built}
+    del engine, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def _tp_rank_run(layers, cases, out_path):
+    """One rank of the tp phase (``--zero-rank`` with ``tp:`` cases):
+    ``tp:train:<data>:<model>:<stage>`` (:func:`_tp_train` at ``layers``)
+    and ``tp:serve:<model>`` (:func:`_tp_serve`); writes their records as
+    JSON to ``out_path`` (the serving prefills beside it)."""
+    import datetime
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+
+    deepspeed_tpu_torch.init_distributed(dist_backend=os.environ["ZERO_BACKEND"], verbose=False,
+                                         timeout=datetime.timedelta(minutes=5))
+    out = {"rank": comm.get_rank(), "world": comm.get_world_size(),
+           "backend": comm.get_backend(), "cases": {}}
+    for case in cases:
+        kind, *sizes = case.split(":")[1:]
+        if kind == "train":
+            out["cases"][case] = _tp_train(*map(int, sizes), layers)
+        else:
+            out["cases"][case] = _tp_serve(int(sizes[0]), os.path.dirname(out_path))
+    comm.barrier()
+    comm.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _tp_serve_world1():
+    """``tp_size`` 1 in this process on the same weights (Mistral-7B from
+    seed 0): the waves and their prefills; the engine is freed after."""
+    import gc
+
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import mistral
+
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(mistral("7b", seed=0),
+                                                config={"dtype": "bfloat16"})
+    waves, prefills = _tp_waves(engine, "tp_serve_world1")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[tp] tp_size 1 in this process: {time.perf_counter() - t0:.1f}s")
+    return waves, prefills
+
+
+def _tp_train_checks(ranks, world1, layers, world):
+    """Each training case of every rank against world size 1 on its global
+    batch (losses and gradient norms, ZERO_WORLD1_REL_TOL), the replicated
+    leaves against model rank 0's after every step (equal), the launches
+    (every layer's flash kernels a microbatch, on the rank's heads, one
+    fused AdamW a step). Returns (failures, worst fraction, launches per
+    kernel per rank, records)."""
+    import numpy as np
+
+    failures, fraction, launches, records = [], 0.0, {}, {}
+    cases = [c for c in ranks[0]["cases"] if c.startswith("tp:train")]
+    for case in cases:
+        got = [r["cases"][case] for r in ranks]
+        data, model, stage = got[0]["data"], got[0]["model"], got[0]["stage"]
+        w1_losses, w1_norms, w1_ms = world1[data]
+        worst = replica = 0.0
+        nq, nkv = 32 // model, 8 // model
+        for r, g in zip(ranks, got):
+            rel = max(_rel(g["losses"], w1_losses), _rel(g["grad_norms"], w1_norms))
+            worst = max(worst, rel)
+            reps = [x for x in g["replicated_rel_l2"] if x is not None]
+            replica = max([replica, *reps, g.get("whole_rel_l2_to_rank0", 0.0)])
+            n_attn = layers * g["gas"] * ZERO_STEPS
+            want = {"flash_fwd": n_attn, "flash_bwd_dkdv": n_attn, "flash_bwd_dq": n_attn,
+                    "fused_adam": ZERO_STEPS}
+            for name, n in g["launches"].items():
+                launches.setdefault(f"{case}", {}).setdefault(name, [0] * world)[r["rank"]] = n
+            log(f"[tp] {case} rank {r['rank']}: losses {[round(x, 5) for x in g['losses']]}, "
+                f"gradient norms {[round(x, 5) for x in g['grad_norms']]} (largest relative "
+                f"difference to world size 1: {rel:.3e}); replicated leaves against model rank "
+                f"0's after each step: {g['replicated_rel_l2']}; step ms "
+                f"{[round(t, 1) for t in g['step_ms']]}; peak {g['peak_gib']:.2f} GiB; resident "
+                f"{ {k: round(v, 3) for k, v in g['resident_gib'].items()} } GiB; "
+                f"{g['local_params']:,} parameters on the rank; launches {g['launches']}; flash "
+                f"(query, kv) heads {g['flash_heads']}; set-up {g['setup_s']:.1f}s")
+            if any(g["launches"].get(k, 0) != v for k, v in want.items()):
+                failures.append(f"{case} rank {r['rank']}: launches {g['launches']}, want {want}")
+            if [list(h) for h in g["flash_heads"]] != [[nq, nkv]]:
+                failures.append(f"{case} rank {r['rank']}: flash heads {g['flash_heads']}, want "
+                                f"{[(nq, nkv)]}")
+        log(f"[tp] {case} against world size 1 (micro {data}, the same global batch: losses "
+            f"{[round(x, 5) for x in w1_losses]}, norms {[round(x, 5) for x in w1_norms]}, step "
+            f"ms {[round(t, 1) for t in w1_ms]}): largest relative difference {worst:.3e} "
+            f"(tolerance {ZERO_WORLD1_REL_TOL}); parameters against rank 0's {replica:.3e}")
+        if worst > ZERO_WORLD1_REL_TOL:
+            failures.append(f"{case} against world size 1: relative {worst:.3e} > "
+                            f"{ZERO_WORLD1_REL_TOL}")
+        if replica > 0:
+            failures.append(f"{case}: replicated parameters differ from rank 0's: {replica:.3e}")
+        if not all(np.isfinite(got[0]["losses"])) or not got[0]["losses"][-1] < got[0]["losses"][0]:
+            failures.append(f"{case}: losses not finite and falling: {got[0]['losses']}")
+        fraction = max(fraction, worst / ZERO_WORLD1_REL_TOL, replica / ZERO_REL_TOL)
+        records[case] = {"losses": got[0]["losses"], "grad_norms": got[0]["grad_norms"],
+                         "rel_diff_to_world1": worst, "peak_gib": [g["peak_gib"] for g in got],
+                         "step_ms": float(np.median([t for g in got for t in g["step_ms"][1:]])),
+                         "world1_step_ms": float(np.median(w1_ms[1:])),
+                         "flash_heads": got[0]["flash_heads"]}
+    by = {(g["data"], g["model"], g["stage"]): g for g in (ranks[0]["cases"][c] for c in cases)}
+    if (2, 2, 1) in by and (2, 2, 3) in by:  # stage 3 against stage 1
+        s1, s3 = by[(2, 2, 1)], by[(2, 2, 3)]
+        rel = max(_rel(s3["losses"], s1["losses"]), _rel(s3["grad_norms"], s1["grad_norms"]))
+        log(f"[tp] data 2 x model 2: stage 3 against stage 1, largest relative difference "
+            f"{rel:.3e} (tolerance {ZERO_REL_TOL})")
+        if rel > ZERO_REL_TOL:
+            failures.append(f"stage 3 against stage 1: relative {rel:.3e} > {ZERO_REL_TOL}")
+        fraction = max(fraction, rel / ZERO_REL_TOL)
+    return failures, fraction, launches, records
+
+
+def _tp_serve_checks(ranks, ref_waves, ref_prefills, out_dir):
+    """Each rank's serving against ``tp_size`` 1: the prefill's last-token
+    logits (rel L2 within LOGITS_REL_L2_TOL), the first layer's cache of the
+    rank's kv heads (within TP_KV_REL_TOL), the tokens (equal on every rank;
+    those that agree with ``tp_size`` 1 counted), the paged launches.
+    Returns (failures, worst fraction, launches per kernel per rank,
+    record)."""
+    import numpy as np
+
+    failures, fraction, launches, record = [], 0.0, {}, {"waves": []}
+    case = [c for c in ranks[0]["cases"] if c.startswith("tp:serve")][0]
+    world = len(ranks)
+    for i, (ref, (ref_logits, ref_k, ref_v)) in enumerate(zip(ref_waves, ref_prefills)):
+        B, S, new = ref["batch"], ref["prompt"], ref["new"]
+        rels, kv_rels = [], []
+        for r in ranks:
+            g = r["cases"][case]
+            w, (nq, nkv) = g["waves"][i], g["heads"]
+            pre = [np.load(os.path.join(out_dir, f"tp_serve_rank{r['rank']}_w{i}_{n}.npy"))
+                   for n in ("logits", "k", "v")]
+            rels.append(float(np.linalg.norm(pre[0] - ref_logits) / np.linalg.norm(ref_logits)))
+            heads = slice(r["rank"] * nkv, (r["rank"] + 1) * nkv)
+            kv_rels.append(max(float(np.linalg.norm(got - want[:, :, heads])
+                                     / np.linalg.norm(want[:, :, heads]))
+                               for got, want in ((pre[1], ref_k), (pre[2], ref_v))))
+            for name, n in w["launches"].items():
+                launches.setdefault(name, [[0] * world for _ in ref_waves])[i][r["rank"]] = n
+        tokens = [np.asarray(r["cases"][case]["waves"][i]["tokens"]) for r in ranks]
+        same_ranks = all(np.array_equal(t, tokens[0]) for t in tokens)
+        agree = int((tokens[0] == np.asarray(ref["tokens"])).sum())
+        w0 = ranks[0]["cases"][case]["waves"][i]
+        log(f"[tp] serving wave {B} x {S} + {new}, tp_size {world}: prefill last-token logits "
+            f"against tp_size 1, rel L2 per rank {[f'{x:.3e}' for x in rels]} (tolerance "
+            f"{LOGITS_REL_L2_TOL}); the first layer's cache of each rank's kv heads against "
+            f"tp_size 1's, rel L2 {[f'{x:.3e}' for x in kv_rels]} (tolerance {TP_KV_REL_TOL}); "
+            f"tokens equal on every rank: {same_ranks}; {agree} of {tokens[0].size} agree with "
+            f"tp_size 1; launches per rank "
+            f"{[r['cases'][case]['waves'][i]['launches'] for r in ranks]}; "
+            f"decode {w0['decode_wall_ms_per_step']:.3f} ms/step wall (tp_size 1: "
+            f"{ref['decode_wall_ms_per_step']:.3f})"
+            + (f", device busy {w0['decode_device_ms_per_step']:.3f} ms/step, "
+               f"{w0['decode_compute_ms_per_step']:.3f} without NCCL's kernels (tp_size 1: "
+               f"{ref['decode_device_ms_per_step']:.3f})" if i == 0 else ""))
+        if max(rels) > LOGITS_REL_L2_TOL:
+            failures.append(f"wave {i}: prefill logits rel L2 {max(rels):.3e} > "
+                            f"{LOGITS_REL_L2_TOL}")
+        if max(kv_rels) > TP_KV_REL_TOL:
+            failures.append(f"wave {i}: first-layer cache rel L2 {max(kv_rels):.3e} > "
+                            f"{TP_KV_REL_TOL}")
+        if not same_ranks:
+            failures.append(f"wave {i}: the ranks emitted different tokens")
+        # the first wave's 128-slot cache decodes in one split, the second's
+        # 1024 in several, merged (the v1 phase's routes)
+        want = (("paged_prefill", "paged_decode") if i == 0 else
+                ("paged_prefill", "paged_decode_split", "paged_decode_merge"))
+        missing = [k for k in want if not w0["launches"].get(k)]
+        if missing:
+            failures.append(f"wave {i}: paged kernels never launched: {missing}")
+        fraction = max(fraction, max(rels) / LOGITS_REL_L2_TOL, max(kv_rels) / TP_KV_REL_TOL)
+        record["waves"].append({
+            "batch": B, "prompt": S, "new": new, "logits_rel_l2": max(rels),
+            "first_layer_kv_rel_l2": max(kv_rels), "tokens_agree": agree,
+            "tokens": int(tokens[0].size),
+            "decode_wall_ms_per_step": w0["decode_wall_ms_per_step"],
+            "world1_decode_wall_ms_per_step": ref["decode_wall_ms_per_step"],
+            **({"decode_device_ms_per_step": w0["decode_device_ms_per_step"],
+                "decode_compute_ms_per_step": w0["decode_compute_ms_per_step"],
+                "world1_decode_device_ms_per_step": ref["decode_device_ms_per_step"]}
+               if i == 0 else {})})
+    g0 = ranks[0]["cases"][case]
+    record.update(peak_gib=[r["cases"][case]["peak_gib"] for r in ranks], build_s=g0["build_s"],
+                  local_params=g0["local_params"], heads=g0["heads"])
+    return failures, fraction, launches, record
+
+
+def phase_tp():
+    """Returns the tp launches of rows 1-7 per rank and the phase's record."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_dev = torch.cuda.device_count()
+    world, backend = (min(4, n_dev), "nccl") if n_dev >= 2 else (2, "gloo")
+    if backend == "nccl":
+        layers, train = ZERO_NCCL_LAYERS, ["tp:train:2:2:1", "tp:train:2:2:3", "tp:train:1:4:0"]
+    else:
+        layers, train = TP_GLOO_LAYERS, ["tp:train:1:2:0"]
+    log(f"[tp] {world} ranks over {backend} on {n_dev} visible device(s)"
+        + (" (two ranks share the card)" if n_dev < 2 else "")
+        + f"; training: Mistral-7B width, depth cut 32 -> {layers}, 1 x {ZERO_SEQ} tokens a "
+        f"microbatch, gas 2, bf16, fused AdamW, clipping 1.0, lr 1e-4, {ZERO_STEPS} steps from "
+        f"seed 0, cases {train}; serving: Mistral-7B at full depth through init_inference("
+        f"tensor_parallel tp_size {world}) on the waves {V1_WAVES}")
+    t0 = time.perf_counter()
+    world1 = {d: _zero_world1(d, layers, TP_DS_CONFIG)
+              for d in sorted({int(c.split(':')[2]) for c in train})}
+    log(f"[tp] world size 1 training runs in {time.perf_counter() - t0:.1f}s")
+    ref_waves, ref_prefills = _tp_serve_world1()
+    out_dir = os.path.join(HERE, "build", "zero")
+    t0 = time.perf_counter()
+    ranks = _zero_spawn(world, backend, layers, train + [f"tp:serve:{world}"], "tp")
+    log(f"[tp] ranks done in {time.perf_counter() - t0:.1f}s")
+    failures, fraction, train_launches, train_record = _tp_train_checks(ranks, world1, layers,
+                                                                        world)
+    f2, frac2, serve_launches, serve_record = _tp_serve_checks(ranks, ref_waves, ref_prefills,
+                                                               out_dir)
+    failures += f2
+    fraction = max(fraction, frac2)
+    record = {"world": world, "backend": backend, "layers": layers, "seq": ZERO_SEQ,
+              "train": train_record, "serve": serve_record}
+    if world == 4 and backend == "nccl":
+        t0 = time.perf_counter()
+        full = _zero_spawn(world, backend, ZERO_FULL_LAYERS, ["tp:train:2:2:3"], "tp_full")
+        st = [r["cases"]["tp:train:2:2:3"] for r in full]
+        record["full_depth_stage3"] = {
+            "layers": ZERO_FULL_LAYERS, "peak_gib": [x["peak_gib"] for x in st],
+            "losses": st[0]["losses"], "grad_norms": st[0]["grad_norms"],
+            "step_ms": [x["step_ms"] for x in st], "local_params": st[0]["local_params"],
+            "setup_s": st[0]["setup_s"]}
+        log(f"[tp] full depth ({ZERO_FULL_LAYERS} layers) at stage 3 over data 2 x model 2 in "
+            f"{time.perf_counter() - t0:.1f}s: {record['full_depth_stage3']}")
+        if not all(np.isfinite(st[0]["losses"])):
+            failures.append(f"full-depth losses not finite: {st[0]['losses']}")
+    log(f"[tp] worst_error_fraction={fraction:.3f} (the largest of: losses and gradient norms "
+        f"against world size 1 over {ZERO_WORLD1_REL_TOL}; stage 3 against stage 1 and the "
+        f"replicated leaves against model rank 0's over {ZERO_REL_TOL}; prefill logits against "
+        f"tp_size 1 over {LOGITS_REL_L2_TOL}; the first layer's cache over {TP_KV_REL_TOL})")
+    if failures:
+        raise RuntimeError("tp disagrees: " + "; ".join(failures))
+    launches = {name: {"train": {c: v[name] for c, v in train_launches.items() if name in v}}
+                for name in TRAIN_KERNELS}
+    launches.update({name: {"serve": serve_launches.get(name)} for name in KERNELS})
     return launches, record
 
 
@@ -4381,6 +4908,15 @@ MOE_EXPERT_GRAD_MUTATIONS = _in("deepspeed_tpu_torch/runtime/zero/partition.py",
 REMAT_RNG_MUTATIONS = _in(  # the checkpoint restores no generator before the recompute
     "deepspeed_tpu_torch/runtime/activation_checkpointing/checkpointing.py", (
         ("    gens = _replayed(args)\n", "    gens = []\n"),))
+TP_REGION_MUTATIONS = _in(  # the column region's backward sums nothing over the model group
+    "deepspeed_tpu_torch/module_inject/layers.py", (
+        ("        return inference_all_reduce(grad, group=ctx.group), None\n",
+         "        return grad, None\n"),))
+TP_KV_MUTATIONS = _in(  # every rank's serving weights (stacked) take rank 0's kv heads
+    "deepspeed_tpu_torch/models/transformer.py", (
+        ("        return t.narrow(d, self.rank * n, n).clone()",
+         "        return t.narrow(d, (0 if stacked and name in ('wk', 'wv') else self.rank) * n, "
+         "n).clone()"),))
 DECODE_MUTATIONS = _in(SOURCE, (  # the decode skips each split's last live block
     ("const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits);",
      "const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits) - 1;"),
@@ -4404,6 +4940,8 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "moe_a2a": (MOE_A2A_MUTATIONS, "moe_zero", "moe_zero disagrees"),
     "moe_expert_grad": (MOE_EXPERT_GRAD_MUTATIONS, "moe_zero", "moe_zero disagrees"),
     "remat_rng": (REMAT_RNG_MUTATIONS, "remat", "remat disagrees"),
+    "tp_region": (TP_REGION_MUTATIONS, "tp", "tp disagrees"),
+    "tp_kv": (TP_KV_MUTATIONS, "tp", "tp disagrees"),
 }
 
 
@@ -4600,7 +5138,7 @@ def _run_one_mutant(name):
     # relative L2 is then of order 1, some 20x its tolerance, not 100x; a
     # stale half of a group moves the losses by what one step moves them
     if phase not in ("moe_kernels", "v1"):
-        least = (ZERO_MUTANT_MIN_FACTOR if phase in ("zero", "moe_zero", "remat") else
+        least = (ZERO_MUTANT_MIN_FACTOR if phase in ("zero", "moe_zero", "remat", "tp") else
                  MUTANT_MIN_FACTOR)
         factor = _worst_error_fraction(proc.stdout, phase) or 0.0
         log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
@@ -4888,7 +5426,7 @@ def run_versus(other, phases):
 
 
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
-          "remat", "eager", "zero", "moe_zero", "moe_train", "sparse_train", "evo_kernels",
+          "remat", "eager", "zero", "moe_zero", "tp", "moe_train", "sparse_train", "evo_kernels",
           "evo_path", "v1", "hybrid")
 
 
@@ -4933,7 +5471,9 @@ def main():
         return 2
     if args.zero_rank is not None:
         cases = args.zero_stages.split(",")
-        if ":" in args.zero_stages:  # a moe_zero rank: impl:stage cases
+        if args.zero_stages.startswith("tp:"):  # a tp rank
+            _tp_rank_run(args.zero_layers, cases, args.zero_out)
+        elif ":" in args.zero_stages:  # a moe_zero rank: impl:stage cases
             _moe_zero_rank_run(args.zero_layers, [(c.split(":")[0], int(c.split(":")[1]))
                                                   for c in cases], args.zero_out)
         else:
@@ -4956,7 +5496,7 @@ def main():
            "moe_kernels": phase_moe_kernels, "sparse_kernels": phase_sparse_kernels,
            "e2e": phase_e2e, "train": phase_train, "remat": phase_remat, "eager": phase_eager,
            "zero": phase_zero,
-           "moe_zero": phase_moe_zero, "moe_train": phase_moe_train,
+           "moe_zero": phase_moe_zero, "tp": phase_tp, "moe_train": phase_moe_train,
            "sparse_train": phase_sparse_train, "evo_kernels": phase_evo_kernels,
            "evo_path": phase_evo_path, "v1": phase_v1, "hybrid": phase_hybrid}
     failed = []
@@ -5000,6 +5540,9 @@ def main():
     eager_launches, eager = out["eager"]
     zero_launches, zero = out["zero"]
     moe_zero_launches, moe_zero = out["moe_zero"]
+    tp_launches, tp = out["tp"]
+    for entry in kernels:  # the paged kernels' launches per rank on the tp serving path
+        entry["tp_launches"] = tp_launches[entry["name"]]
     for name, m in out["train_kernels"].items():
         src, replaces = TRAIN_KERNELS[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -5009,6 +5552,7 @@ def main():
                  "eager_launches": int(eager_launches[name]),
                  "zero_launches": zero_launches[name], "zero": zero,
                  "moe_zero_launches": moe_zero_launches[name],
+                 "tp_launches": tp_launches[name],
                  "max_abs_err": m["err"], **{k: m[k] for k in keys}}
         if name == "flash_fwd":
             entry["v1_launches"] = int(v1_launches[name])
@@ -5049,6 +5593,7 @@ def main():
                         "max_abs_err": m["err"], **{k: m[k] for k in keys}, **extra})
     kernels[-1]["evo_block"] = evo_block
     kernels[0]["v1_path"] = {k: v for k, v in v1.items() if k != "kernels_block128"}
+    kernels[0]["tp_path"] = tp
     kernels[0]["hybrid_path"] = hybrid
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

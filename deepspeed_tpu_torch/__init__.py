@@ -10,7 +10,10 @@ initialises ``torch.distributed`` (``comm``). The training "model" is an
 trainable=True)``), or a bare ``loss_fn(params, batch)`` paired with
 ``model_parameters``. The ragged serving engine lives in ``inference.v2``.
 ``checkpointing`` is activation checkpointing (``deepspeed.checkpointing``:
-``checkpoint``, ``configure``, the RNG tracker).
+``checkpoint``, ``configure``, the RNG tracker). ``module_inject`` is tensor
+parallelism's surface (AutoTP, the policies, the Megatron layers), with
+``replace_transformer_layer`` / ``revert_transformer_layer`` at the top, as
+``deepspeed_tpu/__init__.py:28,30`` exports them.
 """
 
 __version__ = "0.1.0"
@@ -19,12 +22,14 @@ import os
 
 from torch import nn
 
+from . import module_inject
 from .comm import init_distributed
 from .inference.config import DeepSpeedInferenceConfig
 from .inference.engine import InferenceEngine
 from .runtime.activation_checkpointing import checkpointing
 from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 from .runtime.engine import DeepSpeedEngine
+from .module_inject import replace_transformer_layer, revert_transformer_layer
 from .runtime.hybrid_engine import DeepSpeedHybridEngine
 
 
@@ -115,7 +120,9 @@ def init_inference(model=None, config=None, *, device=None, **kwargs):
     ``models.TransformerLM``; ``deepspeed.init_inference``'s semantics,
     ``deepspeed_tpu/__init__.py:106``). ``config``: a
     ``DeepSpeedInferenceConfig`` or its JSON dict (aliases accepted), else
-    the keyword arguments. ``device`` defaults to CUDA."""
+    the keyword arguments (``tensor_parallel={"tp_size": N}`` serves over
+    N ranks of the initialised process group, each its shards). ``device``
+    defaults to CUDA."""
     if config is None:
         config = kwargs
     if not isinstance(config, DeepSpeedInferenceConfig):
@@ -139,4 +146,5 @@ def add_config_arguments(parser):
 
 __all__ = ["DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine", "DeepSpeedHybridEngine",
            "DeepSpeedInferenceConfig", "InferenceEngine", "add_config_arguments", "checkpointing",
-           "init_distributed", "init_inference", "initialize"]
+           "init_distributed", "init_inference", "initialize", "module_inject",
+           "replace_transformer_layer", "revert_transformer_layer"]

@@ -4,7 +4,8 @@ Counterpart of ``deepspeed_tpu/comm/comm.py``: ``init_distributed`` and the
 process-group queries, and the collectives the ZeRO engine and the
 expert-parallel MoE issue (``all_reduce``, ``all_gather_into_tensor``,
 ``reduce_scatter_tensor``, ``broadcast``, ``scatter``,
-``all_to_all_single``). In the JAX package these collectives are inserted by XLA
+``all_to_all_single``), and ``inference_all_reduce`` (``functional.py``),
+the tensor-parallel regions' sum. In the JAX package these collectives are inserted by XLA
 from sharding annotations; here they are explicit calls on the default
 process group (or ``group``).
 
@@ -22,9 +23,11 @@ import torch.distributed as dist
 
 from .backend import TorchBackend
 
-__all__ = ["ReduceOp", "all_gather_into_tensor", "all_gather_object", "all_reduce", "all_to_all_single",
+__all__ = ["ReduceOp", "all_gather", "all_gather_into_tensor", "all_gather_object", "all_reduce",
+           "all_to_all_single",
            "barrier", "broadcast", "broadcast_object_list", "destroy_process_group", "get_backend",
-           "get_global_rank", "get_local_rank", "get_rank", "get_world_size", "init_distributed",
+           "get_global_rank", "get_local_rank", "get_rank", "get_world_size",
+           "inference_all_reduce", "init_distributed",
            "is_initialized", "new_group", "reduce_scatter_tensor", "scatter"]
 
 ReduceOp = dist.ReduceOp
@@ -195,3 +198,6 @@ def all_to_all_single(output, input, group=None):
         return output
     dist.all_to_all_single(output, input, group=group)
     return output
+
+
+from .functional import all_gather, inference_all_reduce  # noqa: E402

@@ -7,8 +7,9 @@ names and aliases (``tp``, ``kernel_injection``, ``tm``, ``max_out_tokens``,
 from a JSON dict with :meth:`DeepSpeedInferenceConfig.from_dict`, or with
 field names as keywords (blocks may be given as dicts). ``"auto"`` means
 the default, as in the JAX package. Unlike it, an unknown key raises, and so
-does a setting the port has not ported: ``tensor_parallel.tp_size > 1``,
-``quant.enabled`` or ``dtype: "int8"``, a ``checkpoint`` to load.
+does a setting the port has not ported: ``quant.enabled`` or ``dtype:
+"int8"``, a ``checkpoint`` to load. ``tensor_parallel.tp_size`` (alias
+``tp``) above 1 serves each rank's shards over the model group.
 ``enable_cuda_graph`` is accepted and does nothing, as in the JAX package;
 so are the kernel-injection knobs, which name no module surgery here either.
 """
@@ -28,17 +29,17 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16, "float16": torch.
 
 @dataclass
 class DeepSpeedTPConfig:
-    """``tensor_parallel`` block."""
+    """``tensor_parallel`` block: ``tp_size`` ranks split each layer (the
+    engine builds ``MeshConfig(data=-1, model=tp_size)`` over the
+    initialised process group)."""
     enabled: bool = True
     tp_size: int = 1
     mpu: Optional[Any] = None
     tp_group: Optional[Any] = None
 
     def __post_init__(self):
-        if int(self.tp_size) > 1:
-            raise NotImplementedError(
-                f"tensor_parallel.tp_size={self.tp_size}: tensor parallelism is not ported to the "
-                f"PyTorch package yet (ROADMAP A3b); the v1 engine runs on one device")
+        if int(self.tp_size) < 1:
+            raise DeepSpeedConfigError(f"tensor_parallel.tp_size must be >= 1, got {self.tp_size}")
 
 
 @dataclass

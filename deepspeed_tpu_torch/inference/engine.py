@@ -9,9 +9,19 @@ step's token is chosen on the device and written into a preallocated
 the card the cache's attention runs through the paged kernels
 (``cached_attention_route``).
 
-Not ported: tensor parallelism (A3b), quantized weights (A7), checkpoint
-loading (A9); their configs are refused (``inference/config.py``).
-``enable_cuda_graph`` is accepted and does nothing, as in the JAX package.
+Tensor parallelism (``tensor_parallel.tp_size`` above 1, the reference's
+``engine.py:32-43``): the engine builds ``MeshConfig(data=-1, model=tp)``
+over the initialised process group (or keeps a mesh of that model size),
+the model becomes this rank's shards (``TransformerLM.shard_tensor_parallel``:
+rank 0's weights, broadcast and sliced leaf by leaf; a model built with
+the plan stays as it is), the cache holds this rank's kv heads, and every
+layer runs the paged kernels on this rank's heads. The logits are gathered
+over the model group (only the last position's in ``generate``), so every
+rank picks the same tokens.
+
+Not ported: quantized weights (A7), checkpoint loading (A9); their configs
+are refused (``inference/config.py``). ``enable_cuda_graph`` is accepted and
+does nothing, as in the JAX package.
 """
 
 import dataclasses
@@ -21,8 +31,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.transformer import (V1_BLOCK, cached_attention_route, forward, forward_with_cache,
-                                  init_kv_cache, layers, resolve_device)
+from .. import comm
+from ..models.transformer import (V1_BLOCK, _forward_with_cache, _whole_logits,
+                                  cached_attention_route, forward, init_kv_cache, layers,
+                                  resolve_device, tensor_parallel)
+from ..parallel import groups
+from ..parallel.mesh import MeshConfig
 from .config import DeepSpeedInferenceConfig
 
 
@@ -44,14 +58,24 @@ class InferenceEngine:
         stacked or per-layer, weights cast to the compute dtype where they
         are used. ``device`` defaults to CUDA; parameters elsewhere are
         copied there. On the card, a cache the paged kernels do not take
-        (``cached_attention_route``) raises here."""
+        (``cached_attention_route``, at this rank's head counts) raises
+        here. At ``tp_size`` above 1 ``params`` is the whole tree, the same
+        on every rank, and this rank's slices of it are served; without it
+        the model is split in place (module docstring)."""
         self.module = model
         self._config = config or DeepSpeedInferenceConfig()
         self.device = resolve_device(device)
         cfg = self.model_config = dataclasses.replace(model.config,
                                                       dtype=self._config.compute_dtype)
-        cached_attention_route(cfg.attention_impl, self.device.type, cfg.dtype, cfg.num_heads,
-                               cfg.num_kv_heads, cfg.head_dim, V1_BLOCK)
+        self.tp = self._tensor_parallel(model, params)
+        if self.tp is not None and params is not None:
+            from ..models.convert import tensor_parallel_shards
+
+            params = tensor_parallel_shards(params, self.tp)
+        nq, nkv, _ = self.tp.heads(cfg) if self.tp is not None else (cfg.num_heads,
+                                                                    cfg.num_kv_heads, 0)
+        cached_attention_route(cfg.attention_impl, self.device.type, cfg.dtype, nq, nkv,
+                               cfg.head_dim, V1_BLOCK)
         params = _on(model.params() if params is None else params, self.device)
         # per-layer views of a stacked tree, taken once: the forward walks a
         # list, and writes into the stacked tensors stay visible
@@ -59,6 +83,28 @@ class InferenceEngine:
         self._model_profile_enabled = False
         self._use_cuda_events = False
         self._model_times = []
+
+    def _tensor_parallel(self, model, params):
+        """The plan at ``tp_size`` above 1 (None at 1): the mesh's model
+        group of that size, built over the world where the mesh has another;
+        the model split into this rank's shards unless ``params`` is
+        given."""
+        tp_size = int(self._config.tensor_parallel.tp_size)
+        if tp_size == 1:
+            if getattr(model, "tp", None) is not None:
+                raise ValueError(f"the model holds tensor-parallel shards ({model.tp}); serve it "
+                                 f"at tp_size {model.tp.size}")
+            return None
+        world = comm.get_world_size()
+        if world % tp_size:
+            raise ValueError(f"tensor_parallel.tp_size={tp_size} does not divide the world size "
+                             f"{world} (init_distributed first)")
+        if groups.get_model_parallel_world_size() != tp_size:
+            groups.initialize_mesh(MeshConfig(data=-1, model=tp_size), self.device.type)
+        tp = tensor_parallel(self.model_config, groups.get_model_parallel_group())
+        if params is None:
+            model.shard_tensor_parallel(tp)
+        return tp
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -68,16 +114,16 @@ class InferenceEngine:
         ids = (input_ids if torch.is_tensor(input_ids) else
                torch.as_tensor(np.asarray(input_ids))).to(self.device).long()
         if not self._model_profile_enabled:
-            return forward(self.model_config, self.params, ids)
+            return forward(self.model_config, self.params, ids, self.tp)
         if self._use_cuda_events:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            out = forward(self.model_config, self.params, ids)
+            out = forward(self.model_config, self.params, ids, self.tp)
             end.record()
             self._model_times.append((start, end))
         else:
             t0 = time.perf_counter()
-            out = forward(self.model_config, self.params, ids)
+            out = forward(self.model_config, self.params, ids, self.tp)
             self._model_times.append(time.perf_counter() - t0)
         return out
 
@@ -122,15 +168,18 @@ class InferenceEngine:
         prompt = np.asarray(input_ids)
         B, S = prompt.shape
         smax = -(-(S + max_new_tokens) // V1_BLOCK) * V1_BLOCK
-        cfg, dev = self.model_config, self.device
-        cache = init_kv_cache(cfg, B, smax, device=dev)
+        cfg, dev, tp = self.model_config, self.device, self.tp
+        cache = init_kv_cache(cfg, B, smax, device=dev, tp=tp)
         gen = torch.Generator(device=dev).manual_seed(seed) if temperature else None
         out = torch.empty((B, max_new_tokens), dtype=torch.int32, device=dev)
-        logits, cache = forward_with_cache(cfg, self.params, torch.tensor(prompt), cache)
-        out[:, 0] = _select(logits[:, -1], gen, temperature, top_k)
+
+        def last_logits(ids):  # the last position's, whole on every rank
+            logits, _ = _forward_with_cache(cfg, self.params, ids, cache, tp)
+            return _whole_logits(logits[:, -1], tp)
+
+        out[:, 0] = _select(last_logits(torch.tensor(prompt)), gen, temperature, top_k)
         for i in range(1, max_new_tokens):
-            logits, cache = forward_with_cache(cfg, self.params, out[:, i - 1:i], cache)
-            out[:, i] = _select(logits[:, -1], gen, temperature, top_k)
+            out[:, i] = _select(last_logits(out[:, i - 1:i]), gen, temperature, top_k)
         out = out.cpu().numpy()
         if eos_token_id is not None:  # after the loop, on the host (engine.py:147-153)
             for b in range(B):

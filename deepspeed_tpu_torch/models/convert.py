@@ -15,6 +15,10 @@ become a list of L dicts); :func:`params_to_numpy` stacks them back. The
 optimizer state moves the same way: ``mu`` and ``nu`` are parameter-shaped
 trees, ``step`` the count of applied updates (:func:`optimizer_state_from_numpy`,
 :func:`optimizer_state_to_numpy`), matched to the model's leaves by name.
+
+:func:`tensor_parallel_shards` cuts a whole port tree into one
+tensor-parallel rank's shards by the model's ``partition_rules``, so the
+same weights go to the JAX engine whole and to each rank in pieces.
 """
 
 from typing import Any, Dict, List
@@ -22,7 +26,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from .transformer import TransformerConfig, resolve_device
+from .transformer import TensorParallel, TransformerConfig, resolve_device
 from .transformer import takes_compute_dtype as _takes_serving_dtype
 
 
@@ -45,6 +49,22 @@ def params_from_jax(np_params: Dict[str, Any], cfg: TransformerConfig, device=No
         blocks = out["blocks"]
         out["blocks"] = [{name: t[l].clone() for name, t in blocks.items()}
                          for l in range(cfg.num_layers)]
+    return out
+
+
+def tensor_parallel_shards(params: Dict[str, Any], tp: TensorParallel) -> Dict[str, Any]:
+    """A whole port tree (stacked or per-layer blocks) -> rank ``tp.rank``'s
+    shards (``TensorParallel.shard``: the split leaves sliced, as copies;
+    the replicated ones as they are). ``tp`` may carry no process group
+    (``models.transformer.tensor_parallel(cfg, size=N, rank=r)``)."""
+    out = {}
+    for group, leaves in params.items():
+        if isinstance(leaves, (list, tuple)):
+            out[group] = [{name: tp.shard(group, name, t) for name, t in layer.items()}
+                          for layer in leaves]
+        else:
+            out[group] = {name: tp.shard(group, name, t, stacked=group == "blocks")
+                          for name, t in leaves.items()}
     return out
 
 

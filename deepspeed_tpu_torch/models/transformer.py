@@ -33,12 +33,30 @@ pool of 128-slot blocks with an identity block table
 (:func:`cached_attention_route` decides). It serves MoE models, as the JAX
 package's v1 path does; ``inference/v2``'s ragged forward runs dense MLPs
 only. Block-sparse models are not served.
+
+Tensor parallelism (the ``model`` mesh axis, :class:`TensorParallel`). The
+JAX package states it as sharding rules (:func:`partition_rules`) and XLA
+inserts the collectives; here every function below takes a ``tp`` plan and
+this rank's shards of the weights, and gives the unsharded model's result
+through Megatron's explicit regions (``module_inject/layers.py``): q/k/v
+and ``w_up`` / ``w_gate`` (with their biases) are column-split, so each rank
+runs ``num_heads / tp`` query and ``num_kv_heads / tp`` kv heads (RoPE, the
+window and the ALiBi slopes of its own global heads) and ``F / tp`` of the
+FFN; ``wo`` and ``w_down`` are row-split, their partial products summed
+over the model group before ``bo`` / ``b_down`` are added once; the
+embedding and the head are split over the vocabulary (a vocab-parallel
+lookup, vocab-split logits, a vocab-parallel cross entropy: no rank builds
+``[B, S, V]`` logits in the loss). A branch whose heads, kv heads or FFN
+width ``tp`` does not divide runs replicated on every rank, and so do the
+embedding and head where ``tp`` does not divide the vocabulary (the
+reference's ``sanitize_spec`` fallback). Norms, ``bo`` and ``b_down`` are
+replicated. ``tp=None`` is the unchanged single-rank path.
 """
 
 import math
 import warnings
-from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple, Union
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,10 +64,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import comm
+from ..module_inject.layers import (copy_to_model_parallel_region, embedding_layer,
+                                    gather_from_model_parallel_region, model_group,
+                                    model_parallel_size, reduce_from_model_parallel_region,
+                                    vocab_parallel_log_likelihood)
 from ..moe.grouped import grouped_moe_ffn
 from ..runtime.activation_checkpointing import checkpointing
 from ..moe.sharded_moe import all_to_all, multiplicative_jitter, top1gating, top2gating
 from ..parallel import groups
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..runtime.zero.partition import PartitionRules, sanitize_spec
 
 # the weights matrix products read: stored in the serving dtype. Norm scales
 # and biases stay fp32 (the norm runs in fp32 with its fp32 scale).
@@ -192,90 +216,240 @@ def resolve_device(device=None) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism: the partition rules and a rank's plan
+# ---------------------------------------------------------------------------
+
+def partition_rules(cfg: Optional[TransformerConfig] = None) -> PartitionRules:
+    """Megatron's split over the ``model`` mesh axis (the reference's table,
+    ``transformer.py:216-239``, in the port's names): q/k/v, ``w_up`` /
+    ``w_gate`` and their biases column-split, ``wo`` / ``w_down`` row-split,
+    the embedding and the head split over the vocabulary, the rest
+    replicated. Specs are per layer (the reference's leading ``pipe`` entry
+    of the stacked layer dim is dropped; ``tree_specs`` adds a None for a
+    stacked tree)."""
+    return PartitionRules([
+        (r"embed/embedding", (MODEL_AXIS, None)),
+        (r"pos_embed/embedding", (None, None)),
+        (r"blocks/w[qkv]$", (None, MODEL_AXIS)),
+        (r"blocks/b[qkv]$", (MODEL_AXIS, )),
+        (r"blocks/wo$", (MODEL_AXIS, None)),
+        (r"blocks/(w_up|w_gate)$", (None, MODEL_AXIS)),
+        (r"blocks/b_up$", (MODEL_AXIS, )),
+        (r"blocks/w_down$", (MODEL_AXIS, None)),
+        (r"blocks/(ln1_scale|ln2_scale|ln1_bias|ln2_bias|b_down|bo)$", (None, )),
+        (r"blocks/gate_wg$", (None, None)),
+        (r"blocks/(moe_wi|moe_wg)$", (DATA_AXIS, None, MODEL_AXIS)),
+        (r"blocks/moe_wo$", (DATA_AXIS, MODEL_AXIS, None)),
+        (r"lm_head/kernel", (None, MODEL_AXIS)),
+        (r"lm_head/bias", (MODEL_AXIS, )),
+    ])
+
+
+# the leaves of the three branches a plan splits as a whole or not at all
+_ATTN_LEAVES = ("wq", "wk", "wv", "bq", "bk", "bv", "wo")
+_MLP_LEAVES = ("w_up", "w_gate", "b_up", "w_down")
+_VOCAB_LEAVES = (("embed", "embedding"), ("lm_head", "kernel"), ("lm_head", "bias"))
+
+
+def _branch(group: str, name: str) -> Optional[str]:
+    if group == "blocks":
+        return "attn" if name in _ATTN_LEAVES else ("mlp" if name in _MLP_LEAVES else None)
+    return "vocab" if (group, name) in _VOCAB_LEAVES else None
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """This rank's place in the model group (``size`` ranks, this one
+    ``rank``, over the process group ``group``; None for slicing alone) and
+    which of a config's three branches it splits: ``attn`` (the query and
+    kv heads), ``mlp`` (the FFN width), ``vocab`` (embedding rows, head
+    columns). A branch ``size`` does not divide is replicated (see
+    :func:`tensor_parallel`). ``rules``: the config's
+    :func:`partition_rules`."""
+    size: int
+    rank: int
+    group: Any
+    attn: bool
+    mlp: bool
+    vocab: bool
+    rules: PartitionRules = field(compare=False, repr=False)
+
+    def split_dim(self, group: str, name: str, shape) -> Optional[int]:
+        """The dim of a leaf (its per-layer ``shape``) split over the model
+        group, or None where it is replicated: the rule's spec after
+        :func:`sanitize_spec`, in a branch the plan splits."""
+        branch = _branch(group, name)
+        if branch is None or not getattr(self, branch):
+            return None
+        path = f"{group}/{name}"
+        spec = sanitize_spec(self.rules.spec_for(path, len(shape)), shape,
+                             {MODEL_AXIS: self.size}, path)
+        return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+
+    def shard(self, group: str, name: str, t: torch.Tensor, stacked: bool = False):
+        """This rank's slice of the whole leaf ``t`` (a copy), or ``t``
+        itself where the leaf is replicated. ``stacked``: ``t`` is ``[L,
+        ...]``."""
+        d = self.split_dim(group, name, t.shape[int(stacked):])
+        if d is None:
+            return t
+        d += int(stacked)
+        n = t.shape[d] // self.size
+        return t.narrow(d, self.rank * n, n).clone()
+
+    def heads(self, cfg: TransformerConfig) -> Tuple[int, int, int]:
+        """(this rank's query heads, its kv heads, the global index of its
+        first query head)."""
+        n = self.size if self.attn else 1
+        nq = cfg.num_heads // n
+        return nq, cfg.num_kv_heads // n, (self.rank * nq if self.attn else 0)
+
+
+def tensor_parallel(cfg: TransformerConfig, group=None, *, size: Optional[int] = None,
+                    rank: int = 0) -> Optional["TensorParallel"]:
+    """The plan of ``cfg`` over ``group`` (default: the current mesh's
+    model group) or, with ``size``, over ``size`` ranks as ``rank`` with no
+    process group (slicing alone). None at size 1. A branch whose sizes
+    ``size`` does not divide (heads or kv heads; the FFN width; the
+    vocabulary) runs replicated on every rank, with a warning: the
+    reference's ``sanitize_spec`` fallback, applied to the whole branch so
+    that a column split never feeds a replicated row weight. MoE blocks and
+    block-sparse attention are refused under tensor parallelism (ROADMAP
+    A3b, left open)."""
+    if size is None:
+        group = model_group(group)
+        size = model_parallel_size(group)
+        rank = comm.get_rank(group) if group is not None else 0
+    if size == 1:
+        return None
+    _refuse_unported(cfg)
+    if cfg.moe_num_experts > 0:
+        raise NotImplementedError(
+            f"MoE blocks at model size {size}: experts split over the model axis (the reference's "
+            f"moe_wi / moe_wo specs and moe/mappings.py's token gather and drop) are ROADMAP A3b, "
+            f"left open")
+    if cfg.sparse_attention is not None:
+        raise NotImplementedError(
+            f"sparse_attention at model size {size}: per-head layouts sliced by head are ROADMAP "
+            f"A3b, left open")
+    attn = cfg.num_heads % size == 0 and cfg.num_kv_heads % size == 0
+    mlp = cfg.intermediate_size % size == 0
+    vocab = cfg.vocab_size % size == 0
+    for ok, what in ((attn, f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv heads: attention"),
+                     (mlp, f"FFN width {cfg.intermediate_size}: the MLP"),
+                     (vocab, f"vocabulary {cfg.vocab_size}: the embedding and the head")):
+        if not ok:
+            warnings.warn(f"model size {size} does not divide the {what} runs replicated on "
+                          f"every model rank")
+    return TensorParallel(size, rank, group, attn, mlp, vocab, partition_rules(cfg))
+
+
+# ---------------------------------------------------------------------------
 # Param init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None,
-                dtype=None, per_layer: bool = False) -> Dict[str, Any]:
+def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator], device=None,
+                dtype=None, per_layer: bool = False,
+                place: Optional[Callable[..., torch.Tensor]] = None) -> Dict[str, Any]:
     """Random parameters from ``generator`` (on ``device``), in the TPU
     package's names and stacked ``[L, ...]`` layout with the same scales.
     Matrix weights are stored in ``dtype`` (default ``cfg.dtype``), norm
     scales and biases in fp32. Drawn one layer at a time, so a full-size
     model never holds an fp32 copy of a stacked weight. ``per_layer``: the
-    trainable layout, ``blocks`` a list of L per-layer dicts (same draws)."""
+    trainable layout, ``blocks`` a list of L per-layer dicts (same draws).
+
+    ``place(group, name, tensor, stacked)`` takes each leaf as soon as it is
+    made (a per-layer weight one layer at a time; ``stacked``: ``[L, ...]``)
+    and returns what the tree keeps of it: tensor parallelism's broadcast
+    from rank 0 and slice (:meth:`TransformerLM.__init__`), so that no rank
+    holds the whole tree. ``generator=None`` draws nothing: the weights are
+    left uninitialised for ``place`` to fill."""
     _refuse_unported(cfg)
     device = resolve_device(device)
     dtype = cfg.dtype if dtype is None else dtype
     L, H, Fi = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     f32 = dict(dtype=torch.float32, device=device)
+    place = place or (lambda group, name, t, stacked: t)
 
-    def dense(shape, fan_in, extra=1.0, dtype=dtype):
+    def draw(shape):
+        if generator is None:
+            return torch.empty(shape, **f32)
+        return torch.randn(shape, generator=generator, **f32)
+
+    def dense(name, shape, fan_in, extra=1.0, dtype=dtype):
         if per_layer:
-            return [torch.randn(shape, generator=generator, **f32)
-                    .mul_(1.0 / (math.sqrt(fan_in) * extra)).to(dtype) for _ in range(L)]
+            return [place("blocks", name, draw(shape).mul_(1.0 / (math.sqrt(fan_in) * extra))
+                          .to(dtype), False) for _ in range(L)]
         out = torch.empty((L, *shape), dtype=dtype, device=device)
         for l in range(L):
-            w = torch.randn(shape, generator=generator, **f32)
+            w = draw(shape)
             out[l] = w.mul_(1.0 / (math.sqrt(fan_in) * extra))
-        return out
+        return place("blocks", name, out, True)
+
+    def const(name, fill, shape):
+        return place("blocks", name, fill((L, *shape), **f32), True)
 
     blocks = {
-        "ln1_scale": torch.ones((L, H), **f32),
-        "wq": dense((H, nq * d), H),
-        "wk": dense((H, nkv * d), H),
-        "wv": dense((H, nkv * d), H),
-        "wo": dense((nq * d, H), nq * d, math.sqrt(2 * L)),
-        "ln2_scale": torch.ones((L, H), **f32),
+        "ln1_scale": const("ln1_scale", torch.ones, (H, )),
+        "wq": dense("wq", (H, nq * d), H),
+        "wk": dense("wk", (H, nkv * d), H),
+        "wv": dense("wv", (H, nkv * d), H),
+        "wo": dense("wo", (nq * d, H), nq * d, math.sqrt(2 * L)),
+        "ln2_scale": const("ln2_scale", torch.ones, (H, )),
     }
     if cfg.moe_num_experts > 0:  # transformer.py:167-173
         E = cfg.moe_num_experts
-        blocks["gate_wg"] = dense((H, E), H, dtype=torch.float32)  # the gate runs in fp32
-        blocks["moe_wi"] = dense((E, H, Fi), H)
-        blocks["moe_wo"] = dense((E, Fi, H), Fi, math.sqrt(2 * L))
+        # the gate runs in fp32
+        blocks["gate_wg"] = dense("gate_wg", (H, E), H, dtype=torch.float32)
+        blocks["moe_wi"] = dense("moe_wi", (E, H, Fi), H)
+        blocks["moe_wo"] = dense("moe_wo", (E, Fi, H), Fi, math.sqrt(2 * L))
         if cfg.mlp == "swiglu":
-            blocks["moe_wg"] = dense((E, H, Fi), H)
+            blocks["moe_wg"] = dense("moe_wg", (E, H, Fi), H)
     else:
-        blocks["w_up"] = dense((H, Fi), H)
-        blocks["w_down"] = dense((Fi, H), Fi, math.sqrt(2 * L))
+        blocks["w_up"] = dense("w_up", (H, Fi), H)
+        blocks["w_down"] = dense("w_down", (Fi, H), Fi, math.sqrt(2 * L))
         if cfg.mlp == "swiglu":
-            blocks["w_gate"] = dense((H, Fi), H)
+            blocks["w_gate"] = dense("w_gate", (H, Fi), H)
     if cfg.parallel_residual and cfg.shared_ln:
         del blocks["ln2_scale"]
     if cfg.norm == "layernorm":
-        blocks["ln1_bias"] = torch.zeros((L, H), **f32)
+        blocks["ln1_bias"] = const("ln1_bias", torch.zeros, (H, ))
         if not (cfg.parallel_residual and cfg.shared_ln):
-            blocks["ln2_bias"] = torch.zeros((L, H), **f32)
+            blocks["ln2_bias"] = const("ln2_bias", torch.zeros, (H, ))
     if cfg.qkv_bias_enabled:
-        blocks["bq"] = torch.zeros((L, nq * d), **f32)
-        blocks["bk"] = torch.zeros((L, nkv * d), **f32)
-        blocks["bv"] = torch.zeros((L, nkv * d), **f32)
+        blocks["bq"] = const("bq", torch.zeros, (nq * d, ))
+        blocks["bk"] = const("bk", torch.zeros, (nkv * d, ))
+        blocks["bv"] = const("bv", torch.zeros, (nkv * d, ))
     if cfg.use_bias:
-        blocks["bo"] = torch.zeros((L, H), **f32)
-        blocks["b_up"] = torch.zeros((L, Fi), **f32)
-        blocks["b_down"] = torch.zeros((L, H), **f32)
+        blocks["bo"] = const("bo", torch.zeros, (H, ))
+        blocks["b_up"] = const("b_up", torch.zeros, (Fi, ))
+        blocks["b_down"] = const("b_down", torch.zeros, (H, ))
 
     if per_layer:
         blocks = [{name: (t[l] if isinstance(t, list) else t[l].clone())
                    for name, t in blocks.items()} for l in range(L)]
-    emb = torch.randn((cfg.vocab_size, H), generator=generator, **f32).mul_(0.02)
+    emb = draw((cfg.vocab_size, H)).mul_(0.02)
     params = {
-        "embed": {"embedding": emb.to(dtype)},
+        "embed": {"embedding": place("embed", "embedding", emb.to(dtype), False)},
         "blocks": blocks,
-        "final_norm": {"scale": torch.ones((H, ), **f32)},
+        "final_norm": {"scale": place("final_norm", "scale", torch.ones((H, ), **f32), False)},
     }
     if cfg.norm == "layernorm":
-        params["final_norm"]["bias"] = torch.zeros((H, ), **f32)
+        params["final_norm"]["bias"] = place("final_norm", "bias", torch.zeros((H, ), **f32),
+                                             False)
     if cfg.embed_layernorm:
-        params["embed_norm"] = {"scale": torch.ones((H, ), **f32)}
+        params["embed_norm"] = {"scale": place("embed_norm", "scale", torch.ones((H, ), **f32),
+                                               False)}
         if cfg.norm == "layernorm":
-            params["embed_norm"]["bias"] = torch.zeros((H, ), **f32)
+            params["embed_norm"]["bias"] = place("embed_norm", "bias",
+                                                 torch.zeros((H, ), **f32), False)
     if cfg.positions == "learned":
-        pe = torch.randn((cfg.max_seq_len, H), generator=generator, **f32).mul_(0.02)
-        params["pos_embed"] = {"embedding": pe.to(dtype)}
+        pe = draw((cfg.max_seq_len, H)).mul_(0.02)
+        params["pos_embed"] = {"embedding": place("pos_embed", "embedding", pe.to(dtype), False)}
     if not cfg.tie_embeddings:
-        head = torch.randn((H, cfg.vocab_size), generator=generator, **f32)
-        params["lm_head"] = {"kernel": head.mul_(1.0 / math.sqrt(H)).to(dtype)}
+        head = draw((H, cfg.vocab_size)).mul_(1.0 / math.sqrt(H))
+        params["lm_head"] = {"kernel": place("lm_head", "kernel", head.to(dtype), False)}
     return params
 
 
@@ -418,31 +592,44 @@ def _sparse_attention(cfg: TransformerConfig, q, k, v):
     return ctx.transpose(1, 2)
 
 
-def _attention(cfg: TransformerConfig, q, k, v):
+def _attention(cfg: TransformerConfig, q, k, v, head0: int = 0):
     """``sparse_attention`` takes the block-sparse path; else
     ``attention_impl`` 'auto' takes the flash kernels on CUDA tensors and
-    the einsum reference elsewhere (``transformer.py:371``)."""
+    the einsum reference elsewhere (``transformer.py:371``). ``head0``: the
+    global index of q's first head (a tensor-parallel rank's), whose ALiBi
+    slopes it takes."""
     if cfg.sparse_attention is not None:
         return _sparse_attention(cfg, q, k, v)
     impl = cfg.attention_impl
     if impl == "auto":
         impl = "flash" if q.is_cuda else "reference"
     alibi = cfg.positions == "alibi"
+    nq = q.shape[2]
     if impl == "flash":
-        from ..ops.flash_attention import flash_attention
+        from ..ops.flash_attention import flash_attention, slope_table
 
+        if alibi and nq != cfg.num_heads:
+            alibi = slope_table(cfg.num_heads, q.device)[head0:head0 + nq]
         return flash_attention(q, k, v, causal=True, window=cfg.sliding_window, alibi=alibi)
     return reference_attention(q, k, v, causal=True, window=cfg.sliding_window,
-                               alibi=alibi_slopes(cfg.num_heads) if alibi else None)
+                               alibi=alibi_slopes(cfg.num_heads)[head0:head0 + nq]
+                               if alibi else None)
 
 
-def _attn_branch(cfg: TransformerConfig, layer, h, sin, cos, attend=None):
+def _attn_branch(cfg: TransformerConfig, layer, h, sin, cos, attend=None, tp=None):
     """Attention sub-block on pre-normed input ``h`` [B, S, H]. ``attend(q,
     k, v)`` -> [B, S, nq, d] (default :func:`_attention`; the KV-cache
-    forward passes one that writes the cache and attends over it)."""
+    forward passes one that writes the cache and attends over it). ``tp``
+    splitting attention: ``layer`` holds this rank's heads' columns of
+    q/k/v and rows of ``wo``; ``h`` enters the model region and the output
+    is summed over the model group before ``bo``."""
     dt = cfg.dtype
     B, S, H = h.shape
-    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    split = tp is not None and tp.attn
+    nq, nkv, head0 = tp.heads(cfg) if split else (cfg.num_heads, cfg.num_kv_heads, 0)
+    d = cfg.head_dim
+    if split:
+        h = copy_to_model_parallel_region(h, tp.group)
     q = h @ layer["wq"].to(dt)
     k = h @ layer["wk"].to(dt)
     v = h @ layer["wv"].to(dt)
@@ -456,21 +643,30 @@ def _attn_branch(cfg: TransformerConfig, layer, h, sin, cos, attend=None):
     if cfg.positions == "rotary":
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
-    ctx = (_attention(cfg, q, k, v) if attend is None else attend(q, k, v)).reshape(B, S, nq * d)
+    ctx = (_attention(cfg, q, k, v, head0) if attend is None else
+           attend(q, k, v)).reshape(B, S, nq * d)
     # named for remat_policy="save_only_these_names(attn_out)" (transformer.py:502-507)
     ctx = checkpointing.checkpoint_name("attn_out", ctx)
     out = ctx @ layer["wo"].to(dt)
+    if split:
+        out = reduce_from_model_parallel_region(out, tp.group)
     if cfg.use_bias:
         out = out + layer["bo"].to(dt)
     return out
 
 
-def _mlp_branch(cfg: TransformerConfig, layer, h, generator=None):
+def _mlp_branch(cfg: TransformerConfig, layer, h, generator=None, tp=None):
     """MLP (dense or MoE) sub-block on pre-normed input ``h``. Returns (out,
-    the MoE layer's aux loss or None)."""
+    the MoE layer's aux loss or None). ``tp`` splitting the MLP: ``layer``
+    holds this rank's FFN columns of ``w_up`` / ``w_gate`` and rows of
+    ``w_down``; the output is summed over the model group before
+    ``b_down``."""
     if cfg.moe_num_experts > 0:
         return _moe_mlp(cfg, layer, h, generator)
     dt = cfg.dtype
+    split = tp is not None and tp.mlp
+    if split:
+        h = copy_to_model_parallel_region(h, tp.group)
     up = h @ layer["w_up"].to(dt)
     if cfg.use_bias:
         up = up + layer["b_up"].to(dt)
@@ -479,6 +675,8 @@ def _mlp_branch(cfg: TransformerConfig, layer, h, generator=None):
     else:
         act = mlp_activation(cfg, up)
     down = act @ layer["w_down"].to(dt)
+    if split:
+        down = reduce_from_model_parallel_region(down, tp.group)
     if cfg.use_bias:
         down = down + layer["b_down"].to(dt)
     return down, None
@@ -559,20 +757,20 @@ def _moe_mlp(cfg: TransformerConfig, layer, h, generator=None):
     return torch.einsum("bsec,becm->bsm", combine.to(dt), expert_out), l_aux
 
 
-def _block(cfg: TransformerConfig, x, layer, sin, cos, generator=None, attend=None):
+def _block(cfg: TransformerConfig, x, layer, sin, cos, generator=None, attend=None, tp=None):
     """One transformer block on this layer's weights (``transformer.py:534``;
     ``parallel_residual``: attention and MLP read the same input). Returns
     (x, the MoE aux loss or None)."""
     h1 = _norm(x, layer["ln1_scale"], layer.get("ln1_bias"), cfg.norm, cfg.norm_eps)
-    attn_out = _attn_branch(cfg, layer, h1, sin, cos, attend)
+    attn_out = _attn_branch(cfg, layer, h1, sin, cos, attend, tp)
     if cfg.parallel_residual:
         h2 = h1 if cfg.shared_ln else _norm(x, layer["ln2_scale"], layer.get("ln2_bias"),
                                             cfg.norm, cfg.norm_eps)
-        mlp_out, aux = _mlp_branch(cfg, layer, h2, generator)
+        mlp_out, aux = _mlp_branch(cfg, layer, h2, generator, tp)
         return x + attn_out + mlp_out, aux
     x = x + attn_out
     h2 = _norm(x, layer["ln2_scale"], layer.get("ln2_bias"), cfg.norm, cfg.norm_eps)
-    mlp_out, aux = _mlp_branch(cfg, layer, h2, generator)
+    mlp_out, aux = _mlp_branch(cfg, layer, h2, generator, tp)
     return x + mlp_out, aux
 
 
@@ -608,11 +806,21 @@ def layers(blocks: Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]],
     return [{name: t[l] for name, t in blocks.items()} for l in range(n)]
 
 
-def forward_hidden(cfg: TransformerConfig, params, input_ids, generator=None):
+def _embed(cfg: TransformerConfig, params, ids, tp=None):
+    """Token ids -> embedding rows in ``cfg.dtype``: a vocab-parallel lookup
+    (``embedding_layer``) where ``tp`` splits the vocabulary."""
+    emb = params["embed"]["embedding"].to(cfg.dtype)
+    if tp is not None and tp.vocab:
+        return embedding_layer(ids, emb, tp.group)
+    return emb[ids]
+
+
+def forward_hidden(cfg: TransformerConfig, params, input_ids, generator=None, tp=None):
     """Token ids [B, S] -> (final-norm hidden [B, S, H], the MoE aux loss
     summed over layers; 0 for a dense model): the plain layer loop of
     ``transformer.py:645``. ``generator`` feeds the gating's draws (None:
-    deterministic routing).
+    deterministic routing). ``tp``: ``params`` are this rank's shards
+    (module docstring); the hidden states are whole on every rank.
 
     ``cfg.remat``: each block runs under ``checkpointing.checkpoint`` with
     ``cfg.remat_policy`` (``transformer.py:669-671``). The checkpointed
@@ -621,10 +829,11 @@ def forward_hidden(cfg: TransformerConfig, params, input_ids, generator=None):
     gathered weights die with the layer, the recompute gathers them again,
     and the gradient's reduce-scatter runs once, from the forward's
     gather. The generators are its arguments, so the gating's draws replay
-    in the recompute."""
+    in the recompute; a tensor-parallel recompute runs the block's
+    all-reduces again, in the same order on every rank."""
     dt = cfg.dtype
     B, S = input_ids.shape
-    x = params["embed"]["embedding"].to(dt)[input_ids]
+    x = _embed(cfg, params, input_ids, tp)
     if cfg.positions == "learned":
         x = x + params["pos_embed"]["embedding"].to(dt)[:S][None]
     if cfg.embed_layernorm:
@@ -636,7 +845,7 @@ def forward_hidden(cfg: TransformerConfig, params, input_ids, generator=None):
     blocks = layers(params["blocks"], cfg.num_layers)
 
     def block(x, l, generator):
-        return _block(cfg, x, blocks[l], sin, cos, generator)
+        return _block(cfg, x, blocks[l], sin, cos, generator, tp=tp)
 
     policy = checkpointing.resolve_policy(cfg.remat_policy) if cfg.remat else None
     auxs = []
@@ -652,9 +861,14 @@ def forward_hidden(cfg: TransformerConfig, params, input_ids, generator=None):
     return _norm(x, fn["scale"], fn.get("bias"), cfg.norm, cfg.norm_eps), moe_aux
 
 
-def _unembed(cfg: TransformerConfig, params, x):
-    """Final hidden [..., H] -> vocabulary logits [..., V] in fp32."""
+def _unembed(cfg: TransformerConfig, params, x, tp=None):
+    """Final hidden [..., H] -> vocabulary logits [..., V] in fp32; where
+    ``tp`` splits the vocabulary, this rank's slice ``[..., V / tp]`` (``x``
+    enters the model region; tied embeddings use the same vocab-split
+    table)."""
     dt = cfg.dtype
+    if tp is not None and tp.vocab:
+        x = copy_to_model_parallel_region(x, tp.group)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["embedding"].to(dt).t()
     else:
@@ -664,15 +878,24 @@ def _unembed(cfg: TransformerConfig, params, x):
     return logits.float()
 
 
-def forward_with_aux(cfg: TransformerConfig, params, input_ids, generator=None):
-    """Token ids [B, S] -> (logits [B, S, V] fp32, the MoE aux loss)."""
-    x, moe_aux = forward_hidden(cfg, params, input_ids, generator)
-    return _unembed(cfg, params, x), moe_aux
+def forward_with_aux(cfg: TransformerConfig, params, input_ids, generator=None, tp=None):
+    """Token ids [B, S] -> (logits [B, S, V] fp32, the MoE aux loss); where
+    ``tp`` splits the vocabulary, this rank's slice of the logits."""
+    x, moe_aux = forward_hidden(cfg, params, input_ids, generator, tp)
+    return _unembed(cfg, params, x, tp), moe_aux
 
 
-def forward(cfg: TransformerConfig, params, input_ids):
-    """Token ids [B, S] -> logits [B, S, V] (fp32)."""
-    return forward_with_aux(cfg, params, input_ids)[0]
+def _whole_logits(logits, tp=None):
+    """Vocab-split logits gathered over the model group (every rank then
+    holds the same ``[..., V]``); others as they are."""
+    if tp is not None and tp.vocab:
+        return gather_from_model_parallel_region(logits, tp.group)
+    return logits
+
+
+def forward(cfg: TransformerConfig, params, input_ids, tp=None):
+    """Token ids [B, S] -> logits [B, S, V] (fp32), whole on every rank."""
+    return _whole_logits(forward_with_aux(cfg, params, input_ids, tp=tp)[0], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -684,14 +907,17 @@ def forward(cfg: TransformerConfig, params, input_ids):
 V1_BLOCK = 128
 
 
-def init_kv_cache(cfg: TransformerConfig, batch_size: int, max_len: int, dtype=None, device=None):
+def init_kv_cache(cfg: TransformerConfig, batch_size: int, max_len: int, dtype=None, device=None,
+                  tp=None):
     """An empty cache of ``max_len`` positions per sequence: zeroed ``k`` /
     ``v`` [L, B, max_len, nkv, d] in ``dtype`` (default ``cfg.dtype``) on
     ``device`` (default CUDA), and ``length``, the positions filled, a host
-    int (so no step reads it from the device)."""
+    int (so no step reads it from the device). ``tp`` splitting attention:
+    nkv is this rank's kv heads."""
     dtype = cfg.dtype if dtype is None else dtype
     device = resolve_device(device)
-    shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
+    nkv = tp.heads(cfg)[1] if tp is not None else cfg.num_kv_heads
+    shape = (cfg.num_layers, batch_size, max_len, nkv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device), "length": 0}
 
@@ -727,11 +953,18 @@ def cached_attention_route(impl: str, device_type: str, cache_dtype, nq: int, nk
     return "paged"
 
 
-def _paged_descriptors(cfg: TransformerConfig, cache, B: int, T: int, start: int):
+def _head_slopes(cfg: TransformerConfig, head0: int, nq: int):
+    """The ALiBi slopes of heads ``head0 .. head0 + nq - 1`` (a
+    tensor-parallel rank's slice of the whole model's), or None."""
+    return alibi_slopes(cfg.num_heads)[head0:head0 + nq] if cfg.positions == "alibi" else None
+
+
+def _paged_descriptors(cfg: TransformerConfig, cache, B: int, T: int, start: int, head0: int = 0):
     """The paged route's inputs shared by every layer of one call: the
     identity block table (built once per cache), ``seq_idx`` and ``pos`` of
-    the call's B x T tokens and the ALiBi slopes, all on the cache's device
-    (so the prefill's tile descriptors are computed once per call)."""
+    the call's B x T tokens and the ALiBi slopes of the cache's query heads
+    from ``head0`` on, all on the cache's device (so the prefill's tile
+    descriptors are computed once per call)."""
     dev = cache["k"].device
     i32 = dict(dtype=torch.int32, device=dev)
     if "tables" not in cache:
@@ -739,12 +972,14 @@ def _paged_descriptors(cfg: TransformerConfig, cache, B: int, T: int, start: int
         cache["tables"] = torch.arange(B, **i32)[:, None] * nb + torch.arange(nb, **i32)[None, :]
     seq_idx = torch.arange(B, **i32).repeat_interleave(T)
     pos = torch.arange(start, start + T, **i32).repeat(B)
-    slopes = (torch.as_tensor(alibi_slopes(cfg.num_heads), device=dev)
-              if cfg.positions == "alibi" else None)
-    return cache["tables"], seq_idx, pos, slopes
+    nq = cfg.num_heads * cache["k"].shape[3] // cfg.num_kv_heads
+    slopes = _head_slopes(cfg, head0, nq)
+    return cache["tables"], seq_idx, pos, (torch.as_tensor(slopes, device=dev)
+                                           if slopes is not None else None)
 
 
-def _cached_attention(cfg: TransformerConfig, q, ck, cv, start: int, route: str, desc=None):
+def _cached_attention(cfg: TransformerConfig, q, ck, cv, start: int, route: str, desc=None,
+                      head0: int = 0):
     """q [B, T, nq, d] at positions ``start`` .. ``start + T - 1`` over one
     layer's cache ``ck`` / ``cv`` [B, Smax, nkv, d], whose positions below
     ``start + T`` hold keys and values -> [B, T, nq, d] in q's dtype. The
@@ -752,7 +987,8 @@ def _cached_attention(cfg: TransformerConfig, q, ck, cv, start: int, route: str,
     ``B * Smax`` slots, to ``ops.paged_attention.paged_attention`` with the
     identity table of ``desc``; the dense route is the reference's einsum
     (``transformer.py:819-832``). Both mask every position past the query's,
-    so positions past ``start + T`` never count."""
+    so positions past ``start + T`` never count. ``head0``: the global index
+    of q's first head (its ALiBi slope)."""
     B, T, nq, d = q.shape
     Smax, nkv = ck.shape[1], ck.shape[2]
     if route == "paged":
@@ -769,7 +1005,7 @@ def _cached_attention(cfg: TransformerConfig, q, ck, cv, start: int, route: str,
     k_pos = torch.arange(Smax, device=q.device)[None, :]
     q_pos = (start + torch.arange(T, device=q.device))[:, None]
     if cfg.positions == "alibi":
-        slopes = torch.as_tensor(alibi_slopes(nq), device=q.device).reshape(nkv, g)
+        slopes = torch.as_tensor(_head_slopes(cfg, head0, nq), device=q.device).reshape(nkv, g)
         scores = scores + slopes[None, :, :, None, None] * (k_pos - q_pos).float()
     mask = (k_pos <= q_pos) & (k_pos < start + T)
     if cfg.sliding_window is not None:
@@ -779,14 +1015,24 @@ def _cached_attention(cfg: TransformerConfig, q, ck, cv, start: int, route: str,
     return ctx.reshape(B, T, nq, d).to(q.dtype)
 
 
-def forward_with_cache(cfg: TransformerConfig, params, input_ids, cache):
+def forward_with_cache(cfg: TransformerConfig, params, input_ids, cache, tp=None):
     """Prefill or decode step (``transformer.py:856-922``): the tokens
     ``input_ids`` [B, T] at positions ``length`` .. ``length + T - 1`` run
     through every layer, each writing its k / v into the cache in place
     before attending over it. Returns (fp32 logits [B, T, V], the cache with
     ``length`` advanced by T; the same dict). ``params["blocks"]`` may be the
     stacked serving tree or a per-layer list. MoE blocks route without draws
-    (the deterministic gating of inference)."""
+    (the deterministic gating of inference). ``tp``: ``params`` are this
+    rank's shards and the cache holds its kv heads
+    (``init_kv_cache(..., tp=tp)``); the logits are gathered whole on every
+    rank."""
+    logits, cache = _forward_with_cache(cfg, params, input_ids, cache, tp)
+    return _whole_logits(logits, tp), cache
+
+
+def _forward_with_cache(cfg: TransformerConfig, params, input_ids, cache, tp=None):
+    """:func:`forward_with_cache` with the logits of this rank's vocabulary
+    slice where ``tp`` splits it."""
     if cfg.sparse_attention is not None:
         # serving a sparse-trained model with dense cached attention would
         # use a distribution the model never saw (transformer.py:859-865)
@@ -801,7 +1047,7 @@ def forward_with_cache(cfg: TransformerConfig, params, input_ids, cache):
     if start + T > Smax:
         raise ValueError(f"the cache holds {Smax} positions; {start} filled + {T} new exceed it")
     ids = input_ids.to(ck_all.device).long()
-    x = params["embed"]["embedding"].to(dt)[ids]
+    x = _embed(cfg, params, ids, tp)
     if cfg.positions == "learned":
         x = x + params["pos_embed"]["embedding"].to(dt)[start:start + T][None]
     if cfg.embed_layernorm:
@@ -810,22 +1056,26 @@ def forward_with_cache(cfg: TransformerConfig, params, input_ids, cache):
     sin = cos = None
     if cfg.positions == "rotary":
         sin, cos = rope_table(cfg, torch.arange(start, start + T, device=ck_all.device))
+    nq, want_nkv, head0 = tp.heads(cfg) if tp is not None else (cfg.num_heads, nkv, 0)
+    if nkv != want_nkv:
+        raise ValueError(f"the cache holds {nkv} kv heads a layer, this rank's attention "
+                         f"{want_nkv}: build it with init_kv_cache(..., tp=tp)")
     route = cached_attention_route(cfg.attention_impl, ck_all.device.type, ck_all.dtype,
-                                   cfg.num_heads, nkv, d, Smax)
-    desc = _paged_descriptors(cfg, cache, B, T, start) if route == "paged" else None
+                                   nq, nkv, d, Smax)
+    desc = _paged_descriptors(cfg, cache, B, T, start, head0) if route == "paged" else None
     for l, layer in enumerate(layers(params["blocks"], L)):
         ck, cv = ck_all[l], cv_all[l]
 
         def attend(q, k, v, ck=ck, cv=cv):
             ck[:, start:start + T] = k
             cv[:, start:start + T] = v
-            return _cached_attention(cfg, q, ck, cv, start, route, desc)
+            return _cached_attention(cfg, q, ck, cv, start, route, desc, head0)
 
-        x, _ = _block(cfg, x, layer, sin, cos, attend=attend)
+        x, _ = _block(cfg, x, layer, sin, cos, attend=attend, tp=tp)
     fn = params["final_norm"]
     x = _norm(x, fn["scale"], fn.get("bias"), cfg.norm, cfg.norm_eps)
     cache["length"] = start + T
-    return _unembed(cfg, params, x), cache
+    return _unembed(cfg, params, x, tp), cache
 
 
 def _ce_aux(batch, input_ids):
@@ -853,25 +1103,36 @@ def ce_count(batch) -> torch.Tensor:
     return torch.full((), float(input_ids[..., :scored].numel()), device=input_ids.device)
 
 
-def _ce_loss(logits, aux):
-    """Next-token cross entropy (masked mean with a 'loss_mask')."""
+def _token_ll(logits, labels, tp=None):
+    """log softmax(logits)[label] per position; vocab-parallel
+    (``vocab_parallel_log_likelihood``) where ``tp`` splits the vocabulary
+    and ``logits`` are this rank's slice."""
+    if tp is not None and tp.vocab:
+        return vocab_parallel_log_likelihood(logits, labels, tp.group)
+    return torch.gather(torch.log_softmax(logits, dim=-1), -1, labels[..., None].long())[..., 0]
+
+
+def _ce_loss(logits, aux, tp=None):
+    """Next-token cross entropy (masked mean with a 'loss_mask'). ``tp``
+    splitting the vocabulary: ``logits`` are this rank's slice."""
     if "labels" in aux:
         shift_logits, labels = logits, aux["labels"]
     else:
         shift_logits, labels = logits[..., :-1, :], aux["shift_ids"][..., 1:]
-    logp = torch.log_softmax(shift_logits, dim=-1)
-    token_ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    token_ll = _token_ll(shift_logits, labels, tp)
     if "loss_mask" in aux:
         mask = aux["loss_mask"][..., :token_ll.shape[-1]].float()
         return -(token_ll * mask).sum() / mask.sum().clamp_min(1.0)
     return -token_ll.mean()
 
 
-def _chunked_ce_loss(cfg: TransformerConfig, params, h, aux, chunk: int):
+def _chunked_ce_loss(cfg: TransformerConfig, params, h, aux, chunk: int, tp=None):
     """Sequence-chunked CE over final hidden ``h`` [B, S, H]: each chunk's
     [B, chunk, V] logits are recomputed in the backward
     (``torch.utils.checkpoint``), so at most one chunk's logits is alive.
-    The same masked-mean semantics as :func:`_ce_loss`."""
+    The same masked-mean semantics as :func:`_ce_loss`; under ``tp`` each
+    chunk's logits are this rank's vocabulary slice and the recompute runs
+    the chunk's all-reduces again."""
     from torch.utils.checkpoint import checkpoint
 
     if "labels" in aux:
@@ -885,8 +1146,7 @@ def _chunked_ce_loss(cfg: TransformerConfig, params, h, aux, chunk: int):
     labels = labels.long()
 
     def chunk_ll(h_c, l_c, m_c):
-        logp = torch.log_softmax(_unembed(cfg, params, h_c), dim=-1)
-        return (torch.gather(logp, -1, l_c[..., None])[..., 0] * m_c).sum()
+        return (_token_ll(_unembed(cfg, params, h_c, tp), l_c, tp) * m_c).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for s0 in range(0, Sp, chunk):
@@ -896,7 +1156,7 @@ def _chunked_ce_loss(cfg: TransformerConfig, params, h, aux, chunk: int):
     return -total / mask.sum().clamp_min(1.0)
 
 
-def loss_terms(cfg: TransformerConfig, params, batch, generator=None):
+def loss_terms(cfg: TransformerConfig, params, batch, generator=None, tp=None):
     """The two terms of :func:`loss_fn`: (next-token cross entropy,
     ``moe_aux_loss_coef`` times the MoE aux loss, 0 for a dense model).
     Data parallelism weights them apart: the CE is a masked mean over the
@@ -904,25 +1164,52 @@ def loss_terms(cfg: TransformerConfig, params, batch, generator=None):
     input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
     aux = _ce_aux(batch, input_ids)
     if cfg.loss_chunk and input_ids.shape[1] > cfg.loss_chunk:
-        h, moe_aux = forward_hidden(cfg, params, input_ids, generator)
-        ce = _chunked_ce_loss(cfg, params, h, aux, int(cfg.loss_chunk))
+        h, moe_aux = forward_hidden(cfg, params, input_ids, generator, tp)
+        ce = _chunked_ce_loss(cfg, params, h, aux, int(cfg.loss_chunk), tp)
     else:
-        logits, moe_aux = forward_with_aux(cfg, params, input_ids, generator)
-        ce = _ce_loss(logits, aux)
+        logits, moe_aux = forward_with_aux(cfg, params, input_ids, generator, tp)
+        ce = _ce_loss(logits, aux, tp)
     if cfg.moe_num_experts > 0:
         return ce, cfg.moe_aux_loss_coef * moe_aux
     return ce, torch.zeros((), device=ce.device)
 
 
-def loss_fn(cfg: TransformerConfig, params, batch, generator=None):
+def loss_fn(cfg: TransformerConfig, params, batch, generator=None, tp=None):
     """Next-token cross entropy, plus ``moe_aux_loss_coef`` times the MoE
     aux loss (``transformer.py:1025-1040``). ``batch``: a dict with
     'input_ids' [B, S] and optional 'labels' and 'loss_mask', or the ids
     tensor itself. ``cfg.loss_chunk`` routes through the sequence-chunked
     CE. ``generator``: the gating's randomness (None: no draws; see
-    :func:`_moe_mlp`)."""
-    ce, aux = loss_terms(cfg, params, batch, generator)
+    :func:`_moe_mlp`). ``tp``: ``params`` are this rank's shards; the loss
+    is the whole model's, equal on every model rank."""
+    ce, aux = loss_terms(cfg, params, batch, generator, tp)
     return ce + aux if cfg.moe_num_experts > 0 else ce
+
+
+def tensor_parallel_dims(cfg: TransformerConfig, tp: TensorParallel) -> Dict[Tuple[str, str],
+                                                                            Optional[int]]:
+    """{(group, name): the dim ``tp`` splits of that per-layer leaf, or
+    None}, from the config's whole shapes (built on the meta device)."""
+    full = init_params(cfg, None, "meta", torch.float32, per_layer=True)
+    dims = {}
+    for group, leaves in full.items():
+        for name, t in (leaves[0] if group == "blocks" else leaves).items():
+            dims[(group, name)] = tp.split_dim(group, name, t.shape)
+    return dims
+
+
+def _rank_zero_params(cfg: TransformerConfig, tp: TensorParallel, seed: int, device, dtype,
+                      per_layer: bool) -> Dict[str, Any]:
+    """This rank's shards of the tree that world rank 0 draws from ``seed``
+    (the tree a single rank would build): each leaf broadcast from world
+    rank 0 as soon as it is drawn, and sliced; no other rank draws."""
+    gen = torch.Generator(device=device).manual_seed(seed) if comm.get_rank() == 0 else None
+
+    def place(group, name, t, stacked):
+        comm.broadcast(t, src=0)
+        return tp.shard(group, name, t, stacked)
+
+    return init_params(cfg, gen, device, dtype, per_layer=per_layer, place=place)
 
 
 class TransformerLM(nn.Module):
@@ -934,19 +1221,33 @@ class TransformerLM(nn.Module):
     ``requires_grad``, ``blocks`` an ``nn.ModuleList`` of per-layer
     ``nn.ParameterDict``s (``params`` must then be in the per-layer layout,
     see ``convert.params_from_jax(per_layer=True)``); :meth:`loss` is the
-    training objective the engine differentiates."""
+    training objective the engine differentiates.
+
+    ``tp`` (a :class:`TensorParallel`, e.g. :func:`tensor_parallel` of the
+    config over the mesh's model group): the model holds this rank's shards
+    (``params``, if given, are them: ``convert.tensor_parallel_shards``;
+    else this rank's slices of the tree world rank 0 draws from ``seed``,
+    broadcast and sliced leaf by leaf), each split parameter marked
+    ``tensor_model_parallel`` with its ``partition_dim``, and every forward
+    runs the tensor-parallel path. A model built whole becomes a rank's
+    shards through :meth:`shard_tensor_parallel` (the engines call it)."""
 
     def __init__(self, config: TransformerConfig, params: Optional[Dict[str, Any]] = None, *,
-                 device=None, seed: int = 0, dtype=None, trainable: bool = False):
+                 device=None, seed: int = 0, dtype=None, trainable: bool = False,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         _refuse_unported(config)
         self.config = config
         self.trainable = trainable
+        self.tp = None
         if params is None:
             dev = resolve_device(device)
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            params = init_params(config, gen, dev, torch.float32 if trainable else dtype,
-                                 per_layer=trainable)
+            dtype = torch.float32 if trainable else dtype
+            if tp is None:
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                params = init_params(config, gen, dev, dtype, per_layer=trainable)
+            else:
+                params = _rank_zero_params(config, tp, seed, dev, dtype, trainable)
         if trainable:
             if not isinstance(params["blocks"], (list, tuple)):
                 raise ValueError("a trainable TransformerLM takes per-layer blocks "
@@ -971,6 +1272,48 @@ class TransformerLM(nn.Module):
                 for name in ("moe_wi", "moe_wg", "moe_wo"):
                     if name in layer:
                         layer[name].allreduce = False
+        if tp is not None:
+            self._mark_tensor_parallel(tp)
+
+    def _leaves(self):
+        """(group, name, parameter, whether it is stacked ``[L, ...]``) of
+        every leaf, in the tree's order."""
+        for group, mod in self.tree.items():
+            if isinstance(mod, nn.ModuleList):
+                for layer in mod:
+                    for name, p in layer.items():
+                        yield group, name, p, False
+            else:
+                for name, p in mod.items():
+                    yield group, name, p, group == "blocks"
+
+    def _mark_tensor_parallel(self, tp: TensorParallel) -> None:
+        """Megatron's marks on the split parameters (``tensor_model_parallel``,
+        ``partition_dim``: read by the ZeRO partition's norm and the engine's
+        whole state dict); ``self.tp = tp``."""
+        dims = tensor_parallel_dims(self.config, tp)
+        for group, name, p, stacked in self._leaves():
+            d = dims[(group, name)]
+            p.tensor_model_parallel = d is not None
+            p.partition_dim = None if d is None else d + int(stacked)
+        self.tp = tp
+
+    def shard_tensor_parallel(self, tp: TensorParallel) -> None:
+        """A whole model -> this rank's shards, in place (the parameters stay
+        the same objects): leaf by leaf, world rank 0's value broadcast and
+        this rank's slice kept, so every rank starts from rank 0's weights.
+        A model that holds shards of the same plan is left as it is."""
+        if self.tp is not None:
+            if (self.tp.size, self.tp.rank, self.tp.attn, self.tp.mlp, self.tp.vocab) != (
+                    tp.size, tp.rank, tp.attn, tp.mlp, tp.vocab):
+                raise ValueError(f"the model holds the shards of {self.tp}, not of {tp}")
+            self.tp = tp
+            return
+        with torch.no_grad():
+            for group, name, p, stacked in self._leaves():
+                whole = comm.broadcast(p.data, src=0)
+                p.data = tp.shard(group, name, whole, stacked)
+        self._mark_tensor_parallel(tp)
 
     def params(self) -> Dict[str, Any]:
         """The parameter tree as plain nested dicts of tensors (no copies):
@@ -989,13 +1332,14 @@ class TransformerLM(nn.Module):
         """The training objective on ``params`` (default :meth:`params`; the
         ZeRO engine passes :meth:`gathered_params` at stage 3 and for
         expert-parallel experts)."""
-        return loss_fn(self.config, self.params() if params is None else params, batch, generator)
+        return loss_fn(self.config, self.params() if params is None else params, batch, generator,
+                       self.tp)
 
     def _loss_terms(self, batch, generator=None, params=None):
         """:meth:`loss`'s (CE, aux) terms (:func:`loss_terms`), which the
         data-parallel engine weights apart."""
         return loss_terms(self.config, self.params() if params is None else params, batch,
-                          generator)
+                          generator, self.tp)
 
     def loss_count(self, batch) -> torch.Tensor:
         """The count the loss's mean divides by (:func:`ce_count`): the
@@ -1048,4 +1392,4 @@ class TransformerLM(nn.Module):
         return tree
 
     def forward(self, input_ids):
-        return forward(self.config, self.params(), input_ids)
+        return forward(self.config, self.params(), input_ids, self.tp)

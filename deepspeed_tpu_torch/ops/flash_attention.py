@@ -294,22 +294,26 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, causal: bool = True, window=None, alibi: bool = False):
+def flash_attention(q, k, v, causal: bool = True, window=None, alibi=False):
     """q: [B, S, nq, d]; k/v: [B, S, nkv, d] with nq % nkv == 0.
     ``window``: query i attends keys in (i - window, i]; needs causal.
-    ``alibi``: adds ``slope_h * (k_pos - q_pos)`` with the standard slopes."""
+    ``alibi``: True adds ``slope_h * (k_pos - q_pos)`` with the standard
+    slopes of nq heads; a [nq] fp32 tensor on q's device gives the slopes
+    (a tensor-parallel rank's slice of the whole model's, see
+    :func:`slope_table`)."""
     if window is not None:
         if not causal:
             raise ValueError("sliding window requires causal attention")
         window = int(window)
-    slopes = _slope_table(q.shape[2], q.device) if alibi else None
+    slopes = alibi if torch.is_tensor(alibi) else (slope_table(q.shape[2], q.device)
+                                                    if alibi else None)
     return FlashAttention.apply(q, k, v, causal, window, slopes)
 
 
 _SLOPES = {}
 
 
-def _slope_table(n_heads: int, device) -> torch.Tensor:
+def slope_table(n_heads: int, device) -> torch.Tensor:
     """The ALiBi slopes on ``device``, copied there once (a host-to-device
     copy per call would synchronise every layer)."""
     key = (n_heads, str(device))

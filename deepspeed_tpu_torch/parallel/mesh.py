@@ -7,13 +7,17 @@ collectives; here the mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 over the ranks of the default process group, one rank a device.
 
 The port shards over ``data`` (data parallelism and ZeRO; a MoE model's
-experts shard over the same group). ``expert`` is the reference's expert
-parallel size: it must divide ``data * seq`` (``resolve``), and the port
-takes 1 or ``data * seq`` only, the two layouts its partition builds
-(``refuse_expert_data_replicas``). Every other axis above 1 raises, naming
-the ROADMAP item that ports it.
+experts shard over the same group) and ``model`` (tensor parallelism: the
+Megatron column / row splits of ``module_inject``). ``model`` is the
+innermost axis, as in the reference's ``AXIS_ORDER``: rank ``d * model + m``
+is data index d and model index m, so the ranks of a model group are
+neighbours. ``expert`` is the reference's expert parallel size: it must
+divide ``data * seq`` (``resolve``), and the port takes 1 or ``data * seq``
+only, the two layouts its partition builds (``refuse_expert_data_replicas``).
+Every other axis above 1 raises, naming the ROADMAP item that ports it.
 """
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -27,7 +31,6 @@ EXPERT_AXIS = "expert"
 
 # the axes the port does not shard over yet, and the ROADMAP item of each
 UNPORTED_AXES = {
-    MODEL_AXIS: "tensor parallelism (ROADMAP A3b)",
     PIPE_AXIS: "pipeline parallelism (ROADMAP A6.8)",
     SEQ_AXIS: "sequence parallelism (ROADMAP A8)",
     DATA_REPL_AXIS: "MiCS replica groups (ROADMAP A2, left open)",
@@ -35,13 +38,13 @@ UNPORTED_AXES = {
 
 
 def refuse_unported_axes(sizes: dict) -> None:
-    """Raise for any axis of ``sizes`` other than ``data`` and ``expert``
-    above 1."""
+    """Raise for any axis of ``sizes`` other than ``data``, ``model`` and
+    ``expert`` above 1."""
     for axis, item in UNPORTED_AXES.items():
         n = int(sizes.get(axis, 1))
         if n > 1:
             raise NotImplementedError(f"mesh axis '{axis}' of size {n}: {item} is not ported to "
-                                      f"the PyTorch package yet; it shards over 'data' only")
+                                      f"the PyTorch package yet; it shards over 'data' and 'model' only")
 
 
 def refuse_expert_data_replicas(expert: int, data: int) -> None:
@@ -90,13 +93,24 @@ class MeshConfig:
 
 
 def build_mesh(config: MeshConfig, world_size: int, device_type: str):
-    """A one-axis ``DeviceMesh`` named ``data`` over the ``world_size``
-    ranks of the default process group (which it reuses as the axis's
-    group), after resolving ``config`` against ``world_size`` and refusing
-    every other axis above 1 and expert-data replicas."""
+    """A ``DeviceMesh`` over the ``world_size`` ranks of the default process
+    group, after resolving ``config`` against ``world_size`` and refusing
+    every other axis above 1 and expert-data replicas: at ``model`` 1 one
+    axis named ``data`` (which reuses the default group as its group), else
+    two, ``(data, model)``, rank ``d * model + m`` at ``[d, m]``."""
+    import torch
     from torch.distributed.device_mesh import DeviceMesh
 
     sizes = config.resolve(world_size)
     refuse_unported_axes(sizes)
     refuse_expert_data_replicas(config.expert, sizes[DATA_AXIS] * sizes[SEQ_AXIS])
-    return DeviceMesh(device_type, list(range(world_size)), mesh_dim_names=(DATA_AXIS, ))
+    if device_type == "cuda" and not torch.cuda.is_initialized():
+        # a DeviceMesh binds a process with no CUDA context yet to
+        # cuda:LOCAL_RANK; gloo ranks sharing a card bind to LOCAL_RANK modulo
+        # the cards, as comm's backend binds NCCL ranks
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
+        torch.cuda.init()
+    if sizes[MODEL_AXIS] == 1:
+        return DeviceMesh(device_type, list(range(world_size)), mesh_dim_names=(DATA_AXIS, ))
+    ranks = torch.arange(world_size).reshape(sizes[DATA_AXIS], sizes[MODEL_AXIS])
+    return DeviceMesh(device_type, ranks, mesh_dim_names=(DATA_AXIS, MODEL_AXIS))

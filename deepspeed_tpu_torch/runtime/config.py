@@ -67,8 +67,11 @@ class ActivationCheckpointingConfig:
     ``checkpointing.configure(deepspeed_config=...)`` reads.
     ``remat_policy`` names a policy of ``checkpointing.resolve_policy``.
     ``partition_activations`` spreads saved activations over the ``seq``
-    and ``model`` axes in the reference; the port refuses both above 1
-    (``parallel/mesh.py``), so there it is the no-op it is accepted as.
+    and ``model`` axes in the reference. The port refuses ``seq`` above 1
+    (``parallel/mesh.py``); at ``model`` above 1 each rank keeps the whole
+    of what a checkpointed block saves (its input, replicated over the
+    model group), the flag a no-op: spreading it over the model group is
+    ROADMAP A3b, left open.
     ``cpu_checkpointing`` keeps a checkpointed region's inputs in pinned
     host memory."""
     partition_activations: bool = False
@@ -90,8 +93,9 @@ class TPUConfig:
     """The ``tpu`` block: of its knobs the port honours ``pallas_fused_adam``
     (``"always"`` engages the fused Adam kernel; ``"auto"`` resolves to off,
     as in the JAX package) and ``mesh`` (``parallel.mesh.MeshConfig``'s
-    fields; ``data`` may be above 1, or -1 for the world size; every other
-    axis above 1 raises, naming its ROADMAP item)."""
+    fields; ``data`` and ``model`` may be above 1, one of them -1 for the
+    rest of the world; every other axis above 1 raises, naming its ROADMAP
+    item)."""
     pallas_fused_adam: str = "auto"
     mesh: dict = None
 
@@ -112,8 +116,10 @@ class TPUConfig:
 class HybridEngineConfig:
     """The ``hybrid_engine`` block (``deepspeed_tpu/runtime/config.py:233``):
     ``enabled`` makes ``initialize`` return ``DeepSpeedHybridEngine``. The
-    other knobs are accepted as the JAX package accepts them; a tensor-parallel
-    inference view is not ported."""
+    other knobs are accepted as the JAX package accepts them. A
+    tensor-parallel inference view (``inference_tp_size`` above 1) needs the
+    hybrid engine at world size >= 2, which is not ported (ROADMAP A1, left
+    open)."""
     enabled: bool = False
     max_out_tokens: int = 512
     inference_tp_size: int = 1
@@ -124,8 +130,9 @@ class HybridEngineConfig:
     def __post_init__(self):
         if int(self.inference_tp_size) > 1:
             raise NotImplementedError(
-                f"hybrid_engine.inference_tp_size={self.inference_tp_size}: tensor parallelism is "
-                f"not ported to the PyTorch package yet (ROADMAP A3b)")
+                f"hybrid_engine.inference_tp_size={self.inference_tp_size}: a tensor-parallel "
+                f"inference view needs the hybrid engine at world size >= 2, whose bf16 view of "
+                f"sharded masters needs a gather (ROADMAP A1, left open)")
 
 
 class DeepSpeedConfig:

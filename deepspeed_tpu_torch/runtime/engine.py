@@ -48,6 +48,17 @@ ranks where the world divides their count (``zero/partition.py``). At world
 size 1 nothing of this runs: no collective, no copy. The hybrid engine is
 refused at world size >= 2.
 
+Tensor parallelism (``"tpu": {"mesh": {"data": D, "model": M}}``, the
+reference's ``engine.py:170``): ``dp_world_size`` / ``dp_rank`` are the data
+axis's and ``mp_world_size`` / ``mp_rank`` the model axis's. The model
+becomes this rank's shards (``TransformerLM.shard_tensor_parallel``, rank
+0's weights), every rank of a model group takes the same rows (those of
+its data rank), and ZeRO partitions each rank's shards over its data group
+(none where D is 1). The gradient norm is the whole logical model's: the
+split parameters' square sums add over the model group, a replicated one's
+counts once (on model rank 0). ``module_state_dict`` gathers the whole,
+unsplit tree on every rank.
+
 The eager API (``engine.py:1597-1729``): ``forward(batch)`` (and
 ``engine(batch)``) takes this rank's microbatch ``i = micro_steps % gas``
 and returns its loss with its graph, ``backward(loss)`` adds its gradients
@@ -76,7 +87,7 @@ from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import LRScheduler, get_lr_schedule_fn
 from .optimizers import Adam, build_optimizer
 from .utils import clip_by_global_norm_, global_norm
-from .zero.partition import ZeroPartition
+from .zero.partition import ZeroPartition, is_model_parallel
 
 logger = logging.getLogger("deepspeed_tpu_torch")
 
@@ -110,6 +121,10 @@ class DeepSpeedEngine:
         groups.initialize_mesh(config.tpu_config.mesh_config(), self.device.type)
         self.dp_world_size = groups.get_data_parallel_world_size()
         self.dp_rank = groups.get_data_parallel_rank()
+        self.mp_world_size = groups.get_model_parallel_world_size()
+        self.mp_rank = groups.get_model_parallel_rank()
+        if self.mp_world_size > 1:
+            self._split_model(model)
         if self.dp_world_size > 1:
             self._refuse_at_world_above_one(model, optimizer)
         config.resolve_batch_config(self.dp_world_size)
@@ -131,9 +146,15 @@ class DeepSpeedEngine:
             # stage 3 gathers a group in the dtype the model computes in
             cast = getattr(getattr(model, "config", None), "dtype", self.compute_dtype)
             self._zero = ZeroPartition(model, self._params, config.zero_optimization_stage,
-                                       groups.get_data_parallel_group(), cast)
+                                       groups.get_data_parallel_group(), cast,
+                                       model_group=groups.get_model_parallel_group())
             self._opt_params = self._zero.optimizer_params()
-        self._grad_norm = self._zero.grad_norm if self._zero is not None else global_norm
+        if self._zero is not None:
+            self._grad_norm = self._zero.grad_norm
+        elif self.mp_world_size > 1:
+            self._grad_norm = self._model_parallel_norm
+        else:
+            self._grad_norm = global_norm
         # the gating's randomness (MoE): a generator a batch row, on the device
         self._loss_takes_generator = (hasattr(model, "loss") and "generator" in
                                       inspect.signature(model.loss).parameters)
@@ -162,6 +183,26 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # configuration
     # ------------------------------------------------------------------
+    def _split_model(self, model):
+        """Model size >= 2: the model becomes this rank's tensor-parallel
+        shards (a model built with this plan's shards stays as it is)."""
+        if not hasattr(model, "shard_tensor_parallel"):
+            raise NotImplementedError(
+                f"tensor parallelism (mesh 'model' {self.mp_world_size}) splits the model's "
+                f"weights: the model needs shard_tensor_parallel() (a TransformerLM has it)")
+        from ..models.transformer import tensor_parallel
+
+        model.shard_tensor_parallel(tensor_parallel(model.config,
+                                                    groups.get_model_parallel_group()))
+
+    def _model_parallel_norm(self, grads):
+        """The whole model's gradient norm at model size >= 2 without a
+        ZeRO partition: the split parameters' gradients on every model rank,
+        the replicated ones' on model rank 0, summed over the model group."""
+        counted = [g for g, p in zip(grads, self._params)
+                   if self.mp_rank == 0 or is_model_parallel(p)]
+        return global_norm(counted, groups.get_model_parallel_group())
+
     def _refuse_at_world_above_one(self, model, client_optimizer):
         """What does not train at data-parallel world size >= 2 yet, each
         naming its ROADMAP item; and every rank on one kind of device."""
@@ -591,7 +632,8 @@ class DeepSpeedEngine:
     def deepspeed_io(self, dataset, batch_size: Optional[int] = None, collate_fn=None):
         """A ``DeepSpeedDataLoader`` of this rank's microbatches (the
         ``data_iter`` contract of ``train_batch``): its sampler takes the
-        data-parallel rank and world size of ``parallel.groups``."""
+        data-parallel rank and world size of ``parallel.groups`` (the ranks
+        of a model group read the same rows)."""
         return DeepSpeedDataLoader(dataset,
                                    batch_size=batch_size or self.config.train_micro_batch_size_per_gpu,
                                    collate_fn=collate_fn, drop_last=self.config.dataloader_drop_last,
@@ -600,12 +642,19 @@ class DeepSpeedEngine:
 
     def module_state_dict(self):
         """{parameter name: its full fp32 master} of the trainable
-        parameters, at any stage and world size (stage 3 gathers them).
-        Copies at world size >= 2, the parameters themselves at 1."""
+        parameters, at any stage and world size (stage 3 gathers them; a
+        tensor-parallel shard is gathered whole over the model group, on
+        every rank). Copies where they are gathered, else the parameters
+        themselves."""
         names = {id(p): n for n, p in self.module.named_parameters()}
         if self._zero is None:
-            return {names[id(p)]: p.detach() for p in self._params}
-        full = {id(p): t for p, t in self._zero.full_params()}
+            full = {id(p): p.detach() for p in self._params}
+        else:
+            full = {id(p): t for p, t in self._zero.full_params()}
+        if self.mp_world_size > 1:
+            group = groups.get_model_parallel_group()
+            full = {id(p): comm.all_gather(full[id(p)], group, dim=p.partition_dim)
+                    if is_model_parallel(p) else full[id(p)] for p in self._params}
         return {names[id(p)]: full[id(p)] for p in self._params}
 
     def zero_resident_bytes(self):

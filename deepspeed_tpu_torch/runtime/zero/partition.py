@@ -88,12 +88,29 @@ The newest partition over a model owns its parameters: it rebinds them to
 its buffers and takes the stage-2 hooks of an earlier one off them, and a
 partition's hooks go with it, so a dropped engine leaves the model's own
 backward alone.
+
+Tensor parallelism (the ``model`` mesh axis). The reference's
+``ZeroShardingPolicy`` applies the tensor-parallel specs first
+(:class:`PartitionRules`, :func:`sanitize_spec`) and then ZeRO-shards over
+the data axes. Here the model's parameters already are this rank's
+tensor-parallel shards (``models.TensorParallel``), so the partition is
+built from them over the data group alone: the ranks of a data group share
+a model index and hold shards of the same shapes. The gradient norm is the
+norm of the whole logical model: a parameter marked
+``tensor_model_parallel`` (Megatron's mark; split over the model group) adds
+its square sum on every model rank, and any other (norm scales, ``bo``,
+``b_down``, what :func:`sanitize_spec` replicated: the same on every model
+rank) on model rank 0 alone, as Megatron counts them. The square sums are
+then summed over the world at stages 1-3 (data shards and model shards) and
+over the model group at stage 0.
 """
 
 import contextlib
 import math
+import re
+import warnings
 import weakref
-from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -110,6 +127,78 @@ def round_up(n: int, m: int) -> int:
 
 def _sum_squares(tensors) -> torch.Tensor:
     return torch.stack(torch._foreach_norm(tensors)).square().sum()
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel specs (partition.py:58-115 of the JAX package)
+# ---------------------------------------------------------------------------
+
+class PartitionRules:
+    """Ordered (regex, spec) table mapping parameter paths to tensor-parallel
+    specs: a spec is a tuple with one entry a dim, a mesh axis name (or a
+    tuple of them) or None (the reference's ``PartitionSpec`` entries).
+    First match wins; no match replicates. Paths are ``group/name``: a
+    trainable model's per-layer blocks are ``blocks/<name>`` (the layer
+    index is not part of the path), and the specs are per layer."""
+
+    def __init__(self, rules: Optional[Sequence[Tuple[str, tuple]]] = None):
+        self.rules = [(re.compile(pat), tuple(spec)) for pat, spec in (rules or [])]
+
+    def spec_for(self, path: str, ndim: int) -> tuple:
+        for pat, spec in self.rules:
+            if pat.search(path):
+                entries = list(spec) + [None] * (ndim - len(spec))
+                return tuple(entries[:ndim])
+        return (None, ) * ndim
+
+    def tree_specs(self, params) -> Any:
+        """The spec of every leaf of a port parameter tree, in its structure.
+        ``blocks`` held as a dict of ``[L, ...]`` tensors (the serving
+        layout) gets a leading None for the layer dim."""
+
+        def walk(node, path, lead):
+            if isinstance(node, dict):
+                return {k: walk(v, f"{path}/{k}", lead) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return [walk(v, path, lead) for v in node]
+            return (None, ) * lead + self.spec_for(path, node.dim() - lead)
+
+        return {g: walk(v, g, int(g == "blocks" and isinstance(v, dict)))
+                for g, v in params.items()}
+
+
+def sanitize_spec(spec: tuple, shape: Sequence[int], sizes: Dict[str, int],
+                  path: str = "") -> tuple:
+    """Drop the spec entries whose axes' product does not divide the dim
+    (``sizes``: each mesh axis's size): that dim is replicated instead,
+    loudly, so a size the axis does not divide never silently disables the
+    split elsewhere (reference ``sanitize_spec``)."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for i, e in enumerate(entries[:len(shape)]):
+        if e is None:
+            out.append(None)
+            continue
+        keep, size = [], shape[i]
+        for a in (e if isinstance(e, (tuple, list)) else (e, )):
+            n = sizes.get(a, 1)
+            if n <= 1:
+                continue
+            if size % n == 0:
+                keep.append(a)
+                size //= n
+            else:
+                warnings.warn(f"partition rule for {path or 'param'} dim {i} (size {shape[i]}) is "
+                              f"not divisible by mesh axis '{a}' ({n}); replicating that dim "
+                              f"instead")
+        out.append(tuple(keep) if len(keep) > 1 else (keep[0] if keep else None))
+    return tuple(out)
+
+
+def is_model_parallel(p) -> bool:
+    """Megatron's mark of a tensor-parallel shard (``tensor_model_parallel``):
+    the parameter holds this rank's slice along ``p.partition_dim``."""
+    return bool(getattr(p, "tensor_model_parallel", False))
 
 
 class Leaf(NamedTuple):
@@ -294,11 +383,14 @@ class ZeroPartition:
     """The engine's ZeRO state at data-parallel world size >= 2 over
     ``group`` (see the module docstring). Rank 0's parameters are
     broadcast first (the owned experts scattered), so every rank starts
-    from the same masters."""
+    from the same masters. ``model_group``: the tensor-parallel group of
+    a model whose parameters are this rank's shards (None without)."""
 
-    def __init__(self, module, params: Sequence[nn.Parameter], stage: int, group, compute_dtype):
+    def __init__(self, module, params: Sequence[nn.Parameter], stage: int, group, compute_dtype,
+                 model_group=None):
         self.stage = stage
         self.group = group
+        self.model_group = model_group
         self.world = comm.get_world_size(group)
         self.rank = comm.get_rank(group)
         self.compute_dtype = compute_dtype
@@ -320,6 +412,8 @@ class ZeroPartition:
         # each group's expert-parallel leaves, (key, parameter) in the
         # model's order: the parameters hold this rank's experts
         self.expert_leaves: List[List[Tuple[Any, nn.Parameter]]] = []
+        # each group's element ranges this rank adds to the norm (None: all)
+        self._counted: List[Optional[List[Tuple[int, int]]]] = []
         for name, entries in _module_groups(module, params):
             owned = [(k, p) for k, p, _ in entries if _expert_parallel(p, self.world)]
             entries = [e for e in entries if not any(e[1] is p for _, p in owned)]
@@ -334,6 +428,7 @@ class ZeroPartition:
             ps = [by_key[l.key] for l in fg.leaves]
             self.groups.append(fg)
             self.leaf_params.append(ps)
+            self._counted.append(self._counted_ranges(fg, ps))
             with torch.no_grad():
                 flat = fg.flatten([p.detach() for p in ps])
             comm.broadcast(flat, src=comm.get_global_rank(group, 0), group=group)
@@ -381,6 +476,23 @@ class ZeroPartition:
             p.group_name = f"ep_size_{self.world}"
         p.grad = torch.zeros_like(p.detach())
 
+    def _counted_ranges(self, fg: FlatGroup, ps) -> Optional[List[Tuple[int, int]]]:
+        """The ranges of group ``fg``'s gradient tensor (the full buffer at
+        stage 0, this rank's shard above) whose squares this rank adds to
+        the norm: all (None) without tensor parallelism and on model rank 0;
+        elsewhere the tensor-parallel leaves' elements alone (a replicated
+        leaf counts once, on model rank 0)."""
+        if self.model_group is None or comm.get_rank(self.model_group) == 0:
+            return None
+        lo_w, hi_w = ((0, fg.padded) if self.stage == 0 else
+                      (self.rank * fg.shard, (self.rank + 1) * fg.shard))
+        out = []
+        for leaf, p in zip(fg.leaves, ps):
+            lo, hi = max(leaf.offset, lo_w), min(leaf.offset + leaf.numel, hi_w)
+            if is_model_parallel(p) and lo < hi:
+                out.append((lo - lo_w, hi - lo_w))
+        return out
+
     @property
     def experts(self) -> List[nn.Parameter]:
         """The expert-parallel parameters (this rank's experts), in order."""
@@ -426,9 +538,18 @@ class ZeroPartition:
     def grad_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """The global norm of :meth:`grads` (a device scalar): the flat
         gradients' squares summed over the ranks where they are shards, the
-        owned experts' at every stage."""
+        owned experts' at every stage. Under tensor parallelism the norm of
+        the whole logical model (the module docstring): each rank's counted
+        ranges, summed over the world at stages 1-3, over the model group at
+        stage 0."""
         n = len(self.groups)
         flat, owned = list(grads[:n]), list(grads[n:])
+        if self.model_group is not None:
+            parts = [piece for g, ranges in zip(flat, self._counted)
+                     for piece in ([g] if ranges is None else [g[lo:hi] for lo, hi in ranges])]
+            local = _sum_squares(parts) if parts else flat[0].new_zeros(())
+            group = None if self.sharded_grads else self.model_group
+            return comm.all_reduce(local, group=group).sqrt()
         if not owned:
             return global_norm(flat, self.group if self.sharded_grads else None)
         local = _sum_squares(owned)

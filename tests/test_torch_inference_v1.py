@@ -358,14 +358,16 @@ def test_config_aliases_and_refusals():
     assert cfg.compute_dtype == torch.float16
     assert DeepSpeedInferenceConfig(dtype=torch.float32).compute_dtype == torch.float32
     assert DeepSpeedInferenceConfig().compute_dtype == torch.bfloat16
+    # tensor parallelism (A3b) is accepted, under both names
+    for tp in ({"tensor_parallel": {"tp_size": 2}}, {"tp": {"tp_size": 2}}):
+        assert DeepSpeedInferenceConfig.from_dict(tp).tensor_parallel.tp_size == 2
     refusals = [({"not_a_key": 1}, "not_a_key"), ({"tp": {"bogus": 1}}, "bogus"),
-                ({"tensor_parallel": {"tp_size": 2}}, "A3b"), ({"tp": {"tp_size": 2}}, "A3b"),
                 ({"quant": {"enabled": True}}, "A7"), ({"dtype": "int8"}, "A7"),
                 ({"checkpoint": "ckpt.json"}, "A9"), ({"dtype": "float64"}, "float64")]
     for bad, name in refusals:
         with pytest.raises(Exception, match=name):
             DeepSpeedInferenceConfig.from_dict(bad)
-    with pytest.raises(NotImplementedError, match="A3b"):
+    with pytest.raises(NotImplementedError, match="hybrid engine at world size >= 2.*A1"):
         deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 1,
                                              "hybrid_engine": {"inference_tp_size": 2}})
     model = TransformerLM(_mistral()[1], device="cpu")

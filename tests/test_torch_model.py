@@ -385,6 +385,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "accelerator/real_accelerator.py", "accelerator/cpu_accelerator.py",
                 "accelerator/cuda_accelerator.py", "ops/__init__.py", "ops/evoformer_attn.py",
                 "ops/evoformer_attention.py", "inference/config.py", "inference/engine.py",
-                "runtime/hybrid_engine.py"):
+                "runtime/hybrid_engine.py", "comm/functional.py", "module_inject/__init__.py",
+                "module_inject/layers.py", "module_inject/auto_tp.py",
+                "module_inject/policies.py", "module_inject/replace_module.py",
+                "module_inject/tp_shard.py"):
         assert os.path.join("deepspeed_tpu_torch", rel) in scanned, rel
     assert not bad, "\n".join(bad)

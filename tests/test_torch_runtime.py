@@ -219,8 +219,12 @@ def test_config_refusals():
     with pytest.raises(NotImplementedError, match="optimizer.legacy_fusion"):
         DeepSpeedConfig({"train_batch_size": 2,
                          "optimizer": {"type": "Adam", "params": {}, "legacy_fusion": True}})
-    with pytest.raises(NotImplementedError, match="mesh axis 'model'.*A3b"):
-        DeepSpeedConfig({"train_batch_size": 2, "tpu": {"mesh": {"data": 2, "model": 2}}})
+    # the model axis (tensor parallelism, A3b) is accepted and resolves
+    mesh = DeepSpeedConfig({"train_batch_size": 2, "tpu": {"mesh": {"data": 2, "model": 2}}}
+                           ).tpu_config.mesh_config()
+    assert (mesh.resolve(4)["data"], mesh.resolve(4)["model"]) == (2, 2)
+    with pytest.raises(NotImplementedError, match="mesh axis 'pipe'.*A6.8"):
+        DeepSpeedConfig({"train_batch_size": 2, "tpu": {"mesh": {"data": 2, "pipe": 2}}})
 
 
 def test_add_config_arguments_and_initialize_from_args(tmp_path):

@@ -938,9 +938,30 @@ def test_mesh_config_resolve_rejects_what_does_not_tile(mesh, n):
 @pytest.mark.parametrize("axis,item", [("model", "A3b"), ("pipe", "A6.8"), ("seq", "A8"),
                                        ("data_repl", "MiCS")])
 def test_non_data_mesh_axes_are_refused_naming_their_item(axis, item):
-    with pytest.raises(NotImplementedError, match=item):
-        deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 2,
-                                             "tpu": {"mesh": {"data": 2, axis: 2}}})
+    """Every axis but ``data`` and ``model`` is refused, naming its ROADMAP
+    item. ``model`` (A3b, tensor parallelism) is ported: its config resolves
+    to ``data 2 x model 2`` over 4 ranks and builds the two-axis mesh (a
+    fake process group of 4 in this process)."""
+    config = {"train_batch_size": 2, "tpu": {"mesh": {"data": 2, axis: 2}}}
+    if axis == "model":
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+        mesh_config = deepspeed_tpu_torch.DeepSpeedConfig(config).tpu_config.mesh_config()
+        sizes = mesh_config.resolve(4)
+        assert {k: v for k, v in sizes.items() if v != 1} == {"data": 2, "model": 2}
+        dist.init_process_group("fake", rank=1, world_size=4, store=FakeStore())
+        try:
+            mesh = build_mesh(mesh_config, 4, "cpu")
+            assert mesh.mesh_dim_names == ("data", "model") and mesh.mesh.tolist() == [[0, 1],
+                                                                                       [2, 3]]
+        finally:
+            dist.destroy_process_group()
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            deepspeed_tpu_torch.DeepSpeedConfig(config)
     cfg = deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 2,
                                                "tpu": {"mesh": {"data": -1}}})
     assert cfg.tpu_config.mesh_config().resolve(4)["data"] == 4
@@ -977,8 +998,8 @@ def test_expert_data_replicas_are_refused():
 
 
 def test_mesh_axis_order_is_not_a_mesh_key():
-    """The port builds a one-axis ``data`` mesh: a key it would not read is
-    refused, not ignored."""
+    """The port builds its mesh in one order, ``model`` innermost: a key it
+    would not read is refused, not ignored."""
     with pytest.raises(deepspeed_tpu_torch.DeepSpeedConfigError,
                        match="axis_order"):
         deepspeed_tpu_torch.DeepSpeedConfig({"train_batch_size": 2, "tpu": {"mesh": {
