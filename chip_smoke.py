@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
                                     train,remat,eager,zero,moe_zero,tp,moe_train,
-                                    sparse_train,evo_kernels,evo_path,v1,hybrid]
+                                    sparse_train,evo_kernels,evo_path,v1,hybrid,prefix_sample]
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
     python3 chip_smoke.py --versus DIR [--phases kernels,e2e]
@@ -347,6 +347,42 @@ code 1 otherwise):
    relative L2 within 5e-2; and its generate timed in turns against an
    engine over the live fp32 masters (cast where used), each with its
    device busy time.
+19. prefix_sample: Mistral-7B at full width and depth (bf16, random weights
+   from seed 0, kv block 64, max_context 2048) with ``prefix_cache`` on and
+   a 64-block host tier under it, served through ``DynamicSplitFuseScheduler``:
+   8 requests share a 1,024-token system prompt (16 full blocks), each with
+   a suffix of 64-200 tokens; request 5 leaves the prompt at token 1000
+   (mid-block: a copy-on-write), request 7 repeats request 0's prompt; the
+   even ones sample (temperature 0.8, top_p 0.95, seeds 1000 + uid), 32 new
+   tokens each. Request 0 runs alone until its first token, then the rest
+   arrive. Fails unless: hits >= 6, prefill tokens skipped >= 6 x 1024 and
+   copy-on-write copies >= 1; the system prompt's blocks are bit-equal
+   before the hits and after the wave (crc32 printed) and the
+   copy-on-write block equals its source's kept slots; a hit's last-token
+   logits (20 tokens after 1,024 cached: the per-token decode kernel) are
+   within ``LOGITS_REL_L2_TOL`` of a cold put on an engine with the cache off
+   sharing the weights, and so are those of a prompt that leaves the system
+   prompt at token 1000 with a fresh suffix of request 5's length (a
+   copy-on-write hit of 1,000 tokens, the q-tiled prefill from there); the
+   tree demoted to the host tier and hit again
+   promotes the system chain bit-equal to its pre-demotion copy, logits
+   within the same tolerance; the sampler on a 32,000-entry row (logits
+   -log(1 + rank), 20,000 draws at positions 0..19,999) draws nothing
+   outside the nucleus and passes a chi-square test (p > 1e-3) over the
+   filtered softmax's top 64 tokens and one bucket for the rest; the wave
+   replayed on a fresh engine gives identical streams. Then a short-context
+   wave on an engine sharing the weights (max_context 448: tables of 7
+   blocks, under the split decode's 8): 8 requests on a 256-token system
+   prompt with suffixes of 32-96 tokens, 32 new tokens each, the even ones
+   sampled; every generation whole and hits >= 7. The launch counts are
+   set to 0 just before each wave and read just after it: the paged
+   prefill, the split decode and its merge must launch in the first (its
+   sampled and greedy horizons split), the paged prefill and the per-token
+   decode in the short-context one (its horizons, sampled and greedy, take
+   the per-token kernel). Printed: TTFT of the hit and the cold put, the
+   promotion's time, decode ms/step of sampled against greedy horizons (in
+   turns, on both engines), the sampler's time, peak memory, beside the
+   card's name and power limit.
 
 ``--mutant`` copies the package into ``build/mutant/<name>`` once per
 mutant: the grouped matmul kernels dropping one row block's products
@@ -533,7 +569,9 @@ HYBRID_PROMPT, HYBRID_NEW = (4, 64), 32
 # working on stale weights shows in them. Depth 2 when gloo ranks share one
 # card (gloo copies every collective through the host), 8 over NCCL (as the
 # train phase), and 32 at stage 3 over four cards.
-ZERO_SEQ, ZERO_STEPS, ZERO_VOCAB, ZERO_TIMEOUT_S = 2048, 3, 256, 420
+# The ranks' timeout leaves room for a slow host: the one-card gloo spawn
+# has taken 362 s.
+ZERO_SEQ, ZERO_STEPS, ZERO_VOCAB, ZERO_TIMEOUT_S = 2048, 3, 256, 600
 ZERO_GLOO_LAYERS, ZERO_NCCL_LAYERS, ZERO_FULL_LAYERS = 2, 8, 32
 ZERO_DS_CONFIG = dict({k: v for k, v in TRAIN_DS_CONFIG.items() if k != "scheduler"},
                       optimizer={"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.1}},
@@ -638,6 +676,24 @@ REMAT_STEPS, REMAT_REL_TOL, REMAT_MOE_LAYERS = 3, 1e-5, 2
 # train_batch steps from the same seed (the same per-microbatch code: equal,
 # or within EAGER_REL_TOL of the parameters' norm where an op sums by atomics)
 EAGER_STEPS, EAGER_REL_TOL = 2, 1e-6
+# the prefix_sample phase: Mistral-7B served with the prefix cache (a host
+# tier under it) to 8 requests sharing a 1,024-token system prompt, each with
+# a suffix of 64-200 tokens; request 5 leaves the system prompt at token
+# 1000 (mid-block: copy-on-write), request 7 repeats request 0's prompt;
+# the even ones sample (temperature 0.8, top_p 0.95, seed 1000 + uid)
+PREFIX_SYSTEM, PREFIX_SPLIT, PREFIX_REQUESTS, PREFIX_NEW = 1024, 1000, 8, 32
+PREFIX_POOL_BLOCKS, PREFIX_HOST_BLOCKS, PREFIX_BATCH = 256, 64, 1536
+PREFIX_KNOBS = dict(temperature=0.8, top_p=0.95)
+PREFIX_DECODE_STEPS = 16  # the timed horizons, sampled against greedy
+# the short-context wave: max_context 448 makes every block table 7 blocks
+# wide, under the split decode's 8, so its decode horizons (sampled and
+# greedy) take the per-token kernel; 8 requests on a 256-token system prompt
+# with suffixes of 32-96 tokens and 32 new tokens each, the even ones sampled
+PREFIX_SHORT_SYSTEM, PREFIX_SHORT_CONTEXT, PREFIX_SHORT_BLOCKS = 256, 448, 64
+# the sampler's distribution check: a 32,000-entry row with logits -log(1 + rank)
+# (randomly permuted), 20,000 draws at positions 0..19,999, chi-square over
+# the filtered softmax's top 64 tokens and one bucket for the rest of the nucleus
+CHI2_VOCAB, CHI2_DRAWS, CHI2_TOP, CHI2_MIN_P = 32000, 20000, 64, 1e-3
 
 
 def log(msg):
@@ -4822,6 +4878,387 @@ def phase_hybrid():
                           generate_in_turns_ms=turns, generate_busy_ms=busy)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: sampled decoding and the prefix cache with its host tier
+# ---------------------------------------------------------------------------
+
+def _drain_tier(pc, tier, deadline_s=60.0):
+    """Wait until the migration queue is empty and no node is in flight."""
+    from deepspeed_tpu_torch.inference.v2.ragged.tiered_store import RES_IN_FLIGHT
+
+    end = time.monotonic() + deadline_s
+    while time.monotonic() < end:
+        with pc._tree_lock:
+            busy = tier.queued or any(n.res == RES_IN_FLIGHT for n in pc._iter_nodes())
+        if not busy:
+            return
+        time.sleep(0.01)
+    raise RuntimeError(f"the host tier did not drain within {deadline_s}s")
+
+
+def _prefix_wave(engine, prompts, knobs, after_first=None, after_admit=None):
+    """One wave through a fresh scheduler: request 0 alone until its first
+    token (its blocks are then in the tree), then the others together.
+    Returns (results, time to first token per uid in s, the scheduler's
+    stats)."""
+    import torch
+
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+
+    sched = DynamicSplitFuseScheduler(engine)
+    submitted, ttft = {}, {}
+
+    def step():
+        if sched.step() == 0:
+            raise RuntimeError("scheduler stalled")
+        now = time.perf_counter()
+        for uid, toks in sched.results.items():
+            if toks and uid not in ttft:
+                ttft[uid] = now - submitted[uid]
+
+    def submit(uid):
+        sched.submit(uid, prompts[uid], max_new_tokens=PREFIX_NEW, sampling=knobs[uid])
+        submitted[uid] = time.perf_counter()
+
+    submit(0)
+    while 0 not in ttft:
+        step()
+    if after_first is not None:
+        after_first()
+    for uid in range(1, len(prompts)):
+        submit(uid)
+    step()  # admits every other request: the hits and their copy-on-write
+    if after_admit is not None:
+        after_admit()
+    while sched.has_work:
+        step()
+    torch.cuda.synchronize()
+    return sched.results, ttft, dict(sched.stats)
+
+
+def phase_prefix_sample():
+    """Mistral-7B at full width and depth with the prefix cache and a host
+    tier, sampled and greedy requests through the scheduler; the checks of
+    the module docstring. Returns the launches of its two counted runs (the
+    wave and the short-context wave) and its record."""
+    import gc
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, HostTierConfig,
+                                                  InferenceEngineV2, PrefixCacheConfig,
+                                                  RaggedInferenceEngineConfig, SamplingParams,
+                                                  build_model_engine)
+    from deepspeed_tpu_torch.inference.v2 import sampling as smp
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+
+    def config(cache_on, blocks, max_context=2048, host_tier=True):
+        tier = HostTierConfig(host_blocks=PREFIX_HOST_BLOCKS, queue_depth=PREFIX_HOST_BLOCKS)
+        return RaggedInferenceEngineConfig(
+            kv_block_size=64, num_kv_blocks=blocks,
+            state_manager=DSStateManagerConfig(max_context=max_context,
+                                               max_ragged_batch_size=PREFIX_BATCH),
+            prefix_cache=PrefixCacheConfig(enabled=cache_on,
+                                           host_tier=tier if cache_on and host_tier else None))
+
+    t0 = time.perf_counter()
+    engine = build_model_engine("mistral", "7b", config(True, PREFIX_POOL_BLOCKS), seed=0)
+    torch.cuda.synchronize()
+    mc, bs = engine.model_config, 64
+    vocab = mc.vocab_size
+    kv, pc, tier = engine.state_manager.kv_cache, engine.prefix_cache, engine.tiered_store
+    log(f"[prefix_sample] {smi}; Mistral-7B {mc.num_layers} layers, KV pool "
+        f"{PREFIX_POOL_BLOCKS} x {bs} slots ({kv.memory_bytes() / 2**30:.2f} GiB), host tier "
+        f"{PREFIX_HOST_BLOCKS} blocks ({tier.pool.memory_bytes() / 2**30:.2f} GiB pinned), built "
+        f"in {time.perf_counter() - t0:.1f}s")
+
+    rng = np.random.default_rng(19)
+    system = rng.integers(0, vocab, PREFIX_SYSTEM).astype(np.int32)
+    suffixes = [rng.integers(0, vocab, int(n)).astype(np.int32)
+                for n in rng.integers(64, 201, PREFIX_REQUESTS)]
+    prompts = [np.concatenate([system, s]) for s in suffixes]
+    prompts[5] = np.concatenate([system[:PREFIX_SPLIT], suffixes[5]])  # leaves mid-block 15
+    prompts[7] = prompts[0].copy()  # an exact repeat
+    knobs = [SamplingParams(**PREFIX_KNOBS, seed=1000 + u) if u % 2 == 0 else None
+             for u in range(PREFIX_REQUESTS)]
+    n_sys = PREFIX_SYSTEM // bs
+
+    def gather(blocks):  # device copies of the blocks' K and V, every layer
+        idx = torch.as_tensor([b * bs + i for b in blocks for i in range(bs)], device=kv.device)
+        return kv.k_pool.index_select(1, idx), kv.v_pool.index_select(1, idx)
+
+    def crc(pair):
+        return zlib.crc32(b"".join(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                                   for t in pair)) & 0xFFFFFFFF
+
+    record, failures, seen = {"card": smi}, [], {}
+
+    def after_first():  # the system prompt's blocks, before any hit reads them
+        seen["system_blocks"] = list(engine.query(0).kv_blocks[:n_sys])
+        seen["system_kv"] = gather(seen["system_blocks"])
+        seen["crc_before"] = crc(seen["system_kv"])
+
+    def after_admit():  # request 5's copy-on-write tail against its source
+        src, cow = engine.query(0).kv_blocks[n_sys - 1], engine.query(5).kv_blocks[n_sys - 1]
+        kept = PREFIX_SPLIT - (n_sys - 1) * bs
+        span = lambda b: slice(b * bs, b * bs + kept)  # noqa: E731
+        seen["cow"] = (src, cow, kept, cow != src
+                       and torch.equal(kv.k_pool[:, span(cow)], kv.k_pool[:, span(src)])
+                       and torch.equal(kv.v_pool[:, span(cow)], kv.v_pool[:, span(src)]),
+                       kv.refcount(src))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    t_wave = time.perf_counter()
+    results, ttft, sched_stats = _prefix_wave(engine, prompts, knobs, after_first, after_admit)
+    wave_s = time.perf_counter() - t_wave
+    wave_launches = dict(pa.launch_counts)
+    stats = dict(pc.stats)
+    skipped = sched_stats["prefill_tokens_skipped"]
+    for uid in range(PREFIX_REQUESTS):
+        toks = results.get(uid)
+        if toks is None or len(toks) != PREFIX_NEW or not all(0 <= t < vocab for t in toks):
+            failures.append(f"request {uid}: bad generation {toks}")
+    after = gather(seen["system_blocks"])
+    unchanged = all(torch.equal(a, b) for a, b in zip(after, seen["system_kv"]))
+    crc_after = crc(after)
+    still_cached = set(seen["system_blocks"]) <= set(pc.cached_block_ids())
+    src, cow, kept, cow_equal, src_refs = seen["cow"]
+    ttft_ms = {u: round(1e3 * t, 2) for u, t in sorted(ttft.items())}
+    log(f"[prefix_sample] wave: {PREFIX_REQUESTS} requests x {PREFIX_NEW} tokens in "
+        f"{wave_s:.2f}s; prefix hits {stats['hits']} of {stats['lookups']} lookups, "
+        f"prefill tokens skipped {skipped}, cached tokens {stats['cached_tokens']}, "
+        f"copy-on-write copies {stats['cow_copies']} ({stats['cow_bytes']} bytes); TTFT ms "
+        f"{ttft_ms} (request 0 cold, alone; the others admitted together)")
+    log(f"[prefix_sample] the system prompt's {n_sys} shared blocks: crc32 {seen['crc_before']:#010x} "
+        f"before the hits, {crc_after:#010x} after the wave, bytes equal: {unchanged}, still "
+        f"in the tree: {still_cached}; request 5's copy-on-write block {cow} (source {src}, "
+        f"refcount {src_refs} at admission) equals its source's {kept} kept slots: {cow_equal}")
+    log(f"[prefix_sample] wave launches: {wave_launches}")
+    if stats["hits"] < PREFIX_REQUESTS - 2 or skipped < (PREFIX_REQUESTS - 2) * PREFIX_SYSTEM:
+        failures.append(f"hits {stats['hits']}, prefill tokens skipped {skipped}")
+    if stats["cow_copies"] < 1 or not cow_equal:
+        failures.append(f"copy-on-write: {stats['cow_copies']} copies, block equal {cow_equal}")
+    if not (unchanged and still_cached):
+        failures.append("the shared system-prompt blocks changed during the wave")
+    for key in ("paged_prefill", "paged_decode_split", "paged_decode_merge"):
+        if wave_launches[key] <= 0:
+            failures.append(f"{key} never launched in the wave")
+
+    # a hit against a cold put on an engine with the cache off sharing the
+    # weights: logits and time to first token (each put twice, the second
+    # timed; 20 tokens after the hit take the per-token decode kernel)
+    probe = np.concatenate([system, rng.integers(0, vocab, 20).astype(np.int32)])
+    cold_engine = InferenceEngineV2(engine.module, config(False, 40), params=engine.params)
+
+    def timed_put(eng, uid, prompt=probe):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = eng.put([uid], [prompt])  # host logits: the wall ends synchronised
+        dt = time.perf_counter() - t
+        cached = eng.query(uid).prefix_cached_tokens
+        eng.flush(uid)
+        return logits, dt, cached
+
+    cold = [timed_put(cold_engine, 300 + i) for i in range(2)]
+    hit = [timed_put(engine, 300 + i) for i in range(2)]
+    logits_cold, logits_hit = cold[1][0], hit[1][0]
+    if logits_hit.shape != (1, vocab) or not np.isfinite(logits_hit).all():
+        failures.append(f"bad hit logits {logits_hit.shape}")
+    rel_hit = float(np.linalg.norm(logits_hit - logits_cold) / np.linalg.norm(logits_cold))
+    log(f"[prefix_sample] {probe.size}-token prompt, a hit of {hit[1][2]} tokens against a cold "
+        f"put: TTFT {1e3 * hit[1][1]:.2f} ms against {1e3 * cold[1][1]:.2f} ms (first calls "
+        f"{1e3 * hit[0][1]:.2f} / {1e3 * cold[0][1]:.2f}); last-token logits rel L2 "
+        f"{rel_hit:.3e} (tolerance {LOGITS_REL_L2_TOL}), same argmax "
+        f"{int(np.argmax(logits_hit)) == int(np.argmax(logits_cold))}")
+    if hit[1][2] != PREFIX_SYSTEM or not rel_hit <= LOGITS_REL_L2_TOL:
+        failures.append(f"hit of {hit[1][2]} tokens, logits rel L2 {rel_hit:.3e}")
+
+    # request 5's case held against the cold put: the system prompt left at
+    # token 1000 (mid-block), a fresh suffix of request 5's length; the hit
+    # copies the shared block's 40 kept slots and the q-tiled prefill starts
+    # at position 1000 over the copy
+    cow_probe = np.concatenate([system[:PREFIX_SPLIT],
+                                rng.integers(0, vocab, suffixes[5].size)]).astype(np.int32)
+    cow0 = pc.stats["cow_copies"]
+    logits_cow_cold = timed_put(cold_engine, 302, cow_probe)[0]
+    logits_cow, _, cached_cow = timed_put(engine, 302, cow_probe)
+    cow_new = pc.stats["cow_copies"] - cow0
+    rel_cow = float(np.linalg.norm(logits_cow - logits_cow_cold) / np.linalg.norm(logits_cow_cold))
+    log(f"[prefix_sample] {cow_probe.size}-token prompt leaving the system prompt at token "
+        f"{PREFIX_SPLIT}: a hit of {cached_cow} tokens with {cow_new} copy-on-write copy; "
+        f"last-token logits against a cold put rel L2 {rel_cow:.3e} (tolerance "
+        f"{LOGITS_REL_L2_TOL}), same argmax "
+        f"{int(np.argmax(logits_cow)) == int(np.argmax(logits_cow_cold))}")
+    if (cached_cow != PREFIX_SPLIT or cow_new != 1 or not np.isfinite(logits_cow).all()
+            or not rel_cow <= LOGITS_REL_L2_TOL):
+        failures.append(f"copy-on-write hit of {cached_cow} tokens ({cow_new} copies), logits "
+                        f"rel L2 {rel_cow:.3e}")
+
+    # demote the whole tree to the host tier, then hit the system prompt
+    # again: promoted bit-equal to the pre-demotion copy, logits as cold
+    t = time.perf_counter()
+    while pc.demote_cold(pc.n_cached_blocks):
+        _drain_tier(pc, tier)
+    demote_s = time.perf_counter() - t
+    m = pc.match(probe)
+    host_chain = m.host_blocks
+    pw0 = pc.stats["promote_wait_s"]
+    logits_prom, put_s, cached_prom = timed_put(engine, 310)
+    promote_s = pc.stats["promote_wait_s"] - pw0
+    seq_blocks = pc.match(probe).shared_blocks[:n_sys]
+    promoted = gather(seq_blocks)
+    bit_equal = len(seq_blocks) == n_sys and all(torch.equal(a, b) for a, b in
+                                                 zip(promoted, seen["system_kv"]))
+    rel_prom = float(np.linalg.norm(logits_prom - logits_cold) / np.linalg.norm(logits_cold))
+    snap = tier.snapshot()
+    log(f"[prefix_sample] demoted the tree ({snap['demotions']} blocks, "
+        f"{1e3 * demote_s:.1f} ms to drain); the system prompt's chain on the host "
+        f"({host_chain} blocks), then hit: {snap['promotions_host']} blocks promoted in "
+        f"{1e3 * promote_s:.2f} ms (the put {1e3 * put_s:.2f} ms, {cached_prom} tokens cached); "
+        f"promoted bytes equal the pre-demotion copy: {bit_equal}; logits rel L2 {rel_prom:.3e}")
+    if host_chain != n_sys or not bit_equal or not rel_prom <= LOGITS_REL_L2_TOL:
+        failures.append(f"promotion: chain {host_chain} on the host, bit-equal {bit_equal}, "
+                        f"logits rel L2 {rel_prom:.3e}")
+    del cold_engine
+
+    def horizons(eng, uids, prefix, n_suffix):
+        """Decode horizons of the uids (each put once on ``prefix`` plus
+        ``n_suffix`` fresh tokens), all rows sampled against greedy, in
+        turns: wall ms/step of each."""
+        firsts = np.concatenate([  # one put each: a put's token budget counts the cached tokens
+            eng.put([u], [np.concatenate([prefix, rng.integers(0, vocab, n_suffix)]).astype(
+                np.int32)], sample="greedy") for u in uids])
+        knobs_all = [SamplingParams(**PREFIX_KNOBS, seed=2000 + i) for i in range(len(uids))]
+        ms = {"greedy": [], "sampled": []}
+        last = firsts
+        for mode in ("greedy", "sampled", "sampled", "greedy"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = eng.decode(uids, [[x] for x in last], PREFIX_DECODE_STEPS,
+                             sampling=knobs_all if mode == "sampled" else None)
+            ms[mode].append(1e3 * (time.perf_counter() - t) / PREFIX_DECODE_STEPS)
+            last = out[:, -1]
+        for u in uids:
+            eng.flush(u)
+        return ms
+
+    uids = list(range(400, 400 + PREFIX_REQUESTS))
+    horizon_ms = horizons(engine, uids, system, 90)
+    logits8 = torch.randn(len(uids), vocab, device=kv.device)
+    rows = [torch.full((len(uids), ), v, device=kv.device) for v in PREFIX_KNOBS.values()]
+    seeds8 = torch.arange(len(uids), dtype=torch.int32, device=kv.device)
+    sampler_ms = time_ms(lambda: smp.sample_tokens(logits8, *rows, seeds8, seeds8), iters=20)
+    log(f"[prefix_sample] decode, {len(uids)} sequences x {PREFIX_DECODE_STEPS} steps, wall "
+        f"ms/step: greedy {horizon_ms['greedy']}, sampled {horizon_ms['sampled']} (in turns); "
+        f"the sampler alone on [{len(uids)}, {vocab}] logits {sampler_ms:.3f} ms")
+
+    # the sampler's distribution on the card
+    dev = kv.device
+    row_np = -np.log1p(np.arange(CHI2_VOCAB, dtype=np.float64))[rng.permutation(CHI2_VOCAB)]
+    row = torch.as_tensor(row_np, dtype=torch.float32, device=dev)
+    chunk = 2000
+    temps = torch.full((chunk, ), PREFIX_KNOBS["temperature"], device=dev)
+    top_ps = torch.full((chunk, ), PREFIX_KNOBS["top_p"], device=dev)
+    seeds = torch.full((chunk, ), 4242, dtype=torch.int32, device=dev)
+    draws = torch.cat([
+        smp.sample_tokens(row.expand(chunk, CHI2_VOCAB), temps, top_ps, seeds,
+                          torch.arange(c, c + chunk, dtype=torch.int32, device=dev))
+        for c in range(0, CHI2_DRAWS, chunk)]).cpu().numpy()
+    filt = smp._filtered(row[None], temps[:1], top_ps[:1])[0].double().cpu()
+    nucleus = torch.isfinite(filt).numpy()
+    p = torch.softmax(filt, 0).numpy()
+    outside = int((~nucleus[draws]).sum())
+    counts = np.bincount(draws, minlength=CHI2_VOCAB)
+    top = np.argsort(-p)[:CHI2_TOP]
+    rest = np.setdiff1d(np.nonzero(nucleus)[0], top)
+    obs = np.append(counts[top], counts[rest].sum()).astype(np.float64)
+    exp = np.append(p[top], p[rest].sum()) * CHI2_DRAWS
+    chi2 = float(((obs - exp)**2 / exp).sum())
+    dof = len(obs) - 1
+    p_value = float(torch.special.gammaincc(torch.tensor(dof / 2, dtype=torch.float64),
+                                            torch.tensor(chi2 / 2, dtype=torch.float64)))
+    log(f"[prefix_sample] sampler on a {CHI2_VOCAB}-entry row: nucleus {int(nucleus.sum())} "
+        f"tokens; {CHI2_DRAWS} draws, {outside} outside it; chi-square {chi2:.1f} on {dof} "
+        f"degrees of freedom (least expected count {exp.min():.1f}), p = {p_value:.4f} "
+        f"(must exceed {CHI2_MIN_P})")
+    if outside or not p_value > CHI2_MIN_P:
+        failures.append(f"sampler: {outside} draws outside the nucleus, chi-square p {p_value}")
+
+    # the sampled wave replayed on a fresh engine with the same seeds
+    replay = InferenceEngineV2(engine.module, config(True, PREFIX_POOL_BLOCKS),
+                               params=engine.params)
+    results2, _, _ = _prefix_wave(replay, prompts, knobs)
+    same = results2 == results
+    replay.shutdown()
+    del replay
+    log(f"[prefix_sample] the wave replayed on a fresh engine: every stream identical: {same} "
+        f"(sampled uids {[u for u in range(PREFIX_REQUESTS) if knobs[u] is not None]})")
+    if not same:
+        failures.append("the replayed wave's streams differ")
+
+    # the short-context wave on an engine sharing the weights (its own tree,
+    # no host tier): tables 7 blocks wide, so its horizons, sampled and
+    # greedy, take the per-token decode kernel
+    short = InferenceEngineV2(engine.module, config(True, PREFIX_SHORT_BLOCKS,
+                                                    PREFIX_SHORT_CONTEXT, host_tier=False),
+                              params=engine.params)
+    system2 = rng.integers(0, vocab, PREFIX_SHORT_SYSTEM).astype(np.int32)
+    prompts2 = [np.concatenate([system2, rng.integers(0, vocab, int(n))]).astype(np.int32)
+                for n in rng.integers(32, 97, PREFIX_REQUESTS)]
+    knobs2 = [SamplingParams(**PREFIX_KNOBS, seed=3000 + u) if u % 2 == 0 else None
+              for u in range(PREFIX_REQUESTS)]
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    t = time.perf_counter()
+    short_results, _, sched2 = _prefix_wave(short, prompts2, knobs2)
+    short_s = time.perf_counter() - t
+    short_launches = dict(pa.launch_counts)
+    stats2 = dict(short.prefix_cache.stats)
+    bad2 = [u for u in range(PREFIX_REQUESTS) if len(short_results.get(u, ())) != PREFIX_NEW
+            or not all(0 <= x < vocab for x in short_results[u])]
+    short_ms = horizons(short, list(range(500, 500 + PREFIX_REQUESTS)), system2, 44)
+    log(f"[prefix_sample] short-context wave (max_context {PREFIX_SHORT_CONTEXT}, "
+        f"{PREFIX_REQUESTS} requests on a {PREFIX_SHORT_SYSTEM}-token system prompt, the even "
+        f"ones sampled) in {short_s:.2f}s: prefix hits {stats2['hits']} of "
+        f"{stats2['lookups']}, prefill tokens skipped {sched2['prefill_tokens_skipped']}, bad "
+        f"generations {bad2}; launches {short_launches}; its decode horizons, wall ms/step: "
+        f"greedy {short_ms['greedy']}, sampled {short_ms['sampled']} (in turns)")
+    if bad2 or stats2["hits"] < PREFIX_REQUESTS - 1:
+        failures.append(f"short-context wave: hits {stats2['hits']}, bad generations {bad2}")
+    for key in ("paged_prefill", "paged_decode"):
+        if short_launches[key] <= 0:
+            failures.append(f"{key} never launched in the short-context wave")
+
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[prefix_sample] peak memory {peak / 2**30:.2f} GiB; {smi}")
+    short.shutdown()
+    engine.shutdown()
+    del short, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError("prefix_sample: " + "; ".join(failures))
+    record.update(hits=stats["hits"], lookups=stats["lookups"], prefill_tokens_skipped=skipped,
+                  cow_copies=stats["cow_copies"], wave_s=wave_s, wave_ttft_ms=ttft_ms,
+                  wave_launches=wave_launches, shared_blocks_crc=[seen["crc_before"], crc_after],
+                  hit_ttft_ms=1e3 * hit[1][1], cold_ttft_ms=1e3 * cold[1][1],
+                  hit_logits_rel_l2=rel_hit, cow_hit_logits_rel_l2=rel_cow,
+                  promote_ms=1e3 * promote_s,
+                  promoted_blocks=snap["promotions_host"], promoted_logits_rel_l2=rel_prom,
+                  decode_ms_per_step=horizon_ms, sampler_ms=sampler_ms, chi2=chi2,
+                  chi2_dof=dof, chi2_p=p_value, peak_gib=peak / 2**30, short_wave_s=short_s,
+                  short_wave_hits=stats2["hits"], short_wave_launches=short_launches,
+                  short_decode_ms_per_step=short_ms)
+    return {"wave": wave_launches, "short_wave": short_launches}, record
 # the mutant checks. Grouped matmul: a copy that drops one row block's
 # contribution (gmm on the wgmma route: the second 128-row tile's products;
 # tgmm on both routes: each expert's first row block) must fail the
@@ -5427,7 +5864,7 @@ def run_versus(other, phases):
 
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
           "remat", "eager", "zero", "moe_zero", "tp", "moe_train", "sparse_train", "evo_kernels",
-          "evo_path", "v1", "hybrid")
+          "evo_path", "v1", "hybrid", "prefix_sample")
 
 
 def main():
@@ -5498,7 +5935,8 @@ def main():
            "zero": phase_zero,
            "moe_zero": phase_moe_zero, "tp": phase_tp, "moe_train": phase_moe_train,
            "sparse_train": phase_sparse_train, "evo_kernels": phase_evo_kernels,
-           "evo_path": phase_evo_path, "v1": phase_v1, "hybrid": phase_hybrid}
+           "evo_path": phase_evo_path, "v1": phase_v1, "hybrid": phase_hybrid,
+           "prefix_sample": phase_prefix_sample}
     failed = []
     out = {}
     for name in PHASES:
@@ -5541,8 +5979,11 @@ def main():
     zero_launches, zero = out["zero"]
     moe_zero_launches, moe_zero = out["moe_zero"]
     tp_launches, tp = out["tp"]
+    prefix_launches, prefix = out["prefix_sample"]
     for entry in kernels:  # the paged kernels' launches per rank on the tp serving path
         entry["tp_launches"] = tp_launches[entry["name"]]
+        entry["prefix_sample_launches"] = {run: int(n[entry["name"]])
+                                           for run, n in prefix_launches.items()}
     for name, m in out["train_kernels"].items():
         src, replaces = TRAIN_KERNELS[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -5595,6 +6036,7 @@ def main():
     kernels[0]["v1_path"] = {k: v for k, v in v1.items() if k != "kernels_block128"}
     kernels[0]["tp_path"] = tp
     kernels[0]["hybrid_path"] = hybrid
+    kernels[0]["prefix_sample_path"] = prefix
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,13 @@
 """FastGen-style inference v2 for the PyTorch port: ragged continuous
 batching over a paged KV cache, served by hand-written CUDA paged-attention
-kernels."""
+kernels, with sampled decoding and a radix-tree prefix cache (host and disk
+tiers under it)."""
 
-from .config_v2 import (DSStateManagerConfig, ModulesConfig, PrefixCacheConfig,
-                        RaggedInferenceEngineConfig, SpeculativeConfig)
+from .config_v2 import (CacheTelemetryConfig, DSStateManagerConfig, HostTierConfig,
+                        ModulesConfig, PrefixCacheConfig, RaggedInferenceEngineConfig,
+                        SpeculativeConfig)
 from .engine_factory import build_engine, build_model_engine
 from .engine_v2 import InferenceEngineV2
+from .sampling import SamplingParams
 from .scheduler import DynamicSplitFuseScheduler
 from .scheduling_utils import SchedulingError, SchedulingResult

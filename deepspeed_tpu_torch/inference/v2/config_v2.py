@@ -1,9 +1,10 @@
 """Inference v2 configuration (copy of
 ``deepspeed_tpu/inference/v2/config_v2.py`` with torch dtypes).
 
-The prefix-cache and speculative blocks keep their fields so that configs
-written for the TPU package parse; this slice of the port does not serve
-them, and the engine refuses a config that enables either.
+The prefix cache (with its telemetry and host / disk tier) is served. The
+speculative block keeps its fields so that configs written for the TPU
+package parse; this port does not serve it yet, and the engine refuses a
+config that enables it.
 """
 
 from dataclasses import dataclass, field
@@ -24,7 +25,12 @@ class DSStateManagerConfig:
 
 @dataclass
 class CacheTelemetryConfig:
-    """``ragged.prefix_cache.telemetry`` block (not served by this slice)."""
+    """``ragged.prefix_cache.telemetry`` block: block-lifecycle accounting
+    and the miss-ratio-curve estimator (``ragged/cache_telemetry.py``).
+    Absent or off: no telemetry object exists. ``mrc_sample_rate`` in
+    (0, 1] is the SHARDS key-sampling rate (1.0 tracks every chunk),
+    ``mrc_max_tracked`` caps the tracked keys, ``mrc_capacity_mults`` are
+    the multiples of the pool the curve is evaluated at."""
     enabled: bool = False
     mrc_sample_rate: float = 0.25
     mrc_max_tracked: int = 4096
@@ -33,7 +39,17 @@ class CacheTelemetryConfig:
 
 @dataclass
 class HostTierConfig:
-    """``ragged.prefix_cache.host_tier`` block (not served by this slice)."""
+    """``ragged.prefix_cache.host_tier`` block: a host-memory (pinned on a
+    card) and optional disk tier under the radix tree
+    (``ragged/tiered_store.py``). Evicted tree-only blocks are demoted to
+    the host pool instead of dropped, and a hit on a demoted chain promotes
+    it back ahead of prefill. Presence-enabled: ``None`` means no tier
+    objects and no worker thread. ``host_blocks`` (or ``host_pool_bytes``)
+    sizes the pool; below ``low_watermark`` of the device pool free, cold
+    leaves are demoted until ``high_watermark``; ``queue_depth`` bounds the
+    migration queue (a full queue drops instead of waiting); ``disk_path``
+    / ``disk_blocks`` add checksummed block files, a corrupt one read as a
+    miss."""
     enabled: bool = True
     host_blocks: int = 0
     host_pool_bytes: int = 0
@@ -47,7 +63,10 @@ class HostTierConfig:
 @dataclass
 class PrefixCacheConfig:
     """``ragged.prefix_cache`` block: block-granular KV reuse across
-    requests. Not served by this slice: enabling it raises."""
+    requests (refcounted copy-on-write blocks under a radix tree with LRU
+    eviction, ``ragged/prefix_cache.py``). Off by default; on, greedy
+    streams are identical to the cache off and a shared prefix skips its
+    prefill. ``min_hit_blocks``: the smallest hit worth taking."""
     enabled: bool = False
     eviction: str = "lru"
     min_hit_blocks: int = 1
@@ -57,7 +76,7 @@ class PrefixCacheConfig:
 
 @dataclass
 class SpeculativeConfig:
-    """``ragged.speculative`` block. Not served by this slice: any mode
+    """``ragged.speculative`` block. Not served by the port yet: any mode
     other than 'off' raises."""
     mode: str = "off"  # 'off' | 'ngram' | 'draft_model'
     k: int = 4

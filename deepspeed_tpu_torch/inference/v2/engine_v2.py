@@ -1,17 +1,21 @@
 """InferenceEngineV2: continuous-batching ragged inference engine.
 
-Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py:58-580,1431-1468``.
+Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py:58-580,1253-1468``.
 The serving loop is host-driven: the caller (``DynamicSplitFuseScheduler``)
 hands ``put`` whatever mix of prefill chunks and decode steps it admitted;
-``decode`` runs a multi-step greedy horizon. The forward runs eagerly (the
-TPU package's per-bucket compiled programs have no counterpart), and the
-only host-to-device traffic per forward is one packed descriptor upload.
-Within a ``decode`` horizon each step's argmax stays on the device and feeds
-the next step: the host waits once per horizon.
+``decode`` runs a multi-step horizon. The forward runs eagerly (the TPU
+package's per-bucket compiled programs have no counterpart), and the only
+host-to-device traffic per forward is one packed descriptor upload (plus
+one of the sampling knobs when a row samples). Within a ``decode`` horizon
+each step's token (argmax, or a draw from ``sampling.sample_tokens``) stays
+on the device and feeds the next step: the host waits once per horizon.
 
-Not in this slice: sampled and speculative decoding, the prefix cache, the
-monitor / goodput / health / roofline hooks. Configs that enable them are
-refused; ``probe_prefix``/``acquire_prefix`` report "no hit".
+With ``prefix_cache.enabled`` a new sequence's prompt is matched against
+the radix tree: a hit trims the chunk ``put`` computes and pre-seeds
+``seen_tokens``, and every forward publishes the completed full blocks.
+
+Not in this slice: speculative decoding (refused), tenant metering, warmup
+and the monitor / goodput / health / roofline hooks.
 """
 
 from typing import Iterable, List, Optional, Tuple
@@ -26,6 +30,7 @@ from .modules.heuristics import build_modules
 from .ragged.kv_cache import _resolve_kv_dtype
 from .ragged.ragged_manager import DSStateManager
 from .ragged.ragged_wrapper import RaggedBatchWrapper, unpack_descriptors
+from .sampling import all_greedy, pack_rows, sample_tokens, unpack_rows
 from .scheduling_utils import SchedulingError, SchedulingResult
 
 
@@ -158,19 +163,31 @@ class InferenceEngineV2:
                                   seq_idx, pos, valid, tables, last_idx, pools[0], pools[1],
                                   modules=self._modules, **scales)
 
-    def _upload(self, rb) -> torch.Tensor:
-        return torch.from_numpy(rb.packed()).to(self.device)
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr).to(self.device)
 
     def put(self, batch_uids: List[int], batch_tokens: List[np.ndarray], do_checks: bool = True,
-            sample: Optional[str] = None, block: bool = True):
+            sample: Optional[str] = None, block: bool = True, sampling=None):
         """Run one ragged forward. ``batch_tokens[i]`` are the new tokens of
         sequence ``batch_uids[i]`` (whole prompt or chunk for prefill, one
         token for decode). Returns last-token logits [len(batch_uids), vocab]
-        or, with ``sample='greedy'``, the argmax token ids taken on the
-        device. ``block=False`` returns the device tensor without waiting."""
+        or, with ``sample='greedy'``, token ids taken on the device.
+        ``block=False`` returns the device tensor without waiting.
+
+        ``sampling``: per-sequence :class:`SamplingParams` (None entries are
+        greedy rows). With any temperature > 0 (and ``sample='greedy'``) the
+        rows draw from their tempered / top-p distribution, keyed by (seed,
+        position of the drawn token); a list with ``sample=None`` raises.
+
+        A new sequence whose tokens hit the prefix cache feeds only the
+        uncached suffix; its logits are those of the whole chunk's last
+        token all the same."""
         if sample not in (None, "greedy"):
-            raise NotImplementedError(f"sample={sample!r}: only logits (None) and 'greedy' are "
-                                      "ported to the PyTorch package yet")
+            raise ValueError(f"unsupported sample mode {sample!r}: None | 'greedy'")
+        sampled = sampling is not None and not all_greedy(sampling)
+        if sampled and sample is None:
+            raise ValueError("put(sample=None) returns logits; pass sample='greedy' "
+                             "with a sampling list to draw tokens on the device")
         batch_uids = list(batch_uids)
         batch_tokens = [np.asarray(t, np.int32).reshape(-1) for t in batch_tokens]
         if any(t.size == 0 for t in batch_tokens):
@@ -183,34 +200,53 @@ class InferenceEngineV2:
 
         self.batch.clear()
         descs = []
+        sm = self.state_manager
         for uid, toks in zip(batch_uids, batch_tokens):
-            seq = self.state_manager.get_sequence(uid)
+            seq = sm.get_sequence(uid)
             if seq is None:
-                seq, _ = self.state_manager.create_sequence_with_prefix(uid, toks)
-            self.state_manager.allocate_blocks(seq, toks.size)
+                # a hit arrives with its blocks shared and seen_tokens
+                # pre-seeded: only the uncached suffix is computed
+                seq, skip = sm.create_sequence_with_prefix(uid, toks)
+                toks = toks[skip:]
+            sm.note_tokens(seq, toks)
+            sm.allocate_blocks(seq, toks.size)
             seq.pre_forward(toks.size)
             self.batch.insert_sequence(seq, toks)
             descs.append(seq)
         rb = self.batch.finalize()
-        logits = self._forward(self._upload(rb), rb.token_ids.shape[0], rb.block_tables.shape[0])
+        s_bucket = rb.block_tables.shape[0]
+        logits = self._forward(self._upload(rb.packed()), rb.token_ids.shape[0], s_bucket)
         for seq in descs:
             seq.post_forward()
-        out = logits[:rb.n_seqs]
-        if sample == "greedy":
-            out = torch.argmax(out, dim=-1).to(torch.int32)
+            sm.publish_sequence(seq)  # completed full blocks -> the tree
+        if sampled:
+            # each row's draw is keyed by its drawn token's position: the
+            # last fed token's + 1
+            ctr = rb.token_pos[rb.last_token_idx[:rb.n_seqs]] + 1
+            rows = unpack_rows(self._upload(pack_rows(sampling, batch_uids, s_bucket, ctr)),
+                               s_bucket)
+            out = sample_tokens(logits, *rows)[:rb.n_seqs]
+        else:
+            out = logits[:rb.n_seqs]
+            if sample == "greedy":
+                out = torch.argmax(out, dim=-1).to(torch.int32)
         return out.cpu().numpy() if block else out
 
     # ------------------------------------------------------------------
     def decode(self, batch_uids: List[int], first_tokens, n_steps: int, block: bool = True,
-               eos_token_ids=None):
-        """Run ``n_steps`` greedy decode steps for sequences already tracked
-        by the engine, each step's argmax fed back as the next token on the
-        device. KV blocks for the whole horizon are reserved up front.
-        Returns token ids [len(batch_uids), n_steps].
+               eos_token_ids=None, sampling=None):
+        """Run ``n_steps`` decode steps for sequences already tracked by the
+        engine, each step's token fed back as the next on the device. KV
+        blocks for the whole horizon are reserved up front. Returns token
+        ids [len(batch_uids), n_steps].
 
         ``eos_token_ids`` (blocking mode only): a scalar, or a per-sequence
         list with ``None`` entries. A sequence that hits its eos mid-horizon
-        has the KV materialized past the eos rolled back."""
+        has the KV materialized past the eos rolled back (before publishing).
+
+        ``sampling``: per-sequence :class:`SamplingParams` (None = greedy
+        rows). A sampled row's step ``t`` draws with counter ``pos + t + 1``
+        (``pos`` the fed token's position): the stream ``put`` would draw."""
         uids = list(batch_uids)
         S = len(uids)
         if len(set(uids)) != len(uids) or S > self.batch.max_seqs:
@@ -237,16 +273,28 @@ class InferenceEngineV2:
             self._decode_batch.insert_sequence(seq, toks)
         rb = self._decode_batch.finalize()
         s_bucket = rb.token_ids.shape[0]
-        packed = self._upload(rb)
+        packed = self._upload(rb.packed())
+        rows = None
+        if sampling is not None and not all_greedy(sampling):
+            rows = unpack_rows(self._upload(pack_rows(sampling, uids, s_bucket,
+                                                      rb.token_pos[:s_bucket])), s_bucket)
         toks = packed[:s_bucket]
         out = torch.empty((s_bucket, n_steps), dtype=torch.int32, device=self.device)
         for t in range(n_steps):
             logits = self._forward(packed, s_bucket, s_bucket, token_ids=toks, pos_offset=t)
-            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            if rows is None:
+                toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                temps, top_ps, seeds, ctr0 = rows
+                toks = sample_tokens(logits, temps, top_ps, seeds, ctr0 + (t + 1))
             out[:, t] = toks
         out = out[:S]
+        sm = self.state_manager
         if not block:
             for seq in seqs:
+                # the generated ids never reach the host: publishing stops
+                # at the last known-token boundary
+                seq.history_valid = False
                 seq.post_forward()
             return out
         out = out.cpu().numpy()
@@ -256,15 +304,19 @@ class InferenceEngineV2:
             eos_list = list(eos_token_ids)
             if len(eos_list) != S:
                 raise ValueError("eos_token_ids must match batch_uids")
-        for seq, row, eos in zip(seqs, out, eos_list):
+        for seq, f, row, eos in zip(seqs, first, out, eos_list):
             start = seq.seen_tokens
+            # materialized this horizon: the fed token and every fed-back
+            # one but the last output (its KV is written when it is fed)
+            sm.note_tokens(seq, np.concatenate([f, row[:-1]]))
             seq.post_forward()
             if eos is not None:
                 hit = np.nonzero(row == eos)[0]
                 if hit.size and int(hit[0]) + 1 < n_steps:
                     # horizon overshoot: the caller keeps row[:hit+1]; the
-                    # KV past the eos is garbage, so its blocks go back now
-                    self.state_manager.rollback_to(seq, start + 1 + int(hit[0]))
+                    # KV past the eos is garbage: rewind before publishing
+                    sm.rollback_to(seq, start + 1 + int(hit[0]))
+            sm.publish_sequence(seq)
         return out
 
     # ------------------------------------------------------------------
@@ -273,20 +325,66 @@ class InferenceEngineV2:
         return self.state_manager.query(uid)
 
     def flush(self, uid: int) -> None:
-        """Finish a sequence and release its KV blocks."""
+        """Finish a sequence: publish its completed full blocks, release its
+        KV block references."""
         self.state_manager.flush_sequence(uid)
 
     def probe_prefix(self, prompt_tokens):
-        """Pure prefix lookup: ``(n_cached_tokens, n_shared_full_blocks,
-        n_tree_only, match)``. No prefix cache in this slice: never a hit."""
-        return 0, 0, 0, None
+        """Pure prefix lookup (no references taken, no LRU touch, no stats):
+        ``(n_cached_tokens, n_shared_full_blocks, n_tree_only, match)``.
+        ``n_tree_only`` counts the hit's shared blocks whose sole holder is
+        the tree now: acquisition pins them, so admission takes them off the
+        evictable supply."""
+        pc = self.state_manager.prefix_cache
+        if pc is None:
+            return 0, 0, 0, None
+        m = pc.match(np.asarray(prompt_tokens, np.int32).reshape(-1))
+        tree_only = sum(1 for b in m.shared_blocks
+                        if self.state_manager.kv_cache.refcount(b) == 1)
+        return m.n_cached_tokens, len(m.shared_blocks), tree_only, m
 
     def acquire_prefix(self, uid: int, prompt_tokens, match=None) -> Tuple[int, int]:
-        """Create the sequence for ``uid`` (the scheduler's admission entry).
-        Returns ``(n_cached_tokens, n_shared_full_blocks)``: (0, 0) without a
-        prefix cache. Roll back an abandoned acquisition with ``flush(uid)``."""
-        self.state_manager.create_sequence_with_prefix(uid, prompt_tokens, match=match)
-        return 0, 0
+        """Create the sequence for ``uid`` pre-populated from the prefix
+        cache (the scheduler's admission entry: it knows the whole prompt).
+        ``match`` (from :meth:`probe_prefix`) skips the re-match. Returns
+        ``(n_cached_tokens, n_shared_full_blocks)``: the caller feeds
+        ``prompt[n_cached:]``. Roll back an abandoned acquisition with
+        ``flush(uid)``."""
+        seq, skip = self.state_manager.create_sequence_with_prefix(
+            uid, np.asarray(prompt_tokens, np.int32).reshape(-1), match=match)
+        return skip, seq.shared_blocks
+
+    def export_sequence_kv(self, uid: int, tokens):
+        """Host copies of one live sequence's full KV blocks: ``(token_chunks,
+        payloads)``, per-block token-id tuples and ``(k, v, k_scale,
+        v_scale)`` host tensors (``BlockedKVCache.read_block``). ``tokens``
+        is the prompt and what was generated so far; the export stops at the
+        KV the engine has materialized, and partial blocks never travel.
+        Runs on the thread that drives the forwards."""
+        sm = self.state_manager
+        seq = sm.get_sequence(uid)
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        bs = self.config.kv_block_size
+        n_full = min(min(int(seq.seen_tokens), tokens.size) // bs, len(seq.kv_blocks))
+        chunks, payloads = [], []
+        for i in range(n_full):
+            payloads.append(sm.kv_cache.read_block(seq.kv_blocks[i]).wait())
+            chunks.append(tuple(int(t) for t in tokens[i * bs:(i + 1) * bs]))
+        return chunks, payloads
+
+    def install_prefix_kv(self, token_chunks, payloads) -> int:
+        """Adopt exported block payloads into this engine's prefix cache as
+        host-tier residents (:meth:`PrefixKVCache.install_host_chain`).
+        Returns blocks installed (0 without a prefix cache or host tier: the
+        request then re-prefills)."""
+        pc = self.state_manager.prefix_cache
+        if pc is None:
+            return 0
+        return pc.install_host_chain(token_chunks, payloads)
+
+    def shutdown(self) -> None:
+        """Stop the host tier's migration worker (a no-op without one)."""
+        self.state_manager.shutdown()
 
     @property
     def max_context(self) -> int:
@@ -299,4 +397,20 @@ class InferenceEngineV2:
 
     @property
     def available_blocks(self) -> int:
+        """Free-list blocks plus what prefix-cache eviction could reclaim."""
         return self.state_manager.available_blocks
+
+    @property
+    def prefix_cache(self):
+        """The :class:`PrefixKVCache` (None when disabled)."""
+        return self.state_manager.prefix_cache
+
+    @property
+    def cache_telemetry(self):
+        """The :class:`CacheTelemetry` (None unless enabled)."""
+        return self.state_manager.cache_telemetry
+
+    @property
+    def tiered_store(self):
+        """The host / disk tier (None unless ``host_tier`` is configured)."""
+        return self.state_manager.tiered_store

@@ -1,6 +1,5 @@
 """Per-sequence tracking state (copy of
-``deepspeed_tpu/inference/v2/ragged/sequence_descriptor.py``, without the
-prefix-cache and tenant fields this slice does not serve)."""
+``deepspeed_tpu/inference/v2/ragged/sequence_descriptor.py``)."""
 
 from dataclasses import dataclass, field
 from typing import List
@@ -15,6 +14,18 @@ class DSSequenceDescriptor:
     seen_tokens: int = 0  # tokens whose KV is already materialized
     in_flight_tokens: int = 0  # tokens scheduled in the current forward
     kv_blocks: List[int] = field(default_factory=list)
+    # prefix-cache bookkeeping: the token ids behind the materialized KV (so
+    # completed full blocks can be published into the radix tree), how many
+    # leading blocks arrived shared from the tree, and how many prompt tokens
+    # the cache let prefill skip. ``history_valid`` drops to False when
+    # generated tokens never reached the host (decode(block=False)):
+    # publishing then stops at the last known-token boundary.
+    token_history: List[int] = field(default_factory=list)
+    history_valid: bool = True
+    shared_blocks: int = 0
+    prefix_cached_tokens: int = 0
+    published_blocks: int = 0  # publish() cursor: full blocks already walked
+    tenant: str = None  # owner identity stamped on published tree nodes
 
     @property
     def cur_allocated_blocks(self) -> int:

@@ -1,14 +1,17 @@
 """Dynamic SplitFuse serving scheduler.
 
 Counterpart of ``deepspeed_tpu/inference/v2/scheduler.py`` without the
-speculative paths: every forward carries a bounded token budget filled with
-all runnable DECODE steps first, then chunks of pending prefills, so long
-prompts never stall decode latency. Admission reserves a request's whole
-lifetime of KV blocks (prompt + max_new_tokens), so an admitted request can
-always run to completion. When the queue drains to pure decode the loop
-switches to the engine's multi-step ``decode`` (one host wait per horizon).
-Nothing is dropped silently: un-runnable work raises with the stalled uids
-named, and partial generations stay readable via ``results``.
+speculative paths and tenants: every forward carries a bounded token budget
+filled with all runnable DECODE steps first, then chunks of pending
+prefills, so long prompts never stall decode latency. Admission reserves a
+request's whole lifetime of KV blocks (prompt + max_new_tokens), minus the
+blocks a prefix-cache hit brings shared, so an admitted request can always
+run to completion. When the queue drains to pure decode the loop switches
+to the engine's multi-step ``decode`` (one host wait per horizon). A
+request may sample (``submit(sampling=SamplingParams(...))``); the knobs
+ride down to the engine only when some row of a forward samples. Nothing is
+dropped silently: un-runnable work raises with the stalled uids named, and
+partial generations stay readable via ``results``.
 """
 
 from typing import Dict, List, Optional
@@ -20,17 +23,22 @@ from .scheduling_utils import SchedulingResult
 
 class _Request:
     __slots__ = ("uid", "prompt", "max_new_tokens", "eos_token_id", "fed", "generated", "done",
-                 "charged_blocks")
+                 "charged_blocks", "sampling")
 
-    def __init__(self, uid, prompt, max_new_tokens, eos_token_id):
+    def __init__(self, uid, prompt, max_new_tokens, eos_token_id, sampling=None):
         self.uid = uid
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
+        self.sampling = sampling  # SamplingParams | None (= greedy)
         self.fed = 0  # prompt tokens already given to the engine
         self.generated: List[int] = []
         self.done = False
         self.charged_blocks = 0  # lifetime KV reservation charged at admission
+
+    @property
+    def sampled(self) -> bool:
+        return self.sampling is not None and not self.sampling.greedy
 
     @property
     def prefilling(self) -> bool:
@@ -69,10 +77,15 @@ class DynamicSplitFuseScheduler:
         self._reserved_blocks = 0  # KV blocks promised to active requests
         self.stats = {"prefill_tokens_fed": 0, "prefill_tokens_skipped": 0}
 
-    def submit(self, uid: int, prompt, max_new_tokens: int = 32, eos_token_id=None):
+    def submit(self, uid: int, prompt, max_new_tokens: int = 32, eos_token_id=None,
+               sampling=None):
+        """Queue a request; ``sampling`` is a ``SamplingParams`` (None: greedy),
+        validated here."""
         if uid in self._active or any(r.uid == uid for r in self._pending):
             raise ValueError(f"uid {uid} already queued")
-        req = _Request(uid, prompt, max_new_tokens, eos_token_id)
+        if sampling is not None:
+            sampling.validate()
+        req = _Request(uid, prompt, max_new_tokens, eos_token_id, sampling=sampling)
         if req.prompt.size == 0:
             raise ValueError(f"uid {uid}: empty prompt")
         if req.max_new_tokens <= 0:
@@ -124,7 +137,9 @@ class DynamicSplitFuseScheduler:
         seq = self.engine.state_manager.get_sequence(req.uid)
         if seq is not None:
             # a decode horizon materializes KV past the last token an early-
-            # finished (eos) or cancelled request keeps: rewind it first
+            # finished (eos) or cancelled request keeps: rewind it before the
+            # flush publishes full blocks into the tree. final=True: the flush
+            # is the sequence's last act, so no copy-on-write is needed.
             known = req.fed + max(0, len(req.generated) - 1)
             if seq.seen_tokens > known:
                 self.engine.state_manager.rollback_to(seq, known, final=True)
@@ -137,7 +152,12 @@ class DynamicSplitFuseScheduler:
                    budget: int) -> bool:
         """Admission reserves the request's WHOLE lifetime of KV blocks and
         validates CUMULATIVELY against the batch composed so far, so a
-        combination that passes here is never refused by ``put``."""
+        combination that passes here is never refused by ``put``.
+
+        With the prefix cache: probe first (pure: a refused request leaves
+        the tree, its LRU clock and the stats untouched), budget only the
+        uncached remainder, with the hit's tree-only blocks taken off the
+        evictable supply (acquisition pins them), then acquire."""
         if len(batch_uids) >= self.max_seqs:
             return False
         sm = self.engine.config.state_manager
@@ -163,9 +183,10 @@ class DynamicSplitFuseScheduler:
         return True
 
     def _owned_blocks(self) -> int:
-        """Blocks active sequences allocated themselves."""
+        """Blocks active sequences allocated themselves (the shared blocks of
+        a hit were never charged against the reservation)."""
         sm = self.engine.state_manager
-        return sum(s.cur_allocated_blocks
+        return sum(max(0, s.cur_allocated_blocks - s.shared_blocks)
                    for s in (sm.get_sequence(u) for u in self._active) if s is not None)
 
     def _append_token(self, req: _Request, tok: int) -> None:
@@ -184,7 +205,10 @@ class DynamicSplitFuseScheduler:
         uids = [r.uid for r in decoding]
         first = [np.asarray([r.generated[-1]], np.int32) for r in decoding]
         eos = [r.eos_token_id for r in decoding]
-        toks = np.asarray(self.engine.decode(uids, first, horizon, eos_token_ids=eos))
+        # sampling rides down only when some row samples
+        samp = [r.sampling for r in decoding] if any(r.sampled for r in decoding) else None
+        toks = np.asarray(self.engine.decode(uids, first, horizon, eos_token_ids=eos,
+                                             sampling=samp))
         for req, row in zip(decoding, toks):
             for tok in row.tolist():
                 self._append_token(req, int(tok))
@@ -234,7 +258,10 @@ class DynamicSplitFuseScheduler:
                 i += 1
         if not uids:
             return 0
-        toks = self.engine.put(uids, chunks, sample="greedy")
+        samp = None
+        if any(self._active[u].sampled for u in uids):
+            samp = [self._active[u].sampling for u in uids]
+        toks = self.engine.put(uids, chunks, sample="greedy", sampling=samp)
         for uid, tok in zip(uids, np.asarray(toks).reshape(-1)):
             req = self._active[uid]
             if req.prefilling:

@@ -21,9 +21,9 @@ from deepspeed_tpu.inference.v2 import RaggedInferenceEngineConfig as JaxConfig
 from deepspeed_tpu.models import mistral as jax_mistral
 from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, DynamicSplitFuseScheduler,
                                               InferenceEngineV2, PrefixCacheConfig,
-                                              RaggedInferenceEngineConfig, SchedulingError,
-                                              SchedulingResult, SpeculativeConfig,
-                                              build_model_engine)
+                                              RaggedInferenceEngineConfig, SamplingParams,
+                                              SchedulingError, SchedulingResult,
+                                              SpeculativeConfig, build_model_engine)
 from deepspeed_tpu_torch.models import mistral, mistral_config, params_from_jax
 
 TINY = dict(num_layers=2, hidden_size=64, num_heads=4, num_kv_heads=2, intermediate_size=128,
@@ -128,18 +128,22 @@ def test_over_budget_batches_get_the_same_scheduling_results():
 
 
 def test_unported_features_are_refused():
+    """Speculative decoding and unported families are refused; a sampled
+    list asks for tokens, so with ``sample=None`` (logits) it raises, as
+    the JAX engine does."""
     base = dict(kv_block_size=8, num_kv_blocks=16,
                 state_manager=DSStateManagerConfig(**SM))
     kw = dict(device="cpu", dtype=torch.float32, **TINY)
     with pytest.raises(NotImplementedError):
         build_model_engine("mistral", "tiny", RaggedInferenceEngineConfig(
-            prefix_cache=PrefixCacheConfig(enabled=True), **base), **kw)
-    with pytest.raises(NotImplementedError):
-        build_model_engine("mistral", "tiny", RaggedInferenceEngineConfig(
             speculative=SpeculativeConfig(mode="ngram"), **base), **kw)
-    eng = build_model_engine("mistral", "tiny", RaggedInferenceEngineConfig(**base), **kw)
-    with pytest.raises(NotImplementedError):
-        eng.put([1], [np.arange(4, dtype=np.int32)], sample="sample")
+    eng = build_model_engine("mistral", "tiny", RaggedInferenceEngineConfig(
+        prefix_cache=PrefixCacheConfig(enabled=True), **base), **kw)
+    assert eng.prefix_cache is not None
+    with pytest.raises(ValueError, match="sample=None"):
+        eng.put([1], [np.arange(4, dtype=np.int32)], sample=None,
+                sampling=[SamplingParams(temperature=0.7, seed=1)])
+    assert eng.state_manager.n_tracked_sequences == 0  # refused before any state moved
     with pytest.raises(ValueError):
         build_model_engine("gpt2", "tiny", RaggedInferenceEngineConfig(**base), **kw)
 
