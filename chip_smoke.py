@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
                                     train,remat,eager,zero,moe_zero,tp,moe_train,
-                                    sparse_train,evo_kernels,evo_path,v1,hybrid,prefix_sample]
+                                    sparse_train,evo_kernels,evo_path,v1,hybrid,prefix_sample,
+                                    families]
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
     python3 chip_smoke.py --versus DIR [--phases kernels,e2e]
@@ -22,7 +23,9 @@ code 1 otherwise):
    shared memory per CTA; hold every paged-attention path (``paged_decode``
    with kv_splits 1 and 8, ``paged_prefill``) against the plain PyTorch
    version on the card, bf16 and int8 pools, GQA 32/8, head_dim 128, block
-   64, plus window / ALiBi / head_dim 64 cases at small sizes. Tolerance,
+   64, plus window / ALiBi / head_dim 64 cases at small sizes, and the
+   model families' group sizes there: g 1 at head_dim 64 and 128 and g 7
+   at 128 (a prefill tile of 9 tokens), plain and with ALiBi slopes. Tolerance,
    per output element: |kernel - plain| <= 2 ulp(plain) + 2^-14, with ulp
    the spacing of bfloat16 numbers at |plain|. Both sum in fp32 (the
    kernels on the tensor cores, whose products take the 16-bit inputs
@@ -383,6 +386,34 @@ code 1 otherwise):
    promotion's time, decode ms/step of sampled against greedy horizons (in
    turns, on both engines), the sampler's time, peak memory, beside the
    card's name and power limit.
+20. families: the model families on the paged kernels, each engine freed
+   before the next (bf16, random weights from seed 0, kv block 64,
+   max_context 2048). Qwen2-7B at full width and depth through
+   ``build_model_engine("qwen2", "7b")`` (28 layers, GQA 28/4: 7 query
+   heads a kv head, so the prefill's tile is 9 tokens; biased qkv, rope
+   theta 1e6, vocab 152,064), and Bloom-7b1 at full width with its depth
+   cut 30 -> 4 through ``build_engine(bloom("7b1", num_layers=4))`` (MHA
+   32/32, head_dim 128, ALiBi on every paged route, embedding LayerNorm,
+   LayerNorm, GELU, biases, a tied 250,880 vocabulary): each serves the two
+   waves of ``e2e`` (the launch counts set to 0 just before and read just
+   after; the per-token decode, the split decode and its merge, and the
+   q-tiled prefill must each launch), its 512-token prefill logits must be
+   within ``LOGITS_REL_L2_TOL`` of the plain route's on the same weights,
+   and a decode profile gives wall and device ms per step. Then the HF
+   loader's round trip: a Qwen2-7B-width checkpoint of 2 layers in HF
+   naming, drawn from seed 20 on the card and written as bf16
+   ``.safetensors`` in two shards plus ``config.json`` into a temporary
+   directory (removed afterwards), is loaded by ``build_hf_engine``; every
+   loaded tensor must equal what was written (after its transpose, bit for
+   bit), and a 512-token put's logits must be within the same tolerance of
+   the plain route's. Last, ``build_model_engine("phi", "2",
+   num_layers=1)`` (head_dim 80) and ``build_engine(falcon("7b",
+   num_layers=1))`` (71 query heads over 1 kv head) must raise at engine
+   build, naming the head dim and the group size. Printed: TTFT p50,
+   decode ms/step wall and device, peak memory, the load's seconds and
+   GB/s (the files just written: a warm read) and the host's resident
+   memory before it and at most during it (sampled every 2 ms), beside the
+   card's name and power limit.
 
 ``--mutant`` copies the package into ``build/mutant/<name>`` once per
 mutant: the grouped matmul kernels dropping one row block's products
@@ -490,6 +521,8 @@ KERNELS = {  # name -> (TPU kernel it replaces)
 # the split decode's fp32 partials: m within 2^-14 (1 + |m|), l within 2^-14 l,
 # acc within 2^-14 l max|v| (see the module docstring)
 PARTIAL_TOL = 2.0**-14
+# (kv heads, group size, head_dim) of the small matrix's model-family cases
+FAMILY_GROUP_CASES = ((4, 1, 64), (4, 1, 128), (2, 7, 128))
 FLASH_SRC = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
 TPU_FLASH = "deepspeed_tpu/ops/pallas/flash_attention.py"
 TRAIN_KERNELS = {  # name -> (source, TPU kernel it replaces)
@@ -694,6 +727,12 @@ PREFIX_SHORT_SYSTEM, PREFIX_SHORT_CONTEXT, PREFIX_SHORT_BLOCKS = 256, 448, 64
 # (randomly permuted), 20,000 draws at positions 0..19,999, chi-square over
 # the filtered softmax's top 64 tokens and one bucket for the rest of the nucleus
 CHI2_VOCAB, CHI2_DRAWS, CHI2_TOP, CHI2_MIN_P = 32000, 20000, 64, 1e-3
+# phase 20: the model families. Qwen2-7B at full size; Bloom-7b1 at full
+# width with its depth cut 30 -> 4; a Qwen2-7B-width HF checkpoint of 2
+# layers written in two bf16 .safetensors shards and loaded back
+FAMILIES_QWEN = ("7b", {})
+FAMILIES_BLOOM = ("7b1", {"num_layers": 4})
+FAMILIES_HF_LAYERS, FAMILIES_HF_SHARDS = 2, 2
 
 
 def log(msg):
@@ -943,8 +982,27 @@ def phase_kernels():
                                                device="cuda")
                 run_paths(f"d={d} int8={int8} window={window} alibi={alibi}", q, k, v, tb, si,
                           po, bs, kw, splits=3)
-    log(f"[kernels] small-size matrix (32 cases x 3 paths, the split's partials and merge at 3 "
-        f"and 8 splits): "
+    # the model families' group sizes: g 1 (Bloom's MHA, GPT-2, OPT) at both
+    # head dims and g 7 (Qwen2: a prefill tile of 9 tokens, one masked row
+    # in 64), plain and with the model's own ALiBi slopes
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+
+    for nkv, g, d in FAMILY_GROUP_CASES:
+        for alibi in (False, True):
+            tables = torch.randperm(12, generator=g_small).to(torch.int32).reshape(3, 4)
+            seq = torch.tensor([0] * 13 + [1] * 6 + [2] + [0] * 3, dtype=torch.int32)
+            pos = torch.tensor(list(range(20, 33)) + list(range(16, 22)) + [53, 0, 0, 0],
+                               dtype=torch.int32)
+            q, k, v, tb, si, po, kw = _make_case(100 * g + d + alibi, nkv, g, d, 16, tables, seq,
+                                                 pos, False)
+            if alibi:
+                kw["alibi"] = torch.as_tensor(alibi_slopes(nkv * g), device="cuda")
+            run_paths(f"g={g} nkv={nkv} d={d} alibi={alibi}", q, k, v, tb, si, po, 16, kw,
+                      splits=3)
+    n_small = 32 + 2 * len(FAMILY_GROUP_CASES)
+    log(f"[kernels] small-size matrix ({n_small} cases x 3 paths: g 4 at d 128 / 64, bf16 / "
+        f"int8, plain / window / ALiBi / both; g {sorted({c[1] for c in FAMILY_GROUP_CASES})} "
+        f"plain / ALiBi; the split's partials and merge at 3 and 8 splits): "
         f"{'all within tolerance' if not failures else failures}; max_abs_err {worst}")
 
     # main-path shapes: Mistral-7B attention (GQA 32/8, d 128), block 64,
@@ -1081,36 +1139,22 @@ def phase_kernels():
 # phase 4: Mistral-7B served end to end
 # ---------------------------------------------------------------------------
 
-def phase_e2e():
+def _serve_waves(engine, rng, tag):
+    """The serving main path's traffic through ``DynamicSplitFuseScheduler``,
+    counted: the launch counts set to 0 just before and read just after.
+    Wave A, a 20-token prompt admitted alone (the per-token decode grid),
+    then its decode horizons (the split-K grid on 32-block tables); wave B,
+    a 512-token prompt and three more in one SplitFuse batch (the q-tiled
+    prefill), then decode. Fails unless every request gets all its tokens
+    in the vocabulary and every paged route launched. Returns (the
+    launches, wave B's prompts and lengths)."""
     import numpy as np
     import torch
 
-    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig,
-                                                  DynamicSplitFuseScheduler, InferenceEngineV2,
-                                                  ModulesConfig, RaggedInferenceEngineConfig,
-                                                  build_model_engine)
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
-    t0 = time.perf_counter()
-    cfg = RaggedInferenceEngineConfig(kv_block_size=64,
-                                      state_manager=DSStateManagerConfig(max_context=2048))
-    engine = build_model_engine("mistral", "7b", cfg, seed=0)
-    torch.cuda.synchronize()
-    mc = engine.model_config
-    n_params = engine.module.num_params()
-    kv = engine.state_manager.kv_cache
-    log(f"[e2e] Mistral-7B: {mc.num_layers} layers, hidden {mc.hidden_size}, heads "
-        f"{mc.num_heads}/{mc.num_kv_heads}, {n_params / 1e9:.3f}B params, KV pool "
-        f"{engine.num_kv_blocks} x {cfg.kv_block_size} slots ({kv.memory_bytes() / 2**30:.1f} GiB, "
-        f"{kv.k_flat.numel():,} elements per pool), built in {time.perf_counter() - t0:.1f}s")
-    if kv.k_flat.numel() <= 2**31:
-        log("[e2e] note: the pool is below 2^31 elements; 64-bit offsets not exercised")
-
-    rng = np.random.default_rng(0)
-    vocab = mc.vocab_size
-    # A: a short prompt admitted alone (per-token grid), then its decode
-    #    horizons (split-K grid: 32-block tables). B: a 512-token prompt and
-    #    three more in one SplitFuse batch (q-tiled grid), then decode.
+    vocab = engine.model_config.vocab_size
     wave_a = {0: (rng.integers(0, vocab, 20), 24)}
     wave_b = {1: (rng.integers(0, vocab, 512), 32), 2: (rng.integers(0, vocab, 128), 32),
               3: (rng.integers(0, vocab, 100), 16), 4: (rng.integers(0, vocab, 200), 24)}
@@ -1148,49 +1192,94 @@ def phase_e2e():
     for uid, n in expected.items():
         toks = results.get(uid)
         if toks is None or len(toks) != n or not all(0 <= t < vocab for t in toks):
-            raise RuntimeError(f"request {uid}: bad generation {toks}")
+            raise RuntimeError(f"{tag} request {uid}: bad generation {toks}")
     n_tok = sum(len(v) for v in results.values())
-    log(f"[e2e] served {len(results)} requests, {n_tok} tokens generated in {wall:.2f}s; "
+    log(f"{tag} served {len(results)} requests, {n_tok} tokens generated in {wall:.2f}s; "
         f"TTFT p50 {1e3 * float(np.median(list(ttft.values()))):.1f} ms "
         f"(per request ms: { {u: round(1e3 * t, 1) for u, t in sorted(ttft.items())} }); "
         f"decode {decode_tokens / max(decode_s, 1e-9):.1f} tok/s over {decode_tokens} tokens; "
         f"peak memory {peak / 2**30:.2f} GiB")
-    log(f"[e2e] kernel launches on the main path: {launches}")
+    log(f"{tag} kernel launches on the main path: {launches}")
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
-        raise RuntimeError(f"kernel paths never launched on the main path: {missing}")
+        raise RuntimeError(f"{tag} kernel paths never launched on the main path: {missing}")
+    record = {"ttft_p50_ms": 1e3 * float(np.median(list(ttft.values()))),
+              "decode_tok_s": decode_tokens / max(decode_s, 1e-9), "peak_gib": peak / 2**30,
+              "wall_s": wall}
+    return launches, wave_b, record
 
-    # one prefill's last-token logits: kernels vs the plain attention,
-    # asked for explicitly on a second engine sharing the same weights
-    prompt = wave_b[1][0].astype(np.int32)
+
+def _plain_route_rel(engine, prompt, tag):
+    """One prefill's last-token logits, the kernels against the plain
+    attention asked for explicitly on a second engine sharing the weights:
+    finite, of the vocabulary's width, and within ``LOGITS_REL_L2_TOL``
+    (relative L2; bf16 activations round differently after attention
+    outputs that differ in the last bf16 bit, through every layer).
+    Returns the relative L2."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig, InferenceEngineV2,
+                                                  ModulesConfig, RaggedInferenceEngineConfig)
+
+    vocab, layers = engine.model_config.vocab_size, engine.model_config.num_layers
     logits_k = engine.put([100], [prompt])
     engine.flush(100)
     dense_cfg = RaggedInferenceEngineConfig(
         kv_block_size=64, num_kv_blocks=40, state_manager=DSStateManagerConfig(max_context=2048),
         modules=ModulesConfig(attention="dense_blocked_attention"))
-    dense = InferenceEngineV2(engine.module, dense_cfg, params=engine.params)
+    dense = InferenceEngineV2(engine.module, dense_cfg, params=engine.params,
+                              device=engine.device)
     logits_d = dense.put([100], [prompt])
+    del dense
     if logits_k.shape != (1, vocab) or not np.isfinite(logits_k).all():
-        raise RuntimeError(f"bad logits: shape {logits_k.shape}")
+        raise RuntimeError(f"{tag} bad logits: shape {logits_k.shape}")
     rel = float(np.linalg.norm(logits_k - logits_d) / np.linalg.norm(logits_d))
     same_top = int(np.argmax(logits_k)) == int(np.argmax(logits_d))
-    log(f"[e2e] 512-token prefill logits, kernels vs dense_blocked_attention: rel L2 {rel:.3e} "
-        f"(tolerance {LOGITS_REL_L2_TOL}: bf16 activations round differently after attention "
-        f"outputs that differ in the last bf16 bit, through 32 layers); same argmax: {same_top}")
+    log(f"{tag} {len(prompt)}-token prefill logits, kernels vs dense_blocked_attention: rel L2 "
+        f"{rel:.3e} (tolerance {LOGITS_REL_L2_TOL}, {layers} layers); same argmax: {same_top}")
     if not rel <= LOGITS_REL_L2_TOL:
-        raise RuntimeError(f"logits disagree: rel L2 {rel:.3e} > {LOGITS_REL_L2_TOL}")
-    del dense
+        raise RuntimeError(f"{tag} logits disagree: rel L2 {rel:.3e} > {LOGITS_REL_L2_TOL}")
+    return rel
+
+
+def phase_e2e():
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig,
+                                                  RaggedInferenceEngineConfig, build_model_engine)
+
+    t0 = time.perf_counter()
+    cfg = RaggedInferenceEngineConfig(kv_block_size=64,
+                                      state_manager=DSStateManagerConfig(max_context=2048))
+    engine = build_model_engine("mistral", "7b", cfg, seed=0)
+    torch.cuda.synchronize()
+    mc = engine.model_config
+    n_params = engine.module.num_params()
+    kv = engine.state_manager.kv_cache
+    log(f"[e2e] Mistral-7B: {mc.num_layers} layers, hidden {mc.hidden_size}, heads "
+        f"{mc.num_heads}/{mc.num_kv_heads}, {n_params / 1e9:.3f}B params, KV pool "
+        f"{engine.num_kv_blocks} x {cfg.kv_block_size} slots ({kv.memory_bytes() / 2**30:.1f} GiB, "
+        f"{kv.k_flat.numel():,} elements per pool), built in {time.perf_counter() - t0:.1f}s")
+    if kv.k_flat.numel() <= 2**31:
+        log("[e2e] note: the pool is below 2^31 elements; 64-bit offsets not exercised")
+
+    rng = np.random.default_rng(0)
+    launches, wave_b, _ = _serve_waves(engine, rng, "[e2e]")
+
+    _plain_route_rel(engine, wave_b[1][0].astype(np.int32), "[e2e]")
     profile_decode(engine, rng)
     profile_prefill(engine, rng)
     return launches
 
 
-def profile_decode(engine, rng, n_seqs=8, steps=4, repeats=5):
+def profile_decode(engine, rng, n_seqs=8, steps=4, repeats=5, tag="[e2e]"):
     """Where a decode step's time goes: torch.profiler over one warmed
     ``decode`` horizon of ``n_seqs`` sequences, kernel time summed from the
     device activity records, against the host's wall clock (the median of
     ``repeats`` unprofiled horizons: the host's clock varies from horizon to
-    horizon on a machine whose CPU cores are shared)."""
+    horizon on a machine whose CPU cores are shared). Returns (wall,
+    device) ms per step."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1223,7 +1312,7 @@ def profile_decode(engine, rng, n_seqs=8, steps=4, repeats=5):
             n_kernels += not e.name.startswith(("Memcpy", "Memset"))
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[e2e] decode profile, {n_seqs} sequences x {steps} steps: wall {1e3 * wall_plain / steps:.2f} "
+    log(f"{tag} decode profile, {n_seqs} sequences x {steps} steps: wall {1e3 * wall_plain / steps:.2f} "
         f"ms/step unprofiled (median of {repeats} horizons; range "
         f"{1e3 * min(walls) / steps:.2f}-{1e3 * max(walls) / steps:.2f}), "
         f"{1e3 * wall / steps:.2f} ms/step profiled; device busy "
@@ -1231,10 +1320,11 @@ def profile_decode(engine, rng, n_seqs=8, steps=4, repeats=5):
         f"the unprofiled wall, {100 * (1 - busy / wall):.1f}% of the profiled one; device "
         f"kernels {n_kernels / steps:.1f} per step ({n_ops / steps:.1f} with copies)")
     attn = sum(us for n, us in by_name.items() if "paged_" in n or "decode_merge" in n) / 1e6
-    log(f"[e2e] decode profile: paged attention kernels {1e3 * attn / steps:.3f} ms/step "
+    log(f"{tag} decode profile: paged attention kernels {1e3 * attn / steps:.3f} ms/step "
         f"({100 * attn / busy:.1f}% of device time)")
     for name, us in top:
-        log(f"[e2e]   {us / steps / 1e3:8.3f} ms/step  {name[:90]}")
+        log(f"{tag}   {us / steps / 1e3:8.3f} ms/step  {name[:90]}")
+    return 1e3 * wall_plain / steps, 1e3 * busy / steps
 
 
 def profile_prefill(engine, rng, n_tok=512, repeats=5):
@@ -5259,6 +5349,264 @@ def phase_prefix_sample():
                   short_wave_hits=stats2["hits"], short_wave_launches=short_launches,
                   short_decode_ms_per_step=short_ms)
     return {"wave": wave_launches, "short_wave": short_launches}, record
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the model families and the HuggingFace checkpoint loader
+# ---------------------------------------------------------------------------
+
+def _family_serve(engine, rng, tag):
+    """The serving main path's waves on ``engine`` (counted), one prefill's
+    logits against the plain route and a decode profile. Returns its
+    record, the launches under "launches"."""
+    import numpy as np
+
+    launches, wave_b, record = _serve_waves(engine, rng, tag)
+    record["logits_rel_l2"] = _plain_route_rel(engine, wave_b[1][0].astype(np.int32), tag)
+    wall, device = profile_decode(engine, rng, tag=tag)
+    record.update(decode_ms_step_wall=wall, decode_ms_step_device=device, launches=launches)
+    return record
+
+
+def _hf_qwen2_tensors(cfg, seed, device):
+    """A Qwen2 checkpoint's tensors in HF naming, bf16, drawn on ``device``
+    from a seeded generator: weights ``[out, in]`` at 1/sqrt(fan_in),
+    embedding and biases at 0.02, norm scales 1 + 0.02 N(0, 1). Returns
+    {name: tensor} and {name: (group, leaf, layer or None, transposed)}: where
+    each lands in the port's tree, written here apart from the loader's own
+    table."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    H, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    tensors, where = {}, {}
+
+    def add(name, shape, scale, target, offset=0.0):
+        t = torch.randn(shape, generator=gen, device=device).mul_(scale).add_(offset)
+        tensors[name] = t.to(torch.bfloat16)
+        where[name] = target
+
+    add("model.embed_tokens.weight", (V, H), 0.02, ("embed", "embedding", None, False))
+    for i in range(cfg.num_layers):
+        b = f"model.layers.{i}."
+        add(b + "input_layernorm.weight", (H, ), 0.02, ("blocks", "ln1_scale", i, False), 1.0)
+        for n, leaf, out in (("q", "q", q), ("k", "k", kv), ("v", "v", kv)):
+            add(b + f"self_attn.{n}_proj.weight", (out, H), H**-0.5,
+                ("blocks", "w" + leaf, i, True))
+            add(b + f"self_attn.{n}_proj.bias", (out, ), 0.02, ("blocks", "b" + leaf, i, False))
+        add(b + "self_attn.o_proj.weight", (H, q), q**-0.5, ("blocks", "wo", i, True))
+        add(b + "post_attention_layernorm.weight", (H, ), 0.02, ("blocks", "ln2_scale", i, False),
+            1.0)
+        add(b + "mlp.gate_proj.weight", (F, H), H**-0.5, ("blocks", "w_gate", i, True))
+        add(b + "mlp.up_proj.weight", (F, H), H**-0.5, ("blocks", "w_up", i, True))
+        add(b + "mlp.down_proj.weight", (H, F), F**-0.5, ("blocks", "w_down", i, True))
+    add("model.norm.weight", (H, ), 0.02, ("final_norm", "scale", None, False), 1.0)
+    add("lm_head.weight", (V, H), H**-0.5, ("lm_head", "kernel", None, True))
+    return tensors, where
+
+
+def _write_safetensors(path, tensors):
+    """A ``.safetensors`` file of bf16 tensors: the 8-byte little-endian
+    header length, the JSON header padded with spaces to 8 bytes, then each
+    tensor's bytes in order."""
+    import struct
+
+    import torch
+
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.cpu().contiguous().view(torch.int16).numpy())
+    return 8 + len(raw) + off
+
+
+@contextlib.contextmanager
+def _rss_sampler(every_s=0.002):
+    """This process's resident memory (``/proc/self/statm``, read only)
+    before a block and the most a thread sampling it every ``every_s``
+    seconds saw during it: {"before", "peak" (bytes), "samples"}."""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+
+    out = {"before": rss(), "peak": 0, "samples": 0}
+    done = threading.Event()
+
+    def sample():
+        while not done.is_set():
+            out["peak"] = max(out["peak"], rss())
+            out["samples"] += 1
+            done.wait(every_s)
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        done.set()
+        t.join()
+        out["peak"] = max(out["peak"], rss())
+
+
+def _hf_round_trip(smi):
+    """Write a Qwen2-7B-width checkpoint of ``FAMILIES_HF_LAYERS`` layers
+    in HF naming as bf16 ``.safetensors`` in ``FAMILIES_HF_SHARDS`` shards
+    plus ``config.json`` into a temporary directory (removed afterwards),
+    load it with ``build_hf_engine``, and check every loaded tensor against
+    what was written (bit for bit, after its transpose) and a put's logits
+    against the plain route. Returns the record."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig,
+                                                  RaggedInferenceEngineConfig, build_hf_engine)
+    from deepspeed_tpu_torch.models import qwen2_config
+
+    dev = torch.device("cuda")
+    cfg = qwen2_config(FAMILIES_QWEN[0], **dict(FAMILIES_QWEN[1], num_layers=FAMILIES_HF_LAYERS))
+    tensors, where = _hf_qwen2_tensors(cfg, 20, dev)
+    hf_cfg = {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+              "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+              "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+              "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+              "max_position_embeddings": cfg.max_seq_len, "rope_theta": cfg.rope_theta,
+              "rms_norm_eps": cfg.norm_eps, "tie_word_embeddings": False,
+              "torch_dtype": "bfloat16"}
+    names = list(tensors)
+    cut = -(-len(names) // FAMILIES_HF_SHARDS)
+    with tempfile.TemporaryDirectory(prefix="hf_qwen2_") as d:
+        t0 = time.perf_counter()
+        n_bytes, index = 0, {}
+        for k in range(FAMILIES_HF_SHARDS):
+            fname = f"model-{k + 1:05d}-of-{FAMILIES_HF_SHARDS:05d}.safetensors"
+            part = {n: tensors[n] for n in names[k * cut:(k + 1) * cut]}
+            n_bytes += _write_safetensors(os.path.join(d, fname), part)
+            index.update({n: fname for n in part})
+        with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {"total_size": n_bytes}, "weight_map": index}, f)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(hf_cfg, f)
+        write_s = time.perf_counter() - t0
+        with _rss_sampler() as rss:
+            t0 = time.perf_counter()
+            engine = build_hf_engine(d, RaggedInferenceEngineConfig(
+                kv_block_size=64, state_manager=DSStateManagerConfig(max_context=2048)))
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+    bad = []
+    for name, (group, leaf, layer, transposed) in where.items():
+        got = engine.params[group][leaf]
+        got = got if layer is None else got[layer]
+        want = tensors[name].t() if transposed else tensors[name]
+        if got.shape != want.shape or not torch.equal(got, want.to(got.dtype)):
+            bad.append(name)
+    log(f"[families] HF round trip: {len(where)} tensors ({n_bytes / 1e9:.3f} GB, "
+        f"{FAMILIES_HF_SHARDS} bf16 .safetensors shards, Qwen2-{FAMILIES_QWEN[0]} width, "
+        f"{cfg.num_layers} layers) written in {write_s:.2f} s; build_hf_engine {load_s:.2f} s "
+        f"({n_bytes / 1e9 / load_s:.2f} GB/s; the files were just written: a warm read); host "
+        f"resident memory {rss['before'] / 2**20:.0f} MiB before, at most "
+        f"{rss['peak'] / 2**20:.0f} during the load ({rss['samples']} samples; the largest "
+        f"tensor {max(t.numel() for t in tensors.values()) * 2 / 2**20:.0f} MiB); tensors equal "
+        f"to what was written: "
+        f"{len(where) - len(bad)} of {len(where)}; {smi}")
+    del tensors
+    if bad:
+        raise RuntimeError(f"[families] loaded tensors differ from the checkpoint: {bad[:8]}")
+    rng = np.random.default_rng(20)
+    rel = _plain_route_rel(engine, rng.integers(0, cfg.vocab_size, 512).astype(np.int32),
+                           "[families] hf")
+    del engine
+    return dict(tensors=len(where), bytes=n_bytes, shards=FAMILIES_HF_SHARDS, write_s=write_s,
+                load_s=load_s, load_gb_s=n_bytes / 1e9 / load_s,
+                host_rss_mib={"before": rss["before"] / 2**20, "peak": rss["peak"] / 2**20},
+                logits_rel_l2=rel)
+
+
+def phase_families():
+    """The model families on the paged kernels: Qwen2-7B at full size (GQA
+    28/4, g 7) through ``build_model_engine``; Bloom-7b1 at full width, depth
+    cut to 4 (MHA, ALiBi, embedding LayerNorm, a tied 250,880 vocabulary)
+    through ``build_engine(bloom(...))``; the HF checkpoint round trip; and
+    phi-2 (head_dim 80) and Falcon-7B (71 query heads over 1 kv head)
+    refused at engine build. Returns the launches of each served model and
+    the phase's record."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig,
+                                                  RaggedInferenceEngineConfig, build_engine,
+                                                  build_model_engine)
+    from deepspeed_tpu_torch.models import bloom, falcon
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    cfg = RaggedInferenceEngineConfig(kv_block_size=64,
+                                      state_manager=DSStateManagerConfig(max_context=2048))
+    record, launches = {"card": smi}, {}
+    for key, build in (
+            ("qwen2_7b", lambda: build_model_engine("qwen2", FAMILIES_QWEN[0], cfg, seed=0,
+                                                    **FAMILIES_QWEN[1])),
+            ("bloom_7b1", lambda: build_engine(bloom(FAMILIES_BLOOM[0], seed=0,
+                                                     **FAMILIES_BLOOM[1]), cfg))):
+        tag = f"[families] {key}"
+        t0 = time.perf_counter()
+        engine = build()
+        torch.cuda.synchronize()
+        mc = engine.model_config
+        log(f"{tag}: {mc.num_layers} layers, hidden {mc.hidden_size}, heads {mc.num_heads}/"
+            f"{mc.num_kv_heads} (g {mc.num_heads // mc.num_kv_heads}, d {mc.head_dim}), "
+            f"positions {mc.positions}, vocab {mc.vocab_size}, "
+            f"{engine.module.num_params() / 1e9:.3f}B params, KV pool {engine.num_kv_blocks} x 64, "
+            f"built in {time.perf_counter() - t0:.1f}s")
+        rec = _family_serve(engine, np.random.default_rng(0), tag)
+        launches[key] = rec.pop("launches")
+        record[key] = rec
+        log(f"{tag}: TTFT p50 {rec['ttft_p50_ms']:.1f} ms, decode {rec['decode_ms_step_wall']:.2f} "
+            f"ms/step wall, {rec['decode_ms_step_device']:.2f} device, peak {rec['peak_gib']:.2f} "
+            f"GiB, logits rel L2 {rec['logits_rel_l2']:.3e}, launches {launches[key]}; {smi}")
+        del engine
+        free()
+    record["hf_round_trip"] = _hf_round_trip(smi)
+    free()
+    refused = {}
+    for key, build, miss in (
+            ("phi_2", lambda: build_model_engine("phi", "2", cfg, num_layers=1), "head_dim 80"),
+            ("falcon_7b", lambda: build_engine(falcon("7b", num_layers=1), cfg),
+             "group size 71")):
+        try:
+            build()
+        except ValueError as e:
+            if miss not in str(e) or "A5b" not in str(e):
+                raise RuntimeError(f"[families] {key} refused for another reason: {e}") from e
+            refused[key] = str(e).split(": ", 1)[-1]
+        else:
+            raise RuntimeError(f"[families] {key} was not refused at engine build ({miss})")
+        free()
+    log(f"[families] refused at engine build: {refused}")
+    record["refused"] = refused
+    return launches, record
 # the mutant checks. Grouped matmul: a copy that drops one row block's
 # contribution (gmm on the wgmma route: the second 128-row tile's products;
 # tgmm on both routes: each expert's first row block) must fail the
@@ -5864,7 +6212,7 @@ def run_versus(other, phases):
 
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
           "remat", "eager", "zero", "moe_zero", "tp", "moe_train", "sparse_train", "evo_kernels",
-          "evo_path", "v1", "hybrid", "prefix_sample")
+          "evo_path", "v1", "hybrid", "prefix_sample", "families")
 
 
 def main():
@@ -5936,7 +6284,7 @@ def main():
            "moe_zero": phase_moe_zero, "tp": phase_tp, "moe_train": phase_moe_train,
            "sparse_train": phase_sparse_train, "evo_kernels": phase_evo_kernels,
            "evo_path": phase_evo_path, "v1": phase_v1, "hybrid": phase_hybrid,
-           "prefix_sample": phase_prefix_sample}
+           "prefix_sample": phase_prefix_sample, "families": phase_families}
     failed = []
     out = {}
     for name in PHASES:
@@ -5980,10 +6328,13 @@ def main():
     moe_zero_launches, moe_zero = out["moe_zero"]
     tp_launches, tp = out["tp"]
     prefix_launches, prefix = out["prefix_sample"]
+    families_launches, families = out["families"]
     for entry in kernels:  # the paged kernels' launches per rank on the tp serving path
         entry["tp_launches"] = tp_launches[entry["name"]]
         entry["prefix_sample_launches"] = {run: int(n[entry["name"]])
                                            for run, n in prefix_launches.items()}
+        entry["families_launches"] = {run: int(n[entry["name"]])
+                                      for run, n in families_launches.items()}
     for name, m in out["train_kernels"].items():
         src, replaces = TRAIN_KERNELS[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -6037,6 +6388,7 @@ def main():
     kernels[0]["tp_path"] = tp
     kernels[0]["hybrid_path"] = hybrid
     kernels[0]["prefix_sample_path"] = prefix
+    kernels[0]["families_path"] = families
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -34,8 +34,14 @@ class DSModuleBase(ABC):
 
     @staticmethod
     @abstractmethod
-    def supports_config(config: DSModuleConfig) -> bool:
+    def refusal(config: DSModuleConfig) -> Optional[str]:
+        """Why this implementation cannot be instantiated for ``config``, or
+        None if it can (the registry raises with this text)."""
+
+    @classmethod
+    def supports_config(cls, config: DSModuleConfig) -> bool:
         """Whether this implementation can be instantiated for ``config``."""
+        return cls.refusal(config) is None
 
     def __init__(self, config: DSModuleConfig,
                  implementation_config: Optional[Dict[str, Any]] = None) -> None:

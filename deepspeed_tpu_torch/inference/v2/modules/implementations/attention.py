@@ -10,10 +10,13 @@
   raises; on CPU tensors the kernel wrappers use the plain version.
 """
 
+from typing import Optional
+
 import torch
 
 from .....models.transformer import alibi_slopes
-from .....ops.paged_attention import paged_attention, paged_attention_reference
+from .....ops.paged_attention import (paged_attention, paged_attention_reference,
+                                      unsupported_shape)
 from ..configs import DSSelfAttentionConfig
 from ..interfaces import DSSelfAttentionBase, DSSelfAttentionRegistry
 
@@ -25,8 +28,9 @@ class _PagedAttentionBase(DSSelfAttentionBase):
         self._slopes = {}  # device -> fp32 slopes tensor (alibi models only)
 
     @staticmethod
-    def supports_config(config: DSSelfAttentionConfig) -> bool:
-        return config.num_heads % max(config.num_kv_heads, 1) == 0
+    def refusal(config: DSSelfAttentionConfig) -> Optional[str]:
+        nq, nkv = config.num_heads, max(config.num_kv_heads, 1)
+        return f"{nq} query heads over {nkv} kv heads (not a multiple)" if nq % nkv else None
 
     def _alibi(self, device):
         if self.config.positions != "alibi":
@@ -60,9 +64,11 @@ class CudaPagedAttention(_PagedAttentionBase):
         return "paged_cuda_attention"
 
     @staticmethod
-    def supports_config(config: DSSelfAttentionConfig) -> bool:
-        return (config.num_heads % max(config.num_kv_heads, 1) == 0
-                and config.head_dim in (64, 128))
+    def refusal(config: DSSelfAttentionConfig) -> Optional[str]:
+        """The kernels' limits (``ops.paged_attention.unsupported_shape``)."""
+        misses = unsupported_shape(config.num_heads, max(config.num_kv_heads, 1),
+                                   config.head_dim)
+        return "; ".join(misses) + " (ROADMAP A5b)" if misses else None
 
     def __call__(self, q, k_flat, v_flat, tables_l, seq_idx, pos, k_scale=None, v_scale=None):
         cfg = self.config

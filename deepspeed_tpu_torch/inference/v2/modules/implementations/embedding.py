@@ -1,6 +1,8 @@
 """Embedding implementation: token gather + optional learned-position add +
 optional embed layernorm over the flat ragged batch."""
 
+from typing import Optional
+
 from .....models.transformer import _norm
 from ..configs import DSEmbeddingsConfig
 from ..interfaces import DSEmbeddingBase, DSEmbeddingRegistry
@@ -14,8 +16,8 @@ class RaggedEmbedding(DSEmbeddingBase):
         return "ragged_embedding"
 
     @staticmethod
-    def supports_config(config: DSEmbeddingsConfig) -> bool:
-        return True
+    def refusal(config: DSEmbeddingsConfig) -> Optional[str]:
+        return None
 
     def __call__(self, params, token_ids, pos):
         cfg = self.config

@@ -2,6 +2,8 @@
 the module's compute dtype (the TPU package leaves the same product to
 XLA). Weights are [in, out]."""
 
+from typing import Optional
+
 from ..configs import DSLinearConfig
 from ..interfaces import DSLinearBase, DSLinearRegistry
 
@@ -14,8 +16,8 @@ class BlasFPLinear(DSLinearBase):
         return "blas_fp_linear"
 
     @staticmethod
-    def supports_config(config: DSLinearConfig) -> bool:
-        return True
+    def refusal(config: DSLinearConfig) -> Optional[str]:
+        return None
 
     def __call__(self, x, w, b=None):
         dt = self.config.dtype

@@ -13,6 +13,8 @@ No engine calls them yet: the ragged forward runs dense MLPs only, as the
 TPU package's v2 flat model does.
 """
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -33,6 +35,12 @@ def _act(up, gate):
     return F.silu(gate) * up if gate is not None else F.gelu(up, approximate="tanh")
 
 
+def _top_k_refusal(cfg) -> Optional[str]:
+    if not 1 <= cfg.top_k <= cfg.n_experts:
+        return f"top_k {cfg.top_k} (1 to n_experts {cfg.n_experts})"
+    return None
+
+
 @DSMoERegistry.register_module
 class TopKGatedMoE(DSMoEBase):
 
@@ -41,8 +49,8 @@ class TopKGatedMoE(DSMoEBase):
         return "top_k_gated_moe"
 
     @staticmethod
-    def supports_config(config: DSMoEConfig) -> bool:
-        return 1 <= config.top_k <= config.n_experts
+    def refusal(config: DSMoEConfig) -> Optional[str]:
+        return _top_k_refusal(config)
 
     def __call__(self, x, gate_w, expert_up, expert_gate, expert_down):
         dt = self.config.dtype
@@ -65,8 +73,8 @@ class GroupedGemmMoE(DSMoEBase):
         return "grouped_gemm_moe"
 
     @staticmethod
-    def supports_config(config: DSMoEConfig) -> bool:
-        return 1 <= config.top_k <= config.n_experts
+    def refusal(config: DSMoEConfig) -> Optional[str]:
+        return _top_k_refusal(config)
 
     def __call__(self, x, gate_w, expert_up, expert_gate, expert_down):
         dt = self.config.dtype

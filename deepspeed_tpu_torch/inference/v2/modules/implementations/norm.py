@@ -1,5 +1,7 @@
 """Pre-norm implementation: RMSNorm / LayerNorm in fp32 (``_norm``)."""
 
+from typing import Optional
+
 from .....models.transformer import _norm
 from ..configs import DSNormConfig
 from ..interfaces import DSPreNormBase, DSPreNormRegistry
@@ -13,8 +15,10 @@ class FusedPreNorm(DSPreNormBase):
         return "fused_pre_norm"
 
     @staticmethod
-    def supports_config(config: DSNormConfig) -> bool:
-        return config.norm in ("rmsnorm", "layernorm")
+    def refusal(config: DSNormConfig) -> Optional[str]:
+        if config.norm not in ("rmsnorm", "layernorm"):
+            return f"norm {config.norm!r} (rmsnorm and layernorm are implemented)"
+        return None
 
     def __call__(self, x, scale, bias=None):
         return _norm(x, scale, bias, self.config.norm, self.config.norm_eps)

@@ -2,6 +2,8 @@
 sequence's last token is projected to the vocabulary) -> tied/untied head.
 Logits are computed in the model dtype, then cast to fp32."""
 
+from typing import Optional
+
 import torch
 
 from .....models.transformer import _norm
@@ -17,8 +19,8 @@ class LastTokenUnembed(DSUnembedBase):
         return "last_token_unembed"
 
     @staticmethod
-    def supports_config(config: DSUnembedConfig) -> bool:
-        return True
+    def refusal(config: DSUnembedConfig) -> Optional[str]:
+        return None
 
     def __call__(self, params, hidden, last_idx):
         cfg = self.config

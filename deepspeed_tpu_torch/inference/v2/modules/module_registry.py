@@ -1,8 +1,8 @@
 """Implementation registries (counterpart of
 ``deepspeed_tpu/inference/v2/modules/module_registry.py``): each interface
 owns a registry from implementation name to class, and
-``instantiate_config`` checks ``supports_config`` before construction so a
-bad config fails at engine build."""
+``resolve`` (which ``instantiate_config`` calls before construction) asks
+the implementation's ``refusal``, so a bad config fails at engine build, naming what it misses."""
 
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
@@ -26,14 +26,23 @@ class DSModuleRegistryBase(ABC):
     registry: Dict[str, Type[DSModuleBase]]
 
     @classmethod
-    def instantiate_config(cls, config_bundle: ConfigBundle) -> DSModuleBase:
+    def resolve(cls, config_bundle: ConfigBundle) -> Type[DSModuleBase]:
+        """The implementation class the bundle names, once it has taken the
+        bundle's config; raises naming what it refuses."""
         if config_bundle.name not in cls.registry:
             raise KeyError(f"Unknown DSModule: {config_bundle.name!r}; "
                            f"known: {sorted(cls.registry)}")
         target = cls.registry[config_bundle.name]
-        if not target.supports_config(config_bundle.config):
-            raise ValueError(f"Config {config_bundle.config} is not supported by {target.__name__}")
-        return target(config_bundle.config, config_bundle.implementation_config)
+        reason = target.refusal(config_bundle.config)
+        if reason is not None:
+            raise ValueError(f"Config {config_bundle.config} is not supported by "
+                             f"{target.__name__}: {reason}")
+        return target
+
+    @classmethod
+    def instantiate_config(cls, config_bundle: ConfigBundle) -> DSModuleBase:
+        return cls.resolve(config_bundle)(config_bundle.config,
+                                          config_bundle.implementation_config)
 
     @staticmethod
     @abstractmethod

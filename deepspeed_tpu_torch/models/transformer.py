@@ -69,6 +69,7 @@ from ..module_inject.layers import (copy_to_model_parallel_region, embedding_lay
                                     model_parallel_size, reduce_from_model_parallel_region,
                                     vocab_parallel_log_likelihood)
 from ..moe.grouped import grouped_moe_ffn
+from ..ops.paged_attention import unsupported_shape
 from ..runtime.activation_checkpointing import checkpointing
 from ..moe.sharded_moe import all_to_all, multiplicative_jitter, top1gating, top2gating
 from ..parallel import groups
@@ -941,11 +942,7 @@ def cached_attention_route(impl: str, device_type: str, cache_dtype, nq: int, nk
     if device_type == "cuda":
         if cache_dtype != torch.bfloat16:
             misses.append(f"cache dtype {cache_dtype} (the kernels take bfloat16)")
-        if d not in (64, 128):
-            misses.append(f"head_dim {d} (the kernels take 64 and 128)")
-        if nq % nkv or nq // nkv > 8:
-            misses.append(f"{nq} query heads over {nkv} kv heads (the decode takes up to 8 a "
-                          f"kv head)")
+        misses += unsupported_shape(nq, nkv, d)
     if misses:
         raise ValueError(f"the paged KV-cache attention on {device_type} does not take "
                          + "; ".join(misses) + "; attention_impl='reference' serves through "

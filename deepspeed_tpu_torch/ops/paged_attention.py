@@ -34,6 +34,23 @@ import torch
 from ._build import build_kernel
 
 MASK_VALUE = -1e30
+KERNEL_HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
+MAX_DECODE_GROUP = 8  # query heads per kv head the decode kernel takes
+
+
+def unsupported_shape(nq: int, nkv: int, d: int) -> list:
+    """What of (query heads, kv heads, head dim) the kernels are not built
+    for, one message a miss; empty if they take it. The prefill's default
+    tile ``64 // g`` fits every group the decode takes."""
+    misses = []
+    if d not in KERNEL_HEAD_DIMS:
+        misses.append(f"head_dim {d} (the kernels are built for {KERNEL_HEAD_DIMS})")
+    if nq % nkv:
+        misses.append(f"{nq} query heads over {nkv} kv heads (not a multiple)")
+    elif nq // nkv > MAX_DECODE_GROUP:
+        misses.append(f"group size {nq // nkv} ({nq} query heads over {nkv} kv heads, the "
+                      f"decode takes at most {MAX_DECODE_GROUP} a kv head)")
+    return misses
 
 # launches of each kernel path since the last reset_launch_counts()
 # (the split decode's call launches the split kernel and the merge: one each)
@@ -296,8 +313,8 @@ def _check_common(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, k_s
         raise ValueError(f"q must be a contiguous [T, nq, d] bfloat16 tensor, got "
                          f"{q.dtype} {tuple(q.shape)}")
     T, nq, d = q.shape
-    if d not in (64, 128):
-        raise ValueError(f"head_dim {d} unsupported: the kernels are built for 64 and 128")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} unsupported: the kernels are built for {KERNEL_HEAD_DIMS}")
     if k_pool.dim() != 3 or k_pool.shape != v_pool.shape or k_pool.shape[2] != d:
         raise ValueError(f"pools must be [pool_len, nkv, {d}], got {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)}")
@@ -367,8 +384,9 @@ def _decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, window, a
     T, nq, d, nkv, quant, alibi = _check_common(q, k_pool, v_pool, block_tables, seq_idx, pos,
                                                 block_size, k_scale, v_scale, alibi)
     max_blocks = block_tables.shape[1]
-    if nq // nkv > 8:
-        raise ValueError(f"paged_decode supports up to 8 query heads per kv head, got {nq // nkv}")
+    if nq // nkv > MAX_DECODE_GROUP:
+        raise ValueError(f"paged_decode supports up to {MAX_DECODE_GROUP} query heads per kv head, "
+                         f"got {nq // nkv}")
     tables, seq_idx, pos = _i32(block_tables), _i32(seq_idx), _i32(pos)
     lib = kernel_build().lib
     out = torch.empty_like(q) if out else None
@@ -441,8 +459,8 @@ def paged_decode_merge(acc, m, l, dtype=torch.bfloat16):
                 or t.device != acc.device):
             raise ValueError(f"{name} must be a contiguous fp32 {shape} tensor on acc's device, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if d not in (64, 128):
-        raise ValueError(f"head_dim {d} unsupported: the kernels are built for 64 and 128")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} unsupported: the kernels are built for {KERNEL_HEAD_DIMS}")
     out = torch.empty((T, nq, d), dtype=dtype, device=acc.device)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     rc = kernel_build().lib.ds_paged_decode_merge(acc.data_ptr(), m.data_ptr(), l.data_ptr(),

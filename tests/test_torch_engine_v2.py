@@ -128,7 +128,8 @@ def test_over_budget_batches_get_the_same_scheduling_results():
 
 
 def test_unported_features_are_refused():
-    """Speculative decoding and unported families are refused; a sampled
+    """Speculative decoding and families the factory does not build by name
+    (bloom, as in the JAX factory) are refused; a sampled
     list asks for tokens, so with ``sample=None`` (logits) it raises, as
     the JAX engine does."""
     base = dict(kv_block_size=8, num_kv_blocks=16,
@@ -145,7 +146,7 @@ def test_unported_features_are_refused():
                 sampling=[SamplingParams(temperature=0.7, seed=1)])
     assert eng.state_manager.n_tracked_sequences == 0  # refused before any state moved
     with pytest.raises(ValueError):
-        build_model_engine("gpt2", "tiny", RaggedInferenceEngineConfig(**base), **kw)
+        build_model_engine("bloom", "tiny", RaggedInferenceEngineConfig(**base), **kw)
 
 
 def test_cuda_is_the_default_device():
