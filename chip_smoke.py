@@ -19,13 +19,17 @@ code 1 otherwise):
    ``deepspeed_tpu_torch/ops/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together; print each nvcc's wall time and the
    ``-Xptxas -v`` registers / shared memory / spills per kernel.
-2. kernels: print the decode kernels' ptxas registers and spills and their
-   shared memory per CTA; hold every paged-attention path (``paged_decode``
-   with kv_splits 1 and 8, ``paged_prefill``) against the plain PyTorch
+2. kernels: print the paged kernels' ptxas registers and spills (any spill
+   fails) and the decode's and prefill's shared memory per CTA at every
+   head dim; hold every paged-attention path (``paged_decode`` with
+   kv_splits 1 and 8, ``paged_prefill``) against the plain PyTorch
    version on the card, bf16 and int8 pools, GQA 32/8, head_dim 128, block
    64, plus window / ALiBi / head_dim 64 cases at small sizes, and the
-   model families' group sizes there: g 1 at head_dim 64 and 128 and g 7
-   at 128 (a prefill tile of 9 tokens), plain and with ALiBi slopes. Tolerance,
+   model families' shapes there: g 1 at head_dim 64, 80, 96, 128 and 256,
+   g 7 at 128 (a prefill tile of 9 tokens), g 16 at 64 and g 71 over one kv
+   head at 64 (nine decode head tiles; prefill tiles of 8 tokens in nine
+   64-row chunks), plain and with ALiBi slopes, int8 pools too at 80 and
+   256. Tolerance,
    per output element: |kernel - plain| <= 2 ulp(plain) + 2^-14, with ulp
    the spacing of bfloat16 numbers at |plain|. Both sum in fp32 (the
    kernels on the tensor cores, whose products take the 16-bit inputs
@@ -53,7 +57,12 @@ code 1 otherwise):
    gather; the prefill's is also run through the contiguous flash forward),
    beside the least time the card could take (bytes / 3.35 TB/s
    or FLOPs / 989 TFLOP/s, whichever is larger). The largest error as a
-   fraction of its tolerance is printed as ``worst_error_fraction``.
+   fraction of its tolerance is printed as ``worst_error_fraction``. Then
+   the six presets at head dims 80 / 96 / 256 or group sizes over 8 (phi-2,
+   GPT-NeoX-20B, GPT-J-6B, Pythia-1B, Falcon-40B, Falcon-7B) at their head
+   shapes and the same sizes, bf16 pools: each route checked once against
+   the plain version and timed (events, and with the host queued ahead)
+   beside its byte bound and SDPA on the same context pre-gathered.
 3. train_kernels: hold the training kernels against their plain versions.
    Flash attention (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) on
    a small matrix (S 1 / 100 / 128 / 257, head_dim 64 / 128, GQA groups 1
@@ -406,10 +415,14 @@ code 1 otherwise):
    directory (removed afterwards), is loaded by ``build_hf_engine``; every
    loaded tensor must equal what was written (after its transpose, bit for
    bit), and a 512-token put's logits must be within the same tolerance of
-   the plain route's. Last, ``build_model_engine("phi", "2",
-   num_layers=1)`` (head_dim 80) and ``build_engine(falcon("7b",
-   num_layers=1))`` (71 query heads over 1 kv head) must raise at engine
-   build, naming the head dim and the group size. Printed: TTFT p50,
+   the plain route's. Three presets at other head dims and group sizes
+   serve the same waves with the same checks, at full width with their
+   depth cut: phi-2 (head_dim 80, 32 -> 4 layers) through
+   ``build_model_engine("phi", "2")``, Falcon-7B (71 query heads over 1 kv
+   head, 32 -> 4) and GPT-J-6B (head_dim 256, 28 -> 2) through
+   ``build_engine``. Last, ``build_model_engine("phi", "tiny",
+   num_layers=1)`` (head_dim 32, a CPU-only preset) must raise at engine
+   build, naming the head dim. Printed: TTFT p50,
    decode ms/step wall and device, peak memory, the load's seconds and
    GB/s (the files just written: a warm read) and the host's resident
    memory before it and at most during it (sampled every 2 ms), beside the
@@ -431,8 +444,10 @@ dk/dv skipping each CTA's last live q-tile and dq its last live k-tile
 and, alone, the flash forward skipping each CTA's last live k-tile
 (``--phases build,train_kernels``, the same), the paged prefill
 skipping each CTA's last live k-tile and, alone, the paged decode
-skipping each split's last live block (``--phases build,kernels``, the
-same), and the v1 path with its identity table's block base shifted by one
+skipping each split's last live block and, alone, the paged decode
+dropping the last head tile of every (token, kv head) with more than one
+(Falcon-7B's heads 64-70: zeros, m -1e30, l 0; ``--phases
+build,kernels``, the same), and the v1 path with its identity table's block base shifted by one
 block (``--phases build,v1`` must fail on the logits), and the ZeRO
 partition with rank 1 gathering the head group's updated shards into a
 scratch copy after each update, so that it trains on a stale half of the
@@ -447,7 +462,7 @@ build,remat`` must fail on the MoE check by more than 30x its tolerance),
 and tensor parallelism with the column region's backward summing nothing
 over the model group and, alone, every rank's serving weights taking rank
 0's kv heads (``--phases build,tp`` must fail, each by more than 30x the
-phase's tolerance): nineteen copies.
+phase's tolerance): twenty copies.
 It passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
@@ -521,8 +536,19 @@ KERNELS = {  # name -> (TPU kernel it replaces)
 # the split decode's fp32 partials: m within 2^-14 (1 + |m|), l within 2^-14 l,
 # acc within 2^-14 l max|v| (see the module docstring)
 PARTIAL_TOL = 2.0**-14
-# (kv heads, group size, head_dim) of the small matrix's model-family cases
-FAMILY_GROUP_CASES = ((4, 1, 64), (4, 1, 128), (2, 7, 128))
+# (kv heads, group size, head_dim) of the small matrix's model-family cases:
+# g 1 at every head dim (Bloom, GPT-2, OPT at 64 / 128; phi-2 80, GPT-NeoX-20B
+# 96, GPT-J-6B and Pythia 256), Qwen2's g 7, Falcon-7B's 71 over one kv head
+# and Falcon-40B's 16; each plain and with ALiBi slopes, bf16 pools, and at
+# FAMILY_INT8_DIMS int8 pools as well
+FAMILY_GROUP_CASES = ((4, 1, 64), (4, 1, 128), (2, 7, 128), (4, 1, 80), (4, 1, 96), (2, 1, 256),
+                      (1, 71, 64), (2, 16, 64))
+FAMILY_INT8_DIMS = (80, 256)
+# the presets at head dims 80 / 96 / 256 and group sizes over 8, at their head
+# shapes (name, query heads, kv heads, head_dim): the paged routes timed at the
+# main path's sizes
+FAMILY_SHAPES = (("phi-2", 32, 32, 80), ("GPT-NeoX-20B", 64, 64, 96), ("GPT-J-6B", 16, 16, 256),
+                 ("Pythia-1B", 8, 8, 256), ("Falcon-40B", 128, 8, 64), ("Falcon-7B", 71, 1, 64))
 FLASH_SRC = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
 TPU_FLASH = "deepspeed_tpu/ops/pallas/flash_attention.py"
 TRAIN_KERNELS = {  # name -> (source, TPU kernel it replaces)
@@ -732,6 +758,11 @@ CHI2_VOCAB, CHI2_DRAWS, CHI2_TOP, CHI2_MIN_P = 32000, 20000, 64, 1e-3
 # layers written in two bf16 .safetensors shards and loaded back
 FAMILIES_QWEN = ("7b", {})
 FAMILIES_BLOOM = ("7b1", {"num_layers": 4})
+# served at full width with their depth cut: phi-2 (d 80) 32 -> 4, Falcon-7B
+# (71 query heads over 1 kv head) 32 -> 4, GPT-J-6B (d 256) 28 -> 2
+FAMILIES_PHI = ("2", {"num_layers": 4})
+FAMILIES_FALCON = ("7b", {"num_layers": 4})
+FAMILIES_GPTJ = ("6b", {"num_layers": 2})
 FAMILIES_HF_LAYERS, FAMILIES_HF_SHARDS = 2, 2
 
 
@@ -881,6 +912,17 @@ def _vmax(v, kw):
     return float(v.float().abs().max())
 
 
+def _reference_in_chunks(pa, q, k, v, tb, si, po, bs, rows=16):
+    """``paged_attention_reference`` over ``rows`` query tokens at a time
+    (each token's answer depends on its own row alone), so that the gathered
+    fp32 context, [rows, capacity, nkv, d], stays small at wide heads."""
+    import torch
+
+    return torch.cat([pa.paged_attention_reference(q[i:i + rows], k, v, tb, si[i:i + rows],
+                                                   po[i:i + rows], bs)
+                      for i in range(0, q.shape[0], rows)])
+
+
 def queued_ms(fn, iters=20, spin_cycles=100_000_000):
     """Device time per call of ``fn`` with the host queued ahead: a
     device-side wait of ``spin_cycles`` clocks (~60 ms) holds the stream
@@ -917,10 +959,17 @@ def phase_kernels():
     worst = {k: 0.0 for k in KERNELS}
     worst_frac = [0.0]
     built = pa.kernel_build()
-    _log_ptxas(built.ptxas, tag="[kernels]", keep=("paged_decode_kernel", "decode_merge_kernel"))
-    sm = built.lib.ds_paged_smem_bytes
-    log(f"[kernels] decode dynamic shared memory per CTA, d 128 / 64: bf16 pools {sm(128, 0)} / "
-        f"{sm(64, 0)} B, int8 pools {sm(128, 1)} / {sm(64, 1)} B")
+    paged = ("paged_decode_kernel", "decode_merge_kernel", "paged_prefill_kernel")
+    _log_ptxas(built.ptxas, tag="[kernels]", keep=paged)
+    # every instantiation keeps its accumulators in registers (the d 256
+    # prefill splits its output dims over two warps a row block for that)
+    spills = {k: v for k, v in _ptxas_entries(built.ptxas, paged).items() if v[1] or v[2]}
+    if spills:
+        failures.append(f"paged kernels spill (registers, store and load bytes): {spills}")
+    sm, psm = built.lib.ds_paged_smem_bytes, built.lib.ds_paged_prefill_smem_bytes
+    log("[kernels] dynamic shared memory per CTA (bf16 / int8 pools), decode; prefill: "
+        + "; ".join(f"d {d} {sm(d, 0)} / {sm(d, 1)} B; {psm(d, 0)} / {psm(d, 1)} B"
+                    for d in pa.KERNEL_HEAD_DIMS))
 
     def check(tag, out, ref):
         e, frac = _err(out, ref)
@@ -982,28 +1031,34 @@ def phase_kernels():
                                                device="cuda")
                 run_paths(f"d={d} int8={int8} window={window} alibi={alibi}", q, k, v, tb, si,
                           po, bs, kw, splits=3)
-    # the model families' group sizes: g 1 (Bloom's MHA, GPT-2, OPT) at both
-    # head dims and g 7 (Qwen2: a prefill tile of 9 tokens, one masked row
-    # in 64), plain and with the model's own ALiBi slopes
+    # the model families' group sizes and head dims: g 1 (Bloom's MHA,
+    # GPT-2, OPT; phi-2, GPT-NeoX, GPT-J) at every head dim, g 7 (Qwen2: a
+    # prefill tile of 9 tokens, one masked row in 64), g 16 (Falcon-40B: a
+    # tile of 4) and g 71 over one kv head (Falcon-7B: nine decode head
+    # tiles, the last of 7; prefill tiles of 8 tokens in nine row chunks),
+    # plain and with the model's own ALiBi slopes
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
 
+    n_family = 0
     for nkv, g, d in FAMILY_GROUP_CASES:
-        for alibi in (False, True):
-            tables = torch.randperm(12, generator=g_small).to(torch.int32).reshape(3, 4)
-            seq = torch.tensor([0] * 13 + [1] * 6 + [2] + [0] * 3, dtype=torch.int32)
-            pos = torch.tensor(list(range(20, 33)) + list(range(16, 22)) + [53, 0, 0, 0],
-                               dtype=torch.int32)
-            q, k, v, tb, si, po, kw = _make_case(100 * g + d + alibi, nkv, g, d, 16, tables, seq,
-                                                 pos, False)
-            if alibi:
-                kw["alibi"] = torch.as_tensor(alibi_slopes(nkv * g), device="cuda")
-            run_paths(f"g={g} nkv={nkv} d={d} alibi={alibi}", q, k, v, tb, si, po, 16, kw,
-                      splits=3)
-    n_small = 32 + 2 * len(FAMILY_GROUP_CASES)
+        for int8 in (False, True) if d in FAMILY_INT8_DIMS else (False, ):
+            for alibi in (False, True):
+                tables = torch.randperm(12, generator=g_small).to(torch.int32).reshape(3, 4)
+                seq = torch.tensor([0] * 13 + [1] * 6 + [2] + [0] * 3, dtype=torch.int32)
+                pos = torch.tensor(list(range(20, 33)) + list(range(16, 22)) + [53, 0, 0, 0],
+                                   dtype=torch.int32)
+                q, k, v, tb, si, po, kw = _make_case(100 * g + d + alibi + 7 * int8, nkv, g, d,
+                                                     16, tables, seq, pos, int8)
+                if alibi:
+                    kw["alibi"] = torch.as_tensor(alibi_slopes(nkv * g), device="cuda")
+                run_paths(f"g={g} nkv={nkv} d={d} int8={int8} alibi={alibi}", q, k, v, tb, si,
+                          po, 16, kw, splits=3)
+                n_family += 1
+    n_small = 32 + n_family
     log(f"[kernels] small-size matrix ({n_small} cases x 3 paths: g 4 at d 128 / 64, bf16 / "
-        f"int8, plain / window / ALiBi / both; g {sorted({c[1] for c in FAMILY_GROUP_CASES})} "
-        f"plain / ALiBi; the split's partials and merge at 3 and 8 splits): "
-        f"{'all within tolerance' if not failures else failures}; max_abs_err {worst}")
+        f"int8, plain / window / ALiBi / both; (nkv, g, d) {list(FAMILY_GROUP_CASES)} plain / "
+        f"ALiBi, int8 too at d {FAMILY_INT8_DIMS}; the split's partials and merge at 3 and 8 "
+        f"splits): {'all within tolerance' if not failures else failures}; max_abs_err {worst}")
 
     # main-path shapes: Mistral-7B attention (GQA 32/8, d 128), block 64,
     # tables of 32 blocks (max_context 2048), sliding window 4096
@@ -1113,6 +1168,65 @@ def phase_kernels():
             f"{desc_ms:.4f} ms), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), sdpa on "
             f"gathered context {lib_ms} ms, the contiguous flash forward on it "
             f"{None if int8 else round(flash_ms, 4)} ms, max_abs_err {e:.3e}")
+    # the six presets' head shapes at the same sizes (bf16 pools, no window):
+    # each route checked once against the plain version, then timed beside
+    # its byte bound and SDPA on the same context pre-gathered contiguous
+    family_shapes = {name: {} for name in ("paged_decode", "paged_decode_split", "paged_prefill")}
+    for preset, nq_f, nkv_f, d_f in FAMILY_SHAPES:
+        g_f = nq_f // nkv_f
+        q, k, v, tb, si, po, kw = _make_case(13, nkv_f, g_f, d_f, bs, tables,
+                                             torch.arange(S, dtype=torch.int32),
+                                             torch.full((S, ), ctx - 1, dtype=torch.int32), False)
+        ref = _reference_in_chunks(pa, q, k, v, tb, si, po, bs)
+        splits = pa.resolve_kv_splits(S, S, mb)
+        n_bytes = (S * nq_f * d_f * 2 * 2 + S * ctx * nkv_f * 2 * d_f * 2 + tb.numel() * 4
+                   + 2 * S * 4)
+        b_ms, b_by = bound_ms(n_bytes, 4 * nq_f * d_f * S * ctx)
+        slots = (tb.long()[:, :ctx // bs, None] * bs
+                 + torch.arange(bs, device="cuda")).reshape(S, ctx)
+        kc, vc = (x[slots].permute(0, 2, 1, 3).contiguous() for x in (k, v))  # [S, nkv, ctx, d]
+        qc = q[:, :, None, :]  # [S, nq, 1, d]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True))
+        del kc, vc
+        for name, ks in (("paged_decode", 1), ("paged_decode_split", splits)):
+            fn = partial(pa.paged_decode, q, k, v, tb, si, po, bs, kv_splits=ks)
+            e = check(f"{name} {preset} S={S} ctx={ctx}", fn(), ref)
+            family_shapes[name][preset] = dict(ms=time_ms(fn), device_ms=queued_ms(fn),
+                                               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                               err=e, head_tiles=pa.decode_head_tiles(g_f))
+        del q, k, v, ref
+        # prefill: one 512-token chunk of one sequence from position 0
+        q, k, v, tb1, si, po, kw = _make_case(17, nkv_f, g_f, d_f, bs, tables[:1],
+                                              torch.zeros(T_pre, dtype=torch.int32),
+                                              torch.arange(T_pre, dtype=torch.int32), False)
+        ref = _reference_in_chunks(pa, q, k, v, tb1, si, po, bs)
+        fn = partial(pa.paged_prefill, q, k, v, tb1, si, po, bs)
+        e = check(f"paged_prefill {preset} T={T_pre}", fn(), ref)
+        n_bytes = 2 * T_pre * nq_f * d_f * 2 + T_pre * nkv_f * 2 * d_f * 2 + 2 * T_pre * 4
+        pb_ms, pb_by = bound_ms(n_bytes, 4 * nq_f * d_f * (T_pre * (T_pre + 1) // 2))
+        slots = (tb1.long()[0, :T_pre // bs, None] * bs
+                 + torch.arange(bs, device="cuda")).reshape(T_pre)
+        kc, vc = (x[slots].permute(1, 0, 2)[None].contiguous() for x in (k, v))  # [1, nkv, T, d]
+        qc = q.permute(1, 0, 2)[None].contiguous()  # [1, nq, T, d]
+        qt = pa.prefill_q_tile(g_f)
+        family_shapes["paged_prefill"][preset] = dict(
+            ms=time_ms(fn), device_ms=queued_ms(fn), bound_ms=pb_ms, bound_by=pb_by, err=e,
+            q_tile=qt,
+            row_chunks=pa.prefill_row_chunks(g_f, qt),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                                                      enable_gqa=True)))
+        del q, k, v, ref, kc, vc, qc
+        dec, spl, pre = (family_shapes[n][preset]
+                         for n in ("paged_decode", "paged_decode_split", "paged_prefill"))
+        log(f"[kernels] {preset} (nq {nq_f}, nkv {nkv_f}, g {g_f}, d {d_f}): decode S={S} "
+            f"ctx={ctx}: paged_decode {dec['ms']:.4f} ms ({dec['device_ms']:.4f} host queued "
+            f"ahead), paged_decode_split (splits={splits}) {spl['ms']:.4f} ms "
+            f"({spl['device_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}), sdpa on gathered context "
+            f"{lib_ms:.4f} ms, {dec['head_tiles']} head tile(s); prefill T={T_pre} q_tile={qt} "
+            f"({pre['row_chunks']} row chunk(s)): paged_prefill {pre['ms']:.4f} ms "
+            f"({pre['device_ms']:.4f}), bound {pb_ms:.5f} ms ({pb_by}), sdpa "
+            f"{pre['library_ms']:.4f} ms; max_abs_err {dec['err']:.3e} / {spl['err']:.3e} / "
+            f"{pre['err']:.3e}")
     # each path's device time with the host queued ahead (the split
     # decode's includes its merge kernel), after every timing above
     for m, key, fn in device_jobs:
@@ -1128,6 +1242,8 @@ def phase_kernels():
         f"({TOL_ULPS} bf16 ulp + 2^-14); worst_error_fraction={worst_frac[0]:.6g}")
     if failures:
         raise RuntimeError("kernels disagree with the plain version: " + "; ".join(failures))
+    for name, shapes in family_shapes.items():
+        res[(name, False)]["family_shapes"] = shapes
     for name in KERNELS:
         res[(name, False)]["int8"] = res[(name, True)]
         res[(name, False)]["err"] = max(res[(name, False)]["err"], res[(name, True)]["err"],
@@ -5541,10 +5657,12 @@ def phase_families():
     """The model families on the paged kernels: Qwen2-7B at full size (GQA
     28/4, g 7) through ``build_model_engine``; Bloom-7b1 at full width, depth
     cut to 4 (MHA, ALiBi, embedding LayerNorm, a tied 250,880 vocabulary)
-    through ``build_engine(bloom(...))``; the HF checkpoint round trip; and
-    phi-2 (head_dim 80) and Falcon-7B (71 query heads over 1 kv head)
-    refused at engine build. Returns the launches of each served model and
-    the phase's record."""
+    through ``build_engine(bloom(...))``; phi-2 (head_dim 80, depth 4)
+    through ``build_model_engine``, Falcon-7B (71 query heads over 1 kv
+    head, depth 4) and GPT-J-6B (head_dim 256, depth 2) through
+    ``build_engine``; the HF checkpoint round trip; and a head_dim 32 model
+    (phi's tiny preset) refused at engine build, naming the miss. Returns
+    the launches of each served model and the phase's record."""
     import gc
 
     import numpy as np
@@ -5553,7 +5671,7 @@ def phase_families():
     from deepspeed_tpu_torch.inference.v2 import (DSStateManagerConfig,
                                                   RaggedInferenceEngineConfig, build_engine,
                                                   build_model_engine)
-    from deepspeed_tpu_torch.models import bloom, falcon
+    from deepspeed_tpu_torch.models import bloom, falcon, gptj
 
     def free():
         gc.collect()
@@ -5569,7 +5687,13 @@ def phase_families():
             ("qwen2_7b", lambda: build_model_engine("qwen2", FAMILIES_QWEN[0], cfg, seed=0,
                                                     **FAMILIES_QWEN[1])),
             ("bloom_7b1", lambda: build_engine(bloom(FAMILIES_BLOOM[0], seed=0,
-                                                     **FAMILIES_BLOOM[1]), cfg))):
+                                                     **FAMILIES_BLOOM[1]), cfg)),
+            ("phi_2", lambda: build_model_engine("phi", FAMILIES_PHI[0], cfg, seed=0,
+                                                 **FAMILIES_PHI[1])),
+            ("falcon_7b", lambda: build_engine(falcon(FAMILIES_FALCON[0], seed=0,
+                                                      **FAMILIES_FALCON[1]), cfg)),
+            ("gptj_6b", lambda: build_engine(gptj(FAMILIES_GPTJ[0], seed=0, **FAMILIES_GPTJ[1]),
+                                             cfg))):
         tag = f"[families] {key}"
         t0 = time.perf_counter()
         engine = build()
@@ -5590,20 +5714,17 @@ def phase_families():
         free()
     record["hf_round_trip"] = _hf_round_trip(smi)
     free()
-    refused = {}
-    for key, build, miss in (
-            ("phi_2", lambda: build_model_engine("phi", "2", cfg, num_layers=1), "head_dim 80"),
-            ("falcon_7b", lambda: build_engine(falcon("7b", num_layers=1), cfg),
-             "group size 71")):
-        try:
-            build()
-        except ValueError as e:
-            if miss not in str(e) or "A5b" not in str(e):
-                raise RuntimeError(f"[families] {key} refused for another reason: {e}") from e
-            refused[key] = str(e).split(": ", 1)[-1]
-        else:
-            raise RuntimeError(f"[families] {key} was not refused at engine build ({miss})")
-        free()
+    # a shape still outside the kernels' rule: head_dim 32 (the CPU-only
+    # tiny presets) is refused when the engine is built, naming the miss
+    try:
+        build_model_engine("phi", "tiny", cfg, num_layers=1)
+    except ValueError as e:
+        if "head_dim 32" not in str(e) or "A5b" not in str(e):
+            raise RuntimeError(f"[families] phi tiny refused for another reason: {e}") from e
+        refused = {"phi_tiny": str(e).split(": ", 1)[-1]}
+    else:
+        raise RuntimeError("[families] phi tiny (head_dim 32) was not refused at engine build")
+    free()
     log(f"[families] refused at engine build: {refused}")
     record["refused"] = refused
     return launches, record
@@ -5702,6 +5823,11 @@ TP_KV_MUTATIONS = _in(  # every rank's serving weights (stacked) take rank 0's k
         ("        return t.narrow(d, self.rank * n, n).clone()",
          "        return t.narrow(d, (0 if stacked and name in ('wk', 'wv') else self.rank) * n, "
          "n).clone()"),))
+HEAD_TILE_MUTATIONS = _in(SOURCE, (  # the decode drops each CTA group's last head tile
+    ("  if (p_hi <= p_lo) {  // no live block: zeros, m = -1e30, l = 0",
+     "  if (p_hi <= p_lo || (n_ht > 1 && ht == n_ht - 1)) {  // no live block: zeros, m = -1e30, "
+     "l = 0"),
+))
 DECODE_MUTATIONS = _in(SOURCE, (  # the decode skips each split's last live block
     ("const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits);",
      "const int b1 = j_lo + (int)((long long)(split + 1) * n_live / a.kv_splits) - 1;"),
@@ -5719,6 +5845,8 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "flash_fwd": (FLASH_FWD_MUTATIONS, "train_kernels", "flash kernels disagree"),
     "paged_prefill": (PAGED_MUTATIONS, "kernels", "kernels disagree with the plain version"),
     "paged_decode": (DECODE_MUTATIONS, "kernels", "kernels disagree with the plain version"),
+    "paged_decode_head_tile": (HEAD_TILE_MUTATIONS, "kernels",
+                               "kernels disagree with the plain version"),
     "v1_table": (V1_TABLE_MUTATIONS, "v1", "v1 logits disagree"),
     "zero_gather": (_zero_stale("head"), "zero", "zero disagrees"),
     "zero_block": (_zero_stale("block0"), "zero", "zero disagrees"),
@@ -5733,8 +5861,9 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
 # the attention kernels' ablations (``--ablation``): each undoes one design
 # choice of the flash kernels (forward and backward) or the paged prefill.
 _SINGLE = _in(MMA_HDR, (  # a template switch that skips the lo product of a split pair
-    ("template <int D, typename T>\n__device__ __forceinline__ void mma_wm(",
-     "template <int D, typename T, bool kLo = true>\n__device__ __forceinline__ void mma_wm("),
+    ("template <int D, typename T, int LDS = Tile16<D>::LDS>\n__device__ __forceinline__ void mma_wm(",
+     "template <int D, typename T, int LDS = Tile16<D>::LDS, bool kLo = true>\n"
+     "__device__ __forceinline__ void mma_wm("),
     ("      mma16816(t0, w.lo[c], b[0], b[1], T());",
      "      if (kLo) mma16816(t0, w.lo[c], b[0], b[1], T());"),
     ("      mma16816(t1, w.lo[c], b[2], b[3], T());",
@@ -5756,8 +5885,8 @@ ABLATIONS = {
     # the paged prefill's tiles in token order (the latest, heaviest tiles
     # of a causal prefill dispatched last), not reversed
     "prefill_tiles_in_order": _in(SOURCE, (
-        ("const int kvh = blockIdx.x, tile = gridDim.y - 1 - blockIdx.y;",
-         "const int kvh = blockIdx.x, tile = blockIdx.y;"),
+        ("const int kvh = blockIdx.x, tile = gridDim.y - 1 - blockIdx.y, c0 = kKT * blockIdx.z;",
+         "const int kvh = blockIdx.x, tile = blockIdx.y, c0 = kKT * blockIdx.z;"),
     )),
     # the same for the flash forward
     "fwd_grid_per_head": _in(FLASH_SRC, (
@@ -5781,15 +5910,15 @@ ABLATIONS = {
     # one product's P or dS as one rounding instead of the split pair: dq's
     # dS, dv's P, dk's dS, the forward's P, the prefill's P
     "single_dq": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(dq, ds, sK, lane);",
-                                            "mma_wm<D, T, false>(dq, ds, sK, lane);"),)),
+                                            "mma_wm<D, T, Tile16<D>::LDS, false>(dq, ds, sK, lane);"),)),
     "single_dv": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(dv, p, sdO, lane);",
-                                            "mma_wm<D, T, false>(dv, p, sdO, lane);"),)),
+                                            "mma_wm<D, T, Tile16<D>::LDS, false>(dv, p, sdO, lane);"),)),
     "single_dk": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(dk, ds, sQ, lane);",
-                                            "mma_wm<D, T, false>(dk, ds, sQ, lane);"),)),
+                                            "mma_wm<D, T, Tile16<D>::LDS, false>(dk, ds, sQ, lane);"),)),
     "fwd_single_p": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(acc, p, sV, lane);",
-                                               "mma_wm<D, T, false>(acc, p, sV, lane);"),)),
-    "prefill_single_p": _SINGLE + _in(SOURCE, (("mma_wm<D, T>(acc, pf, sV, lane);",
-                                                "mma_wm<D, T, false>(acc, pf, sV, lane);"),)),
+                                               "mma_wm<D, T, Tile16<D>::LDS, false>(acc, p, sV, lane);"),)),
+    "prefill_single_p": _SINGLE + _in(SOURCE, (("mma_wm<DV, T, LDS>(acc, pf, sV + dv0, lane);",
+                                                "mma_wm<DV, T, LDS, false>(acc, pf, sV + dv0, lane);"),)),
     # the grouped matmul's TMA ring two stages deep, not three: loads one
     # stage ahead of the products, not two
     "gmm_ring2": _in(GMM_SRC, (("constexpr int kStages = 3;", "constexpr int kStages = 2;"),)),
@@ -5832,14 +5961,15 @@ ABLATIONS["decode_capacity_split"] = _in(SOURCE, (
 # the decode's grid with the token fastest (a token's kv heads 32 CTAs apart
 # at the main shape), not its kv heads side by side
 ABLATIONS["decode_token_major_grid"] = _in(SOURCE, (
-    ("  const int kvh = blockIdx.x % a.nkv, tok = blockIdx.x / a.nkv, split = blockIdx.y;",
-     "  const int kvh = blockIdx.x / a.T, tok = blockIdx.x % a.T, split = blockIdx.y;"),
+    ("  const int kvh = kvt % a.nkv, tok = kvt / a.nkv;",
+     "  const int kvh = kvt / a.T, tok = kvt % a.T;"),
 ))
 # each decode copy instruction over 16 slots, a lane pair a slot (32 bytes of
 # each row), not over whole rows
 ABLATIONS["decode_pair_chunks"] = _in(SOURCE, (
-    ("      const int r = i * RPI + lane / CH, e0 = (lane % CH) * (16 / (int)sizeof(KV));",
-     "      const int r = lane / 2, e0 = ((lane & 1) + 2 * i) * (16 / (int)sizeof(KV));"),
+    ("      const int c = min(i * 32 + lane, kChunks - 1);",
+     "      const int c = (lane / 2) * CH + min(2 * i + (lane & 1), CH - 1);"),
+    ("      if (i * 32 + lane < kChunks) {", "      if (2 * i + (lane & 1) < CH) {"),
 ))
 # the decode's int8 rows widened by conversion instructions (int8 -> fp32 ->
 # bf16, a quarter of the ALU rate, as the prefill), not by the exact
@@ -5974,7 +6104,8 @@ def _decode_times(stdout):
     """The paged decode's main-shape times printed by a ``kernels`` run
     (this script's or the parent's): both routes, bf16 and int8, and the
     device times with the host queued ahead; this tree's also the split
-    kernel and the merge apart."""
+    kernel and the merge apart; the prefill's (bf16 pools), timed and
+    queued."""
     r = {}
     for i8 in (False, True):
         sfx = "_int8" if i8 else ""
@@ -5989,6 +6120,8 @@ def _decode_times(stdout):
     for key, name in (("decode", "paged_decode"), ("decode_split", "paged_decode_split")):
         r[f"{key}_device_ms"] = _num(dev + rf"{name} ([0-9.]+) /", stdout)
         r[f"{key}_int8_device_ms"] = _num(dev + rf"{name} [0-9.]+ / ([0-9.]+) ms", stdout)
+    r["prefill_ms"] = _num(r"\] prefill T=512 int8=False .*?paged_prefill ([0-9.]+) ms", stdout)
+    r["prefill_device_ms"] = _num(dev + r"paged_prefill ([0-9.]+) /", stdout)
     r["paged_error_fraction"] = _worst_error_fraction(stdout, "kernels")
     return r
 
@@ -6317,7 +6450,8 @@ def main():
                 **{k: m[k] for k in keys},
                 **{k: m[k] for k in ("device_ms", "descriptors_ms", "flash_fwd_same_work_ms",
                                      "kernel_ms", "kernel_device_ms", "merge_ms",
-                                     "partials_error_fraction", "splits") if k in m},
+                                     "partials_error_fraction", "splits", "family_shapes")
+                   if k in m},
                 "int8": {k: m["int8"][k] for k in (*keys[:4], "device_ms")}
                 | {"max_abs_err": m["int8"]["err"]}}
                for name, m in out["kernels"].items()]

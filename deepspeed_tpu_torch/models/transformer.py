@@ -69,6 +69,7 @@ from ..module_inject.layers import (copy_to_model_parallel_region, embedding_lay
                                     model_parallel_size, reduce_from_model_parallel_region,
                                     vocab_parallel_log_likelihood)
 from ..moe.grouped import grouped_moe_ffn
+from ..ops.flash_attention import unsupported_shape as flash_unsupported_shape
 from ..ops.paged_attention import unsupported_shape
 from ..runtime.activation_checkpointing import checkpointing
 from ..moe.sharded_moe import all_to_all, multiplicative_jitter, top1gating, top2gating
@@ -593,20 +594,39 @@ def _sparse_attention(cfg: TransformerConfig, q, k, v):
     return ctx.transpose(1, 2)
 
 
-def _attention(cfg: TransformerConfig, q, k, v, head0: int = 0):
-    """``sparse_attention`` takes the block-sparse path; else
-    ``attention_impl`` 'auto' takes the flash kernels on CUDA tensors and
-    the einsum reference elsewhere (``transformer.py:371``). ``head0``: the
-    global index of q's first head (a tensor-parallel rank's), whose ALiBi
-    slopes it takes."""
+def training_attention_route(cfg: TransformerConfig, device_type: str) -> str:
+    """The full-sequence forward's attention route: ``"sparse"``, the
+    block-sparse path (``sparse_attention`` set); else ``"flash"``, the flash
+    kernels (``attention_impl`` 'flash', or 'auto' on CUDA tensors), or
+    ``"reference"``, the einsum (``transformer.py:371``). On CUDA the flash
+    route must fit the kernels' shapes (``ops.flash_attention``'s
+    ``unsupported_shape``); else ValueError names every miss. No device
+    needed: the training engine asks it when it is built, so such a model
+    fails then and not at its first step."""
     if cfg.sparse_attention is not None:
-        return _sparse_attention(cfg, q, k, v)
+        return "sparse"
     impl = cfg.attention_impl
     if impl == "auto":
-        impl = "flash" if q.is_cuda else "reference"
+        impl = "flash" if device_type == "cuda" else "reference"
+    if impl == "flash" and device_type == "cuda":
+        misses = flash_unsupported_shape(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        if misses:
+            raise ValueError("training on the card takes the flash kernels, which do not take "
+                             + "; ".join(misses) + "; attention_impl='reference' trains "
+                             "through the plain attention")
+    return impl
+
+
+def _attention(cfg: TransformerConfig, q, k, v, head0: int = 0):
+    """Attention over the whole sequence by :func:`training_attention_route`.
+    ``head0``: the global index of q's first head (a tensor-parallel
+    rank's), whose ALiBi slopes it takes."""
+    route = training_attention_route(cfg, q.device.type)
+    if route == "sparse":
+        return _sparse_attention(cfg, q, k, v)
     alibi = cfg.positions == "alibi"
     nq = q.shape[2]
-    if impl == "flash":
+    if route == "flash":
         from ..ops.flash_attention import flash_attention, slope_table
 
         if alibi and nq != cfg.num_heads:

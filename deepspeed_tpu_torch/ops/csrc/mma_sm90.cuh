@@ -212,16 +212,17 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* sA, const 
 
 // out += W . M for a warp: W its 16 x 64 tile as split A fragments (two
 // products, hi and lo, into the same accumulator); M a shared [64][D] tile
-// read with ldmatrix.trans (its 64 rows are the product's depth). out[n] is
-// the C fragment of columns 8n .. 8n + 7 of the warp's 16 x D rows. The
+// read with ldmatrix.trans (its 64 rows are the product's depth), its rows
+// LDS elements apart (D's padded row unless the caller passes a wider
+// tile's, of which M is then D of the columns). out[n] is the C fragment of
+// columns 8n .. 8n + 7 of the warp's 16 x D rows. The
 // tensor cores' fp32 accumulation truncates, so each tile's product is
 // summed from zero over its own 8 mma steps and then added to out with one
 // rounded fp32 add: a long-run accumulator fed thousands of mma steps
 // drifts by up to ~2^-23 of its size per step.
-template <int D, typename T>
+template <int D, typename T, int LDS = Tile16<D>::LDS>
 __device__ __forceinline__ void mma_wm(float (&out)[D / 8][4], const SplitFrags& w, const T* sM,
                                        int lane) {
-  constexpr int LDS = Tile16<D>::LDS;
   // matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
   // = b0, b1 of n-tile n, then b0, b1 of n-tile n + 1
   const T* pm = sM + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8;

@@ -23,8 +23,16 @@
 // (3.35 TB/s); a prefill tile of q_tile tokens does ~4 q_tile g FLOPs per
 // KV byte it reads, and its products are what the card must run fast.
 //
-// Decode (paged_decode_kernel): a CTA is (token, kv head, split), 4 warps,
-// the kv heads of a token side by side in the grid.
+// Head dims 64, 80, 96, 128 and 256 (multiples of 16: the mma's depth and
+// ldmatrix's 8-column steps; 80 and 96 are not multiples of 32 or 64, so
+// every loop over a row's 16-byte chunks or 32-dim fragment pairs has a
+// tail), and any group size g = nq / nkv.
+//
+// Decode (paged_decode_kernel): a CTA is (token, kv head, head tile,
+// split), 4 warps; a head tile is <= 8 of the kv head's g query heads, so
+// g <= 8 is one tile and Falcon-7B's 71 is nine, the last holding 7. The
+// head tiles of one (token, kv head), then the kv heads of a token, are
+// side by side in the grid.
 // - Bytes in flight. Each warp owns 16 slots of every 64-position step and
 //   streams them through its own two-stage cp.async ring, 16 B a thread,
 //   each copy instruction taking whole pool rows (16-row instructions of
@@ -37,12 +45,21 @@
 //   SM that Little's law asks of 3.35 TB/s at ~1 us. No CTA barrier inside
 //   the loop: each warp keeps its own online softmax, and the four warps'
 //   states are merged once at the end, in warp order.
-// - The products run on the tensor cores, transposed so that the g <= 8
-//   query heads are the n = 8 side of mma.m16n8k16: S^T = K . Q^T (K by
-//   ldmatrix, Q's B fragments held in registers), the softmax per head
-//   column (over the 8 lanes that share it), then O^T += V^T . P^T with V^T
-//   by ldmatrix.trans and P^T moved from C into B fragments by movmatrix,
-//   as a split hi + lo pair summed from zero per step (as the prefill's P).
+// - The products run on the tensor cores, transposed so that a head tile's
+//   <= 8 query heads are the n = 8 side of mma.m16n8k16: S^T = K . Q^T (K
+//   by ldmatrix, Q's B fragments held in registers; at d 80 the last 16
+//   dims by an x2 ldmatrix), the softmax per head column (over the 8 lanes
+//   that share it), then O^T += V^T . P^T with V^T by ldmatrix.trans and
+//   P^T moved from C into B fragments by movmatrix, as a split hi + lo pair
+//   summed from zero per step (as the prefill's P).
+//   More heads a CTA would hold 8 x D / 16 x 4 more fp32 accumulators a
+//   thread per tile (nine tiles at g 71: 576 at d 128), so the tiles are
+//   CTAs: they re-read the same pool rows, adjacent in the grid so that
+//   the second read comes from L2.
+// - Shared memory: Q's 8 rows and each warp's ring (DecodeSmem); at d 256
+//   139,392 B (bf16 pools), one CTA an SM with 64 KB of each CTA's rows in
+//   flight, above the ~25 KB an SM that Little's law asks at 3.35 TB/s; the
+//   ring stays two stages deep at every head dim.
 // - The split runs over the live range, not the table's capacity: split s
 //   of a token takes blocks [j_lo + s n / splits, j_lo + (s + 1) n /
 //   splits) of its n live blocks [j_lo, j_hi] (for one token, exactly the
@@ -63,18 +80,27 @@
 //
 // Prefill (paged_prefill_kernel) runs every product on the tensor cores
 // with the helpers of mma_sm90.cuh, as the flash forward does:
-// - A CTA is (one prefill tile, kv head), 128 threads. Its 64 rows are the
-//   tile's tokens x the g query heads of the kv head (row r = token r / g,
-//   head r % g), 16 rows per warp; each row carries its own position (its
-//   token's), ALiBi slope (its head's) and validity, and rows past
-//   tile_len x g are masked and never written. The wrapper's default tile
-//   is 64 / g tokens, so the rows are full.
+// - A CTA is (one prefill tile, kv head, row chunk), 128 threads (256 at d
+//   256, below). A tile's rows are its tokens x the g query heads of the kv
+//   head (row r = token r / g, head r % g), cut into chunks of 64, one CTA
+//   each, 16 rows per warp; each row carries its own position (its
+//   token's), ALiBi slope (its head's) and validity, and rows past tile_len
+//   x g are masked and never written. The wrapper's default tile is 64 / g tokens for g <= 64 (one
+//   chunk, full), 8 tokens above (g 71: 568 rows, eight full chunks and one
+//   of 56); every chunk of a tile reads the tile's live KV range.
 // - Q is gathered once into a resident 16-bit [64][D + 8] tile; K and V
 //   are gathered through the block table, 64 slots per k-tile, into a
 //   two-stage cp.async ring, so the next k-tile loads while this one
-//   computes. A slot's address is tables[seq, p / bs] * bs + p % bs for
-//   position p, with int64 offsets, so any block size works (a k-tile is
-//   one block at 64, four at 16).
+//   computes. At d 256 a warp's 16 x 256 fp32 accumulators would take 128
+//   registers a thread, and beside them the scores and split probabilities
+//   spilled ~0.5 KB a thread at the 255-register cap (with 64- or 32-slot
+//   k-tiles alike): there the CTA has 8 warps, warps w and w + 4 sharing
+//   rows 16 (w % 4) .. + 15, each computing their scores and softmax (the
+//   same, in the same order) and accumulating 128 of the output dims (64
+//   registers), one CTA an SM (168,960 B of shared memory). A slot's
+//   address is tables[seq, p / bs] * bs + p % bs for position p, with
+//   int64 offsets, so any block size works (a k-tile is one block at 64,
+//   four at 16).
 // - int8 pools: the int8 rows are copied as they are, then widened to bf16
 //   in shared memory (exact: |x| <= 127 fits bf16's 8-bit significand),
 //   with the fp32 per-slot scales staged beside them. k_scale multiplies
@@ -100,6 +126,8 @@
 // Offsets: a 7B pool holds ~8.6e9 elements per tensor, past INT32_MAX, so
 // every slot x (nkv * head_dim) product is int64.
 
+#include <type_traits>
+
 #include "mma_sm90.cuh"
 
 namespace {
@@ -108,6 +136,13 @@ using namespace ds_mma;
 
 constexpr int kThreads = 128;
 constexpr int kKT = 64;  // prefill: KV slots per k-tile (and query rows per CTA)
+
+// prefill at head dim d: the warps that share each 16-row block, each
+// accumulating d / that many of its output dims (2 at d 256: a warp's 16 x
+// 256 fp32 accumulators would take 128 registers a thread, and beside them
+// a k-tile's scores and probabilities spilled ~0.5 KB a thread at the
+// 255-register cap)
+__host__ __device__ constexpr int prefill_dsplit(int d) { return d > 128 ? 2 : 1; }
 constexpr float kMask = -1e30f;
 
 template <typename KV>
@@ -180,6 +215,13 @@ __device__ __forceinline__ unsigned movmatrix_t(unsigned x) {
   return y;
 }
 
+// two 8 x 8 b16 matrices (rows from lanes 0-7 and 8-15) into b[0], b[1]
+__device__ __forceinline__ void ldsm2(unsigned (&b)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(smem_u32(p)));
+}
+
 // 16 int8 values (one 16-byte chunk) as 16 bf16, packed in pairs, exactly
 // and without the conversion instructions (a quarter of the ALU rate): the
 // fp32 with bits 0x4B000000 | (x ^ 0x80) is 2^23 + 128 + x, so one add
@@ -206,14 +248,18 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Args a) {
   using L = DecodeSmem<D, kInt8>;
   constexpr int LDS = L::LDS;
   constexpr int CH = D * (int)sizeof(KV) / 16;  // 16-byte chunks of one pool row
-  // the kv heads of one token side by side in the grid: their CTAs read the
-  // same pool rows' neighbouring 256-byte pieces together
-  const int kvh = blockIdx.x % a.nkv, tok = blockIdx.x / a.nkv, split = blockIdx.y;
+  // the head tiles of one (token, kv head) side by side in the grid, then
+  // the kv heads of one token: their CTAs read the same pool rows (or
+  // their neighbouring 256-byte pieces) together
+  const int n_ht = (a.g + 7) / 8;
+  const int ht = blockIdx.x % n_ht, kvt = blockIdx.x / n_ht, split = blockIdx.y;
+  const int kvh = kvt % a.nkv, tok = kvt / a.nkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, tq = lane % 4;
-  const int g = a.g, bs = a.bs;
+  const int head0 = kvh * a.g + 8 * ht;  // this tile's first query head
+  const int g = min(8, a.g - 8 * ht), bs = a.bs;  // g: this tile's query heads
   const int seq = a.seq_idx[tok], P = a.pos[tok];
-  const long long row0 = (long long)tok * a.nq + (long long)kvh * g;  // head 0 of this kv head
+  const long long row0 = (long long)tok * a.nq + head0;
   const bool partial = a.part_acc != nullptr;
   const long long prow0 = (long long)split * a.T * a.nq + row0;  // its partials' row
 
@@ -250,11 +296,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Args a) {
   auto slot_of = [&](int p) { return (long long)table[p / bs] * bs + p % bs; };
 
   // step `it` of this warp (positions p_lo + 64 it + 16 warp + 0..15) into
-  // stage st: lane j % 16 looks up slot j's pool row, and each copy
-  // instruction of the warp takes 32 / CH whole rows (CH lanes a row, one
-  // 16-byte chunk each); slots that do not enter are zeros (scales 0)
+  // stage st: lane j % 16 looks up slot j's pool row, and the warp's copy
+  // instructions walk the step's 16 x CH 16-byte chunks in order, chunk c
+  // (row c / CH) on lane c % 32, so each instruction takes whole rows where
+  // CH divides 32 (d 64, 128, 256) and rows and parts of rows at d 80 / 96;
+  // the last instruction is predicated per lane where 32 does not divide
+  // 16 CH; slots that do not enter are zeros (scales 0)
   auto stage = [&](int it, int st) {
-    constexpr int RPI = 32 / CH;  // rows a copy instruction takes
+    constexpr int kChunks = kDecSlots * CH;
     const int pb = p_lo + it * kDecStep + warp * kDecSlots;
     const bool ok_me = pb + lane % kDecSlots < p_hi;
     const long long slot_me = ok_me ? slot_of(pb + lane % kDecSlots) : 0;
@@ -262,11 +311,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Args a) {
     constexpr int ld = kInt8 ? D : LDS;
     KV* dv = dk + kDecSlots * ld;
 #pragma unroll
-    for (int i = 0; i < CH / 2; ++i) {
-      const int r = i * RPI + lane / CH, e0 = (lane % CH) * (16 / (int)sizeof(KV));
+    for (int i = 0; i < (kChunks + 31) / 32; ++i) {
+      const int c = min(i * 32 + lane, kChunks - 1);
+      const int r = c / CH, e0 = (c % CH) * (16 / (int)sizeof(KV));
       const long long off = __shfl_sync(0xffffffffu, slot_me, r) * row_stride;
-      cp_async16(dk + r * ld + e0, kp + off + e0, pb + r < p_hi);
-      cp_async16(dv + r * ld + e0, vp + off + e0, pb + r < p_hi);
+      if (i * 32 + lane < kChunks) {
+        cp_async16(dk + r * ld + e0, kp + off + e0, pb + r < p_hi);
+        cp_async16(dv + r * ld + e0, vp + off + e0, pb + r < p_hi);
+      }
     }
     if constexpr (kInt8) {  // lanes 0-15: k scales, 16-31: v scales
       const long long si = (long long)kvh * a.scale_ld + slot_me;
@@ -276,7 +328,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Args a) {
     }
   };
 
-  // Q's rows: head kvh * g + r, rows past g zeros
+  // Q's rows: head head0 + r, rows past this tile's g zeros
   for (int c = threadIdx.x; c < 8 * (D / 8); c += kThreads) {
     const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
     const bool ok = r < g;
@@ -301,12 +353,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Args a) {
     qf[2 * kk + 1][0] = b[2];
     qf[2 * kk + 1][1] = b[3];
   }
+  if constexpr (D % 32 != 0)  // d 80: the last 16 dims, two matrices (lanes 0-15's rows)
+    ldsm2(qf[D / 16 - 1], sQ + (lane & 7) * LDS + ((lane >> 3) & 1) * 8 + (D - 16));
   // this thread's head columns 2 tq + c: slope and online-softmax state
   float slope[2], m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int h = 2 * tq + c;
-    slope[c] = (a.alibi != nullptr && h < g) ? a.alibi[kvh * g + h] : 0.f;
+    slope[c] = (a.alibi != nullptr && h < g) ? a.alibi[head0 + h] : 0.f;
   }
   // O^T: acc[mt] is the C fragment of dims 16 mt .. 16 mt + 15 x heads 0-7
   float acc[D / 16][4];
@@ -518,8 +572,9 @@ __global__ void __launch_bounds__(kThreads) decode_merge_kernel(const float* acc
 }
 
 // ---------------------------------------------------------------------------
-// prefill: one CTA per (tile of <= 64 / g contiguous tokens of one sequence,
-// kv head) on the tensor cores; heavy (late) tiles first
+// prefill: one CTA per (tile of contiguous tokens of one sequence, kv head,
+// chunk of 64 of the tile's tokens x g rows) on the tensor cores; heavy
+// (late) tiles first
 // ---------------------------------------------------------------------------
 __host__ __device__ inline size_t prefill_smem_bytes(int d, int kv_int8) {
   // bf16 pools: Q and a two-stage ring of (K, V), five 16-bit [64][d + 8]
@@ -531,18 +586,25 @@ __host__ __device__ inline size_t prefill_smem_bytes(int d, int kv_int8) {
 }
 
 template <int D, typename KV>
-__global__ void __launch_bounds__(kThreads, 2) paged_prefill_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads * prefill_dsplit(D), prefill_dsplit(D) > 1 ? 1 : 2)
+    paged_prefill_kernel(const Args a) {
   constexpr int LDS = Tile16<D>::LDS, TILE = Tile16<D>::ELEMS;
   constexpr bool kInt8 = IsInt8<KV>::value;
   constexpr int CH = D * (int)sizeof(KV) / 16;  // 16-byte chunks of one pool row
+  constexpr int kPT = kThreads * prefill_dsplit(D);  // the CTA's threads
+  constexpr int DV = D / prefill_dsplit(D);  // output dims a warp accumulates
   using T = __nv_bfloat16;
-  const int kvh = blockIdx.x, tile = gridDim.y - 1 - blockIdx.y;
+  const int kvh = blockIdx.x, tile = gridDim.y - 1 - blockIdx.y, c0 = kKT * blockIdx.z;
   const int ntok = a.tile_len[tile];
-  if (ntok == 0) return;  // unused tile of the static bound
+  // this chunk's rows: tile rows c0 .. c0 + R - 1 (R <= 0: an unused tile of
+  // the static bound, or a chunk past a short tile's rows)
+  const int g = a.g, R = min(ntok * g - c0, kKT), bs = a.bs;
+  if (R <= 0) return;
   const int tok0 = a.tile_start[tile], seq = a.tile_seq[tile];
   const int max_pos = a.tile_max[tile], min_pos = a.tile_min[tile];
-  const int g = a.g, R = ntok * g, bs = a.bs;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * warp;
+  // warp w: rows 16 (w % 4) .. + 15, output dims DV (w / 4) .. + DV - 1
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * (warp % 4);
+  const int dv0 = DV * (warp / 4);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
@@ -590,14 +652,14 @@ __global__ void __launch_bounds__(kThreads, 2) paged_prefill_kernel(const Args a
       dv = dk + TILE;
       ld = LDS;
     }
-    for (int c = threadIdx.x; c < kKT * CH; c += kThreads) {
+    for (int c = threadIdx.x; c < kKT * CH; c += kPT) {
       const int r = c / CH, e0 = (c % CH) * (16 / (int)sizeof(KV)), p = k0 + r;
       const bool ok = live(p);
       const long long off = ok ? ((long long)table[p / bs] * bs + p % bs) * row_stride + e0 : 0;
       cp_async16(dk + r * ld + e0, kp + off, ok);
       cp_async16(dv + r * ld + e0, vp + off, ok);
     }
-    if constexpr (kInt8) {  // threads 0-63 copy k scales, 64-127 v scales
+    if (kInt8 && threadIdx.x < 2 * kKT) {  // threads 0-63 copy k scales, 64-127 v scales
       const int r = threadIdx.x % kKT, p = k0 + r;
       const bool ok = live(p);
       const long long si =
@@ -607,12 +669,13 @@ __global__ void __launch_bounds__(kThreads, 2) paged_prefill_kernel(const Args a
     }
   };
 
-  // Q: row r is token tok0 + r / g, head kvh * g + r % g; rows past R zeros
-  for (int c = threadIdx.x; c < kKT * (D / 8); c += kThreads) {
-    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
+  // Q: row r is tile row c0 + r: token tok0 + (c0 + r) / g, head kvh * g +
+  // (c0 + r) % g; rows past R zeros
+  for (int c = threadIdx.x; c < kKT * (D / 8); c += kPT) {
+    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8, tr = c0 + r;
     const bool ok = r < R;
     const long long off =
-        ok ? ((long long)(tok0 + r / g) * a.nq + kvh * g + r % g) * D + c8 : 0;
+        ok ? ((long long)(tok0 + tr / g) * a.nq + kvh * g + tr % g) * D + c8 : 0;
     cp_async16(sQ + r * LDS + c8, a.q + off, ok);
   }
   if (n_kt > 0) stage_kv(kt_lo * kKT, 0);
@@ -623,14 +686,14 @@ __global__ void __launch_bounds__(kThreads, 2) paged_prefill_kernel(const Args a
   float rslope[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = r0 + lane / 4 + 8 * i;
-    rpos[i] = r < R ? a.pos[tok0 + r / g] : max_pos;
-    rslope[i] = (r < R && a.alibi != nullptr) ? a.alibi[kvh * g + r % g] : 0.f;
+    const int r = r0 + lane / 4 + 8 * i, tr = c0 + r;
+    rpos[i] = r < R ? a.pos[tok0 + tr / g] : max_pos;
+    rslope[i] = (r < R && a.alibi != nullptr) ? a.alibi[kvh * g + tr % g] : 0.f;
   }
   float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int it = 0; it < n_kt; ++it) {
     const int st = it & 1;
@@ -645,7 +708,7 @@ __global__ void __launch_bounds__(kThreads, 2) paged_prefill_kernel(const Args a
     const float* vs = ks + kKT;
     if constexpr (kInt8) {  // widen this stage's int8 rows into sKV (exact)
       const KV* rk = sRaw + 2 * st * kKT * D;
-      for (int c = threadIdx.x; c < 2 * kKT * (D / 16); c += kThreads) {
+      for (int c = threadIdx.x; c < 2 * kKT * (D / 16); c += kPT) {
         const int t = c / (kKT * (D / 16)), cc = c % (kKT * (D / 16));
         const int r = cc / (D / 16), e0 = (cc % (D / 16)) * 16;
         const int4 raw = *reinterpret_cast<const int4*>(rk + t * kKT * D + r * D + e0);
@@ -686,7 +749,7 @@ __global__ void __launch_bounds__(kThreads, 2) paged_prefill_kernel(const Args a
           return full || live(k0 + 8 * j + 2 * (lane % 4) + e);
         });
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < DV / 8; ++n) {
           acc[n][2 * i] *= alpha;
           acc[n][2 * i + 1] *= alpha;
         }
@@ -699,7 +762,7 @@ __global__ void __launch_bounds__(kThreads, 2) paged_prefill_kernel(const Args a
       }
       SplitFrags pf;
       split_frags<T>(pf, s);
-      mma_wm<D, T>(acc, pf, sV, lane);  // acc += p . v
+      mma_wm<DV, T, LDS>(acc, pf, sV + dv0, lane);  // acc += p . v over this warp's DV dims
     }
     __syncthreads();  // this stage's (and the widened tiles') readers are done
   }
@@ -707,11 +770,12 @@ __global__ void __launch_bounds__(kThreads, 2) paged_prefill_kernel(const Args a
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float l_safe = fmaxf(quad_sum(l[i]), 1e-30f);
-    const int r = r0 + lane / 4 + 8 * i;
+    const int r = r0 + lane / 4 + 8 * i, tr = c0 + r;
     if (r >= R) continue;
-    T* dst = a.out + ((long long)(tok0 + r / g) * a.nq + kvh * g + r % g) * D + 2 * (lane % 4);
+    T* dst = a.out + ((long long)(tok0 + tr / g) * a.nq + kvh * g + tr % g) * D + dv0 +
+             2 * (lane % 4);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DV / 8; ++n)
       *reinterpret_cast<unsigned*>(dst + 8 * n) =
           pack2(__float2bfloat16(acc[n][2 * i] / l_safe), __float2bfloat16(acc[n][2 * i + 1] / l_safe));
   }
@@ -721,8 +785,8 @@ inline unsigned merge_grid(long long rows, int d) {
   return (unsigned)((rows * (d / 4) + kThreads - 1) / kThreads);
 }
 
-// The decode grid (T x nkv, kv_splits), then, when `a` has both partials and
-// `out`, the merge of the partials into out
+// The decode grid (T x nkv x head tiles, kv_splits), then, when `a` has both
+// partials and `out`, the merge of the partials into out
 template <int D, typename KV>
 cudaError_t launch_decode(const Args& a, cudaStream_t stream) {
   constexpr size_t bytes = DecodeSmem<D, IsInt8<KV>::value>::kBytes;
@@ -730,11 +794,11 @@ cudaError_t launch_decode(const Args& a, cudaStream_t stream) {
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  // three CTAs share an SM's shared memory
+  // up to three CTAs share an SM's shared memory (one at d 256)
   e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(a.T * a.nkv, a.kv_splits), kThreads, bytes, stream>>>(a);
+  kern<<<dim3(a.T * a.nkv * ((a.g + 7) / 8), a.kv_splits), kThreads, bytes, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.part_acc == nullptr || a.out == nullptr) return e;
   const long long rows = (long long)a.T * a.nq;
@@ -751,11 +815,11 @@ cudaError_t launch_prefill(const Args& a, dim3 grid, cudaStream_t stream) {
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  // two CTAs share an SM's shared memory
+  // two CTAs share an SM's shared memory (at d 256 one CTA of twice the warps)
   e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  kern<<<grid, kThreads, bytes, stream>>>(a);
+  kern<<<grid, kThreads * prefill_dsplit(D), bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -777,7 +841,7 @@ Args base_args(const void* q, const void* k, const void* v, const float* k_scale
   a.T = T;
   a.nq = nq;
   a.nkv = nkv;
-  a.g = nq / nkv;
+  a.g = nkv > 0 ? nq / nkv : 0;
   a.bs = bs;
   a.max_blocks = max_blocks;
   a.window = window;
@@ -786,11 +850,26 @@ Args base_args(const void* q, const void* k, const void* v, const float* k_scale
   return a;
 }
 
+// fn(std::integral_constant<int, d>{}) at a head dim the kernels are built
+// for (64, 80, 96, 128, 256); cudaErrorInvalidValue at any other
+template <typename F>
+cudaError_t by_head_dim(int d, F fn) {
+  switch (d) {
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 80: return fn(std::integral_constant<int, 80>{});
+    case 96: return fn(std::integral_constant<int, 96>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    case 256: return fn(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Decode grid (T x nkv, kv_splits): one CTA per (token, kv head, split).
+// Decode grid (T x nkv x ceil(g / 8), kv_splits): one CTA per (token, kv
+// head, head tile of <= 8 query heads, split).
 // Without partials (part_acc null; kv_splits must be 1) it writes `out`.
 // With partials it writes them, [kv_splits, T, nq, (D)] fp32, and then, when
 // `out` is given, merges them into it by a second kernel on the same stream.
@@ -808,19 +887,16 @@ int ds_paged_decode(const void* q, const void* k, const void* v, const float* k_
   a.part_m = part_m;
   a.part_l = part_l;
   const bool partial = part_acc != nullptr && part_m != nullptr && part_l != nullptr;
-  if (a.g > 8 || nq % nkv != 0 || kv_splits < 1 || kv_splits > 65535 || T < 1 ||
-      (long long)T * nkv > 0x7fffffffLL ||
+  if (nkv < 1 || nq % nkv != 0 || kv_splits < 1 || kv_splits > 65535 || T < 1 ||
+      (long long)T * nkv * ((a.g + 7) / 8) > 0x7fffffffLL ||
       (!partial && (kv_splits != 1 || out == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (!partial) a.part_acc = nullptr;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (d == 128)
-    return (int)(kv_int8 ? launch_decode<128, int8_t>(a, s)
-                         : launch_decode<128, __nv_bfloat16>(a, s));
-  if (d == 64)
-    return (int)(kv_int8 ? launch_decode<64, int8_t>(a, s)
-                         : launch_decode<64, __nv_bfloat16>(a, s));
-  return (int)cudaErrorInvalidValue;
+  return (int)by_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return kv_int8 ? launch_decode<D, int8_t>(a, s) : launch_decode<D, __nv_bfloat16>(a, s);
+  });
 }
 
 // The merge alone: partials [splits, rows, d] fp32 and [splits, rows] m, l
@@ -831,18 +907,16 @@ int ds_paged_decode_merge(const float* part_acc, const float* part_m, const floa
   const unsigned grid = merge_grid(rows, d);
   auto* o = reinterpret_cast<__nv_bfloat16*>(out);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (d == 128)
-    decode_merge_kernel<128><<<grid, kThreads, 0, s>>>(part_acc, part_m, part_l, o, rows, splits);
-  else if (d == 64)
-    decode_merge_kernel<64><<<grid, kThreads, 0, s>>>(part_acc, part_m, part_l, o, rows, splits);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return (int)by_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    decode_merge_kernel<D><<<grid, kThreads, 0, s>>>(part_acc, part_m, part_l, o, rows, splits);
+    return cudaGetLastError();
+  });
 }
 
-// Prefill grid (nkv, n_tiles): one CTA per (kv head, tile of <= q_tile
-// contiguous tokens of one sequence, q_tile * g <= 64), the tiles in reverse;
-// reads q and writes out in token order.
+// Prefill grid (nkv, n_tiles, ceil(q_tile * g / 64)): one CTA per (kv head,
+// tile of <= q_tile contiguous tokens of one sequence, chunk of 64 of the
+// tile's rows), the tiles in reverse; reads q and writes out in token order.
 int ds_paged_prefill(const void* q, const void* k, const void* v, const float* k_scale,
                      const float* v_scale, long long scale_ld, const int* tables, const int* pos,
                      const int* tile_start, const int* tile_len, const int* tile_seq,
@@ -856,17 +930,17 @@ int ds_paged_prefill(const void* q, const void* k, const void* v, const float* k
   a.tile_seq = tile_seq;
   a.tile_max = tile_max;
   a.tile_min = tile_min;
-  if (q_tile * a.g > kKT || nq % nkv != 0 || q_tile < 1 || n_tiles < 1 || n_tiles > 65535)
+  const long long chunks = ((long long)q_tile * a.g + kKT - 1) / kKT;
+  if (nkv < 1 || nq % nkv != 0 || q_tile < 1 || n_tiles < 1 || n_tiles > 65535 ||
+      chunks > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(nkv, n_tiles, 1);
+  const dim3 grid(nkv, n_tiles, (unsigned)chunks);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (d == 128)
-    return (int)(kv_int8 ? launch_prefill<128, int8_t>(a, grid, s)
-                         : launch_prefill<128, __nv_bfloat16>(a, grid, s));
-  if (d == 64)
-    return (int)(kv_int8 ? launch_prefill<64, int8_t>(a, grid, s)
-                         : launch_prefill<64, __nv_bfloat16>(a, grid, s));
-  return (int)cudaErrorInvalidValue;
+  return (int)by_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return kv_int8 ? launch_prefill<D, int8_t>(a, grid, s)
+                   : launch_prefill<D, __nv_bfloat16>(a, grid, s);
+  });
 }
 
 const char* ds_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -874,11 +948,13 @@ const char* ds_cuda_error_string(int code) { return cudaGetErrorString((cudaErro
 // Dynamic shared memory of one decode CTA at this head_dim, for bf16
 // (kv_int8 = 0) or int8 pools; it depends on neither g nor the block size.
 long long ds_paged_smem_bytes(int d, int kv_int8) {
-  if (d == 128)
-    return (long long)(kv_int8 ? DecodeSmem<128, true>::kBytes : DecodeSmem<128, false>::kBytes);
-  if (d == 64)
-    return (long long)(kv_int8 ? DecodeSmem<64, true>::kBytes : DecodeSmem<64, false>::kBytes);
-  return -1;
+  long long bytes = -1;
+  by_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    bytes = (long long)(kv_int8 ? DecodeSmem<D, true>::kBytes : DecodeSmem<D, false>::kBytes);
+    return cudaSuccess;
+  });
+  return bytes;
 }
 
 // Dynamic shared memory of one prefill CTA at this head_dim, for bf16

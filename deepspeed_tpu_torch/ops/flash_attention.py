@@ -35,6 +35,21 @@ import torch
 from ._build import build_kernel
 
 MASK_VALUE = -1e30
+KERNEL_HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
+
+
+def unsupported_shape(nq: int, nkv: int, d: int) -> list:
+    """What of (query heads, kv heads, head dim) the flash kernels are not
+    built for, one message a miss; empty if they take it. No device needed:
+    the training engine asks it when it is built for a card."""
+    misses = []
+    if d not in KERNEL_HEAD_DIMS:
+        misses.append(f"head_dim {d} (the flash kernels are built for {KERNEL_HEAD_DIMS}; "
+                      f"ROADMAP A5b.2)")
+    if nkv < 1 or nq % nkv:
+        misses.append(f"{nq} query heads over {nkv} kv heads (not a multiple)")
+    return misses
+
 
 launch_counts = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 
@@ -159,8 +174,9 @@ def _check(q, k, v, slopes):
     if q.dtype not in (torch.bfloat16, torch.float16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the kernels take bfloat16 or float16 q/k/v of one dtype, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"head_dim {d} unsupported: the kernels are built for 64 and 128")
+    misses = unsupported_shape(nq, nkv, d)
+    if misses:
+        raise ValueError("the flash kernels do not take " + "; ".join(misses))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must lie on q's CUDA device")

@@ -34,22 +34,21 @@ import torch
 from ._build import build_kernel
 
 MASK_VALUE = -1e30
-KERNEL_HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
-MAX_DECODE_GROUP = 8  # query heads per kv head the decode kernel takes
+KERNEL_HEAD_DIMS = (64, 80, 96, 128, 256)  # the head dims the kernels are built for
+DECODE_HEAD_TILE = 8  # query heads a decode CTA takes (the mma's n side)
+PREFILL_ROWS = 64  # query rows (tokens x heads of a kv head) a prefill CTA takes
 
 
 def unsupported_shape(nq: int, nkv: int, d: int) -> list:
     """What of (query heads, kv heads, head dim) the kernels are not built
-    for, one message a miss; empty if they take it. The prefill's default
-    tile ``64 // g`` fits every group the decode takes."""
+    for, one message a miss; empty if they take it. Any group size takes
+    the kernels: the decode's head tiles and the prefill's row chunks
+    cover it (:func:`decode_head_tiles`, :func:`prefill_row_chunks`)."""
     misses = []
     if d not in KERNEL_HEAD_DIMS:
         misses.append(f"head_dim {d} (the kernels are built for {KERNEL_HEAD_DIMS})")
-    if nq % nkv:
+    if nkv < 1 or nq % nkv:
         misses.append(f"{nq} query heads over {nkv} kv heads (not a multiple)")
-    elif nq // nkv > MAX_DECODE_GROUP:
-        misses.append(f"group size {nq // nkv} ({nq} query heads over {nkv} kv heads, the "
-                      f"decode takes at most {MAX_DECODE_GROUP} a kv head)")
     return misses
 
 # launches of each kernel path since the last reset_launch_counts()
@@ -104,9 +103,25 @@ def resolve_q_tile(T: int, S: int) -> int:
 
 def prefill_q_tile(g: int) -> int:
     """The prefill kernel's default tile for ``g`` query heads per kv head:
-    ``64 // g`` tokens, so a CTA's rows (tokens x heads) fill its 64 (four
-    warps of 16 on the tensor cores)."""
-    return max(1, 64 // g)
+    ``64 // g`` tokens for g <= 64, so a CTA's rows (tokens x heads) fill
+    its 64 (four warps of 16 on the tensor cores); 8 tokens above, whose
+    ``8 g`` rows run as :func:`prefill_row_chunks` CTAs of 64, every one but
+    the last full and the last's padding under a ninth of the rows."""
+    return PREFILL_ROWS // g if g <= PREFILL_ROWS else 8
+
+
+def prefill_row_chunks(g: int, q_tile: int) -> int:
+    """CTAs a prefill tile of ``q_tile`` tokens takes for ``g`` query heads
+    per kv head: its ``q_tile g`` rows in chunks of 64 (the grid's third
+    dimension); one at the default tile for g <= 64."""
+    return -(-q_tile * g // PREFILL_ROWS)
+
+
+def decode_head_tiles(g: int) -> int:
+    """CTAs the decode takes per (token, kv head, split) for ``g`` query
+    heads per kv head: tiles of up to 8 heads, the last holding the rest
+    (one for g <= 8; nine at Falcon-7B's 71, the last of 7)."""
+    return -(-g // DECODE_HEAD_TILE)
 
 
 def resolve_kv_splits(T: int, S: int, max_blocks: int, q_tile: int = 1) -> int:
@@ -313,14 +328,13 @@ def _check_common(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, k_s
         raise ValueError(f"q must be a contiguous [T, nq, d] bfloat16 tensor, got "
                          f"{q.dtype} {tuple(q.shape)}")
     T, nq, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} unsupported: the kernels are built for {KERNEL_HEAD_DIMS}")
     if k_pool.dim() != 3 or k_pool.shape != v_pool.shape or k_pool.shape[2] != d:
         raise ValueError(f"pools must be [pool_len, nkv, {d}], got {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)}")
     nkv = k_pool.shape[1]
-    if nq % nkv:
-        raise ValueError(f"nq={nq} is not a multiple of nkv={nkv}")
+    misses = unsupported_shape(nq, nkv, d)
+    if misses:
+        raise ValueError("the paged kernels do not take " + "; ".join(misses))
     if k_pool.dtype != v_pool.dtype or k_pool.dtype not in (torch.bfloat16, torch.int8):
         raise ValueError(f"pools must both be bfloat16 or int8, got {k_pool.dtype}/{v_pool.dtype}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
@@ -384,9 +398,6 @@ def _decode(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size, window, a
     T, nq, d, nkv, quant, alibi = _check_common(q, k_pool, v_pool, block_tables, seq_idx, pos,
                                                 block_size, k_scale, v_scale, alibi)
     max_blocks = block_tables.shape[1]
-    if nq // nkv > MAX_DECODE_GROUP:
-        raise ValueError(f"paged_decode supports up to {MAX_DECODE_GROUP} query heads per kv head, "
-                         f"got {nq // nkv}")
     tables, seq_idx, pos = _i32(block_tables), _i32(seq_idx), _i32(pos)
     lib = kernel_build().lib
     out = torch.empty_like(q) if out else None
@@ -473,12 +484,14 @@ def paged_decode_merge(acc, m, l, dtype=torch.bfloat16):
 def paged_prefill(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int, window=None,
                   alibi=None, k_scale=None, v_scale=None, q_tile=None):
     """Q-tiled paged attention: one CTA per (tile of up to ``q_tile``
-    contiguous same-sequence tokens, kv head), so each KV slot is read once
-    per tile for all its tokens and query heads. ``q_tile`` defaults to
-    :func:`prefill_q_tile` (``64 // g``: 16 tokens at Mistral's g = 4);
-    ``q_tile * g`` may not exceed 64. Tiles never cross a sequence, so the
-    result does not depend on the tile. Reads q and writes the output in
-    token order. CPU tensors take the plain version."""
+    contiguous same-sequence tokens, kv head, chunk of 64 of the tile's
+    ``q_tile g`` rows), so each KV slot is read once per chunk for all its
+    rows' tokens and query heads. ``q_tile`` defaults to
+    :func:`prefill_q_tile` (``64 // g``: 16 tokens at Mistral's g = 4, one
+    chunk; 8 tokens in nine chunks at Falcon-7B's g = 71). Tiles never cross
+    a sequence, so the result does not depend on the tile. Reads q and
+    writes the output in token order. CPU tensors take the plain
+    version."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, block_tables, seq_idx, pos,
                                          block_size, window=window, alibi=alibi,
@@ -487,9 +500,8 @@ def paged_prefill(q, k_pool, v_pool, block_tables, seq_idx, pos, block_size: int
                                                 block_size, k_scale, v_scale, alibi)
     S, max_blocks = block_tables.shape
     q_tile = prefill_q_tile(nq // nkv) if q_tile is None else int(q_tile)
-    if q_tile < 1 or q_tile * (nq // nkv) > 64:
-        raise ValueError(f"paged_prefill needs 1 <= q_tile * (nq/nkv) <= 64, got q_tile={q_tile} "
-                         f"with {nq // nkv} query heads per kv head")
+    if q_tile < 1:
+        raise ValueError(f"paged_prefill needs q_tile >= 1, got {q_tile}")
     tiles = cached_prefill_tiles(seq_idx, pos, q_tile, S)
     tables, pos = _i32(block_tables), _i32(pos)
     lib = kernel_build().lib

@@ -80,6 +80,7 @@ import numpy as np
 import torch
 
 from .. import comm
+from ..models.transformer import TransformerConfig, training_attention_route
 from ..parallel import groups
 from .config import DeepSpeedConfig
 from .constants import ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER
@@ -118,6 +119,9 @@ class DeepSpeedEngine:
             raise ValueError("the model has no trainable parameters (a TransformerLM trains "
                              "with trainable=True)")
         self.device = self._params[0].device
+        model_config = getattr(model, "config", None)
+        if isinstance(model_config, TransformerConfig):  # refuses unbuilt flash shapes now
+            training_attention_route(model_config, self.device.type)
         groups.initialize_mesh(config.tpu_config.mesh_config(), self.device.type)
         self.dp_world_size = groups.get_data_parallel_world_size()
         self.dp_rank = groups.get_data_parallel_rank()

@@ -206,13 +206,15 @@ def test_route_gate():
     cases = [
         (("auto", "cuda", bf, *mistral, 1024), "paged"),
         (("auto", "cuda", bf, 32, 8, 64, 128), "paged"),
-        (("auto", "cuda", bf, 8, 1, 128, 256), "paged"),  # g 8, the decode's limit
+        (("auto", "cuda", bf, 8, 1, 128, 256), "paged"),  # g 8, one decode head tile
+        (("auto", "cuda", bf, 32, 8, 96, 1024), "paged"),  # head dims 80 / 96 / 256
+        (("auto", "cuda", bf, 16, 1, 128, 1024), "paged"),  # g 16, two head tiles
         (("auto", "cpu", bf, *mistral, 1024), "dense"),
         (("auto", "cpu", f32, *mistral, 1000), "dense"),
         (("auto", "cuda", f32, *mistral, 1024), "cache dtype torch.float32"),
         (("auto", "cuda", torch.float16, *mistral, 1024), "cache dtype torch.float16"),
-        (("auto", "cuda", bf, 32, 8, 96, 1024), "head_dim 96"),
-        (("auto", "cuda", bf, 16, 1, 128, 1024), "16 query heads over 1"),
+        (("auto", "cuda", bf, 32, 8, 32, 1024), "head_dim 32"),
+        (("auto", "cuda", bf, 16, 3, 128, 1024), "16 query heads over 3"),
         (("auto", "cuda", bf, *mistral, 1000), "cache length 1000"),
         (("reference", "cuda", f32, 32, 8, 96, 1000), "dense"),
         (("reference", "cpu", f32, *mistral, 1024), "dense"),
@@ -229,7 +231,7 @@ def test_route_gate():
             with pytest.raises(ValueError, match=want):
                 tt.cached_attention_route(*args)
     with pytest.raises(ValueError) as err:
-        tt.cached_attention_route("auto", "cuda", f32, 32, 8, 96, 1000)
+        tt.cached_attention_route("auto", "cuda", f32, 32, 8, 32, 1000)
     assert str(err.value).count(";") == 3  # every miss is named
 
 

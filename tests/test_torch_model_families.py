@@ -5,9 +5,11 @@ Every preset of every family gives a ``TransformerConfig`` equal to the JAX
 package's field by field (no parameters are built); ``config.json`` of the
 tiny HF models of ``tests/test_hf_checkpoint.py`` maps to equal configs,
 and the same checkpoints are refused; the CUDA paged-attention module
-refuses at engine build the head dims and group sizes its kernels are not
-built for (checked without a device); the factory builds ``gpt2``, ``opt``,
-``qwen2`` and ``phi`` by name.
+takes every preset's head dim and group size and refuses at engine build a
+shape its kernels are not built for (head_dim 32), and the training engine
+refuses the head dims the flash kernels are not built for (checked without
+a device); the factory builds ``gpt2``, ``opt``, ``qwen2`` and ``phi`` by
+name.
 """
 
 import ast
@@ -30,6 +32,10 @@ from deepspeed_tpu_torch.inference.v2.checkpoint.huggingface_engine import \
 from deepspeed_tpu_torch.inference.v2.config_v2 import (DSStateManagerConfig,
                                                         RaggedInferenceEngineConfig)
 from deepspeed_tpu_torch.inference.v2.modules.heuristics import build_modules
+from deepspeed_tpu_torch.models.transformer import (TransformerLM, cached_attention_route,
+                                                  training_attention_route)
+from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import paged_attention as tpa
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -153,24 +159,92 @@ def _ec():
     return RaggedInferenceEngineConfig(kv_block_size=16)
 
 
-@pytest.mark.parametrize("fn,size,miss", [
-    ("phi_config", "2", "head_dim 80"),
-    ("gptj_config", "6b", "head_dim 256"),
-    ("gpt_neox_config", "20b", "head_dim 96"),
-    ("gpt_neox_config", "pythia-1b", "head_dim 256"),
-    ("falcon_config", "7b", "group size 71"),
-    ("falcon_config", "40b", "group size 16"),
-])
+# the presets at head dims 80 / 96 / 256 and group sizes over 8, with the
+# head dim and group size that the first kernels refused
+WIDENED = [("phi_config", "2", "head_dim 80"),
+           ("gptj_config", "6b", "head_dim 256"),
+           ("gpt_neox_config", "20b", "head_dim 96"),
+           ("gpt_neox_config", "pythia-1b", "head_dim 256"),
+           ("falcon_config", "7b", "group size 71"),
+           ("falcon_config", "40b", "group size 16")]
+
+
+@pytest.mark.parametrize("fn,size,miss", WIDENED)
 def test_cuda_attention_refuses_unbuilt_shapes_at_engine_build(fn, size, miss):
-    """A model asking for the CUDA kernels with a head dim or group size
-    they are not built for is refused when the engine's modules are built,
-    naming the miss and ROADMAP A5b (no device needed: the check reads the
-    config); the plain route takes it."""
+    """The six presets the kernels once refused (``miss``) now build on the
+    CUDA kernels: no miss in the shape rule, and the engine's modules pick
+    ``paged_cuda_attention`` (no device needed: the check reads the
+    config); the plain route takes them too."""
     cfg = getattr(models, fn)(size)
-    with pytest.raises(ValueError, match=rf"{miss}.*A5b"):
+    assert tpa.unsupported_shape(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == []
+    assert build_modules(cfg, _ec(), use_kernels=True)["attention"].name() == \
+        "paged_cuda_attention"
+    assert build_modules(cfg, _ec(), use_kernels=False)["attention"].name() == \
+        "dense_blocked_attention"
+
+
+@pytest.mark.parametrize("fn", ["phi_config", "gptj_config", "falcon_config"])
+def test_cuda_attention_still_refuses_head_dim_32_at_engine_build(fn):
+    """A shape still outside the kernels' rule (the tiny presets' head_dim
+    32) is refused when the engine's modules are built, naming the miss and
+    ROADMAP A5b; the plain route takes it."""
+    cfg = getattr(models, fn)("tiny")
+    assert cfg.head_dim == 32
+    with pytest.raises(ValueError, match=r"head_dim 32.*A5b"):
         build_modules(cfg, _ec(), use_kernels=True)
     assert build_modules(cfg, _ec(), use_kernels=False)["attention"].name() == \
         "dense_blocked_attention"
+
+
+@pytest.mark.parametrize("fn,size,miss", WIDENED)
+def test_v1_cache_route_takes_the_widened_presets_on_cuda(fn, size, miss):
+    """``init_inference``'s KV-cache route on a bf16 CUDA cache takes the
+    paged kernels at every widened preset (no device: the route is a pure
+    function of the shapes)."""
+    cfg = getattr(models, fn)(size)
+    assert cached_attention_route("auto", "cuda", torch.bfloat16, cfg.num_heads,
+                                  cfg.num_kv_heads, cfg.head_dim, 1024) == "paged"
+    assert cached_attention_route("flash", "cuda", torch.bfloat16, cfg.num_heads,
+                                  cfg.num_kv_heads, cfg.head_dim, 1024) == "paged"
+
+
+@pytest.mark.parametrize("fn,size,trains", [
+    ("phi_config", "2", False), ("gptj_config", "6b", False), ("gpt_neox_config", "20b", False),
+    ("gpt_neox_config", "pythia-1b", False), ("falcon_config", "7b", True),
+    ("mistral_config", "7b", True), ("qwen2_config", "7b", True)])
+def test_flash_refuses_unbuilt_head_dims_at_engine_build(fn, size, trains):
+    """Training on the card goes through the flash kernels (head dims 64
+    and 128): a model at another head dim is refused when the engine is
+    built, naming the head dim and ROADMAP A5b.2, not at its first step.
+    The CPU, ``attention_impl='reference'`` and a block-sparse model never
+    reach the flash kernels and pass. No device: the check reads the
+    config."""
+    cfg = getattr(models, fn)(size)
+    assert (fa.unsupported_shape(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == []) == trains
+    if trains:
+        assert training_attention_route(cfg, "cuda") == "flash"
+    else:
+        with pytest.raises(ValueError, match=rf"head_dim {cfg.head_dim} .*A5b\.2"):
+            training_attention_route(cfg, "cuda")
+    assert training_attention_route(cfg, "cpu") == "reference"
+    assert training_attention_route(dataclasses.replace(cfg, attention_impl="reference"),
+                                    "cuda") == "reference"
+
+
+def test_training_engine_asks_the_flash_rule_when_built(monkeypatch):
+    """``initialize`` asks ``training_attention_route`` with the model's
+    config and the parameters' device type before it builds anything else."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime import engine as engine_mod
+
+    seen = []
+    monkeypatch.setattr(engine_mod, "training_attention_route",
+                        lambda cfg, device_type: seen.append((cfg.head_dim, device_type)))
+    model = TransformerLM(models.phi_config("tiny", dtype=torch.float32, num_layers=1,
+                                            vocab_size=64), device="cpu", trainable=True)
+    deepspeed_tpu_torch.initialize(model=model, config={
+        "train_batch_size": 1, "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}})
+    assert seen == [(32, "cpu")]
 
 
 @pytest.mark.parametrize("fn,size", [("qwen2_config", "7b"), ("qwen2_config", "0.5b"),

@@ -202,12 +202,19 @@ def test_prefill_route_at_its_tile_matches_pallas_q_tile_16(case, monkeypatch):
     np.testing.assert_allclose(ours, np.asarray(out), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 8, 16, 33, 64])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 8, 16, 33, 64, 71])
 def test_prefill_default_tile_fills_64_rows(g):
-    """The prefill kernel's default tile is 64 // g tokens: never more than
-    64 rows (tokens x query heads of a kv head) and at least one token."""
+    """The prefill kernel's default tile is 64 // g tokens up to g 64:
+    never more than 64 rows (tokens x query heads of a kv head), one CTA's
+    chunk, and at least one token. Above 64 query heads a kv head (Falcon-
+    7B's 71) it is 8 tokens, whose rows fill 64-row chunks, every one but
+    the last full."""
     qt = tpa.prefill_q_tile(g)
-    assert qt == 64 // g and 1 <= qt and qt * g <= 64 < (qt + 1) * g
+    chunks = tpa.prefill_row_chunks(g, qt)
+    if g <= 64:
+        assert qt == 64 // g and 1 <= qt and qt * g <= 64 < (qt + 1) * g and chunks == 1
+    else:
+        assert qt == 8 and 64 * (chunks - 1) < qt * g <= 64 * chunks
 
 
 def test_cached_prefill_tiles_reuse_only_the_same_unmodified_tensors():
@@ -247,8 +254,8 @@ def test_dispatch_heuristics_match_jax_defaults():
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_version_on_card():
     """On the card: each kernel path against the plain version, bf16 and
-    int8 pools, at head_dim 64 and 128; the decode at 1, 3 and 8 splits (8:
-    more splits than the tables' blocks), the prefill at q_tile 4, at its
+    int8 pools, at head_dim 64, 80, 96, 128 and 256; the decode at 1, 3
+    and 8 splits (8: more splits than the tables' blocks), the prefill at q_tile 4, at its
     full tile 64 // g given and at its default. Tolerance, per element: 2
     bf16 ulps at |plain| plus 2^-14. Both sum in fp32 and round once to bf16
     (the kernels' tensor-core products take the 16-bit inputs exactly and
@@ -271,7 +278,7 @@ def test_cuda_kernels_match_plain_version_on_card():
         return bool((err <= 2 * ulp + 2.0**-14).all()), err.max().item()
 
     for case in CASES:
-        for d in (64, 128):
+        for d in tpa.KERNEL_HEAD_DIMS:
             s = _setup(case, "mixed", d=d)
             kw = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
                   for k, v in s["kw"].items()}
