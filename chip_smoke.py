@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
                                     train,remat,eager,zero,moe_zero,tp,moe_train,
                                     sparse_train,evo_kernels,evo_path,v1,hybrid,prefix_sample,
-                                    families]
+                                    families,families_train]
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
     python3 chip_smoke.py --versus DIR [--phases kernels,e2e]
@@ -11,6 +11,7 @@
     python3 chip_smoke.py --versus DIR --phases evo_kernels,evo_path
     python3 chip_smoke.py --versus DIR --phases sparse_kernels,sparse_train
     python3 chip_smoke.py --versus DIR --phases train
+    python3 chip_smoke.py --versus DIR --phases train_kernels
 
 With no arguments every phase runs, in this order; each must pass (exit
 code 1 otherwise):
@@ -63,12 +64,20 @@ code 1 otherwise):
    shapes and the same sizes, bf16 pools: each route checked once against
    the plain version and timed (events, and with the host queued ahead)
    beside its byte bound and SDPA on the same context pre-gathered.
-3. train_kernels: hold the training kernels against their plain versions.
+3. train_kernels: print the flash kernels' ptxas registers and spills (30
+   instantiations: 3 kernels x head dims 64 / 80 / 96 / 128 / 256 x bf16 /
+   fp16; any spilled byte fails) and their shared memory per CTA, then hold
+   the training kernels against their plain versions.
    Flash attention (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) on
-   a small matrix (S 1 / 100 / 128 / 257, head_dim 64 / 128, GQA groups 1
-   and 4, causal and not, window 48, ALiBi with power-of-two and other head
-   counts, bf16 and a few float16 cases) and at the training shapes (B 1, S 4096, 32/8 heads, d 128,
-   bf16, causal, window 4096): out, lse, dq, dk, dv. The backward kernels
+   a small matrix (S 1 / 100 / 128 / 257, head_dim 64 / 80 / 96 / 128 /
+   256, GQA groups 1 and 4, causal and not, window 48, ALiBi with
+   power-of-two and other head counts, bf16, and float16 at every head dim)
+   and at the training shapes (B 1, S 4096, 32/8 heads, d 128,
+   bf16, causal, window 4096): out, lse, dq, dk, dv. Then at the presets'
+   attention shapes (``FLASH_FAMILY_SHAPES``: phi-2 32/32 d 80,
+   GPT-NeoX-20B 64/64 d 96, GPT-J-6B 16/16 d 256, Pythia-1B 8/8 d 256,
+   Falcon-7B 71/1 d 64; B 1, S 2048, causal) each kernel is checked the same
+   way and timed beside its bound and SDPA (the plain version not timed). The backward kernels
    and their plain version take the same inputs (the kernel forward's out
    and lse); the kernels run in the autograd Function's order, dq first,
    whose delta = rowsum(dO * O) dk/dv then reads. Tolerance per element:
@@ -427,6 +436,21 @@ code 1 otherwise):
    GB/s (the files just written: a warm read) and the host's resident
    memory before it and at most during it (sampled every 2 ms), beside the
    card's name and power limit.
+21. families_train: training at the families' head dims through
+   ``initialize`` and ``train_batch`` on the train phase's recipe (bf16,
+   fused AdamW, clipping, WarmupLR; gas 2 of 1 x 2048 tokens), random
+   weights from seed 0, at full width with the depth cut: phi-2 (head_dim
+   80) 32 -> 2 layers, GPT-NeoX-20B (96) 44 -> 2, GPT-J-6B (256) 28 -> 2,
+   each freed before the next. A warm step, then 3 timed ones with the
+   launch counts set to 0 just before: ``flash_fwd``, ``flash_bwd_dq`` and
+   ``flash_bwd_dkdv`` must each launch layers x microbatches x steps times
+   and ``fused_adam`` once a step; the losses must be finite and falling;
+   the loss and the whole gradient at seq 1024 must be within
+   ``LOSS_REL_TOL`` / ``GRAD_REL_L2_TOL`` of the plain attention's on the
+   same weights; ``init_inference(...).forward`` at the same width must
+   launch the flash forward once a layer. Last, phi's tiny preset (head_dim
+   32) must be refused at ``initialize``, naming the head dim. Printed: step
+   ms, tokens/s, peak memory, beside the card's name and power limit.
 
 ``--mutant`` copies the package into ``build/mutant/<name>`` once per
 mutant: the grouped matmul kernels dropping one row block's products
@@ -441,8 +465,10 @@ tensor-core Evoformer forward skipping each CTA's last key tile, and
 the tensor-core Evoformer dq doing the same (``--phases
 build,evo_kernels``, the same), the flash backward with
 dk/dv skipping each CTA's last live q-tile and dq its last live k-tile
-and, alone, the flash forward skipping each CTA's last live k-tile
-(``--phases build,train_kernels``, the same), the paged prefill
+and, alone, the flash forward skipping each CTA's last live k-tile and,
+alone, the d 256 flash dk/dv whose second warp of each row block stores
+none of its 128 output dims (``--phases build,train_kernels``, the same),
+the paged prefill
 skipping each CTA's last live k-tile and, alone, the paged decode
 skipping each split's last live block and, alone, the paged decode
 dropping the last head tile of every (token, kv head) with more than one
@@ -462,7 +488,7 @@ build,remat`` must fail on the MoE check by more than 30x its tolerance),
 and tensor parallelism with the column region's backward summing nothing
 over the model group and, alone, every rank's serving weights taking rank
 0's kv heads (``--phases build,tp`` must fail, each by more than 30x the
-phase's tolerance): twenty copies.
+phase's tolerance): twenty-one copies.
 It passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
@@ -470,7 +496,7 @@ grouped matmul and the Evoformer kernels against copies under
 ``build/ablation/<name>``, each undoing one design choice of
 ``ABLATIONS`` (the grid order of the backward and of the forward, the
 prefill's tile order, the mask fast path, the two-level accumulation, each
-split pair; the decode split over the table's capacity, as the TPU grid
+split pair, dk/dv's 16-query chunks; the decode split over the table's capacity, as the TPU grid
 splits it, with its plain partials patched alike; the grouped matmul's ring
 two stages deep, one CTA per tile; db2's rows in one chunk; the
 Evoformer forward and dq with two rows n a CTA sharing each staged
@@ -495,6 +521,7 @@ the serving path is measured by the same code on both), printing the paged
 decode times, the serving decode profile (wall and device ms per step,
 device kernels per step), decode tok/s and TTFT p50, the grouped matmul's,
 the Evoformer kernels' and the block-sparse forward's times (both routes),
+the flash kernels' times at the training shape (``train_kernels``),
 the dense training step (``train``, world size 1), the MoE step, the
 Evoformer block, the block-sparse training step and their top device ops
 per run, and one JSON line of all runs.
@@ -559,6 +586,14 @@ TRAIN_KERNELS = {  # name -> (source, TPU kernel it replaces)
                    "deepspeed_tpu/ops/pallas/fused_adam.py:47"),
 }
 GRAD_FLOOR_RMS = 2.0**-12  # flash tolerance floor, as a fraction of rms(plain)
+# rows 4-6 at the presets' attention shapes (name, query heads, kv heads,
+# head_dim), B 1, S FLASH_FAMILY_SEQ (their max_seq_len), causal: checked
+# and timed beside their bounds and SDPA. Falcon-7B's dk/dv grid is nkv x
+# S / 64 = 32 CTAs on 132 SMs.
+FLASH_FAMILY_SHAPES = (("phi-2", 32, 32, 80), ("GPT-NeoX-20B", 64, 64, 96),
+                       ("GPT-J-6B", 16, 16, 256), ("Pythia-1B", 8, 8, 256),
+                       ("Falcon-7B", 71, 1, 64))
+FLASH_FAMILY_SEQ = 2048
 ADAM_RTOL = 1e-6
 # the training phase (Mistral-7B width, depth cut for memory)
 TRAIN_LAYERS, TRAIN_SEQ, CHECK_SEQ, TIMED_STEPS = 8, 4096, 1024, 4
@@ -764,6 +799,15 @@ FAMILIES_PHI = ("2", {"num_layers": 4})
 FAMILIES_FALCON = ("7b", {"num_layers": 4})
 FAMILIES_GPTJ = ("6b", {"num_layers": 2})
 FAMILIES_HF_LAYERS, FAMILIES_HF_SHARDS = 2, 2
+# phase 22: training at the families' head dims through initialize and
+# train_batch on TRAIN_DS_CONFIG's recipe, at full width with the depth cut
+# (name -> family, preset, layers): phi-2 (d 80) 32 -> 2, GPT-NeoX-20B (d 96;
+# 1.5B fp32 masters at 2 layers, ~25 GB with grads and moments) 44 -> 2,
+# GPT-J-6B (d 256) 28 -> 2; a warm step and FAMILIES_TRAIN_STEPS timed ones
+# at seq FAMILIES_TRAIN_SEQ (the presets' max_seq_len)
+FAMILIES_TRAIN = {"phi_2": ("phi", "2", 2), "gpt_neox_20b": ("gpt_neox", "20b", 2),
+                  "gptj_6b": ("gptj", "6b", 2)}
+FAMILIES_TRAIN_SEQ, FAMILIES_TRAIN_STEPS = 2048, 3
 
 
 def log(msg):
@@ -1499,9 +1543,13 @@ def profile_prefill(engine, rng, n_tok=512, repeats=5):
 
 def _flash_err(out, ref, lse=False):
     """(max |out - ref|, the largest error as a fraction of its element's
-    tolerance) for the flash attention outputs (see the module docstring)."""
+    tolerance) for the flash attention outputs (see the module docstring);
+    a NaN counts as an infinite error."""
+    import torch
+
     ref = ref.float()
     err = (out.float() - ref).abs()
+    err = torch.where(torch.isnan(err), torch.full_like(err, float("inf")), err)
     if lse:
         tol = 2.0**-14 * (1.0 + ref.abs())
     else:
@@ -1534,19 +1582,87 @@ def _causal_pairs(S, window):
     return sum(min(i + 1, window) for i in range(S))
 
 
-def phase_train_kernels():
-    """Returns {kernel name: measurement dict} for the four training kernels."""
+def _flash_spec(B, S, nq, nkv, d, pairs, el=2):
+    """{kernel: (bytes it must move, FLOPs it must do)} of the three flash
+    kernels at (B, S, nq, nkv, d) with ``pairs`` visible (query, key) pairs
+    per head. dq reads q, k, v, out, dout, lse and writes dq and delta;
+    dk/dv reads q, k, v, dout, lse, delta and writes dk, dv. FLOPs: the
+    products the function needs (2 d per pair each: q.k, dO.v and ds.k; dk/dv
+    q.k, dO.v, p^T.dO, ds^T.q), not the split pairs or the d 256 kernels'
+    repeated score products."""
+    io_q = B * S * nq * d * el  # q, out, dout, dq: each this size
+    io_kv = B * S * nkv * d * el  # k, v, dk, dv
+    lse_b = B * nq * S * 4  # lse, delta: each this size
+    return {"flash_fwd": (io_q + 2 * io_kv + io_q + lse_b, 4 * B * nq * d * pairs),
+            "flash_bwd_dkdv": (2 * io_q + 2 * io_kv + 2 * lse_b + 2 * io_kv,
+                               4 * 2 * B * nq * d * pairs),
+            "flash_bwd_dq": (3 * io_q + 2 * io_kv + lse_b + io_q + lse_b,
+                             3 * 2 * B * nq * d * pairs)}
+
+
+def _sdpa_ms(q, k, v, do):
+    """SDPA on the flash kernels' [B, S, n, d] inputs as [B, n, S, d] (kv
+    heads repeated to nq), causal: (forward ms, its autograd backward ms)."""
     import torch
     import torch.nn.functional as F
+
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    vt = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    dot = do.transpose(1, 2).contiguous()
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), iters=10,
+                  warmup=2)
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    bwd = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), iters=10,
+                  warmup=2)
+    return fwd, bwd
+
+
+def _flash_times(fa, q, k, v, do, out, lse, window, iters=10):
+    """Each flash kernel's ms (CUDA events over warmed launches), causal."""
+    delta = fa.flash_delta(out, do)
+    return {"flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, True, window, None), iters=iters,
+                                 warmup=2),
+            "flash_bwd_dkdv": time_ms(
+                lambda: fa.flash_bwd_dkdv(q, k, v, lse, delta, do, True, window), iters=iters,
+                warmup=2),
+            "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(q, k, v, out, lse, do, True, window),
+                                    iters=iters, warmup=2)}
+
+
+def phase_train_kernels():
+    """Returns {kernel name: measurement dict} for the four training kernels
+    (the flash kernels' also hold ``family_shapes``)."""
+    import torch
 
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
-    failures = []
+    failures, ptxas_failures = [], []
     worst = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
     worst_frac = [0.0, ""]
     owner = {"out": "flash_fwd", "lse": "flash_fwd", "dq": "flash_bwd_dq",
              "dk": "flash_bwd_dkdv", "dv": "flash_bwd_dkdv"}
+
+    # every instantiation (5 head dims x bf16 / fp16 x 3 kernels) keeps its
+    # accumulators in registers: any spilled byte fails the phase
+    flash = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+    built = fa.kernel_build()
+    _log_ptxas(built.ptxas, tag="[train_kernels]", keep=flash)
+    entries = _ptxas_entries(built.ptxas, flash)
+    spills = {k: v for k, v in entries.items() if v[1] or v[2]}
+    log(f"[train_kernels] flash ptxas: {len(entries)} instantiations, registers "
+        f"{sorted({v[0] for v in entries.values()})}, {len(spills)} spilling")
+    if len(entries) != 3 * 2 * len(fa.KERNEL_HEAD_DIMS):
+        ptxas_failures.append(f"{len(entries)} flash instantiations in the ptxas report, not "
+                              f"{3 * 2 * len(fa.KERNEL_HEAD_DIMS)}")
+    if spills:
+        ptxas_failures.append(f"flash kernels spill (registers, store and load bytes): {spills}")
+    fsm = built.lib.ds_flash_smem_bytes
+    log("[train_kernels] flash dynamic shared memory per CTA (forward / dk/dv / dq): "
+        + "; ".join(f"d {d} {fsm(0, d)} / {fsm(1, d)} / {fsm(2, d)} B"
+                    for d in fa.KERNEL_HEAD_DIMS))
 
     def check_flash(tag, got, causal, window, slopes, q, k, v, do):
         r_out, r_lse = fa.flash_attention_reference(q, k, v, causal, window, slopes)
@@ -1566,11 +1682,11 @@ def phase_train_kernels():
                 failures.append(f"{name} {tag}: max_abs_err {e:.3e}, {frac:.2f}x its tolerance")
         return errs
 
-    # small sizes: ragged S, both head dims, GQA groups 1 and 4, causal and
+    # small sizes: ragged S, every head dim, GQA groups 1 and 4, causal and
     # not, a window, ALiBi with power-of-two and other head counts
     n_cases = 0
     for S in (1, 100, 128, 257):
-        for d in (64, 128):
+        for d in fa.KERNEL_HEAD_DIMS:
             for nq, nkv, pow2 in ((4, 4, True), (8, 2, True), (6, 6, False), (12, 3, False)):
                 modes = ([(False, None, False), (True, None, False), (True, 48, False),
                           (True, None, True), (False, None, True)] if pow2 else
@@ -1584,9 +1700,9 @@ def phase_train_kernels():
                                 f"alibi={alibi}", got, causal, window, slopes, q, k, v, do)
                     n_cases += 1
     # float16 inputs (an fp16 ds_config's compute dtype): the kernels' other
-    # instantiation, held to the same (bf16-ulp) tolerance
+    # instantiation at every head dim, held to the same (bf16-ulp) tolerance
     for S in (100, 257):
-        for d in (64, 128):
+        for d in fa.KERNEL_HEAD_DIMS:
             q, k, v, do = _flash_case(S + d, 2, S, 8, 2, d, torch.float16)
             got = _flash_all(fa, q, k, v, do, True, 48, None)
             check_flash(f"fp16 S={S} d={d} heads=8/2 causal=True window=48", got, True, 48, None,
@@ -1602,48 +1718,19 @@ def phase_train_kernels():
     errs = check_flash(f"main B={B} S={S} heads={nq}/{nkv} d={d} window={W}", got, True, W, None,
                        q, k, v, do)
     out, lse = got[0], got[1]
-    delta = fa.flash_delta(out, do)
     res = {}
-    ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, True, W, None), iters=5, warmup=1),
-          "flash_bwd_dkdv": time_ms(
-              lambda: fa.flash_bwd_dkdv(q, k, v, lse, delta, do, True, W), iters=10,
-              warmup=2),
-          "flash_bwd_dq": time_ms(
-              lambda: fa.flash_bwd_dq(q, k, v, out, lse, do, True, W),
-              iters=10, warmup=2)}
+    ms = _flash_times(fa, q, k, v, do, out, lse, W)
     plain = {"flash_fwd": time_ms(lambda: fa.flash_attention_reference(q, k, v, True, W),
                                   iters=3, warmup=1)}
     plain["flash_bwd_dkdv"] = plain["flash_bwd_dq"] = time_ms(
         lambda: fa.flash_attention_reference_bwd(q, k, v, out, lse, do, True, W), iters=3,
         warmup=1)
-    # library yardstick: SDPA on [B, n, S, d] (kv heads repeated to nq),
-    # forward, and its autograd backward for the two backward kernels
-    g = nq // nkv
-    qt = q.transpose(1, 2).contiguous().requires_grad_()
-    kt = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_()
-    vt = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_()
-    dot = do.transpose(1, 2).contiguous()
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-                      iters=10, warmup=2)
-    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dot, retain_graph=True),
-                      iters=10, warmup=2)
-    del o_lib, qt, kt, vt, dot
-    pairs = _causal_pairs(S, W)
-    el = 2  # bf16
-    io_q = B * S * nq * d * el  # q, out, dout, dq: each this size
-    io_kv = B * S * nkv * d * el  # k, v, dk, dv
-    lse_b = B * nq * S * 4  # lse, delta: each this size
-    # dq reads q, k, v, out, dout, lse and writes dq and delta; dk/dv reads
-    # q, k, v, dout, lse, delta and writes dk, dv. FLOPs: the products the
-    # function needs (2 d per pair each: q.k, dO.v and ds.k; dk/dv q.k, dO.v,
-    # p^T.dO, ds^T.q), not the split pairs the kernels add.
-    spec = {"flash_fwd": (io_q + 2 * io_kv + io_q + lse_b, 4 * B * nq * d * pairs, lib_fwd),
-            "flash_bwd_dkdv": (2 * io_q + 2 * io_kv + 2 * lse_b + 2 * io_kv,
-                               4 * 2 * B * nq * d * pairs, lib_bwd),
-            "flash_bwd_dq": (3 * io_q + 2 * io_kv + lse_b + io_q + lse_b,
-                             3 * 2 * B * nq * d * pairs, lib_bwd)}
-    for name, (n_bytes, flops, lib) in spec.items():
+    # library yardstick: SDPA forward, and its autograd backward for the two
+    # backward kernels
+    lib_fwd, lib_bwd = _sdpa_ms(q, k, v, do)
+    spec = _flash_spec(B, S, nq, nkv, d, _causal_pairs(S, W))
+    for name, (n_bytes, flops) in spec.items():
+        lib = lib_fwd if name == "flash_fwd" else lib_bwd
         b_ms, b_by = bound_ms(n_bytes, flops)
         res[name] = dict(err=worst[name], ms=ms[name], plain_ms=plain[name], bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib)
@@ -1652,12 +1739,43 @@ def phase_train_kernels():
             f"{plain[name]:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP), sdpa "
             f"{'forward' if name == 'flash_fwd' else 'backward'} {lib:.4f} ms")
     log(f"[train_kernels] main-shape max_abs_err: { {k_: f'{e_:.3e}' for k_, e_ in errs.items()} }")
+    del q, k, v, do, got, out, lse
+
+    # rows 4-6 at the presets' attention shapes, causal over their
+    # max_seq_len: checked against the plain version (not timed), timed
+    # beside the bound and SDPA
+    for name in worst:
+        res[name]["family_shapes"] = {}
+    Sf = FLASH_FAMILY_SEQ
+    for preset, fnq, fnkv, fd in FLASH_FAMILY_SHAPES:
+        q, k, v, do = _flash_case(fnq + fd, 1, Sf, fnq, fnkv, fd)
+        got = _flash_all(fa, q, k, v, do, True, None, None)
+        errs = check_flash(f"{preset} B=1 S={Sf} heads={fnq}/{fnkv} d={fd} causal", got, True,
+                           None, None, q, k, v, do)
+        ms = _flash_times(fa, q, k, v, do, got[0], got[1], None)
+        lib_fwd, lib_bwd = _sdpa_ms(q, k, v, do)
+        spec = _flash_spec(1, Sf, fnq, fnkv, fd, _causal_pairs(Sf, Sf))
+        for name, (n_bytes, flops) in spec.items():
+            lib = lib_fwd if name == "flash_fwd" else lib_bwd
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            err = max(errs[o] for o in owner if owner[o] == name and o != "lse")
+            res[name]["family_shapes"][preset] = dict(
+                heads=f"{fnq}/{fnkv}", head_dim=fd, seq=Sf, ms=ms[name], bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib, max_abs_err=err)
+            log(f"[train_kernels] {preset} {name} B=1 S={Sf} heads={fnq}/{fnkv} d={fd} causal: "
+                f"{ms[name]:.4f} ms ({flops / ms[name] / 1e9:.1f} TFLOP/s), bound {b_ms:.4f} ms "
+                f"({b_by}), sdpa {'forward' if name == 'flash_fwd' else 'backward'} "
+                f"{lib:.4f} ms, max_abs_err {err:.3e}")
+        del q, k, v, do, got
     log(f"[train_kernels] flash: largest error over all cases {worst_frac[0]:.3f} of its "
         f"tolerance ({worst_frac[1]}); worst_error_fraction={worst_frac[0]:.6g}")
-    del q, k, v, do, got, out, lse
+    for name in worst:
+        res[name]["err"] = worst[name]
     if failures:
         raise RuntimeError("flash kernels disagree with the plain version: "
-                           + "; ".join(failures[:10]))
+                           + "; ".join(failures[:10] + ptxas_failures))
+    if ptxas_failures:
+        raise RuntimeError("; ".join(ptxas_failures))
     res["fused_adam"] = _check_fused_adam()
     return res
 
@@ -5728,6 +5846,150 @@ def phase_families():
     log(f"[families] refused at engine build: {refused}")
     record["refused"] = refused
     return launches, record
+
+
+# ---------------------------------------------------------------------------
+# phase 22: training at the families' head dims (flash kernels at d 80 / 96 /
+# 256)
+# ---------------------------------------------------------------------------
+
+def phase_families_train():
+    """phi-2 (d 80), GPT-NeoX-20B (d 96) and GPT-J-6B (d 256) at full width,
+    depth cut to 2, trained through ``initialize`` and ``train_batch`` on
+    ``TRAIN_DS_CONFIG``'s recipe at seq 2048; then a head_dim 32 model (phi's
+    tiny preset) refused at ``initialize``, naming the miss. Returns
+    ({model: launches of the timed steps}, the phase's record)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import models
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.models.transformer import training_attention_route
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    record, launches = {"card": smi}, {}
+    for key, (family, size, layers) in FAMILIES_TRAIN.items():
+        tag = f"[families_train] {key}"
+        t0 = time.perf_counter()
+        cfg = getattr(models, f"{family}_config")(size, num_layers=layers)
+        route = training_attention_route(cfg, "cuda")
+        if route != "flash":
+            raise RuntimeError(f"{tag}: the training route is {route!r}, not the flash kernels")
+        model = TransformerLM(cfg, trainable=True, seed=0)
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_DS_CONFIG)
+        params = engine._params
+        n_params = sum(p.numel() for p in params)
+        gas = engine.gradient_accumulation_steps()
+        torch.cuda.synchronize()
+        full_depth = getattr(models, f"{family}_config")(size).num_layers
+        log(f"{tag}: {layers} layers (the preset's {full_depth} cut), "
+            f"hidden {cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
+            f"{cfg.head_dim}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f}B fp32 master params "
+            f"({16 * n_params / 1e9:.1f} GB with grads and moments); built in "
+            f"{time.perf_counter() - t0:.1f}s")
+        rng = np.random.default_rng(0)
+        batch = {"input_ids": rng.integers(0, cfg.vocab_size, (engine.train_batch_size(),
+                                                               FAMILIES_TRAIN_SEQ)).astype(np.int32)}
+        tokens = batch["input_ids"].size
+        losses = [float(engine.train_batch(batch))]  # warm step
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        fad.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(FAMILIES_TRAIN_STEPS):
+            ts = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - ts)
+        got = {**fa.launch_counts, **fad.launch_counts}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med = float(np.median(times))
+        n_attn = layers * gas * FAMILIES_TRAIN_STEPS
+        want = {"flash_fwd": n_attn, "flash_bwd_dkdv": n_attn, "flash_bwd_dq": n_attn,
+                "fused_adam": FAMILIES_TRAIN_STEPS}
+        log(f"{tag}: {gas} microbatches x {FAMILIES_TRAIN_SEQ} tokens = {tokens} tokens/step; "
+            f"losses (warm step, then {FAMILIES_TRAIN_STEPS} timed): "
+            f"{[round(x, 5) for x in losses]}; step time median {1e3 * med:.1f} ms (range "
+            f"{1e3 * min(times):.1f}-{1e3 * max(times):.1f}): {tokens / med:.1f} tokens/s; peak "
+            f"memory {peak:.2f} GiB; launches {got} (expected {want}); {smi}")
+        if got != want:
+            raise RuntimeError(f"{tag}: launches {got}, expected {want} ({layers} layers x {gas} "
+                               f"microbatches x {FAMILIES_TRAIN_STEPS} steps; Adam once a step)")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"{tag}: losses not finite and falling: {losses}")
+
+        # kernels vs the plain attention on the same weights at seq 1024
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CHECK_SEQ))).cuda()
+
+        def loss_and_grads(impl):
+            cfg.attention_impl = impl
+            for p in params:
+                p.grad = None
+            loss = model.loss({"input_ids": ids})
+            loss.backward()
+            return loss.item(), [p.grad for p in params]
+
+        l_k, g_k = loss_and_grads("flash")
+        l_r, g_r = loss_and_grads("reference")
+        cfg.attention_impl = "auto"
+        g_rel = _rel_l2(g_k, g_r)
+        l_rel = abs(l_k - l_r) / abs(l_r)
+        log(f"{tag}: seq {CHECK_SEQ} forward+backward, kernels vs plain attention on the same "
+            f"weights: loss {l_k:.6f} vs {l_r:.6f} (relative {l_rel:.3e}, tolerance "
+            f"{LOSS_REL_TOL}); whole-gradient relative L2 {g_rel:.3e} (tolerance "
+            f"{GRAD_REL_L2_TOL})")
+        if not (np.isfinite(l_k) and l_rel <= LOSS_REL_TOL and g_rel <= GRAD_REL_L2_TOL):
+            raise RuntimeError(f"{tag}: the kernel path disagrees with the plain attention")
+        launches[key] = got
+        record[key] = dict(layers=layers, head_dim=cfg.head_dim, params=n_params, losses=losses,
+                           step_ms=1e3 * med, tokens_per_s=tokens / med, peak_gib=peak,
+                           loss_rel=l_rel, grad_rel_l2=g_rel)
+        del engine, model, params, g_k, g_r
+        free()
+        # the v1 engine's full-sequence forward at this width takes the same
+        # flash forward, once a layer
+        v1 = deepspeed_tpu_torch.init_inference(
+            getattr(models, family)(size, num_layers=layers, seed=0), config={"dtype": "bfloat16"})
+        fa.reset_launch_counts()
+        logits = v1.forward(rng.integers(0, cfg.vocab_size, (1, CHECK_SEQ)).astype(np.int32))
+        torch.cuda.synchronize()
+        v1_fwd = fa.launch_counts["flash_fwd"]
+        log(f"{tag}: init_inference(...).forward on 1 x {CHECK_SEQ} tokens: logits "
+            f"{tuple(logits.shape)}, flash_fwd launches {v1_fwd} (expected {layers})")
+        if (v1_fwd != layers or tuple(logits.shape) != (1, CHECK_SEQ, cfg.vocab_size)
+                or not bool(torch.isfinite(logits).all())):
+            raise RuntimeError(f"{tag}: the v1 forward did not take the flash forward once a "
+                               f"layer with finite logits")
+        record[key]["v1_forward_flash_fwd_launches"] = v1_fwd
+        del v1, logits
+        free()
+    # a shape still outside the flash kernels' rule: head_dim 32 (the
+    # CPU-only tiny presets) is refused at initialize, naming the miss
+    model = TransformerLM(models.phi_config("tiny", num_layers=1), trainable=True, seed=0)
+    try:
+        deepspeed_tpu_torch.initialize(model=model, config=TRAIN_DS_CONFIG)
+    except ValueError as e:
+        if "head_dim 32" not in str(e) or "A5b" not in str(e):
+            raise RuntimeError(f"[families_train] phi tiny refused for another reason: {e}") from e
+        record["refused"] = {"phi_tiny": str(e)}
+    else:
+        raise RuntimeError("[families_train] phi tiny (head_dim 32) was not refused at initialize")
+    del model
+    free()
+    log(f"[families_train] refused at initialize: {record['refused']}")
+    return launches, record
 # the mutant checks. Grouped matmul: a copy that drops one row block's
 # contribution (gmm on the wgmma route: the second 128-row tile's products;
 # tgmm on both routes: each expert's first row block) must fail the
@@ -5784,6 +6046,14 @@ FLASH_MUTATIONS = _in(FLASH_SRC, (  # dk/dv skips each CTA's last live q-tile, d
 ))
 FLASH_FWD_MUTATIONS = _in(FLASH_SRC, (  # the forward skips each CTA's last live k-tile
     ("const int n_kt = kt_hi - kt_lo + 1;", "const int n_kt = kt_hi - kt_lo;"),
+))
+FLASH_DIM_HALF_MUTATIONS = _in(FLASH_SRC, (  # at d 256 dk/dv's second warp of each pair stores
+    ("  store_frags<DV, T>(dk_out, ldk, k0 + r0, a.S, dk, a.scale, lane);\n"  # nothing: the
+     "  store_frags<DV, T>(dv_out, ldk, k0 + r0, a.S, dv, 1.f, lane);\n",  # upper 128 dims
+     "  if (dv0 == 0) {\n"
+     "    store_frags<DV, T>(dk_out, ldk, k0 + r0, a.S, dk, a.scale, lane);\n"
+     "    store_frags<DV, T>(dv_out, ldk, k0 + r0, a.S, dv, 1.f, lane);\n"
+     "  }\n"),
 ))
 PAGED_MUTATIONS = _in(SOURCE, (  # the prefill skips each CTA's last live k-tile
     ("const int n_kt = p_hi > p_lo ? (p_hi - 1) / kKT - kt_lo + 1 : 0;",
@@ -5843,6 +6113,7 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "evoformer_dq": (EVO_DQ_MUTATIONS, "evo_kernels", "Evoformer kernels disagree"),
     "flash": (FLASH_MUTATIONS, "train_kernels", "flash kernels disagree"),
     "flash_fwd": (FLASH_FWD_MUTATIONS, "train_kernels", "flash kernels disagree"),
+    "flash_dim_half": (FLASH_DIM_HALF_MUTATIONS, "train_kernels", "flash kernels disagree"),
     "paged_prefill": (PAGED_MUTATIONS, "kernels", "kernels disagree with the plain version"),
     "paged_decode": (DECODE_MUTATIONS, "kernels", "kernels disagree with the plain version"),
     "paged_decode_head_tile": (HEAD_TILE_MUTATIONS, "kernels",
@@ -5861,8 +6132,9 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
 # the attention kernels' ablations (``--ablation``): each undoes one design
 # choice of the flash kernels (forward and backward) or the paged prefill.
 _SINGLE = _in(MMA_HDR, (  # a template switch that skips the lo product of a split pair
-    ("template <int D, typename T, int LDS = Tile16<D>::LDS>\n__device__ __forceinline__ void mma_wm(",
-     "template <int D, typename T, int LDS = Tile16<D>::LDS, bool kLo = true>\n"
+    ("template <int D, typename T, int LDS = Tile16<D>::LDS, int KC = 4>\n"
+     "__device__ __forceinline__ void mma_wm(",
+     "template <int D, typename T, int LDS = Tile16<D>::LDS, bool kLo = true, int KC = 4>\n"
      "__device__ __forceinline__ void mma_wm("),
     ("      mma16816(t0, w.lo[c], b[0], b[1], T());",
      "      if (kLo) mma16816(t0, w.lo[c], b[0], b[1], T());"),
@@ -5909,14 +6181,14 @@ ABLATIONS = {
     )),
     # one product's P or dS as one rounding instead of the split pair: dq's
     # dS, dv's P, dk's dS, the forward's P, the prefill's P
-    "single_dq": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(dq, ds, sK, lane);",
-                                            "mma_wm<D, T, Tile16<D>::LDS, false>(dq, ds, sK, lane);"),)),
-    "single_dv": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(dv, p, sdO, lane);",
-                                            "mma_wm<D, T, Tile16<D>::LDS, false>(dv, p, sdO, lane);"),)),
-    "single_dk": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(dk, ds, sQ, lane);",
-                                            "mma_wm<D, T, Tile16<D>::LDS, false>(dk, ds, sQ, lane);"),)),
-    "fwd_single_p": _SINGLE + _in(FLASH_SRC, (("mma_wm<D, T>(acc, p, sV, lane);",
-                                               "mma_wm<D, T, Tile16<D>::LDS, false>(acc, p, sV, lane);"),)),
+    "single_dq": _SINGLE + _in(FLASH_SRC, (("mma_wm<DV, T, LDS>(dq, ds, sK + dv0, lane);",
+                                            "mma_wm<DV, T, LDS, false>(dq, ds, sK + dv0, lane);"),)),
+    "single_dv": _SINGLE + _in(FLASH_SRC, (("mma_wm<DV, T, LDS>(dv, p, sdOc + dv0, lane);",
+                                            "mma_wm<DV, T, LDS, false>(dv, p, sdOc + dv0, lane);"),)),
+    "single_dk": _SINGLE + _in(FLASH_SRC, (("mma_wm<DV, T, LDS>(dk, ds, sQc + dv0, lane);",
+                                            "mma_wm<DV, T, LDS, false>(dk, ds, sQc + dv0, lane);"),)),
+    "fwd_single_p": _SINGLE + _in(FLASH_SRC, (("mma_wm<DV, T, LDS>(acc, p, sV + dv0, lane);",
+                                               "mma_wm<DV, T, LDS, false>(acc, p, sV + dv0, lane);"),)),
     "prefill_single_p": _SINGLE + _in(SOURCE, (("mma_wm<DV, T, LDS>(acc, pf, sV + dv0, lane);",
                                                 "mma_wm<DV, T, LDS, false>(acc, pf, sV + dv0, lane);"),)),
     # the grouped matmul's TMA ring two stages deep, not three: loads one
@@ -5936,6 +6208,12 @@ ABLATIONS = {
     "evo_bias_two_rows": _in(EVO_SRC, (("constexpr int kBiasRows = 1;",
                                         "constexpr int kBiasRows = 2;"),)),
 }
+# flash dk/dv walking each 64-query item in chunks of 32 queries, not 16
+# (fewer reloads of a warp's K and V fragments; spills at fp16 d 96 / 128
+# and at d 256)
+ABLATIONS["dkdv_chunk32"] = _in(FLASH_SRC, (
+    ("constexpr int kQC = 16;", "constexpr int kQC = 32;"),
+))
 # the tensor-core block-sparse forward with each warp walking its own row's
 # LUT columns through its own ring, not a CTA's four warps the union of
 # their rows' columns (each staged K/V slice shared)
@@ -6032,7 +6310,7 @@ def _patched_copy(kind, name, replacements):
 def _worst_error_fraction(stdout, phase):
     import re
 
-    found = re.findall(rf"\[{phase}\].*worst_error_fraction=([0-9.eE+-]+)", stdout)
+    found = re.findall(rf"\[{phase}\].*worst_error_fraction=([0-9.eE+-]+|inf)", stdout)
     return float(found[-1]) if found else None
 
 
@@ -6098,6 +6376,14 @@ def _gmm_times(stdout):
             "tgmm_ms": _num(r"\] tgmm dw \(K 4096, N 14336\).*?: ([0-9.]+) ms", stdout),
             "gmm_error_fraction": _num(r"over all cases: gmm ([0-9.]+) of", stdout),
             "tgmm_error_fraction": _num(r"over all cases: gmm .*?, tgmm ([0-9.]+) \(", stdout)}
+
+
+def _flash_main_times(stdout):
+    """The flash kernels' times at the training shape (B 1, S 4096, 32/8,
+    d 128) printed by a ``train_kernels`` run (this script's or the
+    parent's)."""
+    return {f"{name}_ms": _num(rf"\[train_kernels\] {name} B=1 S=4096 [^:]*: ([0-9.]+) ms", stdout)
+            for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
 
 
 def _decode_times(stdout):
@@ -6315,6 +6601,7 @@ def run_versus(other, phases):
                                   text=True, timeout=1800)
             out, rc = out + proc.stdout + proc.stderr[-3000:], rc or proc.returncode
         r = {"tree": n, "rc": rc, **_decode_times(out), **_e2e_numbers(out), **_gmm_times(out),
+             **_flash_main_times(out),
              "train_step_ms": _num(r"\[train\] step time median ([0-9.]+) ms", out),
              "moe_step_ms": _num(r"\[moe_train\] step time median ([0-9.]+) ms", out),
              "moe_idle_pct": _num(r"\[moe_train\] profiled step: .*?device idle ([0-9.]+)%", out),
@@ -6345,7 +6632,7 @@ def run_versus(other, phases):
 
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
           "remat", "eager", "zero", "moe_zero", "tp", "moe_train", "sparse_train", "evo_kernels",
-          "evo_path", "v1", "hybrid", "prefix_sample", "families")
+          "evo_path", "v1", "hybrid", "prefix_sample", "families", "families_train")
 
 
 def main():
@@ -6417,7 +6704,8 @@ def main():
            "moe_zero": phase_moe_zero, "tp": phase_tp, "moe_train": phase_moe_train,
            "sparse_train": phase_sparse_train, "evo_kernels": phase_evo_kernels,
            "evo_path": phase_evo_path, "v1": phase_v1, "hybrid": phase_hybrid,
-           "prefix_sample": phase_prefix_sample, "families": phase_families}
+           "prefix_sample": phase_prefix_sample, "families": phase_families,
+           "families_train": phase_families_train}
     failed = []
     out = {}
     for name in PHASES:
@@ -6463,6 +6751,7 @@ def main():
     tp_launches, tp = out["tp"]
     prefix_launches, prefix = out["prefix_sample"]
     families_launches, families = out["families"]
+    families_train_launches, families_train = out["families_train"]
     for entry in kernels:  # the paged kernels' launches per rank on the tp serving path
         entry["tp_launches"] = tp_launches[entry["name"]]
         entry["prefix_sample_launches"] = {run: int(n[entry["name"]])
@@ -6479,9 +6768,13 @@ def main():
                  "zero_launches": zero_launches[name], "zero": zero,
                  "moe_zero_launches": moe_zero_launches[name],
                  "tp_launches": tp_launches[name],
-                 "max_abs_err": m["err"], **{k: m[k] for k in keys}}
+                 "families_train_launches": {run: int(n[name])
+                                             for run, n in families_train_launches.items()},
+                 "max_abs_err": m["err"], **{k: m[k] for k in keys},
+                 **({"family_shapes": m["family_shapes"]} if "family_shapes" in m else {})}
         if name == "flash_fwd":
             entry["v1_launches"] = int(v1_launches[name])
+            entry["families_train"] = families_train
         if name == "fused_adam":
             entry["full_set"] = adam_full
         if name == "flash_fwd":

@@ -61,13 +61,27 @@
 // - dk/dv's warps own keys: it computes S^T = K . Q^T, so P^T and dS^T are
 //   already the A fragments of dv += P^T dO and dk += dS^T Q; dq computes
 //   S = Q . K^T and feeds dS to dq += dS K the same way, and the forward P
-//   to out += P V.
+//   to out += P V. Beside dk's and dv's accumulators (2 D / 8 x 4 fp32 a
+//   thread) a whole 64-query item's scores, P and dS pushed the fp16 and d
+//   128 / 256 instantiations past the 255-register cap into spills, so
+//   dk/dv walks each item in 16-query chunks (kQC): each warp's K and V
+//   fragments are reloaded once a chunk, and every instantiation stays
+//   spill-free (chip_smoke.py's train_kernels fails on a spilled byte).
 // - 128 threads and ~87 KB (forward: Q resident, (K, V) streaming) or
 //   ~103 KB (backward: two resident 16-bit [64][D + 8] tiles and a
 //   two-stage ring of two: K, V resident with (Q, dO) streaming in dk/dv;
 //   Q, dO resident with (K, V) streaming in dq) of shared memory per CTA
-//   let two CTAs share an SM. No atomics: each output row is summed by one
-//   warp in a fixed order, so results do not depend on scheduling.
+//   let two CTAs share an SM at d 128 (d 64, 80 and 96 need less). No
+//   atomics: each output element is summed by one warp in a fixed order,
+//   so results do not depend on scheduling.
+// - Head dims 64, 80, 96, 128 and 256 (the TPU kernel takes any d >= 32;
+//   these are the model families' own). At d 256 a thread's accumulators
+//   alone would be 128 fp32 registers (dk/dv: 256), so the CTA has 8 warps:
+//   warps w and w + 4 own the same 16 rows, each computes those rows' scores
+//   over all 256 dims itself (the same instructions on the same operands,
+//   so both get the same values; the score products run twice) and
+//   accumulates and stores 128 of the output dims. Shared memory is then
+//   165-199 KB, one CTA an SM.
 // - Grid order is heavy-first across the whole grid: blockIdx.y is dk/dv's
 //   key tile (early keys see the most queries) and the forward's and dq's
 //   reversed q-tile (late queries see the most keys), blockIdx.x the head,
@@ -90,6 +104,11 @@ constexpr int kThreads = kTileThreads;  // 4 warps x 16 rows of a 64-row tile
 constexpr int kBQ = 64;  // query rows per tile
 constexpr int kBK = 64;  // key rows per tile
 constexpr float kMask = -1e30f;
+constexpr int kQC = 16;  // dk/dv: queries of an item's chunk
+
+// warps per 16-row block: 2 at d 256 (each accumulating half the output
+// dims), else 1
+__host__ __device__ constexpr int dsplit(int d) { return d > 128 ? 2 : 1; }
 
 template <typename T>
 __device__ __forceinline__ void load8(const T* p, float* out) {
@@ -148,9 +167,10 @@ __device__ __forceinline__ bool visible(const Args& a, int qpos, int kpos) {
 }
 
 // lse and delta of positions r0 .. r0 + 63 of one head's [S] rows (zeros
-// past S): threads 0-63 copy lse, 64-127 delta.
+// past S): threads 0-63 copy lse, 64-127 delta (any further threads none).
 __device__ __forceinline__ void stage_stats(float* sLse, const float* lse, float* sDelta,
                                             const float* delta, int r0, int S) {
+  if (threadIdx.x >= 2 * kBQ) return;
   const int i = threadIdx.x % 64, r = r0 + i;
   const bool ok = r < S;
   if (threadIdx.x < 64)
@@ -175,12 +195,16 @@ __device__ __forceinline__ bool tile_full(const Args& a, int q0, int k0) {
 // registers, then out = out * alpha + P . V with P as a split pair.
 // ---------------------------------------------------------------------------
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads * dsplit(D), dsplit(D) > 1 ? 1 : 2)
+    flash_fwd_kernel(const Args a) {
   constexpr int LDS = Tile16<D>::LDS, TILE = Tile16<D>::ELEMS;
+  constexpr int NT = kThreads * dsplit(D), DV = D / dsplit(D);  // threads; a warp's output dims
   const int h = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.nq / a.nkv);
   const int q0 = qt * kBQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * warp;
+  // warp w: rows 16 (w % 4) .. + 15, output dims DV (w / 4) .. + DV - 1
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * (warp % 4);
+  const int dv0 = DV * (warp / 4);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
   T* sKV = sQ + TILE;  // stage s: K at sKV + 2 s TILE, V after it
@@ -194,25 +218,25 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Args a) {
   live_k_tiles(a, q0, &kt_lo, &kt_hi);
   const int n_kt = kt_hi - kt_lo + 1;
 
-  stage_tile<D, T>(sQ, reinterpret_cast<const T*>(a.q) + qbase, ldq, q0, a.S);
+  stage_tile<D, T, NT>(sQ, reinterpret_cast<const T*>(a.q) + qbase, ldq, q0, a.S);
   if (n_kt > 0) {
-    stage_tile<D, T>(sKV, kp, ldk, kt_lo * kBK, a.S);
-    stage_tile<D, T>(sKV + TILE, vp, ldk, kt_lo * kBK, a.S);
+    stage_tile<D, T, NT>(sKV, kp, ldk, kt_lo * kBK, a.S);
+    stage_tile<D, T, NT>(sKV + TILE, vp, ldk, kt_lo * kBK, a.S);
   }
   cp_async_commit();
 
   const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
   float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int it = 0; it < n_kt; ++it) {
     const int st = it & 1;
     if (it + 1 < n_kt) {  // the next k-tile into the other stage
       T* nxt = sKV + 2 * (st ^ 1) * TILE;
-      stage_tile<D, T>(nxt, kp, ldk, (kt_lo + it + 1) * kBK, a.S);
-      stage_tile<D, T>(nxt + TILE, vp, ldk, (kt_lo + it + 1) * kBK, a.S);
+      stage_tile<D, T, NT>(nxt, kp, ldk, (kt_lo + it + 1) * kBK, a.S);
+      stage_tile<D, T, NT>(nxt + TILE, vp, ldk, (kt_lo + it + 1) * kBK, a.S);
     }
     cp_async_commit();
     cp_async_wait_prev();
@@ -240,14 +264,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Args a) {
         return full || k0 + 8 * j + 2 * (lane % 4) + e < a.S;
       });
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < DV / 8; ++n) {
         acc[n][2 * i] *= alpha;
         acc[n][2 * i + 1] *= alpha;
       }
     }
     SplitFrags p;
     split_frags<T>(p, s);
-    mma_wm<D, T>(acc, p, sV, lane);  // acc += p . v
+    mma_wm<DV, T, LDS>(acc, p, sV + dv0, lane);  // acc += p . v over this warp's dims
     __syncthreads();  // this stage's readers are done before it is refilled
   }
 
@@ -256,14 +280,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Args a) {
   for (int i = 0; i < 2; ++i) {
     const float l_safe = fmaxf(quad_sum(l[i]), 1e-30f);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       acc[n][2 * i] /= l_safe;
       acc[n][2 * i + 1] /= l_safe;
     }
     const int qpos = q0 + r0 + lane / 4 + 8 * i;
-    if (lane % 4 == 0 && qpos < a.S) lse[qpos] = m[i] + logf(l_safe);
+    if (lane % 4 == 0 && qpos < a.S && dv0 == 0) lse[qpos] = m[i] + logf(l_safe);
   }
-  store_frags<D, T>(reinterpret_cast<T*>(a.out) + qbase, ldq, q0 + r0, a.S, acc, 1.f, lane);
+  store_frags<DV, T>(reinterpret_cast<T*>(a.out) + qbase + dv0, ldq, q0 + r0, a.S, acc, 1.f,
+                     lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -272,12 +297,16 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Args a) {
 // cp.async ring. It also writes delta = rowsum(dO * O) for dk/dv.
 // ---------------------------------------------------------------------------
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads * dsplit(D), dsplit(D) > 1 ? 1 : 2)
+    flash_bwd_dq_kernel(const Args a) {
   constexpr int LDS = Tile16<D>::LDS, TILE = Tile16<D>::ELEMS;
+  constexpr int NT = kThreads * dsplit(D), DV = D / dsplit(D);  // threads; a warp's output dims
   const int qt = gridDim.y - 1 - blockIdx.y, h = blockIdx.x, b = blockIdx.z;
   const int kvh = h / (a.nq / a.nkv);
   const int q0 = qt * kBQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * warp;
+  // warp w: rows 16 (w % 4) .. + 15, output dims DV (w / 4) .. + DV - 1
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * (warp % 4);
+  const int dv0 = DV * (warp / 4);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
   T* sdO = sQ + TILE;
@@ -294,26 +323,28 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Args a)
   live_k_tiles(a, q0, &kt_lo, &kt_hi);
   const int nkt = kt_hi - kt_lo + 1;
 
-  stage_tile<D, T>(sQ, reinterpret_cast<const T*>(a.q) + qbase, ldq, q0, a.S);
-  stage_tile<D, T>(sdO, reinterpret_cast<const T*>(a.dout) + qbase, ldq, q0, a.S);
+  stage_tile<D, T, NT>(sQ, reinterpret_cast<const T*>(a.q) + qbase, ldq, q0, a.S);
+  stage_tile<D, T, NT>(sdO, reinterpret_cast<const T*>(a.dout) + qbase, ldq, q0, a.S);
   if (nkt > 0) {
-    stage_tile<D, T>(sKV, kp, ldk, kt_lo * kBK, a.S);
-    stage_tile<D, T>(sKV + TILE, vp, ldk, kt_lo * kBK, a.S);
+    stage_tile<D, T, NT>(sKV, kp, ldk, kt_lo * kBK, a.S);
+    stage_tile<D, T, NT>(sKV + TILE, vp, ldk, kt_lo * kBK, a.S);
   }
   cp_async_commit();
 
   // delta = rowsum(dO * O) in fp32 from the stored output (the TPU kernels'
-  // :395), two threads per row, while the first tiles land; written once to
-  // device memory for dk/dv
+  // :395), TPR threads per row (2, or 4 at d 256), each over D / TPR
+  // neighbouring dims (a multiple of 8: 16-byte loads), while the first
+  // tiles land; written once to device memory for dk/dv
   {
-    const int r = threadIdx.x / 2, half = threadIdx.x % 2, qpos = q0 + r;
+    constexpr int TPR = NT / kBQ;
+    const int r = threadIdx.x / TPR, part_i = threadIdx.x % TPR, qpos = q0 + r;
     float part = 0.f;
     if (qpos < a.S) {
-      const long long off = qbase + (long long)qpos * ldq + half * (D / 2);
+      const long long off = qbase + (long long)qpos * ldq + part_i * (D / TPR);
       const T* dr = reinterpret_cast<const T*>(a.dout) + off;
       const T* orow = reinterpret_cast<const T*>(a.o) + off;
 #pragma unroll
-      for (int c = 0; c < D / 2; c += 8) {
+      for (int c = 0; c < D / TPR; c += 8) {
         float fd[8], fo[8];
         load8(dr + c, fd);
         load8(orow + c, fo);
@@ -321,8 +352,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Args a)
         for (int e = 0; e < 8; ++e) part += fd[e] * fo[e];
       }
     }
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    if (half == 0) {
+#pragma unroll
+    for (int o = 1; o < TPR; o *= 2) part += __shfl_xor_sync(0xffffffffu, part, o);
+    if (part_i == 0) {
       const long long row = ((long long)b * a.nq + h) * a.S;
       sDelta[r] = part;
       sLse[r] = qpos < a.S ? a.lse[row + qpos] : 0.f;
@@ -331,16 +363,16 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Args a)
   }
 
   const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
-  float dq[D / 8][4];
+  float dq[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int n = 0; n < DV / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
   for (int it = 0; it < nkt; ++it) {
     const int st = it & 1;
     if (it + 1 < nkt) {  // the next k-tile into the other stage
       T* nxt = sKV + 2 * (st ^ 1) * TILE;
-      stage_tile<D, T>(nxt, kp, ldk, (kt_lo + it + 1) * kBK, a.S);
-      stage_tile<D, T>(nxt + TILE, vp, ldk, (kt_lo + it + 1) * kBK, a.S);
+      stage_tile<D, T, NT>(nxt, kp, ldk, (kt_lo + it + 1) * kBK, a.S);
+      stage_tile<D, T, NT>(nxt + TILE, vp, ldk, (kt_lo + it + 1) * kBK, a.S);
     }
     cp_async_commit();
     cp_async_wait_prev();
@@ -369,10 +401,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Args a)
     }
     SplitFrags ds;
     split_frags<T>(ds, dp);
-    mma_wm<D, T>(dq, ds, sK, lane);  // dq += ds . k
+    mma_wm<DV, T, LDS>(dq, ds, sK + dv0, lane);  // dq += ds . k over this warp's dims
     __syncthreads();  // this stage's readers are done before it is refilled
   }
-  store_frags<D, T>(reinterpret_cast<T*>(a.out) + qbase, ldq, q0 + r0, a.S, dq, a.scale, lane);
+  store_frags<DV, T>(reinterpret_cast<T*>(a.out) + qbase + dv0, ldq, q0 + r0, a.S, dq, a.scale,
+                     lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -383,12 +416,16 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const Args a)
 // fragments of dv += P^T . dO and dk += dS^T . Q.
 // ---------------------------------------------------------------------------
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkdv_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads * dsplit(D), dsplit(D) > 1 ? 1 : 2)
+    flash_bwd_dkdv_kernel(const Args a) {
   constexpr int LDS = Tile16<D>::LDS, TILE = Tile16<D>::ELEMS;
+  constexpr int NT = kThreads * dsplit(D), DV = D / dsplit(D);  // threads; a warp's output dims
   const int kvh = blockIdx.x, kt = blockIdx.y, b = blockIdx.z;
   const int g = a.nq / a.nkv;
   const int k0 = kt * kBK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * warp;
+  // warp w: keys 16 (w % 4) .. + 15, output dims DV (w / 4) .. + DV - 1
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = 16 * (warp % 4);
+  const int dv0 = DV * (warp / 4);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);
   T* sV = sK + TILE;
@@ -409,18 +446,18 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkdv_kernel(const Args 
     const long long qbase = (long long)b * a.S * ldq + (long long)h * D;
     const long long row = ((long long)b * a.nq + h) * a.S;
     T* dst = sQdO + 2 * st * TILE;
-    stage_tile<D, T>(dst, reinterpret_cast<const T*>(a.q) + qbase, ldq, q0, a.S);
-    stage_tile<D, T>(dst + TILE, reinterpret_cast<const T*>(a.dout) + qbase, ldq, q0, a.S);
+    stage_tile<D, T, NT>(dst, reinterpret_cast<const T*>(a.q) + qbase, ldq, q0, a.S);
+    stage_tile<D, T, NT>(dst + TILE, reinterpret_cast<const T*>(a.dout) + qbase, ldq, q0, a.S);
     stage_stats(sLse + st * kBQ, a.lse + row, sDelta + st * kBQ, a.delta + row, q0, a.S);
   };
-  stage_tile<D, T>(sK, reinterpret_cast<const T*>(a.k) + kbase, ldk, k0, a.S);
-  stage_tile<D, T>(sV, reinterpret_cast<const T*>(a.v) + kbase, ldk, k0, a.S);
+  stage_tile<D, T, NT>(sK, reinterpret_cast<const T*>(a.k) + kbase, ldk, k0, a.S);
+  stage_tile<D, T, NT>(sV, reinterpret_cast<const T*>(a.v) + kbase, ldk, k0, a.S);
   if (n_items > 0) stage_item(0, 0);
   cp_async_commit();
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[DV / 8][4], dv[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
@@ -438,39 +475,53 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkdv_kernel(const Args 
     const float* lse = sLse + st * kBQ;
     const float* delta = sDelta + st * kBQ;
 
-    SplitFrags p;  // p^T, kept only as its split pair
-    {
-      float s[8][4];
-      mma_abt<D, T>(s, sK + r0 * LDS, sQ, lane);  // s^T = k . q
+    // the item's queries in chunks of kQC: a chunk's scores, p and ds are
+    // 16 x kQC a warp, which keeps the registers under the cap beside the
+    // 2 DV / 8 x 4 accumulators (with the whole 64-query item the d 128
+    // instantiations spilled, with 32-query chunks fp16 at d 96 / 128 and
+    // both types at d 256)
+#pragma unroll 1
+    for (int qc = 0; qc < kBQ; qc += kQC) {
+      const T* sQc = sQ + qc * LDS;
+      const T* sdOc = sdO + qc * LDS;
+      SplitFragsN<kQC / 16> p;  // p^T, kept only as its split pair
+      {
+        float s[kQC / 8][4];
+        mma_abt<D, T, kQC / 8>(s, sK + r0 * LDS, sQc, lane);  // s^T = k . q
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kQC / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kpos = k0 + r0 + lane / 4 + 8 * (e / 2);
-          const int c = 8 * j + 2 * (lane % 4) + e % 2, qpos = q0 + c;
-          float x = a.scale * s[j][e];
-          if (a.slopes != nullptr) x += slope * (float)(kpos - qpos);
-          s[j][e] = (full || visible(a, qpos, kpos)) ? exp2f((x - lse[c]) * kLog2e) : 0.f;
-        }
-      split_frags<T>(p, s);
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + r0 + lane / 4 + 8 * (e / 2);
+            const int c = qc + 8 * j + 2 * (lane % 4) + e % 2, qpos = q0 + c;
+            float x = a.scale * s[j][e];
+            if (a.slopes != nullptr) x += slope * (float)(kpos - qpos);
+            s[j][e] = (full || visible(a, qpos, kpos)) ? exp2f((x - lse[c]) * kLog2e) : 0.f;
+          }
+        split_frags<T>(p, s);
+      }
+      mma_wm<DV, T, LDS>(dv, p, sdOc + dv0, lane);  // dv += p^T . dO over this warp's dims
+      SplitFragsN<kQC / 16> ds;
+      {
+        float dp[kQC / 8][4];
+        mma_abt<D, T, kQC / 8>(dp, sV + r0 * LDS, sdOc, lane);  // dp^T = v . dO
+#pragma unroll
+        for (int j = 0; j < kQC / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)  // ds^T = p^T (dp^T - delta)
+            dp[j][e] = split_value<T>(p, j, e) *
+                       (dp[j][e] - delta[qc + 8 * j + 2 * (lane % 4) + e % 2]);
+        split_frags<T>(ds, dp);
+      }
+      mma_wm<DV, T, LDS>(dk, ds, sQc + dv0, lane);  // dk += ds^T . q over this warp's dims
     }
-    mma_wm<D, T>(dv, p, sdO, lane);  // dv += p^T . dO
-    SplitFrags ds;
-    {
-      float dp[8][4];
-      mma_abt<D, T>(dp, sV + r0 * LDS, sdO, lane);  // dp^T = v . dO
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)  // ds^T = p^T (dp^T - delta)
-          dp[j][e] = split_value<T>(p, j, e) * (dp[j][e] - delta[8 * j + 2 * (lane % 4) + e % 2]);
-      split_frags<T>(ds, dp);
-    }
-    mma_wm<D, T>(dk, ds, sQ, lane);  // dk += ds^T . q
     __syncthreads();  // this stage's readers are done before it is refilled
   }
-  store_frags<D, T>(reinterpret_cast<T*>(a.dk) + kbase, ldk, k0 + r0, a.S, dk, a.scale, lane);
-  store_frags<D, T>(reinterpret_cast<T*>(a.dv) + kbase, ldk, k0 + r0, a.S, dv, 1.f, lane);
+  // each warp its keys' DV dims (at d 256 warps w and w + 4 the two halves)
+  T* dk_out = reinterpret_cast<T*>(a.dk) + kbase + dv0;
+  T* dv_out = reinterpret_cast<T*>(a.dv) + kbase + dv0;
+  store_frags<DV, T>(dk_out, ldk, k0 + r0, a.S, dk, a.scale, lane);
+  store_frags<DV, T>(dv_out, ldk, k0 + r0, a.S, dv, 1.f, lane);
 }
 
 enum Kind { kFwd = 0, kDkdv = 1, kDq = 2 };
@@ -503,22 +554,32 @@ cudaError_t launch(int kind, const Args& a, cudaStream_t stream) {
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  // two CTAs share an SM's shared memory
+  // two CTAs share an SM's shared memory (one at d 256)
   e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  kern<<<grid, kThreads, bytes, stream>>>(a);
+  kern<<<grid, kThreads * dsplit(D), bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_typed(int kind, const Args& a, int half, cudaStream_t stream) {
+  return half ? launch<D, __half>(kind, a, stream) : launch<D, __nv_bfloat16>(kind, a, stream);
+}
+
+// the head dims the kernels are built for (ops/flash_attention.py's
+// KERNEL_HEAD_DIMS)
 cudaError_t dispatch(int kind, const Args& a, int d, int half, cudaStream_t stream) {
   if (a.S < 1 || a.B < 1 || a.nkv < 1 || a.nq % a.nkv != 0 || a.B > 65535 || a.nq > 65535)
     return cudaErrorInvalidValue;
-  if (d == 128) return half ? launch<128, __half>(kind, a, stream)
-                            : launch<128, __nv_bfloat16>(kind, a, stream);
-  if (d == 64) return half ? launch<64, __half>(kind, a, stream)
-                           : launch<64, __nv_bfloat16>(kind, a, stream);
-  return cudaErrorInvalidValue;
+  switch (d) {
+    case 64: return launch_typed<64>(kind, a, half, stream);
+    case 80: return launch_typed<80>(kind, a, half, stream);
+    case 96: return launch_typed<96>(kind, a, half, stream);
+    case 128: return launch_typed<128>(kind, a, half, stream);
+    case 256: return launch_typed<256>(kind, a, half, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 Args make_args(const void* q, const void* k, const void* v, const float* slopes, int B, int S,

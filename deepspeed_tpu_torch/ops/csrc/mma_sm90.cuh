@@ -79,12 +79,12 @@ __device__ __forceinline__ void cp_async_wait_n() {
 }
 
 // Rows r0 .. r0 + 63 of a [.., n, D] tensor (row stride ld elements) into a
-// [64][LDS] shared tile, asynchronously, by the kTileThreads threads of a
-// CTA; rows past S are zeros.
-template <int D, typename T>
+// [64][LDS] shared tile, asynchronously, by the NT threads of a CTA (its
+// first NT); rows past S are zeros.
+template <int D, typename T, int NT = kTileThreads>
 __device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, int r0, int S) {
   constexpr int CH = D / 8, LDS = Tile16<D>::LDS;
-  for (int c = threadIdx.x; c < 64 * CH; c += kTileThreads) {
+  for (int c = threadIdx.x; c < 64 * CH; c += NT) {
     const int r = c / CH, c8 = (c % CH) * 8;
     const bool ok = r0 + r < S;
     cp_async16(dst + r * LDS + c8, ok ? src + (long long)(r0 + r) * ld + c8 : src, ok);
@@ -145,19 +145,22 @@ __device__ __forceinline__ void store_frags(T* p, long long ld, int row0, int S,
   }
 }
 
-// A warp's 16 x 64 fp32 tile (eight C fragments, as mma_abt leaves them)
-// as the A fragments of four depth-16 chunks, each value split into a pair
-// hi + lo of T (about twice T's significant bits: 16 for bf16, 22 for fp16
-// down to fp16's subnormals). C tiles 2c and 2c + 1 are chunk c's A
-// fragment: element e of C tile j is register 2 (j % 2) + e / 2, half e % 2.
-struct SplitFrags {
-  unsigned hi[4][4], lo[4][4];
+// A warp's 16 x 16 KC fp32 tile (2 KC C fragments, as mma_abt leaves them;
+// KC 4: 16 x 64) as the A fragments of KC depth-16 chunks, each value split
+// into a pair hi + lo of T (about twice T's significant bits: 16 for bf16,
+// 22 for fp16 down to fp16's subnormals). C tiles 2c and 2c + 1 are chunk
+// c's A fragment: element e of C tile j is register 2 (j % 2) + e / 2, half
+// e % 2.
+template <int KC = 4>
+struct SplitFragsN {
+  unsigned hi[KC][4], lo[KC][4];
 };
+using SplitFrags = SplitFragsN<4>;
 
-template <typename T>
-__device__ __forceinline__ void split_frags(SplitFrags& f, const float (&w)[8][4]) {
+template <typename T, int NT>
+__device__ __forceinline__ void split_frags(SplitFragsN<NT / 2>& f, const float (&w)[NT][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float x = w[j][2 * h], y = w[j][2 * h + 1];
@@ -175,8 +178,8 @@ __device__ __forceinline__ float half_to_f(unsigned short u, __half) {
 }
 
 // hi + lo of element e of C tile j
-template <typename T>
-__device__ __forceinline__ float split_value(const SplitFrags& f, int j, int e) {
+template <typename T, int KC>
+__device__ __forceinline__ float split_value(const SplitFragsN<KC>& f, int j, int e) {
   const int c = j / 2, r = 2 * (j % 2) + e / 2, sh = 16 * (e % 2);
   return half_to_f((unsigned short)(f.hi[c][r] >> sh), T()) +
          half_to_f((unsigned short)(f.lo[c][r] >> sh), T());
@@ -210,19 +213,19 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* sA, const 
   }
 }
 
-// out += W . M for a warp: W its 16 x 64 tile as split A fragments (two
-// products, hi and lo, into the same accumulator); M a shared [64][D] tile
-// read with ldmatrix.trans (its 64 rows are the product's depth), its rows
+// out += W . M for a warp: W its 16 x 16 KC tile as split A fragments (two
+// products, hi and lo, into the same accumulator); M a shared [16 KC][D]
+// tile read with ldmatrix.trans (its rows are the product's depth), its rows
 // LDS elements apart (D's padded row unless the caller passes a wider
 // tile's, of which M is then D of the columns). out[n] is the C fragment of
 // columns 8n .. 8n + 7 of the warp's 16 x D rows. The
 // tensor cores' fp32 accumulation truncates, so each tile's product is
-// summed from zero over its own 8 mma steps and then added to out with one
-// rounded fp32 add: a long-run accumulator fed thousands of mma steps
+// summed from zero over its own 2 KC mma steps and then added to out with
+// one rounded fp32 add: a long-run accumulator fed thousands of mma steps
 // drifts by up to ~2^-23 of its size per step.
-template <int D, typename T, int LDS = Tile16<D>::LDS>
-__device__ __forceinline__ void mma_wm(float (&out)[D / 8][4], const SplitFrags& w, const T* sM,
-                                       int lane) {
+template <int D, typename T, int LDS = Tile16<D>::LDS, int KC = 4>
+__device__ __forceinline__ void mma_wm(float (&out)[D / 8][4], const SplitFragsN<KC>& w,
+                                       const T* sM, int lane) {
   // matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
   // = b0, b1 of n-tile n, then b0, b1 of n-tile n + 1
   const T* pm = sM + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8;
@@ -230,7 +233,7 @@ __device__ __forceinline__ void mma_wm(float (&out)[D / 8][4], const SplitFrags&
   for (int n = 0; n < D / 8; n += 2) {
     float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {  // depth 16 c .. 16 c + 15
+    for (int c = 0; c < KC; ++c) {  // depth 16 c .. 16 c + 15
       unsigned b[4];
       ldsm4_t(b, pm + c * 16 * LDS + n * 8);
       mma16816(t0, w.hi[c], b[0], b[1], T());

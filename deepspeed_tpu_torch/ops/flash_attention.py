@@ -19,6 +19,9 @@ backward is one call of the plain version.
   takes that ``delta`` in place of the output.
 
 Any sequence length works (ragged tiles are masked inside the kernels).
+The kernels are built for head dims 64, 80, 96, 128 and 256
+(``KERNEL_HEAD_DIMS``, the model families'), bf16 and fp16;
+:func:`unsupported_shape` names what they do not take.
 ALiBi takes the slope table of ``models.transformer.alibi_slopes``, so head
 counts that are not powers of two get the same slopes as the JAX package's
 reference path. The TPU package's environment switch, VMEM tile fitting and
@@ -35,7 +38,9 @@ import torch
 from ._build import build_kernel
 
 MASK_VALUE = -1e30
-KERNEL_HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
+# the head dims the kernels are built for: the model families' (d 256 runs
+# two warps a 16-row block, each accumulating half the output dims)
+KERNEL_HEAD_DIMS = (64, 80, 96, 128, 256)
 
 
 def unsupported_shape(nq: int, nkv: int, d: int) -> list:
@@ -45,7 +50,7 @@ def unsupported_shape(nq: int, nkv: int, d: int) -> list:
     misses = []
     if d not in KERNEL_HEAD_DIMS:
         misses.append(f"head_dim {d} (the flash kernels are built for {KERNEL_HEAD_DIMS}; "
-                      f"ROADMAP A5b.2)")
+                      f"ROADMAP A5b)")
     if nkv < 1 or nq % nkv:
         misses.append(f"{nq} query heads over {nkv} kv heads (not a multiple)")
     return misses

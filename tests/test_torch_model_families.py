@@ -7,8 +7,8 @@ tiny HF models of ``tests/test_hf_checkpoint.py`` maps to equal configs,
 and the same checkpoints are refused; the CUDA paged-attention module
 takes every preset's head dim and group size and refuses at engine build a
 shape its kernels are not built for (head_dim 32), and the training engine
-refuses the head dims the flash kernels are not built for (checked without
-a device); the factory builds ``gpt2``, ``opt``, ``qwen2`` and ``phi`` by
+takes every preset's head dim on the flash kernels and refuses d 32 (checked
+without a device); the factory builds ``gpt2``, ``opt``, ``qwen2`` and ``phi`` by
 name.
 """
 
@@ -209,14 +209,15 @@ def test_v1_cache_route_takes_the_widened_presets_on_cuda(fn, size, miss):
 
 
 @pytest.mark.parametrize("fn,size,trains", [
-    ("phi_config", "2", False), ("gptj_config", "6b", False), ("gpt_neox_config", "20b", False),
-    ("gpt_neox_config", "pythia-1b", False), ("falcon_config", "7b", True),
-    ("mistral_config", "7b", True), ("qwen2_config", "7b", True)])
-def test_flash_refuses_unbuilt_head_dims_at_engine_build(fn, size, trains):
-    """Training on the card goes through the flash kernels (head dims 64
-    and 128): a model at another head dim is refused when the engine is
-    built, naming the head dim and ROADMAP A5b.2, not at its first step.
-    The CPU, ``attention_impl='reference'`` and a block-sparse model never
+    ("phi_config", "2", True), ("gptj_config", "6b", True), ("gpt_neox_config", "20b", True),
+    ("gpt_neox_config", "pythia-1b", True), ("falcon_config", "7b", True),
+    ("mistral_config", "7b", True), ("qwen2_config", "7b", True), ("phi_config", "tiny", False)])
+def test_flash_takes_the_family_head_dims_and_refuses_d32_at_engine_build(fn, size, trains):
+    """Training on the card goes through the flash kernels, built for head
+    dims 64, 80, 96, 128 and 256: every real preset takes the flash route;
+    a model at another head dim (d 32, phi's CPU-only tiny preset) is
+    refused when the engine is built, naming the head dim and ROADMAP A5b,
+    not at its first step. The CPU and ``attention_impl='reference'`` never
     reach the flash kernels and pass. No device: the check reads the
     config."""
     cfg = getattr(models, fn)(size)
@@ -224,7 +225,7 @@ def test_flash_refuses_unbuilt_head_dims_at_engine_build(fn, size, trains):
     if trains:
         assert training_attention_route(cfg, "cuda") == "flash"
     else:
-        with pytest.raises(ValueError, match=rf"head_dim {cfg.head_dim} .*A5b\.2"):
+        with pytest.raises(ValueError, match=rf"head_dim {cfg.head_dim} .*ROADMAP A5b\)"):
             training_attention_route(cfg, "cuda")
     assert training_attention_route(cfg, "cpu") == "reference"
     assert training_attention_route(dataclasses.replace(cfg, attention_impl="reference"),
