@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
                                     train,remat,eager,zero,moe_zero,tp,moe_train,
                                     sparse_train,evo_kernels,evo_path,v1,hybrid,prefix_sample,
-                                    families,families_train]
+                                    families,families_train,offload]
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
     python3 chip_smoke.py --versus DIR [--phases kernels,e2e]
@@ -18,8 +18,10 @@ code 1 otherwise):
 
 1. build: compile the six hand-written CUDA sources of
    ``deepspeed_tpu_torch/ops/csrc`` with nvcc for sm_90a, one nvcc per
-   source, all started together; print each nvcc's wall time and the
-   ``-Xptxas -v`` registers / shared memory / spills per kernel.
+   source, all started together, and beside them the two host C++ ops
+   (``csrc/adam/cpu_adam.cpp``, ``csrc/aio/deepspeed_aio.cpp``) with g++;
+   print each nvcc's wall time and the ``-Xptxas -v`` registers / shared
+   memory / spills per kernel.
 2. kernels: print the paged kernels' ptxas registers and spills (any spill
    fails) and the decode's and prefill's shared memory per CTA at every
    head dim; hold every paged-attention path (``paged_decode`` with
@@ -452,6 +454,31 @@ code 1 otherwise):
    32) must be refused at ``initialize``, naming the head dim. Printed: step
    ms, tokens/s, peak memory, beside the card's name and power limit.
 
+22. offload: ZeRO-Offload through ``initialize`` / ``train_batch`` at
+   Mistral-7B's widths, seq 2048, the train phase's recipe without its
+   warm-up schedule (bf16, AdamW lr 1e-4, clipping, gas 2). (a) The host:
+   ``MemTotal`` / ``MemAvailable``, CPUs, free space under ``build/``; the
+   C++ Adam (``DeepSpeedCPUAdam``) over 2.007e9 fp32 elements (its second
+   call timed: ms and GB/s of 28 B an element); ``AsyncIOHandle`` writing
+   and reading 1 GiB under ``build/`` (read back equal). (b) 8 layers, 3
+   steps on one seeded batch, under device AdamW (the fused kernel), under
+   ``offload_optimizer: cpu`` and under ``cpu`` with ``ratio: 0.5``: each
+   offloaded run's losses within ``LOSS_REL_TOL`` of the device run's, its
+   parameters within ``OFFLOAD_PARAM_REL_TOL`` (1e-2) of the device run's
+   as a fraction of what the steps moved them, its flash launches equal,
+   and full offload's device peak at least 0.9 x 8 B a parameter below the
+   device run's (printed: the split of each step into forward / backward
+   with the norm, gradient D2H wait, host Adam and upload tail; set-up
+   times). (c) 2 layers, 2 steps, moments on NVMe under a temporary
+   directory in ``build/``: the parameters and losses equal ``cpu``
+   offload's bit for bit. (d) ``OFFLOAD_FULL_LAYERS`` (10; 32, with
+   ``remat``, ran in PR 23's runs 1 and 3-5 but takes ~60 s alone, past the
+   phase's 90 s), 2 steps of ``cpu`` offload, refused below the host memory
+   it needs: device peak, host resident peak (sampled every 10 ms), the step
+   split, flash launches, falling losses. Printed beside the card's name
+   and power limit; the flash kernels' JSON entries gain
+   ``offload_launches`` a run.
+
 ``--mutant`` copies the package into ``build/mutant/<name>`` once per
 mutant: the grouped matmul kernels dropping one row block's products
 (``--phases build,moe_kernels`` there must fail), the tensor-core
@@ -488,7 +515,9 @@ build,remat`` must fail on the MoE check by more than 30x its tolerance),
 and tensor parallelism with the column region's backward summing nothing
 over the model group and, alone, every rank's serving weights taking rank
 0's kv heads (``--phases build,tp`` must fail, each by more than 30x the
-phase's tolerance): twenty-one copies.
+phase's tolerance), and the host offload optimizer updating its masters
+but uploading nothing (``--phases build,offload`` must fail by more than
+30x the parity tolerance): twenty-two copies.
 It passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
@@ -864,11 +893,17 @@ def phase_build():
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
+    from deepspeed_tpu_torch.ops import aio
+    from deepspeed_tpu_torch.ops.adam import cpu_adam
+
     mods = {"paged_attention": pa, "flash_attention": fa, "fused_adam": fad, "grouped_matmul": gm,
             "block_sparse_attention": bsa, "evoformer_attention": tev}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, all at once
+    with ThreadPoolExecutor(len(mods) + 2) as ex:  # one nvcc per source, all at once
+        hosts = [ex.submit(m._lib) for m in (cpu_adam, aio)]  # the host ops' g++ alongside
         built = dict(zip(mods, ex.map(lambda m: m.kernel_build(), mods.values())))
+        for h in hosts:
+            h.result()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f}s ({len(built)} sources "
         f"built in parallel)")
     for stem, b in built.items():
@@ -5990,6 +6025,312 @@ def phase_families_train():
     free()
     log(f"[families_train] refused at initialize: {record['refused']}")
     return launches, record
+# ---------------------------------------------------------------------------
+# phase: ZeRO-Offload (the host optimizer, its NVMe tier, twin-flow)
+# ---------------------------------------------------------------------------
+
+# Mistral-7B's widths; (b) parity at OFFLOAD_PARITY_LAYERS, (c) NVMe at
+# OFFLOAD_NVME_LAYERS, (d) the deepest run at OFFLOAD_FULL_LAYERS. 32 layers
+# fit the card (55.51 GiB) and the host (88.66 GiB resident of 101 GiB) but
+# not the phase's 90 s: pinning and first touch of host memory run at ~1.4
+# and ~3 GB/s on the card's machine, so (d) costs ~1.8 s a layer (62 s at
+# 32 layers alone, 39 s at 20 in the whole script) beside (a)-(c)'s ~63 s
+# (PERF.md, PR 23); its depth is cut to what the phase's 90 s allows
+OFFLOAD_SEQ = 2048
+OFFLOAD_PARITY_LAYERS, OFFLOAD_PARITY_STEPS = 8, 3
+OFFLOAD_NVME_LAYERS, OFFLOAD_NVME_STEPS = 2, 2
+OFFLOAD_FULL_LAYERS, OFFLOAD_FULL_STEPS = 10, 2
+OFFLOAD_ADAM_ELEMENTS = 2_007_000_000  # the parity model's parameter count, rounded
+OFFLOAD_AIO_BYTES = 1 << 30
+# the train phase's recipe without its warm-up schedule (so every step
+# moves the weights): bf16, AdamW lr 1e-4, clipping, gas 2 of 1 x 2048
+OFFLOAD_DS_CONFIG = dict({k: v for k, v in TRAIN_DS_CONFIG.items() if k != "scheduler"})
+# parameters after the parity steps: ||p_run - p_device|| within this
+# fraction of ||p_device - p_0|| (what the steps moved them); the C++ and
+# the card's Adam differ in fp32 rounding only (~1e-7 of an update a step)
+OFFLOAD_PARAM_REL_TOL = 1e-2
+OFFLOAD_PEAK_DROP_MIN = 0.9  # full offload frees at least this share of 8 B a parameter
+
+
+def _meminfo():
+    """(MemTotal, MemAvailable) in bytes, read from /proc/meminfo."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":")
+            out[key] = int(val.split()[0]) * 1024
+    return out["MemTotal"], out["MemAvailable"]
+
+
+def _offload_host_machine(rec):
+    """(a): the host's memory, CPUs and disk; the C++ Adam over
+    OFFLOAD_ADAM_ELEMENTS fp32 elements; 1 GiB through the aio handle."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
+    from deepspeed_tpu_torch.ops.aio import AsyncIOHandle
+    from deepspeed_tpu_torch.runtime.zero.offload import _host_buffer
+
+    total, avail = _meminfo()
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    disk = shutil.disk_usage(build)
+    log(f"[offload] host: MemTotal {total / 2**30:.1f} GiB, MemAvailable {avail / 2**30:.1f} GiB, "
+        f"{os.cpu_count()} CPUs, {disk.free / 2**30:.1f} GiB free under build/")
+    thp_file = "/sys/kernel/mm/transparent_hugepage/enabled"
+    thp = open(thp_file).read().strip() if os.path.exists(thp_file) else "absent"  # read only
+    log(f"[offload] transparent huge pages: {thp}")
+    n = OFFLOAD_ADAM_ELEMENTS
+    bufs = [_host_buffer(n) for _ in range(4)]  # zero pages: the first call faults them in
+    opt = DeepSpeedCPUAdam(lr=1e-4, weight_decay=0.1)
+    times = []
+    for step in (1, 2):
+        t0 = time.perf_counter()
+        opt.step(step, *bufs, grad_scale=1.0)
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * times[1]
+    gbs = 28 * n / (ms * 1e-3) / 1e9  # read p, g, m, v; write p, m, v
+    log(f"[offload] DeepSpeedCPUAdam over {n:,} fp32 elements: {ms:.1f} ms a step "
+        f"({gbs:.1f} GB/s of 28 B an element; the first call, which faults the "
+        f"{16 * n / 1e9:.0f} GB in, {1e3 * times[0]:.1f} ms)")
+    del bufs
+    tmp = tempfile.mkdtemp(dir=build, prefix="offload_aio_")
+    try:
+        src = torch.arange(OFFLOAD_AIO_BYTES // 4, dtype=torch.int32)
+        dst = torch.empty_like(src)
+        h = AsyncIOHandle(thread_count=4)
+        path = os.path.join(tmp, "aio.bin")
+        t0 = time.perf_counter()
+        h.async_pwrite(src, path)
+        h.wait()
+        w_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h.async_pread(dst, path)
+        h.wait()
+        r_s = time.perf_counter() - t0
+        h.close()
+        if not torch.equal(src, dst):
+            raise RuntimeError("[offload] the aio round trip did not read back what it wrote")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[offload] AsyncIOHandle 1 GiB under build/: write {1e3 * w_s:.1f} ms "
+        f"({OFFLOAD_AIO_BYTES / w_s / 1e9:.2f} GB/s, into the page cache), read "
+        f"{1e3 * r_s:.1f} ms ({OFFLOAD_AIO_BYTES / r_s / 1e9:.2f} GB/s, warm); read back equal")
+    rec["host"] = dict(mem_total=total, mem_available=avail, cpus=os.cpu_count(),
+                       build_free=disk.free, thp=thp, cpu_adam_ms=ms, cpu_adam_gbs=gbs,
+                       cpu_adam_elements=n, aio_write_ms=1e3 * w_s, aio_read_ms=1e3 * r_s)
+
+
+def _offload_run(layers, steps, zero, remat=False, keep=False, update_norm=False):
+    """Mistral-7B's widths at ``layers``, seed 0, ``steps`` train_batch
+    steps on one seeded batch under ``zero`` (the zero_optimization
+    block). Returns {losses, step_ms, split_ms (median ms of each part of
+    the offloaded steps), launches, peak_gib (above what was allocated
+    before), params (copies on the card when ``keep``), update_norm
+    (||p - p_0|| when ``update_norm``), setup_s}."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cfg = mistral_config("7b", num_layers=layers, remat=remat)
+    model = TransformerLM(cfg, trainable=True, seed=0)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=dict(OFFLOAD_DS_CONFIG, zero_optimization=zero))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (engine.train_batch_size(),
+                                                           OFFLOAD_SEQ)).astype(np.int32)}
+    fa.reset_launch_counts()
+    losses, times, splits = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        splits.append(dict(engine.offload_times))
+    launches = dict(fa.launch_counts)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    host = engine.host_optimizer
+    out = dict(layers=layers, losses=losses, step_ms=times, launches=launches, peak_gib=peak,
+               n_params=sum(p.numel() for p in engine._params), setup_s=setup_s,
+               host_bytes=host.host_bytes() if host else None,
+               host_init_ms=host.init_times if host else None,
+               twin_host_tensors=(sum(engine._twin_host) if engine._twin_host else None))
+    if splits and splits[0]:
+        out["split_ms"] = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
+    if keep:
+        out["params"] = [p.detach().clone() for p in engine._params]
+    if host is not None:
+        host.close()
+    del engine, model, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    if update_norm:  # the initial weights again, from the seed
+        p0 = TransformerLM(cfg, trainable=True, seed=0)
+        out["update_norm"] = _norm_of_diff(out["params"], list(p0.parameters()))
+        del p0
+        torch.cuda.empty_cache()
+    return out
+
+
+def _norm_of_diff(xs, ys):
+    """||xs - ys|| over lists of tensors, summed in float64 on the card."""
+    import torch
+
+    with torch.no_grad():
+        return float(sum(torch.linalg.vector_norm((a.double() - b.double())).square()
+                         for a, b in zip(xs, ys)))**0.5
+
+
+def _offload_log(tag, run, smi):
+    split = run.get("split_ms")
+    parts = ("" if not split else
+             f"; split (median ms): forward/backward + norm {split['to_norm_ms']:.1f}, gradient "
+             f"D2H wait {split['d2h_wait_ms']:.1f}, host Adam {split['host_adam_ms']:.1f}, "
+             f"upload tail {split['upload_ms']:.1f}, NVMe swap {split['swap_ms']:.1f}")
+    log(f"[offload] {tag}: {run['layers']} layers, {run['n_params'] / 1e9:.3f}B params, set up "
+        f"in {run['setup_s']:.1f} s (host ms: "
+        f"{ {k: round(v, 1) for k, v in (run['host_init_ms'] or {}).items()} }); losses "
+        f"{[round(x, 5) for x in run['losses']]}; step ms {[round(t, 1) for t in run['step_ms']]}"
+        f"{parts}; device peak {run['peak_gib']:.2f} GiB; flash launches {run['launches']}; "
+        f"{smi}")
+
+
+def phase_offload():
+    """ZeRO-Offload through ``initialize`` / ``train_batch`` at Mistral-7B's
+    widths. Returns ({run: flash launches}, the phase's record)."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    rec, launches = {"card": smi}, {}
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        with open("/proc/self/statm") as f:
+            rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+        log(f"[offload] {what} at {time.perf_counter() - t_phase:.1f} s; resident "
+            f"{rss / 2**30:.2f} GiB")
+
+    _offload_host_machine(rec)
+    mark("(a) done")
+
+    # (b) parity at OFFLOAD_PARITY_LAYERS: device AdamW, cpu offload, twin-flow 0.5
+    runs = {
+        "device": _offload_run(OFFLOAD_PARITY_LAYERS, OFFLOAD_PARITY_STEPS, {"stage": 0},
+                               keep=True, update_norm=True),
+        "cpu": _offload_run(OFFLOAD_PARITY_LAYERS, OFFLOAD_PARITY_STEPS,
+                            {"stage": 0, "offload_optimizer": {"device": "cpu"}}, keep=True),
+        "twin_0.5": _offload_run(OFFLOAD_PARITY_LAYERS, OFFLOAD_PARITY_STEPS,
+                                 {"stage": 0, "offload_optimizer": {"device": "cpu",
+                                                                    "ratio": 0.5}}, keep=True),
+    }
+    dev = runs["device"]
+    worst, failures = 0.0, []
+    n_params = dev["n_params"]
+    expected_drop = 8 * n_params / 2**30
+    for name, run in runs.items():
+        _offload_log(f"parity {name}", run, smi)
+        launches[name] = run["launches"]
+        if name == "device":
+            continue
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], dev["losses"]))
+        p_rel = _norm_of_diff(run["params"], dev["params"]) / dev["update_norm"]
+        frac = max(loss_rel / LOSS_REL_TOL, p_rel / OFFLOAD_PARAM_REL_TOL)
+        worst = max(worst, frac)
+        drop = dev["peak_gib"] - run["peak_gib"]
+        log(f"[offload] parity {name} vs device AdamW: losses within {loss_rel:.3e} (tolerance "
+            f"{LOSS_REL_TOL}); parameters after {OFFLOAD_PARITY_STEPS} steps "
+            f"||p - p_device|| / ||p_device - p_0|| = {p_rel:.3e} (tolerance "
+            f"{OFFLOAD_PARAM_REL_TOL}); device peak {drop:+.2f} GiB below the device run's "
+            f"(8 B x {n_params:,} of moments = {expected_drop:.2f} GiB)")
+        if run["launches"] != dev["launches"]:
+            failures.append(f"{name}: flash launches {run['launches']} != {dev['launches']}")
+        if frac > 1.0:
+            failures.append(f"{name}: {frac:.1f}x its tolerance")
+        if name == "cpu" and drop < OFFLOAD_PEAK_DROP_MIN * expected_drop:
+            failures.append(f"cpu: the device peak dropped {drop:.2f} GiB, not ~{expected_drop:.2f}")
+        rec[f"parity_{name}"] = dict(loss_rel=loss_rel, param_rel=p_rel, peak_drop_gib=drop)
+    log(f"[offload] parity worst_error_fraction={worst:.4g}")
+    for name, run in runs.items():
+        rec[name] = {k: v for k, v in run.items() if k not in ("params",)}
+    if not all(r["launches"]["flash_fwd"] > 0 for r in runs.values()):
+        failures.append("the flash kernels did not launch in every run")
+    del runs, dev
+    if failures:
+        raise RuntimeError(f"offload disagrees: {failures}")
+
+    mark("(b) done")
+
+    # (c) NVMe at OFFLOAD_NVME_LAYERS: the parameters equal cpu offload's bit for bit
+    nvme_dir = tempfile.mkdtemp(dir=os.path.join(HERE, "build"), prefix="offload_nvme_")
+    try:
+        cpu = _offload_run(OFFLOAD_NVME_LAYERS, OFFLOAD_NVME_STEPS,
+                           {"stage": 0, "offload_optimizer": {"device": "cpu"}}, keep=True)
+        nvme = _offload_run(OFFLOAD_NVME_LAYERS, OFFLOAD_NVME_STEPS,
+                            {"stage": 0, "offload_optimizer": {
+                                "device": "nvme", "nvme_path": nvme_dir, "pipeline_read": True,
+                                "pipeline_write": True}}, keep=True)
+    finally:
+        shutil.rmtree(nvme_dir, ignore_errors=True)
+    _offload_log("nvme", nvme, smi)
+    unequal = sum(not torch.equal(a, b) for a, b in zip(cpu["params"], nvme["params"]))
+    log(f"[offload] nvme vs cpu offload at {OFFLOAD_NVME_LAYERS} layers after "
+        f"{OFFLOAD_NVME_STEPS} steps: {unequal} of {len(cpu['params'])} parameters differ "
+        f"(must be 0: the same C++ kernel on the same data); losses {nvme['losses']} vs "
+        f"{cpu['losses']}")
+    if unequal or nvme["losses"] != cpu["losses"]:
+        raise RuntimeError(f"offload disagrees: nvme differs from cpu offload in {unequal} "
+                           f"parameters")
+    launches["nvme"] = nvme["launches"]
+    rec["nvme"] = {k: v for k, v in nvme.items() if k != "params"}
+    del cpu, nvme
+
+    mark("(c) done")
+
+    # (d) the deepest run: cpu offload at OFFLOAD_FULL_LAYERS layers
+    per_layer, rest = 218_112_000, 262_148_096  # Mistral-7B: a block's, and the rest's
+    need = 12 * (OFFLOAD_FULL_LAYERS * per_layer + rest)  # masters + both moments
+    total, avail = _meminfo()
+    log(f"[offload] full run: {OFFLOAD_FULL_LAYERS} layers need {need / 2**30:.1f} GiB of host "
+        f"masters and moments; MemAvailable {avail / 2**30:.1f} GiB")
+    if need > avail:
+        raise RuntimeError(f"[offload] the host lacks room for {OFFLOAD_FULL_LAYERS} layers")
+    with _rss_sampler(every_s=0.01) as rss:  # remat where the activations need it (32 layers)
+        full = _offload_run(OFFLOAD_FULL_LAYERS, OFFLOAD_FULL_STEPS,
+                            {"stage": 0, "offload_optimizer": {"device": "cpu"}},
+                            remat=OFFLOAD_FULL_LAYERS > 16)
+    _offload_log("full depth", full, smi)
+    log(f"[offload] full depth host resident peak {rss['peak'] / 2**30:.2f} GiB (before "
+        f"{rss['before'] / 2**30:.2f}; host optimizer {full['host_bytes']}); device Adam would "
+        f"need {16 * full['n_params'] / 1e9:.1f} GB of fp32 params, grads and moments")
+    if not (all(map(math.isfinite, full["losses"])) and full["losses"][-1] < full["losses"][0]):
+        raise RuntimeError(f"[offload] full depth losses not finite and falling: "
+                           f"{full['losses']}")
+    launches["full"] = full["launches"]
+    rec["full"] = dict(full, host_rss_peak=rss["peak"], host_rss_before=rss["before"])
+    mark("(d) done")
+    return launches, rec
+
+
 # the mutant checks. Grouped matmul: a copy that drops one row block's
 # contribution (gmm on the wgmma route: the second 128-row tile's products;
 # tgmm on both routes: each expert's first row block) must fail the
@@ -6093,6 +6434,9 @@ TP_KV_MUTATIONS = _in(  # every rank's serving weights (stacked) take rank 0's k
         ("        return t.narrow(d, self.rank * n, n).clone()",
          "        return t.narrow(d, (0 if stacked and name in ('wk', 'wv') else self.rank) * n, "
          "n).clone()"),))
+OFFLOAD_STALE_UPLOAD_MUTATIONS = _in(  # the host updates the masters, uploads nothing
+    "deepspeed_tpu_torch/runtime/zero/offload.py", (
+        ("p.data.copy_(master.view(p.shape), non_blocking=True)", "pass"),))
 HEAD_TILE_MUTATIONS = _in(SOURCE, (  # the decode drops each CTA group's last head tile
     ("  if (p_hi <= p_lo) {  // no live block: zeros, m = -1e30, l = 0",
      "  if (p_hi <= p_lo || (n_ht > 1 && ht == n_ht - 1)) {  // no live block: zeros, m = -1e30, "
@@ -6126,6 +6470,7 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "remat_rng": (REMAT_RNG_MUTATIONS, "remat", "remat disagrees"),
     "tp_region": (TP_REGION_MUTATIONS, "tp", "tp disagrees"),
     "tp_kv": (TP_KV_MUTATIONS, "tp", "tp disagrees"),
+    "offload_stale_upload": (OFFLOAD_STALE_UPLOAD_MUTATIONS, "offload", "offload disagrees"),
 }
 
 
@@ -6331,7 +6676,8 @@ def _run_one_mutant(name):
     # relative L2 is then of order 1, some 20x its tolerance, not 100x; a
     # stale half of a group moves the losses by what one step moves them
     if phase not in ("moe_kernels", "v1"):
-        least = (ZERO_MUTANT_MIN_FACTOR if phase in ("zero", "moe_zero", "remat", "tp") else
+        least = (ZERO_MUTANT_MIN_FACTOR if phase in ("zero", "moe_zero", "remat", "tp",
+                                                      "offload") else
                  MUTANT_MIN_FACTOR)
         factor = _worst_error_fraction(proc.stdout, phase) or 0.0
         log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
@@ -6632,7 +6978,7 @@ def run_versus(other, phases):
 
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
           "remat", "eager", "zero", "moe_zero", "tp", "moe_train", "sparse_train", "evo_kernels",
-          "evo_path", "v1", "hybrid", "prefix_sample", "families", "families_train")
+          "evo_path", "v1", "hybrid", "prefix_sample", "families", "families_train", "offload")
 
 
 def main():
@@ -6705,7 +7051,7 @@ def main():
            "sparse_train": phase_sparse_train, "evo_kernels": phase_evo_kernels,
            "evo_path": phase_evo_path, "v1": phase_v1, "hybrid": phase_hybrid,
            "prefix_sample": phase_prefix_sample, "families": phase_families,
-           "families_train": phase_families_train}
+           "families_train": phase_families_train, "offload": phase_offload}
     failed = []
     out = {}
     for name in PHASES:
@@ -6752,6 +7098,7 @@ def main():
     prefix_launches, prefix = out["prefix_sample"]
     families_launches, families = out["families"]
     families_train_launches, families_train = out["families_train"]
+    offload_launches, offload = out["offload"]
     for entry in kernels:  # the paged kernels' launches per rank on the tp serving path
         entry["tp_launches"] = tp_launches[entry["name"]]
         entry["prefix_sample_launches"] = {run: int(n[entry["name"]])
@@ -6772,9 +7119,12 @@ def main():
                                              for run, n in families_train_launches.items()},
                  "max_abs_err": m["err"], **{k: m[k] for k in keys},
                  **({"family_shapes": m["family_shapes"]} if "family_shapes" in m else {})}
+        if name in offload_launches["device"]:  # the flash kernels
+            entry["offload_launches"] = {run: int(n[name]) for run, n in offload_launches.items()}
         if name == "flash_fwd":
             entry["v1_launches"] = int(v1_launches[name])
             entry["families_train"] = families_train
+            entry["offload"] = offload
         if name == "fused_adam":
             entry["full_set"] = adam_full
         if name == "flash_fwd":

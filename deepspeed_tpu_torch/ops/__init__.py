@@ -41,6 +41,15 @@ def _builder(name, module_path, symbol=None):
 # get_accelerator().create_op_builder("FusedAdamBuilder") resolves here.
 op_registry = {
     "FusedAdamBuilder": _builder("fused_adam", "deepspeed_tpu_torch.ops.adam.fused_adam"),
+    # Lamb, Lion and Adagrad are the optax-equivalent optimizers of
+    # runtime/optimizers.py, as in the JAX registry
+    "FusedLambBuilder": _builder("fused_lamb", "deepspeed_tpu_torch.runtime.optimizers"),
+    "FusedLionBuilder": _builder("fused_lion", "deepspeed_tpu_torch.runtime.optimizers"),
+    "CPULionBuilder": _builder("cpu_lion", "deepspeed_tpu_torch.runtime.optimizers"),
+    "CPUAdagradBuilder": _builder("cpu_adagrad", "deepspeed_tpu_torch.runtime.optimizers"),
+    # ZeRO-Offload's host ops (g++ at first use: ops/_build.py::build_host_op)
+    "CPUAdamBuilder": _builder("cpu_adam", "deepspeed_tpu_torch.ops.adam.cpu_adam"),
+    "AsyncIOBuilder": _builder("async_io", "deepspeed_tpu_torch.ops.aio"),
     "FlashAttnBuilder": _builder("flash_attn", "deepspeed_tpu_torch.ops.flash_attention"),
     # the training transformer kernel stack is the flash path (the
     # reference's TransformerBuilder / StochasticTransformerBuilder kernels)

@@ -9,6 +9,11 @@ source, of every header it includes by a quoted path (``csrc/*.cuh``,
 followed recursively) and of the flags, so an edited source or header is
 rebuilt and a stale library is never loaded.
 
+The host ops (``csrc/adam/cpu_adam.cpp``, ``csrc/aio/deepspeed_aio.cpp``:
+ZeRO-Offload's CPU Adam and its NVMe I/O) are C++ for the host, built the
+same way by ``g++`` (:func:`build_host_op`) with the JAX package's flags, so
+the two packages' host updates agree bit for bit.
+
 A failed build raises: there is no fallback that hides a missing kernel.
 """
 
@@ -18,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -26,6 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-march=native"]
 
 
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
@@ -99,3 +106,41 @@ def build_kernel(stem: str) -> Built:
     report = proc.stdout + proc.stderr
     log.write_text(report)
     return Built(ctypes.CDLL(str(out)), out, dt, report)
+
+
+_host_lock = threading.Lock()
+_host_loaded = {}
+
+
+def build_host_op(name: str, sources) -> ctypes.CDLL:
+    """Compile (or reuse) and load the host library ``name`` from
+    ``sources`` (paths under ``csrc/``) with ``g++ GXX_FLAGS``; the file
+    name carries a hash of the sources and the flags. Loaded once a
+    process."""
+    with _host_lock:
+        if name in _host_loaded:
+            return _host_loaded[name]
+        srcs = [CSRC / s for s in sources]
+        h = hashlib.sha256()
+        for src in srcs:
+            if not src.is_file():
+                raise KernelBuildError(f"{src} (a host op source) is missing")
+            h.update(src.read_bytes())
+        h.update(" ".join(GXX_FLAGS).encode())
+        out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+        if not out.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise KernelBuildError(f"g++ not found: the host op '{name}' is built from "
+                                       f"source at first use")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), *map(str, srcs)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise KernelBuildError(f"g++ failed for the host op '{name}' (exit "
+                                       f"{proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _host_loaded[name] = lib
+        return lib

@@ -67,13 +67,32 @@ boundary and is a no-op elsewhere. They run the per-microbatch code of
 ``train_batch`` (``_microbatch_loss``, ``_microbatch_backward``,
 ``_step_grads``, ``_end_step``), so eager steps equal ``train_batch`` steps
 on the same data. In ``eval()`` mode ``forward`` returns this rank's loss
-without a graph. Offload, 1-bit optimizers, pipelines and the prefetching
-loader are not ported yet.
+without a graph.
+
+ZeRO-Offload (``zero_optimization.offload_optimizer``, ``engine.py:589-640,
+880-940``): the card runs the forward and backward; the update runs on the
+host in the C++ Adam of ``zero/offload.py`` over fp32 masters and moments in
+host RAM (``device: cpu``) or with the moments on NVMe (``device: nvme``),
+and the new masters are uploaded into the parameters. The gradient norm is
+computed on the card and read once; the lr is the schedule's at the step
+before the update; a non-finite norm skips the update. Any optimizer name
+other than Adam / AdamW runs as the host AdamW, with a warning. Twin-flow
+(``ratio`` < 1, Adam / AdamW only): the host takes whole JAX leaves (a
+``TransformerLM``'s per-layer tensors of one stacked leaf together, so the
+split is the JAX engine's) up to ``ratio`` of the bytes; the rest update on
+the card with the port's ``Adam``, gated, launched before the host loop so
+that the two overlap. The fused Adam kernel stays off under offload.
+Offload at world size >= 2 is refused (the JAX package's per-host
+``shard_mode``, ROADMAP A6.6, left open).
+
+Not ported: the 1-bit optimizers (A6.7), pipelines (A6.8) and the
+prefetching loader (A6.5).
 """
 
 import contextlib
 import inspect
 import logging
+import time
 from typing import Optional
 
 import numpy as np
@@ -83,7 +102,7 @@ from .. import comm
 from ..models.transformer import TransformerConfig, training_attention_route
 from ..parallel import groups
 from .config import DeepSpeedConfig
-from .constants import ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER
+from .constants import ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER, LAMB_OPTIMIZER
 from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import LRScheduler, get_lr_schedule_fn
 from .optimizers import Adam, build_optimizer
@@ -127,6 +146,7 @@ class DeepSpeedEngine:
         self.dp_rank = groups.get_data_parallel_rank()
         self.mp_world_size = groups.get_model_parallel_world_size()
         self.mp_rank = groups.get_model_parallel_rank()
+        self._offload_cfg = self._offload_config()
         if self.mp_world_size > 1:
             self._split_model(model)
         if self.dp_world_size > 1:
@@ -166,7 +186,15 @@ class DeepSpeedEngine:
 
         # --- optimizer chain ---
         self.lr_schedule_fn, self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
-        self.optimizer = self._configure_optimizer(optimizer)
+        self.host_optimizer = None
+        self._twin_host = None  # twin-flow: per trainable parameter, whether the host updates it
+        self._twin_optimizer = None
+        self.offload_times = {}
+        self._t_step = time.perf_counter()
+        if self._offload_cfg is not None:
+            self.optimizer = self._configure_host_offload_optimizer(optimizer)
+        else:
+            self.optimizer = self._configure_optimizer(optimizer)
         self._pallas_adam = self._configure_pallas_adam(optimizer)
         self.state = self._init_state()
 
@@ -182,7 +210,8 @@ class DeepSpeedEngine:
                     f"dtype={self.compute_dtype} device={self.device} "
                     f"micro_bsz={config.train_micro_batch_size_per_gpu} "
                     f"gas={config.gradient_accumulation_steps} "
-                    f"fused_adam={self._pallas_adam is not None}")
+                    f"fused_adam={self._pallas_adam is not None} "
+                    f"offload={self._offload_cfg.device if self._offload_cfg else None}")
 
     # ------------------------------------------------------------------
     # configuration
@@ -248,7 +277,102 @@ class DeepSpeedEngine:
             return client_optimizer
         params = dict(self.config.optimizer_params or {})
         lr = self.lr_schedule_fn if self.lr_schedule_fn is not None else params.get("lr", 1e-3)
-        return build_optimizer(self.config.optimizer_name, self._opt_params, params, lr=lr)
+        groups_ = None
+        if (self.config.optimizer_name or "").lower() == LAMB_OPTIMIZER:
+            if self._zero is not None or self.mp_world_size > 1:
+                raise NotImplementedError(
+                    "Lamb at world size >= 2: its trust ratio needs the norms of whole tensors, "
+                    "not of this rank's shards (ROADMAP A6.3, left open)")
+            groups_ = self._jax_leaf_units()
+        return build_optimizer(self.config.optimizer_name, self._opt_params, params, lr=lr,
+                               trust_groups=groups_)
+
+    def _jax_leaf_units(self):
+        """The trainable parameters' indices grouped as the JAX package's
+        leaves, in its tree's order: a ``TransformerLM``'s per-layer tensors
+        of one stacked leaf ``blocks/<name>`` form one unit, units sorted by
+        (group, name) as jax flattens the dict tree; any other model's
+        parameters are a unit each, in order."""
+        if not hasattr(self.module, "_leaves"):  # a TransformerLM's (group, name, p, stacked)
+            return [[i] for i in range(len(self._params))]
+        index = {id(p): i for i, p in enumerate(self._params)}
+        units = {}
+        for group, name, p, _ in self.module._leaves():
+            if id(p) in index:
+                units.setdefault((group, name), []).append(index[id(p)])
+        return [units[k] for k in sorted(units)]
+
+    def _offload_config(self):
+        """The ``offload_optimizer`` block when it offloads, else None
+        (``engine.py:279-297``); refuses world size >= 2."""
+        off = self.config.zero_config.offload_optimizer
+        if off is None or off.device == "none":
+            return None
+        if off.ratio <= 0.0:
+            logger.warning("offload_optimizer.ratio=0: nothing to offload; running the plain "
+                           "device optimizer")
+            return None
+        world = self.dp_world_size * self.mp_world_size
+        if world > 1:
+            raise NotImplementedError(
+                f"offload_optimizer at world size {world}: ROADMAP A6.6, left open: per-rank "
+                f"shards (the JAX package's `shard_mode`)")
+        return off
+
+    def _configure_host_offload_optimizer(self, client_optimizer):
+        """The host optimizer (``engine.py:589-616``): the fused CPU Adam(W)
+        over the masters of every trainable parameter, or of the twin-flow
+        host set, whose complement updates on the card with ``Adam``
+        (``engine.py:299-320,625-640``). Returns the host optimizer."""
+        from .zero.offload import HostOffloadOptimizer, partition_leaves_by_ratio
+
+        off = self._offload_cfg
+        params = dict(self.config.optimizer_params or {})
+        name = (self.config.optimizer_name or ADAMW_OPTIMIZER).lower()
+        adam_names = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER)
+        host = [True] * len(self._params)
+        if off.ratio < 1.0:
+            if client_optimizer is not None or name not in adam_names:
+                # the host set always runs the CPU Adam: another device rule
+                # would train the two halves under different optimizers
+                raise ValueError(
+                    "offload_optimizer.ratio < 1 (twin-flow) requires an Adam/AdamW config "
+                    f"optimizer (both slices must share the update rule); got "
+                    f"{'a client optimizer object' if client_optimizer is not None else repr(name)}"
+                    ". Use ratio=1.0 (full offload) or switch the optimizer.")
+            units = self._jax_leaf_units()
+            mask = partition_leaves_by_ratio(
+                [sum(4 * self._params[i].numel() for i in u) for u in units], off.ratio)
+            for unit, on_host in zip(units, mask):
+                for i in unit:
+                    host[i] = on_host
+            self._twin_host = host
+        elif client_optimizer is not None:
+            logger.warning("offload_optimizer: the client optimizer is not used; the host runs "
+                           "the fused CPU Adam")
+        if name not in adam_names:
+            logger.warning(f"offload_optimizer: '{name}' not supported on host; using fused CPU "
+                           f"AdamW")
+        names = {id(p): n for n, p in self.module.named_parameters()}
+        host_params = [p for p, h in zip(self._params, host) if h]
+        self.host_optimizer = HostOffloadOptimizer(
+            host_params, lr=params.get("lr", 1e-3), betas=tuple(params.get("betas", (0.9, 0.999))),
+            eps=params.get("eps", 1e-8), weight_decay=params.get("weight_decay", 0.0),
+            adamw_mode=name == ADAMW_OPTIMIZER or params.get("adam_w_mode", True),
+            nvme_path=off.nvme_path if off.device == "nvme" else None,
+            pipeline_read=off.pipeline_read, pipeline_write=off.pipeline_write,
+            grad_clip=self.config.gradient_clipping or 0.0,
+            keys=[names.get(id(p), str(i)) for i, p in enumerate(host_params)],
+            buffer_count=off.buffer_count)
+        if self._twin_host is not None:
+            lr = self.lr_schedule_fn if self.lr_schedule_fn is not None else params.get("lr", 1e-3)
+            self._twin_optimizer = build_optimizer(
+                name, [p for p, h in zip(self._params, host) if not h], params, lr=lr)
+        n_host = sum(host)
+        logger.info(f"ZeRO-Offload ({off.device}): {n_host}/{len(host)} trainable tensors' "
+                    f"optimizer state on the host"
+                    + (f" (twin-flow ratio {off.ratio})" if self._twin_host is not None else ""))
+        return self.host_optimizer
 
     def _configure_pallas_adam(self, client_optimizer):
         """Engage the fused AdamW kernel (``engine.py:545``) when the config
@@ -257,7 +381,7 @@ class DeepSpeedEngine:
         On engage, ``self.optimizer`` becomes the ``FusedAdam`` that holds
         ``FusedAdamState``. Returns the kernel's hyperparameters or None."""
         mode = self.config.tpu_config.pallas_fused_adam
-        if mode == "never" or client_optimizer is not None:
+        if mode == "never" or client_optimizer is not None or self.host_optimizer is not None:
             return None
         name = (self.config.optimizer_name or ADAMW_OPTIMIZER).lower()
         if name not in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER):
@@ -307,6 +431,9 @@ class DeepSpeedEngine:
             opt = self.optimizer
             return ([opt._init_state(p, "mu") for p in self._opt_params],
                     [opt._init_state(p, "nu") for p in self._opt_params], opt.count)
+        if self.host_optimizer is not None:
+            raise TypeError("under offload_optimizer the Adam state is on the host "
+                            "(engine.host_optimizer.state_dict())")
         raise TypeError(f"{type(self.optimizer).__name__} holds no Adam state")
 
     # ------------------------------------------------------------------
@@ -461,14 +588,45 @@ class DeepSpeedEngine:
         self.optimizer.apply(grads, lr_t=lr_t, grad_scale=inv_scale * coef, gate=finite)
         return finite
 
+    def _apply_update_offload(self, grads, gnorm_scaled):
+        """The host-offload update (``_host_apply_update``, ``engine.py:880-940``):
+        the card's norm read once; twin-flow's card subset launched first
+        (un-scale and clip folded into one factor, ``Adam`` gated); the
+        host C++ Adam and the upload. Returns (the finiteness flag as a
+        device tensor, the lr)."""
+        st = self.state
+        ready = torch.cuda.Event() if self.device.type == "cuda" else None
+        if ready is not None:
+            ready.record()  # the gradients are complete: the host set's copies may start
+        scale = float(st["loss_scale"])
+        gnorm = float(gnorm_scaled) / scale
+        self.offload_times = {"to_norm_ms": 1e3 * (time.perf_counter() - self._t_step)}
+        step_no = int(st["step"]) + 1
+        lr = (float(self.lr_schedule_fn(step_no - 1)) if self.lr_schedule_fn is not None else
+              (self.config.optimizer_params or {}).get("lr", 1e-3))
+        host_grads = grads
+        if self._twin_host is not None:  # a non-finite norm: the gate keeps the card's subset
+            clip = self.config.gradient_clipping or 0.0
+            factor = (1.0 / scale) * (clip / (gnorm + 1e-6) if clip and gnorm > clip else 1.0)
+            torch._foreach_mul_([g for g, h in zip(grads, self._twin_host) if not h], factor)
+            self._twin_optimizer.step(gate=torch.isfinite(gnorm_scaled))
+            host_grads = [g for g, h in zip(grads, self._twin_host) if h]
+        _, overflow = self.host_optimizer.step(step_no, host_grads, lr=lr, loss_scale=scale,
+                                               grad_norm=gnorm, grads_ready=ready)
+        self.offload_times.update(self.host_optimizer.times)
+        return torch.tensor(not overflow, device=self.device), lr
+
     def _finalize_step(self, grads, mean_loss):
         """Apply the update, advance the scalars, build the step metrics
         (``engine.py:1201``)."""
         st = self.state
         gnorm_scaled = self._grad_norm(grads)
-        lr = (self.lr_schedule_fn(st["step"]) if self.lr_schedule_fn is not None else
-              (self.config.optimizer_params or {}).get("lr", 0.0))
-        finite = self._apply_update(grads, gnorm_scaled)
+        if self.host_optimizer is not None:
+            finite, lr = self._apply_update_offload(grads, gnorm_scaled)
+        else:
+            lr = (self.lr_schedule_fn(st["step"]) if self.lr_schedule_fn is not None else
+                  (self.config.optimizer_params or {}).get("lr", 0.0))
+            finite = self._apply_update(grads, gnorm_scaled)
         if self._zero is not None:
             self._zero.after_update()
         self._advance_loss_scale(finite)
@@ -507,6 +665,7 @@ class DeepSpeedEngine:
         ``data_iter`` yielding ``gas`` microbatches. Returns the mean loss of
         the global batch as a device tensor (no host read)."""
         gas = self.config.gradient_accumulation_steps
+        self._t_step = time.perf_counter()
         if batch is None:
             assert data_iter is not None, "train_batch needs a batch or a data_iter"
             host = self._host_prepare_batch(mbs=[next(data_iter) for _ in range(gas)])
@@ -523,7 +682,8 @@ class DeepSpeedEngine:
         metrics = self._finalize_step(grads, mean_loss)
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
-        if self.fp16_enabled and bool(metrics["overflow"]):
+        # the host knows the offload path's overflow; elsewhere only fp16 reads it
+        if (self.fp16_enabled or self.host_optimizer is not None) and bool(metrics["overflow"]):
             self.skipped_steps += 1
         self._record_metrics(metrics)
         return metrics["loss"]
@@ -563,6 +723,7 @@ class DeepSpeedEngine:
         if self.micro_steps % self.config.gradient_accumulation_steps == 0:
             self._zero_grads()
             self._eager_losses = []
+            self._t_step = time.perf_counter()
         self._microbatch_backward(loss, self.state["loss_scale"], retain_graph)
         self._eager_losses.append(loss.detach())
         self.micro_steps += 1
@@ -666,6 +827,12 @@ class DeepSpeedEngine:
         moments (the model's parameters and ``.grad`` at world size 1); the
         expert-parallel experts apart (``expert_params``, ``expert_grads``,
         ``expert_moments``)."""
+        if self.host_optimizer is not None:  # the card holds the twin-flow subset's moments
+            opt = self._twin_optimizer
+            moments = [] if opt is None else [t for st in opt.state.values() for t in st.values()]
+            return {"params": sum(4 * p.numel() for p in self._params),
+                    "grads": sum(4 * p.grad.numel() for p in self._params if p.grad is not None),
+                    "moments": sum(4 * t.numel() for t in moments)}
         mu, nu = self.adam_state()[:2]
         if self._zero is None:
             return {"params": sum(4 * p.numel() for p in self._params),

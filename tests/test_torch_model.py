@@ -236,8 +236,8 @@ def test_sparse_model_logits_loss_and_every_gradient_match_jax():
     assert not np.allclose(ref, dense, atol=1e-2)  # the layout really drops keys
     loss = model.loss({"input_ids": torch.from_numpy(ids)})
     loss.backward()
-    j_loss, j_grads = jax.value_and_grad(
-        lambda p: jt.loss_fn(jcfg, p, {"input_ids": jnp.asarray(ids)}))(
+    j_loss, j_grads = jax.jit(jax.value_and_grad(
+        lambda p: jt.loss_fn(jcfg, p, {"input_ids": jnp.asarray(ids)})))(
             jax.tree.map(jnp.asarray, npp))
     np.testing.assert_allclose(loss.item(), float(j_loss), rtol=2e-5)
     grads = params_to_numpy({g: ([{n: p.grad for n, p in layer.items()} for layer in leaves]

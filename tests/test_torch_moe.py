@@ -310,16 +310,25 @@ def _grads_numpy(model):
                             for g, v in model.params().items()})
 
 
+@pytest.fixture(scope="module")
+def moe_init():
+    """The tiny MoE Mistral's JAX weights from PRNGKey(0), drawn once: the
+    tree and its values do not depend on ``moe_impl`` or ``loss_chunk``."""
+    jcfg, _ = _cfgs("einsum")
+    return jax.tree.map(np.asarray, jax.jit(lambda r: jt.init_params(jcfg, r))(
+        jax.random.PRNGKey(0)))
+
+
 @pytest.mark.parametrize("impl,loss_chunk", [("einsum", None), ("grouped", None), ("grouped", 8)])
-def test_moe_model_loss_and_every_gradient_match_jax(impl, loss_chunk):
+def test_moe_model_loss_and_every_gradient_match_jax(moe_init, impl, loss_chunk):
     """Loss (cross entropy + 0.01 x the layers' summed aux loss) and the
-    gradient of every parameter against ``jax.value_and_grad`` of the JAX
-    package's ``loss_fn(cfg, params, batch, None)``."""
+    gradient of every parameter against ``jax.value_and_grad`` (compiled)
+    of the JAX package's ``loss_fn(cfg, params, batch, None)``."""
     jcfg, tcfg = _cfgs(impl, loss_chunk=loss_chunk)
-    npp = jax.tree.map(np.asarray, jt.init_params(jcfg, jax.random.PRNGKey(0)))
+    npp = moe_init
     ids = np.random.default_rng(50).integers(0, 256, (2, 24)).astype(np.int32)
-    loss_ref, g_ref = jax.value_and_grad(
-        lambda p: jt.loss_fn(jcfg, p, {"input_ids": jnp.asarray(ids)}, None))(npp)
+    loss_ref, g_ref = jax.jit(jax.value_and_grad(
+        lambda p: jt.loss_fn(jcfg, p, {"input_ids": jnp.asarray(ids)}, None)))(npp)
     model = TransformerLM(tcfg, params_from_jax(npp, tcfg, device="cpu", dtype=torch.float32,
                                                 per_layer=True), trainable=True)
     loss = model.loss({"input_ids": t(ids)})
