@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--phases build,kernels,train_kernels,moe_kernels,sparse_kernels,e2e,
                                     train,remat,eager,zero,moe_zero,tp,moe_train,
                                     sparse_train,evo_kernels,evo_path,v1,hybrid,prefix_sample,
-                                    families,families_train,offload]
+                                    families,families_train,offload,pipe_onebit]
     python3 chip_smoke.py --mutant [NAMES]
     python3 chip_smoke.py --ablation [NAMES]
     python3 chip_smoke.py --versus DIR [--phases kernels,e2e]
@@ -478,6 +478,31 @@ code 1 otherwise):
    split, flash launches, falling losses. Printed beside the card's name
    and power limit; the flash kernels' JSON entries gain
    ``offload_launches`` a run.
+23. pipe_onebit: the 1-bit optimizers and the pipeline through
+   ``initialize`` / ``train_batch`` at Mistral-7B's widths, seq 2048, bf16,
+   one spawned world (two gloo ranks sharing the card; with four cards,
+   four NCCL ranks). 1-bit (``OneBitAdam`` at ZeRO stage 0, ``OneBitLamb``
+   and ``ZeroOneAdam`` at stage 1; data = the world, 2 layers at vocab
+   ZERO_VOCAB; 8 layers over four cards, ``OneBitAdam`` only), freeze_step
+   1 and 3 steps: the exact step against the stage-0 data-parallel step of
+   the same world (``dp:adam``, AdamW) within ``ZERO_WORLD1_REL_TOL``; the
+   compressed exchange of three JAX leaves (``ONEBIT_CHECKED``) recomputed
+   in this process from every rank's local gradients, the check carrying
+   its own error buffers, within ``ONEBIT_CHECK_REL_TOL`` of each rank's
+   mean and new error buffers; the bytes a rank sends for the exact (a
+   ring all-reduce) and the compressed exchange, computed from the sizes;
+   each step's ms. Pipeline (1F1B and GPipe, ``pipe`` 2 at 4 layers, the
+   32,000 vocabulary, gas 4, 3 steps, fused AdamW; over four cards ``pipe``
+   4, and ``pipe`` 2 x ``data`` 2 under both schedules, at 8 layers; each
+   rank draws its stage alone, ``TransformerLM(pipe_stage=...)``): losses
+   and gradient norms against the whole model drawn from the same seed at
+   world size 1 on the same global batch within ``ZERO_WORLD1_REL_TOL``,
+   GPipe against 1F1B within ``ZERO_REL_TOL``, each rank's stage, peak
+   memory building the stage and ``initialize`` and in the steps, and most
+   live microbatches. The flash kernels' launches on every
+   rank (layers a rank x gas x steps) and fused AdamW's on the pipeline
+   ranks (none under 1-bit), reset just before the steps; rows 4-7's JSON
+   entries gain ``pipe_onebit_launches`` (per case, per rank).
 
 ``--mutant`` copies the package into ``build/mutant/<name>`` once per
 mutant: the grouped matmul kernels dropping one row block's products
@@ -517,7 +542,10 @@ over the model group and, alone, every rank's serving weights taking rank
 0's kv heads (``--phases build,tp`` must fail, each by more than 30x the
 phase's tolerance), and the host offload optimizer updating its masters
 but uploading nothing (``--phases build,offload`` must fail by more than
-30x the parity tolerance): twenty-two copies.
+30x the parity tolerance), and a pipeline stage receiving the previous
+microbatch's activation and, alone, the 1-bit exchange dropping the
+server's error (``--phases build,pipe_onebit`` must fail, each by more than
+30x the phase's tolerance): twenty-four copies.
 It passes when every mutant is caught.
 
 ``--ablation`` times the flash kernels, the paged prefill and decode, the
@@ -6331,6 +6359,391 @@ def phase_offload():
     return launches, rec
 
 
+# ---------------------------------------------------------------------------
+# phase: the 1-bit optimizers and pipeline parallelism over two or four ranks
+# ---------------------------------------------------------------------------
+
+# 1-bit: Mistral-7B's widths at ZERO_VOCAB, freeze_step 1 and 3 steps (one
+# exact, two compressed), data = the world; the exact step held to the
+# stage-0 data-parallel step (dp:adam, the same world) within
+# ZERO_WORLD1_REL_TOL. The compressed exchange of the leaves ONEBIT_CHECKED is
+# recomputed in one process from the ranks' local gradients, the check
+# carrying its own error buffers from zero at the first compressed step, and
+# held to the ranks' exchanged gradient and both new error buffers within
+# ONEBIT_CHECK_REL_TOL (relative L2; the same fp32 operations). Pipeline:
+# Mistral-7B's widths at the full 32,000 vocabulary (the embedding on the
+# first stage, the head on the last), gas 4, 3 steps, 1F1B and GPipe, held
+# to world size 1 on the same global batch within ZERO_WORLD1_REL_TOL
+# (losses and gradient norms) and to each other within ZERO_REL_TOL. Case
+# strings: onebit:<adam|lamb|zoadam>:<layers>, dp:adam:<layers>,
+# pipe:<1f1b|gpipe>:<pipe>:<data>:<layers>.
+PIPE_ONEBIT_GLOO_CASES = ("dp:adam:2", "onebit:adam:2", "onebit:lamb:2", "onebit:zoadam:2",
+                          "pipe:1f1b:2:1:4", "pipe:gpipe:2:1:4")
+PIPE_ONEBIT_NCCL_CASES = ("dp:adam:8", "onebit:adam:8", "pipe:1f1b:4:1:8", "pipe:1f1b:2:2:8",
+                          "pipe:gpipe:2:2:8")
+PIPE_ONEBIT_STEPS, PIPE_GAS, ONEBIT_FREEZE = 3, 4, 1
+ONEBIT_CHECKED = (("blocks", "ln1_scale"), ("embed", "embedding"), ("final_norm", "scale"))
+ONEBIT_CHECK_REL_TOL = 1e-5
+ONEBIT_OPTIMIZERS = {"adam": ("OneBitAdam", 0), "lamb": ("OneBitLamb", 1),
+                     "zoadam": ("ZeroOneAdam", 1)}
+PIPE_VOCAB = 32000
+
+
+def _pipe_onebit_config(case, world):
+    """(ds_config, layers, vocab, data size, gas) of a pipe_onebit case."""
+    kind, name, *rest = case.split(":")
+    base = dict({k: v for k, v in TRAIN_DS_CONFIG.items() if k != "scheduler"},
+                train_batch_size=None, train_micro_batch_size_per_gpu=1)
+    if kind == "pipe":
+        pipe, data, layers = map(int, rest)
+        return (dict(base, gradient_accumulation_steps=PIPE_GAS,
+                     optimizer={"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.1}},
+                     zero_optimization={"stage": int(data > 1)}, pipeline={"schedule": name},
+                     tpu={"pallas_fused_adam": "always", "mesh": {"pipe": pipe, "data": data}}),
+                layers, PIPE_VOCAB, data, PIPE_GAS)
+    layers = int(rest[0])
+    opt, stage = ONEBIT_OPTIMIZERS[name] if kind == "onebit" else ("AdamW", 0)
+    params = {"lr": 1e-3, "weight_decay": 0.1}
+    if kind == "onebit":
+        params["var_freeze_step" if name == "zoadam" else "freeze_step"] = ONEBIT_FREEZE
+    return (dict(base, optimizer={"type": opt, "params": params},
+                 zero_optimization={"stage": stage},
+                 tpu={"pallas_fused_adam": "never", "mesh": {"data": world}}),
+            layers, ZERO_VOCAB, world, base["gradient_accumulation_steps"])
+
+
+def _pipe_onebit_ids(data_rank, gas, vocab):
+    """Data rank ``data_rank``'s ids of every step: ``gas`` microbatches of
+    1 x ZERO_SEQ."""
+    import numpy as np
+
+    rng = np.random.default_rng(2000 + data_rank)
+    return rng.integers(0, vocab, (gas, ZERO_SEQ)).astype(np.int32)
+
+
+def _onebit_recorder(engine, keep):
+    """Record the engine's compressed exchange of the JAX leaves ``keep``
+    (the engine exchanges every leaf once a compressed step, in the order of
+    its sorted (group, name) keys): per compressed step {leaf: (local
+    gradient, mean, new err_w, new err_s)} on the host. Returns (the
+    records, a function undoing the patch)."""
+    from deepspeed_tpu_torch.runtime.comm import compressed
+
+    keys = sorted({(g, n) for g, n, p, _ in engine.module._leaves() if p.requires_grad})
+    wanted = {keys.index(k): "/".join(k) for k in keep}
+    real, steps, calls = compressed.onebit_allreduce, [], [0]
+
+    def recording(x, ew, es, group=None, world=None):
+        out = real(x, ew, es, group, world)
+        step, unit = divmod(calls[0], len(keys))
+        calls[0] += 1
+        if unit == 0:
+            steps.append({})
+        if unit in wanted:
+            steps[step][wanted[unit]] = tuple(t.detach().float().reshape(-1).cpu().clone()
+                                              for t in (x, *out))
+        return out
+
+    compressed.onebit_allreduce = recording
+    return steps, lambda: setattr(compressed, "onebit_allreduce", real)
+
+
+def _pipe_onebit_rank_run(cases, out_path):
+    """One rank of the pipe_onebit phase: each case through ``initialize``
+    -> ``train_batch`` on this rank's rows (Mistral-7B widths from seed 0),
+    the launch counts and the peak reset just before the steps and read
+    just after. Writes {case: losses, gradient norms, step ms, peak GiB,
+    launches, ...} as JSON to ``out_path`` and the 1-bit cases' recorded
+    exchanges beside it (``<out_path>.onebit.pt``)."""
+    import datetime
+    import gc
+
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fad
+    from deepspeed_tpu_torch.parallel import groups
+    from deepspeed_tpu_torch.parallel.mesh import MeshConfig
+    from deepspeed_tpu_torch.runtime.comm.compressed import onebit_wire_bytes
+
+    deepspeed_tpu_torch.init_distributed(dist_backend=os.environ["ZERO_BACKEND"], verbose=False,
+                                         timeout=datetime.timedelta(minutes=3))
+    rank, world = comm.get_rank(), comm.get_world_size()
+    out = {"rank": rank, "world": world, "backend": comm.get_backend(), "cases": {}}
+    records = {}
+    for case in cases:
+        config, layers, vocab, data, gas = _pipe_onebit_config(case, world)
+        cfg = mistral_config("7b", num_layers=layers, vocab_size=vocab)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if case.startswith("pipe:"):  # this rank's stage alone, drawn from the seed
+            groups.initialize_mesh(MeshConfig(**config["tpu"]["mesh"]), "cuda")
+            model = TransformerLM(cfg, trainable=True, seed=0, pipe_stage=(
+                groups.get_pipe_parallel_rank(), groups.get_pipe_parallel_world_size()))
+        else:
+            model = TransformerLM(cfg, trainable=True, seed=0)
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=config)
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated() / 2**30
+        batch = {"input_ids": _pipe_onebit_ids(engine.dp_rank, gas, vocab)}
+        recorder = (_onebit_recorder(engine, ONEBIT_CHECKED) if case.startswith("onebit:")
+                    else None)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        fad.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, times, flags = [], [], [], []
+        for _ in range(PIPE_ONEBIT_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            norms.append(float(engine.get_global_grad_norm()))
+            flags.append(bool(getattr(engine, "onebit_compressed", False)))
+        r = {"losses": losses, "grad_norms": norms, "step_ms": times,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "init_peak_gib": init_peak,
+             "launches": {**fa.launch_counts, **fad.launch_counts}, "layers": layers,
+             "params": sum(p.numel() for p in engine._params), "gas": gas}
+        if engine._pipe is not None:
+            r.update(stage=engine._pipe.stage_id, data_rank=engine.dp_rank,
+                     max_live=engine._pipe.max_live)
+        if recorder is not None:
+            recorder[1]()
+            records[case] = recorder[0]
+            sizes = [sum(engine._params[i].numel() for i in u) for u in engine._onebit_units]
+            # computed from the sizes, not measured: the bytes one rank sends a step, a
+            # ring all-reduce's 2 (w - 1) / w x 4n for the exact mean
+            r.update(compressed=flags,
+                     exact_sent_bytes=sum(8 * (world - 1) * n // world for n in sizes),
+                     compressed_sent_bytes=sum(onebit_wire_bytes(n, world) for n in sizes))
+        out["cases"][case] = r
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    comm.barrier()
+    comm.destroy_process_group()
+    torch.save(records, out_path + ".onebit.pt")
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _onebit_reference(xs, ews, ess):
+    """The error-feedback 1-bit mean of the ranks' local gradients ``xs``
+    with their error buffers, in one process, from the formulas (no sign
+    packing): (the mean, [each rank's new err_w], [each rank's new
+    err_s])."""
+    import torch
+
+    world, n = len(xs), xs[0].numel()
+    chunk = -(-(-(-n // world)) // 8) * 8
+
+    def sign(t):
+        return torch.where(t >= 0, 1.0, -1.0)
+
+    rows, scales, new_ew = [], [], []
+    for x, ew in zip(xs, ews):
+        c = torch.nn.functional.pad(x + ew, (0, chunk * world - n)).view(world, chunk)
+        s = c.abs().mean(dim=1)
+        rows.append(sign(c))
+        scales.append(s)
+        new_ew.append((c - s[:, None] * sign(c)).reshape(-1)[:n])
+    outs, new_es = [], []
+    for j in range(world):
+        avg = torch.stack([scales[r][j] * rows[r][j] for r in range(world)]).mean(dim=0)
+        cs = avg + ess[j]
+        ss = cs.abs().mean()
+        new_es.append(cs - ss * sign(cs))
+        outs.append(ss * sign(cs))
+    return torch.cat(outs)[:n], new_ew, new_es
+
+
+def _onebit_check(paths, case):
+    """The largest relative L2 difference of the ranks' recorded exchange
+    (mean, new err_w, new err_s) to the one-process recomputation, the
+    check's error buffers carried from zero over the compressed steps."""
+    import torch
+
+    recs = [torch.load(p + ".onebit.pt")[case] for p in paths]
+    world = len(recs)
+    worst, err = 0.0, {}
+    for step in range(len(recs[0])):
+        for leaf in recs[0][step]:
+            xs = [rec[step][leaf][0] for rec in recs]
+            n = xs[0].numel()
+            chunk = -(-(-(-n // world)) // 8) * 8
+            ews, ess = err.get(leaf, ([torch.zeros(n)] * world, [torch.zeros(chunk)] * world))
+            want, want_ew, want_es = _onebit_reference(xs, ews, ess)
+            err[leaf] = (want_ew, want_es)
+            for r, rec in enumerate(recs):
+                _, got, got_ew, got_es = rec[step][leaf]
+                for g, w in ((got, want), (got_ew, want_ew[r]), (got_es, want_es[r])):
+                    worst = max(worst, float((g - w).norm() / w.norm().clamp_min(1e-30)))
+    return worst, len(recs[0])
+
+
+def _pipe_world1(config, layers, data, gas):
+    """A pipe case's configuration at world size 1 in this process on the
+    global batch (micro ``data``: data rank d's row of each microbatch at
+    d): (losses, gradient norms, step ms)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_config
+
+    model = TransformerLM(mistral_config("7b", num_layers=layers, vocab_size=PIPE_VOCAB),
+                          trainable=True, seed=0)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=dict(
+        config, train_micro_batch_size_per_gpu=data, zero_optimization={"stage": 0},
+        pipeline={}, tpu={"pallas_fused_adam": "always"}))
+    ids = np.stack([_pipe_onebit_ids(d, gas, PIPE_VOCAB) for d in range(data)], axis=1)
+    res = _zero_train(engine, {"input_ids": ids.reshape(gas * data, ZERO_SEQ)},
+                      PIPE_ONEBIT_STEPS)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_pipe_onebit():
+    """The 1-bit optimizers and the pipeline over two gloo ranks sharing the
+    card (or four NCCL ranks over four cards). Returns {case: {kernel: [per
+    rank launches]}} and the phase's record."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_dev = torch.cuda.device_count()
+    world, backend = (4, "nccl") if n_dev >= 4 else (2, "gloo")
+    cases = PIPE_ONEBIT_NCCL_CASES if backend == "nccl" else PIPE_ONEBIT_GLOO_CASES
+    log(f"[pipe_onebit] {world} ranks over {backend} on {n_dev} visible device(s); Mistral-7B "
+        f"widths, 1 x {ZERO_SEQ} tokens a rank a microbatch, bf16, clipping 1.0, lr 1e-3; "
+        f"1-bit at vocab {ZERO_VOCAB}, gas 2, freeze_step {ONEBIT_FREEZE}; pipeline at vocab "
+        f"{PIPE_VOCAB}, gas {PIPE_GAS}, fused AdamW; {PIPE_ONEBIT_STEPS} steps each; cases "
+        f"{cases}")
+    t0 = time.perf_counter()
+    world1 = {}
+    for case in cases:
+        if case.startswith("pipe:"):
+            config, layers, _, data, gas = _pipe_onebit_config(case, world)
+            key = (layers, data)
+            if key not in world1:
+                world1[key] = _pipe_world1(config, layers, data, gas)
+                log(f"[pipe_onebit] world size 1 at {layers} layers, micro {data}: losses "
+                    f"{[round(x, 5) for x in world1[key][0]]}; gradient norms "
+                    f"{[round(x, 5) for x in world1[key][1]]}; step ms "
+                    f"{[round(t, 1) for t in world1[key][2]]}")
+    log(f"[pipe_onebit] world size 1 references in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ranks = _zero_spawn(world, backend, 0, cases, "pipe_onebit")
+    paths = [os.path.join(HERE, "build", "zero", f"pipe_onebit_rank{r}.json")
+             for r in range(world)]
+    log(f"[pipe_onebit] ranks done in {time.perf_counter() - t0:.1f}s")
+    launches, record, failures = {}, {"world": world, "backend": backend, "cases": {}}, []
+    fractions = {}
+    dp = next(c for c in cases if c.startswith("dp:"))
+    for case in cases:
+        got = [r["cases"][case] for r in ranks]
+        launches[case] = {}
+        for r, g in enumerate(got):
+            for name, n in g["launches"].items():
+                launches[case].setdefault(name, [0] * world)[r] += n
+        rec = {"losses": got[0]["losses"], "grad_norms": got[0]["grad_norms"],
+               "peak_gib": [g["peak_gib"] for g in got],
+               "init_peak_gib": [g["init_peak_gib"] for g in got], "launches": launches[case],
+               "step_ms": [g["step_ms"] for g in got], "params": [g["params"] for g in got]}
+        config, layers, vocab, data, gas = _pipe_onebit_config(case, world)
+        per_rank_layers = layers // (world // data) if case.startswith("pipe:") else layers
+        n_attn = per_rank_layers * gas * PIPE_ONEBIT_STEPS
+        want = {"flash_fwd": n_attn, "flash_bwd_dkdv": n_attn, "flash_bwd_dq": n_attn,
+                "fused_adam": PIPE_ONEBIT_STEPS if case.startswith("pipe:") else 0}
+        for r, g in enumerate(got):
+            if g["launches"] != want:
+                failures.append(f"{case} rank {r}: launches {g['launches']}, expected {want}")
+            if not all(np.isfinite(g["losses"])) or g["losses"] != got[0]["losses"]:
+                failures.append(f"{case} rank {r}: losses {g['losses']} not finite or not "
+                                f"rank 0's {got[0]['losses']}")
+        if case.startswith("onebit:"):
+            base = ranks[0]["cases"][dp]
+            exact = max(_rel(got[0]["losses"][:1], base["losses"][:1]),
+                        _rel(got[0]["grad_norms"][:1], base["grad_norms"][:1]))
+            if "lamb" not in case:  # the same AdamW update after the exact step
+                exact = max(exact, _rel(got[0]["losses"][1:2], base["losses"][1:2]))
+            check, n_steps = _onebit_check(paths, case)
+            flags = got[0]["compressed"]
+            if flags != [False] * ONEBIT_FREEZE + [True] * (PIPE_ONEBIT_STEPS - ONEBIT_FREEZE):
+                failures.append(f"{case}: compressed steps {flags}")
+            fractions[case] = max(exact / ZERO_WORLD1_REL_TOL, check / ONEBIT_CHECK_REL_TOL)
+            rec.update(exact_rel_diff=exact, recompute_rel_l2=check, compressed=flags,
+                       exact_sent_bytes=got[0]["exact_sent_bytes"],
+                       compressed_sent_bytes=got[0]["compressed_sent_bytes"])
+            log(f"[pipe_onebit] {case}: losses {[round(x, 5) for x in got[0]['losses']]}, "
+                f"gradient norms {[round(x, 5) for x in got[0]['grad_norms']]}; steps "
+                f"compressed {flags}; the exact step against {dp}: largest relative difference "
+                f"{exact:.3e} (tolerance {ZERO_WORLD1_REL_TOL}); the exchange of "
+                f"{len(ONEBIT_CHECKED)} leaves over {n_steps} compressed steps against the "
+                f"one-process recomputation: largest relative L2 {check:.3e} (tolerance "
+                f"{ONEBIT_CHECK_REL_TOL}); bytes a rank sends a step, computed from the sizes: "
+                f"exact {got[0]['exact_sent_bytes']:,} (a ring all-reduce), compressed "
+                f"{got[0]['compressed_sent_bytes']:,}; step ms by rank "
+                f"{[[round(t, 1) for t in g['step_ms']] for g in got]} (step 1 exact); peak GiB "
+                f"{[round(g['peak_gib'], 2) for g in got]}; launches {launches[case]}")
+            if exact > ZERO_WORLD1_REL_TOL or check > ONEBIT_CHECK_REL_TOL:
+                failures.append(f"{case}: exact step {exact:.3e}, exchange {check:.3e}")
+        elif case.startswith("pipe:"):
+            w1 = world1[(layers, data)]
+            rel = max(_rel(got[0]["losses"], w1[0]), _rel(got[0]["grad_norms"], w1[1]))
+            fractions[case] = rel / ZERO_WORLD1_REL_TOL
+            rec.update(world1_rel_diff=rel, stages=[g["stage"] for g in got],
+                       max_live=[g["max_live"] for g in got])
+            log(f"[pipe_onebit] {case}: losses {[round(x, 5) for x in got[0]['losses']]}, "
+                f"gradient norms {[round(x, 5) for x in got[0]['grad_norms']]}; against world "
+                f"size 1: largest relative difference {rel:.3e} (tolerance "
+                f"{ZERO_WORLD1_REL_TOL}); stage by rank {rec['stages']}, most live "
+                f"microbatches {rec['max_live']}; step ms by rank "
+                f"{[[round(t, 1) for t in g['step_ms']] for g in got]}; peak GiB by rank "
+                f"{[round(g['peak_gib'], 2) for g in got]} in the steps, "
+                f"{[round(g['init_peak_gib'], 2) for g in got]} building the stage and "
+                f"initialize; parameters by rank "
+                f"{rec['params']}; launches {launches[case]}")
+            if rel > ZERO_WORLD1_REL_TOL:
+                failures.append(f"{case} against world size 1: relative {rel:.3e}")
+        else:
+            log(f"[pipe_onebit] {case}: losses {[round(x, 5) for x in got[0]['losses']]}, "
+                f"gradient norms {[round(x, 5) for x in got[0]['grad_norms']]}; step ms "
+                f"{[[round(t, 1) for t in g['step_ms']] for g in got]}")
+        record["cases"][case] = rec
+    for case in cases:  # 1F1B against GPipe on the same mesh
+        if case.startswith("pipe:gpipe:"):
+            other = case.replace("gpipe", "1f1b")
+            if other in record["cases"]:
+                a, b = record["cases"][case], record["cases"][other]
+                rel = max(_rel(a["losses"], b["losses"]), _rel(a["grad_norms"], b["grad_norms"]))
+                fractions[f"{case} vs 1f1b"] = rel / ZERO_REL_TOL
+                record["cases"][case]["rel_diff_to_1f1b"] = rel
+                log(f"[pipe_onebit] {case} against {other}: largest relative difference "
+                    f"{rel:.3e} (tolerance {ZERO_REL_TOL}); peak GiB by rank "
+                    f"{[round(x, 2) for x in a['peak_gib']]} against "
+                    f"{[round(x, 2) for x in b['peak_gib']]}")
+                if rel > ZERO_REL_TOL:
+                    failures.append(f"{case} against {other}: relative {rel:.3e}")
+    fraction = max(fractions.values())
+    record["worst_error_fraction"] = fraction
+    log(f"[pipe_onebit] worst_error_fraction={fraction:.3f} (by case: "
+        f"{ {k: round(v, 4) for k, v in fractions.items()} })")
+    if failures:
+        raise RuntimeError(f"pipe_onebit disagrees: {'; '.join(failures)}")
+    return launches, record
+
+
 # the mutant checks. Grouped matmul: a copy that drops one row block's
 # contribution (gmm on the wgmma route: the second 128-row tile's products;
 # tgmm on both routes: each expert's first row block) must fail the
@@ -6434,6 +6847,16 @@ TP_KV_MUTATIONS = _in(  # every rank's serving weights (stacked) take rank 0's k
         ("        return t.narrow(d, self.rank * n, n).clone()",
          "        return t.narrow(d, (0 if stacked and name in ('wk', 'wv') else self.rank) * n, "
          "n).clone()"),))
+PIPE_STALE_ACTIVATION_MUTATIONS = _in(  # a stage receives the previous microbatch's activation
+    "deepspeed_tpu_torch/runtime/pipe/engine.py", (
+        ("                self.inputs[c.buffer_id] = t.requires_grad_()",
+         "                self.inputs[c.buffer_id], self._prev_act = (\n"
+         "                    t if getattr(self, '_prev_act', None) is None else self._prev_act"
+         ").detach().requires_grad_(), t"),))
+ONEBIT_SERVER_ERROR_MUTATIONS = _in(  # the server's error is not fed back: it stays 0
+    "deepspeed_tpu_torch/runtime/engine.py", (
+        ("out, self.onebit_err_w[k], self.onebit_err_s[k] = onebit_allreduce(",
+         "out, self.onebit_err_w[k], _ = onebit_allreduce("),))
 OFFLOAD_STALE_UPLOAD_MUTATIONS = _in(  # the host updates the masters, uploads nothing
     "deepspeed_tpu_torch/runtime/zero/offload.py", (
         ("p.data.copy_(master.view(p.shape), non_blocking=True)", "pass"),))
@@ -6471,6 +6894,10 @@ MUTANTS = {  # name -> (replacements, phase, the phase's failure text)
     "tp_region": (TP_REGION_MUTATIONS, "tp", "tp disagrees"),
     "tp_kv": (TP_KV_MUTATIONS, "tp", "tp disagrees"),
     "offload_stale_upload": (OFFLOAD_STALE_UPLOAD_MUTATIONS, "offload", "offload disagrees"),
+    "pipe_stale_activation": (PIPE_STALE_ACTIVATION_MUTATIONS, "pipe_onebit",
+                              "pipe_onebit disagrees"),
+    "onebit_server_error": (ONEBIT_SERVER_ERROR_MUTATIONS, "pipe_onebit",
+                            "pipe_onebit disagrees"),
 }
 
 
@@ -6677,7 +7104,7 @@ def _run_one_mutant(name):
     # stale half of a group moves the losses by what one step moves them
     if phase not in ("moe_kernels", "v1"):
         least = (ZERO_MUTANT_MIN_FACTOR if phase in ("zero", "moe_zero", "remat", "tp",
-                                                      "offload") else
+                                                      "offload", "pipe_onebit") else
                  MUTANT_MIN_FACTOR)
         factor = _worst_error_fraction(proc.stdout, phase) or 0.0
         log(f"[mutant] {name}: caught at {factor:.1f}x the tolerance (must exceed "
@@ -6978,7 +7405,8 @@ def run_versus(other, phases):
 
 PHASES = ("build", "kernels", "train_kernels", "moe_kernels", "sparse_kernels", "e2e", "train",
           "remat", "eager", "zero", "moe_zero", "tp", "moe_train", "sparse_train", "evo_kernels",
-          "evo_path", "v1", "hybrid", "prefix_sample", "families", "families_train", "offload")
+          "evo_path", "v1", "hybrid", "prefix_sample", "families", "families_train", "offload",
+          "pipe_onebit")
 
 
 def main():
@@ -7024,6 +7452,8 @@ def main():
         cases = args.zero_stages.split(",")
         if args.zero_stages.startswith("tp:"):  # a tp rank
             _tp_rank_run(args.zero_layers, cases, args.zero_out)
+        elif args.zero_stages.startswith(("dp:", "onebit:", "pipe:")):  # a pipe_onebit rank
+            _pipe_onebit_rank_run(cases, args.zero_out)
         elif ":" in args.zero_stages:  # a moe_zero rank: impl:stage cases
             _moe_zero_rank_run(args.zero_layers, [(c.split(":")[0], int(c.split(":")[1]))
                                                   for c in cases], args.zero_out)
@@ -7051,7 +7481,8 @@ def main():
            "sparse_train": phase_sparse_train, "evo_kernels": phase_evo_kernels,
            "evo_path": phase_evo_path, "v1": phase_v1, "hybrid": phase_hybrid,
            "prefix_sample": phase_prefix_sample, "families": phase_families,
-           "families_train": phase_families_train, "offload": phase_offload}
+           "families_train": phase_families_train, "offload": phase_offload,
+           "pipe_onebit": phase_pipe_onebit}
     failed = []
     out = {}
     for name in PHASES:
@@ -7099,6 +7530,7 @@ def main():
     families_launches, families = out["families"]
     families_train_launches, families_train = out["families_train"]
     offload_launches, offload = out["offload"]
+    pipe_onebit_launches, pipe_onebit = out["pipe_onebit"]
     for entry in kernels:  # the paged kernels' launches per rank on the tp serving path
         entry["tp_launches"] = tp_launches[entry["name"]]
         entry["prefix_sample_launches"] = {run: int(n[entry["name"]])
@@ -7121,6 +7553,8 @@ def main():
                  **({"family_shapes": m["family_shapes"]} if "family_shapes" in m else {})}
         if name in offload_launches["device"]:  # the flash kernels
             entry["offload_launches"] = {run: int(n[name]) for run, n in offload_launches.items()}
+        entry["pipe_onebit_launches"] = {case: n.get(name, [0] * pipe_onebit["world"])
+                                         for case, n in pipe_onebit_launches.items()}
         if name == "flash_fwd":
             entry["v1_launches"] = int(v1_launches[name])
             entry["families_train"] = families_train
@@ -7129,6 +7563,7 @@ def main():
             entry["full_set"] = adam_full
         if name == "flash_fwd":
             entry["remat"], entry["eager"] = remat, eager
+            entry["pipe_onebit"] = pipe_onebit
         kernels.append(entry)
     moe_launches, moe_step = out["moe_train"]
     for name, m in out["moe_kernels"].items():

@@ -13,7 +13,10 @@ trainable=True)``), or a bare ``loss_fn(params, batch)`` paired with
 ``checkpoint``, ``configure``, the RNG tracker). ``module_inject`` is tensor
 parallelism's surface (AutoTP, the policies, the Megatron layers), with
 ``replace_transformer_layer`` / ``revert_transformer_layer`` at the top, as
-``deepspeed_tpu/__init__.py:28,30`` exports them.
+``deepspeed_tpu/__init__.py:28,30`` exports them. ``pipe`` and
+``PipelineModule`` are the pipeline containers (``deepspeed_tpu/__init__.py:
+20,23``); a ``tpu.mesh`` with ``pipe`` above 1 trains a ``TransformerLM``
+one rank a stage (``runtime/pipe/engine.py``).
 """
 
 __version__ = "0.1.0"
@@ -22,7 +25,7 @@ import os
 
 from torch import nn
 
-from . import module_inject
+from . import module_inject, pipe
 from .comm import init_distributed
 from .inference.config import DeepSpeedInferenceConfig
 from .inference.engine import InferenceEngine
@@ -31,6 +34,7 @@ from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 from .runtime.engine import DeepSpeedEngine
 from .module_inject import replace_transformer_layer, revert_transformer_layer
 from .runtime.hybrid_engine import DeepSpeedHybridEngine
+from .runtime.pipe import PipelineModule
 
 
 def initialize(args=None,
@@ -146,5 +150,5 @@ def add_config_arguments(parser):
 
 __all__ = ["DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine", "DeepSpeedHybridEngine",
            "DeepSpeedInferenceConfig", "InferenceEngine", "add_config_arguments", "checkpointing",
-           "init_distributed", "init_inference", "initialize", "module_inject",
-           "replace_transformer_layer", "revert_transformer_layer"]
+           "PipelineModule", "init_distributed", "init_inference", "initialize", "module_inject",
+           "pipe", "replace_transformer_layer", "revert_transformer_layer"]

@@ -4,8 +4,9 @@ Counterpart of ``deepspeed_tpu/comm/comm.py``: ``init_distributed`` and the
 process-group queries, and the collectives the ZeRO engine and the
 expert-parallel MoE issue (``all_reduce``, ``all_gather_into_tensor``,
 ``reduce_scatter_tensor``, ``broadcast``, ``scatter``,
-``all_to_all_single``), and ``inference_all_reduce`` (``functional.py``),
-the tensor-parallel regions' sum. In the JAX package these collectives are inserted by XLA
+``all_to_all_single``), ``p2p_exchange`` (the pipeline's sends and
+receives between neighbouring stages) and ``inference_all_reduce``
+(``functional.py``), the tensor-parallel regions' sum. In the JAX package these collectives are inserted by XLA
 from sharding annotations; here they are explicit calls on the default
 process group (or ``group``).
 
@@ -28,7 +29,7 @@ __all__ = ["ReduceOp", "all_gather", "all_gather_into_tensor", "all_gather_objec
            "barrier", "broadcast", "broadcast_object_list", "destroy_process_group", "get_backend",
            "get_global_rank", "get_local_rank", "get_rank", "get_world_size",
            "inference_all_reduce", "init_distributed",
-           "is_initialized", "new_group", "reduce_scatter_tensor", "scatter"]
+           "is_initialized", "new_group", "p2p_exchange", "reduce_scatter_tensor", "scatter"]
 
 ReduceOp = dist.ReduceOp
 cdb = None  # the TorchBackend once init_distributed ran
@@ -198,6 +199,27 @@ def all_to_all_single(output, input, group=None):
         return output
     dist.all_to_all_single(output, input, group=group)
     return output
+
+
+def p2p_exchange(ops):
+    """Point-to-point sends and receives issued together and waited on:
+    ``ops`` is a list of ``(is_send, tensor, peer)``, ``peer`` a world rank;
+    a received tensor is filled in place. Issued as one
+    ``batch_isend_irecv``, so two ranks that each send to the other before
+    receiving do not wait on each other (NCCL runs a batch as one group)."""
+    if not ops:
+        return
+    staged = _staged(None, [t for _, t, _ in ops])
+    bufs = [(t.cpu() if send else torch.empty(t.shape, dtype=t.dtype)) if staged else t
+            for send, t, _ in ops]
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend if send else dist.irecv, buf, peer)
+                                   for (send, _, peer), buf in zip(ops, bufs)])
+    for req in reqs:
+        req.wait()
+    if staged:
+        for (send, t, _), buf in zip(ops, bufs):
+            if not send:
+                t.copy_(buf)
 
 
 from .functional import all_gather, inference_all_reduce  # noqa: E402

@@ -53,6 +53,7 @@ reference's ``sanitize_spec`` fallback). Norms, ``bo`` and ``b_down`` are
 replicated. ``tp=None`` is the unchanged single-rank path.
 """
 
+import collections
 import math
 import warnings
 from dataclasses import dataclass, field
@@ -836,6 +837,45 @@ def _embed(cfg: TransformerConfig, params, ids, tp=None):
     return emb[ids]
 
 
+def embed_input(cfg: TransformerConfig, params, input_ids, tp=None):
+    """Token ids [B, S] -> the first block's input [B, S, H] in ``cfg.dtype``:
+    the embedding, the learned positions and the embedding norm where the
+    config has them."""
+    S = input_ids.shape[1]
+    x = _embed(cfg, params, input_ids, tp)
+    if cfg.positions == "learned":
+        x = x + params["pos_embed"]["embedding"].to(cfg.dtype)[:S][None]
+    if cfg.embed_layernorm:
+        en = params["embed_norm"]
+        x = _norm(x, en["scale"], en.get("bias"), cfg.norm, cfg.norm_eps)
+    return x
+
+
+def run_blocks(cfg: TransformerConfig, blocks, x, layer_ids, generator=None, tp=None):
+    """Blocks ``layer_ids`` (in order) on ``x`` [B, S, H]: (the last one's
+    output, [the MoE aux loss of each block that has one]). ``blocks``: the
+    per-layer weights, indexable by layer (:func:`layers`). ``cfg.remat``:
+    each block under ``checkpointing.checkpoint`` (:func:`forward_hidden`)."""
+    S = x.shape[1]
+    sin = cos = None
+    if cfg.positions == "rotary":
+        sin, cos = rope_table(cfg, torch.arange(S, device=x.device))
+
+    def block(x, l, generator):
+        return _block(cfg, x, blocks[l], sin, cos, generator, tp=tp)
+
+    policy = checkpointing.resolve_policy(cfg.remat_policy) if cfg.remat else None
+    auxs = []
+    for l in layer_ids:
+        if policy is None:
+            x, aux = block(x, l, generator)
+        else:
+            x, aux = checkpointing.checkpoint(block, x, l, generator, policy=policy)
+        if aux is not None:
+            auxs.append(aux)
+    return x, auxs
+
+
 def forward_hidden(cfg: TransformerConfig, params, input_ids, generator=None, tp=None):
     """Token ids [B, S] -> (final-norm hidden [B, S, H], the MoE aux loss
     summed over layers; 0 for a dense model): the plain layer loop of
@@ -852,31 +892,9 @@ def forward_hidden(cfg: TransformerConfig, params, input_ids, generator=None, tp
     gather. The generators are its arguments, so the gating's draws replay
     in the recompute; a tensor-parallel recompute runs the block's
     all-reduces again, in the same order on every rank."""
-    dt = cfg.dtype
-    B, S = input_ids.shape
-    x = _embed(cfg, params, input_ids, tp)
-    if cfg.positions == "learned":
-        x = x + params["pos_embed"]["embedding"].to(dt)[:S][None]
-    if cfg.embed_layernorm:
-        en = params["embed_norm"]
-        x = _norm(x, en["scale"], en.get("bias"), cfg.norm, cfg.norm_eps)
-    sin = cos = None
-    if cfg.positions == "rotary":
-        sin, cos = rope_table(cfg, torch.arange(S, device=input_ids.device))
-    blocks = layers(params["blocks"], cfg.num_layers)
-
-    def block(x, l, generator):
-        return _block(cfg, x, blocks[l], sin, cos, generator, tp=tp)
-
-    policy = checkpointing.resolve_policy(cfg.remat_policy) if cfg.remat else None
-    auxs = []
-    for l in range(cfg.num_layers):
-        if policy is None:
-            x, aux = block(x, l, generator)
-        else:
-            x, aux = checkpointing.checkpoint(block, x, l, generator, policy=policy)
-        if aux is not None:
-            auxs.append(aux)
+    x = embed_input(cfg, params, input_ids, tp)
+    x, auxs = run_blocks(cfg, layers(params["blocks"], cfg.num_layers), x,
+                         range(cfg.num_layers), generator, tp)
     fn = params["final_norm"]
     moe_aux = torch.stack(auxs).sum() if auxs else torch.zeros((), device=x.device)
     return _norm(x, fn["scale"], fn.get("bias"), cfg.norm, cfg.norm_eps), moe_aux
@@ -1229,6 +1247,131 @@ def _rank_zero_params(cfg: TransformerConfig, tp: TensorParallel, seed: int, dev
     return init_params(cfg, gen, device, dtype, per_layer=per_layer, place=place)
 
 
+def _stage_holds(cfg: TransformerConfig, stage: int, num_stages: int):
+    """What stage ``stage`` of ``num_stages`` holds: (its first block, the
+    block after its last, the other groups of the tree it holds). The
+    layers split evenly (``transformer.py:1057``); the first stage holds
+    the embeddings, the last the final norm and the head, and with
+    ``tie_embeddings`` the last stage holds the embedding too."""
+    if cfg.num_layers % num_stages:
+        raise ValueError(f"num_layers {cfg.num_layers} must divide evenly into {num_stages} "
+                         f"pipeline stages")
+    per = cfg.num_layers // num_stages
+    first, last = stage == 0, stage == num_stages - 1
+    ends = ((("embed", "pos_embed", "embed_norm") if first else ())
+            + (("final_norm", "lm_head") if last else ()))
+    if cfg.tie_embeddings and last and not first:
+        ends += ("embed",)
+    return stage * per, (stage + 1) * per, ends
+
+
+def _stage_params(cfg: TransformerConfig, stage: int, num_stages: int, seed: int,
+                  device) -> Dict[str, Any]:
+    """The trainable tree of stage ``stage`` of ``num_stages`` of the model
+    a single rank draws from ``seed``: every leaf is drawn in the whole
+    model's order, so the stage's values equal the whole model's, and a
+    leaf outside the stage is dropped (left empty) as soon as it is made,
+    so the rank holds no more than its stage, one other leaf and the
+    ``[L, ...]`` norm stacks."""
+    lo, hi, ends = _stage_holds(cfg, stage, num_stages)
+    drawn = collections.Counter()  # per-layer leaves come one layer at a time
+
+    def place(group, name, t, stacked):
+        if group != "blocks":
+            return t if group in ends else t.new_empty(0)
+        if stacked:  # an [L, ...] norm scale or bias: small, cut per layer below
+            return t
+        drawn[name] += 1
+        return t if lo < drawn[name] <= hi else t.new_empty(0)
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, device, torch.float32, per_layer=True, place=place)
+    params["blocks"] = [layer if lo <= l < hi else {n: t.new_empty(0) for n, t in layer.items()}
+                        for l, layer in enumerate(params["blocks"])]
+    return params
+
+
+class TransformerStage:
+    """Stage ``stage`` of ``num_stages`` of a trainable :class:`TransformerLM`
+    in a pipeline (``runtime/pipe/engine.py``): the JAX package's
+    ``pipeline_loss_fn`` / ``pipeline_loss_fn_1f1b`` cut at the stage
+    boundaries. Every stage runs ``num_layers / num_stages`` contiguous
+    blocks ``[lo, hi)`` (the JAX package's even split); the first stage also embeds
+    the tokens, the last one also applies the final norm, the head and the
+    cross entropy of each microbatch (with ``tie_embeddings`` the last stage
+    holds the embedding too, whose gradient the two ends sum). The gating
+    draws nothing (the JAX stage function runs it without an rng), so the
+    noisy gate is refused, as ``transformer.py:967-972`` refuses it."""
+
+    def __init__(self, model, stage: int, num_stages: int):
+        cfg = model.config
+        self.lo, self.hi, ends = _stage_holds(cfg, stage, num_stages)
+        if cfg.moe_num_experts > 0 and cfg.moe_noisy_gate_policy:
+            raise NotImplementedError(
+                f"moe_noisy_gate_policy={cfg.moe_noisy_gate_policy!r} does not compose with "
+                "pipeline parallelism yet (stage executors run gating without an rng); disable "
+                "the noisy gate or run without the pipe axis")
+        self.model, self.cfg = model, cfg
+        self.first, self.last = stage == 0, stage == num_stages - 1
+        keep = {id(p) for g in ends if g in model.tree for p in model.tree[g].parameters()}
+        keep |= {id(p) for layer in model.tree["blocks"][self.lo:self.hi]
+                 for p in layer.parameters()}
+        # the embedding both end stages hold (no stage between them uses it)
+        self.tied = ([model.tree["embed"]["embedding"]] if cfg.tie_embeddings
+                     and num_stages > 1 and (self.first or self.last) else [])
+        self.named = [(n, p) for n, p in model.named_parameters() if id(p) in keep]
+
+    def named_parameters(self):
+        return list(self.named)
+
+    def whole_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """{name: shape} of every parameter of the whole model, in the
+        model's order (from the config, built on the meta device: a stage's
+        model holds the others' values empty)."""
+        full = init_params(self.cfg, None, "meta", torch.float32, per_layer=True)
+        shapes = {}
+        for group, leaves in full.items():
+            for l, layer in (enumerate(leaves) if group == "blocks" else [(None, leaves)]):
+                for name, t in layer.items():
+                    key = f"tree.{group}." + ("" if l is None else f"{l}.") + name
+                    shapes[key] = tuple(t.shape)
+        return {n: shapes[n] for n, _ in self.model.named_parameters()}
+
+    def zero_groups(self):
+        """The model's ZeRO groups (:meth:`TransformerLM.zero_groups`) of
+        this stage's parameters, empty groups dropped."""
+        keep = {id(p) for _, p in self.named}
+        out = [(name, [e for e in entries if id(e[1]) in keep])
+               for name, entries in self.model.zero_groups()]
+        return [(name, entries) for name, entries in out if entries]
+
+    def activation(self, batch):
+        """(shape, dtype) of the activation this stage receives for a
+        microbatch of ``batch`` (the previous stage's output)."""
+        B, S = batch["input_ids"].shape
+        return (B, S, self.cfg.hidden_size), self.cfg.dtype
+
+    def forward(self, inp, batch):
+        """This stage on one microbatch: ``inp`` the token ids at the first
+        stage, else the previous stage's output; ``batch`` the microbatch
+        (the last stage reads its CE targets). Returns (the next stage's
+        input, or at the last stage the microbatch's CE; the stage's MoE aux
+        term ``moe_aux_loss_coef * sum of its blocks' aux``, or None)."""
+        cfg, params = self.cfg, self.model.params()
+        x = embed_input(cfg, params, inp) if self.first else inp
+        x, auxs = run_blocks(cfg, params["blocks"], x, range(self.lo, self.hi))
+        aux = cfg.moe_aux_loss_coef * torch.stack(auxs).sum() if auxs else None
+        if not self.last:
+            return x, aux
+        fn = params["final_norm"]
+        h = _norm(x, fn["scale"], fn.get("bias"), cfg.norm, cfg.norm_eps)
+        ids = batch["input_ids"]
+        targets = _ce_aux(batch, ids)
+        if cfg.loss_chunk and ids.shape[1] > cfg.loss_chunk:
+            return _chunked_ce_loss(cfg, params, h, targets, int(cfg.loss_chunk)), aux
+        return _ce_loss(_unembed(cfg, params, h), targets), aux
+
+
 class TransformerLM(nn.Module):
     """Holds a config and its parameter tree. ``params`` defaults to
     :func:`init_params` from ``torch.Generator(device).manual_seed(seed)``.
@@ -1247,20 +1390,35 @@ class TransformerLM(nn.Module):
     broadcast and sliced leaf by leaf), each split parameter marked
     ``tensor_model_parallel`` with its ``partition_dim``, and every forward
     runs the tensor-parallel path. A model built whole becomes a rank's
-    shards through :meth:`shard_tensor_parallel` (the engines call it)."""
+    shards through :meth:`shard_tensor_parallel` (the engines call it).
+
+    ``pipe_stage`` (``(stage, num_stages)``, e.g. ``(groups.
+    get_pipe_parallel_rank(), P)`` once the mesh is built; trainable, drawn
+    from ``seed``): the model holds only that pipeline stage's parameters,
+    with the values of the whole model drawn from ``seed``; the others are
+    empty, each dropped as soon as it is drawn. The pipeline engine takes it
+    at that stage (a model built whole has the other stages' parameters
+    freed there)."""
 
     def __init__(self, config: TransformerConfig, params: Optional[Dict[str, Any]] = None, *,
                  device=None, seed: int = 0, dtype=None, trainable: bool = False,
-                 tp: Optional[TensorParallel] = None):
+                 tp: Optional[TensorParallel] = None,
+                 pipe_stage: Optional[Tuple[int, int]] = None):
         super().__init__()
         _refuse_unported(config)
         self.config = config
         self.trainable = trainable
         self.tp = None
+        self.pipe_stage = None if pipe_stage is None else tuple(pipe_stage)
+        if pipe_stage is not None and (params is not None or not trainable or tp is not None):
+            raise ValueError("pipe_stage draws a trainable, unsplit model's stage from seed (no "
+                             "params, no tp)")
         if params is None:
             dev = resolve_device(device)
             dtype = torch.float32 if trainable else dtype
-            if tp is None:
+            if pipe_stage is not None:
+                params = _stage_params(config, *self.pipe_stage, seed, dev)
+            elif tp is None:
                 gen = torch.Generator(device=dev).manual_seed(seed)
                 params = init_params(config, gen, dev, dtype, per_layer=trainable)
             else:
@@ -1407,6 +1565,16 @@ class TransformerLM(nn.Module):
             len(self.tree["blocks"]),
             lambda l: {key[2]: t for key, t in gather(l + 2, whole_experts=whole).items()})
         return tree
+
+    def pipeline_stage(self, stage: int, num_stages: int) -> TransformerStage:
+        """Stage ``stage`` of ``num_stages`` of this model
+        (:class:`TransformerStage`; the pipeline engine's model protocol)."""
+        if not self.trainable or self.tp is not None:
+            raise ValueError("a pipeline stage is a slice of a trainable, unsplit TransformerLM")
+        if self.pipe_stage is not None and self.pipe_stage[1] != num_stages:
+            raise ValueError(f"the model holds stage {self.pipe_stage[0]} of "
+                             f"{self.pipe_stage[1]}, not a stage of {num_stages}")
+        return TransformerStage(self, stage, num_stages)
 
     def forward(self, input_ids):
         return forward(self.config, self.params(), input_ids, self.tp)

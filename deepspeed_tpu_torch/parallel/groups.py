@@ -4,10 +4,12 @@ Counterpart of ``deepspeed_tpu/parallel/groups.py`` (the reference's
 ``deepspeed/utils/groups.py``). In the JAX package a group is a tuple of
 mesh axis names; here it is the ``torch.distributed`` process group of a
 ``DeviceMesh`` axis, which the collectives of ``comm`` take as ``group``.
-``data`` and ``model`` are ported (``groups.py:105,145``): the data group
-of a rank is the ranks that share its model index, the model group the
-ranks that share its data index; the pipe and sequence getters report size
-1. The expert getters follow the reference (``groups.py:123-164``): the
+``data``, ``model`` and ``pipe`` are ported (``groups.py:105,111,145``):
+the data group of a rank is the ranks that share its pipe and model
+indices, the model group the ranks that share its pipe and data indices,
+the pipe group (a rank's pipeline, one rank a stage) the ranks that share
+its data and model indices; the sequence getter reports size 1. The
+expert getters follow the reference (``groups.py:123-164``): the
 expert-parallel and expert-data-parallel groups are the data group, the
 expert-parallel size is the mesh's ``expert`` and the expert-data size
 ``data // expert``. Before ``initialize_mesh`` (or at world size 1) every
@@ -19,7 +21,7 @@ from typing import Optional
 import torch.distributed as dist
 
 from .. import comm
-from .mesh import DATA_AXIS, MODEL_AXIS, MeshConfig, build_mesh
+from .mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, MeshConfig, build_mesh
 
 _WORLD_MESH = None
 _EXPERT_PARALLEL_SIZE = 1
@@ -50,17 +52,21 @@ def get_mesh():
     return _WORLD_MESH
 
 
-def _has_model_axis() -> bool:
-    return _WORLD_MESH is not None and MODEL_AXIS in (_WORLD_MESH.mesh_dim_names or ())
+def _has_axis(name: str) -> bool:
+    return _WORLD_MESH is not None and name in (_WORLD_MESH.mesh_dim_names or ())
+
+
+def _axis_size(name: str) -> int:
+    return _WORLD_MESH.size(_WORLD_MESH.mesh_dim_names.index(name)) if _has_axis(name) else 1
 
 
 def get_data_parallel_group():
-    """The ranks that share this rank's model index."""
+    """The ranks that share this rank's pipe and model indices."""
     return _WORLD_MESH.get_group(DATA_AXIS) if _WORLD_MESH is not None else None
 
 
 def get_data_parallel_world_size() -> int:
-    return _WORLD_MESH.size(0) if _WORLD_MESH is not None else 1
+    return _axis_size(DATA_AXIS)
 
 
 def get_data_parallel_rank() -> int:
@@ -71,20 +77,30 @@ def get_model_parallel_group():
     """The ranks that share this rank's data index: the tensor-parallel
     ranks, whose collectives the column / row regions issue. None at model
     size 1."""
-    return _WORLD_MESH.get_group(MODEL_AXIS) if _has_model_axis() else None
+    return _WORLD_MESH.get_group(MODEL_AXIS) if _has_axis(MODEL_AXIS) else None
 
 
 def get_model_parallel_world_size() -> int:
-    return _WORLD_MESH.size(1) if _has_model_axis() else 1
+    return _axis_size(MODEL_AXIS)
 
 
 def get_model_parallel_rank() -> int:
-    return _WORLD_MESH.get_local_rank(MODEL_AXIS) if _has_model_axis() else 0
+    return _WORLD_MESH.get_local_rank(MODEL_AXIS) if _has_axis(MODEL_AXIS) else 0
 
+
+def get_pipe_parallel_group():
+    """This rank's pipeline: the ranks that share its data and model
+    indices, stage i at group rank i. None at pipe size 1."""
+    return _WORLD_MESH.get_group(PIPE_AXIS) if _has_axis(PIPE_AXIS) else None
 
 
 def get_pipe_parallel_world_size() -> int:
-    return 1
+    return _axis_size(PIPE_AXIS)
+
+
+def get_pipe_parallel_rank() -> int:
+    """This rank's stage."""
+    return _WORLD_MESH.get_local_rank(PIPE_AXIS) if _has_axis(PIPE_AXIS) else 0
 
 
 def get_sequence_parallel_world_size() -> int:

@@ -7,11 +7,15 @@ collectives; here the mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 over the ranks of the default process group, one rank a device.
 
 The port shards over ``data`` (data parallelism and ZeRO; a MoE model's
-experts shard over the same group) and ``model`` (tensor parallelism: the
-Megatron column / row splits of ``module_inject``). ``model`` is the
-innermost axis, as in the reference's ``AXIS_ORDER``: rank ``d * model + m``
-is data index d and model index m, so the ranks of a model group are
-neighbours. ``expert`` is the reference's expert parallel size: it must
+experts shard over the same group), ``model`` (tensor parallelism: the
+Megatron column / row splits of ``module_inject``) and ``pipe`` (pipeline
+stages, ``runtime/pipe/engine.py``). The axes follow the reference's
+``AXIS_ORDER``, ``pipe`` outermost and ``model`` innermost: rank ``(p * data
++ d) * model + m`` is pipe index p, data index d and model index m, so the
+ranks of a model group are neighbours (``parallel/topology.py``'s
+``PipeModelDataParallelTopology`` numbers them alike). ``pipe`` with
+``model`` above 1 is refused (ROADMAP A6.8, left open: pipe × model).
+``expert`` is the reference's expert parallel size: it must
 divide ``data * seq`` (``resolve``), and the port takes 1 or ``data * seq``
 only, the two layouts its partition builds (``refuse_expert_data_replicas``).
 Every other axis above 1 raises, naming the ROADMAP item that ports it.
@@ -31,20 +35,26 @@ EXPERT_AXIS = "expert"
 
 # the axes the port does not shard over yet, and the ROADMAP item of each
 UNPORTED_AXES = {
-    PIPE_AXIS: "pipeline parallelism (ROADMAP A6.8)",
     SEQ_AXIS: "sequence parallelism (ROADMAP A8)",
     DATA_REPL_AXIS: "MiCS replica groups (ROADMAP A2, left open)",
 }
 
 
 def refuse_unported_axes(sizes: dict) -> None:
-    """Raise for any axis of ``sizes`` other than ``data``, ``model`` and
-    ``expert`` above 1."""
+    """Raise for any axis of ``sizes`` other than ``data``, ``model``,
+    ``pipe`` and ``expert`` above 1, and for ``pipe`` and ``model`` both
+    above 1."""
     for axis, item in UNPORTED_AXES.items():
         n = int(sizes.get(axis, 1))
         if n > 1:
             raise NotImplementedError(f"mesh axis '{axis}' of size {n}: {item} is not ported to "
-                                      f"the PyTorch package yet; it shards over 'data' and 'model' only")
+                                      f"the PyTorch package yet; it shards over 'data', 'model' "
+                                      f"and 'pipe' only")
+    pipe, model = int(sizes.get(PIPE_AXIS, 1)), int(sizes.get(MODEL_AXIS, 1))
+    if pipe > 1 and model > 1:
+        raise NotImplementedError(f"mesh 'pipe' {pipe} with 'model' {model}: ROADMAP A6.8, left "
+                                  f"open: pipe × model (3D parallelism) is not ported to the "
+                                  f"PyTorch package yet")
 
 
 def refuse_expert_data_replicas(expert: int, data: int) -> None:
@@ -95,9 +105,10 @@ class MeshConfig:
 def build_mesh(config: MeshConfig, world_size: int, device_type: str):
     """A ``DeviceMesh`` over the ``world_size`` ranks of the default process
     group, after resolving ``config`` against ``world_size`` and refusing
-    every other axis above 1 and expert-data replicas: at ``model`` 1 one
-    axis named ``data`` (which reuses the default group as its group), else
-    two, ``(data, model)``, rank ``d * model + m`` at ``[d, m]``."""
+    every other axis above 1 and expert-data replicas: the axis ``data``
+    (alone, it reuses the default group as its group), with ``pipe`` before
+    it and ``model`` after it where they are above 1; rank ``d * model + m``
+    at ``[d, m]``, rank ``p * data + d`` at ``[p, d]``."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -110,7 +121,8 @@ def build_mesh(config: MeshConfig, world_size: int, device_type: str):
         # the cards, as comm's backend binds NCCL ranks
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
         torch.cuda.init()
-    if sizes[MODEL_AXIS] == 1:
+    names = [a for a in (PIPE_AXIS, DATA_AXIS, MODEL_AXIS) if a == DATA_AXIS or sizes[a] > 1]
+    if names == [DATA_AXIS]:
         return DeviceMesh(device_type, list(range(world_size)), mesh_dim_names=(DATA_AXIS, ))
-    ranks = torch.arange(world_size).reshape(sizes[DATA_AXIS], sizes[MODEL_AXIS])
-    return DeviceMesh(device_type, ranks, mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    ranks = torch.arange(world_size).reshape(*[sizes[a] for a in names])
+    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(names))

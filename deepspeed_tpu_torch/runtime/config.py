@@ -7,8 +7,9 @@ training slice uses: the batch triad and its resolution
 ``gradient_clipping``, ``zero_optimization``, ``steps_per_print``,
 ``dataloader_drop_last``, ``tpu.pallas_fused_adam``, ``sparse_attention``
 (kept raw, as the JAX package keeps it), ``sparse_gradients`` (a logged
-no-op), ``hybrid_engine`` and ``activation_checkpointing`` (read by
-``checkpointing.configure``). The port accepts the same JSON; a key for
+no-op), ``hybrid_engine``, ``activation_checkpointing`` (read by
+``checkpointing.configure``) and ``pipeline`` (the pipeline engine's
+schedule). The port accepts the same JSON; a key for
 something not ported raises and names the key.
 """
 
@@ -23,7 +24,7 @@ from .config_utils import DeepSpeedConfigError, dict_raise_error_on_duplicate_ke
 from .constants import (ACTIVATION_CHECKPOINTING, BFLOAT16, BFLOAT16_OLD, DATALOADER_DROP_LAST, DATALOADER_DROP_LAST_DEFAULT,
                         FP16, GRADIENT_ACCUMULATION_STEPS, GRADIENT_CLIPPING,
                         GRADIENT_CLIPPING_DEFAULT, HYBRID_ENGINE, OPTIMIZER, OPTIMIZER_PARAMS,
-                        SCHEDULER, SCHEDULER_PARAMS, SPARSE_ATTENTION, SPARSE_GRADIENTS,
+                        PIPELINE, SCHEDULER, SCHEDULER_PARAMS, SPARSE_ATTENTION, SPARSE_GRADIENTS,
                         SPARSE_GRADIENTS_DEFAULT, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT, TPU,
                         TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, TYPE, ZERO_OPTIMIZATION)
 from .zero.config import DeepSpeedZeroConfig
@@ -33,7 +34,7 @@ __all__ = ["DeepSpeedConfig", "DeepSpeedConfigError"]
 _SUPPORTED_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, GRADIENT_ACCUMULATION_STEPS,
                    OPTIMIZER, SCHEDULER, FP16, BFLOAT16, BFLOAT16_OLD, GRADIENT_CLIPPING,
                    ZERO_OPTIMIZATION, STEPS_PER_PRINT, DATALOADER_DROP_LAST, TPU, SPARSE_ATTENTION,
-                   SPARSE_GRADIENTS, HYBRID_ENGINE, ACTIVATION_CHECKPOINTING}
+                   SPARSE_GRADIENTS, HYBRID_ENGINE, ACTIVATION_CHECKPOINTING, PIPELINE}
 
 
 @dataclass
@@ -89,13 +90,44 @@ class ActivationCheckpointingConfig:
 
 
 @dataclass
+class PipelineConfig:
+    """The ``pipeline`` block, with the JAX package's fields and defaults
+    (``deepspeed_tpu/runtime/config.py:151-161``). The engine reads
+    ``schedule``: ``"1f1b"`` (``TrainSchedule``: at most ``stages - stage``
+    microbatches' boundary activations alive on a stage) or ``"gpipe"``
+    (every forward, then every backward). The stages are the mesh's
+    ``pipe`` axis and each takes a uniform contiguous slice of the layers,
+    as in the JAX package, which stores the other fields. Here ``stages``
+    is ``"auto"`` or the mesh's ``pipe`` size (the engine checks it), and
+    any other field away from its default raises, naming it (ROADMAP A6.8,
+    left open)."""
+    stages: Union[int, str] = "auto"
+    partition: str = "best"
+    seed_layers: bool = False
+    activation_checkpoint_interval: int = 0
+    pipe_partitioned: bool = True
+    grad_partitioned: bool = True
+    schedule: str = "1f1b"
+
+    def __post_init__(self):
+        if self.schedule not in ("1f1b", "gpipe"):
+            raise DeepSpeedConfigError(f"pipeline.schedule must be '1f1b' or 'gpipe', got "
+                                       f"{self.schedule!r}")
+        for f in fields(self):
+            if f.name not in ("stages", "schedule") and getattr(self, f.name) != f.default:
+                raise NotImplementedError(
+                    f"pipeline.{f.name}={getattr(self, f.name)!r}: only the default "
+                    f"{f.default!r} is ported to the PyTorch package (ROADMAP A6.8, left open)")
+
+
+@dataclass
 class TPUConfig:
     """The ``tpu`` block: of its knobs the port honours ``pallas_fused_adam``
     (``"always"`` engages the fused Adam kernel; ``"auto"`` resolves to off,
     as in the JAX package) and ``mesh`` (``parallel.mesh.MeshConfig``'s
-    fields; ``data`` and ``model`` may be above 1, one of them -1 for the
-    rest of the world; every other axis above 1 raises, naming its ROADMAP
-    item)."""
+    fields; ``data``, ``model`` and ``pipe`` may be above 1, ``pipe`` and
+    ``model`` not both, one of them -1 for the rest of the world; every other
+    axis above 1 raises, naming its ROADMAP item)."""
     pallas_fused_adam: str = "auto"
     mesh: dict = None
 
@@ -205,6 +237,7 @@ class DeepSpeedConfig:
         self.activation_checkpointing_config = from_dict(
             ActivationCheckpointingConfig, pd.get(ACTIVATION_CHECKPOINTING, {}),
             ACTIVATION_CHECKPOINTING)
+        self.pipeline_config = from_dict(PipelineConfig, pd.get(PIPELINE, {}), PIPELINE)
 
         # --- batch triad (resolved against the data-parallel size later) ---
         self.train_batch_size = pd.get(TRAIN_BATCH_SIZE)

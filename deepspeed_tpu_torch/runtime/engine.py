@@ -25,9 +25,10 @@ as the JAX engine splits its step rng over the global rows
 world size. The draws stay on the device.
 
 Nothing inside ``train_batch`` reads a device value back to the host, except
-the fp16-only overflow count (``engine.py:1405``) and the loss logged at
-``steps_per_print`` boundaries. The state (step, loss scale, good steps,
-the optimizer's counter and moments) lives on the device.
+the fp16-only overflow count (``engine.py:1405``), the loss logged at
+``steps_per_print`` boundaries and, under a 1-bit optimizer, one flag a step
+(below). The state (step, loss scale, good steps, the optimizer's counter
+and moments) lives on the device.
 
 Data parallelism (``engine.py:70-215``): under ``torchrun`` (or after
 ``init_distributed``) the data-parallel world is the ``data`` axis of
@@ -85,8 +86,35 @@ that the two overlap. The fused Adam kernel stays off under offload.
 Offload at world size >= 2 is refused (the JAX package's per-host
 ``shard_mode``, ROADMAP A6.6, left open).
 
-Not ported: the 1-bit optimizers (A6.7), pipelines (A6.8) and the
-prefetching loader (A6.5).
+The 1-bit optimizers (``onebitadam``, ``onebitlamb``, ``zerooneadam``;
+``engine.py:523-542,977-1058``), in the JAX package's envelope (ZeRO stage
+<= 1, data parallelism only, no offload, no MiCS; a MoE model is refused):
+each rank's gradients, summed over its microbatches, divided by gas and
+un-scaled, are exchanged exactly for ``freeze_step`` steps, then JAX leaf by
+JAX leaf through the error-feedback 1-bit collective
+(``comm/compressed.py``), with this rank's error buffers. The path needs one
+host read a step, of a flag reduced by MIN over the data group (every
+rank's gradients finite): running both exchanges would throw the
+compression away. A non-finite step takes the exact mean, leaves the error
+buffers as they were, and is skipped by the update. The update is ``Adam``
+or ``Lamb`` (the fused Adam kernel stays off); each rank's loss is its
+local mean, averaged over the ranks. The eager API raises, naming
+``train_batch``, as the JAX engine's does. Lamb at data-parallel world size >= 2
+(ZeRO stages 0-1) takes each JAX leaf's trust ratio over the slices its
+tensors occupy in the partition's buffers, summed over the data group at
+stage 1.
+
+Pipeline parallelism (``"tpu": {"mesh": {"pipe": P, "data": D}}``, the
+``pipeline`` block's ``schedule``; ``engine.py:176-198``): each rank is
+one stage of a ``TransformerLM`` (``model.pipeline_stage``) and runs the
+1F1B or GPipe instruction stream eagerly (``pipe/engine.py``); ZeRO stages
+0-1 partition each stage's parameters over its data group; the gradient
+norm sums the stages' (the tied embedding once); ``module_state_dict``
+gathers every stage's parameters on every rank. ZeRO >= 2, ``seq``, pipe x
+model, the noisy MoE gate, Lamb, and a MoE model at data size above 1 are
+refused; the eager API raises.
+
+Not ported: the prefetching loader (A6.5).
 """
 
 import contextlib
@@ -102,7 +130,8 @@ from .. import comm
 from ..models.transformer import TransformerConfig, training_attention_route
 from ..parallel import groups
 from .config import DeepSpeedConfig
-from .constants import ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER, LAMB_OPTIMIZER
+from .constants import (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER, LAMB_OPTIMIZER,
+                        ONEBIT_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER)
 from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import LRScheduler, get_lr_schedule_fn
 from .optimizers import Adam, build_optimizer
@@ -146,7 +175,17 @@ class DeepSpeedEngine:
         self.dp_rank = groups.get_data_parallel_rank()
         self.mp_world_size = groups.get_model_parallel_world_size()
         self.mp_rank = groups.get_model_parallel_rank()
+        self.pipe_world_size = groups.get_pipe_parallel_world_size()
+        stages = config.pipeline_config.stages
+        if stages != "auto" and int(stages) != self.pipe_world_size:
+            raise ValueError(f"pipeline.stages={stages!r}: the stages are the mesh's pipe axis "
+                             f"({self.pipe_world_size}); set tpu.mesh.pipe, or stages 'auto'")
         self._offload_cfg = self._offload_config()
+        self._onebit = self._configure_onebit(model)
+        self._pipe = None
+        if self.pipe_world_size > 1:
+            self._pipe = self._configure_pipeline(model)
+            self._params = [p for p in model.parameters() if p.requires_grad]
         if self.mp_world_size > 1:
             self._split_model(model)
         if self.dp_world_size > 1:
@@ -169,11 +208,15 @@ class DeepSpeedEngine:
         if self.dp_world_size > 1:
             # stage 3 gathers a group in the dtype the model computes in
             cast = getattr(getattr(model, "config", None), "dtype", self.compute_dtype)
-            self._zero = ZeroPartition(model, self._params, config.zero_optimization_stage,
+            self._zero = ZeroPartition(model if self._pipe is None else self._pipe.stage,
+                                       self._params, config.zero_optimization_stage,
                                        groups.get_data_parallel_group(), cast,
                                        model_group=groups.get_model_parallel_group())
             self._opt_params = self._zero.optimizer_params()
-        if self._zero is not None:
+        if self._pipe is not None:
+            self._pipe.bind_norm(self._zero)
+            self._grad_norm = self._pipe.grad_norm
+        elif self._zero is not None:
             self._grad_norm = self._zero.grad_norm
         elif self.mp_world_size > 1:
             self._grad_norm = self._model_parallel_norm
@@ -197,6 +240,8 @@ class DeepSpeedEngine:
             self.optimizer = self._configure_optimizer(optimizer)
         self._pallas_adam = self._configure_pallas_adam(optimizer)
         self.state = self._init_state()
+        if self._onebit is not None:
+            self._init_onebit_errors()
 
         if config.sparse_gradients_enabled:
             # accepted for config compatibility (engine.py:381-385): the
@@ -227,6 +272,31 @@ class DeepSpeedEngine:
 
         model.shard_tensor_parallel(tensor_parallel(model.config,
                                                     groups.get_model_parallel_group()))
+
+    def _configure_pipeline(self, model):
+        """The pipe axis above 1 (``engine.py:176-198``): this rank's stage
+        of ``model`` (``runtime/pipe/engine.py``), with the JAX package's
+        envelope: ZeRO stage <= 1, a model with pipeline stages, the layers
+        divisible by the stages (and the model's own refusals, such as the
+        noisy MoE gate)."""
+        from .pipe.engine import PipelineExecutor
+
+        if self.config.zero_optimization_stage > 1:
+            raise ValueError("pipeline parallelism requires ZeRO stage <= 1")
+        if not hasattr(model, "pipeline_stage"):
+            raise ValueError("model must provide pipeline_stage for pipeline parallelism (a "
+                             "trainable TransformerLM has it)")
+        name = (self.config.optimizer_name or "").lower()
+        if name == LAMB_OPTIMIZER:
+            raise NotImplementedError(
+                "Lamb under a pipeline: a stacked JAX leaf's trust ratio spans the stages "
+                "(ROADMAP A6.8, left open)")
+        moe = getattr(getattr(model, "config", None), "moe_num_experts", 0) > 0
+        if moe and self.dp_world_size > 1:
+            raise NotImplementedError(
+                "a MoE model under a pipeline at data size above 1: the stages' experts over "
+                "the data group (ROADMAP A6.8, left open)")
+        return PipelineExecutor(self, model, self.config.pipeline_config.schedule)
 
     def _model_parallel_norm(self, grads):
         """The whole model's gradient norm at model size >= 2 without a
@@ -277,15 +347,41 @@ class DeepSpeedEngine:
             return client_optimizer
         params = dict(self.config.optimizer_params or {})
         lr = self.lr_schedule_fn if self.lr_schedule_fn is not None else params.get("lr", 1e-3)
-        groups_ = None
-        if (self.config.optimizer_name or "").lower() == LAMB_OPTIMIZER:
-            if self._zero is not None or self.mp_world_size > 1:
+        groups_ = norm_group = None
+        if (self.config.optimizer_name or "").lower() in (LAMB_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER):
+            z = self._zero
+            if self.mp_world_size > 1 or (z is not None and (z.stage >= 2 or z.experts)):
                 raise NotImplementedError(
-                    "Lamb at world size >= 2: its trust ratio needs the norms of whole tensors, "
-                    "not of this rank's shards (ROADMAP A6.3, left open)")
-            groups_ = self._jax_leaf_units()
+                    "Lamb under tensor parallelism, at ZeRO stage >= 2 or with expert-parallel "
+                    "experts: its trust ratio needs each JAX leaf's norms over those shards "
+                    "(ROADMAP A6.3, left open)")
+            groups_ = self._jax_leaf_units() if z is None else self._zero_trust_groups()
+            norm_group = z.group if z is not None and z.stage == 1 else None
         return build_optimizer(self.config.optimizer_name, self._opt_params, params, lr=lr,
-                               trust_groups=groups_)
+                               trust_groups=groups_, norm_group=norm_group)
+
+    def _zero_trust_groups(self):
+        """Lamb's trust groups over the ZeRO partition's buffers (stages
+        0-1): each JAX leaf (:meth:`_jax_leaf_units`) as the slices
+        ``(buffer index, lo, hi)`` its tensors occupy in the full buffers
+        (stage 0) or in this rank's shards of them (stage 1)."""
+        z = self._zero
+        place = {}  # parameter id -> (group index, offset, numel)
+        for gi, (fg, ps) in enumerate(zip(z.groups, z.leaf_params)):
+            for leaf, p in zip(fg.leaves, ps):
+                place[id(p)] = (gi, leaf.offset, leaf.numel)
+        out = []
+        for unit in self._jax_leaf_units():
+            entries = []
+            for i in unit:
+                gi, off, n = place[id(self._params[i])]
+                base = 0 if z.stage == 0 else z.rank * z.groups[gi].shard
+                end = z.groups[gi].padded if z.stage == 0 else base + z.groups[gi].shard
+                lo, hi = max(off, base), min(off + n, end)
+                if lo < hi:
+                    entries.append((gi, lo - base, hi - base))
+            out.append(entries)
+        return out
 
     def _jax_leaf_units(self):
         """The trainable parameters' indices grouped as the JAX package's
@@ -312,7 +408,7 @@ class DeepSpeedEngine:
             logger.warning("offload_optimizer.ratio=0: nothing to offload; running the plain "
                            "device optimizer")
             return None
-        world = self.dp_world_size * self.mp_world_size
+        world = self.dp_world_size * self.mp_world_size * self.pipe_world_size
         if world > 1:
             raise NotImplementedError(
                 f"offload_optimizer at world size {world}: ROADMAP A6.6, left open: per-rank "
@@ -374,6 +470,48 @@ class DeepSpeedEngine:
                     + (f" (twin-flow ratio {off.ratio})" if self._twin_host is not None else ""))
         return self.host_optimizer
 
+    def _configure_onebit(self, model):
+        """The 1-bit policy of an ``onebitadam`` / ``onebitlamb`` /
+        ``zerooneadam`` optimizer block, or None (``engine.py:523-542``),
+        with the JAX package's envelope: ZeRO stage <= 1, data parallelism
+        only, no offload."""
+        from .fp16.onebit import OnebitAdam, OnebitLamb, ZeroOneAdam
+
+        name = (self.config.optimizer_name or "").lower()
+        cls = {ONEBIT_ADAM_OPTIMIZER: OnebitAdam, ONEBIT_LAMB_OPTIMIZER: OnebitLamb,
+               ZERO_ONE_ADAM_OPTIMIZER: ZeroOneAdam}.get(name)
+        if cls is None:
+            return None
+        policy = cls.from_params(self.config.optimizer_params or {})
+        if self.config.zero_optimization_stage > 1:
+            raise ValueError("1-bit optimizers require ZeRO stage <= 1")
+        if self.mp_world_size > 1 or groups.get_pipe_parallel_world_size() > 1:
+            raise ValueError("1-bit optimizers support pure data parallelism only")
+        if self._offload_cfg is not None:
+            raise ValueError("1-bit optimizers are incompatible with offload_optimizer")
+        if getattr(getattr(model, "config", None), "moe_num_experts", 0) > 0:
+            raise NotImplementedError(
+                "1-bit optimizers with a MoE model: the JAX package compresses the experts' "
+                "gradients replicated, where the port shards the experts over the data group "
+                "(ROADMAP A6.7, left open)")
+        logger.info(f"1-bit optimizer '{name}': exact mean for {policy.freeze_step} warmup "
+                    f"steps, then error-feedback sign compression")
+        return policy
+
+    def _init_onebit_errors(self):
+        """This rank's error-feedback buffers, one pair a JAX leaf
+        (``engine.py:679-686``): the worker's error of the leaf's size and
+        the server's of ``onebit_chunk_len``, fp32 zeros on the device."""
+        from .comm.compressed import onebit_chunk_len
+
+        self._onebit_units = self._jax_leaf_units()
+        sizes = [sum(self._params[i].numel() for i in unit) for unit in self._onebit_units]
+        dev = self.device
+        self.onebit_err_w = [torch.zeros(n, dtype=torch.float32, device=dev) for n in sizes]
+        self.onebit_err_s = [torch.zeros(onebit_chunk_len(n, self.dp_world_size),
+                                         dtype=torch.float32, device=dev) for n in sizes]
+        self.onebit_compressed = None  # whether the last step took the compressed exchange
+
     def _configure_pallas_adam(self, client_optimizer):
         """Engage the fused AdamW kernel (``engine.py:545``) when the config
         maps to Adam/AdamW on fp32 masters and ``tpu.pallas_fused_adam`` is
@@ -381,7 +519,8 @@ class DeepSpeedEngine:
         On engage, ``self.optimizer`` becomes the ``FusedAdam`` that holds
         ``FusedAdamState``. Returns the kernel's hyperparameters or None."""
         mode = self.config.tpu_config.pallas_fused_adam
-        if mode == "never" or client_optimizer is not None or self.host_optimizer is not None:
+        if (mode == "never" or client_optimizer is not None or self.host_optimizer is not None
+                or self._onebit is not None):
             return None
         name = (self.config.optimizer_name or ADAMW_OPTIMIZER).lower()
         if name not in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER):
@@ -497,6 +636,8 @@ class DeepSpeedEngine:
         the loss does not reach gets a zero gradient. Above: the partition
         sums the gradients over the ranks, and the losses are the global
         microbatches' (``_loss_weights``)."""
+        if self._onebit is not None:
+            return self._onebit_step_grads(losses, gas)
         if self._zero is not None:
             grads = self._zero.reduce_grads(gas)
             summed = comm.all_reduce(torch.stack(losses), group=self._zero.group)
@@ -508,6 +649,53 @@ class DeepSpeedEngine:
         torch._foreach_div_(grads, float(gas))
         return grads, torch.stack(losses).mean()
 
+    def _onebit_step_grads(self, losses, gas: int):
+        """The 1-bit step's gradients (``_build_onebit_train_step``,
+        ``engine.py:977-1058``): each rank's sum over its microbatches
+        divided by gas and by the loss scale (compressed in un-scaled units:
+        the error buffers persist across steps, through changes of the
+        scale); then one flag, every rank's gradients finite, reduced by MIN
+        over the data group and read on the host, which picks the path. At
+        ``step >= freeze_step`` with every rank finite, each JAX leaf
+        (:meth:`_jax_leaf_units`: a ``TransformerLM``'s per-layer tensors
+        of one stacked leaf concatenated in layer order) goes through
+        ``onebit_allreduce`` with its error buffers; else the exact mean,
+        which leaves the error buffers as they were (a non-finite mean is
+        then the update's to skip). Returns (the optimizer's gradients,
+        un-scaled; the mean of the ranks' local mean losses)."""
+        from .comm.compressed import onebit_allreduce
+
+        z, world = self._zero, self.dp_world_size
+        group = z.group if z is not None else None
+        for p in self._params:
+            if p.grad is None:  # a parameter the loss does not reach (world size 1)
+                p.grad = torch.zeros_like(p)
+        bufs = z.grad_flats if z is not None else [p.grad for p in self._params]
+        torch._foreach_div_(bufs, gas * self.state["loss_scale"])
+        flag = torch.stack([torch.isfinite(g).all() for g in bufs]).all().to(torch.int32)
+        if world > 1:
+            comm.all_reduce(flag, op=comm.ReduceOp.MIN, group=group)
+        # the one host read of the step: choosing the path needs it, and
+        # running both exchanges would throw the compression away
+        step, finite = torch.stack([self.state["step"], flag]).tolist()
+        self.onebit_compressed = bool(finite) and step >= self._onebit.freeze_step
+        if self.onebit_compressed:
+            for k, unit in enumerate(self._onebit_units):
+                views = [self._params[i].grad for i in unit]
+                g = torch.cat([v.reshape(-1) for v in views]) if len(views) > 1 else views[0]
+                out, self.onebit_err_w[k], self.onebit_err_s[k] = onebit_allreduce(
+                    g, self.onebit_err_w[k], self.onebit_err_s[k], group, world)
+                for v, piece in zip(views, out.reshape(-1).split([v.numel() for v in views])):
+                    v.copy_(piece.view_as(v))
+        elif world > 1:
+            for g in bufs:
+                comm.all_reduce(g, group=group)
+            torch._foreach_div_(bufs, float(world))
+        mean = torch.stack(losses).mean()
+        if world > 1:
+            mean = comm.all_reduce(mean, group=group) / world
+        return (z.grads() if z is not None else [p.grad for p in self._params]), mean
+
     def _scan_microbatch_grads(self, batches, loss_scale, gas: int):
         """Sum the microbatches' gradients into zeroed fp32 ``.grad`` buffers
         (at world size >= 2 each microbatch's ``ce * weight + aux``, the aux
@@ -515,13 +703,20 @@ class DeepSpeedEngine:
         many rows), then divide by gas (``_scan_microbatch_grads``,
         ``engine.py:811``). Returns :meth:`_step_grads`."""
         self._zero_grads()
-        weights = self._loss_weights(batches, gas) if self._zero is not None else [None] * gas
+        weights = self._loss_weights(batches, gas) if self._weighs_losses else [None] * gas
         losses = []
         for i in range(gas):
             loss = self._microbatch_loss({k: v[i] for k, v in batches.items()}, i, weights[i])
             self._microbatch_backward(loss, loss_scale)
             losses.append(loss.detach())
         return self._step_grads(losses, gas)
+
+    @property
+    def _weighs_losses(self) -> bool:
+        """Whether each rank's CE is weighted to its share of the global
+        microbatch: at world size >= 2, except under a 1-bit optimizer,
+        whose ranks each take their local mean (``engine.py:993-1003``)."""
+        return self._zero is not None and self._onebit is None
 
     def _loss_weights(self, batches, gas: int):
         """[gas] device weights of this rank's microbatch CE terms,
@@ -556,10 +751,10 @@ class DeepSpeedEngine:
         if self._pallas_adam is not None:
             return self._apply_update_pallas(grads, gnorm_scaled)
         st = self.state
-        if self.fp16_enabled:
+        if self.fp16_enabled and self._onebit is None:
             torch._foreach_mul_(grads, 1.0 / st["loss_scale"])
             gnorm = self._grad_norm(grads)
-        else:  # the loss scale is 1: the gradients are already un-scaled
+        else:  # the loss scale is 1, or the 1-bit step un-scaled the gradients
             gnorm = gnorm_scaled
         finite = torch.isfinite(gnorm)
         clip = self.config.gradient_clipping
@@ -672,7 +867,10 @@ class DeepSpeedEngine:
         else:
             host = self._host_prepare_batch(batch=batch)
         placed = {k: self._to_device(v) for k, v in host.items()}
-        grads, mean_loss = self._scan_microbatch_grads(placed, self.state["loss_scale"], gas)
+        if self._pipe is not None:
+            grads, mean_loss = self._pipe.train(placed, self.state["loss_scale"], gas)
+        else:
+            grads, mean_loss = self._scan_microbatch_grads(placed, self.state["loss_scale"], gas)
         self.micro_steps += gas
         return self._end_step(grads, mean_loss)
 
@@ -703,6 +901,7 @@ class DeepSpeedEngine:
         gas`` of the step, with ``train_batch``'s generators, gathers and,
         at world size >= 2, loss weight. In ``eval()`` mode this rank's loss
         (``ce + aux``) under ``torch.no_grad()``."""
+        self._refuse_eager()
         mb = {k: self._to_device(v) for k, v in
               (batch if isinstance(batch, dict) else {"input_ids": batch}).items()}
         i = self.micro_steps % self.config.gradient_accumulation_steps
@@ -710,16 +909,27 @@ class DeepSpeedEngine:
             with torch.no_grad():
                 return self._microbatch_loss(mb, i)
         weight = None
-        if self._zero is not None:
+        if self._weighs_losses:
             weight = self._loss_weights({k: v[None] for k, v in mb.items()}, 1)[0]
         return self._microbatch_loss(mb, i, weight)
 
     __call__ = forward
 
+    def _refuse_eager(self):
+        """The JAX engine's refusals of the eager API (``engine.py:1606-1611``)."""
+        if self._pipe is not None:
+            raise RuntimeError("forward/backward/step are not supported with pipeline "
+                               "parallelism; use train_batch() (same contract as the reference "
+                               "PipelineEngine)")
+        if self._onebit is not None:
+            raise RuntimeError("1-bit optimizers require the fused train_batch() path (the "
+                               "compressed exchange lives inside the step)")
+
     def backward(self, loss, retain_graph=False):
         """Add the gradients of ``loss`` (a :meth:`forward`'s) times the
         loss scale into the gradient buffers, zeroed at a step's first
         microbatch; ``micro_steps += 1``. Returns ``loss``."""
+        self._refuse_eager()
         if self.micro_steps % self.config.gradient_accumulation_steps == 0:
             self._zero_grads()
             self._eager_losses = []
@@ -739,6 +949,7 @@ class DeepSpeedEngine:
         """At the accumulation boundary: divide by gas, the update (norm,
         clip, overflow gate, optimizer, the shards' all-gather, lr),
         ``global_steps += 1``. Elsewhere nothing."""
+        self._refuse_eager()
         gas = self.config.gradient_accumulation_steps
         if self.micro_steps % gas != 0:
             return  # mid-accumulation
@@ -820,6 +1031,8 @@ class DeepSpeedEngine:
             group = groups.get_model_parallel_group()
             full = {id(p): comm.all_gather(full[id(p)], group, dim=p.partition_dim)
                     if is_model_parallel(p) else full[id(p)] for p in self._params}
+        if self._pipe is not None:  # every stage's parameters, on every rank
+            return self._pipe.gather_state_dict({names[id(p)]: full[id(p)] for p in self._params})
         return {names[id(p)]: full[id(p)] for p in self._params}
 
     def zero_resident_bytes(self):

@@ -9,8 +9,10 @@ decay, then the per-tensor trust ratio) and ``lion`` (``optax.lion``), each
 with optax 0.2.6's formulas and order of operations (``scale_by_adam``,
 ``add_decayed_weights``, ``scale_by_trust_ratio``, ``scale_by_lion``,
 ``trace``, ``scale_by_rss``, ``scale_by_learning_rate``). The 1-bit
-optimizers (``onebitadam``, ``zerooneadam``, ``onebitlamb``) raise, naming
-ROADMAP A6.7.
+optimizers' names map as in the JAX package (``optimizers.py:48,61``):
+``onebitadam`` and ``zerooneadam`` to ``Adam``, ``onebitlamb`` to ``Lamb``;
+the engine runs their compressed gradient exchange
+(``runtime/fp16/onebit``).
 
 Every optimizer here keeps optax's global update counter ``count`` (an int32
 tensor on the parameters' device) and evaluates an lr schedule on it, and
@@ -107,19 +109,30 @@ class Lamb(_OptaxLike):
     trust ratio ||p|| / ||u|| (1 where either norm is 0), p += -lr u.
 
     The ratio is taken over one optax leaf: by default each tensor;
-    ``trust_groups`` (lists of indices into the parameters) makes tensors
-    share one, with the norms over all of them (the engine groups a
-    ``TransformerLM``'s per-layer tensors of one stacked JAX leaf, so its
-    ratio is the JAX engine's)."""
+    ``trust_groups`` makes tensors share one, with the norms over all of
+    them (the engine groups a ``TransformerLM``'s per-layer tensors of one
+    stacked JAX leaf, so its ratio is the JAX engine's). A group's entry is
+    an index into the parameters (the whole tensor) or ``(index, lo, hi)``,
+    elements ``[lo, hi)`` of that tensor flattened: the engine's ZeRO
+    buffers hold many leaves each, and at stage 1 a shard of them. An
+    element in no entry (a buffer's padding) takes the ratio 1.
+    ``norm_group``: a process group over which the groups' squared norms
+    are summed (one ``all_reduce`` a step), where each rank holds a shard of
+    every group."""
 
     def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-6, weight_decay=0.0,
-                 trust_groups=None):
+                 trust_groups=None, norm_group=None):
         super().__init__(params, lr, dict(betas=tuple(betas), eps=eps, weight_decay=weight_decay))
         n = len(self.flat_params())
         self.trust_groups = ([[i] for i in range(n)] if trust_groups is None else
                              [list(g) for g in trust_groups])
-        if sorted(i for g in self.trust_groups for i in g) != list(range(n)):
-            raise ValueError("trust_groups must hold every parameter index once")
+        self.norm_group = norm_group
+        whole = [e for g in self.trust_groups for e in g if not isinstance(e, tuple)]
+        parts = {e[0] for g in self.trust_groups for e in g if isinstance(e, tuple)}
+        if (len(set(whole)) != len(whole) or parts & set(whole)
+                or not parts <= set(range(n)) or (not parts and set(whole) != set(range(n)))):
+            raise ValueError("trust_groups must hold every parameter index once (whole), or "
+                             "(index, lo, hi) slices of them")
 
     def _update(self, p, g, lr, count_inc):  # -> (new state, the direction before the ratio)
         grp = self.param_groups[0]
@@ -127,30 +140,60 @@ class Lamb(_OptaxLike):
         m_new, v_new, u = _adam_direction(self, p, g, count_inc, b1, b2, grp["eps"])
         return {"mu": m_new, "nu": v_new}, u + grp["weight_decay"] * p
 
+    def _ratios(self, ps, upd):
+        """[the trust ratio of each group], and its pieces: (group, tensor
+        index, element slice or None)."""
+        pieces, p_norms, u_norms = [], [], []
+        for gi, group in enumerate(self.trust_groups):
+            for e in group:
+                i, sl = (e[0], slice(e[1], e[2])) if isinstance(e, tuple) else (e, None)
+                if i not in upd:
+                    continue
+                p, u = ps[i], upd[i][1]
+                pieces.append((gi, i, sl))
+                p_norms.append(torch.linalg.vector_norm(p if sl is None else p.view(-1)[sl]))
+                u_norms.append(torch.linalg.vector_norm(u if sl is None else u.view(-1)[sl]))
+        if not pieces and self.norm_group is None:
+            return [], pieces
+        sq = torch.zeros(len(self.trust_groups), 2, device=ps[0].device)
+        if pieces:
+            which = torch.tensor([gi for gi, _, _ in pieces], device=sq.device)
+            sq.index_add_(0, which, torch.stack([torch.stack(p_norms), torch.stack(u_norms)],
+                                                dim=1).square())
+        if self.norm_group is not None:
+            from .. import comm
+
+            comm.all_reduce(sq, group=self.norm_group)
+        norms = sq.sqrt()
+        ratio = torch.where((norms[:, 0] == 0) | (norms[:, 1] == 0), torch.ones_like(norms[:, 0]),
+                            norms[:, 0] / norms[:, 1])
+        return ratio, pieces
+
     @torch.no_grad()
     def step(self, closure=None, gate: Optional[torch.Tensor] = None):
         loss = closure() if closure is not None else None
         count_inc = self.count + 1
         lr = self.lr_at(self.count)
         ps = self.flat_params()
-        for group in self.trust_groups:
-            group = [i for i in group if ps[i].grad is not None]
-            if not group:
+        upd = {i: self._update(p, p.grad.float(), lr, count_inc)
+               for i, p in enumerate(ps) if p.grad is not None}
+        ratio, pieces = self._ratios(ps, upd)
+        scale = {}  # tensor index -> its ratio (a scalar, or one a flattened element)
+        for gi, i, sl in pieces:
+            if sl is None:
+                scale[i] = ratio[gi]
                 continue
-            upd = [self._update(ps[i], ps[i].grad.float(), lr, count_inc) for i in group]
-            p_norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(ps[i]) for i in group]))
-            u_norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(u) for _, u in upd]))
-            ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
-                                p_norm / u_norm)
-            for i, (new_state, u) in zip(group, upd):
-                p = ps[i]
-                for name, val in new_state.items():
-                    old = self.state[p][name]
-                    old.copy_(val if gate is None else torch.where(gate, val, old))
-                p_new = p + (-lr) * (u * ratio)
-                p.copy_(p_new if gate is None else torch.where(gate, p_new, p))
+            if i not in scale:
+                scale[i] = torch.ones(ps[i].numel(), device=ps[i].device)
+            scale[i][sl] = ratio[gi]
+        for i, (new_state, u) in upd.items():
+            p = ps[i]
+            for name, val in new_state.items():
+                old = self.state[p][name]
+                old.copy_(val if gate is None else torch.where(gate, val, old))
+            r = scale.get(i, 1.0)
+            p_new = p + (-lr) * (u * (r.view_as(p) if torch.is_tensor(r) and r.dim() else r))
+            p.copy_(p_new if gate is None else torch.where(gate, p_new, p))
         self.count.copy_(count_inc if gate is None else torch.where(gate, count_inc, self.count))
         return loss
 
@@ -216,14 +259,15 @@ def _adam_args(params: dict):
 
 def build_optimizer(name: Optional[str], model_params, params: Optional[dict] = None,
                     lr: Optional[ScalarOrSchedule] = None,
-                    trust_groups=None) -> torch.optim.Optimizer:
+                    trust_groups=None, norm_group=None) -> torch.optim.Optimizer:
     """The optimizer of a DeepSpeed ``optimizer`` block over ``model_params``
-    (``trust_groups``: Lamb's, see :class:`Lamb`)."""
+    (``trust_groups``, ``norm_group``: Lamb's, see :class:`Lamb`)."""
     params = dict(params or {})
     name = (name or ADAMW_OPTIMIZER).lower()
     learning_rate = lr if lr is not None else params.get("lr", 1e-3)
     wd = params.get("weight_decay", 0.0)
-    if name in (ADAM_OPTIMIZER, FUSED_ADAM_OPTIMIZER):
+    if name in (ADAM_OPTIMIZER, FUSED_ADAM_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
+                ZERO_ONE_ADAM_OPTIMIZER):
         return Adam(model_params, learning_rate, weight_decay=wd,
                     adam_w_mode=params.get("adam_w_mode", True), **_adam_args(params))
     if name == ADAMW_OPTIMIZER:
@@ -234,13 +278,10 @@ def build_optimizer(name: Optional[str], model_params, params: Optional[dict] = 
                    nesterov=params.get("nesterov", False), weight_decay=wd)
     if name == ADAGRAD_OPTIMIZER:
         return Adagrad(model_params, learning_rate, eps=params.get("eps", 1e-10))
-    if name == LAMB_OPTIMIZER:
+    if name in (LAMB_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER):
         return Lamb(model_params, learning_rate, weight_decay=wd, trust_groups=trust_groups,
-                    **_adam_args(params))
+                    norm_group=norm_group, **_adam_args(params))
     if name == LION_OPTIMIZER:
         betas = params.get("betas", (0.9, 0.99))
         return Lion(model_params, learning_rate, betas=(betas[0], betas[1]), weight_decay=wd)
-    if name in (ONEBIT_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER):
-        raise NotImplementedError(f"optimizer '{name}' (a 1-bit optimizer) is not ported to the "
-                                  f"PyTorch package yet (ROADMAP A6.7)")
     raise ValueError(f"Unknown optimizer '{name}'")

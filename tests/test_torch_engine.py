@@ -193,7 +193,7 @@ def test_fp16_overflow_skips_step_and_halves_scale():
 
 @pytest.mark.parametrize("key,value", [
     ("curriculum_learning", {"enabled": True}),
-    ("pipeline", {"stages": 2}),
+    ("pipeline", {"schedule": "interleaved"}),  # the block is ported; this schedule is not
     ("progressive_layer_drop", {"enabled": True}),
     ("zero_optimization", {"stage": 2, "offload_param": {"device": "cpu"}}),
     ("zero_optimization", {"stage": 3, "zero_hpz_partition_size": 2}),
@@ -212,10 +212,18 @@ def test_unported_config_keys_raise_and_name_the_key(key, value):
 def test_unported_optimizers_and_model_fields_raise():
     tcfg = mistral_config("tiny", dtype=torch.float32, **TINY)
     model = TransformerLM(tcfg, device="cpu", trainable=True)
-    for name in ("OneBitAdam", "ZeroOneAdam", "OneBitLamb"):
-        with pytest.raises(NotImplementedError, match=name.lower()):
-            deepspeed_tpu_torch.initialize(model=model, config={
-                "train_batch_size": 2, "optimizer": {"type": name, "params": {}}})
+    # the 1-bit optimizers are ported: each builds its policy with the JAX
+    # package's defaults (0/1 Adam's freeze_step is its var_freeze_step)
+    from deepspeed_tpu_torch.runtime.fp16.onebit import OnebitAdam, OnebitLamb, ZeroOneAdam
+
+    for name, cls, freeze in (("OneBitAdam", OnebitAdam, 100), ("ZeroOneAdam", ZeroOneAdam, 7),
+                              ("OneBitLamb", OnebitLamb, 100)):
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config={
+            "train_batch_size": 2, "optimizer": {"type": name, "params": {"var_freeze_step": 7}
+                                                 if cls is ZeroOneAdam else {}}})
+        assert type(engine._onebit) is cls and engine._onebit.freeze_step == freeze, name
+        assert engine._pallas_adam is None and len(engine.onebit_err_w) == len(
+            engine._jax_leaf_units())
     for field, value in (("sequence_parallel", True), ("dropout", 0.1)):
         with pytest.raises(NotImplementedError, match=field):
             TransformerLM(mistral_config("tiny", dtype=torch.float32, **dict(TINY, **{field: value})),

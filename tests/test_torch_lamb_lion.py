@@ -8,7 +8,7 @@ Lamb's ``trust_groups`` against a stacked JAX leaf. Then three
 ``deepspeed_tpu_torch.initialize`` against ``deepspeed_tpu.initialize``, at
 the tolerances of ``tests/test_torch_family_training.py`` (losses rtol 2e-5,
 parameters rtol 2e-4 / atol 2e-6); the registry's four names; the 1-bit
-names refused, naming ROADMAP A6.7.
+names mapped to ``Adam`` and ``Lamb``, as the JAX package maps them.
 
 Lion moves every element by exactly lr times the sign of ``(1 - b1) g +
 b1 m``. The two frameworks' gradients agree to ~1e-6 of each tensor's
@@ -168,6 +168,43 @@ def test_registry_names_and_one_bit_refusals():
     assert hasattr(optimizers, "Lamb") and hasattr(optimizers, "Lion")
     assert op_registry["CPUAdamBuilder"].load().DeepSpeedCPUAdam is not None
     assert op_registry["AsyncIOBuilder"].load().AsyncIOHandle is not None
-    for name in ("OneBitAdam", "ZeroOneAdam", "OneBitLamb"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6.7"):
-            build_optimizer(name, [torch.ones(2)], {})
+    # the 1-bit names map to the update rule the JAX package pairs with
+    # their compressed exchange (optimizers.py:48,61)
+    for name, cls in (("OneBitAdam", optimizers.Adam), ("ZeroOneAdam", optimizers.Adam),
+                      ("OneBitLamb", Lamb)):
+        assert type(build_optimizer(name, [torch.ones(2)], {})) is cls, name
+
+
+@pytest.mark.parametrize("mesh,stage,ok", [({"data": 2}, 0, True), ({"data": 2}, 1, True),
+                                          ({"data": 2}, 2, False), ({"data": 2}, 3, False),
+                                          ({"data": 1, "model": 2}, 0, False)])
+def test_lamb_at_world_size_two(mesh, stage, ok):
+    """Lamb at world size 2 (a fake process group in this process): at ZeRO
+    stages 0-1 each JAX leaf's trust ratio is taken over the slices its
+    tensors occupy in the partition's buffers (at stage 1 this rank's
+    shards, their square sums summed over the data group); under tensor
+    parallelism and at stages 2-3 it raises, naming A6.3, left open."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    model = TransformerLM(mistral_config("tiny", dtype=torch.float32, **TINY), device="cpu",
+                          trainable=True)
+    config = dict(_ds_config("Lamb"), train_batch_size=8 * mesh["data"], zero_optimization={
+        "stage": stage}, tpu={"mesh": mesh, "pallas_fused_adam": "never"})
+    dist.init_process_group("fake", rank=1, world_size=2, store=FakeStore())
+    try:
+        if not ok:
+            with pytest.raises(NotImplementedError, match="A6.3, left open"):
+                deepspeed_tpu_torch.initialize(model=model, config=config)
+            return
+        engine, opt, _, _ = deepspeed_tpu_torch.initialize(model=model, config=config)
+        z = engine._zero
+        assert isinstance(opt, Lamb) and len(opt.trust_groups) == 12  # the JAX leaves
+        assert opt.norm_group is (z.group if stage == 1 else None)
+        # every element of every leaf lies in one slice, on one of the ranks
+        for unit, groups_ in zip(engine._jax_leaf_units(), opt.trust_groups):
+            n = sum(engine._params[i].numel() for i in unit)
+            held = sum(hi - lo for _, lo, hi in groups_)
+            assert held == n if stage == 0 else 0 <= held <= n
+    finally:
+        dist.destroy_process_group()

@@ -223,8 +223,21 @@ def test_config_refusals():
     mesh = DeepSpeedConfig({"train_batch_size": 2, "tpu": {"mesh": {"data": 2, "model": 2}}}
                            ).tpu_config.mesh_config()
     assert (mesh.resolve(4)["data"], mesh.resolve(4)["model"]) == (2, 2)
-    with pytest.raises(NotImplementedError, match="mesh axis 'pipe'.*A6.8"):
-        DeepSpeedConfig({"train_batch_size": 2, "tpu": {"mesh": {"data": 2, "pipe": 2}}})
+    # the pipe axis (A6.8) is accepted with the pipeline block; pipe x model
+    # (3D) stays refused, naming A6.8
+    cfg = DeepSpeedConfig({"train_batch_size": 2, "pipeline": {"schedule": "gpipe"},
+                           "tpu": {"mesh": {"data": 2, "pipe": 2}}})
+    assert cfg.tpu_config.mesh_config().resolve(4)["pipe"] == 2
+    assert cfg.pipeline_config.schedule == "gpipe" and cfg.pipeline_config.stages == "auto"
+    with pytest.raises(DeepSpeedConfigError, match="pipeline.schedule"):
+        DeepSpeedConfig({"train_batch_size": 2, "pipeline": {"schedule": "interleaved"}})
+    for key, value in (("partition", "uniform"), ("seed_layers", True),
+                       ("activation_checkpoint_interval", 1), ("pipe_partitioned", False),
+                       ("grad_partitioned", False)):
+        with pytest.raises(NotImplementedError, match=f"pipeline.{key}=.*A6.8, left open"):
+            DeepSpeedConfig({"train_batch_size": 2, "pipeline": {key: value}})
+    with pytest.raises(NotImplementedError, match="mesh 'pipe' 2 with 'model' 2.*A6.8"):
+        DeepSpeedConfig({"train_batch_size": 2, "tpu": {"mesh": {"model": 2, "pipe": 2}}})
 
 
 def test_add_config_arguments_and_initialize_from_args(tmp_path):

@@ -938,12 +938,14 @@ def test_mesh_config_resolve_rejects_what_does_not_tile(mesh, n):
 @pytest.mark.parametrize("axis,item", [("model", "A3b"), ("pipe", "A6.8"), ("seq", "A8"),
                                        ("data_repl", "MiCS")])
 def test_non_data_mesh_axes_are_refused_naming_their_item(axis, item):
-    """Every axis but ``data`` and ``model`` is refused, naming its ROADMAP
-    item. ``model`` (A3b, tensor parallelism) is ported: its config resolves
-    to ``data 2 x model 2`` over 4 ranks and builds the two-axis mesh (a
-    fake process group of 4 in this process)."""
+    """Every axis but ``data``, ``model`` and ``pipe`` is refused, naming its
+    ROADMAP item. ``model`` (A3b, tensor parallelism) and ``pipe`` (A6.8,
+    pipeline parallelism) are ported: each config resolves to ``data 2 x
+    <axis> 2`` over 4 ranks and builds the two-axis mesh (a fake process
+    group of 4 in this process), ``model`` innermost and ``pipe``
+    outermost; ``pipe`` with ``model`` is refused, naming A6.8."""
     config = {"train_batch_size": 2, "tpu": {"mesh": {"data": 2, axis: 2}}}
-    if axis == "model":
+    if axis in ("model", "pipe"):
         import torch.distributed as dist
         from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -951,14 +953,18 @@ def test_non_data_mesh_axes_are_refused_naming_their_item(axis, item):
 
         mesh_config = deepspeed_tpu_torch.DeepSpeedConfig(config).tpu_config.mesh_config()
         sizes = mesh_config.resolve(4)
-        assert {k: v for k, v in sizes.items() if v != 1} == {"data": 2, "model": 2}
+        assert {k: v for k, v in sizes.items() if v != 1} == {"data": 2, axis: 2}
         dist.init_process_group("fake", rank=1, world_size=4, store=FakeStore())
         try:
             mesh = build_mesh(mesh_config, 4, "cpu")
-            assert mesh.mesh_dim_names == ("data", "model") and mesh.mesh.tolist() == [[0, 1],
-                                                                                       [2, 3]]
+            names = ("data", "model") if axis == "model" else ("pipe", "data")
+            assert mesh.mesh_dim_names == names and mesh.mesh.tolist() == [[0, 1], [2, 3]]
         finally:
             dist.destroy_process_group()
+        if axis == "pipe":
+            with pytest.raises(NotImplementedError, match="A6.8, left open: pipe × model"):
+                deepspeed_tpu_torch.DeepSpeedConfig(
+                    {"train_batch_size": 2, "tpu": {"mesh": {"pipe": 2, "model": 2}}})
     else:
         with pytest.raises(NotImplementedError, match=item):
             deepspeed_tpu_torch.DeepSpeedConfig(config)
